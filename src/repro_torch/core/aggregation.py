@@ -1,0 +1,69 @@
+"""Tol-FL aggregation algebra (paper Algorithm 1 / 2, Appendix A eq. 1-2).
+
+Port of ``repro.core.aggregation`` on stacked tensors (a params tree goes
+through :class:`repro_torch.models.params.FlatLayout` first).  The
+streaming weighted mean
+
+    n <- n + n_i
+    r  = n_i / n
+    g <- r g_i + (1 - r) g
+
+equals the direct sample-weighted mean regardless of grouping (the
+paper's k-invariance).  :func:`stacked_streaming_mean`, the simulator's
+combine, runs the hand-written ``tolfl_combine`` kernel on a CUDA tensor
+and its plain PyTorch version on a CPU tensor.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+def combine_pair(n_a: torch.Tensor, g_a: torch.Tensor, n_b: torch.Tensor,
+                 g_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One streaming-mean step: absorb (n_b, g_b) into running (n_a, g_a).
+
+    Weights are sample counts; zero-count operands are absorbed as no-ops
+    (the failure-masking path)."""
+    n = n_a + n_b
+    r = torch.where(n > 0, n_b / torch.clamp_min(n, 1e-30),
+                    torch.zeros_like(n))
+    return n, (1.0 - r) * g_a + r * g_b
+
+
+def stacked_streaming_mean(gs: torch.Tensor, ns: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streaming mean over the leading axis of ``gs`` (k, ...) with
+    counts ``ns`` (k,): returns (total count, combined (...)).  The
+    combine is the ``tolfl_combine`` kernel over the flattened trailing
+    axes."""
+    k = gs.shape[0]
+    g = ops.tolfl_combine(gs.reshape(k, -1), ns, device=gs.device)
+    return torch.sum(ns), g.reshape(gs.shape[1:])
+
+
+def weighted_mean(gs: torch.Tensor, ns: torch.Tensor) -> torch.Tensor:
+    """Direct sample-weighted mean over the leading axis (the
+    algebraically-equal one-reduction form)."""
+    w = ns / torch.clamp_min(torch.sum(ns), 1e-30)
+    return torch.sum(w.reshape((-1,) + (1,) * (gs.dim() - 1)) * gs, dim=0)
+
+
+def cluster_reduce(gs: torch.Tensor, ns: torch.Tensor,
+                   cluster_ids: torch.Tensor, num_clusters: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-cluster FedAvg (Algorithm 1 inner loop): stacked device grads
+    (N, ...) -> cluster grads (k, ...) + counts (k,).  A cluster with no
+    samples gets a zero gradient and a zero count."""
+    # one-hot by comparison: F.one_hot checks its indices on the host,
+    # which would cost the round loop a device sync
+    onehot = (cluster_ids[:, None] == torch.arange(
+        num_clusters, device=cluster_ids.device)[None, :]).to(torch.float32)
+    n_c = onehot.T @ ns                                      # (k,)
+    flat = gs.reshape(gs.shape[0], -1).to(torch.float32)
+    num = onehot.T @ (flat * ns[:, None])
+    red = num / torch.clamp_min(n_c[:, None], 1e-30)
+    return red.reshape((num_clusters,) + tuple(gs.shape[1:])), n_c

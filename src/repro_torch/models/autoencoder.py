@@ -1,0 +1,73 @@
+"""The paper's anomaly-detection autoencoder (Section V-A).
+
+Port of ``repro.models.autoencoder``.  Fully-connected encoder/decoder;
+hidden layers 128-64 / 64-128 around a 32-wide code; ReLU hidden
+activations, linear output; dropout 0.2 on hidden layers during training.
+Anomaly score = squared reconstruction error.
+
+Every function also takes params with a leading device axis (leaves
+``(N, ...)``), which makes the forward pass a batched product: the
+simulator takes all N per-device gradients in one pass.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import DeviceLike
+from repro_torch.configs.autoencoder_paper import AutoencoderConfig
+from repro_torch.models import params as P
+
+
+def init_params(generator: torch.Generator, cfg: AutoencoderConfig,
+                device: DeviceLike = None) -> P.Params:
+    """Normal weights with std ``1/sqrt(fan_in)`` and zero biases, the
+    distribution of ``repro``'s init (torch cannot reproduce its
+    threefry draws: parity tests pass ``repro``'s params in)."""
+    dims = ([cfg.input_dim] + list(cfg.hidden) + [cfg.code_dim]
+            + list(reversed(cfg.hidden)) + [cfg.input_dim])
+    return {f"fc{i}": P.dense_init(generator, dims[i], dims[i + 1],
+                                   bias=True, device=device)
+            for i in range(len(dims) - 1)}
+
+
+def num_layers(cfg: AutoencoderConfig) -> int:
+    return 2 * (len(cfg.hidden) + 1)
+
+
+def forward(params: P.Params, cfg: AutoencoderConfig, x: torch.Tensor,
+            dropout_generator: Optional[torch.Generator] = None
+            ) -> torch.Tensor:
+    """x: (B, input_dim) -> reconstruction (B, input_dim).
+
+    Pass ``dropout_generator`` (on ``x``'s device) during training to
+    enable dropout on hidden layers (paper: p=0.2)."""
+    act = P.activation(cfg.act)
+    n = num_layers(cfg)
+    h = x
+    for i in range(n):
+        h = P.dense_apply(params[f"fc{i}"], h)
+        if i < n - 1:                      # hidden layers
+            h = act(h)
+            if dropout_generator is not None and cfg.dropout > 0:
+                keep = torch.rand(h.shape, generator=dropout_generator,
+                                  device=h.device) < (1.0 - cfg.dropout)
+                h = torch.where(keep, h / (1.0 - cfg.dropout),
+                                torch.zeros((), device=h.device))
+    return h
+
+
+def recon_loss(params: P.Params, cfg: AutoencoderConfig, x: torch.Tensor,
+               dropout_generator: Optional[torch.Generator] = None
+               ) -> torch.Tensor:
+    """Mean squared reconstruction error J(x) = ||x - x_hat||^2."""
+    x_hat = forward(params, cfg, x, dropout_generator)
+    return torch.mean(torch.sum(torch.square(x - x_hat), dim=-1), dim=-1)
+
+
+def anomaly_scores(params: P.Params, cfg: AutoencoderConfig,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Per-sample anomaly score (no dropout at eval)."""
+    x_hat = forward(params, cfg, x)
+    return torch.sum(torch.square(x - x_hat), dim=-1)

@@ -14,6 +14,11 @@ from repro.core import compilecache
 from repro.data import commsml, federated
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skipped without one")
+
+
 @pytest.fixture(scope="session", autouse=True)
 def _hermetic_compile_cache(tmp_path_factory):
     """Point the persistent compilation cache at a per-session temp
