@@ -8,8 +8,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
 
 1. prints the card's name and power limit and the build's compiler log;
 2. holds every kernel against its plain PyTorch version on the card at
-   the main path's shapes (bitwise equality);
-3. drives the main path, the Tol-FL simulator (``run_simulation``), at
+   the main paths' shapes: the combine and the RG-LRU scan bit for bit,
+   flash attention within 2e-4 in float32 and 2e-2 in bfloat16;
+3. drives slice 1's main path, the Tol-FL simulator (``run_simulation``), at
    the paper's full width and data scale: Comms-ML (12,000 x 112), 10
    devices in 5 clusters, the paper autoencoder (P = 49,680), 100 rounds
    with dropout; Tol-FL without failure, Tol-FL with a head failure and
@@ -20,7 +21,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    torch.profiler gives the device's busy share and the combine's share
    of it; small dropout-free runs on the card must agree with the same
    runs on the CPU (FL at lr 1e-3 up to the round where both diverge);
-4. times each kernel, its plain version and one library call with CUDA
+4. drives slice 2's main path, RecurrentGemma-9B serving
+   (``prefill``, ``pad_cache``, greedy ``decode_step``), at full width
+   and depth: random params on the card, 4 prompts of 4,096 tokens (past
+   the 2,048 window), 32 greedy tokens.  A prefill must launch the
+   attention kernel 12 times and the scan 26 times, a decode step
+   neither; the decode loop runs under the sync debug mode.  Then, with
+   the same params in float32 at batch 1, a decode step at position S
+   must match a prefill of S + 1 tokens; one prefill and 8 decode steps
+   run under torch.profiler; and the reduced config on the card must
+   agree with the same calls on the CPU;
+5. times each kernel, its plain version and one library call with CUDA
    events, beside the least time the card could take.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero
@@ -41,16 +52,37 @@ ROOT = Path(__file__).resolve().parent
 #: float32 (non-tensor-core) flop/s
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12     # dense, tensor cores
 COMBINE_SHAPES = [(5, 49_680), (1, 49_680), (10, 49_680), (5, 1_000_003)]
 ROUNDS = 100
 FAIL_EPOCH = 5         # head / server failure round of the failure runs
 SAMPLES = 200          # CUDA-event timings per function
 SPIN_CYCLES = 5_000_000   # ~2.5 ms of the card's clock: covers the host's
 #                           dispatch of the slowest timed call (~1 ms)
+DEV = "cuda"               # the serving phases' device
+ARCH = "recurrentgemma-9b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 4096, 32
+#: (B, S, H, KVH, D, causal, window): the serving prefill's attention
+#: (recurrentgemma-9b: 16 query heads on one kv head of 256, window 2048)
+ATTN_CASES = [(4, 4096, 16, 1, 256, True, 2048),
+              (1, 4097, 16, 1, 256, True, 2048),   # [serve-consistency]
+              (4, 4096, 16, 1, 256, True, 1),
+              (4, 4096, 16, 1, 256, False, None)]
+#: (B, S, W, h0): the prefill's recurrence (lru_width 4096) and a ragged one
+SCAN_CASES = [(4, 4096, 4096, False), (4, 4096, 4096, True),
+              (3, 4097, 4000, True)]
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _clocks():
+    """The card's SM clock, power draw and temperature right now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
 
 
 def phase_device(torch):
@@ -101,6 +133,52 @@ def phase_kernels(torch):
             raise AssertionError(f"tolfl_combine differs from its plain "
                                  f"version at k={k} P={p} ({counts})")
         worst = max(worst, err)
+    return worst
+
+
+def phase_serve_kernels(torch):
+    """The serving path's kernels against their plain versions on the
+    card; returns the max |diff| of each."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rs
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    worst = {"flash_attention": 0.0, "rglru_scan": 0.0}
+    for B, S, H, KVH, D, causal, window in ATTN_CASES:
+        shapes = ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D))
+        base = [torch.randn(sh, generator=gen, device=DEV)
+                for sh in shapes]
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+            q, k, v = (x.to(dtype) for x in base)
+            got = ops.attention(q, k, v, causal=causal, window=window)
+            want = fa.flash_attention_plain(q, k, v, causal, window)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            log(f"[kernel] flash_attention (B, S, H, KVH, D) = "
+                f"{(B, S, H, KVH, D)} causal={causal} window={window} "
+                f"{str(dtype)[6:]}: max_abs_err={err} (tolerance {tol})")
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            del got, want
+        del base, q, k, v
+    for B, S, W, with_h0 in SCAN_CASES:
+        a = torch.sigmoid(torch.randn((B, S, W), generator=gen,
+                                      device=DEV))
+        b = torch.randn((B, S, W), generator=gen, device=DEV)
+        h0 = (torch.randn((B, W), generator=gen, device=DEV)
+              if with_h0 else None)
+        got = ops.rglru(a, b, h0)
+        want = rs.rglru_scan_plain(a, b, h0)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        log(f"[kernel] rglru_scan (B, S, W) = {(B, S, W)} h0={with_h0}: "
+            f"bitwise_equal={same} max_abs_err={err}")
+        if not same:
+            raise AssertionError(f"rglru_scan differs from its plain version "
+                                 f"at {(B, S, W)} h0={with_h0}")
+        worst["rglru_scan"] = max(worst["rglru_scan"], err)
     return worst
 
 
@@ -208,6 +286,36 @@ def phase_no_sync(torch, split, dx, counts):
         "torch.cuda.set_sync_debug_mode('error'): no host sync")
 
 
+def _device_time(prof):
+    """The device's side of a torch.profiler window: (busy µs, the union
+    of the intervals of the events that ran on the card; {name: [µs,
+    count]} of those events).  Only device events count: the CPU ops that
+    launched them carry the same time as their ``self_device_time``, and
+    summing both would count it twice."""
+    from torch.autograd import DeviceType
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += e.time_range.elapsed_us()
+        entry[1] += 1
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy, by_name
+
+
+def _top(by_name, n, per=1.0, unit="us"):
+    return "; ".join(
+        f"{name[:60]} {us / per:.1f} {unit} ({count} calls)"
+        for name, (us, count) in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1][0])[:n])
+
+
 def phase_profile(torch, split, dx, counts):
     """Where a Tol-FL round's time goes: device busy share and the
     combine kernel's share, from torch.profiler over a short run."""
@@ -222,21 +330,18 @@ def phase_profile(torch, split, dx, counts):
         t0 = time.perf_counter()
         run_simulation(COMMSML, dx, counts, split.test_x, split.test_y, cfg)
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events)
-    combine = sum(e.self_device_time_total for e in events
-                  if "tolfl_combine" in e.key)
+    busy, by_name = _device_time(prof)
+    combine = sum(us for name, (us, _) in by_name.items()
+                  if "tolfl_combine" in name)
     if busy == 0:
         log("[profile] the profiler recorded no device time: not measured")
         return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     log(f"[profile] tolfl {rounds} rounds under the profiler: wall "
         f"{wall_us / rounds / 1e3:.3f} ms/round, device busy "
         f"{busy / rounds / 1e3:.3f} ms/round ({busy / wall_us:.1%} of wall), "
         f"tolfl_combine {combine / rounds:.2f} us/round "
-        f"({combine / busy:.2%} of device time); top device ops: " + "; ".join(
-            f"{e.key[:48]} {e.self_device_time_total / rounds:.1f} us/round"
-            for e in top))
+        f"({combine / busy:.2%} of device time); top device events: "
+        + _top(by_name, 6, rounds, "us/round"))
 
 
 def phase_reference(torch, split, dx, counts):
@@ -284,8 +389,8 @@ def phase_reference(torch, split, dx, counts):
             f"at round {n - 1}")
 
 
-def _median_ms(torch, fn, device_only):
-    """Median over SAMPLES calls of the time between CUDA events recorded
+def _median_ms(torch, fn, device_only, samples=SAMPLES):
+    """Median over ``samples`` calls of the time between CUDA events recorded
     before and after one call of ``fn``.  With ``device_only`` a spin
     kernel keeps the card busy while the host enqueues the events and the
     call, so the events time the call's work on the card alone; without
@@ -294,7 +399,7 @@ def _median_ms(torch, fn, device_only):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(SAMPLES):
+    for _ in range(samples):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         if device_only:
@@ -341,6 +446,286 @@ def phase_times(torch, launches, max_abs_err):
     }]
 
 
+def _full_params(torch):
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    cfg = get_arch(ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=DEV).manual_seed(0),
+                           cfg, DEV)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers "
+        f"{''.join(k[0] for k in cfg.layer_pattern)}, d {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; params "
+        f"{P.param_count(params)} ({P.param_bytes(params)} bytes, "
+        f"{cfg.param_dtype}; analytic {cfg.param_count()}), activations "
+        f"{cfg.dtype}; random init on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+def phase_serve(torch, cfg, params):
+    """Slice 2's main path: prefill, pad_cache, greedy decode at full
+    width and depth.  Returns the kernels' launch counts of the run."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    from repro_torch.serving.inputs import synthetic_batch
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_pattern)
+    n_rec = cfg.layer_pattern.count("rec")
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    # warm-up (cuBLAS handles and heuristics, the allocator), off the path
+    prefill(params, cfg, synthetic_batch(cfg, 1, 256, gen, DEV))
+    batch = synthetic_batch(cfg, SERVE_BATCH, SERVE_PROMPT, gen, DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = rs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    counts = {"flash_attention": fa.LAUNCHES, "rglru_scan": rs.LAUNCHES}
+    if counts != {"flash_attention": n_attn, "rglru_scan": n_rec}:
+        raise AssertionError(f"prefill launched {counts}, expected "
+                             f"{n_attn} attention and {n_rec} scans")
+    cache = pad_cache(cache, cfg, prompt_len=SERVE_PROMPT,
+                      target_len=SERVE_PROMPT + SERVE_TOKENS)
+    finite = torch.isfinite(logits).all()
+    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
+    out = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(SERVE_TOKENS - 1):
+            logits, cache = decode_step(params, cfg, tok, cache,
+                                        SERVE_PROMPT + i)
+            finite &= torch.isfinite(logits).all()
+            tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
+            out.append(tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (SERVE_TOKENS - 1)
+    after = {"flash_attention": fa.LAUNCHES, "rglru_scan": rs.LAUNCHES}
+    if after != counts:
+        raise AssertionError(f"decode steps launched kernels: {counts} "
+                             f"after the prefill, {after} after decode")
+    if not bool(finite):
+        raise AssertionError("non-finite logits in prefill or decode")
+    gen_toks = torch.cat(out, dim=1)
+    log(f"[serve] batch {SERVE_BATCH} x prompt {SERVE_PROMPT}, "
+        f"{SERVE_TOKENS} greedy tokens: prefill {prefill_ms:.3f} ms "
+        f"({SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3:.1f} tokens/s), "
+        f"decode {decode_ms:.3f} ms/token over {SERVE_TOKENS - 1} steps "
+        f"(under sync debug mode 'error'); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes; launches per prefill "
+        f"{counts}, per decode step 0; all logits finite; sample[0] "
+        f"{gen_toks[0, :12].tolist()}; clocks.sm, power.draw, temperature "
+        f"after decode: {_clocks()}")
+    return counts
+
+
+def phase_serve_consistency(torch, cfg, params):
+    """float32, batch 1: decode_step at position S against the last
+    logits of a prefill over S + 1 tokens (tests/test_serving.py's 2e-3)."""
+    import dataclasses
+    from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    from repro_torch.serving.inputs import synthetic_batch
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    S = SERVE_PROMPT
+    toks = synthetic_batch(cfg32, 1, S + 1,
+                           torch.Generator(device=DEV).manual_seed(3),
+                           DEV)["tokens"]
+    want, _ = prefill(params, cfg32, {"tokens": toks})
+    _, cache = prefill(params, cfg32, {"tokens": toks[:, :S]})
+    cache = pad_cache(cache, cfg32, prompt_len=S, target_len=S + 1)
+    got, _ = decode_step(params, cfg32, toks[:, S:], cache, S)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    log(f"[serve-consistency] float32, batch 1: decode_step at position {S} "
+        f"vs prefill of {S + 1} tokens: max_abs_diff {err} (max |logit| "
+        f"{float(want.abs().max())}; tolerance rtol = atol = 2e-3)")
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+def phase_serve_profile(torch, cfg, params):
+    """One prefill and 8 decode steps, each under its own torch.profiler
+    window: the device's busy share, its top kernels and each kernel's
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    from repro_torch.serving.inputs import synthetic_batch
+    steps = 8
+    batch = synthetic_batch(cfg, SERVE_BATCH, SERVE_PROMPT,
+                            torch.Generator(device=DEV).manual_seed(4),
+                            DEV)
+    torch.cuda.synchronize()
+    state = {}
+
+    def run_prefill():
+        state["logits"], cache = prefill(params, cfg, batch)
+        state["cache"] = pad_cache(cache, cfg, SERVE_PROMPT,
+                                   SERVE_PROMPT + steps)
+
+    def run_decode():
+        tok = torch.argmax(state["logits"][:, :cfg.vocab_size], dim=-1)
+        tok = tok[:, None]
+        for i in range(steps):
+            logits, state["cache"] = decode_step(params, cfg, tok,
+                                                 state["cache"],
+                                                 SERVE_PROMPT + i)
+            tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
+
+    for what, fn, per in (("prefill", run_prefill, 1),
+                          ("decode", run_decode, steps)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        busy, by_name = _device_time(prof)
+        if busy == 0:
+            log(f"[serve-profile] {what}: the profiler recorded no device "
+                f"time: not measured")
+            continue
+        shares = ", ".join(
+            f"{k} {v / per / 1e3:.3f} ms ({v / busy:.2%} of busy)"
+            for k, v in ((k, sum(us for name, (us, _) in by_name.items()
+                                 if k in name))
+                         for k in ("flash_attention", "rglru_scan")))
+        log(f"[serve-profile] {what} ({SERVE_BATCH} x {SERVE_PROMPT}"
+            + (f", {steps} steps, per step" if per > 1 else "")
+            + f") under the profiler: wall {wall / per / 1e3:.3f} ms, "
+            f"device busy {busy / per / 1e3:.3f} ms ({busy / wall:.1%} of "
+            f"wall); {shares}; top device events per "
+            f"{'step' if per > 1 else 'prefill'}: "
+            + _top(by_name, 10, per * 1e3, "ms"))
+
+
+def phase_serve_reference(torch):
+    """The reduced config on the card against the same calls on the CPU:
+    prefill past the window (the ring roll runs), pad_cache, 3 decode
+    steps, the same params on both."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    cfg = get_arch(ARCH).reduced()
+    cpu = T.init_params(torch.Generator().manual_seed(5), cfg, "cpu")
+    gpu = P.from_numpy_tree(P.to_numpy_tree(cpu), DEV)
+    S, steps = 100, 3
+    toks = torch.randint(0, cfg.vocab_size, (2, S + steps),
+                         generator=torch.Generator().manual_seed(6))
+    runs = {}
+    for dev, params in ((DEV, gpu), ("cpu", cpu)):
+        t = toks.to(dev)
+        logits, cache = prefill(params, cfg, {"tokens": t[:, :S]})
+        seq = [logits]
+        cache = pad_cache(cache, cfg, S, S + steps)
+        for i in range(S, S + steps):
+            logits, cache = decode_step(params, cfg, t[:, i:i + 1], cache, i)
+            seq.append(logits)
+        runs[dev] = [x.cpu() for x in seq] + [
+            x.cpu() for _, x in P.tree_items(cache)]
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(runs[DEV], runs["cpu"]))
+    # float32 on both (TF32 off): the card sums in other orders (its
+    # GEMMs, the attention kernel), ~1e-6 relative; 1e-4 as the CPU
+    # parity tests against repro
+    for a, b in zip(runs[DEV], runs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    log(f"[serve-reference] {cfg.name} (float32), prompt {S} past the "
+        f"window {cfg.attention.sliding_window}, {steps} decode steps: card "
+        f"vs CPU max_abs_diff {worst} over the logits and every cache leaf "
+        f"(tolerance rtol = atol = 1e-4)")
+
+
+def visible_pairs(S, causal, window):
+    """(query, key) pairs the mask lets through for Sq = Sk = S."""
+    total = 0
+    for i in range(S):
+        hi = i if causal else S - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def phase_serve_times(torch, launches, errs):
+    """The two serving kernels at the prefill's shapes: kernel, plain
+    version and one library call, beside the card's bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rs
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    rows = []
+    B, S, H, KVH, D, causal, window = ATTN_CASES[0]
+    q = torch.randn((B, S, H, D), generator=gen, device=DEV).bfloat16()
+    k = torch.randn((B, S, KVH, D), generator=gen, device=DEV).bfloat16()
+    v = torch.randn((B, S, KVH, D), generator=gen, device=DEV).bfloat16()
+    band = fa.visible(S, S, causal, window, DEV)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fns = {"kernel": lambda: fa.flash_attention_cuda(q, k, v, causal, window),
+           "plain": lambda: fa.flash_attention_plain(q, k, v, causal, window),
+           "library sdpa": lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=band, enable_gqa=True)}
+    n = 20
+    dev_ms = {key: _median_ms(torch, fn, True, n) for key, fn in fns.items()}
+    pairs = visible_pairs(S, causal, window)
+    flops = 4 * B * H * D * pairs
+    moved = (2 * B * S * H * D + 2 * B * S * KVH * D) * 2
+    b_ops = flops / H100_BF16_FLOPS * 1e3
+    b_bytes = moved / H100_BYTES_PER_S * 1e3
+    log(f"[times] flash_attention bf16 (B, S, H, KVH, D) = "
+        f"{(B, S, H, KVH, D)} window {window}, median of {n} CUDA-event "
+        f"timings on the card: " + ", ".join(
+            f"{key} {val:.6f} ms" for key, val in dev_ms.items())
+        + f"; bound {max(b_ops, b_bytes):.6f} ms ({flops} flops over "
+        f"{pairs} visible pairs at 989 TFLOP/s; {moved} bytes take "
+        f"{b_bytes:.6f} ms); clocks.sm, power.draw, temperature after: "
+        f"{_clocks()}")
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:90",
+        "launches": launches["flash_attention"],
+        "max_abs_err": errs["flash_attention"],
+        "ms": dev_ms["kernel"], "plain_ms": dev_ms["plain"],
+        "bound_ms": max(b_ops, b_bytes),
+        "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+        "library_ms": dev_ms["library sdpa"]})
+    del q, k, v, qt, kt, vt, band, fns
+
+    B, S, W, _ = SCAN_CASES[0]
+    a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=DEV))
+    b = torch.randn((B, S, W), generator=gen, device=DEV)
+    kernel_ms = _median_ms(torch, lambda: rs.rglru_scan_cuda(a, b), True, 50)
+    plain_ms = _median_ms(torch, lambda: rs.rglru_scan_plain(a, b), True, 3)
+    moved = 3 * B * S * W * 4
+    flops = 2 * B * S * W
+    b_bytes = moved / H100_BYTES_PER_S * 1e3
+    b_ops = flops / H100_F32_FLOPS * 1e3
+    log(f"[times] rglru_scan (B, S, W) = {(B, S, W)}, CUDA-event timings on "
+        f"the card: kernel {kernel_ms:.6f} ms (median of 50), plain "
+        f"{plain_ms:.6f} ms (median of 3; its {S} steps are dispatched by "
+        f"the host), library none (no single PyTorch call computes the "
+        f"recurrence); bound {max(b_bytes, b_ops):.6f} ms ({moved} bytes at "
+        f"3.35 TB/s)")
+    rows.append({
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:48",
+        "launches": launches["rglru_scan"],
+        "max_abs_err": errs["rglru_scan"],
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": None})
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -357,12 +742,21 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device(torch)
     max_abs_err = phase_kernels(torch)
+    serve_errs = phase_serve_kernels(torch)
     split, dx, counts = _paper_split()
     launches = phase_slice(torch, split, dx, counts)
     phase_no_sync(torch, split, dx, counts)
     phase_profile(torch, split, dx, counts)
     phase_reference(torch, split, dx, counts)
     kernels = phase_times(torch, launches, max_abs_err)
+    cfg, params = _full_params(torch)
+    serve_launches = phase_serve(torch, cfg, params)
+    phase_serve_consistency(torch, cfg, params)
+    phase_serve_profile(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_serve_reference(torch)
+    kernels += phase_serve_times(torch, serve_launches, serve_errs)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,31 @@
+"""--arch <id> registry: the architectures the port can serve.
+
+Port of ``repro.configs.registry``.  Only the configs whose serving path
+is ported are here; every other id of ``repro``'s registry raises a
+``KeyError`` that says where it stands (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs import recurrentgemma_9b
+from repro_torch.configs.base import ModelConfig
+
+ARCHS: Dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (recurrentgemma_9b,)}
+
+#: ``repro``'s other architecture ids, not ported yet
+NOT_PORTED = (
+    "rwkv6-7b", "whisper-large-v3", "internlm2-1.8b",
+    "llama4-maverick-400b-a17b", "internvl2-26b", "llama4-scout-17b-a16e",
+    "qwen3-8b", "granite-3-2b", "qwen1.5-0.5b",
+)
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        where = ("is not ported yet (ROADMAP.md, queue 1)"
+                 if name in NOT_PORTED else "is unknown")
+        raise KeyError(f"arch {name!r} {where}; the port serves "
+                       f"{sorted(ARCHS)}")
+    return ARCHS[name]

@@ -2,13 +2,15 @@
 
 Port of ``repro.kernels.ops``.  Where ``repro`` switches between the
 Pallas kernel and its jnp reference with a ``backend`` argument, the port
-decides by device: ``device=None`` means ``"cuda"``, where the
-hand-written kernel launches (or the call raises); ``device="cpu"`` runs
+decides by device: CUDA tensors (or ``device=None``, meaning CUDA, for
+the combine) launch the hand-written kernel or raise; CPU tensors run
 the kernel's plain PyTorch version.  Each entry point is the kernel
 module's own, re-exported here.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.flash_attention import flash_attention as attention
+from repro_torch.kernels.rglru_scan import rglru_scan as rglru
 from repro_torch.kernels.tolfl_combine import tolfl_combine
 
-__all__ = ["tolfl_combine"]
+__all__ = ["attention", "rglru", "tolfl_combine"]

@@ -1,11 +1,49 @@
 """Plain PyTorch oracles for the port's kernels (the allclose targets).
 
 Port of ``repro.kernels.ref``; each oracle arrives with its kernel's
-slice, so this one holds the Tol-FL combine only.
+slice (the RWKV6 one comes with ``rwkv6_scan``).
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None
+                        ) -> torch.Tensor:
+    """Naive O(S^2) attention.  q (B,Sq,H,D); k,v (B,Sk,KVH,D)."""
+    B, Sq, H, D = q.shape
+    _, Sk, KVH, _ = k.shape
+    G = H // KVH
+    qg = q.reshape(B, Sq, KVH, G, D)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(D)
+    dpos = (torch.arange(Sq, device=q.device)[:, None]
+            - torch.arange(Sk, device=q.device)[None, :])
+    ok = torch.ones(dpos.shape, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= dpos >= 0
+    if window is not None:
+        ok &= dpos < window
+    s = torch.where(ok[None, :, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.to(torch.float32))
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def rglru_reference(a_t: torch.Tensor, b_t: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sequential diagonal linear recurrence h_t = a_t h_{t-1} + b_t.
+    a_t, b_t: (B,S,W) f32; h0: (B,W) or None."""
+    h = torch.zeros_like(a_t[:, 0]) if h0 is None else h0
+    hs = []
+    for t in range(a_t.shape[1]):
+        h = a_t[:, t] * h + b_t[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 def tolfl_combine_reference(gs: torch.Tensor, ns: torch.Tensor

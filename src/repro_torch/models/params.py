@@ -1,9 +1,10 @@
 """Minimal functional parameter system for the port.
 
-Port of ``repro.models.params``, the parts the Tol-FL round loop needs.
-Params are nested dicts of tensors with the same keys and shapes as
-``repro``'s pytrees.  Leaves are ordered by sorted key, as
-``jax.tree.leaves`` orders a dict.
+Port of ``repro.models.params``, the parts the Tol-FL round loop and
+the model zoo's serving path need.  Params are nested dicts of tensors
+with the same keys and shapes as ``repro``'s pytrees (the zoo's per-layer
+trees stacked along a leading ``layers`` dim, as ``repro`` stacks them).
+Leaves are ordered by sorted key, as ``jax.tree.leaves`` orders a dict.
 
 The simulator holds params as ONE flat f32 tensor of ``P`` elements
 (:class:`FlatLayout`): the combine is elementwise, so the flat layout
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,29 +30,71 @@ from repro_torch import DeviceLike, resolve_device
 Params = Dict[str, Any]
 
 
+def normal_init(generator: torch.Generator, shape: Tuple[int, ...],
+                stddev: float, device: DeviceLike = None) -> torch.Tensor:
+    """N(0, stddev^2) float32 of ``shape``, drawn on ``generator``'s device
+    and then moved to ``device``, so a seed gives the same numbers on
+    every target device."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device) * stddev
+    return x.to(resolve_device(device))
+
+
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
-               bias: bool = False, device: DeviceLike = None) -> Params:
+               bias: bool = False, device: DeviceLike = None,
+               scale: Optional[float] = None, lead: Tuple[int, ...] = ()
+               ) -> Params:
     """Kernel (in, out) ~ N(0, stddev^2) with fan-in stddev
-    ``1/sqrt(in_dim)``; zero bias.  Drawn on ``generator``'s device (the
-    CPU by default) and then moved, so a seed gives the same weights on
-    every device."""
-    w = torch.randn((in_dim, out_dim), generator=generator,
-                    dtype=torch.float32) / math.sqrt(in_dim)
+    ``1/sqrt(in_dim)`` unless ``scale`` is given; zero bias.  ``lead``
+    prepends stacked dims (the zoo's ``layers`` axis): each (in, out)
+    slice is one layer's draw.  Drawn on ``generator``'s device (the CPU
+    by default) and then moved, so a seed gives the same weights on every
+    device."""
+    shape = (*lead, in_dim, out_dim)
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    w = w * scale if scale is not None else w / math.sqrt(in_dim)
     p = {"w": w.to(resolve_device(device))}
     if bias:
-        p["b"] = torch.zeros((out_dim,), dtype=torch.float32,
+        p["b"] = torch.zeros((*lead, out_dim), dtype=torch.float32,
                              device=p["w"].device)
     return p
 
 
-def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+def dense_apply(p: Params, x: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x @ w + b``.  With a leading device axis on the params
     (``w`` (N, in, out), ``b`` (N, out)) this is a batched product, and
-    ``x`` may be (N, B, in) or a shared (B, in)."""
-    y = x @ p["w"]
+    ``x`` may be (N, B, in) or a shared (B, in).  ``compute_dtype`` casts
+    ``w`` and ``b`` for this call only (the zoo keeps float32 params and
+    computes in its activation dtype)."""
+    w = p["w"] if compute_dtype is None else p["w"].to(compute_dtype)
+    y = x @ w
     if "b" in p:
-        y = y + p["b"].unsqueeze(-2)
+        b = p["b"] if compute_dtype is None else p["b"].to(compute_dtype)
+        y = y + b.unsqueeze(-2)
     return y
+
+
+def embed_init(generator: torch.Generator, vocab: int, dim: int,
+               device: DeviceLike = None) -> Params:
+    return {"table": normal_init(generator, (vocab, dim), 0.02, device)}
+
+
+def rmsnorm_init(dim: int, device: DeviceLike = None,
+                 lead: Tuple[int, ...] = ()) -> Params:
+    return {"scale": torch.ones((*lead, dim), dtype=torch.float32,
+                                device=resolve_device(device))}
+
+
+def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """RMS norm over the last dim, computed in float32 and cast back to
+    ``x``'s dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
 
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -91,6 +134,13 @@ def _tree_from_items(items) -> Params:
     return tree
 
 
+def tree_map_with_path(fn: Callable[[Tuple[str, ...], Any], Any],
+                       tree: Params) -> Params:
+    """The tree of ``fn(path, leaf)`` for each leaf of ``tree``."""
+    return _tree_from_items((path, fn(path, leaf))
+                            for path, leaf in tree_items(tree))
+
+
 def param_count(params: Params) -> int:
     return int(sum(np.prod(tuple(x.shape)) for _, x in tree_items(params)))
 
@@ -104,15 +154,15 @@ def from_numpy_tree(tree: Params, device: DeviceLike = None) -> Params:
     """``repro`` params as numpy (``jax.tree.map(np.asarray, params)``) ->
     the port's tree of tensors on ``device``."""
     dev = resolve_device(device)
-    return _tree_from_items(
-        (path, torch.from_numpy(np.array(leaf, copy=True)).to(dev))
-        for path, leaf in tree_items(tree))
+    return tree_map_with_path(
+        lambda _, leaf: torch.from_numpy(np.array(leaf, copy=True)).to(dev),
+        tree)
 
 
 def to_numpy_tree(tree: Params) -> Params:
     """The port's tree of tensors -> nested dict of numpy arrays."""
-    return _tree_from_items((path, leaf.detach().cpu().numpy())
-                            for path, leaf in tree_items(tree))
+    return tree_map_with_path(lambda _, leaf: leaf.detach().cpu().numpy(),
+                              tree)
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,254 @@
+"""Serving: KV / recurrent-state caches, prefill, and one-token decode.
+
+Port of ``repro.serving.decode`` for decoder-only configs without MoE or
+RWKV (other configs raise ``NotImplementedError``, ROADMAP.md queue 1).
+Where ``repro`` scans over the stacked units, the port loops over them in
+Python and then over the tail layers; the cache has ``repro``'s tree
+(``cache_shape``), its ``units`` leaves stacked over the units.
+
+On the card a prefill launches the flash-attention kernel once per
+attention layer and the RG-LRU scan kernel once per recurrent layer; a
+decode step launches neither.  Positions are host ints, so a decode step
+never waits on the card.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ATTN, LOCAL_ATTN, ModelConfig, RECURRENT
+from repro_torch.kernels import ops
+from repro_torch.models import attention as A
+from repro_torch.models import params as P
+from repro_torch.models import rglru as G
+from repro_torch.models.mlp import mlp_apply
+from repro_torch.models.transformer import (check_servable, embed_tokens,
+                                            logits_fn, unit_counts,
+                                            unit_pattern)
+
+Tree = Dict[str, Any]
+
+
+def _index(tree: Tree, u: int) -> Tree:
+    """One unit's slice of a stacked tree (views)."""
+    return P.tree_map_with_path(lambda _, x: x[u], tree)
+
+
+def _stack(trees) -> Tree:
+    """Stack per-unit trees along a new leading dim."""
+    leaves = [dict(P.tree_items(t)) for t in trees]
+    return P.tree_map_with_path(
+        lambda path, _: torch.stack([lv[path] for lv in leaves]), trees[0])
+
+
+# ---------------------------------------------------------------------------
+# Cache construction
+# ---------------------------------------------------------------------------
+def layer_cache_shape(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                      long_context: bool = False) -> Dict[str, torch.Tensor]:
+    """One layer's cache entry as ``meta`` tensors (shape and dtype, no
+    storage): the port's counterpart of ``repro``'s ShapeDtypeStructs."""
+    a = cfg.attention
+    dt = getattr(torch, cfg.dtype)
+    if kind in (ATTN, LOCAL_ATTN):
+        if kind == LOCAL_ATTN and a.sliding_window:
+            Sc = min(seq_len, a.sliding_window)
+        elif long_context:
+            Sc = min(seq_len, a.long_context_window)
+        else:
+            Sc = seq_len
+        shape = (batch, Sc, a.num_kv_heads, a.head_dim)
+        return {"k": torch.empty(shape, dtype=dt, device="meta"),
+                "v": torch.empty(shape, dtype=dt, device="meta")}
+    if kind == RECURRENT:
+        W = cfg.recurrent.lru_width or cfg.d_model
+        cw = cfg.recurrent.conv1d_width
+        return {"h": torch.empty((batch, W), dtype=torch.float32,
+                                 device="meta"),
+                "conv": torch.empty((batch, cw - 1, W), dtype=dt,
+                                    device="meta")}
+    raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
+                              f"(ROADMAP.md, queue 1)")
+
+
+def cache_shape(cfg: ModelConfig, batch: int, seq_len: int,
+                long_context: bool = False) -> Tree:
+    """Full-model cache tree of ``meta`` tensors (stacked over units)."""
+    check_servable(cfg)
+    unit = unit_pattern(cfg)
+    n_units, n_tail = unit_counts(cfg)
+    per_unit = {f"l{i}": layer_cache_shape(cfg, kind, batch, seq_len,
+                                           long_context)
+                for i, (kind, _) in enumerate(unit)}
+    cache: Tree = {"units": P.tree_map_with_path(
+        lambda _, s: s.new_empty((n_units, *s.shape)), per_unit)}
+    if n_tail:
+        cache["tail"] = {f"l{i}": layer_cache_shape(cfg, unit[i][0], batch,
+                                                    seq_len, long_context)
+                         for i in range(n_tail)}
+    return cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               long_context: bool = False, device: DeviceLike = None) -> Tree:
+    """Zero-initialised concrete cache on ``device``."""
+    dev = resolve_device(device)
+    return P.tree_map_with_path(
+        lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+        cache_shape(cfg, batch, seq_len, long_context))
+
+
+def pad_cache(cache: Tree, cfg: ModelConfig, prompt_len: int,
+              target_len: int) -> Tree:
+    """Extend a prefill-produced cache so decode can run past the prompt.
+
+    Attention k/v entries are padded with zero slots up to ``target_len``
+    (windowed layers stay at their window size) and rolled so the ring
+    invariant (slot i holds position = i (mod Sc)) is restored; the padded
+    slots are excluded by :func:`~repro_torch.models.attention.
+    cache_slot_validity` until they are written.  Recurrent entries are
+    O(1) state: untouched."""
+    a = cfg.attention
+    unit = unit_pattern(cfg)
+
+    def leaf(path, x):
+        if path[-1] not in ("k", "v"):
+            return x
+        li = int(path[1][1:]) if path[1].startswith("l") else 0
+        kind = unit[li % len(unit)][0]
+        cap = (a.sliding_window
+               if (kind == LOCAL_ATTN and a.sliding_window) else None)
+        tgt = min(target_len, cap) if cap else target_len
+        axis = x.dim() - 3                      # the cache_seq dim
+        Sc = x.shape[axis]
+        if Sc >= tgt:
+            # already at (or beyond) target; restore ring alignment if the
+            # prefill truncated to a window (slot j held prompt_len-Sc+j)
+            if prompt_len > Sc:
+                return torch.roll(x, prompt_len % Sc, dims=axis)
+            return x
+        shape = list(x.shape)
+        shape[axis] = tgt - Sc
+        return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+    return P.tree_map_with_path(leaf, cache)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+def _decode_window(cfg: ModelConfig, entry: Tree) -> Optional[int]:
+    """Effective attention window for a decode cache entry: the ring size
+    Sc when the cache was sized BY a window (sliding_window or the
+    long-context variant), else None (all valid slots)."""
+    a = cfg.attention
+    Sc = entry["k"].shape[1]
+    if a.sliding_window and Sc == a.sliding_window:
+        return a.sliding_window
+    if Sc == a.long_context_window:
+        return a.long_context_window
+    return None
+
+
+def _apply_layer_decode(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
+                        kind: str, entry: Tree, position: int
+                        ) -> Tuple[torch.Tensor, Tree]:
+    h = P.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    if kind in (ATTN, LOCAL_ATTN):
+        h, new_entry = A.attn_decode(p["mix"], h, entry, cfg.attention,
+                                     position,
+                                     window=_decode_window(cfg, entry))
+    else:
+        h, new_entry = G.rglru_decode(p["mix"], h, cfg, entry)
+    x = x + h
+    h = P.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h, cfg.act, cfg.glu), new_entry
+
+
+def _run_layers(params: P.Params, cfg: ModelConfig, x: torch.Tensor,
+                layer_fn, cache: Optional[Tree] = None
+                ) -> Tuple[torch.Tensor, Tree]:
+    """Apply the stacked units in order, then the tail layers.
+    ``layer_fn(p, x, kind, entry)`` -> (x, new_entry); ``entry`` is the
+    layer's slice of ``cache`` (None in prefill).  Returns x and the new
+    cache tree."""
+    unit = unit_pattern(cfg)
+    n_units, n_tail = unit_counts(cfg)
+    per_unit = []
+    for u in range(n_units):
+        up = _index(params["units"], u)
+        uc = None if cache is None else _index(cache["units"], u)
+        entries = {}
+        for i, (kind, _) in enumerate(unit):
+            x, entries[f"l{i}"] = layer_fn(
+                up[f"l{i}"], x, kind, None if uc is None else uc[f"l{i}"])
+        per_unit.append(entries)
+    new_cache: Tree = {"units": _stack(per_unit)}
+    if n_tail:
+        new_cache["tail"] = {}
+        for i in range(n_tail):
+            name = f"l{i}"
+            x, new_cache["tail"][name] = layer_fn(
+                params["tail"][name], x, unit[i][0],
+                None if cache is None else cache["tail"][name])
+    return x, new_cache
+
+
+def decode_step(params: P.Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Tree, position: int) -> Tuple[torch.Tensor, Tree]:
+    """tokens: (B, 1) int64 on the params' device; position: the host int
+    position of that token.  Returns (logits (B, Vp), new cache); the
+    given cache is left as it was."""
+    check_servable(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    x, new_cache = _run_layers(
+        params, cfg, x,
+        lambda p, x, kind, entry: _apply_layer_decode(p, x, cfg, kind,
+                                                      entry, position),
+        cache)
+    x = P.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, cfg, x[:, 0, :]), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill: process a prompt, build the cache, return last-token logits
+# ---------------------------------------------------------------------------
+def _attn_prefill(p: P.Params, h: torch.Tensor, cfg: ModelConfig, kind: str
+                  ) -> Tuple[torch.Tensor, Tree]:
+    a = cfg.attention
+    B, S, _ = h.shape
+    q, k, v = A.project_qkv(p, h, a, torch.arange(S, device=h.device),
+                            compute_dtype=h.dtype)
+    out = ops.attention(q, k, v, causal=True, window=a.sliding_window)
+    out = P.dense_apply(p["o"], out.reshape(B, S, a.num_heads * a.head_dim),
+                        h.dtype)
+    if kind == LOCAL_ATTN and a.sliding_window and S > a.sliding_window:
+        k, v = k[:, -a.sliding_window:], v[:, -a.sliding_window:]
+    return out, {"k": k, "v": v}
+
+
+def _apply_layer_prefill(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
+                         kind: str) -> Tuple[torch.Tensor, Tree]:
+    h = P.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    if kind in (ATTN, LOCAL_ATTN):
+        h, entry = _attn_prefill(p["mix"], h, cfg, kind)
+    else:
+        h, entry = G.rglru_apply(p["mix"], h, cfg)
+    x = x + h
+    h = P.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h, cfg.act, cfg.glu), entry
+
+
+def prefill(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Tree]:
+    """batch: {'tokens': (B, S) int64 on the params' device}.  Returns
+    (last-token logits (B, Vp), cache)."""
+    check_servable(cfg)
+    x = embed_tokens(params, cfg, batch["tokens"])
+    x, cache = _run_layers(
+        params, cfg, x,
+        lambda p, x, kind, _: _apply_layer_prefill(p, x, cfg, kind))
+    x = P.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, cfg, x[:, -1, :]), cache

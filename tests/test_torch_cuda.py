@@ -38,3 +38,94 @@ def test_tolfl_combine_cuda_kernel_bitwise(cuda_device, k, p, zeros):
     torch.cuda.synchronize()
     assert tc.LAUNCHES == before + 1
     assert torch.equal(got, tc.tolfl_combine_plain(gs, ns))
+
+
+# ---------------------------------------------------------------------------
+# flash attention: within 2e-4 of the plain version in float32 and 2e-2 in
+# bfloat16 (the tolerances of tests/test_kernels.py): the kernel sums the
+# same float32 products in another order
+# ---------------------------------------------------------------------------
+ATTN_CASES = [
+    # (B, S, H, KVH, D, causal, window)
+    (1, 128, 4, 2, 64, True, None),
+    (2, 200, 16, 1, 256, True, 64),           # ragged S, window < S
+    (1, 130, 8, 8, 32, False, None),          # bidirectional, MHA
+    (1, 97, 4, 1, 128, True, 1),              # window 1: only the diagonal
+    (4, 4096, 16, 1, 256, True, 2048),        # the serving prefill
+    (1, 4097, 16, 1, 256, True, 2048),        # its ragged consistency run
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KVH,D,causal,window", ATTN_CASES)
+def test_flash_attention_cuda_kernel(cuda_device, dtype, B, S, H, KVH, D,
+                                     causal, window):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda_device).manual_seed(S + D)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    before = fa.LAUNCHES
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan: bit for bit equal to the plain version
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W,with_h0", [
+    (2, 100, 70, False), (2, 100, 70, True), (1, 1, 5, True),
+    (4, 4096, 4096, False), (4, 4096, 4096, True), (3, 4097, 4000, True)])
+def test_rglru_scan_cuda_kernel_bitwise(cuda_device, B, S, W, with_h0):
+    from repro_torch.kernels import rglru_scan as rs
+    g = torch.Generator(device=cuda_device).manual_seed(B * S + W)
+    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=cuda_device))
+    b = torch.randn((B, S, W), generator=g, device=cuda_device)
+    h0 = (torch.randn((B, W), generator=g, device=cuda_device)
+          if with_h0 else None)
+    before = rs.LAUNCHES
+    got = ops.rglru(a, b, h0)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES == before + 1
+    assert torch.equal(got, rs.rglru_scan_plain(a, b, h0))
+
+
+# ---------------------------------------------------------------------------
+# serving: a prefill launches one attention kernel per attention layer and
+# one scan per recurrent layer; a decode step launches neither
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_layers", [2, 5])
+def test_serving_kernel_launches(cuda_device, num_layers):
+    import dataclasses
+
+    from repro_torch.configs.base import LOCAL_ATTN, RECURRENT
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    cfg = ARCHS["recurrentgemma-9b"].reduced()
+    if num_layers == 5:
+        cfg = dataclasses.replace(cfg, num_layers=5, recurrent=dataclasses.replace(
+            cfg.recurrent, block_pattern=(RECURRENT, RECURRENT, LOCAL_ATTN)))
+    n_attn = cfg.layer_pattern.count(LOCAL_ATTN)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.init_params(g, cfg, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=g,
+                           device=cuda_device)
+    fa.LAUNCHES = rs.LAUNCHES = 0
+    logits, cache = prefill(params, cfg, {"tokens": tokens})
+    assert (fa.LAUNCHES, rs.LAUNCHES) == (n_attn, num_layers - n_attn)
+    cache = pad_cache(cache, cfg, 100, 102)
+    fa.LAUNCHES = rs.LAUNCHES = 0
+    for t in (100, 101):
+        logits, cache = decode_step(params, cfg, tokens[:, -1:], cache, t)
+    assert (fa.LAUNCHES, rs.LAUNCHES) == (0, 0)
+    assert torch.isfinite(logits).all()

@@ -1,0 +1,194 @@
+"""Port parity for serving: RecurrentGemma's prefill, ``pad_cache`` and
+greedy ``decode_step`` against ``repro``'s ``prefill(..., use_pallas=True)``
+(its Pallas kernels in interpret mode) and ``decode_step``, the configs,
+the cache tree and the launcher.
+
+The reduced config (one recurrent + one local-attention layer, d 256,
+window 64) runs at (B, S) = (2, 96), so the prompt is longer than the
+window and ``pad_cache`` rolls the ring; a 5-layer (rec, rec, local)
+variant adds the tail layers.  Params come from ``repro``'s
+``init_params`` through the weight bridge, prompts from numpy.  Logits
+and every cache leaf agree within rtol = atol = 1e-4 (float32 sums in
+another order; ``repro``'s own two paths differ by ~1e-6 here).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JARCHS
+from repro.models import transformer as JT
+from repro.serving import decode as JD
+from repro_torch.configs import base as TB
+from repro_torch.configs.registry import ARCHS as TARCHS
+from repro_torch.configs.registry import NOT_PORTED, get_arch
+from repro_torch.launch import serve as tserve
+from repro_torch.models import params as TP
+from repro_torch.models import transformer as TT
+from repro_torch.serving import decode as TD
+from repro_torch.serving.inputs import synthetic_batch
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+B, S, STEPS = 2, 96, 3
+
+
+def _variant(cfg, n_layers):
+    if n_layers == 2:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=n_layers, recurrent=(
+        dataclasses.replace(cfg.recurrent, block_pattern=(
+            TB.RECURRENT, TB.RECURRENT, TB.LOCAL_ATTN))))
+
+
+def _cfgs(n_layers):
+    return (_variant(JARCHS["recurrentgemma-9b"].reduced(), n_layers),
+            _variant(TARCHS["recurrentgemma-9b"].reduced(), n_layers))
+
+
+def _close_trees(jtree, ttree):
+    jitems = TP.tree_items(jax.tree.map(np.asarray, jtree))
+    titems = TP.tree_items(ttree)
+    assert [p for p, _ in jitems] == [p for p, _ in titems]
+    for (path, a), (_, b) in zip(jitems, titems):
+        assert a.shape == tuple(b.shape), path
+        np.testing.assert_allclose(b.numpy(), a, err_msg=str(path), **TOL)
+
+
+@pytest.mark.parametrize("n_layers", [2, 5])
+def test_prefill_pad_decode_match_repro(n_layers):
+    jcfg, tcfg = _cfgs(n_layers)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jp, _ = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = TP.from_numpy_tree(jax.tree.map(np.asarray, jp), device="cpu")
+    assert TT.unit_counts(tcfg) == JT.unit_counts(jcfg)
+    toks = np.random.default_rng(n_layers).integers(
+        0, jcfg.vocab_size, (B, S + STEPS))
+
+    jl, jc = JD.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :S],
+                                                         jnp.int32)},
+                        use_pallas=True)
+    tl, tc = TD.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks[:, :S])})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _close_trees(jc, tc)
+
+    jc = JD.pad_cache(jc, jcfg, prompt_len=S, target_len=S + STEPS)
+    tc = TD.pad_cache(tc, tcfg, prompt_len=S, target_len=S + STEPS)
+    _close_trees(jc, tc)
+    for t in range(S, S + STEPS):
+        jl, jc = JD.decode_step(jp, jcfg, jnp.asarray(toks[:, t:t + 1],
+                                                      jnp.int32), jc,
+                                jnp.int32(t))
+        tl, tc = TD.decode_step(tp, tcfg, torch.from_numpy(toks[:, t:t + 1]),
+                                tc, t)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _close_trees(jc, tc)
+
+
+@pytest.mark.parametrize("prompt,target", [(96, 99), (70, 75), (40, 50),
+                                           (64, 64), (128, 130)])
+def test_pad_cache_rolls_and_pads_like_repro(prompt, target):
+    """Windowed layers keep their window and roll by prompt % Sc; full
+    attention layers are padded with zero slots."""
+    jcfg, tcfg = _cfgs(5)
+    cfg_full = dataclasses.replace(jcfg, recurrent=dataclasses.replace(
+        jcfg.recurrent, block_pattern=(TB.RECURRENT, TB.ATTN)))
+    rng = np.random.default_rng(prompt)
+    for jc, tc in ((jcfg, tcfg), (cfg_full, dataclasses.replace(
+            tcfg, recurrent=dataclasses.replace(
+                tcfg.recurrent, block_pattern=(TB.RECURRENT, TB.ATTN))))):
+        shapes = JD.cache_shape(jc, 2, prompt)
+        cache = jax.tree.map(
+            lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+        want = JD.pad_cache(jax.tree.map(jnp.asarray, cache), jc, prompt,
+                            target)
+        got = TD.pad_cache(TP.from_numpy_tree(cache, device="cpu"), tc,
+                           prompt, target)
+        _close_trees(want, got)
+
+
+@pytest.mark.parametrize("n_layers", [2, 5])
+def test_cache_shape_and_init_cache(n_layers):
+    jcfg, tcfg = _cfgs(n_layers)
+    for seq_len in (16, 200):
+        want = JD.cache_shape(jcfg, 3, seq_len)
+        got = TD.cache_shape(tcfg, 3, seq_len)
+        jitems = TP.tree_items(want)
+        titems = TP.tree_items(got)
+        assert [p for p, _ in jitems] == [p for p, _ in titems]
+        for (_, a), (_, b) in zip(jitems, titems):
+            assert a.shape == tuple(b.shape)
+            assert str(a.dtype) == str(b.dtype).replace("torch.", "")
+    zeros = TD.init_cache(tcfg, 2, 16, device="cpu")
+    assert all(not x.any() for _, x in TP.tree_items(zeros))
+
+
+def test_init_params_has_repros_tree():
+    """Same keys and shapes as repro's init, all float32; the stacked
+    units hold independent draws."""
+    jcfg, tcfg = _cfgs(5)
+    want = jax.eval_shape(lambda k: JT.init_params(k, jcfg)[0],
+                          jax.random.PRNGKey(0))
+    got = TT.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
+    jitems, titems = TP.tree_items(want), TP.tree_items(got)
+    assert [p for p, _ in jitems] == [p for p, _ in titems]
+    for (_, a), (_, b) in zip(jitems, titems):
+        assert a.shape == tuple(b.shape) and b.dtype == torch.float32
+    lam = got["units"]["l0"]["mix"]["lam"]
+    a = torch.sigmoid(lam)
+    assert float(a.min()) >= 0.9 - 1e-6 and float(a.max()) <= 0.999 + 1e-6
+    again = TT.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
+    assert all(torch.equal(x, y) for (_, x), (_, y)
+               in zip(titems, TP.tree_items(again)))
+
+
+def test_configs_equal_repros():
+    jcfg, tcfg = JARCHS["recurrentgemma-9b"], TARCHS["recurrentgemma-9b"]
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert tcfg.layer_pattern == jcfg.layer_pattern
+    assert tcfg.param_count() == jcfg.param_count()
+    assert dataclasses.asdict(tcfg.reduced()) == \
+        dataclasses.asdict(jcfg.reduced())
+    assert tcfg.reduced().param_count() == jcfg.reduced().param_count()
+    assert TT.padded_vocab(tcfg) == JT.padded_vocab(jcfg)
+    assert TT.unit_pattern(tcfg) == JT.unit_pattern(jcfg)
+    assert set(NOT_PORTED) | set(TARCHS) == set(JARCHS)
+
+
+def test_unported_archs_raise():
+    with pytest.raises(KeyError, match="ROADMAP"):
+        get_arch("rwkv6-7b")
+    rwkv = TB.ModelConfig(family=TB.SSM, num_layers=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.init_params(torch.Generator(), rwkv, "cpu")
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    cfg = TARCHS["recurrentgemma-9b"].reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TT.init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--prompt", "8", "--tokens", "2"])
+
+
+def test_synthetic_batch_is_seeded():
+    cfg = TARCHS["recurrentgemma-9b"].reduced()
+    a = synthetic_batch(cfg, 2, 9, torch.Generator().manual_seed(3), "cpu")
+    b = synthetic_batch(cfg, 2, 9, torch.Generator().manual_seed(3), "cpu")
+    assert a["tokens"].shape == (2, 9) and torch.equal(a["tokens"],
+                                                       b["tokens"])
+    assert int(a["tokens"].max()) < cfg.vocab_size
+
+
+def test_serve_launcher_runs_on_cpu(capsys):
+    assert tserve.main(["--device", "cpu", "--batch", "2", "--prompt", "70",
+                        "--tokens", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "arch=recurrentgemma-9b-reduced" in out and "device=cpu" in out
+    assert "prefill:" in out and "decode:" in out and "sample[0]" in out
