@@ -9,7 +9,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
 1. prints the card's name and power limit and the build's compiler log;
 2. holds every kernel against its plain PyTorch version on the card at
    the main paths' shapes: the combine and the RG-LRU scan bit for bit,
-   flash attention within 2e-4 in float32 and 2e-2 in bfloat16;
+   flash attention within 2e-4 in float32 and 2e-2 in bfloat16, the
+   RWKV6 WKV scan within 1e-4;
 3. drives slice 1's main path, the Tol-FL simulator (``run_simulation``), at
    the paper's full width and data scale: Comms-ML (12,000 x 112), 10
    devices in 5 clusters, the paper autoencoder (P = 49,680), 100 rounds
@@ -31,7 +32,12 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    must match a prefill of S + 1 tokens; one prefill and 8 decode steps
    run under torch.profiler; and the reduced config on the card must
    agree with the same calls on the CPU;
-5. times each kernel, its plain version and one library call with CUDA
+5. frees those params and drives slice 3's main path, RWKV6-7B serving,
+   the same way ([rwkv-serve] and the phases after it): 32 RWKV6 layers,
+   d 4,096, 64 heads of 64, untied head, 4 prompts of 4,096 tokens, 32
+   greedy tokens.  A prefill and every decode step must launch the WKV
+   kernel once per layer and no other kernel;
+6. times each kernel, its plain version and one library call with CUDA
    events, beside the least time the card could take.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero
@@ -60,8 +66,10 @@ SAMPLES = 200          # CUDA-event timings per function
 SPIN_CYCLES = 5_000_000   # ~2.5 ms of the card's clock: covers the host's
 #                           dispatch of the slowest timed call (~1 ms)
 DEV = "cuda"               # the serving phases' device
-ARCH = "recurrentgemma-9b"
+#: the serving archs, each with the prefix of its phases' log tags
+SERVE_ARCHS = (("recurrentgemma-9b", ""), ("rwkv6-7b", "rwkv-"))
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 4096, 32
+SERVE_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_scan")
 #: (B, S, H, KVH, D, causal, window): the serving prefill's attention
 #: (recurrentgemma-9b: 16 query heads on one kv head of 256, window 2048)
 ATTN_CASES = [(4, 4096, 16, 1, 256, True, 2048),
@@ -71,6 +79,9 @@ ATTN_CASES = [(4, 4096, 16, 1, 256, True, 2048),
 #: (B, S, W, h0): the prefill's recurrence (lru_width 4096) and a ragged one
 SCAN_CASES = [(4, 4096, 4096, False), (4, 4096, 4096, True),
               (3, 4097, 4000, True)]
+#: the WKV scan's cases are ``rwkv6_scan.CARD_CASES``, shared with
+#: tests/test_torch_cuda.py
+WKV_TOL = 1e-4     # rtol = atol: FMA contraction and another order over n
 
 
 def log(msg: str) -> None:
@@ -142,6 +153,7 @@ def phase_serve_kernels(torch):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import rwkv6_scan as wk
     gen = torch.Generator(device=DEV).manual_seed(2)
     worst = {"flash_attention": 0.0, "rglru_scan": 0.0}
     for B, S, H, KVH, D, causal, window in ATTN_CASES:
@@ -179,6 +191,24 @@ def phase_serve_kernels(torch):
             raise AssertionError(f"rglru_scan differs from its plain version "
                                  f"at {(B, S, W)} h0={with_h0}")
         worst["rglru_scan"] = max(worst["rglru_scan"], err)
+    worst["rwkv6_scan"] = 0.0
+    for B, S, H, N, with_s0 in wk.CARD_CASES:
+        r, k, v, w, u, s0 = wk.random_inputs(B, S, H, N, with_s0, gen)
+        s0_in = s0.clone()
+        y, st = ops.rwkv6(r, k, v, w, u, s0)
+        y_want, st_want = wk.rwkv6_scan_plain(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        err = max(float((y - y_want).abs().max()),
+                  float((st - st_want).abs().max()))
+        log(f"[kernel] rwkv6_scan (B, S, H, N) = {(B, S, H, N)} "
+            f"state0={with_s0}: max_abs_err={err} (y max "
+            f"{float(y_want.abs().max())}; tolerance rtol = atol = "
+            f"{WKV_TOL})")
+        torch.testing.assert_close(y, y_want, rtol=WKV_TOL, atol=WKV_TOL)
+        torch.testing.assert_close(st, st_want, rtol=WKV_TOL, atol=WKV_TOL)
+        if not torch.equal(s0, s0_in):
+            raise AssertionError("rwkv6_scan wrote to its input state")
+        worst["rwkv6_scan"] = max(worst["rwkv6_scan"], err)
     return worst
 
 
@@ -446,18 +476,19 @@ def phase_times(torch, launches, max_abs_err):
     }]
 
 
-def _full_params(torch):
+def _full_params(torch, arch, tag):
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import params as P
     from repro_torch.models import transformer as T
-    cfg = get_arch(ARCH)
+    cfg = get_arch(arch)
     t0 = time.perf_counter()
     params = T.init_params(torch.Generator(device=DEV).manual_seed(0),
                            cfg, DEV)
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers "
+    log(f"[{tag}serve] {cfg.name}: {cfg.num_layers} layers "
         f"{''.join(k[0] for k in cfg.layer_pattern)}, d {cfg.d_model}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; params "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        f"{'' if cfg.tie_embeddings else ' (untied head)'}; params "
         f"{P.param_count(params)} ({P.param_bytes(params)} bytes, "
         f"{cfg.param_dtype}; analytic {cfg.param_count()}), activations "
         f"{cfg.dtype}; random init on the card in "
@@ -465,40 +496,67 @@ def _full_params(torch):
     return cfg, params
 
 
-def phase_serve(torch, cfg, params):
-    """Slice 2's main path: prefill, pad_cache, greedy decode at full
-    width and depth.  Returns the kernels' launch counts of the run."""
+def _counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import rwkv6_scan as wk
+    return {"flash_attention": fa, "rglru_scan": rs, "rwkv6_scan": wk}
+
+
+def _reset_launches():
+    for mod in _counters().values():
+        mod.LAUNCHES = 0
+
+
+def _launches():
+    return {name: mod.LAUNCHES for name, mod in _counters().items()}
+
+
+def _expected_launches(cfg):
+    """Each serving kernel's launches per prefill and per decode step:
+    attention once per attention layer and the RG-LRU scan once per
+    recurrent layer in a prefill only; the WKV scan once per RWKV6 layer
+    in a prefill and in every decode step."""
+    pat = cfg.layer_pattern
+    n_rwkv = pat.count("rwkv")
+    prefill = {"flash_attention": pat.count("attn") + pat.count("local"),
+               "rglru_scan": pat.count("rec"), "rwkv6_scan": n_rwkv}
+    step = {"flash_attention": 0, "rglru_scan": 0, "rwkv6_scan": n_rwkv}
+    return prefill, step
+
+
+def phase_serve(torch, cfg, params, tag):
+    """A serving main path: prefill, pad_cache, greedy decode at full
+    width and depth.  Returns each kernel's launches over the run."""
     from repro_torch.serving.decode import decode_step, pad_cache, prefill
     from repro_torch.serving.inputs import synthetic_batch
-    n_attn = sum(k in ("attn", "local") for k in cfg.layer_pattern)
-    n_rec = cfg.layer_pattern.count("rec")
+    want_prefill, want_step = _expected_launches(cfg)
     gen = torch.Generator(device=DEV).manual_seed(1)
     # warm-up (cuBLAS handles and heuristics, the allocator), off the path
     prefill(params, cfg, synthetic_batch(cfg, 1, 256, gen, DEV))
     batch = synthetic_batch(cfg, SERVE_BATCH, SERVE_PROMPT, gen, DEV)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = rs.LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     logits, cache = prefill(params, cfg, batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    counts = {"flash_attention": fa.LAUNCHES, "rglru_scan": rs.LAUNCHES}
-    if counts != {"flash_attention": n_attn, "rglru_scan": n_rec}:
+    counts = _launches()
+    if counts != want_prefill:
         raise AssertionError(f"prefill launched {counts}, expected "
-                             f"{n_attn} attention and {n_rec} scans")
+                             f"{want_prefill}")
     cache = pad_cache(cache, cfg, prompt_len=SERVE_PROMPT,
                       target_len=SERVE_PROMPT + SERVE_TOKENS)
     finite = torch.isfinite(logits).all()
     tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
     out = [tok]
+    steps = SERVE_TOKENS - 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for i in range(SERVE_TOKENS - 1):
+        for i in range(steps):
             logits, cache = decode_step(params, cfg, tok, cache,
                                         SERVE_PROMPT + i)
             finite &= torch.isfinite(logits).all()
@@ -507,27 +565,28 @@ def phase_serve(torch, cfg, params):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / (SERVE_TOKENS - 1)
-    after = {"flash_attention": fa.LAUNCHES, "rglru_scan": rs.LAUNCHES}
-    if after != counts:
-        raise AssertionError(f"decode steps launched kernels: {counts} "
-                             f"after the prefill, {after} after decode")
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    after = _launches()
+    want_after = {k: counts[k] + steps * want_step[k] for k in counts}
+    if after != want_after:
+        raise AssertionError(f"{steps} decode steps after a prefill launched "
+                             f"{after} in all, expected {want_after}")
     if not bool(finite):
         raise AssertionError("non-finite logits in prefill or decode")
     gen_toks = torch.cat(out, dim=1)
-    log(f"[serve] batch {SERVE_BATCH} x prompt {SERVE_PROMPT}, "
+    log(f"[{tag}serve] batch {SERVE_BATCH} x prompt {SERVE_PROMPT}, "
         f"{SERVE_TOKENS} greedy tokens: prefill {prefill_ms:.3f} ms "
         f"({SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3:.1f} tokens/s), "
-        f"decode {decode_ms:.3f} ms/token over {SERVE_TOKENS - 1} steps "
+        f"decode {decode_ms:.3f} ms/token over {steps} steps "
         f"(under sync debug mode 'error'); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes; launches per prefill "
-        f"{counts}, per decode step 0; all logits finite; sample[0] "
-        f"{gen_toks[0, :12].tolist()}; clocks.sm, power.draw, temperature "
-        f"after decode: {_clocks()}")
-    return counts
+        f"{counts}, per decode step {want_step}, over the run {after}; all "
+        f"logits finite; sample[0] {gen_toks[0, :12].tolist()}; clocks.sm, "
+        f"power.draw, temperature after decode: {_clocks()}")
+    return after
 
 
-def phase_serve_consistency(torch, cfg, params):
+def phase_serve_consistency(torch, cfg, params, tag):
     """float32, batch 1: decode_step at position S against the last
     logits of a prefill over S + 1 tokens (tests/test_serving.py's 2e-3)."""
     import dataclasses
@@ -544,13 +603,14 @@ def phase_serve_consistency(torch, cfg, params):
     got, _ = decode_step(params, cfg32, toks[:, S:], cache, S)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    log(f"[serve-consistency] float32, batch 1: decode_step at position {S} "
-        f"vs prefill of {S + 1} tokens: max_abs_diff {err} (max |logit| "
-        f"{float(want.abs().max())}; tolerance rtol = atol = 2e-3)")
+    log(f"[{tag}serve-consistency] float32, batch 1: decode_step "
+        f"at position {S} vs prefill of {S + 1} tokens: max_abs_diff {err} "
+        f"(max |logit| {float(want.abs().max())}; tolerance rtol = atol = "
+        f"2e-3)")
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
 
 
-def phase_serve_profile(torch, cfg, params):
+def phase_serve_profile(torch, cfg, params, tag):
     """One prefill and 8 decode steps, each under its own torch.profiler
     window: the device's busy share, its top kernels and each kernel's
     share."""
@@ -588,15 +648,15 @@ def phase_serve_profile(torch, cfg, params):
             wall = (time.perf_counter() - t0) * 1e6
         busy, by_name = _device_time(prof)
         if busy == 0:
-            log(f"[serve-profile] {what}: the profiler recorded no device "
-                f"time: not measured")
+            log(f"[{tag}serve-profile] {what}: the profiler recorded no "
+                f"device time: not measured")
             continue
         shares = ", ".join(
             f"{k} {v / per / 1e3:.3f} ms ({v / busy:.2%} of busy)"
             for k, v in ((k, sum(us for name, (us, _) in by_name.items()
                                  if k in name))
-                         for k in ("flash_attention", "rglru_scan")))
-        log(f"[serve-profile] {what} ({SERVE_BATCH} x {SERVE_PROMPT}"
+                         for k in SERVE_KERNELS))
+        log(f"[{tag}serve-profile] {what} ({SERVE_BATCH} x {SERVE_PROMPT}"
             + (f", {steps} steps, per step" if per > 1 else "")
             + f") under the profiler: wall {wall / per / 1e3:.3f} ms, "
             f"device busy {busy / per / 1e3:.3f} ms ({busy / wall:.1%} of "
@@ -605,15 +665,16 @@ def phase_serve_profile(torch, cfg, params):
             + _top(by_name, 10, per * 1e3, "ms"))
 
 
-def phase_serve_reference(torch):
+def phase_serve_reference(torch, arch, tag):
     """The reduced config on the card against the same calls on the CPU:
-    prefill past the window (the ring roll runs), pad_cache, 3 decode
-    steps, the same params on both."""
+    a ragged prompt of 100 tokens (past RecurrentGemma's reduced window,
+    so the ring roll runs), pad_cache, 3 decode steps, the same params on
+    both."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import params as P
     from repro_torch.models import transformer as T
     from repro_torch.serving.decode import decode_step, pad_cache, prefill
-    cfg = get_arch(ARCH).reduced()
+    cfg = get_arch(arch).reduced()
     cpu = T.init_params(torch.Generator().manual_seed(5), cfg, "cpu")
     gpu = P.from_numpy_tree(P.to_numpy_tree(cpu), DEV)
     S, steps = 100, 3
@@ -633,14 +694,15 @@ def phase_serve_reference(torch):
     worst = max(float((a - b).abs().max())
                 for a, b in zip(runs[DEV], runs["cpu"]))
     # float32 on both (TF32 off): the card sums in other orders (its
-    # GEMMs, the attention kernel), ~1e-6 relative; 1e-4 as the CPU
-    # parity tests against repro
+    # GEMMs, the kernels), ~1e-6 relative; 1e-4 as the CPU parity tests
+    # against repro
     for a, b in zip(runs[DEV], runs["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-    log(f"[serve-reference] {cfg.name} (float32), prompt {S} past the "
-        f"window {cfg.attention.sliding_window}, {steps} decode steps: card "
-        f"vs CPU max_abs_diff {worst} over the logits and every cache leaf "
-        f"(tolerance rtol = atol = 1e-4)")
+    window = ("local" in cfg.layer_pattern) and cfg.attention.sliding_window
+    log(f"[{tag}serve-reference] {cfg.name} (float32), prompt {S}"
+        + (f" past the window {window}" if window else "")
+        + f", {steps} decode steps: card vs CPU max_abs_diff {worst} over "
+        f"the logits and every cache leaf (tolerance rtol = atol = 1e-4)")
 
 
 def visible_pairs(S, causal, window):
@@ -654,11 +716,13 @@ def visible_pairs(S, causal, window):
 
 
 def phase_serve_times(torch, launches, errs):
-    """The two serving kernels at the prefill's shapes: kernel, plain
-    version and one library call, beside the card's bound."""
+    """The serving kernels at their prefills' shapes: kernel, plain
+    version and one library call, beside the card's bound.  "card" times
+    the work on the card alone, "call" adds the host's dispatch."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import rwkv6_scan as wk
     gen = torch.Generator(device=DEV).manual_seed(7)
     rows = []
     B, S, H, KVH, D, causal, window = ATTN_CASES[0]
@@ -673,6 +737,8 @@ def phase_serve_times(torch, launches, errs):
                qt, kt, vt, attn_mask=band, enable_gqa=True)}
     n = 20
     dev_ms = {key: _median_ms(torch, fn, True, n) for key, fn in fns.items()}
+    call_ms = {key: _median_ms(torch, fn, False, n)
+               for key, fn in fns.items()}
     pairs = visible_pairs(S, causal, window)
     flops = 4 * B * H * D * pairs
     moved = (2 * B * S * H * D + 2 * B * S * KVH * D) * 2
@@ -680,8 +746,9 @@ def phase_serve_times(torch, launches, errs):
     b_bytes = moved / H100_BYTES_PER_S * 1e3
     log(f"[times] flash_attention bf16 (B, S, H, KVH, D) = "
         f"{(B, S, H, KVH, D)} window {window}, median of {n} CUDA-event "
-        f"timings on the card: " + ", ".join(
-            f"{key} {val:.6f} ms" for key, val in dev_ms.items())
+        f"timings, card / call: " + ", ".join(
+            f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
+            for key in fns)
         + f"; bound {max(b_ops, b_bytes):.6f} ms ({flops} flops over "
         f"{pairs} visible pairs at 989 TFLOP/s; {moved} bytes take "
         f"{b_bytes:.6f} ms); clocks.sm, power.draw, temperature after: "
@@ -702,23 +769,60 @@ def phase_serve_times(torch, launches, errs):
     a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=DEV))
     b = torch.randn((B, S, W), generator=gen, device=DEV)
     kernel_ms = _median_ms(torch, lambda: rs.rglru_scan_cuda(a, b), True, 50)
+    kernel_call_ms = _median_ms(torch, lambda: rs.rglru_scan_cuda(a, b),
+                                False, 50)
     plain_ms = _median_ms(torch, lambda: rs.rglru_scan_plain(a, b), True, 3)
     moved = 3 * B * S * W * 4
     flops = 2 * B * S * W
     b_bytes = moved / H100_BYTES_PER_S * 1e3
     b_ops = flops / H100_F32_FLOPS * 1e3
-    log(f"[times] rglru_scan (B, S, W) = {(B, S, W)}, CUDA-event timings on "
-        f"the card: kernel {kernel_ms:.6f} ms (median of 50), plain "
-        f"{plain_ms:.6f} ms (median of 3; its {S} steps are dispatched by "
-        f"the host), library none (no single PyTorch call computes the "
-        f"recurrence); bound {max(b_bytes, b_ops):.6f} ms ({moved} bytes at "
-        f"3.35 TB/s)")
+    log(f"[times] rglru_scan (B, S, W) = {(B, S, W)}, CUDA-event timings: "
+        f"kernel {kernel_ms:.6f} ms on the card, {kernel_call_ms:.6f} ms a "
+        f"call (median of 50), plain {plain_ms:.6f} ms (median of 3; its "
+        f"{S} steps are dispatched by the host), library none (no single "
+        f"PyTorch call computes the recurrence); bound "
+        f"{max(b_bytes, b_ops):.6f} ms ({moved} bytes at 3.35 TB/s)")
     rows.append({
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:48",
         "launches": launches["rglru_scan"],
         "max_abs_err": errs["rglru_scan"],
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": None})
+    del a, b
+
+    B, S, H, N, _ = wk.CARD_CASES[0]
+    args = wk.random_inputs(B, S, H, N, True, gen)
+    kernel_ms = _median_ms(torch, lambda: wk.rwkv6_scan_cuda(*args), True, 50)
+    kernel_call_ms = _median_ms(torch, lambda: wk.rwkv6_scan_cuda(*args),
+                                False, 50)
+    plain_ms = _median_ms(torch, lambda: wk.rwkv6_scan_plain(*args), True, 3)
+    # r, k, v, w read and y written once, the state read and written once,
+    # u read once.  The function needs 5 flops per (b, t, h, n, m): y_m =
+    # sum_n r_n S[n, m] + v_m sum_n r_n u_n k_n takes a multiply and an add
+    # per (n, m) (the bonus sum is one scalar per (t, h)), the update
+    # w_n S[n, m] + k_n v_m two multiplies and an add
+    moved = (5 * B * S * H * N + 2 * B * H * N * N + H * N) * 4
+    flops = 5 * B * S * H * N * N
+    b_bytes = moved / H100_BYTES_PER_S * 1e3
+    b_ops = flops / H100_F32_FLOPS * 1e3
+    log(f"[times] rwkv6_scan (B, S, H, N) = {(B, S, H, N)}, CUDA-event "
+        f"timings: kernel {kernel_ms:.6f} ms on the card, "
+        f"{kernel_call_ms:.6f} ms a call (median of 50), plain "
+        f"{plain_ms:.6f} ms (median of 3; its {S} steps are dispatched by "
+        f"the host), library none (no single PyTorch call computes the "
+        f"recurrence); bound {max(b_bytes, b_ops):.6f} ms ({flops} flops at "
+        f"67 TFLOP/s float32; {moved} bytes take {b_bytes:.6f} ms); "
+        f"clocks.sm, power.draw, temperature after: {_clocks()}")
+    rows.append({
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:59",
+        "launches": launches["rwkv6_scan"],
+        "max_abs_err": errs["rwkv6_scan"],
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
@@ -749,13 +853,16 @@ def main() -> int:
     phase_profile(torch, split, dx, counts)
     phase_reference(torch, split, dx, counts)
     kernels = phase_times(torch, launches, max_abs_err)
-    cfg, params = _full_params(torch)
-    serve_launches = phase_serve(torch, cfg, params)
-    phase_serve_consistency(torch, cfg, params)
-    phase_serve_profile(torch, cfg, params)
-    del params
-    torch.cuda.empty_cache()
-    phase_serve_reference(torch)
+    serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
+    for arch, tag in SERVE_ARCHS:
+        cfg, params = _full_params(torch, arch, tag)
+        for kernel, count in phase_serve(torch, cfg, params, tag).items():
+            serve_launches[kernel] += count
+        phase_serve_consistency(torch, cfg, params, tag)
+        phase_serve_profile(torch, cfg, params, tag)
+        del params      # the next arch's params need the room
+        torch.cuda.empty_cache()
+        phase_serve_reference(torch, arch, tag)
     kernels += phase_serve_times(torch, serve_launches, serve_errs)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

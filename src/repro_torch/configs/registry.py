@@ -8,15 +8,15 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import recurrentgemma_9b
+from repro_torch.configs import recurrentgemma_9b, rwkv6_7b
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (recurrentgemma_9b,)}
+    m.CONFIG.name: m.CONFIG for m in (recurrentgemma_9b, rwkv6_7b)}
 
 #: ``repro``'s other architecture ids, not ported yet
 NOT_PORTED = (
-    "rwkv6-7b", "whisper-large-v3", "internlm2-1.8b",
+    "whisper-large-v3", "internlm2-1.8b",
     "llama4-maverick-400b-a17b", "internvl2-26b", "llama4-scout-17b-a16e",
     "qwen3-8b", "granite-3-2b", "qwen1.5-0.5b",
 )

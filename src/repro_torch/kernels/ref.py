@@ -1,12 +1,11 @@
 """Plain PyTorch oracles for the port's kernels (the allclose targets).
 
-Port of ``repro.kernels.ref``; each oracle arrives with its kernel's
-slice (the RWKV6 one comes with ``rwkv6_scan``).
+Port of ``repro.kernels.ref``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,6 +31,24 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.to(torch.float32))
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def rwkv6_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential WKV6.  r,k,v,w: (B,S,H,N) f32; u: (H,N); state0: (B,H,N,N).
+
+    y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S + k v^T.
+    Returns (y (B,S,H,N), final state (B,H,N,N))."""
+    state = state0
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        kv = kt[..., :, None] * vt[..., None, :]
+        ys.append(torch.einsum("bhn,bhnm->bhm", rt,
+                               state + u[None, :, :, None] * kv))
+        state = wt[..., :, None] * state + kv
+    return torch.stack(ys, dim=1), state
 
 
 def rglru_reference(a_t: torch.Tensor, b_t: torch.Tensor,

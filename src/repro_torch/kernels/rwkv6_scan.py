@@ -1,0 +1,137 @@
+"""RWKV6 (Finch) WKV recurrence: the Hopper kernel and its plain PyTorch
+version.
+
+Port of ``repro.kernels.rwkv6_scan`` (a Pallas TPU kernel).  The kernel
+is hand-written CUDA C++ for ``sm_90a``, ``repro_torch/csrc/rwkv6_scan.cu``:
+one block of N threads per (batch, head), thread m holding the state
+column S[:, m] in registers while the block walks time.  Its bound is
+the bytes it moves (r, k, v, w read and y written once); the function
+needs 5 flops per (b, t, h, n, m), fewer than the bytes' time allows.  It
+agrees with the plain version within float32 rounding (FMA contraction
+and another order of the sum over n).  It takes any S >= 1, and N in
+{8, 16, 32, 64}.
+
+:func:`rwkv6_scan` launches the kernel for CUDA tensors and runs
+:func:`rwkv6_scan_plain` for CPU tensors; there is no fallback from one
+to the other.  ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+#: kernel launches in this process (one per :func:`rwkv6_scan_cuda`)
+LAUNCHES = 0
+#: the head sizes the kernel is built for
+HEAD_SIZES = (8, 16, 32, 64)
+#: (B, S, H, N, with_state0) at which the kernel is held to its plain
+#: version on the card: rwkv6-7b's prefill (64 heads of 64) from a zero
+#: and from a carried state, a ragged S, a decode step, and one small case
+#: for each other head size
+CARD_CASES = [(4, 4096, 64, 64, False), (4, 4096, 64, 64, True),
+              (3, 1000, 64, 64, True), (4, 1, 64, 64, True),
+              (2, 33, 2, 8, True), (1, 70, 3, 16, True), (2, 64, 4, 32, True)]
+
+
+def random_inputs(B: int, S: int, H: int, N: int, with_state0: bool,
+                  generator: torch.Generator) -> Tuple[torch.Tensor, ...]:
+    """Seeded (r, k, v, w, u, state0) on ``generator``'s device, with
+    decays near 1 (the RWKV kernel tests'); state0 is zero unless
+    ``with_state0``."""
+    dev = generator.device
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=generator, device=dev) * scale
+    r, k, v = (randn(B, S, H, N, scale=0.5) for _ in range(3))
+    w = torch.sigmoid(randn(B, S, H, N) + 2.0)
+    u = randn(H, N, scale=0.3)
+    s0 = (randn(B, H, N, N, scale=0.1) if with_state0
+          else torch.zeros((B, H, N, N), device=dev))
+    return r, k, v, w, u, s0
+
+
+def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential loop of ``ref.rwkv6_reference``.  r, k, v, w
+    (B, S, H, N) f32; u (H, N); state0 (B, H, N, N) -> (y (B, S, H, N),
+    final state (B, H, N, N))."""
+    return ref.rwkv6_reference(r, k, v, w, u, state0)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = _build.load("rwkv6_scan").rwkv6_scan_f32
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor) -> None:
+    if r.dim() != 4 or min(r.shape) < 1:
+        raise ValueError(f"r must be a non-empty (B, S, H, N), got "
+                         f"{tuple(r.shape)}")
+    B, _, H, N = r.shape
+    if N not in HEAD_SIZES:
+        raise ValueError(f"head size N = {N} is not one of {HEAD_SIZES}")
+    for name, t, shape in (("k", k, r.shape), ("v", v, r.shape),
+                           ("w", w, r.shape), ("u", u, (H, N)),
+                           ("state0", state0, (B, H, N, N))):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("state0", state0)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != r.device:
+            raise ValueError(f"{name} on {t.device}, r on {r.device}")
+
+
+def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on PyTorch's current stream."""
+    global LAUNCHES
+    _check(r, k, v, w, u, state0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan_cuda needs CUDA tensors, got "
+                         f"{r.device}")
+    if not all(t.is_contiguous() for t in (r, k, v, w, u, state0)):
+        raise ValueError("r, k, v, w, u and state0 must be contiguous")
+    B, S, H, N = r.shape
+    y = torch.empty_like(r)
+    state = torch.empty_like(state0)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       w.data_ptr(), u.data_ptr(), state0.data_ptr(),
+                       y.data_ptr(), state.data_ptr(), B, S, H, N, stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    return y, state
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV6 over axis 1 from state0.  r, k, v, w (B, S, H, N) f32; u (H, N)
+    f32; state0 (B, H, N, N) f32.  Returns (y (B, S, H, N), final state
+    (B, H, N, N)); state0 is left as it was.
+
+    The one entry point of the WKV kernel (``ops.rwkv6`` re-exports it):
+    CUDA tensors launch the kernel or raise; CPU tensors run the plain
+    version."""
+    if r.device.type == "cuda":
+        return rwkv6_scan_cuda(r, k, v, w, u, state0)
+    _check(r, k, v, w, u, state0)
+    return rwkv6_scan_plain(r, k, v, w, u, state0)

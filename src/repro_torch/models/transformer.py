@@ -3,8 +3,8 @@
 Port of the serving half of ``repro.models.transformer``: the layer
 pattern's repeating unit, parameter init with the units stacked along a
 leading ``layers`` dim (as ``repro`` stacks them for its scan), the
-token embedding and the tied logits head.  Decoder-only configs without
-MoE, RWKV, qk-norm or a frontend; the others raise
+token embedding and the logits head (tied or untied).  Decoder-only
+configs without MoE, qk-norm or a frontend; the others raise
 ``NotImplementedError`` (ROADMAP.md, queue 1).  Training
 (``forward_train``, ``xent_loss``) is a later slice.
 """
@@ -16,11 +16,12 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RECURRENT,
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RECURRENT, RWKV,
                                       ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import params as P
 from repro_torch.models import rglru as G
+from repro_torch.models import rwkv6 as R
 from repro_torch.models.mlp import mlp_init
 
 VOCAB_PAD = 256
@@ -35,9 +36,6 @@ def check_servable(cfg: ModelConfig) -> None:
     missing = []
     if cfg.moe.num_experts > 0:
         missing.append("MoE")
-    if any(kind not in (ATTN, LOCAL_ATTN, RECURRENT)
-           for kind in cfg.layer_pattern):
-        missing.append("RWKV6 layers")
     if cfg.is_encdec:
         missing.append("encoder-decoder")
     if cfg.frontend.kind != "none":
@@ -82,11 +80,17 @@ def _layer_init(generator: torch.Generator, cfg: ModelConfig, kind: str,
                 device: DeviceLike, lead: Tuple[int, ...] = ()) -> P.Params:
     p = {"norm1": P.rmsnorm_init(cfg.d_model, device, lead),
          "norm2": P.rmsnorm_init(cfg.d_model, device, lead)}
+    if kind == RWKV:        # time mix, and the channel mix as its MLP
+        p["mix"] = R.timemix_init(generator, cfg, device, lead)
+        p["mlp"] = R.channelmix_init(generator, cfg, device, lead)
+        return p
     if kind in (ATTN, LOCAL_ATTN):
         p["mix"] = A.attn_init(generator, cfg.d_model, cfg.attention, device,
                                lead)
-    else:
+    elif kind == RECURRENT:
         p["mix"] = G.rglru_init(generator, cfg, device, lead)
+    else:
+        raise ValueError(kind)
     p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.glu, device,
                         lead)
     return p

@@ -1,15 +1,16 @@
 """Serving: KV / recurrent-state caches, prefill, and one-token decode.
 
-Port of ``repro.serving.decode`` for decoder-only configs without MoE or
-RWKV (other configs raise ``NotImplementedError``, ROADMAP.md queue 1).
+Port of ``repro.serving.decode`` for decoder-only configs without MoE
+(other configs raise ``NotImplementedError``, ROADMAP.md queue 1).
 Where ``repro`` scans over the stacked units, the port loops over them in
 Python and then over the tail layers; the cache has ``repro``'s tree
 (``cache_shape``), its ``units`` leaves stacked over the units.
 
 On the card a prefill launches the flash-attention kernel once per
-attention layer and the RG-LRU scan kernel once per recurrent layer; a
-decode step launches neither.  Positions are host ints, so a decode step
-never waits on the card.
+attention layer, the RG-LRU scan kernel once per recurrent layer and the
+WKV kernel once per RWKV6 layer; a decode step launches the WKV kernel
+once per RWKV6 layer and no other.  Positions are host ints, so a decode
+step never waits on the card.
 """
 from __future__ import annotations
 
@@ -18,11 +19,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import ATTN, LOCAL_ATTN, ModelConfig, RECURRENT
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, ModelConfig,
+                                      RECURRENT, RWKV)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import params as P
 from repro_torch.models import rglru as G
+from repro_torch.models import rwkv6 as R
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.transformer import (check_servable, embed_tokens,
                                             logits_fn, unit_counts,
@@ -69,8 +72,15 @@ def layer_cache_shape(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                                  device="meta"),
                 "conv": torch.empty((batch, cw - 1, W), dtype=dt,
                                     device="meta")}
-    raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
-                              f"(ROADMAP.md, queue 1)")
+    if kind == RWKV:
+        H, N = cfg.recurrent.num_heads, cfg.recurrent.head_size
+        return {"shift_tm": torch.empty((batch, cfg.d_model), dtype=dt,
+                                        device="meta"),
+                "wkv": torch.empty((batch, H, N, N), dtype=torch.float32,
+                                   device="meta"),
+                "shift_cm": torch.empty((batch, cfg.d_model), dtype=dt,
+                                        device="meta")}
+    raise ValueError(kind)
 
 
 def cache_shape(cfg: ModelConfig, batch: int, seq_len: int,
@@ -108,8 +118,8 @@ def pad_cache(cache: Tree, cfg: ModelConfig, prompt_len: int,
     (windowed layers stay at their window size) and rolled so the ring
     invariant (slot i holds position = i (mod Sc)) is restored; the padded
     slots are excluded by :func:`~repro_torch.models.attention.
-    cache_slot_validity` until they are written.  Recurrent entries are
-    O(1) state: untouched."""
+    cache_slot_validity` until they are written.  Recurrent and RWKV6
+    entries are O(1) state: untouched."""
     a = cfg.attention
     unit = unit_pattern(cfg)
 
@@ -137,7 +147,7 @@ def pad_cache(cache: Tree, cfg: ModelConfig, prompt_len: int,
 
 
 # ---------------------------------------------------------------------------
-# Decode
+# Layers: one function each for a prompt (no cache entry) and a decode step
 # ---------------------------------------------------------------------------
 def _decode_window(cfg: ModelConfig, entry: Tree) -> Optional[int]:
     """Effective attention window for a decode cache entry: the ring size
@@ -152,69 +162,6 @@ def _decode_window(cfg: ModelConfig, entry: Tree) -> Optional[int]:
     return None
 
 
-def _apply_layer_decode(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
-                        kind: str, entry: Tree, position: int
-                        ) -> Tuple[torch.Tensor, Tree]:
-    h = P.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    if kind in (ATTN, LOCAL_ATTN):
-        h, new_entry = A.attn_decode(p["mix"], h, entry, cfg.attention,
-                                     position,
-                                     window=_decode_window(cfg, entry))
-    else:
-        h, new_entry = G.rglru_decode(p["mix"], h, cfg, entry)
-    x = x + h
-    h = P.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.act, cfg.glu), new_entry
-
-
-def _run_layers(params: P.Params, cfg: ModelConfig, x: torch.Tensor,
-                layer_fn, cache: Optional[Tree] = None
-                ) -> Tuple[torch.Tensor, Tree]:
-    """Apply the stacked units in order, then the tail layers.
-    ``layer_fn(p, x, kind, entry)`` -> (x, new_entry); ``entry`` is the
-    layer's slice of ``cache`` (None in prefill).  Returns x and the new
-    cache tree."""
-    unit = unit_pattern(cfg)
-    n_units, n_tail = unit_counts(cfg)
-    per_unit = []
-    for u in range(n_units):
-        up = _index(params["units"], u)
-        uc = None if cache is None else _index(cache["units"], u)
-        entries = {}
-        for i, (kind, _) in enumerate(unit):
-            x, entries[f"l{i}"] = layer_fn(
-                up[f"l{i}"], x, kind, None if uc is None else uc[f"l{i}"])
-        per_unit.append(entries)
-    new_cache: Tree = {"units": _stack(per_unit)}
-    if n_tail:
-        new_cache["tail"] = {}
-        for i in range(n_tail):
-            name = f"l{i}"
-            x, new_cache["tail"][name] = layer_fn(
-                params["tail"][name], x, unit[i][0],
-                None if cache is None else cache["tail"][name])
-    return x, new_cache
-
-
-def decode_step(params: P.Params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Tree, position: int) -> Tuple[torch.Tensor, Tree]:
-    """tokens: (B, 1) int64 on the params' device; position: the host int
-    position of that token.  Returns (logits (B, Vp), new cache); the
-    given cache is left as it was."""
-    check_servable(cfg)
-    x = embed_tokens(params, cfg, tokens)
-    x, new_cache = _run_layers(
-        params, cfg, x,
-        lambda p, x, kind, entry: _apply_layer_decode(p, x, cfg, kind,
-                                                      entry, position),
-        cache)
-    x = P.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return logits_fn(params, cfg, x[:, 0, :]), new_cache
-
-
-# ---------------------------------------------------------------------------
-# Prefill: process a prompt, build the cache, return last-token logits
-# ---------------------------------------------------------------------------
 def _attn_prefill(p: P.Params, h: torch.Tensor, cfg: ModelConfig, kind: str
                   ) -> Tuple[torch.Tensor, Tree]:
     a = cfg.attention
@@ -229,26 +176,96 @@ def _attn_prefill(p: P.Params, h: torch.Tensor, cfg: ModelConfig, kind: str
     return out, {"k": k, "v": v}
 
 
-def _apply_layer_prefill(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
-                         kind: str) -> Tuple[torch.Tensor, Tree]:
-    h = P.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+def _mix(p: P.Params, h: torch.Tensor, cfg: ModelConfig, kind: str,
+         entry: Optional[Tree], position: Optional[int]
+         ) -> Tuple[torch.Tensor, Tree]:
+    """The layer's token mix over a prompt (``entry`` None) or one decode
+    step from its cache entry; returns (out, new entry)."""
     if kind in (ATTN, LOCAL_ATTN):
-        h, entry = _attn_prefill(p["mix"], h, cfg, kind)
-    else:
-        h, entry = G.rglru_apply(p["mix"], h, cfg)
+        if entry is None:
+            return _attn_prefill(p, h, cfg, kind)
+        return A.attn_decode(p, h, entry, cfg.attention, position,
+                             window=_decode_window(cfg, entry))
+    if kind == RECURRENT:
+        if entry is None:
+            return G.rglru_apply(p, h, cfg)
+        return G.rglru_decode(p, h, cfg, entry)
+    if kind == RWKV:
+        h, st = R.timemix_apply(p, h, cfg, state=None if entry is None else {
+            "shift": entry["shift_tm"], "wkv": entry["wkv"]})
+        return h, {"shift_tm": st["shift"], "wkv": st["wkv"]}
+    raise ValueError(kind)
+
+
+def _apply_layer(p: P.Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                 entry: Optional[Tree], position: Optional[int]
+                 ) -> Tuple[torch.Tensor, Tree]:
+    """One pre-norm layer, x + mix(norm1(x)), then x + mlp(norm2(x)), over
+    a prompt (``entry`` None) or one decode step.  An RWKV6 layer's MLP is
+    its channel mix, whose token shift the cache entry carries."""
+    h = P.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    h, new_entry = _mix(p["mix"], h, cfg, kind, entry, position)
     x = x + h
     h = P.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.act, cfg.glu), entry
+    if kind == RWKV:
+        h, new_entry["shift_cm"] = R.channelmix_apply(
+            p["mlp"], h, state=None if entry is None else entry["shift_cm"])
+    else:
+        h = mlp_apply(p["mlp"], h, cfg.act, cfg.glu)
+    return x + h, new_entry
+
+
+def _run_layers(params: P.Params, cfg: ModelConfig, x: torch.Tensor,
+                cache: Optional[Tree] = None, position: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Tree]:
+    """Apply the stacked units in order, then the tail layers, each layer
+    with its slice of ``cache`` (None in prefill).  Returns x and the new
+    cache tree."""
+    unit = unit_pattern(cfg)
+    n_units, n_tail = unit_counts(cfg)
+    per_unit = []
+    for u in range(n_units):
+        up = _index(params["units"], u)
+        uc = None if cache is None else _index(cache["units"], u)
+        entries = {}
+        for i, (kind, _) in enumerate(unit):
+            x, entries[f"l{i}"] = _apply_layer(
+                up[f"l{i}"], x, cfg, kind,
+                None if uc is None else uc[f"l{i}"], position)
+        per_unit.append(entries)
+    new_cache: Tree = {"units": _stack(per_unit)}
+    if n_tail:
+        new_cache["tail"] = {}
+        for i in range(n_tail):
+            name = f"l{i}"
+            x, new_cache["tail"][name] = _apply_layer(
+                params["tail"][name], x, cfg, unit[i][0],
+                None if cache is None else cache["tail"][name], position)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+def decode_step(params: P.Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Tree, position: int) -> Tuple[torch.Tensor, Tree]:
+    """tokens: (B, 1) int64 on the params' device; position: the host int
+    position of that token.  Returns (logits (B, Vp), new cache); the
+    given cache is left as it was."""
+    check_servable(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    x, new_cache = _run_layers(params, cfg, x, cache, position)
+    x = P.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, cfg, x[:, 0, :]), new_cache
 
 
 def prefill(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, Tree]:
-    """batch: {'tokens': (B, S) int64 on the params' device}.  Returns
-    (last-token logits (B, Vp), cache)."""
+    """batch: {'tokens': (B, S) int64 on the params' device}.  Process a
+    prompt and build the cache: returns (last-token logits (B, Vp),
+    cache)."""
     check_servable(cfg)
     x = embed_tokens(params, cfg, batch["tokens"])
-    x, cache = _run_layers(
-        params, cfg, x,
-        lambda p, x, kind, _: _apply_layer_prefill(p, x, cfg, kind))
+    x, cache = _run_layers(params, cfg, x)
     x = P.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x[:, -1, :]), cache

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6_scan as wk
 from repro_torch.kernels import tolfl_combine as tc
 
 
@@ -97,35 +98,61 @@ def test_rglru_scan_cuda_kernel_bitwise(cuda_device, B, S, W, with_h0):
 
 
 # ---------------------------------------------------------------------------
-# serving: a prefill launches one attention kernel per attention layer and
-# one scan per recurrent layer; a decode step launches neither
+# RWKV6 WKV scan: within rtol = atol = 1e-4 of the plain version (the JAX
+# kernel's own tolerance): the kernel contracts into FMAs and sums over n
+# in another order
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_layers", [2, 5])
-def test_serving_kernel_launches(cuda_device, num_layers):
+@pytest.mark.parametrize("B,S,H,N,with_state0", wk.CARD_CASES)
+def test_rwkv6_scan_cuda_kernel(cuda_device, B, S, H, N, with_state0):
+    g = torch.Generator(device=cuda_device).manual_seed(S + N)
+    args = wk.random_inputs(B, S, H, N, with_state0, g)
+    s0_before = args[-1].clone()
+    before = wk.LAUNCHES
+    y, st = ops.rwkv6(*args)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES == before + 1
+    assert torch.equal(args[-1], s0_before)      # the state in is kept
+    y_want, st_want = wk.rwkv6_scan_plain(*args)
+    torch.testing.assert_close(y, y_want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st_want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# serving: a prefill launches one attention kernel per attention layer, one
+# scan per recurrent layer and one WKV scan per RWKV6 layer; a decode step
+# launches the WKV scan once per RWKV6 layer and no other kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,num_layers", [("recurrentgemma-9b", 2),
+                                             ("recurrentgemma-9b", 5),
+                                             ("rwkv6-7b", 2)])
+def test_serving_kernel_launches(cuda_device, arch, num_layers):
     import dataclasses
 
-    from repro_torch.configs.base import LOCAL_ATTN, RECURRENT
+    from repro_torch.configs.base import LOCAL_ATTN, RECURRENT, RWKV
     from repro_torch.configs.registry import ARCHS
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.models import transformer as T
     from repro_torch.serving.decode import decode_step, pad_cache, prefill
-    cfg = ARCHS["recurrentgemma-9b"].reduced()
+    cfg = ARCHS[arch].reduced()
     if num_layers == 5:
         cfg = dataclasses.replace(cfg, num_layers=5, recurrent=dataclasses.replace(
             cfg.recurrent, block_pattern=(RECURRENT, RECURRENT, LOCAL_ATTN)))
     n_attn = cfg.layer_pattern.count(LOCAL_ATTN)
+    n_rec = cfg.layer_pattern.count(RECURRENT)
+    n_rwkv = cfg.layer_pattern.count(RWKV)
     g = torch.Generator(device=cuda_device).manual_seed(0)
     params = T.init_params(g, cfg, cuda_device)
     tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=g,
                            device=cuda_device)
-    fa.LAUNCHES = rs.LAUNCHES = 0
+    fa.LAUNCHES = rs.LAUNCHES = wk.LAUNCHES = 0
     logits, cache = prefill(params, cfg, {"tokens": tokens})
-    assert (fa.LAUNCHES, rs.LAUNCHES) == (n_attn, num_layers - n_attn)
+    assert (fa.LAUNCHES, rs.LAUNCHES, wk.LAUNCHES) == (n_attn, n_rec, n_rwkv)
     cache = pad_cache(cache, cfg, 100, 102)
-    fa.LAUNCHES = rs.LAUNCHES = 0
+    fa.LAUNCHES = rs.LAUNCHES = wk.LAUNCHES = 0
     for t in (100, 101):
         logits, cache = decode_step(params, cfg, tokens[:, -1:], cache, t)
-    assert (fa.LAUNCHES, rs.LAUNCHES) == (0, 0)
+    assert (fa.LAUNCHES, rs.LAUNCHES, wk.LAUNCHES) == (0, 0, 2 * n_rwkv)
     assert torch.isfinite(logits).all()

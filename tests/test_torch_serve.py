@@ -1,12 +1,14 @@
-"""Port parity for serving: RecurrentGemma's prefill, ``pad_cache`` and
-greedy ``decode_step`` against ``repro``'s ``prefill(..., use_pallas=True)``
-(its Pallas kernels in interpret mode) and ``decode_step``, the configs,
-the cache tree and the launcher.
+"""Port parity for serving: RecurrentGemma's and RWKV6's prefill,
+``pad_cache`` and greedy ``decode_step`` against ``repro``'s
+``prefill(..., use_pallas=True)`` (its Pallas kernels in interpret mode)
+and ``decode_step``, the configs, the cache tree and the launcher.
 
-The reduced config (one recurrent + one local-attention layer, d 256,
-window 64) runs at (B, S) = (2, 96), so the prompt is longer than the
-window and ``pad_cache`` rolls the ring; a 5-layer (rec, rec, local)
-variant adds the tail layers.  Params come from ``repro``'s
+RecurrentGemma's reduced config (one recurrent + one local-attention
+layer, d 256, window 64) runs at (B, S) = (2, 96), so the prompt is
+longer than the window and ``pad_cache`` rolls the ring; a 5-layer (rec,
+rec, local) variant adds the tail layers.  RWKV6's reduced config (two
+RWKV6 layers, d 256, 4 heads of 64) runs at (2, 128): ``repro``'s Pallas
+WKV kernel tiles time in blocks of 64.  Params come from ``repro``'s
 ``init_params`` through the weight bridge, prompts from numpy.  Logits
 and every cache leaf agree within rtol = atol = 1e-4 (float32 sums in
 another order; ``repro``'s own two paths differ by ~1e-6 here).
@@ -32,7 +34,12 @@ from repro_torch.serving import decode as TD
 from repro_torch.serving.inputs import synthetic_batch
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-B, S, STEPS = 2, 96, 3
+B, STEPS = 2, 3
+PROMPT = {"recurrentgemma-9b": 96, "rwkv6-7b": 128}
+RG = "recurrentgemma-9b"
+#: (arch, layers): the reduced configs and RecurrentGemma's tail variant
+ARCH_CASES = [pytest.param(RG, 2, id="2"), pytest.param(RG, 5, id="5"),
+              pytest.param("rwkv6-7b", 2, id="rwkv6-7b")]
 
 
 def _variant(cfg, n_layers):
@@ -43,9 +50,9 @@ def _variant(cfg, n_layers):
             TB.RECURRENT, TB.RECURRENT, TB.LOCAL_ATTN))))
 
 
-def _cfgs(n_layers):
-    return (_variant(JARCHS["recurrentgemma-9b"].reduced(), n_layers),
-            _variant(TARCHS["recurrentgemma-9b"].reduced(), n_layers))
+def _cfgs(n_layers, arch=RG):
+    return (_variant(JARCHS[arch].reduced(), n_layers),
+            _variant(TARCHS[arch].reduced(), n_layers))
 
 
 def _close_trees(jtree, ttree):
@@ -57,9 +64,10 @@ def _close_trees(jtree, ttree):
         np.testing.assert_allclose(b.numpy(), a, err_msg=str(path), **TOL)
 
 
-@pytest.mark.parametrize("n_layers", [2, 5])
-def test_prefill_pad_decode_match_repro(n_layers):
-    jcfg, tcfg = _cfgs(n_layers)
+@pytest.mark.parametrize("arch,n_layers", ARCH_CASES)
+def test_prefill_pad_decode_match_repro(arch, n_layers):
+    jcfg, tcfg = _cfgs(n_layers, arch)
+    S = PROMPT[arch]
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     jp, _ = JT.init_params(jax.random.PRNGKey(0), jcfg)
     tp = TP.from_numpy_tree(jax.tree.map(np.asarray, jp), device="cpu")
@@ -109,9 +117,9 @@ def test_pad_cache_rolls_and_pads_like_repro(prompt, target):
         _close_trees(want, got)
 
 
-@pytest.mark.parametrize("n_layers", [2, 5])
-def test_cache_shape_and_init_cache(n_layers):
-    jcfg, tcfg = _cfgs(n_layers)
+@pytest.mark.parametrize("arch,n_layers", ARCH_CASES)
+def test_cache_shape_and_init_cache(arch, n_layers):
+    jcfg, tcfg = _cfgs(n_layers, arch)
     for seq_len in (16, 200):
         want = JD.cache_shape(jcfg, 3, seq_len)
         got = TD.cache_shape(tcfg, 3, seq_len)
@@ -125,10 +133,11 @@ def test_cache_shape_and_init_cache(n_layers):
     assert all(not x.any() for _, x in TP.tree_items(zeros))
 
 
-def test_init_params_has_repros_tree():
+@pytest.mark.parametrize("arch,n_layers", [(RG, 5), ("rwkv6-7b", 2)])
+def test_init_params_has_repros_tree(arch, n_layers):
     """Same keys and shapes as repro's init, all float32; the stacked
     units hold independent draws."""
-    jcfg, tcfg = _cfgs(5)
+    jcfg, tcfg = _cfgs(n_layers, arch)
     want = jax.eval_shape(lambda k: JT.init_params(k, jcfg)[0],
                           jax.random.PRNGKey(0))
     got = TT.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
@@ -136,16 +145,23 @@ def test_init_params_has_repros_tree():
     assert [p for p, _ in jitems] == [p for p, _ in titems]
     for (_, a), (_, b) in zip(jitems, titems):
         assert a.shape == tuple(b.shape) and b.dtype == torch.float32
-    lam = got["units"]["l0"]["mix"]["lam"]
-    a = torch.sigmoid(lam)
-    assert float(a.min()) >= 0.9 - 1e-6 and float(a.max()) <= 0.999 + 1e-6
+    if arch == RG:
+        lam = got["units"]["l0"]["mix"]["lam"]
+        a = torch.sigmoid(lam)
+        assert float(a.min()) >= 0.9 - 1e-6 and float(a.max()) <= 0.999 + 1e-6
+    else:
+        ln = got["units"]["l0"]["mix"]["ln_x"]
+        assert torch.equal(ln["scale"], torch.ones_like(ln["scale"]))
+        assert not torch.equal(got["units"]["l0"]["mix"]["r"]["w"][0],
+                               got["units"]["l0"]["mix"]["r"]["w"][1])
     again = TT.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
     assert all(torch.equal(x, y) for (_, x), (_, y)
                in zip(titems, TP.tree_items(again)))
 
 
-def test_configs_equal_repros():
-    jcfg, tcfg = JARCHS["recurrentgemma-9b"], TARCHS["recurrentgemma-9b"]
+@pytest.mark.parametrize("arch", [RG, "rwkv6-7b"])
+def test_configs_equal_repros(arch):
+    jcfg, tcfg = JARCHS[arch], TARCHS[arch]
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     assert tcfg.layer_pattern == jcfg.layer_pattern
     assert tcfg.param_count() == jcfg.param_count()
@@ -159,10 +175,11 @@ def test_configs_equal_repros():
 
 def test_unported_archs_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("rwkv6-7b")
-    rwkv = TB.ModelConfig(family=TB.SSM, num_layers=2)
+        get_arch("qwen3-8b")
+    moe = TB.ModelConfig(family=TB.MOE, num_layers=2,
+                         moe=TB.MoEConfig(num_experts=4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(torch.Generator(), rwkv, "cpu")
+        TT.init_params(torch.Generator(), moe, "cpu")
 
 
 def test_entry_points_default_to_cuda():
@@ -191,4 +208,12 @@ def test_serve_launcher_runs_on_cpu(capsys):
                         "--tokens", "4"]) == 0
     out = capsys.readouterr().out
     assert "arch=recurrentgemma-9b-reduced" in out and "device=cpu" in out
+    assert "prefill:" in out and "decode:" in out and "sample[0]" in out
+
+
+def test_serve_launcher_runs_rwkv6_on_cpu(capsys):
+    assert tserve.main(["--arch", "rwkv6-7b", "--device", "cpu", "--batch",
+                        "2", "--prompt", "33", "--tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "arch=rwkv6-7b-reduced" in out and "device=cpu" in out
     assert "prefill:" in out and "decode:" in out and "sample[0]" in out
