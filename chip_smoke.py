@@ -9,8 +9,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
 1. prints the card's name and power limit and the build's compiler log;
 2. holds every kernel against its plain PyTorch version on the card at
    the main paths' shapes: the combine and the RG-LRU scan bit for bit,
-   flash attention within 2e-4 in float32 and 2e-2 in bfloat16, the
-   RWKV6 WKV scan within 1e-4;
+   flash attention within 2e-4 in float32 (the CUDA-core kernel) and
+   2e-2 in bfloat16 (the tensor-core kernel), the RWKV6 WKV scan within
+   1e-4;
 3. drives slice 1's main path, the Tol-FL simulator (``run_simulation``), at
    the paper's full width and data scale: Comms-ML (12,000 x 112), 10
    devices in 5 clusters, the paper autoencoder (P = 49,680), 100 rounds
@@ -38,7 +39,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    greedy tokens.  A prefill and every decode step must launch the WKV
    kernel once per layer and no other kernel;
 6. times each kernel, its plain version and one library call with CUDA
-   events, beside the least time the card could take.
+   events, beside the least time the card could take; attention's two
+   kernels, its plain version and SDPA in turns in one run.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero
 without a CUDA device, outside a checkout, or if any phase fails; on
@@ -47,6 +49,7 @@ success its last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -114,7 +117,36 @@ def phase_device(torch):
         log(f"[build] {lib}: " + " | ".join(
             ln.strip() for ln in _build.build_log(lib).splitlines()
             if ln.strip()))
+    for fn, regs, spills, warned in _ptxas_summary(
+            _build.build_log("flash_attention_wgmma")):
+        log(f"[build] tensor-core attention {fn}: {regs} registers, spill "
+            f"stores/loads {spills}" + (f"; {warned}" if warned else ""))
     return name, smi
+
+
+def _ptxas_summary(text):
+    """(kernel, registers, "stores/loads" spill bytes, warning) per kernel
+    entry in an ``nvcc -Xptxas -v`` log; the kernel is named by its
+    template arguments (``ILi256E`` -> ``<256>``)."""
+    out, warned, fn = [], {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Potential Performance Loss: (.*) for the function "
+                      r"'(\S+)'", ln)
+        if m:
+            warned[m.group(2)] = m.group(1)
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            spills = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            args = re.search(r"ILi(\d+)E", fn)
+            out.append((f"<{args.group(1)}>" if args else fn,
+                        int(m.group(1)), spills, warned.get(fn, "")))
+            fn = None
+    return out
 
 
 def phase_kernels(torch):
@@ -162,16 +194,24 @@ def phase_serve_kernels(torch):
                 for sh in shapes]
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
             q, k, v = (x.to(dtype) for x in base)
+            kernel = fa.route(dtype, D)
+            tc_before = fa.TC_LAUNCHES
             got = ops.attention(q, k, v, causal=causal, window=window)
+            tc_launched = fa.TC_LAUNCHES - tc_before
             want = fa.flash_attention_plain(q, k, v, causal, window)
             torch.cuda.synchronize()
+            if tc_launched != (kernel == "tensor_core"):
+                raise AssertionError(f"{dtype} at D = {D} did not go to the "
+                                     f"{kernel} kernel")
             err = float((got.float() - want.float()).abs().max())
             log(f"[kernel] flash_attention (B, S, H, KVH, D) = "
                 f"{(B, S, H, KVH, D)} causal={causal} window={window} "
-                f"{str(dtype)[6:]}: max_abs_err={err} (tolerance {tol})")
+                f"{str(dtype)[6:]} ({kernel} kernel): max_abs_err={err} "
+                f"(tolerance {tol})")
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol)
-            worst["flash_attention"] = max(worst["flash_attention"], err)
+            if kernel == "tensor_core":     # the kernel of the main path
+                worst["flash_attention"] = max(worst["flash_attention"], err)
             del got, want
         del base, q, k, v
     for B, S, W, with_h0 in SCAN_CASES:
@@ -419,12 +459,13 @@ def phase_reference(torch, split, dx, counts):
             f"at round {n - 1}")
 
 
-def _median_ms(torch, fn, device_only, samples=SAMPLES):
-    """Median over ``samples`` calls of the time between CUDA events recorded
-    before and after one call of ``fn``.  With ``device_only`` a spin
-    kernel keeps the card busy while the host enqueues the events and the
-    call, so the events time the call's work on the card alone; without
-    it they also time the host's dispatch of the call."""
+def _samples_ms(torch, fn, device_only, samples):
+    """``samples`` times, in ms, between CUDA events recorded before and
+    after one call of ``fn``, after 10 calls of warm-up.  With
+    ``device_only`` a spin kernel keeps the card busy while the host
+    enqueues the events and the call, so the events time the call's work
+    on the card alone; without it they also time the host's dispatch of
+    the call."""
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
@@ -439,7 +480,24 @@ def _median_ms(torch, fn, device_only, samples=SAMPLES):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return times
+
+
+def _median_ms(torch, fn, device_only, samples=SAMPLES):
+    """Median of :func:`_samples_ms`."""
+    return statistics.median(_samples_ms(torch, fn, device_only, samples))
+
+
+def _turns_ms(torch, fns, device_only, samples, turns=4):
+    """Median ms of each of ``fns`` timed in turns: ``turns`` rounds of
+    ``samples / turns`` timings each, in order and then in reverse, so
+    that a drift of the card's clock falls on all of them alike."""
+    times = {key: [] for key in fns}
+    for t in range(turns):
+        for key in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
+            times[key] += _samples_ms(torch, fns[key], device_only,
+                                      samples // turns)
+    return {key: statistics.median(v) for key, v in times.items()}
 
 
 def phase_times(torch, launches, max_abs_err):
@@ -506,6 +564,7 @@ def _counters():
 def _reset_launches():
     for mod in _counters().values():
         mod.LAUNCHES = 0
+    _counters()["flash_attention"].TC_LAUNCHES = 0
 
 
 def _launches():
@@ -546,6 +605,11 @@ def phase_serve(torch, cfg, params, tag):
     if counts != want_prefill:
         raise AssertionError(f"prefill launched {counts}, expected "
                              f"{want_prefill}")
+    tc = _counters()["flash_attention"].TC_LAUNCHES
+    if tc != counts["flash_attention"]:
+        raise AssertionError(f"{tc} of the prefill's "
+                             f"{counts['flash_attention']} attention launches "
+                             f"went to the tensor-core kernel")
     cache = pad_cache(cache, cfg, prompt_len=SERVE_PROMPT,
                       target_len=SERVE_PROMPT + SERVE_TOKENS)
     finite = torch.isfinite(logits).all()
@@ -580,7 +644,8 @@ def phase_serve(torch, cfg, params, tag):
         f"decode {decode_ms:.3f} ms/token over {steps} steps "
         f"(under sync debug mode 'error'); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes; launches per prefill "
-        f"{counts}, per decode step {want_step}, over the run {after}; all "
+        f"{counts} ({tc} attention launches on the tensor cores), per decode "
+        f"step {want_step}, over the run {after}; all "
         f"logits finite; sample[0] {gen_toks[0, :12].tolist()}; clocks.sm, "
         f"power.draw, temperature after decode: {_clocks()}")
     return after
@@ -731,38 +796,54 @@ def phase_serve_times(torch, launches, errs):
     v = torch.randn((B, S, KVH, D), generator=gen, device=DEV).bfloat16()
     band = fa.visible(S, S, causal, window, DEV)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    fns = {"kernel": lambda: fa.flash_attention_cuda(q, k, v, causal, window),
+    fns = {"tensor-core kernel": lambda: fa.flash_attention_cuda(
+               q, k, v, causal, window),
+           "CUDA-core kernel": lambda: fa.flash_attention_cuda(
+               q, k, v, causal, window, kernel="cuda_core"),
            "plain": lambda: fa.flash_attention_plain(q, k, v, causal, window),
            "library sdpa": lambda: F.scaled_dot_product_attention(
                qt, kt, vt, attn_mask=band, enable_gqa=True)}
     n = 20
-    dev_ms = {key: _median_ms(torch, fn, True, n) for key, fn in fns.items()}
-    call_ms = {key: _median_ms(torch, fn, False, n)
-               for key, fn in fns.items()}
+    dev_ms = _turns_ms(torch, fns, True, n)
+    call_ms = _turns_ms(torch, fns, False, n)
     pairs = visible_pairs(S, causal, window)
     flops = 4 * B * H * D * pairs
     moved = (2 * B * S * H * D + 2 * B * S * KVH * D) * 2
     b_ops = flops / H100_BF16_FLOPS * 1e3
     b_bytes = moved / H100_BYTES_PER_S * 1e3
+    bound = max(b_ops, b_bytes)
+    tc_ms = dev_ms["tensor-core kernel"]
+    tiles = sum(count for _, count in fa.wgmma_tiles(S, S, H // KVH, causal,
+                                                     window))
+    tile_pairs = tiles * fa.TC_KEYS * fa.TC_ROWS * B * KVH
     log(f"[times] flash_attention bf16 (B, S, H, KVH, D) = "
         f"{(B, S, H, KVH, D)} window {window}, median of {n} CUDA-event "
-        f"timings, card / call: " + ", ".join(
+        f"timings in 4 turns, card / call: " + ", ".join(
             f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
             for key in fns)
-        + f"; bound {max(b_ops, b_bytes):.6f} ms ({flops} flops over "
+        + f"; bound {bound:.6f} ms ({flops} flops over "
         f"{pairs} visible pairs at 989 TFLOP/s; {moved} bytes take "
-        f"{b_bytes:.6f} ms); clocks.sm, power.draw, temperature after: "
-        f"{_clocks()}")
+        f"{b_bytes:.6f} ms); tensor-core kernel {flops / tc_ms / 1e9:.1f} "
+        f"TFLOP/s, {bound / tc_ms:.1%} of the bound, "
+        f"{dev_ms['CUDA-core kernel'] / tc_ms:.2f}x faster than the CUDA-core "
+        f"kernel and {dev_ms['library sdpa'] / tc_ms:.2f}x than SDPA; its "
+        f"tiles hold {tile_pairs} (query, key) pairs of rows, "
+        f"{tile_pairs / (B * H * pairs) - 1:.2%} more than visible; clocks.sm, "
+        f"power.draw, temperature after: {_clocks()}")
+    if not tc_ms < min(dev_ms["library sdpa"], dev_ms["CUDA-core kernel"]):
+        raise AssertionError("the tensor-core kernel is not faster than SDPA "
+                             "and the CUDA-core kernel")
     rows.append({
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:90",
         "launches": launches["flash_attention"],
         "max_abs_err": errs["flash_attention"],
-        "ms": dev_ms["kernel"], "plain_ms": dev_ms["plain"],
-        "bound_ms": max(b_ops, b_bytes),
+        "ms": tc_ms, "plain_ms": dev_ms["plain"],
+        "bound_ms": bound,
         "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-        "library_ms": dev_ms["library sdpa"]})
+        "library_ms": dev_ms["library sdpa"],
+        "tflops": flops / tc_ms / 1e9, "share_of_bound": bound / tc_ms})
     del q, k, v, qt, kt, vt, band, fns
 
     B, S, W, _ = SCAN_CASES[0]

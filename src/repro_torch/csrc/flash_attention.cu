@@ -16,10 +16,11 @@
 // Bound: operations.  At the serving shape (B, S, H, D) = (4, 4096, 16,
 // 256), window 2048, the two products take 4 B H D flops per visible
 // (query, key) pair, 412 GFLOP, against 285 MB of inputs and output: far
-// above the card's flop-per-byte balance.  This first version runs the
-// products on the CUDA cores in float32 (67 TFLOP/s peak), not on the
-// tensor cores (989 TFLOP/s in bf16), so it is far from that bound;
-// wgmma and TMA are later work.
+// above the card's flop-per-byte balance.  This kernel runs the products
+// on the CUDA cores in float32 (67 TFLOP/s peak), so it is far from that
+// bound; it serves float32 inputs (which the bf16 tensor cores would
+// round) and bf16 at D = 32.  bf16 at D in {64, 128, 256} goes to the
+// tensor-core kernel of flash_attention_wgmma.cu.
 //
 // Design.  The TPU kernel keeps a (256 query rows x 16 heads) tile and its
 // 4 MB accumulator in VMEM and carries them across a sequential kv grid

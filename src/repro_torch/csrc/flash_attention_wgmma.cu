@@ -1,0 +1,431 @@
+// Causal / sliding-window GQA attention with an online softmax on Hopper's
+// tensor cores: bf16 q, k, v and output, float32 scores and accumulators.
+//
+// Replaces repro/kernels/flash_attention.py::flash_attention (the Pallas
+// TPU kernel _flash_kernel) for bf16 inputs at D in {64, 128, 256}; the
+// CUDA-core kernel of flash_attention.cu serves float32 and D = 32.  The
+// function is the same: for q (B, Sq, H, D), k and v (B, Sk, KVH, D), all
+// row-major, query head h reads kv head h / G (G = H / KVH), scores are
+// scaled by 1/sqrt(D), key j is visible from query i when d = i - j >= 0
+// (causal) and d < window (windowed), the online softmax uses -1e30 as its
+// sentinel, and a row that sees no key is exactly 0.  Sq and Sk are ragged
+// and masked, never padded.
+//
+// Bound: operations.  At the serving shape (B, S, H, KVH, D) = (4, 4096,
+// 16, 1, 256), window 2048, the two products take 4 H D flops per visible
+// (batch, query, key) triple, 412 GFLOP: 0.417 ms at the 989 TFLOP/s of the
+// bf16 tensor cores, against 0.085 ms for its 285 MB of inputs and output.
+//
+// Design.
+// - Rows.  A block owns 128 "rows", consecutive (query, head) pairs of one
+//   (batch, kv head): row r is query r / G, head kvh G + r % G.  At G = 16
+//   that is 8 queries x 16 heads, contiguous in memory, and every K/V tile
+//   is shared by all of them.  The block visits the key tiles of
+//   [q_lo - window + 1, q_hi]; tiles wholly inside every row's band are not
+//   masked, the few at the band's edges are.
+// - Warpgroups.  Two warpgroups of 64 rows each, 256 threads and 255
+//   registers a thread: the O accumulator alone is 128 floats a thread at
+//   D = 256.  K and V tiles (80 keys x D) come by TMA into a ring of two
+//   stages, each with an mbarrier for K and one for V; thread 0 issues the
+//   first two tiles, and the last of the 8 warps to finish with a stage
+//   (a counter in shared memory) issues the tile that refills it.  A
+//   separate producer warpgroup (FA3's layout) makes 12 warps, which caps
+//   ptxas at 168 registers a thread; setmaxnreg did not lift that cap in
+//   trial builds (ptxas 12.9 spilled and serialised the wgmmas, and the
+//   kernel ran slower than this layout).  Each warpgroup waits for S
+//   before its softmax and for P V before the next tile: schedules that
+//   queue the next S behind P V ran slower in trial builds, ptxas
+//   serialising or splitting the wgmmas.
+// - Layout.  Q, K and V tiles are bf16 in 128-byte-swizzled shared memory,
+//   D / 64 atoms of rows x 128 bytes (hopper.cuh).  TMA writes K and V in
+//   that layout from 4-d tensor maps (D, KVH, Sk, B), so a ragged last tile
+//   is zero-filled and never reads the next batch or head.  Q is loaded once
+//   a block with 16-byte cp.async copies, row by row (rows are not a box
+//   when 1 < G < H).
+// - S = Q K^T: wgmma m64n80k16 with both operands in shared memory, K-major,
+//   D / 16 instructions stepping through the atoms; 40 floats a thread.
+//   80 keys rather than 64 ran faster in trial builds (fewer rescales of O
+//   per key); shared memory holds Q (64 KB) and two stages of K and V
+//   (160 KB) at D = 256.
+// - Softmax on the accumulator fragment: a thread holds two rows, 20 values
+//   each; a row's max and sum are reductions over the 4 threads of a quad.
+//   exp2 of the score times (1/sqrt(D)) log2(e) less the scaled running max.
+// - O += P V: P goes to bf16 in registers, in the accumulator's own layout,
+//   which is wgmma's register A fragment; V is the shared-memory B operand,
+//   MN-major (the transpose bit of 16-bit types).  wgmma m64nDk16, the O
+//   accumulator D / 2 floats a thread (128 at D = 256).
+// - Epilogue: O / max(l, 1e-30) as bf16 into the warpgroup's Q tile (same
+//   swizzle: no bank conflicts), then 16-byte coalesced stores to the rows'
+//   addresses.
+//
+// The launch goes on the caller's stream, does not synchronise and
+// allocates nothing; the C entry point returns cudaGetLastError(), or 1000 +
+// the driver's error if a tensor map cannot be built.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hopper.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int kRowsWG = 64;                   // rows of a warpgroup
+constexpr int kGroups = 2;                    // warpgroups
+constexpr int kRows = kRowsWG * kGroups;      // rows a block
+constexpr int kKeys = 80;                     // keys a K/V tile
+constexpr int kStages = 2;                    // K/V tiles in flight
+constexpr int kThreads = 128 * kGroups;
+constexpr int kAtom = 64;                     // bf16 columns of a swizzle atom
+constexpr int kQAtomBytes = kRowsWG * 128;    // one atom of a warpgroup's Q
+constexpr int kKVAtomBytes = kKeys * 128;     // one atom of a K or V tile
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  static constexpr int kQ = 0;                                   // [wg][atom][64 rows]
+  static constexpr int kTile = kKeys * D * 2;                    // one K or V tile
+  static constexpr int kK = kQ + kRows * D * 2;                  // [stage][atom][keys]
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;              // full K, full V
+  static constexpr int kReleased = kBar + 2 * kStages * 8;       // warps done, a stage
+  static constexpr int kBytes = kReleased + kStages * 4 + 1024;  // + room to align
+};
+static_assert(Smem<256>::kBytes <= 232448, "more shared memory than a block may use");
+
+__device__ __forceinline__ bool visible(int qpos, int key, int Sk, int causal, int window) {
+  const int d = qpos - key;
+  return key < Sk && (!causal || d >= 0) && (window < 0 || d < window);
+}
+
+// S (64 x 80 keys) = Q (64 x D, shared) K^T (D x 80, shared).
+template <int D>
+__device__ __forceinline__ void gemm_qk(float (&sc)[kKeys / 2], uint32_t q_tile,
+                                        uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t step = (kk % 4) * 32;   // 16 columns: 32 bytes of an atom
+    const uint64_t da = smem_desc(opaque(q_tile) + (kk / 4) * kQAtomBytes + step, 0, 1024);
+    const uint64_t db = smem_desc(opaque(k_tile) + (kk / 4) * kKVAtomBytes + step, 0, 1024);
+    wgmma_ss_m64n80k16(sc, da, db, kk > 0);
+  }
+}
+
+// O (64 x D) += P (64 x kKeys, registers) V (kKeys x D, shared).
+template <int D>
+__device__ __forceinline__ void gemm_pv(float (&acc)[D / 2], const uint32_t (&p)[kKeys / 4],
+                                        uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    const uint64_t desc = smem_desc(opaque(v_tile) + kk * 16 * 128, kKVAtomBytes, 1024);
+    wgmma_rs(acc, a, desc);
+  }
+}
+
+// Issue the TMA loads of K/V tile `i` (keys k0 .. k0 + kKeys) into its stage.
+template <int D>
+__device__ __forceinline__ void load_tile(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                          uint32_t base, int i, int k0, int kvh, int b) {
+  using L = Smem<D>;
+  const int s = i % kStages;
+  const uint32_t full_k = base + L::kBar + 8 * s;
+  const uint32_t full_v = full_k + 8 * kStages;
+  mbar_arrive_expect_tx(full_k, L::kTile);
+#pragma unroll
+  for (int c = 0; c < D / kAtom; ++c)
+    tma_load_4d(base + L::kK + s * L::kTile + c * kKVAtomBytes, kmap, full_k, c * kAtom, kvh,
+                k0, b);
+  mbar_arrive_expect_tx(full_v, L::kTile);
+#pragma unroll
+  for (int c = 0; c < D / kAtom; ++c)
+    tma_load_4d(base + L::kV + s * L::kTile + c * kKVAtomBytes, vmap, full_v, c * kAtom, kvh,
+                k0, b);
+}
+
+// window < 0: no window.  causal: 0 or 1.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
+                                 const __grid_constant__ CUtensorMap vmap,
+                                 const __nv_bfloat16* __restrict__ q,
+                                 __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KVH,
+                                 int causal, int window, float scale_log2) {
+  using L = Smem<D>;
+  constexpr int kUnits = D / 8;   // 16-byte units of a row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t full_k = base + L::kBar;
+  const uint32_t full_v = full_k + 8 * kStages;
+  int* const released = reinterpret_cast<int*>(gbase + L::kReleased);
+
+  const int G = H / KVH;
+  const int b = blockIdx.y / KVH;
+  const int kvh = blockIdx.y % KVH;
+  const long long rows = static_cast<long long>(Sq) * G;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  const long long last_row = (row0 + kRows < rows ? row0 + kRows : rows) - 1;
+  const int q_lo = static_cast<int>(row0 / G);
+  const int q_hi = static_cast<int>(last_row / G);
+  const int k_lo = window >= 0 ? max(0, q_lo - window + 1) : 0;
+  const int k_hi = causal ? min(q_hi, Sk - 1) : Sk - 1;
+  const int t_lo = k_lo / kKeys;
+  const int n_tiles = k_hi >= k_lo ? k_hi / kKeys - t_lo + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      released[s] = 0;
+    }
+    fence_mbar_init();
+    for (int i = 0; i < kStages && i < n_tiles; ++i)
+      load_tile<D>(&kmap, &vmap, base, i, (t_lo + i) * kKeys, kvh, b);
+  }
+  __syncthreads();
+
+  // ---- two warpgroups of 64 rows each -------------------------------------
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const uint32_t q_tile = base + L::kQ + wg * (kRowsWG * D * 2);
+  uint8_t* const q_tile_ptr = gbase + L::kQ + wg * (kRowsWG * D * 2);
+  const long long wrow0 = row0 + wg * kRowsWG;
+
+  // this warpgroup's rows of Q, zeros past the last row
+  for (int u = tid; u < kRowsWG * kUnits; u += 128) {
+    const int r = u / kUnits;
+    const int unit = u % kUnits;
+    const long long row = wrow0 + r;
+    const bool live = row < rows;
+    const __nv_bfloat16* src = q;
+    if (live) {
+      const long long qi = row / G;
+      const int h = kvh * G + static_cast<int>(row % G);
+      src = q + ((static_cast<long long>(b) * Sq + qi) * H + h) * D + unit * 8;
+    }
+    cp_async_16(q_tile + (unit / 8) * kQAtomBytes + swizzle128(r, unit % 8), src, live);
+  }
+  cp_async_wait_all();
+  fence_proxy_async();
+  named_barrier_sync(1 + wg, 128);
+
+  // the thread's two rows of the accumulators
+  const int r_a = warp * 16 + lane / 4;
+  const int r_b = r_a + 8;
+  const int qpos_a = static_cast<int>((wrow0 + r_a) / G);
+  const int qpos_b = static_cast<int>((wrow0 + r_b) / G);
+  const int col0 = 2 * (lane % 4);
+
+  float acc[D / 2];
+  float sc[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.0f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
+    const int k0 = (t_lo + i) * kKeys;
+    const uint32_t kt = base + L::kK + s * L::kTile;
+    const uint32_t vt = base + L::kV + s * L::kTile;
+
+    // S = Q K^T
+    mbar_wait(full_k + 8 * s, parity);
+    fence_operands(sc);
+    wgmma_fence();
+    gemm_qk<D>(sc, q_tile, kt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+
+    // the mask, on the tiles at the band's edges only
+    const bool inside = k0 + kKeys <= Sk && (!causal || k0 + kKeys - 1 <= q_lo) &&
+                        (window < 0 || k0 >= q_hi - window + 1);
+    if (!inside) {
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + 8 * j + col0 + c;
+          if (!visible(qpos_a, key, Sk, causal, window)) sc[4 * j + c] = kNegInf;
+          if (!visible(qpos_b, key, Sk, causal, window)) sc[4 * j + 2 + c] = kNegInf;
+        }
+      }
+    }
+
+    // online softmax on the fragment: a row lives in the 4 threads of a quad
+    float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    const float alpha_a = ex2((m_a - mx_a) * scale_log2);
+    const float alpha_b = ex2((m_b - mx_b) * scale_log2);
+    // a row that has seen no key yet keeps p = 0
+    const float sub_a = mx_a <= 0.5f * kNegInf ? 0.0f : mx_a * scale_log2;
+    const float sub_b = mx_b <= 0.5f * kNegInf ? 0.0f : mx_b * scale_log2;
+    m_a = mx_a;
+    m_b = mx_b;
+    float sum_a = 0.0f, sum_b = 0.0f;
+    uint32_t p[kKeys / 4];
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      const float p0 = ex2(fmaf(sc[4 * j], scale_log2, -sub_a));
+      const float p1 = ex2(fmaf(sc[4 * j + 1], scale_log2, -sub_a));
+      const float p2 = ex2(fmaf(sc[4 * j + 2], scale_log2, -sub_b));
+      const float p3 = ex2(fmaf(sc[4 * j + 3], scale_log2, -sub_b));
+      sum_a += p0 + p1;
+      sum_b += p2 + p3;
+      p[2 * j] = pack_bf16(p0, p1);
+      p[2 * j + 1] = pack_bf16(p2, p3);
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha_a;
+      acc[4 * j + 1] *= alpha_a;
+      acc[4 * j + 2] *= alpha_b;
+      acc[4 * j + 3] *= alpha_b;
+    }
+
+    // O += P V; the last of the 8 warps done with the stage refills it
+    mbar_wait(full_v + 8 * s, parity);
+    fence_operands(acc);
+    wgmma_fence();
+    gemm_pv<D>(acc, p, vt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (lane == 0 && atomicAdd(&released[s], 1) == kRows / 16 - 1) {
+      released[s] = 0;
+      if (i + kStages < n_tiles)
+        load_tile<D>(&kmap, &vmap, base, i + kStages, (t_lo + i + kStages) * kKeys, kvh, b);
+    }
+  }
+
+  // ---- epilogue: O / l as bf16 through this warpgroup's Q tile --------------
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int atom = j / 8;
+    uint8_t* tile = q_tile_ptr + atom * kQAtomBytes + col0 * 2;
+    *reinterpret_cast<uint32_t*>(tile + swizzle128(r_a, j % 8)) =
+        pack_bf16(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+    *reinterpret_cast<uint32_t*>(tile + swizzle128(r_b, j % 8)) =
+        pack_bf16(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
+  }
+  named_barrier_sync(1 + wg, 128);
+  for (int u = tid; u < kRowsWG * kUnits; u += 128) {
+    const int r = u / kUnits;
+    const int unit = u % kUnits;
+    const long long row = wrow0 + r;
+    if (row >= rows) continue;
+    const long long qi = row / G;
+    const int h = kvh * G + static_cast<int>(row % G);
+    const uint4 val = *reinterpret_cast<const uint4*>(q_tile_ptr + (unit / 8) * kQAtomBytes +
+                                                      swizzle128(r, unit % 8));
+    *reinterpret_cast<uint4*>(o + ((static_cast<long long>(b) * Sq + qi) * H + h) * D +
+                              unit * 8) = val;
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (so the
+// library needs no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// K or V (B, Sk, KVH, D) as a 4-d map (D, KVH, Sk, B), boxes of one atom x
+// kKeys keys of one (batch, kv head), 128-byte swizzle, zeros out of bounds.
+int kv_map(CUtensorMap* map, const __nv_bfloat16* x, int B, int Sk, int KVH, int D) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(KVH),
+                              static_cast<cuuint64_t>(Sk), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t strides[3] = {row, row * KVH, row * KVH * Sk};
+  const cuuint32_t box[4] = {kAtom, 1, kKeys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<__nv_bfloat16*>(x),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(res);
+}
+
+template <int D>
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+           __nv_bfloat16* o, int B, int Sq, int Sk, int H, int KVH, int causal, int window,
+           cudaStream_t stream) {
+  CUtensorMap kmap, vmap;
+  int err = kv_map(&kmap, k, B, Sk, KVH, D);
+  if (err != 0) return err;
+  err = kv_map(&vmap, v, B, Sk, KVH, D);
+  if (err != 0) return err;
+  constexpr int bytes = Smem<D>::kBytes;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long rows = static_cast<long long>(Sq) * (H / KVH);
+  const dim3 grid(static_cast<unsigned int>((rows + kRows - 1) / kRows),
+                  static_cast<unsigned int>(B * KVH));
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
+  flash_attention_wgmma_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      kmap, vmap, q, o, Sq, Sk, H, KVH, causal, window, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int flash_attention_wgmma_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                          const __nv_bfloat16* v, __nv_bfloat16* o, int B,
+                                          int Sq, int Sk, int H, int KVH, int D, int causal,
+                                          int window, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, KVH, causal, window, s);
+    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, KVH, causal, window, s);
+    case 256: return launch<256>(q, k, v, o, B, Sq, Sk, H, KVH, causal, window, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

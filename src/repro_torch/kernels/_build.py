@@ -2,12 +2,13 @@
 
 Every ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process for
 ``sm_90a`` into ``build/repro_torch/<name>-<hash>.so`` at the root of the
-checkout, where ``<hash>`` covers the source and the flags: a changed
-source builds anew, an unchanged one is loaded as it is.  Stale sources
-are all compiled at once, one ``nvcc`` each, started together.  Each
-source exposes a plain C interface (pointers, sizes and the stream), so
-no PyTorch header is compiled.  The build runs at first use, never at
-import; it raises if ``nvcc`` is missing or a compile fails.
+checkout, where ``<hash>`` covers the source, every ``csrc/*.cuh`` header
+and the flags: a changed source or header builds anew, an unchanged one
+is loaded as it is.  Stale sources are all compiled at once, one
+``nvcc`` each, started together.  Each source exposes a plain C
+interface (pointers, sizes and the stream), so no PyTorch header is
+compiled.  The build runs at first use, never at import; it raises if
+``nvcc`` is missing or a compile fails.
 """
 from __future__ import annotations
 
@@ -44,8 +45,13 @@ def sources() -> Dict[str, Path]:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where ``src`` builds to: named by a hash of the source, of every
+    header in ``csrc`` (any of them may be included) and of the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 

@@ -1,24 +1,34 @@
-"""Flash attention: the Hopper kernel and its plain PyTorch version.
+"""Flash attention: the Hopper kernels and their plain PyTorch version.
 
-Port of ``repro.kernels.flash_attention`` (a Pallas TPU kernel).  The
-kernel is hand-written CUDA C++ for ``sm_90a``,
-``repro_torch/csrc/flash_attention.cu``: online-softmax GQA attention
-with a causal and a sliding-window mask, float32 scores and
-accumulators, output in the inputs' dtype (float32 or bfloat16), ragged
+Port of ``repro.kernels.flash_attention`` (a Pallas TPU kernel):
+online-softmax GQA attention with a causal and a sliding-window mask,
+float32 scores and accumulators, output in the inputs' dtype, ragged
 sequence lengths masked.  It is bound by its operations (4 B H D flops
-per visible (query, key) pair).
+per visible (query, key) pair).  Two hand-written CUDA C++ kernels for
+``sm_90a`` compute it; :func:`route` picks one from the dtype and the
+head dim D, with no fallback from one to the other:
 
-:func:`flash_attention` launches the kernel for CUDA tensors and runs
-:func:`flash_attention_plain` for CPU tensors; there is no fallback from
-one to the other.  ``LAUNCHES`` counts kernel launches, so a run can show
-that its attention went through the kernel.
+- ``"tensor_core"``, ``repro_torch/csrc/flash_attention_wgmma.cu``:
+  bfloat16 at D in {64, 128, 256}.  wgmma on the bf16 tensor cores, K/V
+  tiles brought by TMA into a two-stage ring, two warpgroups of 64
+  (query, head) rows each.
+- ``"cuda_core"``, ``repro_torch/csrc/flash_attention.cu``: float32 at D
+  in {32, 64, 128, 256} and bfloat16 at D = 32.  Both products in float32
+  on the CUDA cores; float32 inputs stay off the bf16 tensor cores, whose
+  inputs would round them.
+
+Any other dtype or D raises.  :func:`flash_attention` launches the
+routed kernel for CUDA tensors and runs :func:`flash_attention_plain` for
+CPU tensors.  ``LAUNCHES`` counts every attention kernel launch and
+``TC_LAUNCHES`` the tensor-core kernel's, so a run can show which kernel
+served it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -26,9 +36,55 @@ from repro_torch.kernels import _build
 
 #: kernel launches in this process (one per :func:`flash_attention_cuda`)
 LAUNCHES = 0
-#: head dims the kernel is built for
+#: launches of the tensor-core kernel among them
+TC_LAUNCHES = 0
+#: head dims the CUDA-core kernel is built for
 HEAD_DIMS = (32, 64, 128, 256)
+#: head dims the tensor-core kernel is built for (bfloat16 only)
+TC_HEAD_DIMS = (64, 128, 256)
+#: the tensor-core kernel's tiles: (query, head) rows a block, keys a K/V tile
+TC_ROWS, TC_KEYS = 128, 80
 NEG_INF = -1e30
+#: the library and C entry point of each (route, dtype)
+_ENTRIES = {
+    ("tensor_core", torch.bfloat16): ("flash_attention_wgmma",
+                                      "flash_attention_wgmma_bf16"),
+    ("cuda_core", torch.bfloat16): ("flash_attention", "flash_attention_bf16"),
+    ("cuda_core", torch.float32): ("flash_attention", "flash_attention_f32"),
+}
+
+
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernel that serves (dtype, D): ``"tensor_core"`` for bfloat16 at
+    D in ``TC_HEAD_DIMS``, ``"cuda_core"`` for float32 at D in
+    ``HEAD_DIMS`` and bfloat16 at D = 32; raises for anything else."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
+    if dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
+        return "tensor_core"
+    if D in HEAD_DIMS:
+        return "cuda_core"
+    raise ValueError(f"the kernels are built for head dims {HEAD_DIMS}, "
+                     f"got {D}")
+
+
+def wgmma_tiles(Sq: int, Sk: int, G: int, causal: bool,
+                window: Optional[int]) -> List[Tuple[int, int]]:
+    """The key tiles each block of the tensor-core kernel visits, as the
+    kernel computes them: block x owns rows [128 x, 128 x + 128) of the
+    Sq G (query, head) rows of a (batch, kv head), row r being query r // G,
+    and visits ``count`` tiles of ``TC_KEYS`` keys from tile ``first``.
+    Returns [(first, count)] per block."""
+    rows = Sq * G
+    plan = []
+    for row0 in range(0, rows, TC_ROWS):
+        q_lo, q_hi = row0 // G, (min(row0 + TC_ROWS, rows) - 1) // G
+        k_lo = max(0, q_lo - window + 1) if window is not None else 0
+        k_hi = min(q_hi, Sk - 1) if causal else Sk - 1
+        first = k_lo // TC_KEYS
+        plan.append((first, k_hi // TC_KEYS - first + 1 if k_hi >= k_lo
+                     else 0))
+    return plan
 
 
 def visible(Sq: int, Sk: int, causal: bool, window: Optional[int],
@@ -68,10 +124,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    name = {torch.float32: "flash_attention_f32",
-            torch.bfloat16: "flash_attention_bf16"}[dtype]
-    fn = getattr(_build.load("flash_attention"), name)
+def _entry(kernel: str, dtype: torch.dtype):
+    lib, name = _ENTRIES[(kernel, dtype)]
+    fn = getattr(_build.load(lib), name)
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -98,37 +153,43 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, window: Optional[int] = None
-                         ) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream."""
-    global LAUNCHES
+                         causal: bool = True, window: Optional[int] = None,
+                         kernel: Optional[str] = None) -> torch.Tensor:
+    """Launch a CUDA kernel on PyTorch's current stream: the one
+    :func:`route` picks, or ``kernel`` ("tensor_core" or "cuda_core") where
+    that kernel takes the inputs' dtype and D."""
+    global LAUNCHES, TC_LAUNCHES
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the kernel takes float32 or bfloat16, got "
-                        f"{q.dtype}")
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel is built for head dims {HEAD_DIMS}, "
-                         f"got {D}")
+    kernel = kernel or route(q.dtype, D)
+    if (kernel, q.dtype) not in _ENTRIES or D not in (
+            TC_HEAD_DIMS if kernel == "tensor_core" else HEAD_DIMS):
+        raise ValueError(f"no {kernel} kernel for {q.dtype} at D = {D}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if kernel == "tensor_core" and any(x.data_ptr() % 16
+                                       for x in (q, k, v)):
+        raise ValueError("the tensor-core kernel needs q, k, v on 16-byte "
+                         "boundaries")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), B, Sq, Sk, H, KVH, D,
-                              int(causal), -1 if window is None else window,
-                              stream)
+        err = _entry(kernel, q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KVH, D, int(causal), -1 if window is None else window,
+            stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+        raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
                            f"error {err}")
     LAUNCHES += 1
+    if kernel == "tensor_core":
+        TC_LAUNCHES += 1
     return out
 
 
@@ -138,9 +199,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, S, H, D); k, v: (B, Sk, KVH, D); H % KVH == 0.  Returns
     (B, S, H, D) in q's dtype.
 
-    The one entry point of the attention kernel (``ops.attention``
-    re-exports it): CUDA tensors launch the kernel or raise; CPU tensors
-    run the plain version."""
+    The one entry point of the attention kernels (``ops.attention``
+    re-exports it): CUDA tensors launch the kernel :func:`route` picks or
+    raise; CPU tensors run the plain version."""
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal, window)
     _check(q, k, v)

@@ -89,6 +89,99 @@ def test_flash_rejects_mismatched_shapes():
         ops.attention(q, k, v)
 
 
+@pytest.mark.parametrize("dtype,D,kernel", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 256, "tensor_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.float32, 32, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core")])
+def test_route(dtype, D, kernel):
+    """bf16 at D in {64, 128, 256} goes to the tensor cores; float32, and
+    bf16 at D = 32, to the CUDA-core kernel."""
+    assert tfa.route(dtype, D) == kernel
+
+
+@pytest.mark.parametrize("dtype,D,err", [
+    (torch.float16, 64, TypeError), (torch.float64, 128, TypeError),
+    (torch.float32, 48, ValueError), (torch.bfloat16, 512, ValueError),
+    (torch.bfloat16, 16, ValueError)])
+def test_route_rejects(dtype, D, err):
+    with pytest.raises(err):
+        tfa.route(dtype, D)
+
+
+# (Sq, Sk, G, causal, window): the serving prefill, fully masked rows,
+# Sq != Sk both ways, the zoo's group sizes, window 1, bidirectional
+TILE_CASES = [(4096, 4096, 16, True, 2048), (300, 100, 16, True, 64),
+              (97, 200, 6, False, 50), (200, 97, 16, True, None),
+              (333, 333, 4, True, 100), (130, 130, 1, False, None),
+              (97, 97, 5, True, 1), (1000, 1000, 2, True, 300)]
+
+
+def _unmasked(k0, Sk, q_lo, q_hi, causal, window):
+    """The tensor-core kernel's rule for a tile it does not mask: keys
+    [k0, k0 + TC_KEYS) inside every band of queries [q_lo, q_hi]
+    (``inside`` in csrc/flash_attention_wgmma.cu)."""
+    return (k0 + tfa.TC_KEYS <= Sk
+            and (not causal or k0 + tfa.TC_KEYS - 1 <= q_lo)
+            and (window is None or k0 >= q_hi - window + 1))
+
+
+@pytest.mark.parametrize("Sq,Sk,G,causal,window", TILE_CASES)
+def test_wgmma_tiles_cover_each_rows_band(Sq, Sk, G, causal, window):
+    """The tensor-core kernel's key tiles, block by block: every key any
+    of the block's rows sees lies in a visited tile, the first and last
+    visited tiles hold a visible key, a block whose rows see nothing visits
+    none, and a tile the kernel leaves unmasked is visible from every row
+    of the block."""
+    ok = tfa.visible(Sq, Sk, causal, window)
+    rows = Sq * G
+    plan = tfa.wgmma_tiles(Sq, Sk, G, causal, window)
+    assert len(plan) == -(-rows // tfa.TC_ROWS)
+    for x, (first, count) in enumerate(plan):
+        q_lo = x * tfa.TC_ROWS // G
+        q_hi = (min((x + 1) * tfa.TC_ROWS, rows) - 1) // G
+        band = ok[q_lo:q_hi + 1]
+        keys = torch.nonzero(band.any(0)).flatten()
+        if keys.numel() == 0:
+            assert count == 0
+            continue
+        lo, hi = first * tfa.TC_KEYS, (first + count) * tfa.TC_KEYS
+        assert lo <= int(keys.min()) and int(keys.max()) < hi
+        assert int(keys.min()) < lo + tfa.TC_KEYS
+        assert int(keys.max()) >= hi - tfa.TC_KEYS
+        for t in range(first, first + count):
+            k0 = t * tfa.TC_KEYS
+            if _unmasked(k0, Sk, q_lo, q_hi, causal, window):
+                assert k0 + tfa.TC_KEYS <= Sk
+                assert bool(band[:, k0:k0 + tfa.TC_KEYS].all())
+
+
+def test_wgmma_tiles_serving_band_waste():
+    """At the serving prefill (S 4,096, 16 heads on one kv head, window
+    2,048) a block's 128 rows are 8 queries, and its tiles hold at most
+    7% more (query, key) pairs than its rows see."""
+    S, G, window = 4096, 16, 2048
+    plan = tfa.wgmma_tiles(S, S, G, True, window)
+    computed = sum(count for _, count in plan) * tfa.TC_KEYS * tfa.TC_ROWS
+    seen = int(tfa.visible(S, S, True, window).sum()) * G
+    assert seen < computed <= 1.07 * seen
+
+
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    """A library's name hashes the headers of csrc too: an edited header
+    builds anew instead of loading a stale library."""
+    from repro_torch.kernels import _build
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path(src)
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path(src) != before
+    (tmp_path / "h.cuh").write_text("// one\n")
+    assert _build.library_path(src) == before
+
+
 def _cfg_params(seed=0):
     jcfg = JARCHS["recurrentgemma-9b"].reduced()
     tcfg = TARCHS["recurrentgemma-9b"].reduced()

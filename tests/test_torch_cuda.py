@@ -43,8 +43,10 @@ def test_tolfl_combine_cuda_kernel_bitwise(cuda_device, k, p, zeros):
 
 # ---------------------------------------------------------------------------
 # flash attention: within 2e-4 of the plain version in float32 and 2e-2 in
-# bfloat16 (the tolerances of tests/test_kernels.py): the kernel sums the
-# same float32 products in another order
+# bfloat16 (the tolerances of tests/test_kernels.py): the kernels sum the
+# same products in another order, and the tensor-core kernel rounds p to
+# bf16 before its second product.  float32 (and bf16 at D = 32) runs on the
+# CUDA-core kernel, bf16 at D >= 64 on the tensor-core kernel
 # ---------------------------------------------------------------------------
 ATTN_CASES = [
     # (B, S, H, KVH, D, causal, window)
@@ -66,14 +68,97 @@ def test_flash_attention_cuda_kernel(cuda_device, dtype, B, S, H, KVH, D,
     g = torch.Generator(device=cuda_device).manual_seed(S + D)
     q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
                for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
-    before = fa.LAUNCHES
+    before, tc_before = fa.LAUNCHES, fa.TC_LAUNCHES
     got = ops.attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == before + 1
+    tc = fa.route(dtype, D) == "tensor_core"
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES) == (before + 1, tc_before + tc)
     assert got.dtype == dtype and got.shape == q.shape
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel (bfloat16, D in {64, 128, 256}): within 2e-2 of the
+# plain version, every launch counted in TC_LAUNCHES
+# ---------------------------------------------------------------------------
+TC_CASES = [
+    # (B, Sq, Sk, H, KVH, D, causal, window)
+    (1, 128, 128, 4, 4, 64, True, None),      # G = 1
+    (2, 200, 200, 4, 2, 128, True, 64),       # G = 2, ragged S, window < S
+    (1, 97, 97, 10, 2, 64, True, 1),          # G = 5, window 1
+    (2, 200, 200, 16, 1, 256, True, 64),      # G = 16
+    (1, 333, 333, 8, 2, 128, True, 100),      # G = 4
+    (1, 130, 130, 8, 8, 128, False, None),    # bidirectional
+    (2, 97, 200, 12, 2, 256, False, 50),      # Sq < Sk, G = 6, two-sided window
+    (1, 200, 97, 16, 1, 128, True, None),     # Sq > Sk
+    (3, 1000, 1000, 5, 1, 64, True, 300),     # G = 5 over many blocks
+    (1, 4097, 4097, 16, 1, 256, True, 2048),  # ragged past the window
+    (4, 4096, 4096, 16, 1, 256, True, 2048),  # the serving prefill
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,causal,window", TC_CASES)
+def test_flash_attention_tensor_core_kernel(cuda_device, B, Sq, Sk, H, KVH,
+                                            D, causal, window):
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.route(torch.bfloat16, D) == "tensor_core"
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + D)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).bfloat16()
+               for shape in ((B, Sq, H, D), (B, Sk, KVH, D), (B, Sk, KVH, D)))
+    before, tc_before = fa.LAUNCHES, fa.TC_LAUNCHES
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES) == (before + 1, tc_before + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_tensor_core_masked_rows_are_zero(cuda_device):
+    """Sq = 300 queries on Sk = 100 keys, causal, window 64: query i sees
+    keys (i - 64, i] below 100, none from i = 163 on.  Those rows are
+    exactly 0, the others match the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q = torch.randn((2, 300, 16, 256), generator=g, device=cuda_device)
+    k, v = (torch.randn((2, 100, 1, 256), generator=g, device=cuda_device)
+            for _ in range(2))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    tc_before = fa.TC_LAUNCHES
+    got = ops.attention(q, k, v, causal=True, window=64)
+    torch.cuda.synchronize()
+    assert fa.TC_LAUNCHES == tc_before + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[:, 163:], torch.zeros_like(got[:, 163:]))
+    assert got[:, :163].abs().amax() > 0
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=64)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_core_kernel_bf16_on_request(cuda_device):
+    """The CUDA-core kernel still takes bf16 at D = 256 when asked (the
+    timing phase compares the two kernels); it counts in LAUNCHES only."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    q = torch.randn((1, 200, 16, 256), generator=g, device=cuda_device)
+    k, v = (torch.randn((1, 200, 1, 256), generator=g, device=cuda_device)
+            for _ in range(2))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    before, tc_before = fa.LAUNCHES, fa.TC_LAUNCHES
+    got = fa.flash_attention_cuda(q, k, v, True, 64, kernel="cuda_core")
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES) == (before + 1, tc_before)
+    want = fa.flash_attention_plain(q, k, v, True, 64)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 # ---------------------------------------------------------------------------
@@ -155,4 +240,33 @@ def test_serving_kernel_launches(cuda_device, arch, num_layers):
     for t in (100, 101):
         logits, cache = decode_step(params, cfg, tokens[:, -1:], cache, t)
     assert (fa.LAUNCHES, rs.LAUNCHES, wk.LAUNCHES) == (0, 0, 2 * n_rwkv)
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernel", [("bfloat16", "tensor_core"),
+                                          ("float32", "cuda_core")])
+def test_serving_prefill_attention_kernel(cuda_device, dtype, kernel):
+    """A RecurrentGemma prefill's attention goes through the kernel its
+    dtype routes to: the reduced config's D = 64 in bf16 on the tensor
+    cores, in float32 on the CUDA cores."""
+    import dataclasses
+
+    from repro_torch.configs.base import LOCAL_ATTN
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.decode import prefill
+    cfg = dataclasses.replace(ARCHS["recurrentgemma-9b"].reduced(),
+                              dtype=dtype)
+    assert fa.route(getattr(torch, dtype), cfg.attention.head_dim) == kernel
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    params = T.init_params(g, cfg, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=g,
+                           device=cuda_device)
+    fa.LAUNCHES = fa.TC_LAUNCHES = 0
+    logits, _ = prefill(params, cfg, {"tokens": tokens})
+    n_attn = cfg.layer_pattern.count(LOCAL_ATTN)
+    assert fa.LAUNCHES == n_attn
+    assert fa.TC_LAUNCHES == (n_attn if kernel == "tensor_core" else 0)
     assert torch.isfinite(logits).all()
