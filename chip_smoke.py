@@ -40,7 +40,16 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    kernel once per layer and no other kernel;
 6. times each kernel, its plain version and one library call with CUDA
    events, beside the least time the card could take; attention's two
-   kernels, its plain version and SDPA in turns in one run.
+   kernels, its plain version and SDPA in turns in one run; the WKV scan
+   also at a decode step's shape.
+
+    python3 chip_smoke.py --parent DIR
+
+also builds the RG-LRU and WKV kernels of another commit's checkout in
+DIR (e.g. ``git archive`` of the parent, unpacked under the ignored
+``build/``) and times them in turns with the current ones.  The build's
+compiler log gives the registers and spill bytes of the tensor-core
+attention kernel and of the two scans; any spill fails the run.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero
 without a CUDA device, outside a checkout, or if any phase fails; on
@@ -81,10 +90,13 @@ ATTN_CASES = [(4, 4096, 16, 1, 256, True, 2048),
               (4, 4096, 16, 1, 256, False, None)]
 #: (B, S, W, h0): the prefill's recurrence (lru_width 4096) and a ragged one
 SCAN_CASES = [(4, 4096, 4096, False), (4, 4096, 4096, True),
-              (3, 4097, 4000, True)]
+              (3, 4097, 4000, True), (2, 3, 4096, True),
+              (4, 4096, 4097, True)]
 #: the WKV scan's cases are ``rwkv6_scan.CARD_CASES``, shared with
 #: tests/test_torch_cuda.py
 WKV_TOL = 1e-4     # rtol = atol: FMA contraction and another order over n
+#: a RWKV6-7B decode step's WKV scan, timed beside the prefill's
+WKV_DECODE = (4, 1, 64, 64, True, 1)
 
 
 def log(msg: str) -> None:
@@ -99,7 +111,7 @@ def _clocks():
         timeout=60, check=True).stdout.strip()
 
 
-def phase_device(torch):
+def phase_device(torch, parent=None):
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -110,6 +122,7 @@ def phase_device(torch):
     log(smi)
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
+    old = _start_parent_build(parent) if parent else None
     libs = _build.build_all()
     log(f"[build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s: {sorted(libs)}")
@@ -117,11 +130,59 @@ def phase_device(torch):
         log(f"[build] {lib}: " + " | ".join(
             ln.strip() for ln in _build.build_log(lib).splitlines()
             if ln.strip()))
-    for fn, regs, spills, warned in _ptxas_summary(
-            _build.build_log("flash_attention_wgmma")):
-        log(f"[build] tensor-core attention {fn}: {regs} registers, spill "
-            f"stores/loads {spills}" + (f"; {warned}" if warned else ""))
-    return name, smi
+    for lib, what in (("flash_attention_wgmma", "tensor-core attention"),
+                      ("rwkv6_scan", "WKV scan"),
+                      ("rglru_scan", "RG-LRU scan")):
+        for fn, regs, spills, warned in _ptxas_summary(_build.build_log(lib)):
+            log(f"[build] {what} {fn}: {regs} registers, spill stores/loads "
+                f"{spills}" + (f"; {warned}" if warned else ""))
+            if spills != "0/0":
+                raise AssertionError(f"{what} {fn} spills: {spills}")
+    if old is not None:
+        old = _finish_parent_build(old)
+        log(f"[build] the parent's kernels from {parent}: {sorted(old)}")
+    return name, smi, old
+
+
+#: the parent's kernels that --parent builds, with their C entry points'
+#: argument types (the same interfaces as the current ones)
+PARENT_KERNELS = {"rglru_scan": ("rglru_scan_f32", 4, 3),
+                  "rwkv6_scan": ("rwkv6_scan_f32", 8, 4)}
+
+
+def _start_parent_build(parent):
+    """Start one nvcc for each of the parent's kernels (``parent`` holds a
+    checkout, e.g. a git archive, of another commit), beside the build of
+    the current ones, into ``build/parent/``."""
+    from repro_torch.kernels import _build
+    out_dir = ROOT / "build" / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in PARENT_KERNELS:
+        src = Path(parent) / "src" / "repro_torch" / "csrc" / f"{name}.cu"
+        lib = out_dir / f"{name}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    return procs
+
+
+def _finish_parent_build(procs):
+    """{name: C entry point} of the parent's kernels once built."""
+    import ctypes
+    entries = {}
+    for name, (lib, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the parent's {name}:\n{text}")
+        symbol, n_ptr, n_int = PARENT_KERNELS[name]
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        entries[name] = fn
+    return entries
 
 
 def _ptxas_summary(text):
@@ -232,16 +293,16 @@ def phase_serve_kernels(torch):
                                  f"at {(B, S, W)} h0={with_h0}")
         worst["rglru_scan"] = max(worst["rglru_scan"], err)
     worst["rwkv6_scan"] = 0.0
-    for B, S, H, N, with_s0 in wk.CARD_CASES:
+    for B, S, H, N, with_s0, calls in wk.CARD_CASES:
         r, k, v, w, u, s0 = wk.random_inputs(B, S, H, N, with_s0, gen)
         s0_in = s0.clone()
-        y, st = ops.rwkv6(r, k, v, w, u, s0)
+        y, st = wk.in_calls(ops.rwkv6, calls, r, k, v, w, u, s0)
         y_want, st_want = wk.rwkv6_scan_plain(r, k, v, w, u, s0)
         torch.cuda.synchronize()
         err = max(float((y - y_want).abs().max()),
                   float((st - st_want).abs().max()))
         log(f"[kernel] rwkv6_scan (B, S, H, N) = {(B, S, H, N)} "
-            f"state0={with_s0}: max_abs_err={err} (y max "
+            f"state0={with_s0} in {calls} call(s): max_abs_err={err} (y max "
             f"{float(y_want.abs().max())}; tolerance rtol = atol = "
             f"{WKV_TOL})")
         torch.testing.assert_close(y, y_want, rtol=WKV_TOL, atol=WKV_TOL)
@@ -780,7 +841,7 @@ def visible_pairs(S, causal, window):
     return total
 
 
-def phase_serve_times(torch, launches, errs):
+def phase_serve_times(torch, launches, errs, parent=None):
     """The serving kernels at their prefills' shapes: kernel, plain
     version and one library call, beside the card's bound.  "card" times
     the work on the card alone, "call" adds the host's dispatch."""
@@ -849,69 +910,132 @@ def phase_serve_times(torch, launches, errs):
     B, S, W, _ = SCAN_CASES[0]
     a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=DEV))
     b = torch.randn((B, S, W), generator=gen, device=DEV)
-    kernel_ms = _median_ms(torch, lambda: rs.rglru_scan_cuda(a, b), True, 50)
-    kernel_call_ms = _median_ms(torch, lambda: rs.rglru_scan_cuda(a, b),
-                                False, 50)
+    fns = {"kernel": lambda: rs.rglru_scan_cuda(a, b)}
+    if parent:
+        fns["parent kernel"] = lambda: _parent_rglru(torch, parent, a, b)
+        if not torch.equal(fns["kernel"](), fns["parent kernel"]()):
+            raise AssertionError("rglru_scan differs from the parent's kernel")
+    n = 48
+    dev_ms = _turns_ms(torch, fns, True, n)
+    call_ms = _turns_ms(torch, fns, False, n)
     plain_ms = _median_ms(torch, lambda: rs.rglru_scan_plain(a, b), True, 3)
     moved = 3 * B * S * W * 4
     flops = 2 * B * S * W
     b_bytes = moved / H100_BYTES_PER_S * 1e3
     b_ops = flops / H100_F32_FLOPS * 1e3
-    log(f"[times] rglru_scan (B, S, W) = {(B, S, W)}, CUDA-event timings: "
-        f"kernel {kernel_ms:.6f} ms on the card, {kernel_call_ms:.6f} ms a "
-        f"call (median of 50), plain {plain_ms:.6f} ms (median of 3; its "
-        f"{S} steps are dispatched by the host), library none (no single "
-        f"PyTorch call computes the recurrence); bound "
-        f"{max(b_bytes, b_ops):.6f} ms ({moved} bytes at 3.35 TB/s)")
+    bound = max(b_bytes, b_ops)
+    log(f"[times] rglru_scan (B, S, W) = {(B, S, W)}, median of {n} "
+        f"CUDA-event timings in 4 turns, card / call: " + ", ".join(
+            f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms" for key in fns)
+        + f"; plain {plain_ms:.6f} ms (median of 3; its {S} steps are "
+        f"dispatched by the host), library none (no single PyTorch call "
+        f"computes the recurrence); bound {bound:.6f} ms ({moved} bytes at "
+        f"3.35 TB/s); kernel {moved / dev_ms['kernel'] / 1e6:.1f} GB/s, "
+        f"{bound / dev_ms['kernel']:.1%} of the bound")
     rows.append({
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:48",
         "launches": launches["rglru_scan"],
         "max_abs_err": errs["rglru_scan"],
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(b_bytes, b_ops),
+        "ms": dev_ms["kernel"], "plain_ms": plain_ms,
+        "bound_ms": bound,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "library_ms": None})
-    del a, b
+        "library_ms": None, "share_of_bound": bound / dev_ms["kernel"]})
+    if parent:
+        _faster_than_parent(rows[-1], dev_ms["parent kernel"])
+    del a, b, fns
 
-    B, S, H, N, _ = wk.CARD_CASES[0]
-    args = wk.random_inputs(B, S, H, N, True, gen)
-    kernel_ms = _median_ms(torch, lambda: wk.rwkv6_scan_cuda(*args), True, 50)
-    kernel_call_ms = _median_ms(torch, lambda: wk.rwkv6_scan_cuda(*args),
-                                False, 50)
-    plain_ms = _median_ms(torch, lambda: wk.rwkv6_scan_plain(*args), True, 3)
-    # r, k, v, w read and y written once, the state read and written once,
-    # u read once.  The function needs 5 flops per (b, t, h, n, m): y_m =
-    # sum_n r_n S[n, m] + v_m sum_n r_n u_n k_n takes a multiply and an add
-    # per (n, m) (the bonus sum is one scalar per (t, h)), the update
-    # w_n S[n, m] + k_n v_m two multiplies and an add
-    moved = (5 * B * S * H * N + 2 * B * H * N * N + H * N) * 4
-    flops = 5 * B * S * H * N * N
-    b_bytes = moved / H100_BYTES_PER_S * 1e3
-    b_ops = flops / H100_F32_FLOPS * 1e3
-    log(f"[times] rwkv6_scan (B, S, H, N) = {(B, S, H, N)}, CUDA-event "
-        f"timings: kernel {kernel_ms:.6f} ms on the card, "
-        f"{kernel_call_ms:.6f} ms a call (median of 50), plain "
-        f"{plain_ms:.6f} ms (median of 3; its {S} steps are dispatched by "
-        f"the host), library none (no single PyTorch call computes the "
-        f"recurrence); bound {max(b_bytes, b_ops):.6f} ms ({flops} flops at "
-        f"67 TFLOP/s float32; {moved} bytes take {b_bytes:.6f} ms); "
-        f"clocks.sm, power.draw, temperature after: {_clocks()}")
-    rows.append({
-        "name": "rwkv6_scan", "route": "cuda",
-        "source": "src/repro_torch/csrc/rwkv6_scan.cu",
-        "replaces": "src/repro/kernels/rwkv6_scan.py:59",
-        "launches": launches["rwkv6_scan"],
-        "max_abs_err": errs["rwkv6_scan"],
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(b_bytes, b_ops),
-        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "library_ms": None})
+    for B, S, H, N, _, _ in (wk.CARD_CASES[0], WKV_DECODE):
+        args = wk.random_inputs(B, S, H, N, True, gen)
+        fns = {"kernel": lambda: wk.rwkv6_scan_cuda(*args)}
+        if parent:
+            fns["parent kernel"] = lambda: _parent_wkv(torch, parent, *args)
+            for got, want in zip(fns["kernel"](), fns["parent kernel"]()):
+                torch.testing.assert_close(got, want, rtol=WKV_TOL,
+                                           atol=WKV_TOL)
+        n = 48 if S > 1 else 200
+        dev_ms = _turns_ms(torch, fns, True, n)
+        call_ms = _turns_ms(torch, fns, False, n)
+        plain_ms = _median_ms(torch, lambda: wk.rwkv6_scan_plain(*args),
+                              True, 3)
+        # r, k, v, w read and y written once, the state read and written
+        # once, u read once.  The function needs 5 flops per (b, t, h, n,
+        # m): y_m = sum_n r_n S[n, m] + v_m sum_n r_n u_n k_n takes a
+        # multiply and an add per (n, m) (the bonus sum is one scalar per
+        # (t, h)), the update w_n S[n, m] + k_n v_m two multiplies and an add
+        moved = (5 * B * S * H * N + 2 * B * H * N * N + H * N) * 4
+        flops = 5 * B * S * H * N * N
+        b_bytes = moved / H100_BYTES_PER_S * 1e3
+        b_ops = flops / H100_F32_FLOPS * 1e3
+        bound = max(b_bytes, b_ops)
+        log(f"[times] rwkv6_scan (B, S, H, N) = {(B, S, H, N)}, median of "
+            f"{n} CUDA-event timings in 4 turns, card / call: " + ", ".join(
+                f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
+                for key in fns)
+            + f"; plain {plain_ms:.6f} ms (median of 3; its {S} steps are "
+            f"dispatched by the host), library none (no single PyTorch call "
+            f"computes the recurrence); bound {bound:.6f} ms ({flops} flops "
+            f"at 67 TFLOP/s float32; {moved} bytes take {b_bytes:.6f} ms); "
+            f"kernel {bound / dev_ms['kernel']:.1%} of the bound; clocks.sm, "
+            f"power.draw, temperature after: {_clocks()}")
+        if S == 1:
+            continue
+        rows.append({
+            "name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan.py:59",
+            "launches": launches["rwkv6_scan"],
+            "max_abs_err": errs["rwkv6_scan"],
+            "ms": dev_ms["kernel"], "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": None, "share_of_bound": bound / dev_ms["kernel"]})
+        if parent:
+            _faster_than_parent(rows[-1], dev_ms["parent kernel"])
+        del args, fns
     return rows
 
 
+def _faster_than_parent(row, parent_ms):
+    """Record the parent's time of a kernel row; the kernel must beat it."""
+    row["parent_ms"] = parent_ms
+    if not row["ms"] < parent_ms:
+        raise AssertionError(f"{row['name']}: {row['ms']} ms on the card, not "
+                             f"faster than the parent's {parent_ms} ms")
+
+
+def _parent_rglru(torch, parent, a, b):
+    """The parent's RG-LRU kernel on a, b (no h0)."""
+    out = torch.empty_like(a)
+    err = parent["rglru_scan"](a.data_ptr(), b.data_ptr(), None,
+                               out.data_ptr(), *a.shape,
+                               torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the parent's rglru_scan failed: {err}")
+    return out
+
+
+def _parent_wkv(torch, parent, r, k, v, w, u, s0):
+    """The parent's WKV kernel: (y, final state)."""
+    y, st = torch.empty_like(r), torch.empty_like(s0)
+    err = parent["rwkv6_scan"](r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               w.data_ptr(), u.data_ptr(), s0.data_ptr(),
+                               y.data_ptr(), st.data_ptr(), *r.shape,
+                               torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the parent's rwkv6_scan failed: {err}")
+    return y, st
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", default=None, help=(
+        "a checkout (e.g. a git archive) of another commit: its RG-LRU and "
+        "WKV kernels are built too and timed in turns with the current "
+        "ones in [times]"))
+    args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -925,7 +1049,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    name, smi = phase_device(torch)
+    name, smi, parent = phase_device(torch, args.parent)
     max_abs_err = phase_kernels(torch)
     serve_errs = phase_serve_kernels(torch)
     split, dx, counts = _paper_split()
@@ -944,7 +1068,7 @@ def main() -> int:
         del params      # the next arch's params need the room
         torch.cuda.empty_cache()
         phase_serve_reference(torch, arch, tag)
-    kernels += phase_serve_times(torch, serve_launches, serve_errs)
+    kernels += phase_serve_times(torch, serve_launches, serve_errs, parent)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

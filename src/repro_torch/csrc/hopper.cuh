@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks for the port's tensor-core kernels, as
+// Hopper (sm_90a) building blocks for the port's kernels, as
 // inline PTX: shared-memory addresses, mbarriers, TMA tile loads, cp.async,
 // named barriers, wgmma descriptors and the wgmma instructions the kernels
 // use.
@@ -85,8 +85,36 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool 
                : "memory");
 }
 
+// 4 bytes global to shared memory, asynchronously; zeros if !valid (then
+// `src` is not read, but must still be a mapped address).
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread issued before has landed;
+// the barrier's expected count includes the arrival (.noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from shared memory at `src` to global memory at
+// `dst`, both 16-byte aligned, by the async proxy, as one bulk copy.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk copies have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // Order this thread's generic-proxy writes to shared memory before later

@@ -3,8 +3,10 @@ PyTorch version.
 
 Port of ``repro.kernels.rglru_scan`` (a Pallas TPU kernel).  The kernel
 is hand-written CUDA C++ for ``sm_90a``, ``repro_torch/csrc/rglru_scan.cu``:
-one thread per (batch, channel) walks time with h in a register; a, b and
-h each cross memory once.  It is bound by memory traffic,
+one warp walks time for 32 channels of a batch row, h in a register of
+each lane, while a and b stream through a ring of shared-memory stages
+by ``cp.async`` with mbarrier completion, so bytes are in flight all the
+time; a, b and h each cross memory once.  It is bound by memory traffic,
 ``3 * B * S * W * 4`` bytes, and on the card it equals the plain version
 bit for bit.
 

@@ -3,13 +3,14 @@ version.
 
 Port of ``repro.kernels.rwkv6_scan`` (a Pallas TPU kernel).  The kernel
 is hand-written CUDA C++ for ``sm_90a``, ``repro_torch/csrc/rwkv6_scan.cu``:
-one block of N threads per (batch, head), thread m holding the state
-column S[:, m] in registers while the block walks time.  Its bound is
-the bytes it moves (r, k, v, w read and y written once); the function
-needs 5 flops per (b, t, h, n, m), fewer than the bytes' time allows.  It
-agrees with the plain version within float32 rounding (FMA contraction
-and another order of the sum over n).  It takes any S >= 1, and N in
-{8, 16, 32, 64}.
+one block per (batch, head), each consumer thread holding an A x C tile
+of the state in registers (:func:`plan`, :func:`tile_owners`), the bonus
+factored out into one scalar per step, and r, k, v, w streamed through a
+ring of shared-memory stages by TMA.  Its bound is the bytes it moves (r,
+k, v, w read and y written once); its float32 issue floor is nearly as
+high.  It agrees with the plain version within float32 rounding (FMA
+contraction, the factored bonus and another order of the sum over n).
+It takes any S >= 1, and N in {8, 16, 32, 64}.
 
 :func:`rwkv6_scan` launches the kernel for CUDA tensors and runs
 :func:`rwkv6_scan_plain` for CPU tensors; there is no fallback from one
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -29,13 +30,21 @@ from repro_torch.kernels import _build, ref
 LAUNCHES = 0
 #: the head sizes the kernel is built for
 HEAD_SIZES = (8, 16, 32, 64)
-#: (B, S, H, N, with_state0) at which the kernel is held to its plain
-#: version on the card: rwkv6-7b's prefill (64 heads of 64) from a zero
-#: and from a carried state, a ragged S, a decode step, and one small case
-#: for each other head size
-CARD_CASES = [(4, 4096, 64, 64, False), (4, 4096, 64, 64, True),
-              (3, 1000, 64, 64, True), (4, 1, 64, 64, True),
-              (2, 33, 2, 8, True), (1, 70, 3, 16, True), (2, 64, 4, 32, True)]
+#: (B, S, H, N, with_state0, calls) at which the kernel is held to its
+#: plain version on the card, the kernel run as ``calls`` calls over S /
+#: calls steps each, every call after the first starting from the state
+#: the one before it left: rwkv6-7b's prefill (64 heads of 64) from a zero
+#: and from a carried state, a ragged S, a prefill cut in two, S shorter
+#: than one ring stage, a decode step, and one small case for each other
+#: head size
+CARD_CASES = [(4, 4096, 64, 64, False, 1), (4, 4096, 64, 64, True, 1),
+              (3, 1000, 64, 64, True, 1), (2, 1000, 64, 64, True, 2),
+              (4, 3, 64, 64, True, 1), (4, 1, 64, 64, True, 1),
+              (2, 33, 2, 8, True, 1), (1, 70, 3, 16, True, 1),
+              (2, 64, 4, 32, True, 1)]
+#: steps a ring stage holds, stages in the ring, and the lanes that share
+#: a state column (``csrc/rwkv6_scan.cu``)
+CHUNK, STAGES, ROW_GROUPS = 32, 3, 8
 
 
 def random_inputs(B: int, S: int, H: int, N: int, with_state0: bool,
@@ -62,6 +71,71 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, N) f32; u (H, N); state0 (B, H, N, N) -> (y (B, S, H, N),
     final state (B, H, N, N))."""
     return ref.rwkv6_reference(r, k, v, w, u, state0)
+
+
+def in_calls(fn, calls: int, r: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+             state0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fn`` (a scan) over S cut into ``calls`` consecutive parts, each
+    starting from the state the one before it left: as a server carries
+    the state from one prompt piece to the next."""
+    S = r.shape[1]
+    cuts = [S * i // calls for i in range(calls + 1)]
+    ys, state = [], state0
+    for lo, hi in zip(cuts, cuts[1:]):
+        y, state = fn(*(t[:, lo:hi].contiguous() for t in (r, k, v, w)), u,
+                      state)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+def plan(N: int) -> Dict[str, int]:
+    """The kernel's launch plan at head size N, as ``csrc/rwkv6_scan.cu``
+    sets it: each thread holds ``rows`` x ``cols`` of the state, ``warps``
+    warps of 4 column groups x 8 row groups, and ``smem_bytes`` of dynamic
+    shared memory (beta for each stage, u, the ring's mbarriers and
+    release counters, padded to 128 bytes, then the ring of ``STAGES`` x 4
+    tensors x ``CHUNK`` steps x N floats, and 128 bytes of alignment; the
+    short path asks for one stage)."""
+    if N not in HEAD_SIZES:
+        raise ValueError(f"head size N = {N} is not one of {HEAD_SIZES}")
+    rows, cols = N // ROW_GROUPS, 2 if N == 8 else 4
+    warps = N // cols // 4
+    head = -(-(STAGES * CHUNK + N + 2 * STAGES + STAGES) // 32) * 32
+    return {"rows": rows, "cols": cols, "warps": warps,
+            "threads": 32 * warps,
+            "smem_bytes": (head + STAGES * 4 * CHUNK * N) * 4 + 128}
+
+
+def tile_owners(N: int) -> List[Dict]:
+    """Each thread's share of the state, as the kernel lays it out:
+    ``rows[i]`` and ``cols[j]`` are the state row and column of its
+    register (i, j); after the sum over the 8 row groups (shuffles across
+    lane bits 2, 1, 0 that halve the live registers while there are
+    several) its register 0 holds column ``col``, which it writes to y.
+    Row group rg = lane % 8 owns rows A rg .. A rg + A - 1 (the two halves
+    of them in the other order where rg >= 4 at N = 64, so that the row
+    groups read distinct shared-memory banks), and register j holds
+    column cbase + (j ^ sigma), sigma from the row group's high bits, so
+    that each level of the sum keeps and sends the same registers in
+    every lane."""
+    p = plan(N)
+    A, C = p["rows"], p["cols"]
+    levels = C.bit_length() - 1
+    out = []
+    for warp in range(p["warps"]):
+        for lane in range(32):
+            rg = lane % ROW_GROUPS
+            n0 = rg * A
+            swap = (rg >> 2) & 1 if A == 8 else 0
+            rows = [n0 + 4 * ((i >> 2) ^ swap) + (i & 3) if A == 8
+                    else n0 + i for i in range(A)]
+            sigma = rg >> (3 - levels)
+            cbase = (warp * 4 + lane // ROW_GROUPS) * C
+            out.append({"warp": warp, "lane": lane, "rows": rows,
+                        "cols": [cbase + (j ^ sigma) for j in range(C)],
+                        "col": cbase + sigma})
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -167,7 +167,8 @@ def test_flash_attention_cuda_core_kernel_bf16_on_request(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,W,with_h0", [
     (2, 100, 70, False), (2, 100, 70, True), (1, 1, 5, True),
-    (4, 4096, 4096, False), (4, 4096, 4096, True), (3, 4097, 4000, True)])
+    (4, 4096, 4096, False), (4, 4096, 4096, True), (3, 4097, 4000, True),
+    (2, 2, 4096, True), (2, 3, 4096, False), (4, 4096, 4097, True)])
 def test_rglru_scan_cuda_kernel_bitwise(cuda_device, B, S, W, with_h0):
     from repro_torch.kernels import rglru_scan as rs
     g = torch.Generator(device=cuda_device).manual_seed(B * S + W)
@@ -184,19 +185,22 @@ def test_rglru_scan_cuda_kernel_bitwise(cuda_device, B, S, W, with_h0):
 
 # ---------------------------------------------------------------------------
 # RWKV6 WKV scan: within rtol = atol = 1e-4 of the plain version (the JAX
-# kernel's own tolerance): the kernel contracts into FMAs and sums over n
-# in another order
+# kernel's own tolerance): the kernel factors the bonus out, contracts into
+# FMAs and sums over n in another order.  A case with calls = 2 runs the
+# kernel twice over S / 2, the second call from the first's state, against
+# one plain call over S
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,N,with_state0", wk.CARD_CASES)
-def test_rwkv6_scan_cuda_kernel(cuda_device, B, S, H, N, with_state0):
+@pytest.mark.parametrize("B,S,H,N,with_state0,calls", wk.CARD_CASES)
+def test_rwkv6_scan_cuda_kernel(cuda_device, B, S, H, N, with_state0,
+                                calls):
     g = torch.Generator(device=cuda_device).manual_seed(S + N)
     args = wk.random_inputs(B, S, H, N, with_state0, g)
     s0_before = args[-1].clone()
     before = wk.LAUNCHES
-    y, st = ops.rwkv6(*args)
+    y, st = wk.in_calls(ops.rwkv6, calls, *args)
     torch.cuda.synchronize()
-    assert wk.LAUNCHES == before + 1
+    assert wk.LAUNCHES == before + calls
     assert torch.equal(args[-1], s0_before)      # the state in is kept
     y_want, st_want = wk.rwkv6_scan_plain(*args)
     torch.testing.assert_close(y, y_want, rtol=1e-4, atol=1e-4)

@@ -121,6 +121,109 @@ def test_scan_ragged_matches_reference(S):
     assert torch.equal(t_args[-1], s0_in)
 
 
+# the shapes of tests/test_kernels.py
+@pytest.mark.parametrize("B,S,H,N", [(1, 32, 2, 8), (2, 64, 2, 16),
+                                     (1, 128, 4, 32)])
+def test_factored_bonus_matches_pallas_kernel(B, S, H, N):
+    """The identity the Hopper kernel computes, y_t = sum_n r_n S[n] +
+    v (sum_n r_n u_n k_n) with the bonus as one scalar per (t, h), written
+    out here in torch, against repro's Pallas kernel in interpret mode."""
+    args = _wkv(B, S, H, N, seed=2 * S + N)
+    y_want, s_want = j_scan(*_jax(args), t_block=16, interpret=True)
+    r, k, v, w, u, state = _torch(args)
+    ys = []
+    for t in range(S):
+        beta = (r[:, t] * u * k[:, t]).sum(-1, keepdim=True)       # (B, H, 1)
+        ys.append(torch.einsum("bhn,bhnm->bhm", r[:, t], state)
+                  + v[:, t] * beta)
+        state = w[:, t, :, :, None] * state + (k[:, t, :, :, None]
+                                               * v[:, t, :, None, :])
+    np.testing.assert_allclose(torch.stack(ys, 1).numpy(),
+                               np.asarray(y_want), **TOL)
+    np.testing.assert_allclose(state.numpy(), np.asarray(s_want), **TOL)
+
+
+@pytest.mark.parametrize("N", twk.HEAD_SIZES)
+def test_kernel_plan_owns_each_state_entry_once(N):
+    """Every (n, m) of a head's state sits in exactly one register of one
+    thread, every column comes out of the sum over row groups in some
+    lane, and the ring fits the card's shared memory for a block (232,448
+    bytes on an H100) at every head size the card tests use."""
+    plan = twk.plan(N)
+    owners = twk.tile_owners(N)
+    assert len(owners) == plan["threads"] == 32 * plan["warps"]
+    held = [(n, m) for o in owners for n in o["rows"] for m in o["cols"]]
+    assert sorted(held) == [(n, m) for n in range(N) for m in range(N)]
+    assert all(len(o["rows"]) == plan["rows"]
+               and len(o["cols"]) == plan["cols"] for o in owners)
+    assert {o["col"] for o in owners} == set(range(N))
+    assert plan["smem_bytes"] <= 232_448
+    assert {case[3] for case in twk.CARD_CASES} <= set(twk.HEAD_SIZES)
+
+
+def _emulate_kernel(r, k, v, w, u, state):
+    """The kernel's arithmetic per thread, in torch over every thread at
+    once: each thread's tile of the state (``tile_owners``), its partial
+    y over its rows, the shuffle sum over the 8 row groups that halves the
+    live registers, and the bonus added once after it.  Returns y as
+    written by every lane (lanes that share a column must agree)."""
+    B, S, H, N = r.shape
+    owners = twk.tile_owners(N)
+    C = twk.plan(N)["cols"]
+    rows = torch.tensor([o["rows"] for o in owners])          # (T, A)
+    cols = torch.tensor([o["cols"] for o in owners])          # (T, C)
+    col = torch.tensor([o["col"] for o in owners])            # (T,)
+    lanes = torch.arange(len(owners))
+    st = state[:, :, rows[:, :, None], cols[:, None, :]]       # (B, H, T, A, C)
+    y = torch.full((B, S, H, N), float("nan"))
+    for t in range(S):
+        rr, kk, ww = (x[:, t][:, :, rows] for x in (r, k, w))  # (B, H, T, A)
+        vv = v[:, t][:, :, cols]                               # (B, H, T, C)
+        p = (rr[..., None] * st).sum(3)                        # (B, H, T, C)
+        st = ww[..., None] * st + kk[..., None] * vv[..., None, :]
+        live = C
+        for mask in (4, 2, 1):
+            other = p[:, :, lanes ^ mask]
+            if live > 1:
+                live //= 2
+                p = torch.cat([p[..., :live] + other[..., live:2 * live],
+                               p[..., live:]], -1)
+            else:
+                p = torch.cat([p[..., :1] + other[..., :1], p[..., 1:]], -1)
+        beta = (r[:, t] * u * k[:, t]).sum(-1)                 # (B, H)
+        out = p[..., 0] + vv[..., 0] * beta[..., None]         # (B, H, T)
+        for lane in range(len(owners)):   # every lane of a column agrees
+            prev = y[:, t, :, col[lane]]
+            torch.testing.assert_close(
+                torch.where(torch.isnan(prev), out[..., lane], prev),
+                out[..., lane], rtol=1e-6, atol=1e-6)
+            y[:, t, :, col[lane]] = out[..., lane]
+    final = torch.empty_like(state)
+    final[:, :, rows[:, :, None], cols[:, None, :]] = st
+    return y, final
+
+
+@pytest.mark.parametrize("N", twk.HEAD_SIZES)
+def test_kernel_tile_layout_matches_plain(N):
+    """The kernel's tile layout and shuffle sum, emulated over every
+    thread, give the plain version's y and final state."""
+    args = _torch(_wkv(2, 5, 2, N, seed=N))
+    y, st = _emulate_kernel(*args)
+    y_want, st_want = twk.rwkv6_scan_plain(*args)
+    torch.testing.assert_close(y, y_want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(st, st_want, rtol=1e-5, atol=1e-5)
+
+
+def test_scan_in_calls_carries_the_state():
+    """``in_calls`` (the card tests' chained case) over the plain version
+    equals one call."""
+    args = _torch(_wkv(2, 37, 2, 8, seed=4))
+    y, st = twk.in_calls(twk.rwkv6_scan_plain, 3, *args)
+    y_want, st_want = twk.rwkv6_scan_plain(*args)
+    torch.testing.assert_close(y, y_want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(st, st_want, rtol=1e-6, atol=1e-6)
+
+
 def test_scan_rejects_bad_input():
     r, k, v, w, u, s0 = _torch(_wkv(2, 8, 2, 8))
     with pytest.raises(TypeError):
