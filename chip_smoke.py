@@ -8,7 +8,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
 
 1. prints the card's name and power limit and the build's compiler log;
 2. holds every kernel against its plain PyTorch version on the card at
-   the main paths' shapes: the combine and the RG-LRU scan bit for bit,
+   the main paths' shapes: the combine, the fused round aggregation (its
+   cases shared with tests/test_torch_cuda.py, 64 scenarios among them)
+   and the RG-LRU scan bit for bit,
    flash attention within 2e-4 in float32 (the CUDA-core kernel) and
    2e-2 in bfloat16 (the tensor-core kernel), the RWKV6 WKV scan within
    1e-4;
@@ -17,12 +19,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    devices in 5 clusters, the paper autoencoder (P = 49,680), 100 rounds
    with dropout; Tol-FL without failure, Tol-FL with a head failure and
    FL with a server failure.  Each kernel's launch counter is set to 0
-   just before and read just after; every run must launch the combine
-   kernel once per round.  The round loop also runs under PyTorch's sync
-   debug mode, which raises on any host sync; a 10-round run under
-   torch.profiler gives the device's busy share and the combine's share
-   of it; small dropout-free runs on the card must agree with the same
-   runs on the CPU (FL at lr 1e-3 up to the round where both diverge);
+   just before and read just after; every run must launch the fused
+   round kernel once per round and the standalone combine never.  A
+   dropout-free Tol-FL pair at lr 1e-4 (a monotone descent),
+   ``combine="streaming"`` and ``"direct"``,
+   must give the same loss curve (rtol 1e-4), the direct one without
+   launching either kernel.  The round loop also runs under PyTorch's
+   sync debug mode, which raises on any host sync; 10-round runs under
+   torch.profiler give the device's busy share and kernels a round, with
+   the fused aggregation and with the unfused eager sequence in its place;
+   small dropout-free runs on the card must agree with the same runs on
+   the CPU (FL at lr 1e-3 up to the round where both diverge);
 4. drives slice 2's main path, RecurrentGemma-9B serving
    (``prefill``, ``pad_cache``, greedy ``decode_step``), at full width
    and depth: random params on the card, 4 prompts of 4,096 tokens (past
@@ -41,13 +48,16 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
 6. times each kernel, its plain version and one library call with CUDA
    events, beside the least time the card could take; attention's two
    kernels, its plain version and SDPA in turns in one run; the WKV scan
-   also at a decode step's shape.
+   also at a decode step's shape; the fused round at S = 1 in turns with
+   the unfused eager sequence (16 launches), beside an empty kernel's device
+   time, and at S = 64 against its bound.
 
     python3 chip_smoke.py --parent DIR
 
-also builds the RG-LRU and WKV kernels of another commit's checkout in
-DIR (e.g. ``git archive`` of the parent, unpacked under the ignored
-``build/``) and times them in turns with the current ones.  The build's
+also builds the combine, RG-LRU and WKV kernels of another commit's
+checkout in DIR (e.g. ``git archive`` of the parent, unpacked under the
+ignored ``build/``) and times them in turns with the current ones; the
+eager sequence then runs the parent's combine.  The build's
 compiler log gives the registers and spill bytes of the tensor-core
 attention kernel and of the two scans; any spill fails the run.
 
@@ -73,6 +83,7 @@ H100_F32_FLOPS = 67e12
 H100_BF16_FLOPS = 989e12     # dense, tensor cores
 COMBINE_SHAPES = [(5, 49_680), (1, 49_680), (10, 49_680), (5, 1_000_003)]
 ROUNDS = 100
+PAIR_LR = 1e-4         # the streaming / direct pair's lr: a monotone descent
 FAIL_EPOCH = 5         # head / server failure round of the failure runs
 SAMPLES = 200          # CUDA-event timings per function
 SPIN_CYCLES = 5_000_000   # ~2.5 ms of the card's clock: covers the host's
@@ -132,11 +143,16 @@ def phase_device(torch, parent=None):
             if ln.strip()))
     for lib, what in (("flash_attention_wgmma", "tensor-core attention"),
                       ("rwkv6_scan", "WKV scan"),
-                      ("rglru_scan", "RG-LRU scan")):
+                      ("rglru_scan", "RG-LRU scan"),
+                      ("tolfl_combine", "Tol-FL aggregation")):
         for fn, regs, spills, warned in _ptxas_summary(_build.build_log(lib)):
             log(f"[build] {what} {fn}: {regs} registers, spill stores/loads "
                 f"{spills}" + (f"; {warned}" if warned else ""))
-            if spills != "0/0":
+            # the fused kernel's chunked loop (above 16 devices, its second
+            # template flag 0) is off the main path; no other instance may
+            # spill
+            if spills != "0/0" and not re.fullmatch(
+                    r"round_update_kernel<[01], 0>", fn):
                 raise AssertionError(f"{what} {fn} spills: {spills}")
     if old is not None:
         old = _finish_parent_build(old)
@@ -145,21 +161,34 @@ def phase_device(torch, parent=None):
 
 
 #: the parent's kernels that --parent builds, with their C entry points'
-#: argument types (the same interfaces as the current ones)
+#: arguments (the same interfaces as the current ones): the symbol, its
+#: pointers, its integers and, optionally, how many of those integers at
+#: the end are ``long long``; the stream comes last
 PARENT_KERNELS = {"rglru_scan": ("rglru_scan_f32", 4, 3),
-                  "rwkv6_scan": ("rwkv6_scan_f32", 8, 4)}
+                  "rwkv6_scan": ("rwkv6_scan_f32", 8, 4),
+                  "tolfl_combine": ("tolfl_combine_f32", 3, 2, 1)}
 
 
 def _start_parent_build(parent):
     """Start one nvcc for each of the parent's kernels (``parent`` holds a
     checkout, e.g. a git archive, of another commit), beside the build of
-    the current ones, into ``build/parent/``."""
+    the current ones, into ``build/parent/``.  A kernel whose source and
+    headers are the same in both is not built: it has nothing to compare."""
     from repro_torch.kernels import _build
     out_dir = ROOT / "build" / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
+    old_csrc = Path(parent) / "src" / "repro_torch" / "csrc"
+
+    def text(csrc, name):
+        return b"".join(p.read_bytes() for p in [csrc / f"{name}.cu"]
+                        + sorted(csrc.glob("*.cuh")))
     procs = {}
     for name in PARENT_KERNELS:
-        src = Path(parent) / "src" / "repro_torch" / "csrc" / f"{name}.cu"
+        if text(old_csrc, name) == text(_build.CSRC, name):
+            log(f"[build] the parent's {name} is the current one: not timed "
+                f"against it")
+            continue
+        src = old_csrc / f"{name}.cu"
         lib = out_dir / f"{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
@@ -176,10 +205,11 @@ def _finish_parent_build(procs):
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the parent's {name}:\n{text}")
-        symbol, n_ptr, n_int = PARENT_KERNELS[name]
+        symbol, n_ptr, n_int, n_long = (PARENT_KERNELS[name] + (0,))[:4]
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                       + [ctypes.c_int] * (n_int - n_long)
+                       + [ctypes.c_longlong] * n_long + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         entries[name] = fn
     return entries
@@ -188,7 +218,9 @@ def _finish_parent_build(procs):
 def _ptxas_summary(text):
     """(kernel, registers, "stores/loads" spill bytes, warning) per kernel
     entry in an ``nvcc -Xptxas -v`` log; the kernel is named by its
-    template arguments (``ILi256E`` -> ``<256>``)."""
+    template arguments (``ILi256E`` -> ``<256>``), or by its name and
+    flags (``19round_update_kernelILb1ELb0EE`` -> ``round_update_kernel<1,
+    0>``)."""
     out, warned, fn = [], {}, None
     for ln in text.splitlines():
         m = re.search(r"Potential Performance Loss: (.*) for the function "
@@ -204,22 +236,32 @@ def _ptxas_summary(text):
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn:
             args = re.search(r"ILi(\d+)E", fn)
-            out.append((f"<{args.group(1)}>" if args else fn,
-                        int(m.group(1)), spills, warned.get(fn, "")))
+            flags = re.search(r"([A-Za-z_]+)I((?:Lb[01]E)+)E", fn)
+            name = (f"<{args.group(1)}>" if args else
+                    f"{flags.group(1)}<"
+                    + ", ".join(re.findall(r"Lb([01])E", flags.group(2)))
+                    + ">" if flags else fn)
+            out.append((name, int(m.group(1)), spills, warned.get(fn, "")))
             fn = None
     return out
 
 
 def phase_kernels(torch):
-    """Kernel vs plain version on the card; returns the max |diff|."""
+    """The two Tol-FL kernels against their plain versions on the card, bit
+    for bit; returns each one's max |diff| (0 when they agree)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import tolfl_combine as tc
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(k, p, "random") for k, p in COMBINE_SHAPES]
-    cases += [(5, 49_680, "all-zero"), (5, 49_680, "partial-zero")]
-    worst = 0.0
+    cases += [(5, 49_680, "all-zero"), (5, 49_680, "partial-zero"),
+              (17, 1_003, "random"), (5, 49_680, "misaligned")]
+    worst = {"tolfl_combine": 0.0, "tolfl_round_update": 0.0}
     for k, p, counts in cases:
-        gs = torch.randn((k, p), generator=gen, device="cuda")
+        gs = torch.randn((k, p + 1), generator=gen, device="cuda")
+        # a view one float past the allocation's start: rows not 16-byte
+        # aligned, so the kernel takes its scalar loads
+        gs = gs.view(-1)[1:k * p + 1].view(k, p) if counts == "misaligned" \
+            else gs[:, :p].contiguous()
         ns = torch.randint(1, 2251, (k,), generator=gen,
                            device="cuda").to(torch.float32)
         if counts == "all-zero":
@@ -236,7 +278,23 @@ def phase_kernels(torch):
         if not same:
             raise AssertionError(f"tolfl_combine differs from its plain "
                                  f"version at k={k} P={p} ({counts})")
-        worst = max(worst, err)
+        worst["tolfl_combine"] = max(worst["tolfl_combine"], err)
+    for case in tc.ROUND_CARD_CASES:
+        args = tc.round_inputs(case, gen)
+        got, got_tot = ops.tolfl_round_update(*args, 1e-3, case.k)
+        want, want_tot = tc.tolfl_round_update_plain(*args, 1e-3, case.k)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        same = torch.equal(got, want) and torch.equal(got_tot, want_tot)
+        log(f"[kernel] tolfl_round_update {case.name} (S, N, k, P) = "
+            f"{(case.S, case.N, case.k, case.P)}: bitwise_equal={same} "
+            f"max_abs_err={err}")
+        if not same:
+            raise AssertionError(f"tolfl_round_update differs from its plain "
+                                 f"version on {case}")
+        if case.counts == "zero" and not torch.equal(got, args[-1]):
+            raise AssertionError("all-zero counts changed the params")
+        worst["tolfl_round_update"] = max(worst["tolfl_round_update"], err)
     return worst
 
 
@@ -323,7 +381,9 @@ def _paper_split():
 
 
 def phase_slice(torch, split, dx, counts):
-    """The main path at full width; returns the combine's launch count."""
+    """The main path at full width; returns each Tol-FL kernel's launches
+    over its three runs (the fused kernel once a round, the standalone
+    combine never)."""
     import numpy as np
     from repro_torch.configs.autoencoder_paper import COMMSML
     from repro_torch.core.failure import NO_FAILURE, FailureSpec
@@ -341,26 +401,29 @@ def phase_slice(torch, split, dx, counts):
     # warm-up (cuBLAS handles, allocator); not part of the measured path
     run_simulation(COMMSML, dx, counts, split.test_x, split.test_y,
                    SimConfig(rounds=2))
-    results = {}
-    tc.LAUNCHES = 0
+    results, ms_round = {}, []
+    tc.ROUND_LAUNCHES = tc.LAUNCHES = 0
     for scheme, k, failure in runs:
-        before = tc.LAUNCHES
+        before = tc.ROUND_LAUNCHES, tc.LAUNCHES
         cfg = SimConfig(scheme=scheme, num_devices=10, num_clusters=k,
                         rounds=ROUNDS, lr=1e-3, dropout=True, seed=0)
         t0 = time.perf_counter()
         res = run_simulation(COMMSML, dx, counts, split.test_x,
                              split.test_y, cfg, failure)
         wall = time.perf_counter() - t0   # ends in a host copy: synchronised
-        added = tc.LAUNCHES - before
+        added = (tc.ROUND_LAUNCHES - before[0], tc.LAUNCHES - before[1])
+        if scheme == "tolfl":
+            ms_round.append(wall / ROUNDS * 1e3)
         log(f"[slice] {scheme} k={k} failure={failure.kind}@"
             f"{failure.epoch if failure.kind != 'none' else '-'}: "
             f"auroc={res.final_auroc:.4f} used={res.auroc_used:.4f} "
             f"iso_active={res.iso_active} loss {res.loss_curve[0]:.3f} -> "
-            f"{res.loss_curve[-1]:.3f}; {wall / ROUNDS * 1e3:.3f} ms/round; "
-            f"tolfl_combine launches {added}")
-        if added != ROUNDS:
-            raise AssertionError(f"{scheme}: {added} combine launches, "
-                                 f"expected {ROUNDS}")
+            f"{res.loss_curve[-1]:.3f}; {ms_round[-1]:.3f} ms/round; "
+            f"tolfl_round_update launches {added[0]}, tolfl_combine "
+            f"launches {added[1]}")
+        if added != (ROUNDS, 0):
+            raise AssertionError(f"{scheme}: {added} fused / combine "
+                                 f"launches, expected ({ROUNDS}, 0)")
         # FL's isolated fallback diverges a few rounds after the server
         # dies at lr 1e-3, in the JAX reference as in the port: both turn
         # non-finite in the same round (tests/test_torch_simulate.py::
@@ -379,13 +442,52 @@ def phase_slice(torch, split, dx, counts):
             log(f"[slice] fl isolated fallback: first non-finite loss at "
                 f"round {bad[0] if bad.size else 'none'}")
         results[(scheme, failure.kind)] = res
-    launches = tc.LAUNCHES
+    launches = {"tolfl_round_update": tc.ROUND_LAUNCHES,
+                "tolfl_combine": tc.LAUNCHES}
     if not results[("fl", "server")].iso_active:
         raise AssertionError("fl with a dead server did not fall back to "
                              "isolated training")
     auc = results[("tolfl", "none")].final_auroc
     if not auc > 0.7:
         raise AssertionError(f"tolfl without failure: AUROC {auc} <= 0.7")
+
+    # the paper's combine against the direct weighted mean (SimConfig's
+    # combine="direct", plain PyTorch), dropout off so both see the same
+    # gradients: the k-invariance of tests/test_torch_invariance.py at full
+    # width, within its rtol 1e-4 / atol 1e-5.  At PAIR_LR the descent is
+    # monotone; at the paper's lr 1e-3 the loss oscillates on these
+    # unnormalised features and the two curves, equal to the last bits in
+    # each round, part by far more than 1e-4 within 100 rounds
+    pair = {}
+    for combine in ("streaming", "direct"):
+        cfg = SimConfig(scheme="tolfl", num_devices=10, num_clusters=5,
+                        rounds=ROUNDS, lr=PAIR_LR, dropout=False, seed=0,
+                        combine=combine)
+        tc.ROUND_LAUNCHES = tc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        pair[combine] = run_simulation(COMMSML, dx, counts, split.test_x,
+                                       split.test_y, cfg)
+        wall = time.perf_counter() - t0
+        added = (tc.ROUND_LAUNCHES, tc.LAUNCHES)
+        want = (ROUNDS, 0) if combine == "streaming" else (0, 0)
+        curve = pair[combine].loss_curve
+        log(f"[slice] tolfl k=5 lr {PAIR_LR} dropout off, combine={combine}: "
+            f"loss {curve[0]:.6f} -> {curve[-1]:.6f}, falling in "
+            f"{int(np.sum(np.diff(curve) < 0))} of {ROUNDS - 1} rounds, auroc "
+            f"{pair[combine].final_auroc:.4f}; {wall / ROUNDS * 1e3:.3f} "
+            f"ms/round; fused / combine launches {added}")
+        if added != want:
+            raise AssertionError(f"combine={combine}: launches {added}, "
+                                 f"expected {want}")
+        if combine == "streaming":
+            ms_round.append(wall / ROUNDS * 1e3)
+    a, b = pair["streaming"].loss_curve, pair["direct"].loss_curve
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    log(f"[slice] streaming vs direct: loss curves within rtol 1e-4 / atol "
+        f"1e-5, max rel diff {float(np.max(np.abs(a - b) / np.abs(b))):.3e}; "
+        f"Tol-FL k=5 (dropout on: no failure, head failure; off): "
+        f"{', '.join(f'{v:.3f}' for v in ms_round)} ms/round (spread "
+        f"{min(ms_round):.3f}-{max(ms_round):.3f})")
     return launches
 
 
@@ -447,32 +549,104 @@ def _top(by_name, n, per=1.0, unit="us"):
                                         key=lambda kv: -kv[1][0])[:n])
 
 
-def phase_profile(torch, split, dx, counts):
-    """Where a Tol-FL round's time goes: device busy share and the
-    combine kernel's share, from torch.profiler over a short run."""
+def _eager_round_update(torch, combine):
+    """The unfused round aggregation, for comparison: the eager sequence of
+    16 launches that ``aggregation.round_update`` replaced (``ns``,
+    ``cluster_reduce``'s one-hot products, a standalone combine kernel, the
+    gated step), with ``round_update``'s arguments at S = 1.  ``combine``
+    maps (k, P) cluster gradients and their counts to the combined (P,)."""
+    from repro_torch.core import aggregation as agg
+
+    def round_update(gs, counts, w, scale, cluster_ids, params, lr, k):
+        g_tx = gs[0] if scale is None else gs[0] * scale[0][:, None]
+        cluster_gs, n_c = agg.cluster_reduce(g_tx, counts * w[0],
+                                             cluster_ids[0], k)
+        g = combine(cluster_gs, n_c)
+        n_tot = torch.sum(n_c)
+        has_update = (n_tot > 0).to(torch.float32)
+        return (params[0] - lr * has_update * g)[None], n_tot[None]
+    return round_update
+
+
+def _profiled(torch, fn, calls=32):
+    """``calls`` calls of ``fn`` under torch.profiler after a warm-up:
+    (device busy µs a call, device events a call, {name: [µs, count]})."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy, by_name = _device_time(prof)
+    events = sum(count for _, count in by_name.values())
+    return busy / calls, events / calls, by_name
+
+
+def _event_us(by_name, part, calls=32):
+    """Mean device µs of the events whose name holds ``part``."""
+    hits = [(us, n) for name, (us, n) in by_name.items() if part in name]
+    if not hits:
+        raise AssertionError(f"the profiler recorded no device event named "
+                             f"like {part!r}")
+    return sum(us for us, _ in hits) / calls
+
+
+def phase_profile(torch, split, dx, counts, parent=None):
+    """Where a Tol-FL round's time goes: device busy share, device kernels
+    a round and the aggregation's device µs, from torch.profiler over 10
+    rounds, with the fused aggregation and with the unfused eager sequence in
+    its place (the parent's combine kernel with --parent, else the
+    current one)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core import aggregation as agg
     from repro_torch.core.simulate import SimConfig, run_simulation
+    from repro_torch.kernels import tolfl_combine as tc
     rounds = 10
     cfg = SimConfig(scheme="tolfl", num_devices=10, num_clusters=5,
                     rounds=rounds, lr=1e-3, dropout=True, seed=0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_simulation(COMMSML, dx, counts, split.test_x, split.test_y, cfg)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy, by_name = _device_time(prof)
-    combine = sum(us for name, (us, _) in by_name.items()
-                  if "tolfl_combine" in name)
-    if busy == 0:
-        log("[profile] the profiler recorded no device time: not measured")
-        return
-    log(f"[profile] tolfl {rounds} rounds under the profiler: wall "
-        f"{wall_us / rounds / 1e3:.3f} ms/round, device busy "
-        f"{busy / rounds / 1e3:.3f} ms/round ({busy / wall_us:.1%} of wall), "
-        f"tolfl_combine {combine / rounds:.2f} us/round "
-        f"({combine / busy:.2%} of device time); top device events: "
-        + _top(by_name, 6, rounds, "us/round"))
+    combine = (_parent_combine_fn(torch, parent)
+               if parent and "tolfl_combine" in parent
+               else tc.tolfl_combine_cuda)
+    eager = _eager_round_update(torch, combine)
+    fused = agg.round_update
+    args = tc.round_inputs(tc.ROUND_CARD_CASES[0],
+                           torch.Generator(device="cuda").manual_seed(5))
+    per_round = {}
+    for name, impl in (("fused", fused), ("eager", eager)):
+        agg.round_update = impl
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run_simulation(COMMSML, dx, counts, split.test_x,
+                               split.test_y, cfg)
+                wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            agg.round_update = fused
+        busy, by_name = _device_time(prof)
+        if busy == 0:
+            log("[profile] the profiler recorded no device time: not "
+                "measured")
+            return
+        events = sum(count for _, count in by_name.values())
+        agg_busy, agg_events, _ = _profiled(
+            torch, lambda: impl(*args, 1e-3, 5))
+        per_round[name] = events / rounds
+        log(f"[profile] tolfl {rounds} rounds, {name} aggregation: wall "
+            f"{wall_us / rounds / 1e3:.3f} ms/round, device busy "
+            f"{busy / rounds / 1e3:.3f} ms/round ({busy / wall_us:.1%} of "
+            f"wall), {events / rounds:.1f} device kernels a round; the "
+            f"aggregation alone at the paper's round (N, k, P) = (10, 5, "
+            f"49,680): {agg_busy:.2f} device us and {agg_events:.1f} device "
+            f"kernels a call (32 calls); top device events: "
+            + _top(by_name, 6, rounds, "us/round"))
+    log(f"[profile] device kernels a round: fused {per_round['fused']:.1f}, "
+        f"eager {per_round['eager']:.1f}, "
+        f"{per_round['eager'] - per_round['fused']:.1f} fewer")
 
 
 def phase_reference(torch, split, dx, counts):
@@ -561,38 +735,165 @@ def _turns_ms(torch, fns, device_only, samples, turns=4):
     return {key: statistics.median(v) for key, v in times.items()}
 
 
-def phase_times(torch, launches, max_abs_err):
+def _round_bytes(S, N, P, faulty):
+    """Bytes the fused kernel must move: the deltas and params read, the new
+    params written, and the per-device operands (counts, w, ids, scale)
+    and n_tot."""
+    return (S * N * P + 2 * S * P + N + (3 if faulty else 2) * S * N + S) * 4
+
+
+def _round_flops(S, N, k, P, faulty):
+    """The fused kernel's float operations: a multiply-add per delta (and
+    the faulty scale's multiply), per cluster a divide and the combine's
+    two multiplies and add, and the step's multiply and subtract."""
+    return S * P * (N * (3 if faulty else 2) + 4 * k + 2)
+
+
+def phase_times(torch, launches, errs, parent=None):
+    """The Tol-FL kernels: the standalone combine at (5, 49,680) and the
+    fused round at S = 1 and S = 64, each beside its plain version, a
+    library call or the unfused eager sequence, the card's bound, and (with
+    --parent) the parent's combine kernel, in turns."""
     from repro_torch.kernels import tolfl_combine as tc
+    rows = []
     k, p = COMBINE_SHAPES[0]
     gen = torch.Generator(device="cuda").manual_seed(1)
     gs = torch.randn((k, p), generator=gen, device="cuda")
     ns = torch.tensor([1125.0, 1125.0, 1125.0, 0.0, 0.0], device="cuda")
     fns = {"kernel": lambda: tc.tolfl_combine_cuda(gs, ns),
-           "plain": lambda: tc.tolfl_combine_plain(gs, ns),
            "library (ns/ns.sum())@gs": lambda: (ns / ns.sum()) @ gs}
-    dev_ms = {key: _median_ms(torch, fn, True) for key, fn in fns.items()}
-    call_ms = {key: _median_ms(torch, fn, False) for key, fn in fns.items()}
-    kernel_ms, plain_ms, library_ms = dev_ms.values()
+    if parent and "tolfl_combine" in parent:
+        fns["parent kernel"] = lambda: _parent_combine_fn(torch, parent)(
+            gs, ns)
+        if not torch.equal(fns["kernel"](), fns["parent kernel"]()):
+            raise AssertionError("tolfl_combine differs from the parent's "
+                                 "kernel")
+    dev_ms = _turns_ms(torch, fns, True, SAMPLES)
+    call_ms = _turns_ms(torch, fns, False, SAMPLES)
+    plain_ms = _median_ms(torch, lambda: tc.tolfl_combine_plain(gs, ns),
+                          True)
+    _, _, by_name = _profiled(torch, fns["kernel"])
+    prof_us = _event_us(by_name, "combine_kernel")
     moved = (k * p + k + p) * 4          # each input read, output written
     flops = 3 * k * p + 3 * k            # 2 mul + 1 add per element per i
     bound_bytes = moved / H100_BYTES_PER_S * 1e3
     bound_ops = flops / H100_F32_FLOPS * 1e3
+    bound = max(bound_bytes, bound_ops)
     log(f"[times] tolfl_combine k={k} P={p}, median of {SAMPLES} CUDA-event "
-        f"timings, on the card alone: " + ", ".join(
-            f"{key} {v:.6f} ms" for key, v in dev_ms.items())
-        + "; per call with the host's dispatch: " + ", ".join(
-            f"{key} {v:.6f} ms" for key, v in call_ms.items())
-        + f"; bound {max(bound_bytes, bound_ops):.6f} ms ({moved} bytes)")
-    return [{
+        f"timings in 4 turns, card / call: " + ", ".join(
+            f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms" for key in fns)
+        + f"; plain {plain_ms:.6f} ms on the card alone; the kernel's device "
+        f"duration under torch.profiler {prof_us:.3f} us (32 calls); bound "
+        f"{bound:.6f} ms ({moved} bytes)")
+    rows.append({
         "name": "tolfl_combine", "route": "cuda",
         "source": "src/repro_torch/csrc/tolfl_combine.cu",
         "replaces": "src/repro/kernels/tolfl_combine.py:44",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(bound_bytes, bound_ops),
+        "launches": launches["tolfl_combine"],
+        "max_abs_err": errs["tolfl_combine"],
+        "ms": dev_ms["kernel"], "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-        "library_ms": library_ms,
-    }]
+        "library_ms": dev_ms["library (ns/ns.sum())@gs"],
+        "profiler_ms": prof_us / 1e3,
+        "path": "aggregation.stacked_streaming_mean; off the round loop, "
+                "which calls tolfl_round_update"})
+    if "parent kernel" in fns:
+        rows[-1]["parent_ms"] = dev_ms["parent kernel"]
+    del gs, ns, fns
+
+    # the fused round at the paper's shape (S = 1), against the unfused eager
+    # sequence (the parent's combine kernel with --parent) and an empty
+    # kernel on the same grid
+    lr = 1e-3
+    case = tc.ROUND_CARD_CASES[0]
+    args = tc.round_inputs(case, gen)
+    S, N, k, P = case.S, case.N, case.k, case.P
+    combine = (_parent_combine_fn(torch, parent)
+               if parent and "tolfl_combine" in parent
+               else tc.tolfl_combine_cuda)
+    eager = _eager_round_update(torch, combine)
+    want = tc.tolfl_round_update_cuda(*args, lr, k)[0]
+    got = eager(*args, lr, k)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    fns = {"fused kernel": lambda: tc.tolfl_round_update_cuda(*args, lr, k),
+           "eager sequence": lambda: eager(*args, lr, k)}
+    dev_ms = _turns_ms(torch, fns, True, SAMPLES)
+    call_ms = _turns_ms(torch, fns, False, SAMPLES)
+    plain_ms = _median_ms(torch, lambda: tc.tolfl_round_update_plain(
+        *args, lr, k), True, 20)
+    _, _, by_name = _profiled(torch, fns["fused kernel"])
+    fused_us = _event_us(by_name, "round_update_kernel")
+    _, _, by_name = _profiled(torch, lambda: tc.empty_launch(S, P))
+    floor_us = _event_us(by_name, "empty_kernel")
+    eager_busy, eager_events, _ = _profiled(torch, fns["eager sequence"])
+    moved = _round_bytes(S, N, P, False)
+    b_bytes = moved / H100_BYTES_PER_S * 1e3
+    b_ops = _round_flops(S, N, k, P, False) / H100_F32_FLOPS * 1e3
+    bound = max(b_bytes, b_ops)
+    fused_ms = dev_ms["fused kernel"]
+    log(f"[times] tolfl_round_update (S, N, k, P) = {(S, N, k, P)}, median "
+        f"of {SAMPLES} CUDA-event timings in 4 turns, card / call: "
+        + ", ".join(f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
+                    for key in fns)
+        + f"; plain {plain_ms:.6f} ms (median of 20, card alone); under "
+        f"torch.profiler (32 calls): fused kernel {fused_us:.3f} us, an "
+        f"empty kernel on its grid {floor_us:.3f} us, the eager sequence "
+        f"{eager_busy:.3f} busy us in {eager_events:.1f} device kernels a "
+        f"call; bound {bound:.6f} ms ({moved} bytes at 3.35 TB/s); the fused "
+        f"call takes {call_ms['fused kernel'] / call_ms['eager sequence']:.1%}"
+        f" of the eager sequence's with the host's dispatch; combine in the "
+        f"eager sequence: the {'parent' if combine is not tc.tolfl_combine_cuda else 'current'} "
+        f"tolfl_combine kernel")
+    row = {
+        "name": "tolfl_round_update", "route": "cuda",
+        "source": "src/repro_torch/csrc/tolfl_combine.cu",
+        "replaces": "src/repro/kernels/tolfl_combine.py:44",
+        "launches": launches["tolfl_round_update"],
+        "max_abs_err": errs["tolfl_round_update"],
+        "ms": fused_ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": dev_ms["eager sequence"],
+        "library": "the unfused eager sequence of 16 launches, not one call",
+        "call_ms": call_ms["fused kernel"],
+        "library_call_ms": call_ms["eager sequence"],
+        "profiler_ms": fused_us / 1e3, "launch_floor_ms": floor_us / 1e3}
+    del args, fns
+
+    # 64 scenarios, the campaign's axis: the only shape at which the kernel
+    # can be held to a bound the card can reach
+    case = tc.ROUND_CARD_CASES[-1]
+    args = tc.round_inputs(case, gen)
+    S, N, k, P = case.S, case.N, case.k, case.P
+    s64_ms = _median_ms(torch, lambda: tc.tolfl_round_update_cuda(
+        *args, lr, k), True)
+    moved = _round_bytes(S, N, P, case.faulty)
+    b_bytes = moved / H100_BYTES_PER_S * 1e3
+    b_ops = _round_flops(S, N, k, P, case.faulty) / H100_F32_FLOPS * 1e3
+    s64_bound = max(b_bytes, b_ops)
+    log(f"[times] tolfl_round_update (S, N, k, P) = {(S, N, k, P)} with a "
+        f"faulty channel, median of {SAMPLES} CUDA-event timings on the "
+        f"card alone: {s64_ms:.6f} ms, {moved / s64_ms / 1e6:.1f} GB/s; "
+        f"bound {s64_bound:.6f} ms ({moved} bytes at 3.35 TB/s), "
+        f"{s64_bound / s64_ms:.1%} of it; clocks.sm, power.draw, "
+        f"temperature after: {_clocks()}")
+    row.update(s64_ms=s64_ms, s64_bound_ms=s64_bound,
+               s64_share_of_bound=s64_bound / s64_ms)
+    rows.append(row)
+    return rows
+
+
+def _parent_combine_fn(torch, parent):
+    """The parent's combine kernel as a (k, P), (k,) -> (P,) function."""
+    def combine(gs, ns):
+        out = torch.empty((gs.shape[1],), dtype=torch.float32,
+                          device=gs.device)
+        err = parent["tolfl_combine"](
+            gs.data_ptr(), ns.data_ptr(), out.data_ptr(), gs.shape[0],
+            gs.shape[1], torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the parent's tolfl_combine failed: {err}")
+        return out
+    return combine
 
 
 def _full_params(torch, arch, tag):
@@ -911,7 +1212,7 @@ def phase_serve_times(torch, launches, errs, parent=None):
     a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=DEV))
     b = torch.randn((B, S, W), generator=gen, device=DEV)
     fns = {"kernel": lambda: rs.rglru_scan_cuda(a, b)}
-    if parent:
+    if parent and "rglru_scan" in parent:
         fns["parent kernel"] = lambda: _parent_rglru(torch, parent, a, b)
         if not torch.equal(fns["kernel"](), fns["parent kernel"]()):
             raise AssertionError("rglru_scan differs from the parent's kernel")
@@ -942,14 +1243,14 @@ def phase_serve_times(torch, launches, errs, parent=None):
         "bound_ms": bound,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None, "share_of_bound": bound / dev_ms["kernel"]})
-    if parent:
+    if "parent kernel" in fns:
         _faster_than_parent(rows[-1], dev_ms["parent kernel"])
     del a, b, fns
 
     for B, S, H, N, _, _ in (wk.CARD_CASES[0], WKV_DECODE):
         args = wk.random_inputs(B, S, H, N, True, gen)
         fns = {"kernel": lambda: wk.rwkv6_scan_cuda(*args)}
-        if parent:
+        if parent and "rwkv6_scan" in parent:
             fns["parent kernel"] = lambda: _parent_wkv(torch, parent, *args)
             for got, want in zip(fns["kernel"](), fns["parent kernel"]()):
                 torch.testing.assert_close(got, want, rtol=WKV_TOL,
@@ -991,7 +1292,7 @@ def phase_serve_times(torch, launches, errs, parent=None):
             "bound_ms": bound,
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
             "library_ms": None, "share_of_bound": bound / dev_ms["kernel"]})
-        if parent:
+        if "parent kernel" in fns:
             _faster_than_parent(rows[-1], dev_ms["parent kernel"])
         del args, fns
     return rows
@@ -1032,9 +1333,9 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None, help=(
-        "a checkout (e.g. a git archive) of another commit: its RG-LRU and "
-        "WKV kernels are built too and timed in turns with the current "
-        "ones in [times]"))
+        "a checkout (e.g. a git archive) of another commit: its combine, "
+        "RG-LRU and WKV kernels are built too and timed in turns with the "
+        "current ones in [times]"))
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1050,14 +1351,14 @@ def main() -> int:
 
     t_start = time.perf_counter()
     name, smi, parent = phase_device(torch, args.parent)
-    max_abs_err = phase_kernels(torch)
+    errs = phase_kernels(torch)
     serve_errs = phase_serve_kernels(torch)
     split, dx, counts = _paper_split()
     launches = phase_slice(torch, split, dx, counts)
     phase_no_sync(torch, split, dx, counts)
-    phase_profile(torch, split, dx, counts)
+    phase_profile(torch, split, dx, counts, parent)
     phase_reference(torch, split, dx, counts)
-    kernels = phase_times(torch, launches, max_abs_err)
+    kernels = phase_times(torch, launches, errs, parent)
     serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
     for arch, tag in SERVE_ARCHS:
         cfg, params = _full_params(torch, arch, tag)

@@ -9,13 +9,15 @@ streaming weighted mean
     g <- r g_i + (1 - r) g
 
 equals the direct sample-weighted mean regardless of grouping (the
-paper's k-invariance).  :func:`stacked_streaming_mean`, the simulator's
-combine, runs the hand-written ``tolfl_combine`` kernel on a CUDA tensor
-and its plain PyTorch version on a CPU tensor.
+paper's k-invariance).  :func:`stacked_streaming_mean` runs the
+hand-written ``tolfl_combine`` kernel on a CUDA tensor and its plain
+PyTorch version on a CPU tensor.  :func:`round_update`, the simulator's
+aggregation, runs :func:`cluster_reduce`, the streaming combine and the
+SGD step as one kernel the same way.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,6 +45,23 @@ def stacked_streaming_mean(gs: torch.Tensor, ns: torch.Tensor
     k = gs.shape[0]
     g = ops.tolfl_combine(gs.reshape(k, -1), ns, device=gs.device)
     return torch.sum(ns), g.reshape(gs.shape[1:])
+
+
+def round_update(gs: torch.Tensor, counts: torch.Tensor, w: torch.Tensor,
+                 scale: Optional[torch.Tensor], cluster_ids: torch.Tensor,
+                 params: torch.Tensor, lr: float, num_clusters: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A round's aggregation over a leading scenario axis S: the
+    per-cluster FedAvg of the device deltas ``gs`` (S, N, P), each scaled
+    by ``scale`` (S, N) (the faulty channel, or None) and weighted by
+    ``counts * w``; the streaming combine over the clusters; then
+    ``params - lr * has_update * g`` on ``params`` (S, P).  Returns the
+    new params (S, P) and the total counts (S,).  The fused
+    ``tolfl_round_update`` kernel reads each delta once; the cluster sums
+    run in device order, one fused multiply-add a term, where
+    :func:`cluster_reduce` forms a one-hot product."""
+    return ops.tolfl_round_update(gs, counts, w, scale, cluster_ids, params,
+                                  lr, num_clusters, device=gs.device)
 
 
 def weighted_mean(gs: torch.Tensor, ns: torch.Tensor) -> torch.Tensor:

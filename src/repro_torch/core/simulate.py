@@ -11,9 +11,11 @@ Python loop over rounds on one device:
   summed per-device losses; devices are independent, so row i of the
   gradient is device i's gradient;
 * params are one flat f32 vector (:class:`FlatLayout`), so a round's
-  gradients are an (N, P) tensor, the per-cluster FedAvg is a (k, N)
-  one-hot product and the streaming combine across cluster heads is the
-  hand-written ``tolfl_combine`` CUDA kernel on a (k, P) tensor;
+  gradients are an (N, P) tensor; the per-cluster FedAvg, the streaming
+  combine across cluster heads and the SGD step are one hand-written
+  CUDA kernel (``aggregation.round_update``) that reads them once.
+  ``combine="direct"`` runs ``repro``'s direct form instead, in plain
+  PyTorch: ``cluster_reduce`` then ``weighted_mean``;
 * failure masks, head-failure weights and the update gate stay device
   tensors that multiply: the loop never waits on the host.  Losses and
   scores are copied to the host once, after the loop.
@@ -57,6 +59,7 @@ class SimConfig:
     rounds: int = 100
     lr: float = 1e-3
     local_epochs: int = 1          # E local steps per round
+    combine: str = "streaming"     # streaming (faithful) | direct
     dropout: bool = True
     seed: int = 0
 
@@ -148,6 +151,7 @@ def _round_loop(det: DetectorModel, cfg: SimConfig, layout: FlatLayout,
                 ) -> Tuple[SimOutputs, torch.Tensor, torch.Tensor]:
     """The round loop of ``repro``'s ``_build_core_arrays``: returns the
     outputs, the final flat params (P,) and the isolated params (N, P).
+    ``cluster_ids`` (N,) are int32, checked to lie in [0, num_clusters).
 
     ``head_valid`` masks cluster-head slots: zeros make every round an
     all-heads-dead round, so each device trains its own isolated model
@@ -159,6 +163,8 @@ def _round_loop(det: DetectorModel, cfg: SimConfig, layout: FlatLayout,
     generator = (torch.Generator(device=dev).manual_seed(cfg.seed)
                  if cfg.dropout else None)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    cluster_rows = cluster_ids[None]        # (1, N): the kernel's S = 1
+    cluster_ids = cluster_ids.long()        # for indexing
 
     def heads_alive_max(alive):
         """max over VALID heads only: padded head slots never argue the
@@ -193,17 +199,23 @@ def _round_loop(det: DetectorModel, cfg: SimConfig, layout: FlatLayout,
         else:
             gs = _local_delta(det, cfg, layout, params.expand(N, P), dx,
                               valid, generator)
-        gs_tx = gs
-        if faulty:
-            # corrupt the TRANSMITTED deltas only: the isolated fallback
-            # keeps the clean ``gs``
-            gs_tx = gs * trace_faulty_scale(trace, N, epoch)[:, None]
-        ns = counts * w
-        # ---- Tol-FL hierarchical combine (Algorithm 1) ----
-        cluster_gs, n_c = agg.cluster_reduce(gs_tx, ns, cluster_ids, k)
-        n_tot, g = agg.stacked_streaming_mean(cluster_gs, n_c)
-        has_update = (n_tot > 0).to(torch.float32)
-        params = params - cfg.lr * has_update * g
+        # the faulty channel corrupts the TRANSMITTED deltas only: the
+        # isolated fallback keeps the clean ``gs``
+        scale = trace_faulty_scale(trace, N, epoch) if faulty else None
+        # ---- Tol-FL hierarchical combine (Algorithm 1) and SGD step ----
+        if cfg.combine == "streaming":
+            new, _ = agg.round_update(
+                gs[None], counts, w[None],
+                None if scale is None else scale[None], cluster_rows,
+                params[None], cfg.lr, k)
+            params = new[0]
+        else:
+            gs_tx = gs if scale is None else gs * scale[:, None]
+            cluster_gs, n_c = agg.cluster_reduce(gs_tx, counts * w,
+                                                 cluster_ids, k)
+            g = agg.weighted_mean(cluster_gs, n_c)
+            has_update = (torch.sum(n_c) > 0).to(torch.float32)
+            params = params - cfg.lr * has_update * g
 
         # ---- isolated fallback (fl server failure) ----
         if track_iso:
@@ -269,9 +281,16 @@ def _scenario(model: ModelLike, device_x: np.ndarray,
     tx = (torch.zeros((1, dx.shape[-1]), dtype=dx.dtype, device=dev)
           if test_x is None
           else torch.as_tensor(np.asarray(test_x, np.float32), device=dev))
-    cluster_ids = torch.as_tensor(topo.device_cluster_array(),
-                                  device=dev).long()
-    heads = torch.as_tensor(np.array(topo.heads), device=dev).long()
+    cids, head_ids = topo.device_cluster_array(), np.array(topo.heads)
+    # checked here, on the host: the fused kernel takes the ids unchecked
+    if (cids.shape != (topo.num_devices,) or cids.min() < 0
+            or cids.max() >= topo.num_clusters
+            or head_ids.shape != (topo.num_clusters,) or head_ids.min() < 0
+            or head_ids.max() >= topo.num_devices):
+        raise ValueError(f"bad topology arrays: cluster ids {cids}, heads "
+                         f"{head_ids} for {topo}")
+    cluster_ids = torch.as_tensor(cids.astype(np.int32), device=dev)
+    heads = torch.as_tensor(head_ids, device=dev).long()
     head_valid = (torch.zeros if isolated else torch.ones)(
         (topo.num_clusters,), dtype=torch.float32, device=dev)
     if params0 is None:

@@ -12,6 +12,8 @@ from __future__ import annotations
 from repro_torch.kernels.flash_attention import flash_attention as attention
 from repro_torch.kernels.rglru_scan import rglru_scan as rglru
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as rwkv6
-from repro_torch.kernels.tolfl_combine import tolfl_combine
+from repro_torch.kernels.tolfl_combine import (tolfl_combine,
+                                               tolfl_round_update)
 
-__all__ = ["attention", "rglru", "rwkv6", "tolfl_combine"]
+__all__ = ["attention", "rglru", "rwkv6", "tolfl_combine",
+           "tolfl_round_update"]

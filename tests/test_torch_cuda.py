@@ -26,7 +26,8 @@ def cuda_device():
 @pytest.mark.parametrize("k,p,zeros", [(5, 49_680, []), (1, 49_680, []),
                                        (10, 49_680, []), (5, 1_000_003, []),
                                        (5, 49_680, [0, 1, 2, 3, 4]),
-                                       (5, 49_680, [3, 4])])
+                                       (5, 49_680, [3, 4]), (5, 49_681, []),
+                                       (17, 1_003, [16]), (40, 4_096, [])])
 def test_tolfl_combine_cuda_kernel_bitwise(cuda_device, k, p, zeros):
     """On the card the hand-written kernel equals its plain version bit
     for bit (rounded intrinsics, IEEE division, no FMA contraction)."""
@@ -39,6 +40,63 @@ def test_tolfl_combine_cuda_kernel_bitwise(cuda_device, k, p, zeros):
     torch.cuda.synchronize()
     assert tc.LAUNCHES == before + 1
     assert torch.equal(got, tc.tolfl_combine_plain(gs, ns))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p", [(5, 49_680), (3, 4_097), (20, 1_000)])
+def test_tolfl_combine_cuda_kernel_misaligned(cuda_device, k, p):
+    """Rows that do not start on a 16-byte boundary take the scalar
+    loads, still bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    buf = torch.randn((k * p + 1,), generator=g, device=cuda_device)
+    gs = buf[1:].view(k, p)
+    ns = torch.rand((k,), generator=g, device=cuda_device) * 50
+    got = tc.tolfl_combine_cuda(gs, ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tc.tolfl_combine_plain(gs, ns))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", tc.ROUND_CARD_CASES, ids=lambda c: c.name)
+def test_tolfl_round_update_cuda_kernel_bitwise(cuda_device, case):
+    """The fused round kernel equals its plain version bit for bit: the
+    paper's round and its edges, more than 16 devices, ragged and
+    misaligned columns, 64 scenarios."""
+    g = torch.Generator(device=cuda_device).manual_seed(case.P + case.N)
+    args = tc.round_inputs(case, g)
+    before = tc.ROUND_LAUNCHES, tc.LAUNCHES
+    new, n_tot = ops.tolfl_round_update(*args, 1e-3, case.k)
+    torch.cuda.synchronize()
+    assert (tc.ROUND_LAUNCHES, tc.LAUNCHES) == (before[0] + 1, before[1])
+    want, want_tot = tc.tolfl_round_update_plain(*args, 1e-3, case.k)
+    assert torch.equal(new, want)
+    assert torch.equal(n_tot, want_tot)
+    if case.counts == "zero":
+        assert torch.equal(new, args[-1])     # the params come back as they were
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine,fused", [("streaming", 5), ("direct", 0)])
+def test_round_loop_launches(cuda_device, combine, fused):
+    """A 5-round Tol-FL run aggregates through the fused kernel once a
+    round and never through the standalone combine; a direct run through
+    neither."""
+    from repro_torch.configs.autoencoder_paper import AutoencoderConfig
+    from repro_torch.core.simulate import SimConfig, run_simulation
+    from repro_torch.data import commsml, federated
+    X, y = commsml.generate(seed=0, samples_per_class=200)
+    split = federated.make_split(X, y, num_devices=10, num_clusters=5,
+                                 anomaly_classes=[3], seed=0)
+    dx, counts = federated.pad_devices(split)
+    cfg = SimConfig(scheme="tolfl", num_devices=10, num_clusters=5,
+                    rounds=5, dropout=False, combine=combine)
+    before = tc.ROUND_LAUNCHES, tc.LAUNCHES
+    res = run_simulation(AutoencoderConfig(input_dim=112, hidden=(32, 16),
+                                           code_dim=8), dx, counts,
+                         split.test_x, split.test_y, cfg)
+    assert (tc.ROUND_LAUNCHES - before[0], tc.LAUNCHES - before[1]) == (
+        fused, 0)
+    assert res.loss_curve[-1] < res.loss_curve[0]
 
 
 # ---------------------------------------------------------------------------

@@ -88,10 +88,11 @@ def test_run_simulation_matches_repro(name, tiny_split, tiny_padded):
     dx, counts = tiny_padded
     tx, ty = tiny_split.test_x, tiny_split.test_y
     a = JS.run_simulation(JCfg(**AE), dx, counts, tx, ty, jcfg, jfail)
-    before = tc.LAUNCHES
+    before = tc.LAUNCHES, tc.ROUND_LAUNCHES
     b = TS.run_simulation(TCfg(**AE), dx, counts, tx, ty, tcfg, tfail,
                           params0=_params0(), device="cpu")
-    assert tc.LAUNCHES == before        # the CPU path runs the plain version
+    # the CPU path runs the fused aggregation's plain version
+    assert (tc.LAUNCHES, tc.ROUND_LAUNCHES) == before
     assert b.iso_active == a.iso_active
     _close(b.loss_curve, a.loss_curve, "loss_curve")
     _close(b.iso_loss_curve, a.iso_loss_curve, "iso_loss_curve")
