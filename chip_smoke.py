@@ -30,6 +30,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    the fused aggregation and with the unfused eager sequence in its place;
    small dropout-free runs on the card must agree with the same runs on
    the CPU (FL at lr 1e-3 up to the round where both diverge);
+   then Monte-Carlo campaigns over the same data (``core/campaign.py``):
+   16 sampled failure traces x 4 seeds in one round loop of 64 scenarios,
+   the same grid in chunks of 16, a fused (scheme x k) sweep of 128
+   scenarios and the grid at 1 and 8 scenarios, each launching the fused
+   kernel once a round per chunk ([campaign]: scenarios/s, ms/round); the
+   batched loop under the sync debug mode ([campaign-no-sync]); 10 rounds
+   at 64 scenarios under torch.profiler ([campaign-profile]); and
+   dropout-free campaigns against ``run_simulation`` on the card and a
+   small campaign on the card against the CPU ([campaign-reference]);
 4. drives slice 2's main path, RecurrentGemma-9B serving
    (``prefill``, ``pad_cache``, greedy ``decode_step``), at full width
    and depth: random params on the card, 4 prompts of 4,096 tokens (past
@@ -50,7 +59,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    kernels, its plain version and SDPA in turns in one run; the WKV scan
    also at a decode step's shape; the fused round at S = 1 in turns with
    the unfused eager sequence (16 launches), beside an empty kernel's device
-   time, and at S = 64 against its bound.
+   time, and at the campaign's shapes (S = 64; S = 96 at k = 10) against
+   its bound.
 
     python3 chip_smoke.py --parent DIR
 
@@ -86,6 +96,15 @@ ROUNDS = 100
 PAIR_LR = 1e-4         # the streaming / direct pair's lr: a monotone descent
 FAIL_EPOCH = 5         # head / server failure round of the failure runs
 SAMPLES = 200          # CUDA-event timings per function
+#: the campaign phases' grid: 16 traces sampled at failure rate 0.3 for the
+#: paper's topology x 4 seeds = 64 scenarios in one chunk, chunks of 16 for
+#: the chunked run, and a fused (scheme x k) sweep over the same traces x 2
+#: seeds (96 sbt/tolfl scenarios at k_pad 10, 32 fl scenarios)
+CAMPAIGN_TRACES, CAMPAIGN_RATE, CAMPAIGN_EVENTS = 16, 0.3, 8
+CAMPAIGN_SEEDS = (0, 1, 2, 3)
+CAMPAIGN_CHUNK = 16
+SWEEP_CELLS = (("tolfl", 5), ("tolfl", 2), ("fl", 1), ("sbt", 10))
+SWEEP_SEEDS = (0, 1)
 SPIN_CYCLES = 5_000_000   # ~2.5 ms of the card's clock: covers the host's
 #                           dispatch of the slowest timed call (~1 ms)
 DEV = "cuda"               # the serving phases' device
@@ -694,6 +713,297 @@ def phase_reference(torch, split, dx, counts):
             f"at round {n - 1}")
 
 
+def _campaign_traces():
+    """The campaign grid's traces: ``sample_traces`` at rate 0.3 for the
+    paper's topology (10 devices, 5 clusters), 8 event slots, on the card."""
+    import numpy as np
+    from repro_torch.core.failure import sample_traces
+    from repro_torch.core.topology import Topology
+    return sample_traces(np.random.default_rng(0), Topology(10, 5),
+                         CAMPAIGN_RATE, max_events=CAMPAIGN_EVENTS,
+                         rounds=ROUNDS, num_traces=CAMPAIGN_TRACES)
+
+
+def _campaign_cfg(**kw):
+    from repro_torch.core.simulate import SimConfig
+    base = dict(scheme="tolfl", num_devices=10, num_clusters=5,
+                rounds=ROUNDS, lr=1e-3, dropout=True)
+    base.update(kw)
+    return SimConfig(**base)
+
+
+def phase_campaign(torch, split, dx, counts):
+    """The campaign's main path at the paper's full scale: a one-shot grid
+    of 64 scenarios (S = 64), the same grid in chunks of 16, and a fused
+    (scheme x k) sweep; then the same campaign at S = 1 and S = 8 for its
+    ms/round.  Each run must launch the fused kernel once a round per
+    chunk (one launch for all the chunk's scenarios) and the standalone
+    combine never.  Returns the fused kernel's launches over the runs."""
+    import numpy as np
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core.campaign import (ExecPlan, mean_ci95, run_campaign,
+                                           sweep_grid)
+    from repro_torch.kernels import tolfl_combine as tc
+    tx, ty = split.test_x, split.test_y
+    traces = _campaign_traces()
+    cfg = _campaign_cfg()
+    # warm-up at the grid's shapes (the allocator, cuBLAS's batched plans)
+    run_campaign(COMMSML, dx, counts, tx, ty, _campaign_cfg(rounds=2), traces,
+                 CAMPAIGN_SEEDS)
+    total = 0
+
+    def timed(label, want_launches, fn):
+        nonlocal total
+        tc.ROUND_LAUNCHES = tc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = fn()          # ends in the copy of its outputs to the host
+        wall = time.perf_counter() - t0
+        got = (tc.ROUND_LAUNCHES, tc.LAUNCHES)
+        if got != (want_launches, 0):
+            raise AssertionError(f"[campaign] {label}: fused / combine "
+                                 f"launches {got}, expected "
+                                 f"({want_launches}, 0)")
+        total += got[0]
+        results = res.values() if isinstance(res, dict) else [res]
+        for r in results:
+            if not np.all(np.isfinite(r.auroc_used)):
+                raise AssertionError(f"[campaign] {label}: non-finite "
+                                     f"auroc_used in {r.cfg.scheme} "
+                                     f"k={r.cfg.num_clusters}")
+        n = sum(r.num_scenarios for r in results)
+        log(f"[campaign] {label}: {n} scenarios x {ROUNDS} rounds in "
+            f"{wall:.3f} s: {n / wall:.2f} scenarios/s, "
+            f"{wall / ROUNDS * 1e3:.3f} ms/round; fused kernel launches "
+            f"{got[0]}, standalone combine {got[1]}")
+        return res, wall
+
+    B = CAMPAIGN_TRACES * len(CAMPAIGN_SEEDS)
+    one, wall_one = timed(
+        f"tolfl k=5 lr 1e-3 dropout on, {CAMPAIGN_TRACES} traces x "
+        f"{len(CAMPAIGN_SEEDS)} seeds, one shot (S = {B})", ROUNDS,
+        lambda: run_campaign(COMMSML, dx, counts, tx, ty, cfg, traces,
+                             CAMPAIGN_SEEDS))
+    chunks = -(-B // CAMPAIGN_CHUNK)
+    chunked, _ = timed(
+        f"the same grid, ExecPlan(chunk_size={CAMPAIGN_CHUNK}) ({chunks} "
+        f"chunks)", ROUNDS * chunks,
+        lambda: run_campaign(COMMSML, dx, counts, tx, ty, cfg, traces,
+                             CAMPAIGN_SEEDS,
+                             exec_plan=ExecPlan(chunk_size=CAMPAIGN_CHUNK)))
+    sweep, _ = timed(
+        f"fused sweep_grid {list(SWEEP_CELLS)} x {CAMPAIGN_TRACES} traces x "
+        f"seeds {SWEEP_SEEDS} (two groups: sbt/tolfl at k_pad 10, fl)",
+        2 * ROUNDS,
+        lambda: sweep_grid(COMMSML, dx, counts, tx, ty, cfg, SWEEP_CELLS,
+                           traces, SWEEP_SEEDS))
+    per_round = {}
+    for S, n_traces, seeds in ((1, 1, (0,)), (8, 2, CAMPAIGN_SEEDS)):
+        _, wall = timed(f"S = {S}", ROUNDS, lambda: run_campaign(
+            COMMSML, dx, counts, tx, ty, cfg, traces[:n_traces], seeds))
+        per_round[S] = wall / ROUNDS * 1e3
+    per_round[B] = wall_one / ROUNDS * 1e3
+    mean, std, half = mean_ci95(chunked.auroc_used)
+    one_mean = float(np.mean(one.auroc_used))
+    log(f"[campaign] auroc_used mean: one shot {one_mean:.5f}, chunked "
+        f"{mean:.5f} +- {half:.5f} (95% CI, std {std:.5f}); per sweep cell: "
+        + ", ".join(f"{s} k={k} {r.summary()['auroc_used_mean']:.4f} "
+                    f"(iso_active {int(r.iso_active.sum())})"
+                    for (s, k), r in sweep.items()))
+    if not abs(one_mean - mean) <= half:
+        raise AssertionError(f"[campaign] the one-shot grid's AUROC mean "
+                             f"{one_mean} lies outside the chunked run's 95% "
+                             f"CI {mean} +- {half}")
+    log(f"[campaign] ms/round: " + ", ".join(
+        f"S = {S} {ms:.3f}" for S, ms in per_round.items())
+        + f"; scenarios/s at S = {B}: {B / wall_one:.2f}, at S = 1: "
+        f"{1e3 / (per_round[1] * ROUNDS):.2f}; clocks.sm, power.draw, "
+        f"temperature after: {_clocks()}")
+    return total
+
+
+def phase_campaign_no_sync(torch, split, dx, counts):
+    """The batched round loop at S = 64 never waits on the host: a few
+    rounds under PyTorch's sync debug mode, Tol-FL and FL."""
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core import simulate
+    from repro_torch.core.campaign import run_campaign
+    loop = simulate._round_loop
+
+    def guarded(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    traces = _campaign_traces()
+    simulate._round_loop = guarded
+    try:
+        for scheme, k in (("tolfl", 5), ("fl", 1)):
+            run_campaign(COMMSML, dx, counts, split.test_x, split.test_y,
+                         _campaign_cfg(scheme=scheme, num_clusters=k,
+                                       rounds=3), traces, CAMPAIGN_SEEDS)
+    finally:
+        simulate._round_loop = loop
+    log(f"[campaign-no-sync] tolfl and fl round loops at S = "
+        f"{CAMPAIGN_TRACES * len(CAMPAIGN_SEEDS)} ran 3 rounds each under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+
+def phase_campaign_profile(torch, split, dx, counts):
+    """Where a campaign round's time goes at S = 64: 10 rounds under
+    torch.profiler; the device's busy share, device kernels a round, the
+    top device events and the fused kernel's share of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core.campaign import run_campaign
+    rounds = 10
+    traces = _campaign_traces()
+    S = CAMPAIGN_TRACES * len(CAMPAIGN_SEEDS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_campaign(COMMSML, dx, counts, split.test_x, split.test_y,
+                     _campaign_cfg(rounds=rounds), traces, CAMPAIGN_SEEDS)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, by_name = _device_time(prof)
+    if busy == 0:
+        log("[campaign-profile] the profiler recorded no device time: not "
+            "measured")
+        return
+    events = sum(count for _, count in by_name.values())
+    fused = sum(us for name, (us, _) in by_name.items()
+                if "round_update_kernel" in name)
+    # the device time of the kernels each PyTorch operator launched itself
+    ops = sorted(((e.key, getattr(e, "self_device_time_total", 0.0))
+                  for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda kv: -kv[1])
+    log(f"[campaign-profile] tolfl k=5 at S = {S}, {rounds} rounds under the "
+        f"profiler: wall {wall_us / rounds / 1e3:.3f} ms/round, device busy "
+        f"{busy / rounds / 1e3:.3f} ms/round ({busy / wall_us:.1%} of wall), "
+        f"{events / rounds:.1f} device kernels a round (slice 1 at S = 1: "
+        f"~190); the fused kernel {fused / rounds:.2f} us a round, "
+        f"{fused / busy:.2%} of the busy time; top device events: "
+        + _top(by_name, 8, rounds, "us/round"))
+    log("[campaign-profile] device time by the operator that launched it: "
+        + "; ".join(f"{key} {us / rounds:.1f} us/round ({us / busy:.1%})"
+                    for key, us in ops[:12]))
+
+
+def phase_campaign_reference(torch, split, dx, counts):
+    """A dropout-free campaign (lr 1e-4, 100 rounds) of the 64-scenario
+    grid and a dropout-free sweep against ``run_simulation`` on the card
+    for four of their scenarios (no failure, a head failure, a recovery,
+    an FL server death; loss curves rtol 1e-4, AUROC atol 1e-3,
+    ``iso_active`` exact), and a small campaign on the card against the
+    same campaign on the CPU (rtol 1e-4)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core.campaign import run_campaign, sweep_grid
+    from repro_torch.core.failure import FailureSpec, sample_traces
+    from repro_torch.core.simulate import run_simulation
+    from repro_torch.core.topology import Topology
+    from repro_torch.models.detector import AutoencoderDetector
+    tx, ty = split.test_x, split.test_y
+    traces = _campaign_traces()
+    cfg = _campaign_cfg(lr=PAIR_LR, dropout=False)
+    grid = run_campaign(COMMSML, dx, counts, tx, ty, cfg, traces,
+                        CAMPAIGN_SEEDS)
+    sweep = sweep_grid(COMMSML, dx, counts, tx, ty, cfg, SWEEP_CELLS, traces,
+                       SWEEP_SEEDS)
+    host = [t.to(torch.device("cpu")) for t in traces]
+
+    def pick(what, candidates, key):
+        """The candidate scenario with the least ``key``."""
+        candidates = list(candidates)
+        if not candidates:
+            raise AssertionError(f"[campaign-reference] no scenario of the "
+                                 f"grid has {what}")
+        return min(candidates, key=key)
+
+    def deaths(t, devices=None):
+        """Epochs at which a (head) device of trace ``t`` went down."""
+        hit = (t.alive_after == 0) & (t.devices >= 0)
+        if devices is not None:
+            hit &= torch.isin(t.devices, torch.tensor(devices))
+        return t.epochs[hit].tolist()
+
+    heads = Topology(10, 5).heads
+    n = len(host)
+    picks = {
+        "no failure": (grid, pick("no failure", (
+            i for i in range(n) if not deaths(host[i])), key=int)),
+        # a head dies, nothing comes back: the earliest such death
+        "head failure": (grid, pick("a head failure", (
+            i for i in range(n) if deaths(host[i], heads)
+            and not bool((host[i].alive_after[host[i].devices >= 0]
+                          == 1).any())),
+            key=lambda i: min(deaths(host[i], heads)))),
+        "recovery": (grid, pick("a recovery", (
+            i for i in range(n)
+            if bool((host[i].alive_after[host[i].devices >= 0] == 1).any())),
+            key=int)),
+    }
+    fl = sweep[("fl", 1)]
+    # the FL scenario whose server died last: the fewest isolated rounds
+    b = pick("an FL server death", np.flatnonzero(fl.iso_active),
+             key=lambda i: -max(deaths(host[fl.trace_index[i]], [0])))
+    rows = [(name, res, int(np.flatnonzero((res.trace_index == i)
+                                            & (res.seed == 0))[0]))
+            for name, (res, i) in picks.items()]
+    rows.append(("fl server death", fl, int(b)))
+    for name, res, b in rows:
+        one = run_simulation(COMMSML, dx, counts, tx, ty,
+                             dataclasses.replace(res.cfg,
+                                                 seed=int(res.seed[b])),
+                             traces[int(res.trace_index[b])])
+        if one.iso_active != bool(res.iso_active[b]):
+            raise AssertionError(f"[campaign-reference] {name}: iso_active "
+                                 f"{one.iso_active} vs {res.iso_active[b]}")
+        np.testing.assert_allclose(res.loss_curves[b], one.loss_curve,
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(res.auroc_used[b], one.auroc_used, rtol=0,
+                                   atol=1e-3)
+        rel = float(np.max(np.abs(res.loss_curves[b] - one.loss_curve)
+                           / np.abs(one.loss_curve)))
+        log(f"[campaign-reference] {name} ({res.cfg.scheme} "
+            f"k={res.cfg.num_clusters}, trace {int(res.trace_index[b])}, "
+            f"seed {int(res.seed[b])}): campaign vs run_simulation loss max "
+            f"rel diff {rel:.3e}, auroc_used {res.auroc_used[b]:.5f} vs "
+            f"{one.auroc_used:.5f}, iso_active {one.iso_active}")
+
+    # the same small campaign on the card and on the CPU: 6 rounds on 64
+    # samples a device, traces sampled for 6 rounds and an FL server death
+    small_traces = sample_traces(np.random.default_rng(1), Topology(10, 5),
+                                 CAMPAIGN_RATE, CAMPAIGN_EVENTS, rounds=6,
+                                 num_traces=7, device="cpu")
+    small_traces.append(FailureSpec(2, "server"))
+    p0 = [AutoencoderDetector(COMMSML).init_params(
+        torch.Generator().manual_seed(s), device="cpu") for s in SWEEP_SEEDS]
+    small, small_counts = dx[:, :64], np.minimum(counts, 64)
+    stx, sty = tx[::25], ty[::25]
+    for scheme, k in (("tolfl", 5), ("fl", 1)):
+        scfg = _campaign_cfg(scheme=scheme, num_clusters=k, rounds=6,
+                             lr=5e-4, dropout=False)
+        runs = [run_campaign(COMMSML, small, small_counts, stx, sty, scfg,
+                             small_traces, SWEEP_SEEDS, params0=p0,
+                             device=dev)
+                for dev in ("cuda", "cpu")]
+        np.testing.assert_array_equal(runs[0].iso_active, runs[1].iso_active)
+        np.testing.assert_allclose(runs[0].loss_curves, runs[1].loss_curves,
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(runs[0].auroc_used, runs[1].auroc_used,
+                                   rtol=0, atol=1e-3)
+        rel = float(np.max(np.abs(runs[0].loss_curves - runs[1].loss_curves)
+                           / np.abs(runs[1].loss_curves)))
+        log(f"[campaign-reference] {scheme} k={k}, {len(small_traces)} "
+            f"traces x "
+            f"{len(SWEEP_SEEDS)} seeds, 6 rounds on 64 samples a device: "
+            f"card vs CPU loss max rel diff {rel:.3e}, iso_active "
+            f"{int(runs[0].iso_active.sum())} of {runs[0].num_scenarios}")
+
+
 def _samples_ms(torch, fn, device_only, samples):
     """``samples`` times, in ms, between CUDA events recorded before and
     after one call of ``fn``, after 10 calls of warm-up.  With
@@ -859,25 +1169,29 @@ def phase_times(torch, launches, errs, parent=None):
         "profiler_ms": fused_us / 1e3, "launch_floor_ms": floor_us / 1e3}
     del args, fns
 
-    # 64 scenarios, the campaign's axis: the only shape at which the kernel
-    # can be held to a bound the card can reach
-    case = tc.ROUND_CARD_CASES[-1]
-    args = tc.round_inputs(case, gen)
-    S, N, k, P = case.S, case.N, case.k, case.P
-    s64_ms = _median_ms(torch, lambda: tc.tolfl_round_update_cuda(
-        *args, lr, k), True)
-    moved = _round_bytes(S, N, P, case.faulty)
-    b_bytes = moved / H100_BYTES_PER_S * 1e3
-    b_ops = _round_flops(S, N, k, P, case.faulty) / H100_F32_FLOPS * 1e3
-    s64_bound = max(b_bytes, b_ops)
-    log(f"[times] tolfl_round_update (S, N, k, P) = {(S, N, k, P)} with a "
-        f"faulty channel, median of {SAMPLES} CUDA-event timings on the "
-        f"card alone: {s64_ms:.6f} ms, {moved / s64_ms / 1e6:.1f} GB/s; "
-        f"bound {s64_bound:.6f} ms ({moved} bytes at 3.35 TB/s), "
-        f"{s64_bound / s64_ms:.1%} of it; clocks.sm, power.draw, "
-        f"temperature after: {_clocks()}")
-    row.update(s64_ms=s64_ms, s64_bound_ms=s64_bound,
-               s64_share_of_bound=s64_bound / s64_ms)
+    # the campaign's shapes: its 64-scenario grid (here with a faulty
+    # channel) and its fused sweep's 96 scenarios with the cluster axis
+    # padded to 10, where the kernel can be held to a bound the card can reach
+    for name, key in (("scenarios", "s64"), ("campaign_sweep", "s96")):
+        case = next(c for c in tc.ROUND_CARD_CASES if c.name == name)
+        args = tc.round_inputs(case, gen)
+        S, N, k, P = case.S, case.N, case.k, case.P
+        ms = _median_ms(torch, lambda: tc.tolfl_round_update_cuda(
+            *args, lr, k), True)
+        moved = _round_bytes(S, N, P, case.faulty)
+        b_bytes = moved / H100_BYTES_PER_S * 1e3
+        b_ops = _round_flops(S, N, k, P, case.faulty) / H100_F32_FLOPS * 1e3
+        s_bound = max(b_bytes, b_ops)
+        log(f"[times] tolfl_round_update (S, N, k, P) = {(S, N, k, P)} "
+            f"({case.name}{', faulty channel' if case.faulty else ''}; ids "
+            f"{case.ids}), median of {SAMPLES} CUDA-event timings on the "
+            f"card alone: {ms:.6f} ms, {moved / ms / 1e6:.1f} GB/s; bound "
+            f"{s_bound:.6f} ms ({moved} bytes at 3.35 TB/s), "
+            f"{s_bound / ms:.1%} of it; clocks.sm, power.draw, temperature "
+            f"after: {_clocks()}")
+        row.update({f"{key}_ms": ms, f"{key}_bound_ms": s_bound,
+                    f"{key}_share_of_bound": s_bound / ms})
+        del args
     rows.append(row)
     return rows
 
@@ -1358,6 +1672,10 @@ def main() -> int:
     phase_no_sync(torch, split, dx, counts)
     phase_profile(torch, split, dx, counts, parent)
     phase_reference(torch, split, dx, counts)
+    launches["tolfl_round_update"] += phase_campaign(torch, split, dx, counts)
+    phase_campaign_no_sync(torch, split, dx, counts)
+    phase_campaign_profile(torch, split, dx, counts)
+    phase_campaign_reference(torch, split, dx, counts)
     kernels = phase_times(torch, launches, errs, parent)
     serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
     for arch, tag in SERVE_ARCHS:

@@ -1,0 +1,539 @@
+"""Batched Monte-Carlo failure campaigns: (cell x trace x seed) grids.
+
+Port of ``repro.core.campaign``, the single-model path.  The paper's
+robustness claims need scenario diversity: grids of failure traces x
+seeds, not one hand-picked event per run.  Where ``repro`` runs such a
+grid through one ``jit(vmap(core))`` executable, the port runs it
+through ONE round loop with a leading scenario axis S
+(:func:`repro_torch.core.simulate._round_loop`, the same loop
+``run_simulation`` runs at S = 1): a round is one batched forward and
+backward pass over the S*N parameter rows and one launch of the fused
+aggregation kernel for all S scenarios, so a round launches as many
+kernels for 64 scenarios as for one.
+
+Typical use::
+
+    traces = sample_traces(np.random.default_rng(0), topo, 0.3,
+                           rounds=100, num_traces=16)
+    res = run_campaign(ae_cfg, dx, counts, test_x, test_y,
+                       SimConfig(scheme="tolfl", num_clusters=5),
+                       traces, seeds=range(4))
+    res.summary()["auroc_used_mean"]
+
+:func:`sweep_grid` runs a (scheme x k) grid: with ``fuse`` every
+single-model cell of one iso-tracking kind (all sbt/tolfl cells, then
+all fl cells, whose isolated fallback costs extra work a round) shares
+one round loop over the flattened (cell x trace x seed) axis, each row
+carrying its own cluster arrays padded to the group's max k.  Padded
+cluster slots are exact no-ops, so results match the per-cell paths.
+
+Execution (:class:`ExecPlan`): ``chunk_size`` runs the scenario axis in
+chunks of at most that many scenarios (the last one padded by repeating
+scenario 0, the padding stripped), each one round loop and one copy to
+the host.  Scenario sharding over several cards and ahead-of-time
+compilation are not ported.
+
+RNG, by the port's rule that draws are operands:
+
+* ``params0`` (optional) is a sequence of param trees aligned with
+  ``seeds``, the same for every trace and cell.  Without it scenario seed
+  ``s`` starts from ``det.init_params(torch.Generator().manual_seed(s))``,
+  as ``run_simulation`` does for ``cfg.seed = s``, so a dropout-free
+  campaign row equals ``run_simulation(dataclasses.replace(cfg, seed=s))``.
+* With dropout on, chunk ``c`` whose scenarios carry seeds ``s_0 ...
+  s_{S-1}`` draws from one generator on the device seeded with
+  ``(h + c * 0x9E3779B97F4A7C15) mod 2**63``, where ``h`` is the
+  polynomial hash ``sum_i s_i * 1_000_003**i mod 2**63``.  A chunk of one
+  scenario (c = 0) thus draws what ``run_simulation`` draws for its seed;
+  otherwise parity with a looped simulator or with ``repro`` is
+  statistical (AUROC means within each other's 95% CI).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.core import simulate as sim
+from repro_torch.core.failure import (Failure, FailureTrace, as_trace,
+                                      concat_traces, stack_traces)
+from repro_torch.core.simulate import SimConfig, SimOutputs
+from repro_torch.models import detector as D
+from repro_torch.models.detector import ModelLike
+from repro_torch.models.params import FlatLayout, Params
+from repro_torch.training.metrics import auroc_batch
+
+#: the single-model schemes, and the multi-model baselines (not ported:
+#: ROADMAP queue 1, item 2)
+SINGLE_SCHEMES = ("batch", "fl", "sbt", "tolfl")
+MULTI_SCHEMES = ("fedgroup", "ifca", "fesem")
+_HASH_BASE = 1_000_003
+_CHUNK_STRIDE = 0x9E3779B97F4A7C15
+_MOD = 1 << 63
+
+
+@dataclass(frozen=True)
+class ExecPlan:
+    """How a campaign batch is executed (results never change with it).
+
+    chunk_size
+        At most this many scenarios run at once: every chunk is one round
+        loop of the same padded size.  ``None`` runs the batch in one
+        shot.
+    shard, devices, aot
+        ``repro``'s scenario sharding over several devices and its
+        ahead-of-time compilation.  Not ported: ``shard=True`` and
+        ``aot=True`` raise ``NotImplementedError``.
+
+    Invalid values raise ``ValueError`` at construction."""
+    shard: bool = False
+    chunk_size: Optional[int] = None
+    devices: Optional[int] = None
+    aot: bool = False
+
+    def __post_init__(self):
+        if self.chunk_size is not None and self.chunk_size <= 0:
+            raise ValueError(
+                f"ExecPlan.chunk_size must be a positive number of "
+                f"scenarios (or None for one-shot), got "
+                f"{self.chunk_size}")
+        if self.devices is not None and self.devices <= 0:
+            raise ValueError(
+                f"ExecPlan.devices must be a positive device count "
+                f"(or None for all local devices), got {self.devices}")
+        if self.shard:
+            raise NotImplementedError(
+                "ExecPlan(shard=True): scenario sharding over several "
+                "cards is not ported yet (ROADMAP queue 1, item 9)")
+        if self.aot:
+            raise NotImplementedError(
+                "ExecPlan(aot=True): ahead-of-time compilation is not "
+                "ported yet (ROADMAP queue 1, item 11)")
+
+
+def mean_ci95(vals: np.ndarray) -> Tuple[float, float, float]:
+    """(mean, sample std, normal-approx 95% CI half-width) over seeds.
+
+    Uses the SAMPLE standard deviation (ddof=1).  A single scenario has
+    no spread estimate: std 0, CI half-width nan."""
+    b = len(vals)
+    mean = float(np.mean(vals))
+    if b <= 1:
+        return mean, 0.0, float("nan")
+    std = float(np.std(vals, ddof=1))
+    return mean, std, 1.96 * std / np.sqrt(b)
+
+
+@dataclass
+class CampaignResult:
+    """Stacked per-scenario results of one batched campaign.
+
+    Scenario b is (trace ``trace_index[b]``, seed ``seed[b]``); arrays
+    are aligned on that leading axis."""
+    cfg: SimConfig
+    trace_index: np.ndarray        # (B,) int — index into the trace list
+    seed: np.ndarray               # (B,) int
+    auroc_used: np.ndarray         # (B,) paper-reported AUROC
+    final_auroc: np.ndarray        # (B,) global-model AUROC
+    iso_auroc: np.ndarray          # (B,) isolated-mean AUROC (nan if n/a)
+    iso_active: np.ndarray         # (B,) bool — FL fallback engaged
+    loss_curves: np.ndarray        # (B, rounds) REPORTED loss: global,
+    #                                but FL server-dead rounds carry the
+    #                                isolated mean (Fig 4 semantics)
+    iso_loss_curves: np.ndarray    # (B, rounds)
+    rounds_to_loss: np.ndarray     # (B,) float, nan when never reached
+
+    @property
+    def num_scenarios(self) -> int:
+        return len(self.auroc_used)
+
+    def select(self, trace_index: int) -> np.ndarray:
+        """auroc_used of every scenario using trace ``trace_index``."""
+        return self.auroc_used[self.trace_index == trace_index]
+
+    def summary(self) -> Dict[str, float]:
+        """Mean / sample std / normal-approx 95% CI of the reported
+        AUROC plus mean rounds-to-loss (over scenarios that reached the
+        target)."""
+        mean, std, half = mean_ci95(self.auroc_used)
+        r2l = self.rounds_to_loss[np.isfinite(self.rounds_to_loss)]
+        return {
+            "num_scenarios": float(self.num_scenarios),
+            "auroc_used_mean": mean,
+            "auroc_used_std": std,
+            "auroc_used_ci95_lo": mean - half,
+            "auroc_used_ci95_hi": mean + half,
+            "rounds_to_loss_mean": (float(np.mean(r2l)) if len(r2l)
+                                    else float("nan")),
+        }
+
+
+def _scenario_grid(num_traces: int, seeds: Sequence[int]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Full cross product: trace-major, seed-minor."""
+    seeds = np.asarray(list(seeds), np.int32)
+    trace_idx = np.repeat(np.arange(num_traces, dtype=np.int32),
+                          len(seeds))
+    seed_arr = np.tile(seeds, num_traces)
+    return trace_idx, seed_arr
+
+
+def dropout_seed(seeds: Sequence[int], chunk: int = 0) -> int:
+    """The seed of chunk ``chunk``'s dropout generator, from its
+    scenarios' seeds (see the module docstring)."""
+    h = 0
+    for s in reversed([int(s) for s in seeds]):
+        h = (h * _HASH_BASE + s) % _MOD
+    return (h + chunk * _CHUNK_STRIDE) % _MOD
+
+
+def _run_batched(run_chunk, mapped: Sequence[np.ndarray],
+                 plan: Optional[ExecPlan]) -> SimOutputs:
+    """Run a scenario batch through ``run_chunk(c, *rows)`` with host-side
+    chunking per ``plan``; returns the stacked outputs as numpy arrays
+    with the padding stripped.
+
+    ``mapped`` holds host arrays sharing the scenario leading axis.  The
+    last chunk is padded by repeating scenario 0 (any valid scenario
+    works: its rows are stripped).  Each chunk's outputs come to the host
+    in one copy, after its round loop, so device memory stays bounded by
+    ``chunk_size`` however large the grid is."""
+    plan = plan or ExecPlan()
+    B = int(mapped[0].shape[0])
+    chunk = min(plan.chunk_size or B, B)
+    n_chunks = -(-B // chunk)
+    b_pad = n_chunks * chunk
+    if b_pad != B:
+        sel = np.concatenate([np.arange(B), np.zeros(b_pad - B, np.int64)])
+        mapped = [m[sel] for m in mapped]
+    outs = []
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        outs.append(sim.outputs_to_host(run_chunk(c, *(m[sl]
+                                                       for m in mapped))))
+    if n_chunks == 1 and b_pad == B:
+        return outs[0]
+    return SimOutputs(*(np.concatenate(xs, axis=0)[:B] for xs in zip(*outs)))
+
+
+@dataclass
+class _Cell:
+    """One cell's scenario rows, ready to stack with other cells'."""
+    cfg: SimConfig
+    trace_index: np.ndarray
+    seed: np.ndarray
+    traces: FailureTrace          # (B, M) host tensors
+    cluster_ids: np.ndarray       # (B, N) int32
+    heads: np.ndarray             # (B, k_pad) int64
+    head_valid: np.ndarray        # (B, k_pad) float32
+
+
+def _cell_rows(cfg: SimConfig, traces: Sequence[Failure],
+               seeds: Sequence[int], k_pad: int, norm_cache: dict) -> _Cell:
+    """Normalise one cell's traces against its topology on the host (once
+    per distinct resolution: cells that pass the same list share it) and
+    lay out its (trace x seed) grid, its padded cluster arrays repeated
+    along it."""
+    if len(traces) == 0 or len(seeds) == 0:
+        raise ValueError("empty campaign: need >=1 trace and >=1 seed")
+    topo = cfg.topology()
+    key = (tuple(id(t) for t in traces), _single_trace_key(traces, topo))
+    if key not in norm_cache:
+        norm_cache[key] = [as_trace(t, topo, device="cpu") for t in traces]
+    norm = norm_cache[key]
+    trace_idx, seed_arr = _scenario_grid(len(norm), seeds)
+    b = len(trace_idx)
+    # repro's ``_padded_topology_arrays``, checked on the host
+    cids, heads, hv = sim.topology_arrays(topo, k_pad)
+    return _Cell(cfg, trace_idx, seed_arr,
+                 stack_traces([norm[i] for i in trace_idx]),
+                 np.broadcast_to(cids, (b,) + cids.shape),
+                 np.broadcast_to(heads, (b,) + heads.shape),
+                 np.broadcast_to(hv, (b,) + hv.shape))
+
+
+def _single_trace_key(traces: Sequence[Failure], topo) -> tuple:
+    """How a trace list resolves against a topology: pure
+    :class:`FailureTrace` lists are topology-independent (one normalised
+    list serves every sweep cell), legacy specs default their targets
+    from the heads / cluster-0 layout."""
+    if all(isinstance(t, FailureTrace) for t in traces):
+        return ()
+    return (tuple(topo.heads), tuple(topo.clusters[0]))
+
+
+def _run_group(det: D.DetectorModel, data, cells: List[_Cell], loop_cfg,
+               k: int, track_iso: bool, seeds: Sequence[int],
+               params0: Optional[Sequence[Params]], target_loss,
+               exec_plan: Optional[ExecPlan], dev: torch.device
+               ) -> List[CampaignResult]:
+    """One round loop (per chunk) over the flattened (cell x trace x
+    seed) axis of ``cells``, which share the data arrays, ``loop_cfg``'s
+    training settings and the padded cluster count ``k``; the results
+    sliced back per cell."""
+    device_x, device_counts, test_x, test_y = data
+    sim._use_f32_matmul()
+    dx, counts, valid = sim._prepare_arrays(cells[0].cfg, device_x,
+                                            device_counts, dev)
+    for c in cells:
+        if dx.shape[0] != c.cfg.topology().num_devices:
+            raise ValueError(f"device data for {dx.shape[0]} devices, but "
+                             f"{c.cfg.scheme} k={c.cfg.num_clusters} has "
+                             f"{c.cfg.topology().num_devices}")
+    tx = torch.as_tensor(np.asarray(test_x, np.float32), device=dev)
+
+    # the inits, one row per distinct seed, on the device
+    seed_list = [int(s) for s in seeds]
+    if params0 is None:
+        trees = [det.init_params(torch.Generator().manual_seed(s),
+                                 device="cpu") for s in seed_list]
+    else:
+        trees = list(params0)
+        if len(trees) != len(seed_list):
+            raise ValueError(f"params0 has {len(trees)} trees for "
+                             f"{len(seed_list)} seeds")
+    layout = FlatLayout.of(trees[0])
+    table = torch.stack([layout.flatten(t).to(dev) for t in trees])
+    row_of = {s: i for i, s in enumerate(seed_list)}
+
+    traces = concat_traces([c.traces for c in cells])
+    seed_arr = np.concatenate([c.seed for c in cells])
+    mapped = [traces.epochs.numpy(), traces.devices.numpy(),
+              traces.alive_after.numpy(), traces.kinds.numpy(),
+              np.array([row_of[int(s)] for s in seed_arr], np.int64),
+              seed_arr.astype(np.int64),
+              np.concatenate([c.cluster_ids for c in cells]),
+              np.concatenate([c.heads for c in cells]),
+              np.concatenate([c.head_valid for c in cells])]
+
+    def on_dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def run_chunk(c, ep, dv, alv, knd, rows, chunk_seeds, cids, heads, hv):
+        trace = FailureTrace(on_dev(ep), on_dev(dv), on_dev(alv),
+                             on_dev(knd))
+        out, _, _ = sim._round_loop(
+            det, loop_cfg, layout, table[on_dev(rows)], dx, counts, valid,
+            tx, on_dev(cids), on_dev(heads), on_dev(hv), trace, k,
+            track_iso=track_iso, score_history=False,
+            dropout_seed=dropout_seed(chunk_seeds, c))
+        return out
+
+    out = _run_batched(run_chunk, mapped, exec_plan)
+    fields = _post_process_arrays(track_iso, out, test_y, target_loss)
+    results, off = [], 0
+    for c in cells:
+        b = len(c.seed)
+        results.append(CampaignResult(
+            cfg=c.cfg, trace_index=c.trace_index, seed=c.seed,
+            **{name: arr[off:off + b] for name, arr in fields.items()}))
+        off += b
+    return results
+
+
+def run_campaign(model: ModelLike, device_x: np.ndarray,
+                 device_counts: np.ndarray, test_x: np.ndarray,
+                 test_y: np.ndarray, cfg: SimConfig,
+                 traces: Sequence[Failure], seeds: Sequence[int],
+                 target_loss: Optional[float] = None,
+                 exec_plan: Optional[ExecPlan] = None,
+                 pad_k: Optional[int] = None,
+                 params0: Optional[Sequence[Params]] = None,
+                 device: DeviceLike = None) -> CampaignResult:
+    """Run every (trace x seed) scenario of one cell through one round
+    loop (per chunk of ``exec_plan``).
+
+    ``traces`` may mix legacy :class:`FailureSpec`s and
+    :class:`FailureTrace`s; all are normalised against ``cfg``'s topology
+    and stacked.  ``cfg.seed`` is ignored — seeds come from the grid.
+    ``pad_k`` (int >= the cluster count) pads the cluster axis, as
+    :func:`sweep_grid`'s per-cell path does (results are unchanged).
+    "batch" centralises the data, and ``pad_k`` is ignored for it.
+    ``params0``: see the module docstring."""
+    return _run_cells(model, (device_x, device_counts, test_x, test_y),
+                      [(cfg, traces)], seeds, target_loss, exec_plan,
+                      params0, device, fuse=False, pad_k=pad_k is not None,
+                      k_pad=pad_k)[0]
+
+
+def _post_process_arrays(track_iso: bool, out, test_y, target_loss
+                         ) -> Dict[str, np.ndarray]:
+    """Scenario-aligned result arrays of a stacked :class:`SimOutputs`
+    batch on the host (ONE ``auroc_batch`` sweep over the whole batch,
+    however many sweep cells were flattened into it) — everything
+    :class:`CampaignResult` stores except the grid bookkeeping."""
+    losses = np.asarray(out.losses)                    # (B, R)
+    iso_losses = np.asarray(out.iso_losses)
+    finals = np.asarray(out.final_scores)              # (B, T)
+    iso_scores = np.asarray(out.iso_final_scores)      # (B, N, T')
+    final_alive = np.asarray(out.final_alive)          # (B, N)
+    dead_rounds = np.asarray(out.server_dead_rounds) > 0   # (B, R)
+    server_dead = np.asarray(out.server_dead) > 0      # (B,)
+    B = losses.shape[0]
+
+    test_y = np.asarray(test_y)
+    final_auroc = auroc_batch(finals, test_y)
+    iso_auroc = np.full(B, np.nan)
+    iso_active = np.zeros(B, bool)
+    if track_iso:
+        # Fig 4 semantics (matching run_simulation): server-dead rounds
+        # report the isolated-mean loss, not the frozen global model's
+        losses = np.where(dead_rounds, iso_losses, losses)
+        iso_active = server_dead.copy()
+        hit = np.flatnonzero(iso_active)
+        if len(hit) and iso_scores.shape[-1]:
+            n_dev = iso_scores.shape[1]
+            per_dev = auroc_batch(
+                iso_scores[hit].reshape(len(hit) * n_dev, -1),
+                test_y).reshape(len(hit), n_dev)
+            alive = (final_alive[hit] > 0)
+            denom = alive.sum(axis=1)
+            num = np.where(alive, per_dev, 0.0).sum(axis=1)
+            iso_auroc[hit] = np.where(denom > 0,
+                                      num / np.maximum(denom, 1),
+                                      np.nan)
+    auroc_used = np.where(iso_active, iso_auroc, final_auroc)
+
+    r2l = np.full(B, np.nan)
+    if target_loss is not None:
+        reached = losses <= target_loss                # (B, R)
+        any_hit = reached.any(axis=1)
+        first = reached.argmax(axis=1) + 1.0
+        r2l = np.where(any_hit, first, np.nan)
+
+    return dict(auroc_used=auroc_used, final_auroc=final_auroc,
+                iso_auroc=iso_auroc, iso_active=iso_active,
+                loss_curves=losses, iso_loss_curves=iso_losses,
+                rounds_to_loss=r2l)
+
+
+def _group_key(cfg: SimConfig) -> Tuple[SimConfig, bool]:
+    """Cells whose configs agree on everything but (scheme, k) and share
+    an iso-tracking kind run in one round loop (``repro``'s fused
+    bucket key)."""
+    return (dataclasses.replace(cfg, seed=0, scheme="tolfl",
+                                num_clusters=1), cfg.scheme == "fl")
+
+
+def _run_cells(model: ModelLike, data, cells, seeds, target_loss,
+               exec_plan, params0, device, fuse: bool, pad_k: bool,
+               k_pad: Optional[int]) -> List[CampaignResult]:
+    """``repro``'s bucketing (``experiment.plan``) for single-model cells
+    (a list of (cfg, traces)): with ``fuse`` and ``pad_k`` one round loop
+    per (config, iso-tracking kind) group at the group's max k (or
+    ``k_pad``); else one per cell, the cluster axis padded to the
+    per-kind max k when ``pad_k``.  "batch" cells always run alone,
+    unpadded.  Results align with ``cells``."""
+    if not cells:
+        return []
+    for cfg, _ in cells:
+        if cfg.scheme not in SINGLE_SCHEMES:
+            raise ValueError(
+                f"unknown scheme {cfg.scheme!r}: single-model schemes are "
+                f"{SINGLE_SCHEMES}, multi-model baselines {MULTI_SCHEMES}")
+    seeds = list(seeds)
+    det, dev = D.as_detector(model), resolve_device(device)
+    results: List[Optional[CampaignResult]] = [None] * len(cells)
+    norm_cache: dict = {}        # normalised traces per distinct resolution
+    singles = [i for i, (cfg, _) in enumerate(cells) if cfg.scheme != "batch"]
+    buckets = []                 # (cell indices, loop cfg, k, track_iso)
+    if fuse and pad_k:
+        groups: Dict[Tuple[SimConfig, bool], List[int]] = {}
+        for i in singles:
+            groups.setdefault(_group_key(cells[i][0]), []).append(i)
+        for (key_cfg, track_iso), idxs in groups.items():
+            kp = k_pad or max(cells[i][0].topology().num_clusters
+                              for i in idxs)
+            buckets.append((idxs, key_cfg, kp, track_iso))
+    else:
+        k_kind: Dict[bool, int] = {}
+        if pad_k:
+            for i in singles:
+                fl = cells[i][0].scheme == "fl"
+                k_kind[fl] = max(k_kind.get(fl, 1),
+                                 cells[i][0].topology().num_clusters)
+        for i in singles:
+            cfg = cells[i][0]
+            kp = ((k_pad or k_kind[cfg.scheme == "fl"]) if pad_k
+                  else cfg.topology().num_clusters)
+            buckets.append(([i], cfg, kp, cfg.scheme == "fl"))
+    for i, (cfg, _) in enumerate(cells):
+        if cfg.scheme == "batch":
+            buckets.append(([i], cfg, cfg.topology().num_clusters, False))
+    for idxs, loop_cfg, kp, track_iso in buckets:
+        rows = [_cell_rows(cells[i][0], cells[i][1], seeds, kp, norm_cache)
+                for i in idxs]
+        for i, r in zip(idxs, _run_group(det, data, rows, loop_cfg, kp,
+                                         track_iso, seeds, params0,
+                                         target_loss, exec_plan, dev)):
+            results[i] = r
+    return results
+
+
+def run_fused_campaigns(model: ModelLike, device_x: np.ndarray,
+                        device_counts: np.ndarray, test_x: np.ndarray,
+                        test_y: np.ndarray,
+                        cells: Sequence[Tuple[SimConfig,
+                                              Sequence[Failure]]],
+                        seeds: Sequence[int],
+                        target_loss: Optional[float] = None,
+                        exec_plan: Optional[ExecPlan] = None,
+                        k_pad: Optional[int] = None,
+                        params0: Optional[Sequence[Params]] = None,
+                        device: DeviceLike = None) -> List[CampaignResult]:
+    """Many single-model campaign cells, fused into ONE round loop per
+    group: cells whose configs agree on everything but (scheme, k) and
+    share an iso-tracking kind.  ``cells`` pairs each :class:`SimConfig`
+    with its trace list (lists may differ per cell and may be the same
+    object, in which case stacking happens once).  Each group's cluster
+    arrays are padded to ``k_pad`` (default: the group's max k) and
+    stacked along the flattened (cell x trace x seed) axis.  Results
+    align with ``cells``.  "batch" cells centralise the data (different
+    array shapes) and are rejected — run them via :func:`run_campaign`."""
+    if not cells:
+        return []
+    for cfg, _ in cells:
+        if cfg.scheme == "batch":
+            raise ValueError("'batch' cells centralise the data onto one "
+                             "device (different array shapes); run them "
+                             "via run_campaign")
+    return _run_cells(model, (device_x, device_counts, test_x, test_y),
+                      list(cells), seeds, target_loss, exec_plan, params0,
+                      device, fuse=True, pad_k=True, k_pad=k_pad)
+
+
+def sweep_grid(model: ModelLike, device_x: np.ndarray,
+               device_counts: np.ndarray, test_x: np.ndarray,
+               test_y: np.ndarray, base: SimConfig,
+               scheme_ks: Sequence[Tuple[str, int]],
+               traces: Sequence[Failure], seeds: Sequence[int],
+               target_loss: Optional[float] = None,
+               exec_plan: Optional[ExecPlan] = None,
+               pad_k: bool = True, fuse: bool = True,
+               params0: Optional[Sequence[Params]] = None,
+               device: DeviceLike = None
+               ) -> Dict[Tuple[str, int], CampaignResult]:
+    """(scheme x k) grid of batched campaigns over the same traces and
+    seeds, each cell's config ``base`` with its scheme and k.
+
+    With ``fuse`` (and ``pad_k``) all sbt/tolfl cells run in one round
+    loop and all fl cells in another, their cluster arrays padded to the
+    group's max k; ``fuse=False`` runs one loop per cell, padded to the
+    per-kind max k, and ``pad_k=False`` unpadded.  Results are the same
+    either way.  "batch" cells always run alone.  The multi-model
+    baselines are not ported (ROADMAP queue 1, item 2)."""
+    for scheme, _ in scheme_ks:
+        if scheme in MULTI_SCHEMES:
+            raise NotImplementedError(
+                f"sweep_grid: the multi-model baseline {scheme!r} is not "
+                f"ported yet (ROADMAP queue 1, item 2)")
+    cells = [(dataclasses.replace(base, scheme=s, num_clusters=k), traces)
+             for s, k in scheme_ks]
+    res = _run_cells(model, (device_x, device_counts, test_x, test_y),
+                     cells, seeds, target_loss, exec_plan, params0, device,
+                     fuse=fuse, pad_k=pad_k, k_pad=None)
+    return dict(zip(tuple(scheme_ks), res))

@@ -1,9 +1,15 @@
 """Failure model (paper Section II / IV-B) and timed failure traces.
 
-Port of ``repro.core.failure``, the parts the round loop needs.  An
-``alive`` mask is computed on the device each round from a
-fixed-shape :class:`FailureTrace`, and per-device effective weights are
-derived from it, so the round loop never waits on the host.
+Port of ``repro.core.failure``.  An ``alive`` mask is computed on the
+device each round from a fixed-shape :class:`FailureTrace`, and
+per-device effective weights are derived from it, so the round loop
+never waits on the host.  Traces stack on a leading scenario axis
+(:func:`stack_traces`, :func:`concat_traces`): the masks then come out
+one row per scenario, which is what lets :mod:`repro_torch.core.campaign`
+run a whole (trace x seed) grid through one round loop.  The Monte-Carlo
+samplers (:func:`sample_traces`, :func:`sample_rate_grid`) are host numpy
+and draw from the caller's ``np.random.Generator`` in ``repro``'s order,
+so they give ``repro``'s traces byte for byte.
 
 Semantics (paper IV-B):
 * dead member  -> its samples leave the weighted mean; cluster continues.
@@ -74,7 +80,9 @@ class FailureTrace:
 
     Events are stored sorted by epoch (stable); unused slots carry
     ``PAD_EPOCH`` / device -1 and never match.  ``alive_after[j]`` is the
-    device's state once event j fires (0 = dead, 1 = recovered)."""
+    device's state once event j fires (0 = dead, 1 = recovered).  A
+    stacked trace (:func:`stack_traces`) has (S, M) fields, one row a
+    scenario."""
     epochs: torch.Tensor       # (M,) int32
     devices: torch.Tensor      # (M,) int32, -1 in padding slots
     alive_after: torch.Tensor  # (M,) float32
@@ -135,6 +143,7 @@ class FailureTrace:
 
 
 Failure = Union[FailureSpec, FailureTrace]
+_FIELDS = ("epochs", "devices", "alive_after", "kinds")
 
 
 def as_trace(failure: Failure, topo: Topology, max_events: int = MAX_EVENTS,
@@ -145,20 +154,141 @@ def as_trace(failure: Failure, topo: Topology, max_events: int = MAX_EVENTS,
     return FailureTrace.from_spec(failure, topo, max_events, device)
 
 
+def stack_traces(traces: Sequence[FailureTrace]) -> FailureTrace:
+    """Stack same-shape traces on a leading scenario axis: (S, M) fields."""
+    if not traces:
+        raise ValueError("stack_traces: empty trace list — a batch "
+                         "needs at least one trace")
+    ms = {t.max_events for t in traces}
+    assert len(ms) == 1, f"mixed max_events: {ms}"
+    return FailureTrace(*(torch.stack([getattr(t, f) for t in traces])
+                          for f in _FIELDS))
+
+
+def concat_traces(batches: Sequence[FailureTrace]) -> FailureTrace:
+    """Concatenate already-stacked trace batches along their leading
+    scenario axis — the fused (cell x trace x seed) sweep flattens the
+    per-cell batches of a grid into one with this (the batches must
+    share ``max_events``)."""
+    if not batches:
+        raise ValueError("concat_traces: empty batch list — nothing to "
+                         "concatenate")
+    ms = {t.max_events for t in batches}
+    assert len(ms) == 1, f"mixed max_events: {ms}"
+    if len(batches) == 1:
+        return batches[0]
+    return FailureTrace(*(torch.cat([getattr(t, f) for t in batches])
+                          for f in _FIELDS))
+
+
+def sample_traces(rng: np.random.Generator, topo: Topology,
+                  failure_rate: float, max_events: int = MAX_EVENTS,
+                  rounds: int = 100, num_traces: int = 1,
+                  recover_prob: float = 0.5, device: DeviceLike = None
+                  ) -> list:
+    """Random multi-event failure-and-recovery traces (Section IV-B).
+
+    Each of ``num_traces`` traces: every device independently fails with
+    probability ``failure_rate`` at a uniform random epoch in ``[0,
+    rounds)`` (a *server* event for a cluster head of ``topo``, else a
+    *client* event) and, with probability ``recover_prob``, comes back at
+    a later uniform epoch.  Devices are visited in a shuffled order and
+    events beyond ``max_events`` slots are dropped; near the budget a
+    failure whose recovery no longer fits keeps the failure and drops
+    the recovery, so either every failed device appears or every slot is
+    used.  The draws from ``rng`` are ``repro``'s, in its order
+    (``random``, ``shuffle``, then per device ``integers``, ``random``
+    and, for a recovery, ``integers``), so the traces equal ``repro``'s
+    byte for byte.  Returns a list of :class:`FailureTrace` on
+    ``device``."""
+    assert 0.0 <= failure_rate <= 1.0, failure_rate
+    assert rounds >= 1 and max_events >= 1
+    head_set = set(topo.heads)
+    traces = []
+    for _ in range(num_traces):
+        failed = np.flatnonzero(
+            rng.random(topo.num_devices) < failure_rate)
+        rng.shuffle(failed)
+        events: list = []
+        for d in failed:
+            kind = "server" if int(d) in head_set else "client"
+            epoch = int(rng.integers(rounds))
+            recovers = (rng.random() < recover_prob) and epoch + 1 < rounds
+            free = max_events - len(events)
+            if free <= 0:
+                continue
+            if recovers and free < 2:
+                recovers = False   # keep the failure, drop the recovery
+            events.append(FailureEvent(epoch, kind, device=int(d)))
+            if recovers:
+                rec = int(rng.integers(epoch + 1, rounds))
+                events.append(FailureEvent(rec, kind, device=int(d),
+                                           recover=True))
+        traces.append(FailureTrace.from_events(events, topo, max_events,
+                                               device))
+    return traces
+
+
+def _trace_key(t: FailureTrace) -> tuple:
+    return tuple(leaf.cpu().numpy().tobytes()
+                 for leaf in (t.epochs, t.devices, t.alive_after, t.kinds))
+
+
+def sample_rate_grid(rng: np.random.Generator, topo: Topology,
+                     p_grid: Sequence[float], rounds: int,
+                     traces_per_p: int, max_events: Optional[int] = None,
+                     recover_prob: float = 0.5,
+                     base_traces: Sequence[FailureTrace] = (),
+                     device: DeviceLike = None):
+    """Sampled traces for a failure-rate sweep, deduplicated.
+
+    Draws ``traces_per_p`` scenarios per rate via :func:`sample_traces`
+    and collapses byte-identical traces to one.  ``max_events`` defaults
+    to ``2 * topo.num_devices`` (every device may fail and recover).
+    ``base_traces`` (already at ``max_events``) come first and join the
+    dedup.  Returns ``(traces, draws)``: the traces on ``device``, and
+    ``draws[p]``, one trace index per original draw (a duplicated draw
+    repeats its index, so per-p means over those indices equal the
+    undeduplicated Monte-Carlo estimate)."""
+    if max_events is None:
+        max_events = 2 * topo.num_devices
+    dev = resolve_device(device)
+    traces: list = []
+    draws: dict = {}
+    idx_of: dict = {}
+    for t in base_traces:
+        assert t.max_events == max_events, (t.max_events, max_events)
+        idx_of.setdefault(_trace_key(t), len(traces))
+        traces.append(t.to(dev))
+    for p in p_grid:
+        idxs = []
+        for t in sample_traces(rng, topo, p, max_events=max_events,
+                               rounds=rounds, num_traces=traces_per_p,
+                               recover_prob=recover_prob, device="cpu"):
+            key = _trace_key(t)
+            if key not in idx_of:
+                idx_of[key] = len(traces)
+                traces.append(t.to(dev))
+            idxs.append(idx_of[key])
+        draws[p] = idxs
+    return traces, draws
+
+
 def _last_fired(trace: FailureTrace, targets: torch.Tensor,
                 epoch) -> torch.Tensor:
     """``alive_after`` of the HIGHEST-indexed fired slot per target (1.0
-    where none fired).  Events are epoch-sorted (stably), so that slot is
+    where none fired), for a trace of (M,) or stacked (S, M) fields:
+    (N,) or (S, N).  Events are epoch-sorted (stably), so that slot is
     the most recent event; one reversed argmax finds it.  ``argmax``
     takes no bool (cast to int32) and returns the FIRST maximal index,
     so on the reversed axis it is the last fired slot, which keeps the
     same-epoch list-order tie-break."""
-    fired = ((trace.epochs <= epoch)[:, None]               # (M, N)
-             & (trace.devices[:, None] == targets[None, :]))
-    any_fired = torch.any(fired, dim=0)                     # (N,)
+    fired = ((trace.epochs <= epoch)[..., :, None]          # (..., M, N)
+             & (trace.devices[..., :, None] == targets))
+    any_fired = torch.any(fired, dim=-2)                    # (..., N)
     last = (trace.max_events - 1) - torch.argmax(
-        torch.flip(fired, (0,)).to(torch.int32), dim=0)
-    return torch.where(any_fired, trace.alive_after[last],
+        torch.flip(fired, (-2,)).to(torch.int32), dim=-2)
+    return torch.where(any_fired, torch.gather(trace.alive_after, -1, last),
                        torch.ones((), dtype=torch.float32,
                                   device=targets.device))
 
@@ -166,14 +296,16 @@ def _last_fired(trace: FailureTrace, targets: torch.Tensor,
 def trace_alive_mask(trace: FailureTrace, num_devices: int, epoch
                      ) -> torch.Tensor:
     """(num_devices,) float alive mask at ``epoch`` (an int or a 0-d
-    tensor), computed on the trace's device."""
+    tensor), computed on the trace's device; (S, num_devices) for a
+    stacked trace."""
     return _last_fired(trace, torch.arange(num_devices,
                                            device=trace.epochs.device), epoch)
 
 
 def trace_faulty_scale(trace: FailureTrace, num_devices: int, epoch
                        ) -> torch.Tensor:
-    """(num_devices,) per-device delta scale at ``epoch``.
+    """(num_devices,) per-device delta scale at ``epoch``; (S,
+    num_devices) for a stacked trace.
 
     Kind-3 events target shadow device ids ``N + d`` and carry the
     transmitted-delta scale in ``alive_after`` (1.0 = clean); the same
@@ -198,8 +330,11 @@ def alive_mask(failure: Failure, topo: Topology, epoch,
 
 def effective_weights_arrays(alive: torch.Tensor, cluster_ids: torch.Tensor,
                              heads: torch.Tensor) -> torch.Tensor:
-    """(N,) per-device weight given head-failure semantics:
+    """Per-device weight given head-failure semantics:
     ``w_i = alive_i * alive_{head(cluster(i))}`` — a dead head zeroes its
-    whole cluster; dead members zero only themselves."""
-    head_alive = alive[heads]                     # (k,)
-    return alive * head_alive[cluster_ids]
+    whole cluster; dead members zero only themselves.  ``alive`` and
+    ``cluster_ids`` are (N,) or (S, N), ``heads`` (k,) or (S, k) (int64,
+    possibly padded past the real cluster count: padded slots are only
+    reachable through ``cluster_ids``, which never names one)."""
+    head_alive = torch.gather(alive, -1, heads)             # (..., k)
+    return alive * torch.gather(head_alive, -1, cluster_ids)

@@ -4,16 +4,20 @@ Port of ``repro.core.simulate``.  N federated devices train the paper's
 autoencoder with the single-model schemes — Batch (centralised), FL
 (k=1), SBT (k=N), Tol-FL (1<k<N) — under client / server failures.
 Where ``repro`` jits one ``lax.scan`` over rounds, the port runs a
-Python loop over rounds on one device:
+Python loop over rounds on one device, for S scenarios at once (a leading
+scenario axis; ``run_simulation`` and ``trained_params`` run S = 1,
+:mod:`repro_torch.core.campaign` a whole grid):
 
-* the N per-device gradients come from ONE batched forward pass (params
-  with a leading device axis) and one ``torch.autograd.grad`` of the
-  summed per-device losses; devices are independent, so row i of the
-  gradient is device i's gradient;
-* params are one flat f32 vector (:class:`FlatLayout`), so a round's
-  gradients are an (N, P) tensor; the per-cluster FedAvg, the streaming
-  combine across cluster heads and the SGD step are one hand-written
-  CUDA kernel (``aggregation.round_update``) that reads them once.
+* the S*N per-device gradients come from ONE batched forward pass
+  (params with leading scenario and device axes) and one
+  ``torch.autograd.grad`` of the summed per-device losses; devices are
+  independent, so row (s, i) of the gradient is device i's gradient in
+  scenario s;
+* params are one flat f32 vector a scenario (:class:`FlatLayout`), so a
+  round's gradients are an (S, N, P) tensor; the per-cluster FedAvg, the
+  streaming combine across cluster heads and the SGD step are one
+  hand-written CUDA kernel (``aggregation.round_update``) that reads
+  them once, for all S scenarios.
   ``combine="direct"`` runs ``repro``'s direct form instead, in plain
   PyTorch: ``cluster_reduce`` then ``weighted_mean``;
 * failure masks, head-failure weights and the update gate stay device
@@ -43,11 +47,12 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.core import aggregation as agg
 from repro_torch.core.failure import (NO_FAILURE, Failure, FailureTrace,
                                       as_trace, effective_weights_arrays,
-                                      trace_alive_mask, trace_faulty_scale)
+                                      stack_traces, trace_alive_mask,
+                                      trace_faulty_scale)
 from repro_torch.core.topology import Topology
 from repro_torch.models import detector as D
 from repro_torch.models.detector import DetectorModel, ModelLike
-from repro_torch.models.params import FlatLayout, Params
+from repro_torch.models.params import FlatLayout, Params, tree_items
 from repro_torch.training.metrics import auroc, auroc_batch
 
 
@@ -119,13 +124,21 @@ def _use_f32_matmul() -> None:
 def _device_grads(det: DetectorModel, layout: FlatLayout,
                   flat: torch.Tensor, dx: torch.Tensor, valid: torch.Tensor,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
-    """(N, P) per-device params -> (N, P) per-device loss gradients, from
-    one batched forward pass and one backward pass."""
+    """(S, N, P) per-device params -> (S, N, P) per-device loss
+    gradients, from one batched forward pass over the S*N parameter rows
+    and one backward pass.  The gradients are taken with respect to the
+    per-layer views and concatenated once: with respect to the flat
+    tensor, each view's backward would scatter into a zero (S, N, P)
+    tensor of its own and the sum of those would move P / layer-size
+    times the gradient's bytes."""
     leaf = flat.detach().contiguous().requires_grad_(True)
     with torch.enable_grad():
-        losses = det.loss(layout.unflatten(leaf), dx, valid, generator)
-        (g,) = torch.autograd.grad(losses.sum(), leaf)
-    return g
+        tree = layout.unflatten(leaf)
+        views = [v for _, v in tree_items(tree)]
+        losses = det.loss(tree, dx, valid, generator)
+        grads = torch.autograd.grad(losses.sum(), views)
+    lead = flat.shape[:-1]
+    return torch.cat([g.reshape(*lead, -1) for g in grads], dim=-1)
 
 
 def _local_delta(det: DetectorModel, cfg: SimConfig, layout: FlatLayout,
@@ -147,101 +160,136 @@ def _round_loop(det: DetectorModel, cfg: SimConfig, layout: FlatLayout,
                 valid: torch.Tensor, tx: torch.Tensor,
                 cluster_ids: torch.Tensor, heads: torch.Tensor,
                 head_valid: torch.Tensor, trace: FailureTrace,
-                num_clusters: int, track_iso: bool, score_history: bool
+                num_clusters: int, track_iso: bool, score_history: bool,
+                dropout_seed: int
                 ) -> Tuple[SimOutputs, torch.Tensor, torch.Tensor]:
-    """The round loop of ``repro``'s ``_build_core_arrays``: returns the
-    outputs, the final flat params (P,) and the isolated params (N, P).
-    ``cluster_ids`` (N,) are int32, checked to lie in [0, num_clusters).
+    """The round loop of ``repro``'s ``_build_core_arrays`` for S
+    scenarios at once: returns the outputs (each with a leading S axis),
+    the final flat params (S, P) and the isolated params (S, N, P).
 
-    ``head_valid`` masks cluster-head slots: zeros make every round an
+    Per scenario: ``params0`` (S, P), ``cluster_ids`` (S, N) int32 (the
+    caller checks that they lie in [0, num_clusters)), ``heads`` and
+    ``head_valid`` (S, num_clusters) and a stacked ``trace`` of (S, M)
+    fields.  The device data ``dx`` (N, n_max, D), ``counts`` (N,),
+    ``valid`` (N, n_max) and the test rows ``tx`` (T, D) are shared.
+    Padded cluster slots (``head_valid`` 0, named by no device) are exact
+    no-ops; zeros in ``head_valid`` everywhere make every round an
     all-heads-dead round, so each device trains its own isolated model
-    (:func:`trained_params` with ``isolated=True``)."""
+    (:func:`trained_params` with ``isolated=True``).
+
+    A round is one batched forward and backward pass over the S*N
+    parameter rows, one ``agg.round_update`` launch for all S scenarios
+    and the masks as (S, N) device tensors: the loop never waits on the
+    host.  Dropout draws from one generator on the device seeded with
+    ``dropout_seed``, an (S, N, n_max, width) block a layer, so S = 1
+    draws what a single scenario drew before the scenario axis."""
     dev = dx.device
-    N, k, R, T = dx.shape[0], num_clusters, cfg.rounds, tx.shape[0]
+    S, N, R, T = params0.shape[0], dx.shape[0], cfg.rounds, tx.shape[0]
     P = layout.size
+    k = num_clusters
     faulty = bool(getattr(cfg, "faulty_updates", False))
-    generator = (torch.Generator(device=dev).manual_seed(cfg.seed)
+    generator = (torch.Generator(device=dev).manual_seed(dropout_seed)
                  if cfg.dropout else None)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    cluster_rows = cluster_ids[None]        # (1, N): the kernel's S = 1
-    cluster_ids = cluster_ids.long()        # for indexing
+    # one (S, N, n_max, D) copy for the whole loop: the first layer's
+    # product and its backward then run as one (S*N)-batched product
+    dxs = dx.expand(S, *dx.shape).contiguous()
+    ids = cluster_ids.long()                 # for gather; the kernel: int32
 
     def heads_alive_max(alive):
-        """max over VALID heads only: padded head slots never argue the
-        server back to life."""
-        return torch.max(torch.where(head_valid > 0, alive[heads], zero))
+        """(S,) max over VALID heads only: padded head slots never argue
+        the server back to life."""
+        return torch.where(head_valid > 0, torch.gather(alive, -1, heads),
+                           zero).amax(-1)
 
     def scores_of(flat):
         return det.anomaly_scores(layout.unflatten(flat), tx)
 
     params = params0
-    iso = params0.expand(N, P).clone()
-    losses = torch.empty((R,), dtype=torch.float32, device=dev)
-    iso_losses = torch.empty((R,), dtype=torch.float32, device=dev)
-    dead_rounds = torch.empty((R,), dtype=torch.float32, device=dev)
-    score_hist = torch.empty((R, T if score_history else 0),
+    iso = params0[:, None, :].expand(S, N, P).clone()
+    losses = torch.empty((S, R), dtype=torch.float32, device=dev)
+    iso_losses = torch.empty((S, R), dtype=torch.float32, device=dev)
+    dead_rounds = torch.empty((S, R), dtype=torch.float32, device=dev)
+    score_hist = torch.empty((S, R, T if score_history else 0),
                              dtype=torch.float32, device=dev)
-    iso_shape = (R, N, T) if (track_iso and score_history) else (R, 0, 0)
+    iso_shape = ((S, R, N, T) if (track_iso and score_history)
+                 else (S, R, 0, 0))
     iso_score_hist = torch.empty(iso_shape, dtype=torch.float32, device=dev)
 
     for epoch in range(R):
-        alive = trace_alive_mask(trace, N, epoch)
-        w = effective_weights_arrays(alive, cluster_ids, heads)
-        head_dead = 1.0 - heads_alive_max(alive)         # all heads dead
+        alive = trace_alive_mask(trace, N, epoch)             # (S, N)
+        w = effective_weights_arrays(alive, ids, heads)
+        head_dead = 1.0 - heads_alive_max(alive)             # (S,)
         if track_iso:
             # One N-way gradient serves BOTH the global combine and the
             # isolated fallback.  While any head is alive the iso rows
             # are reset to ``params``, so these ARE the global-path
             # gradients; on all-heads-dead rounds every effective weight
             # is zero, so the combine is gated off (has_update == 0).
-            iso = torch.where(head_dead > 0, iso, params.expand(N, P))
-            gs = _local_delta(det, cfg, layout, iso, dx, valid, generator)
+            iso = torch.where(head_dead[:, None, None] > 0, iso,
+                              params[:, None, :].expand(S, N, P))
+            gs = _local_delta(det, cfg, layout, iso, dxs, valid, generator)
         else:
-            gs = _local_delta(det, cfg, layout, params.expand(N, P), dx,
+            gs = _local_delta(det, cfg, layout,
+                              params[:, None, :].expand(S, N, P), dxs,
                               valid, generator)
         # the faulty channel corrupts the TRANSMITTED deltas only: the
         # isolated fallback keeps the clean ``gs``
         scale = trace_faulty_scale(trace, N, epoch) if faulty else None
         # ---- Tol-FL hierarchical combine (Algorithm 1) and SGD step ----
         if cfg.combine == "streaming":
-            new, _ = agg.round_update(
-                gs[None], counts, w[None],
-                None if scale is None else scale[None], cluster_rows,
-                params[None], cfg.lr, k)
-            params = new[0]
+            params, _ = agg.round_update(gs, counts, w, scale, cluster_ids,
+                                         params, cfg.lr, k)
         else:
-            gs_tx = gs if scale is None else gs * scale[:, None]
-            cluster_gs, n_c = agg.cluster_reduce(gs_tx, counts * w,
-                                                 cluster_ids, k)
-            g = agg.weighted_mean(cluster_gs, n_c)
-            has_update = (torch.sum(n_c) > 0).to(torch.float32)
-            params = params - cfg.lr * has_update * g
+            stepped = []
+            for s in range(S):
+                gs_tx = gs[s] if scale is None else gs[s] * scale[s, :, None]
+                cluster_gs, n_c = agg.cluster_reduce(gs_tx, counts * w[s],
+                                                     ids[s], k)
+                g = agg.weighted_mean(cluster_gs, n_c)
+                has_update = (torch.sum(n_c) > 0).to(torch.float32)
+                stepped.append(params[s] - cfg.lr * has_update * g)
+            params = torch.stack(stepped)
 
         # ---- isolated fallback (fl server failure) ----
         if track_iso:
-            iso_step = head_dead * alive    # only alive devices train
-            iso = iso - cfg.lr * iso_step[:, None] * gs
-            iso_scores = scores_of(iso)                      # (N, T)
+            iso_step = head_dead[:, None] * alive  # only alive devices train
+            iso = iso - cfg.lr * iso_step[:, :, None] * gs
+            iso_scores = scores_of(iso)                      # (S, N, T)
             # Fig 4 reporting averages the surviving devices only
-            iso_losses[epoch] = (torch.sum(alive * iso_scores.mean(-1))
-                                 / torch.clamp_min(torch.sum(alive), 1.0))
+            iso_losses[:, epoch] = (
+                torch.sum(alive * iso_scores.mean(-1), -1)
+                / torch.clamp_min(torch.sum(alive, -1), 1.0))
             if score_history:
-                iso_score_hist[epoch] = iso_scores
+                iso_score_hist[:, epoch] = iso_scores
         else:
-            iso_losses[epoch] = zero
-        scores = scores_of(params)
-        losses[epoch] = scores.mean()
+            iso_losses[:, epoch] = zero
+        scores = scores_of(params)                           # (S, T)
+        losses[:, epoch] = scores.mean(-1)
         if score_history:
-            score_hist[epoch] = scores
-        dead_rounds[epoch] = head_dead
+            score_hist[:, epoch] = scores
+        dead_rounds[:, epoch] = head_dead
 
     final_alive = trace_alive_mask(trace, N, R - 1)
     iso_final = (scores_of(iso) if track_iso
-                 else torch.zeros((N, 0), dtype=torch.float32, device=dev))
+                 else torch.zeros((S, N, 0), dtype=torch.float32, device=dev))
     out = SimOutputs(losses, iso_losses, scores_of(params), iso_final,
                      final_alive, 1.0 - heads_alive_max(final_alive),
                      dead_rounds, score_hist, iso_score_hist)
     return out, params, iso
+
+
+def outputs_to_host(out: SimOutputs) -> SimOutputs:
+    """The outputs as numpy arrays, in ONE copy from the device: every
+    field is float32 with the same leading axes, so they travel as one
+    flat tensor and are split again on the host."""
+    flat = torch.cat([t.reshape(-1) for t in out]).cpu().numpy()
+    parts, off = [], 0
+    for t in out:
+        n = t.numel()
+        parts.append(flat[off:off + n].reshape(tuple(t.shape)))
+        off += n
+    return SimOutputs(*parts)
 
 
 def _prepare_arrays(cfg: SimConfig, device_x: np.ndarray,
@@ -261,16 +309,38 @@ def _prepare_arrays(cfg: SimConfig, device_x: np.ndarray,
     return dx, counts, valid
 
 
+def topology_arrays(topo: Topology, k_pad: Optional[int] = None):
+    """(cluster_ids (N,) int32, heads (k_pad,) int64, head_valid (k_pad,)
+    float32) of ``topo`` as numpy, the cluster axis padded to ``k_pad``
+    (default: no padding).  Padded head slots point at device 0 and are
+    invalid; no device maps to a padded cluster.  Checked here, on the
+    host, once: the fused kernel takes the ids unchecked."""
+    k_pad = topo.num_clusters if k_pad is None else k_pad
+    cids, head_ids = topo.device_cluster_array(), np.array(topo.heads)
+    if (k_pad < topo.num_clusters or cids.shape != (topo.num_devices,)
+            or cids.min() < 0 or cids.max() >= topo.num_clusters
+            or head_ids.shape != (topo.num_clusters,) or head_ids.min() < 0
+            or head_ids.max() >= topo.num_devices):
+        raise ValueError(f"bad topology arrays: cluster ids {cids}, heads "
+                         f"{head_ids} for {topo} padded to {k_pad}")
+    heads = np.zeros(k_pad, np.int64)
+    heads[:topo.num_clusters] = head_ids
+    head_valid = np.zeros(k_pad, np.float32)
+    head_valid[:topo.num_clusters] = 1.0
+    return cids.astype(np.int32), heads, head_valid
+
+
 def _scenario(model: ModelLike, device_x: np.ndarray,
               device_counts: np.ndarray, test_x: Optional[np.ndarray],
               cfg: SimConfig, failure: Failure, params0: Optional[Params],
               device: DeviceLike, isolated: bool, track_iso: bool,
               score_history: bool):
-    """Set up one scenario on the device and run its round loop.
+    """Set up one scenario on the device and run the round loop at S = 1.
 
-    Returns (outputs, trace, layout, final flat params, iso flat params).
-    ``test_x=None`` scores one zero row: the params export needs no test
-    sweep.  ``isolated`` zeroes the cluster-head validity mask."""
+    Returns (outputs, trace, layout, final flat params, iso flat params),
+    without the scenario axis.  ``test_x=None`` scores one zero row: the
+    params export needs no test sweep.  ``isolated`` zeroes the
+    cluster-head validity mask."""
     dev = resolve_device(device)
     _use_f32_matmul()
     det = D.as_detector(model)
@@ -281,27 +351,20 @@ def _scenario(model: ModelLike, device_x: np.ndarray,
     tx = (torch.zeros((1, dx.shape[-1]), dtype=dx.dtype, device=dev)
           if test_x is None
           else torch.as_tensor(np.asarray(test_x, np.float32), device=dev))
-    cids, head_ids = topo.device_cluster_array(), np.array(topo.heads)
-    # checked here, on the host: the fused kernel takes the ids unchecked
-    if (cids.shape != (topo.num_devices,) or cids.min() < 0
-            or cids.max() >= topo.num_clusters
-            or head_ids.shape != (topo.num_clusters,) or head_ids.min() < 0
-            or head_ids.max() >= topo.num_devices):
-        raise ValueError(f"bad topology arrays: cluster ids {cids}, heads "
-                         f"{head_ids} for {topo}")
-    cluster_ids = torch.as_tensor(cids.astype(np.int32), device=dev)
-    heads = torch.as_tensor(head_ids, device=dev).long()
-    head_valid = (torch.zeros if isolated else torch.ones)(
-        (topo.num_clusters,), dtype=torch.float32, device=dev)
+    cids, heads, head_valid = (torch.as_tensor(a, device=dev)[None]
+                               for a in topology_arrays(topo))
+    if isolated:
+        head_valid = torch.zeros_like(head_valid)
     if params0 is None:
         params0 = det.init_params(torch.Generator().manual_seed(cfg.seed),
                                   device=dev)
     layout = FlatLayout.of(params0)
     out, params, iso = _round_loop(
-        det, cfg, layout, layout.flatten(params0).to(dev), dx, counts,
-        valid, tx, cluster_ids, heads, head_valid, trace, topo.num_clusters,
-        track_iso=track_iso, score_history=score_history)
-    return out, trace, layout, params, iso
+        det, cfg, layout, layout.flatten(params0).to(dev)[None], dx, counts,
+        valid, tx, cids, heads, head_valid, stack_traces([trace]),
+        topo.num_clusters, track_iso=track_iso, score_history=score_history,
+        dropout_seed=cfg.seed)
+    return SimOutputs(*(t[0] for t in out)), trace, layout, params[0], iso[0]
 
 
 # ---------------------------------------------------------------------------
@@ -351,8 +414,7 @@ def run_simulation(model: ModelLike, device_x: np.ndarray,
     out, trace, _, _, _ = _scenario(
         model, device_x, device_counts, test_x, cfg, failure, params0,
         device, isolated=False, track_iso=track_iso, score_history=True)
-    # the one copy to the host, after the loop
-    out = SimOutputs(*(t.cpu().numpy() for t in out))
+    out = outputs_to_host(out)      # the one copy to the host, after the loop
     N = cfg.topology().num_devices
 
     losses = out.losses.copy()

@@ -60,7 +60,8 @@ class RoundCase(NamedTuple):
 #: the fused kernel's cases on the card, shared by tests/test_torch_cuda.py
 #: and chip_smoke.py: the paper's round (N = 10, k = 5, P = 49,680) and its
 #: edges, above 16 devices (the chunked member loop), ragged or misaligned
-#: columns (the scalar loads) and 64 scenarios
+#: columns (the scalar loads), 64 scenarios, and a fused campaign sweep's
+#: 96 scenarios with the cluster axis padded to 10
 ROUND_CARD_CASES = [
     RoundCase("paper", 1, 10, 5, 49_680),
     RoundCase("dead_head", 1, 10, 5, 49_680, dead=(2, 3)),
@@ -79,6 +80,7 @@ ROUND_CARD_CASES = [
     RoundCase("many_devices_vec", 2, 40, 6, 4_096, counts="random",
               ids="random"),
     RoundCase("scenarios", 64, 10, 5, 49_680, faulty=True),
+    RoundCase("campaign_sweep", 96, 10, 10, 49_680, ids="padded"),
 ]
 
 

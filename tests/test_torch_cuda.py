@@ -99,6 +99,84 @@ def test_round_loop_launches(cuda_device, combine, fused):
     assert res.loss_curve[-1] < res.loss_curve[0]
 
 
+
+def _small_campaign_inputs():
+    """A small Tol-FL / FL campaign: the conftest-size Comms-ML split, the
+    tiny autoencoder, sampled traces and a head failure, 3 seeds."""
+    import numpy as np
+
+    from repro_torch.configs.autoencoder_paper import AutoencoderConfig
+    from repro_torch.core import failure as F
+    from repro_torch.core.topology import Topology
+    from repro_torch.data import commsml, federated
+    X, y = commsml.generate(seed=0, samples_per_class=200)
+    split = federated.make_split(X, y, num_devices=10, num_clusters=5,
+                                 anomaly_classes=[3], seed=0)
+    dx, counts = federated.pad_devices(split)
+    traces = F.sample_traces(np.random.default_rng(0), Topology(10, 5), 0.3,
+                             max_events=8, rounds=6, num_traces=4,
+                             device="cpu")
+    traces.append(F.FailureSpec(2, "server"))
+    ae = AutoencoderConfig(input_dim=112, hidden=(32, 16), code_dim=8)
+    return ae, dx, counts, split.test_x, split.test_y, traces, [0, 1, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,k,chunk", [("tolfl", 5, None),
+                                            ("tolfl", 5, 4), ("fl", 1, 7)])
+def test_campaign_on_card_launches_and_matches_cpu(cuda_device, scheme, k,
+                                                   chunk):
+    """A dropout-free campaign on the card launches the fused kernel once
+    a round per chunk, for every scenario of the chunk, never the
+    standalone combine, and agrees with the same campaign on the CPU
+    within rtol 1e-4 (float32 sums in other orders on the card)."""
+    import numpy as np
+
+    from repro_torch.core.campaign import ExecPlan, run_campaign
+    from repro_torch.core.simulate import SimConfig
+    ae, dx, counts, tx, ty, traces, seeds = _small_campaign_inputs()
+    cfg = SimConfig(scheme=scheme, num_devices=10, num_clusters=k, rounds=6,
+                    lr=5e-4, dropout=False)
+    plan = ExecPlan(chunk_size=chunk)
+    B = len(traces) * len(seeds)
+    chunks = 1 if chunk is None else -(-B // chunk)
+    before = tc.ROUND_LAUNCHES, tc.LAUNCHES
+    gpu = run_campaign(ae, dx, counts, tx, ty, cfg, traces, seeds,
+                       exec_plan=plan)
+    assert (tc.ROUND_LAUNCHES - before[0], tc.LAUNCHES - before[1]) == (
+        cfg.rounds * chunks, 0)
+    cpu = run_campaign(ae, dx, counts, tx, ty, cfg, traces, seeds,
+                       exec_plan=plan, device="cpu")
+    np.testing.assert_array_equal(gpu.iso_active, cpu.iso_active)
+    np.testing.assert_allclose(gpu.loss_curves, cpu.loss_curves, rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(gpu.auroc_used, cpu.auroc_used, rtol=0,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,k", [("tolfl", 5), ("fl", 1)])
+def test_campaign_round_loop_never_syncs(cuda_device, scheme, k,
+                                         monkeypatch):
+    """The S > 1 round loop under the sync debug mode, which raises on
+    any call that makes the host wait for the card."""
+    from repro_torch.core import simulate
+    from repro_torch.core.campaign import run_campaign
+    ae, dx, counts, tx, ty, traces, seeds = _small_campaign_inputs()
+    loop = simulate._round_loop
+
+    def guarded(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setattr(simulate, "_round_loop", guarded)
+    cfg = simulate.SimConfig(scheme=scheme, num_devices=10, num_clusters=k,
+                             rounds=4)
+    res = run_campaign(ae, dx, counts, tx, ty, cfg, traces, seeds)
+    assert res.num_scenarios == len(traces) * len(seeds)
+
 # ---------------------------------------------------------------------------
 # flash attention: within 2e-4 of the plain version in float32 and 2e-2 in
 # bfloat16 (the tolerances of tests/test_kernels.py): the kernels sum the
