@@ -39,6 +39,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    at 64 scenarios under torch.profiler ([campaign-profile]); and
    dropout-free campaigns against ``run_simulation`` on the card and a
    small campaign on the card against the CPU ([campaign-reference]);
+   then the clustered-FL baselines' multi-model campaigns
+   (``core/baselines.py``) over the same data and traces: a fused
+   ``sweep_grid`` of (fedgroup, 3), (ifca, 3), (fesem, 3) and (ifca, 2)
+   x seeds 0-1, three round loops (FedGroup at S = 32, IFCA at S = 64
+   with its M = 2 cell padded to M = 3, FeSEM at S = 32; scenarios/s and
+   ms/round per loop, every ported kernel's launch counter 0, every curve
+   finite: [multi-campaign]); each scheme's loop at S = 8 under the sync
+   debug mode ([multi-no-sync]); IFCA at S = 64 for 10 rounds under
+   torch.profiler ([multi-profile]); and a small dropout-free grid on
+   the card against the CPU (curves within 1e-5 relative, assignments
+   equal) and fused against per-cell on the card ([multi-reference]);
 4. drives slice 2's main path, RecurrentGemma-9B serving
    (``prefill``, ``pad_cache``, greedy ``decode_step``), at full width
    and depth: random params on the card, 4 prompts of 4,096 tokens (past
@@ -105,6 +116,11 @@ CAMPAIGN_SEEDS = (0, 1, 2, 3)
 CAMPAIGN_CHUNK = 16
 SWEEP_CELLS = (("tolfl", 5), ("tolfl", 2), ("fl", 1), ("sbt", 10))
 SWEEP_SEEDS = (0, 1)
+#: the multi-model phases: the Tables III-V baseline columns at M =
+#: min(clusters, 3) and an IFCA cell of M = 2 padded into the M = 3 loop,
+#: over the campaign's traces x 2 seeds
+MULTI_CELLS = (("fedgroup", 3), ("ifca", 3), ("fesem", 3), ("ifca", 2))
+MULTI_SEEDS = (0, 1)
 SPIN_CYCLES = 5_000_000   # ~2.5 ms of the card's clock: covers the host's
 #                           dispatch of the slowest timed call (~1 ms)
 DEV = "cuda"               # the serving phases' device
@@ -1004,6 +1020,254 @@ def phase_campaign_reference(torch, split, dx, counts):
             f"{int(runs[0].iso_active.sum())} of {runs[0].num_scenarios}")
 
 
+def _multi_cfg(scheme, **kw):
+    from repro_torch.core.baselines import MultiModelConfig
+    base = dict(scheme=scheme, num_devices=10, num_models=3, rounds=ROUNDS,
+                lr=1e-3, dropout=True)
+    base.update(kw)
+    return MultiModelConfig(**base)
+
+
+def phase_multi_campaign(torch, split, dx, counts):
+    """The multi-model campaigns at the paper's full scale: a fused
+    ``sweep_grid`` of ``MULTI_CELLS`` over the 16 traces x seeds 0-1, three
+    round loops (one a scheme; IFCA's two cells padded to M = 3).  Each
+    loop is timed from its draws to its copy to the host and its AUROCs;
+    no ported kernel launches; every curve must be finite."""
+    import numpy as np
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core import campaign
+    from repro_torch.core.campaign import mean_ci95
+    from repro_torch.kernels import tolfl_combine as tc
+    tx, ty = split.test_x, split.test_y
+    traces = _campaign_traces()
+    cfg = _campaign_cfg()
+    # warm-up at the grid's shapes (the allocator, cuBLAS's batched plans)
+    campaign.sweep_grid(COMMSML, dx, counts, tx, ty, _campaign_cfg(rounds=2),
+                        MULTI_CELLS, traces, MULTI_SEEDS)
+    loops, run_group = [], campaign._run_multi_group
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        res = run_group(*args, **kwargs)     # ends in its copy to the host
+        loops.append((args[3].scheme, args[4],
+                      sum(r.num_scenarios for r in res),
+                      time.perf_counter() - t0))
+        return res
+
+    tc.ROUND_LAUNCHES = tc.LAUNCHES = 0        # every kernel's count to 0
+    _reset_launches()
+    campaign._run_multi_group = timed
+    try:
+        t0 = time.perf_counter()
+        res = campaign.sweep_grid(COMMSML, dx, counts, tx, ty, cfg,
+                                  MULTI_CELLS, traces, MULTI_SEEDS)
+        wall = time.perf_counter() - t0
+    finally:
+        campaign._run_multi_group = run_group
+    counts_now = {"tolfl_round_update": tc.ROUND_LAUNCHES,
+                  "tolfl_combine": tc.LAUNCHES, **_launches(),
+                  "flash_attention (tensor cores)":
+                  _counters()["flash_attention"].TC_LAUNCHES}
+    launched = {k: v for k, v in counts_now.items() if v}
+    if launched:
+        raise AssertionError(f"[multi-campaign] ported kernels launched: "
+                             f"{launched}, expected none")
+    n = len(traces) * len(MULTI_SEEDS)
+    want = [("fedgroup", 3, n), ("ifca", 3, 2 * n), ("fesem", 3, n)]
+    if [loop[:3] for loop in loops] != want:
+        raise AssertionError(f"[multi-campaign] loops (scheme, M, S) "
+                             f"{[loop[:3] for loop in loops]}, expected "
+                             f"{want}")
+    for scheme, m, S, secs in loops:
+        log(f"[multi-campaign] {scheme} M = {m}, S = {S}, {ROUNDS} rounds, "
+            f"lr 1e-3, dropout on: {secs:.3f} s, {S / secs:.2f} "
+            f"scenarios/s, {secs / ROUNDS * 1e3:.3f} ms/round")
+    for (scheme, m), r in res.items():
+        bad = ~np.isfinite(r.loss_curves)
+        rows = np.flatnonzero(bad.any(1))
+        firsts = [int(np.flatnonzero(bad[b])[0]) for b in rows]
+        # FedGroup's groups of one class train alone and can diverge at lr
+        # 1e-3 (unnormalised features), in repro as in the port: tests/
+        # test_torch_baselines.py::test_fedgroup_diverges_like_repro, and
+        # [multi-reference] holds the card to the CPU through a divergence.
+        # A divergence stays non-finite; IFCA and FeSEM must stay finite
+        if len(rows) and (scheme != "fedgroup" or 2 * len(rows) >= len(bad)
+                          or bad[:, 0].any() or not all(
+                              bad[b, f:].all() for b, f in zip(rows, firsts))):
+            raise AssertionError(
+                f"[multi-campaign] {scheme} M = {m}: non-finite loss in "
+                f"{len(rows)} of {r.num_scenarios} scenarios, first at round "
+                f"{min(firsts)}")
+        ok = ~bad.any(1)
+        if not (np.isfinite(r.best_auroc[ok]).all()
+                and np.isfinite(r.multi_auroc[ok]).all()):
+            raise AssertionError(f"[multi-campaign] {scheme} M = {m}: "
+                                 f"non-finite AUROC")
+        best, _, best_h = mean_ci95(r.best_auroc[ok])
+        multi, _, multi_h = mean_ci95(r.multi_auroc[ok])
+        diverged = (f"{len(rows)} of {r.num_scenarios} diverge (rounds "
+                    f"{sorted(firsts)}; trace, seed "
+                    f"{[(int(r.trace_index[b]), int(r.seed[b])) for b in rows]}"
+                    f"); " if len(rows) else "")
+        log(f"[multi-campaign] {scheme} M = {m}: {diverged}best "
+            f"{best:.4f} +- {best_h:.4f}, multi {multi:.4f} +- "
+            f"{multi_h:.4f} (95% CI over {int(ok.sum())} finite); mean loss "
+            f"{r.loss_curves[ok, 0].mean():.3f} -> "
+            f"{r.loss_curves[ok, -1].mean():.3f}; models used "
+            f"{np.bincount(r.assignments.ravel(), minlength=m).tolist()}")
+    log(f"[multi-campaign] the sweep: {wall:.3f} s for "
+        f"{len(MULTI_CELLS) * n} "
+        f"scenarios in 3 round loops; ported kernel launches 0; clocks.sm, "
+        f"power.draw, temperature after: {_clocks()}")
+
+
+def phase_multi_no_sync(torch, split, dx, counts):
+    """Each scheme's multi-model round loop never waits on the host: S = 8
+    (4 traces x 2 seeds) for 3 rounds under PyTorch's sync debug mode,
+    dropout on."""
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core import baselines
+    from repro_torch.core.campaign import run_multimodel_campaign
+    loop = baselines._multimodel_loop
+
+    def guarded(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    traces = _campaign_traces()[:4]
+    baselines._multimodel_loop = guarded
+    try:
+        for scheme in ("fedgroup", "ifca", "fesem"):
+            run_multimodel_campaign(COMMSML, dx, counts, split.test_x,
+                                    split.test_y,
+                                    _multi_cfg(scheme, rounds=3), traces,
+                                    MULTI_SEEDS)
+    finally:
+        baselines._multimodel_loop = loop
+    log(f"[multi-no-sync] fedgroup, ifca and fesem round loops at S = "
+        f"{len(traces) * len(MULTI_SEEDS)} ran 3 rounds each under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+
+def phase_multi_profile(torch, split, dx, counts):
+    """Where an IFCA round's time goes at S = 64 (16 traces x 4 seeds, M =
+    3): 10 rounds under torch.profiler; the device's busy share, device
+    kernels a round, the top device events and device time by the aten
+    operator that launched it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core.campaign import run_multimodel_campaign
+    rounds = 10
+    traces = _campaign_traces()
+    S = CAMPAIGN_TRACES * len(CAMPAIGN_SEEDS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_multimodel_campaign(COMMSML, dx, counts, split.test_x,
+                                split.test_y, _multi_cfg("ifca", rounds=rounds),
+                                traces, CAMPAIGN_SEEDS)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, by_name = _device_time(prof)
+    if busy == 0:
+        log("[multi-profile] the profiler recorded no device time: not "
+            "measured")
+        return
+    events = sum(count for _, count in by_name.values())
+    ops = sorted(((e.key, getattr(e, "self_device_time_total", 0.0))
+                  for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda kv: -kv[1])
+    log(f"[multi-profile] ifca M = 3 at S = {S}, {rounds} rounds under the "
+        f"profiler (draws, loop, copy and AUROCs): wall "
+        f"{wall_us / rounds / 1e3:.3f} ms/round, device busy "
+        f"{busy / rounds / 1e3:.3f} ms/round ({busy / wall_us:.1%} of wall), "
+        f"{events / rounds:.1f} device kernels a round; top device events: "
+        + _top(by_name, 8, rounds, "us/round"))
+    log("[multi-profile] device time by the operator that launched it: "
+        + "; ".join(f"{key} {us / rounds:.1f} us/round ({us / busy:.1%})"
+                    for key, us in ops[:14]))
+
+
+def phase_multi_reference(torch, split, dx, counts):
+    """A small dropout-free grid of ``MULTI_CELLS`` at lr 1e-4 (6 rounds,
+    64 samples a device, the paper autoencoder), the same fused sweep on
+    the card and on the CPU: loss curves within 1e-5 relative, AUROCs
+    within 1e-3, assignments equal; on the card, fused (IFCA padded to
+    M = 3) against one unpadded loop a cell: within rtol 1e-6 / atol 1e-7,
+    assignments equal; and FedGroup at full scale and lr 1e-3 on the card
+    and the CPU through its divergence."""
+    import numpy as np
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core.baselines import run_multimodel
+    from repro_torch.core.campaign import sweep_grid
+    from repro_torch.core.failure import FailureSpec, sample_traces
+    from repro_torch.core.topology import Topology
+    traces = sample_traces(np.random.default_rng(1), Topology(10, 5),
+                           CAMPAIGN_RATE, CAMPAIGN_EVENTS, rounds=6,
+                           num_traces=7, device="cpu")
+    traces += [FailureSpec(2, "server"), FailureSpec(1, "client", 1)]
+    small, small_counts = dx[:, :64], np.minimum(counts, 64)
+    tx, ty = split.test_x[::25], split.test_y[::25]
+    base = _campaign_cfg(rounds=6, lr=PAIR_LR, dropout=False)
+
+    def run(device, **kw):
+        return sweep_grid(COMMSML, small, small_counts, tx, ty, base,
+                          MULTI_CELLS, traces, MULTI_SEEDS, device=device,
+                          **kw)
+    card, cpu, per_cell = run("cuda"), run("cpu"), run("cuda", fuse=False)
+    for key in MULTI_CELLS:
+        g, c, p = card[key], cpu[key], per_cell[key]
+        np.testing.assert_array_equal(g.assignments, c.assignments)
+        np.testing.assert_allclose(g.loss_curves, c.loss_curves, rtol=1e-5,
+                                   atol=0)
+        for f in ("best_auroc", "multi_auroc"):
+            np.testing.assert_allclose(getattr(g, f), getattr(c, f), rtol=0,
+                                       atol=1e-3)
+        np.testing.assert_array_equal(g.assignments, p.assignments)
+        np.testing.assert_allclose(g.loss_curves, p.loss_curves, rtol=1e-6,
+                                   atol=1e-7)
+        rel = float(np.max(np.abs(g.loss_curves - c.loss_curves)
+                           / np.abs(c.loss_curves)))
+        self_rel = float(np.max(np.abs(g.loss_curves - p.loss_curves)
+                                / np.abs(p.loss_curves)))
+        log(f"[multi-reference] {key[0]} M = {key[1]}, {len(traces)} traces "
+            f"x {len(MULTI_SEEDS)} seeds, 6 rounds at lr {PAIR_LR} on 64 "
+            f"samples a device: card vs CPU loss max rel diff {rel:.3e}, "
+            f"best auroc max diff "
+            f"{float(np.max(np.abs(g.best_auroc - c.best_auroc))):.2e}, "
+            f"assignments equal; fused vs per-cell on the card max rel diff "
+            f"{self_rel:.3e}")
+
+    # FedGroup at lr 1e-3 at full scale, dropout off, seed 0 (k-means
+    # leaves devices 0 and 1 alone in their groups): the card and the CPU
+    # turn non-finite in the same round and agree within 1e-5 before it
+    rounds = 12
+    cfg = _multi_cfg("fedgroup", rounds=rounds, dropout=False)
+    card, cpu = (run_multimodel(COMMSML, dx, counts, split.test_x,
+                                split.test_y, cfg, device=device)
+                 for device in ("cuda", "cpu"))
+    np.testing.assert_array_equal(card.assignments, cpu.assignments)
+    firsts = [np.flatnonzero(~np.isfinite(r.loss_curve)) for r in (card, cpu)]
+    first = int(firsts[0][0]) if firsts[0].size else rounds
+    if not (np.array_equal(firsts[0], firsts[1])
+            and np.array_equal(firsts[0], np.arange(first, rounds))):
+        raise AssertionError(f"[multi-reference] fedgroup lr 1e-3: non-finite "
+                             f"rounds {firsts[0]} on the card, {firsts[1]} on "
+                             f"the CPU")
+    np.testing.assert_allclose(card.loss_curve[:first], cpu.loss_curve[:first],
+                               rtol=1e-5, atol=0)
+    rel = float(np.max(np.abs(card.loss_curve[:first] - cpu.loss_curve[:first])
+                       / np.abs(cpu.loss_curve[:first])))
+    log(f"[multi-reference] fedgroup M = 3, lr 1e-3, dropout off, full scale, "
+        f"seed 0 (groups {card.assignments.tolist()}): card and CPU first "
+        f"non-finite at round {first if firsts[0].size else 'none'} of "
+        f"{rounds}, "
+        f"loss max rel diff {rel:.3e} before it")
+
+
 def _samples_ms(torch, fn, device_only, samples):
     """``samples`` times, in ms, between CUDA events recorded before and
     after one call of ``fn``, after 10 calls of warm-up.  With
@@ -1676,6 +1940,10 @@ def main() -> int:
     phase_campaign_no_sync(torch, split, dx, counts)
     phase_campaign_profile(torch, split, dx, counts)
     phase_campaign_reference(torch, split, dx, counts)
+    phase_multi_campaign(torch, split, dx, counts)
+    phase_multi_no_sync(torch, split, dx, counts)
+    phase_multi_profile(torch, split, dx, counts)
+    phase_multi_reference(torch, split, dx, counts)
     kernels = phase_times(torch, launches, errs, parent)
     serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
     for arch, tag in SERVE_ARCHS:

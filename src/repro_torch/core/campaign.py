@@ -1,6 +1,6 @@
 """Batched Monte-Carlo failure campaigns: (cell x trace x seed) grids.
 
-Port of ``repro.core.campaign``, the single-model path.  The paper's
+Port of ``repro.core.campaign``.  The paper's
 robustness claims need scenario diversity: grids of failure traces x
 seeds, not one hand-picked event per run.  Where ``repro`` runs such a
 grid through one ``jit(vmap(core))`` executable, the port runs it
@@ -27,6 +27,15 @@ one round loop over the flattened (cell x trace x seed) axis, each row
 carrying its own cluster arrays padded to the group's max k.  Padded
 cluster slots are exact no-ops, so results match the per-cell paths.
 
+The multi-model baselines (FedGroup / IFCA / FeSEM,
+:mod:`repro_torch.core.baselines`) get the same treatment:
+:func:`run_multimodel_campaign` runs a (trace x seed) grid of one cell
+through one round loop with a leading scenario axis
+(``baselines._multimodel_loop``), and :func:`run_fused_multimodel_campaigns`
+and the multi cells of :func:`sweep_grid` fuse the cells whose configs
+agree on everything but ``num_models`` into one loop, the model axis
+padded to the group's max M with a per-row ``model_valid`` mask.
+
 Execution (:class:`ExecPlan`): ``chunk_size`` runs the scenario axis in
 chunks of at most that many scenarios (the last one padded by repeating
 scenario 0, the padding stripped), each one round loop and one copy to
@@ -40,11 +49,16 @@ RNG, by the port's rule that draws are operands:
   ``s`` starts from ``det.init_params(torch.Generator().manual_seed(s))``,
   as ``run_simulation`` does for ``cfg.seed = s``, so a dropout-free
   campaign row equals ``run_simulation(dataclasses.replace(cfg, seed=s))``.
+* The multi-model entry points take ``draws`` instead: one
+  ``baselines.MultiDraws`` a seed (without them,
+  ``baselines.default_draws``, as ``run_multimodel`` draws), so a
+  dropout-free row equals ``run_multimodel`` with that seed.
 * With dropout on, chunk ``c`` whose scenarios carry seeds ``s_0 ...
   s_{S-1}`` draws from one generator on the device seeded with
   ``(h + c * 0x9E3779B97F4A7C15) mod 2**63``, where ``h`` is the
   polynomial hash ``sum_i s_i * 1_000_003**i mod 2**63``.  A chunk of one
-  scenario (c = 0) thus draws what ``run_simulation`` draws for its seed;
+  scenario (c = 0) thus draws what ``run_simulation`` (or
+  ``run_multimodel``) draws for its seed;
   otherwise parity with a looped simulator or with ``repro`` is
   statistical (AUROC means within each other's 95% CI).
 """
@@ -52,13 +66,15 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.core import baselines as BL
 from repro_torch.core import simulate as sim
+from repro_torch.core.baselines import MultiDraws, MultiModelConfig
 from repro_torch.core.failure import (Failure, FailureTrace, as_trace,
                                       concat_traces, stack_traces)
 from repro_torch.core.simulate import SimConfig, SimOutputs
@@ -67,10 +83,9 @@ from repro_torch.models.detector import ModelLike
 from repro_torch.models.params import FlatLayout, Params
 from repro_torch.training.metrics import auroc_batch
 
-#: the single-model schemes, and the multi-model baselines (not ported:
-#: ROADMAP queue 1, item 2)
+#: the single-model schemes, and the multi-model baselines
 SINGLE_SCHEMES = ("batch", "fl", "sbt", "tolfl")
-MULTI_SCHEMES = ("fedgroup", "ifca", "fesem")
+MULTI_SCHEMES = BL.SCHEMES
 _HASH_BASE = 1_000_003
 _CHUNK_STRIDE = 0x9E3779B97F4A7C15
 _MOD = 1 << 63
@@ -172,6 +187,41 @@ class CampaignResult:
         }
 
 
+@dataclass
+class MultiCampaignResult:
+    """Stacked per-scenario results of one batched multi-model campaign.
+
+    Scenario b is (trace ``trace_index[b]``, seed ``seed[b]``)."""
+    cfg: MultiModelConfig
+    trace_index: np.ndarray        # (B,) int — index into the trace list
+    seed: np.ndarray               # (B,) int
+    best_auroc: np.ndarray         # (B,) the paper's * column
+    multi_auroc: np.ndarray        # (B,) the paper's dagger column
+    loss_curves: np.ndarray        # (B, rounds) per-sample-min test loss
+    assignments: np.ndarray        # (B, N) final device -> model maps
+
+    @property
+    def num_scenarios(self) -> int:
+        return len(self.best_auroc)
+
+    def select(self, trace_index: int, column: str = "best") -> np.ndarray:
+        """best/multi AUROC of every scenario using ``trace_index``."""
+        vals = {"best": self.best_auroc, "multi": self.multi_auroc}[column]
+        return vals[self.trace_index == trace_index]
+
+    def summary(self) -> Dict[str, float]:
+        out: Dict[str, float] = {"num_scenarios": float(self.num_scenarios)}
+        for column in ("best", "multi"):
+            vals = {"best": self.best_auroc,
+                    "multi": self.multi_auroc}[column]
+            mean, std, half = mean_ci95(vals)
+            out[f"{column}_auroc_mean"] = mean
+            out[f"{column}_auroc_std"] = std
+            out[f"{column}_auroc_ci95_lo"] = mean - half
+            out[f"{column}_auroc_ci95_hi"] = mean + half
+        return out
+
+
 def _scenario_grid(num_traces: int, seeds: Sequence[int]
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Full cross product: trace-major, seed-minor."""
@@ -192,9 +242,10 @@ def dropout_seed(seeds: Sequence[int], chunk: int = 0) -> int:
 
 
 def _run_batched(run_chunk, mapped: Sequence[np.ndarray],
-                 plan: Optional[ExecPlan]) -> SimOutputs:
+                 plan: Optional[ExecPlan]):
     """Run a scenario batch through ``run_chunk(c, *rows)`` with host-side
-    chunking per ``plan``; returns the stacked outputs as numpy arrays
+    chunking per ``plan``; returns the stacked outputs (a
+    :class:`SimOutputs` or ``baselines.MultiOutputs``) as numpy arrays
     with the padding stripped.
 
     ``mapped`` holds host arrays sharing the scenario leading axis.  The
@@ -217,7 +268,8 @@ def _run_batched(run_chunk, mapped: Sequence[np.ndarray],
                                                        for m in mapped))))
     if n_chunks == 1 and b_pad == B:
         return outs[0]
-    return SimOutputs(*(np.concatenate(xs, axis=0)[:B] for xs in zip(*outs)))
+    return type(outs[0])(*(np.concatenate(xs, axis=0)[:B]
+                           for xs in zip(*outs)))
 
 
 @dataclass
@@ -515,25 +567,232 @@ def sweep_grid(model: ModelLike, device_x: np.ndarray,
                exec_plan: Optional[ExecPlan] = None,
                pad_k: bool = True, fuse: bool = True,
                params0: Optional[Sequence[Params]] = None,
-               device: DeviceLike = None
-               ) -> Dict[Tuple[str, int], CampaignResult]:
+               draws: Optional[Sequence[MultiDraws]] = None,
+               device: DeviceLike = None) -> Dict[Tuple[str, int], Any]:
     """(scheme x k) grid of batched campaigns over the same traces and
     seeds, each cell's config ``base`` with its scheme and k.
 
-    With ``fuse`` (and ``pad_k``) all sbt/tolfl cells run in one round
-    loop and all fl cells in another, their cluster arrays padded to the
-    group's max k; ``fuse=False`` runs one loop per cell, padded to the
-    per-kind max k, and ``pad_k=False`` unpadded.  Results are the same
-    either way.  "batch" cells always run alone.  The multi-model
-    baselines are not ported (ROADMAP queue 1, item 2)."""
+    Single-model schemes read k as the cluster count.  With ``fuse`` (and
+    ``pad_k``) all sbt/tolfl cells run in one round loop and all fl cells
+    in another, their cluster arrays padded to the group's max k;
+    ``fuse=False`` runs one loop per cell, padded to the per-kind max k,
+    and ``pad_k=False`` unpadded.  Results are the same either way.
+    "batch" cells always run alone.
+
+    Multi-model baselines (:data:`MULTI_SCHEMES`) read k as the model
+    count M, inherit the single-model cells' total local-step budget
+    (``base.rounds * base.local_epochs`` rounds), ``base.lr`` and
+    ``base.dropout``, and return :class:`MultiCampaignResult`; legacy
+    specs in ``traces`` resolve to the baseline default targets.  With
+    ``fuse`` (and ``pad_k``) the cells of one scheme run in one loop, the
+    model axis padded to their max M; else one loop per cell.  ``params0``
+    seeds the single-model cells, ``draws`` the multi-model ones."""
     for scheme, _ in scheme_ks:
-        if scheme in MULTI_SCHEMES:
-            raise NotImplementedError(
-                f"sweep_grid: the multi-model baseline {scheme!r} is not "
-                f"ported yet (ROADMAP queue 1, item 2)")
-    cells = [(dataclasses.replace(base, scheme=s, num_clusters=k), traces)
-             for s, k in scheme_ks]
-    res = _run_cells(model, (device_x, device_counts, test_x, test_y),
-                     cells, seeds, target_loss, exec_plan, params0, device,
-                     fuse=fuse, pad_k=pad_k, k_pad=None)
+        if scheme not in SINGLE_SCHEMES + MULTI_SCHEMES:
+            raise ValueError(
+                f"unknown scheme {scheme!r}: single-model schemes are "
+                f"{SINGLE_SCHEMES}, multi-model baselines {MULTI_SCHEMES}")
+    data = (device_x, device_counts, test_x, test_y)
+    single = [i for i, (s, _) in enumerate(scheme_ks)
+              if s in SINGLE_SCHEMES]
+    multi = [i for i, (s, _) in enumerate(scheme_ks) if s in MULTI_SCHEMES]
+    res: List[Any] = [None] * len(scheme_ks)
+    cells = [(dataclasses.replace(base, scheme=scheme_ks[i][0],
+                                  num_clusters=scheme_ks[i][1]), traces)
+             for i in single]
+    for i, r in zip(single, _run_cells(
+            model, data, cells, seeds, target_loss, exec_plan, params0,
+            device, fuse=fuse, pad_k=pad_k, k_pad=None)):
+        res[i] = r
+    mcells = [(MultiModelConfig(scheme=scheme_ks[i][0],
+                                num_devices=base.num_devices,
+                                num_models=scheme_ks[i][1],
+                                rounds=base.rounds * base.local_epochs,
+                                lr=base.lr, dropout=base.dropout), traces)
+              for i in multi]
+    for i, r in zip(multi, _run_multi_cells(
+            model, data, mcells, seeds, exec_plan, draws, device,
+            fuse=fuse and pad_k, m_pad=None)):
+        res[i] = r
     return dict(zip(tuple(scheme_ks), res))
+
+
+# ---------------------------------------------------------------------------
+# Multi-model baselines
+# ---------------------------------------------------------------------------
+def _multi_metrics(finals: np.ndarray, test_y,
+                   model_valid: Optional[np.ndarray] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """(best, multi) AUROC columns of stacked (B, M, T) final scores in
+    TWO ``auroc_batch`` sweeps total, however many sweep cells were
+    flattened into the batch.  ``model_valid`` (B, M) masks padded model
+    slots (fused padded-M cells): they never win ``best`` and stay out
+    of the per-sample-min ``multi`` score."""
+    B, M = finals.shape[0], finals.shape[1]
+    test_y = np.asarray(test_y)
+    per_model = auroc_batch(finals.reshape(B * M, -1),
+                            test_y).reshape(B, M)
+    if model_valid is None:
+        return per_model.max(axis=1), auroc_batch(finals.min(axis=1),
+                                                  test_y)
+    live = model_valid > 0
+    best = np.where(live, per_model, -np.inf).max(axis=1)
+    min_scores = np.where(live[:, :, None], finals, np.inf).min(axis=1)
+    return best, auroc_batch(min_scores, test_y)
+
+
+def _run_multi_group(det: D.DetectorModel, data,
+                     cells: List[Tuple[MultiModelConfig, Sequence[Failure]]],
+                     loop_cfg: MultiModelConfig, m: int,
+                     seeds: Sequence[int],
+                     draws: Optional[Sequence[MultiDraws]],
+                     exec_plan: Optional[ExecPlan], dev: torch.device,
+                     trace_cache: dict) -> List[MultiCampaignResult]:
+    """One round loop (per chunk) over the flattened (cell x trace x
+    seed) axis of multi-model ``cells``, which share ``loop_cfg``'s
+    settings, the model axis padded to ``m`` with a per-row
+    ``model_valid``; the results sliced back per cell.  Cells that pass
+    the same trace list share one normalised stack (``trace_cache``)."""
+    device_x, device_counts, test_x, test_y = data
+    if not seeds or not all(len(traces) for _, traces in cells):
+        raise ValueError("empty campaign: need >=1 trace and >=1 seed")
+    sim._use_f32_matmul()
+    dx, counts, valid = BL.prepare_multimodel_arrays(device_x,
+                                                     device_counts, dev)
+    n = dx.shape[0]
+    for cfg, _ in cells:
+        if n != cfg.num_devices or m < cfg.num_models:
+            raise ValueError(f"{cfg.scheme} with {cfg.num_models} models on "
+                             f"{cfg.num_devices} devices in a loop of {m} "
+                             f"models on device data for {n} devices")
+    tx = torch.as_tensor(np.asarray(test_x, np.float32), device=dev)
+    seed_list = [int(s) for s in seeds]
+    tables = BL._draw_tables(det, loop_cfg.scheme, seed_list, draws, n, m,
+                             dev)
+    row_of = {s: i for i, s in enumerate(seed_list)}
+
+    metas = []                    # (cfg, traces (b, M_ev), trace_idx, seed)
+    for cfg, traces in cells:
+        key = (tuple(id(t) for t in traces), cfg.num_devices)
+        if key not in trace_cache:
+            trace_idx, seed_arr = _scenario_grid(len(traces), seed_list)
+            norm = [BL.as_multimodel_trace(t, cfg.num_devices, device="cpu")
+                    for t in traces]
+            trace_cache[key] = (stack_traces([norm[i] for i in trace_idx]),
+                                trace_idx, seed_arr)
+        metas.append((cfg, *trace_cache[key]))
+    traces = concat_traces([t for _, t, _, _ in metas])
+    seed_arr = np.concatenate([s for _, _, _, s in metas])
+    model_valid = np.concatenate([
+        np.broadcast_to((np.arange(m) < cfg.num_models).astype(np.float32),
+                        (len(s), m)) for cfg, _, _, s in metas])
+    mapped = [traces.epochs.numpy(), traces.devices.numpy(),
+              traces.alive_after.numpy(), traces.kinds.numpy(),
+              np.array([row_of[int(s)] for s in seed_arr], np.int64),
+              seed_arr.astype(np.int64), model_valid]
+
+    def on_dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def run_chunk(c, ep, dv, alv, knd, rows, chunk_seeds, mv):
+        trace = FailureTrace(on_dev(ep), on_dev(dv), on_dev(alv),
+                             on_dev(knd))
+        inits, probe, perm, reseed = tables.rows(on_dev(rows))
+        out, _ = BL._multimodel_loop(
+            det, loop_cfg, tables.layout, inits, on_dev(mv), dx, counts,
+            valid, tx, trace, probe, perm, reseed,
+            dropout_seed=dropout_seed(chunk_seeds, c))
+        return out
+
+    out = _run_batched(run_chunk, mapped, exec_plan)
+    best, multi = _multi_metrics(out.final_scores, test_y, model_valid)
+    results, off = [], 0
+    for cfg, _, trace_idx, seeds_c in metas:
+        sl = slice(off, off + len(seeds_c))
+        results.append(MultiCampaignResult(
+            cfg=cfg, trace_index=trace_idx, seed=seeds_c,
+            best_auroc=best[sl], multi_auroc=multi[sl],
+            loss_curves=out.losses[sl], assignments=out.assignments[sl]))
+        off += len(seeds_c)
+    return results
+
+
+def _run_multi_cells(model: ModelLike, data, cells, seeds, exec_plan,
+                     draws, device, fuse: bool, m_pad: Optional[int]
+                     ) -> List[MultiCampaignResult]:
+    """``repro``'s bucketing (``experiment.plan``) for multi-model cells (a
+    list of (cfg, traces)): with ``fuse`` one round loop per group of
+    cells whose configs agree on everything but ``num_models`` (and
+    ``seed``), at the group's max M (or ``m_pad``); else one unpadded
+    loop per cell.  Results align with ``cells``."""
+    if not cells:
+        return []
+    for cfg, _ in cells:
+        if cfg.scheme not in MULTI_SCHEMES:
+            raise ValueError(
+                f"unknown scheme {cfg.scheme!r}: single-model schemes are "
+                f"{SINGLE_SCHEMES}, multi-model baselines {MULTI_SCHEMES}")
+    seeds = list(seeds)
+    det, dev = D.as_detector(model), resolve_device(device)
+    if fuse:
+        groups: Dict[MultiModelConfig, List[int]] = {}
+        for i, (cfg, _) in enumerate(cells):
+            groups.setdefault(dataclasses.replace(cfg, seed=0, num_models=0),
+                              []).append(i)
+        buckets = [(idxs, key_cfg,
+                    m_pad or max(cells[i][0].num_models for i in idxs))
+                   for key_cfg, idxs in groups.items()]
+    else:
+        buckets = [([i], cfg, cfg.num_models)
+                   for i, (cfg, _) in enumerate(cells)]
+    results: List[Optional[MultiCampaignResult]] = [None] * len(cells)
+    trace_cache: dict = {}
+    for idxs, loop_cfg, m in buckets:
+        for i, r in zip(idxs, _run_multi_group(
+                det, data, [cells[i] for i in idxs], loop_cfg, m, seeds,
+                draws, exec_plan, dev, trace_cache)):
+            results[i] = r
+    return results
+
+
+def run_multimodel_campaign(model: ModelLike, device_x: np.ndarray,
+                            device_counts: np.ndarray, test_x: np.ndarray,
+                            test_y: np.ndarray, cfg: MultiModelConfig,
+                            traces: Sequence[Failure], seeds: Sequence[int],
+                            exec_plan: Optional[ExecPlan] = None,
+                            draws: Optional[Sequence[MultiDraws]] = None,
+                            device: DeviceLike = None
+                            ) -> MultiCampaignResult:
+    """Every (trace x seed) scenario of a multi-model baseline through one
+    round loop (per chunk of ``exec_plan``): the multi-model twin of
+    :func:`run_campaign`.
+
+    ``traces`` may mix legacy :class:`FailureSpec`s and
+    :class:`FailureTrace`s; specs are normalised with the BASELINE default
+    targets (``baselines.as_multimodel_trace``).  ``cfg.seed`` is ignored
+    — seeds come from the grid; ``draws`` (one ``MultiDraws`` a seed) as
+    in the module docstring."""
+    return _run_multi_cells(model, (device_x, device_counts, test_x, test_y),
+                            [(cfg, traces)], seeds, exec_plan, draws, device,
+                            fuse=False, m_pad=None)[0]
+
+
+def run_fused_multimodel_campaigns(
+        model: ModelLike, device_x: np.ndarray, device_counts: np.ndarray,
+        test_x: np.ndarray, test_y: np.ndarray,
+        cells: Sequence[Tuple[MultiModelConfig, Sequence[Failure]]],
+        seeds: Sequence[int], exec_plan: Optional[ExecPlan] = None,
+        pad_m: Optional[int] = None,
+        draws: Optional[Sequence[MultiDraws]] = None,
+        device: DeviceLike = None) -> List[MultiCampaignResult]:
+    """Many multi-model baseline cells, fused into ONE round loop per
+    group: cells whose configs agree on everything but ``num_models``
+    (so fedgroup / ifca / fesem cells never share a loop).  Each group's
+    model axis is padded to ``pad_m`` (default: the group's max M) with a
+    ``model_valid`` mask stacked along the flattened (cell x trace x
+    seed) axis; padded model slots are exact no-ops, so per-cell results
+    match :func:`run_multimodel_campaign`.  Results align with
+    ``cells``."""
+    return _run_multi_cells(model, (device_x, device_counts, test_x, test_y),
+                            list(cells), seeds, exec_plan, draws, device,
+                            fuse=True, m_pad=pad_m)

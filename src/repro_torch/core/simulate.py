@@ -38,7 +38,7 @@ seeded with ``cfg.seed``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -123,19 +123,22 @@ def _use_f32_matmul() -> None:
 
 def _device_grads(det: DetectorModel, layout: FlatLayout,
                   flat: torch.Tensor, dx: torch.Tensor, valid: torch.Tensor,
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
+                  generator: Optional[torch.Generator],
+                  dropout_masks: Optional[Sequence[torch.Tensor]] = None
+                  ) -> torch.Tensor:
     """(S, N, P) per-device params -> (S, N, P) per-device loss
     gradients, from one batched forward pass over the S*N parameter rows
     and one backward pass.  The gradients are taken with respect to the
     per-layer views and concatenated once: with respect to the flat
     tensor, each view's backward would scatter into a zero (S, N, P)
     tensor of its own and the sum of those would move P / layer-size
-    times the gradient's bytes."""
+    times the gradient's bytes.  Dropout draws from ``generator`` or
+    applies ``dropout_masks`` (see ``DetectorModel.loss``)."""
     leaf = flat.detach().contiguous().requires_grad_(True)
     with torch.enable_grad():
         tree = layout.unflatten(leaf)
         views = [v for _, v in tree_items(tree)]
-        losses = det.loss(tree, dx, valid, generator)
+        losses = det.loss(tree, dx, valid, generator, dropout_masks)
         grads = torch.autograd.grad(losses.sum(), views)
     lead = flat.shape[:-1]
     return torch.cat([g.reshape(*lead, -1) for g in grads], dim=-1)
@@ -279,17 +282,26 @@ def _round_loop(det: DetectorModel, cfg: SimConfig, layout: FlatLayout,
     return out, params, iso
 
 
-def outputs_to_host(out: SimOutputs) -> SimOutputs:
-    """The outputs as numpy arrays, in ONE copy from the device: every
-    field is float32 with the same leading axes, so they travel as one
-    flat tensor and are split again on the host."""
-    flat = torch.cat([t.reshape(-1) for t in out]).cpu().numpy()
+def outputs_to_host(out):
+    """A NamedTuple of device tensors (:class:`SimOutputs`, or
+    ``baselines.MultiOutputs``) as numpy arrays, in ONE copy from the
+    device: every field travels as float32 in one flat tensor and is split
+    again on the host.  Integer fields (the multi-model assignments) get
+    their dtype back; float32 holds them exactly below 2**24."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32)
+                      for t in out]).cpu().numpy()
     parts, off = [], 0
     for t in out:
         n = t.numel()
-        parts.append(flat[off:off + n].reshape(tuple(t.shape)))
+        part = flat[off:off + n].reshape(tuple(t.shape))
+        if t.dtype != torch.float32:
+            part = part.astype(_HOST_DTYPES[t.dtype])
+        parts.append(part)
         off += n
-    return SimOutputs(*parts)
+    return type(out)(*parts)
+
+
+_HOST_DTYPES = {torch.int64: np.int64, torch.int32: np.int32}
 
 
 def _prepare_arrays(cfg: SimConfig, device_x: np.ndarray,
@@ -301,6 +313,14 @@ def _prepare_arrays(cfg: SimConfig, device_x: np.ndarray,
                                for i in range(len(device_counts))], 0)
         device_x = flat[None]
         device_counts = np.array([len(flat)])
+    return device_arrays(device_x, device_counts, device)
+
+
+def device_arrays(device_x: np.ndarray, device_counts: np.ndarray,
+                  device: DeviceLike = None):
+    """(dx (N, n_max, D), counts (N,), valid (N, n_max)) float32 on
+    ``device``, from padded per-device rows and their counts."""
+    device = resolve_device(device)
     dx = torch.as_tensor(np.asarray(device_x, np.float32), device=device)
     counts = torch.as_tensor(np.asarray(device_counts), device=device).to(
         torch.float32)

@@ -11,7 +11,7 @@ simulator takes all N per-device gradients in one pass.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -37,12 +37,16 @@ def num_layers(cfg: AutoencoderConfig) -> int:
 
 
 def forward(params: P.Params, cfg: AutoencoderConfig, x: torch.Tensor,
-            dropout_generator: Optional[torch.Generator] = None
+            dropout_generator: Optional[torch.Generator] = None,
+            dropout_masks: Optional[Sequence[torch.Tensor]] = None
             ) -> torch.Tensor:
     """x: (B, input_dim) -> reconstruction (B, input_dim).
 
     Pass ``dropout_generator`` (on ``x``'s device) during training to
-    enable dropout on hidden layers (paper: p=0.2)."""
+    enable dropout on hidden layers (paper: p=0.2), drawn here.  Or pass
+    ``dropout_masks``, one keep mask a hidden layer (:func:`dropout_masks`),
+    drawn once and broadcast against each layer's activations: several
+    calls then see the same masks."""
     act = P.activation(cfg.act)
     n = num_layers(cfg)
     h = x
@@ -50,12 +54,33 @@ def forward(params: P.Params, cfg: AutoencoderConfig, x: torch.Tensor,
         h = P.dense_apply(params[f"fc{i}"], h)
         if i < n - 1:                      # hidden layers
             h = act(h)
-            if dropout_generator is not None and cfg.dropout > 0:
+            if dropout_masks is not None:
+                keep = dropout_masks[i]
+            elif dropout_generator is not None and cfg.dropout > 0:
                 keep = torch.rand(h.shape, generator=dropout_generator,
                                   device=h.device) < (1.0 - cfg.dropout)
-                h = torch.where(keep, h / (1.0 - cfg.dropout),
-                                torch.zeros((), device=h.device))
+            else:
+                continue
+            h = torch.where(keep, h / (1.0 - cfg.dropout),
+                            torch.zeros((), device=h.device))
     return h
+
+
+def dropout_masks(cfg: AutoencoderConfig, lead: Sequence[int],
+                  generator: torch.Generator
+                  ) -> Optional[List[torch.Tensor]]:
+    """Keep masks of the hidden layers for activations of leading shape
+    ``lead``: (*lead, width) bool a layer, in layer order, drawn on
+    ``generator``'s device as :func:`forward` draws them inline (so a
+    forward pass with the masks equals one with the generator in the same
+    state).  ``None`` when ``cfg.dropout`` is 0."""
+    if cfg.dropout <= 0:
+        return None
+    dims = ([cfg.input_dim] + list(cfg.hidden) + [cfg.code_dim]
+            + list(reversed(cfg.hidden)))
+    return [torch.rand((*lead, width), generator=generator,
+                       device=generator.device) < (1.0 - cfg.dropout)
+            for width in dims[1:]]
 
 
 def recon_loss(params: P.Params, cfg: AutoencoderConfig, x: torch.Tensor,

@@ -4,8 +4,10 @@ Port of ``repro.models.detector``.  A :class:`DetectorModel` is a frozen,
 hashable spec exposing
 
 * ``init_params(generator, device)`` -> params tree
-* ``loss(params, x, valid, generator)``  masked mean reconstruction loss;
-  ``generator=None`` disables dropout
+* ``loss(params, x, valid, generator, dropout_masks)``  masked mean
+  reconstruction loss; dropout draws from ``generator`` or applies the
+  given ``dropout_masks`` (with neither, no dropout)
+* ``dropout_masks(lead, generator)`` -> one keep mask a hidden layer
 * ``anomaly_scores(params, x)`` -> (B,) per-sample scores
 * ``param_count()`` / ``param_bytes()``  for the comm-cost models
 
@@ -17,7 +19,8 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import (Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -36,7 +39,14 @@ class DetectorModel:
         raise NotImplementedError
 
     def loss(self, params: P.Params, x: torch.Tensor, valid: torch.Tensor,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             dropout_masks: Optional[Sequence[torch.Tensor]] = None
+             ) -> torch.Tensor:
+        raise NotImplementedError
+
+    def dropout_masks(self, lead: Sequence[int],
+                      generator: torch.Generator
+                      ) -> Optional[List[torch.Tensor]]:
         raise NotImplementedError
 
     def anomaly_scores(self, params: P.Params, x: torch.Tensor
@@ -66,11 +76,15 @@ class AutoencoderDetector(DetectorModel):
     def init_params(self, generator, device=None):
         return AE.init_params(generator, self.cfg, device)
 
-    def loss(self, params, x, valid, generator=None):
-        x_hat = AE.forward(params, self.cfg, x, dropout_generator=generator)
+    def loss(self, params, x, valid, generator=None, dropout_masks=None):
+        x_hat = AE.forward(params, self.cfg, x, dropout_generator=generator,
+                           dropout_masks=dropout_masks)
         err = torch.sum(torch.square(x - x_hat), dim=-1) * valid
         return (torch.sum(err, dim=-1)
                 / torch.clamp_min(torch.sum(valid, dim=-1), 1.0))
+
+    def dropout_masks(self, lead, generator):
+        return AE.dropout_masks(self.cfg, lead, generator)
 
     def anomaly_scores(self, params, x):
         return AE.anomaly_scores(params, self.cfg, x)

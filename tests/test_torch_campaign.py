@@ -34,6 +34,7 @@ from repro_torch.core import failure as TF
 from repro_torch.core import simulate as TS
 from repro_torch.kernels import tolfl_combine as tc
 from repro_torch.models.params import from_numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 5
 SEEDS = [0, 1]
@@ -384,9 +385,13 @@ def test_exec_plan_errors_as_repro():
 def test_unported_and_bad_cells_raise(data):
     tl, _ = _pairs()
     dx, counts, tx, ty = data
-    with pytest.raises(NotImplementedError, match="item 2"):
-        TC.sweep_grid(TCfg(**AE), dx, counts, tx, ty, _cfg(),
-                      [("tolfl", 5), ("ifca", 2)], tl, SEEDS, device="cpu")
+    # a multi-model cell runs beside a single-model one (ported since the
+    # multi-model campaign; tests/test_torch_multicampaign.py holds it)
+    res = TC.sweep_grid(TCfg(**AE), dx, counts, tx, ty, _cfg(),
+                        [("tolfl", 5), ("ifca", 2)], tl, SEEDS, device="cpu")
+    assert isinstance(res[("ifca", 2)], TC.MultiCampaignResult)
+    assert res[("ifca", 2)].num_scenarios == len(tl) * len(SEEDS)
+    assert np.isfinite(res[("ifca", 2)].loss_curves).all()
     with pytest.raises(ValueError, match="unknown scheme"):
         TC.sweep_grid(TCfg(**AE), dx, counts, tx, ty, _cfg(), [("x", 2)],
                       tl, SEEDS, device="cpu")

@@ -177,6 +177,60 @@ def test_campaign_round_loop_never_syncs(cuda_device, scheme, k,
     res = run_campaign(ae, dx, counts, tx, ty, cfg, traces, seeds)
     assert res.num_scenarios == len(traces) * len(seeds)
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["fedgroup", "ifca", "fesem"])
+def test_multimodel_campaign_on_card_matches_cpu(cuda_device, scheme):
+    """A dropout-free multi-model campaign (cells of M = 3 and M = 2 fused,
+    padded to 3) on the card launches no ported kernel and agrees with the
+    same campaign on the CPU: loss curves within rtol 1e-4, AUROCs within
+    1e-3, assignments equal."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.baselines import MultiModelConfig
+    from repro_torch.core.campaign import run_fused_multimodel_campaigns
+    ae, dx, counts, tx, ty, traces, seeds = _small_campaign_inputs()
+    cfg = MultiModelConfig(scheme=scheme, num_devices=10, num_models=3,
+                           rounds=6, lr=5e-4, dropout=False)
+    cells = [(cfg, traces), (dataclasses.replace(cfg, num_models=2), traces)]
+    before = tc.ROUND_LAUNCHES, tc.LAUNCHES
+    gpu = run_fused_multimodel_campaigns(ae, dx, counts, tx, ty, cells, seeds)
+    assert (tc.ROUND_LAUNCHES, tc.LAUNCHES) == before
+    cpu = run_fused_multimodel_campaigns(ae, dx, counts, tx, ty, cells, seeds,
+                                         device="cpu")
+    for g, c in zip(gpu, cpu):
+        np.testing.assert_array_equal(g.assignments, c.assignments)
+        np.testing.assert_allclose(g.loss_curves, c.loss_curves, rtol=1e-4,
+                                   atol=1e-5)
+        for f in ("best_auroc", "multi_auroc"):
+            np.testing.assert_allclose(getattr(g, f), getattr(c, f), rtol=0,
+                                       atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["fedgroup", "ifca", "fesem"])
+def test_multimodel_round_loop_never_syncs(cuda_device, scheme, monkeypatch):
+    """The multi-model round loop, dropout on, under the sync debug mode,
+    which raises on any call that makes the host wait for the card."""
+    from repro_torch.core import baselines
+    from repro_torch.core.campaign import run_multimodel_campaign
+    ae, dx, counts, tx, ty, traces, seeds = _small_campaign_inputs()
+    loop = baselines._multimodel_loop
+
+    def guarded(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setattr(baselines, "_multimodel_loop", guarded)
+    cfg = baselines.MultiModelConfig(scheme=scheme, num_devices=10,
+                                     num_models=3, rounds=4, lr=1e-3)
+    res = run_multimodel_campaign(ae, dx, counts, tx, ty, cfg, traces, seeds)
+    assert res.num_scenarios == len(traces) * len(seeds)
+
+
 # ---------------------------------------------------------------------------
 # flash attention: within 2e-4 of the plain version in float32 and 2e-2 in
 # bfloat16 (the tolerances of tests/test_kernels.py): the kernels sum the

@@ -24,6 +24,7 @@ from repro_torch.core import simulate as TS
 from repro_torch.core.failure import NO_FAILURE
 from repro_torch.kernels import tolfl_combine as tc
 from repro_torch.models.params import from_numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 12
 

@@ -27,6 +27,7 @@ from repro_torch.core import failure as TF
 from repro_torch.core import simulate as TS
 from repro_torch.kernels import tolfl_combine as tc
 from repro_torch.models.params import from_numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 AUROC_ATOL = 1e-3

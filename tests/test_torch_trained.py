@@ -16,6 +16,7 @@ from repro_torch.configs.autoencoder_paper import AutoencoderConfig as TCfg
 from repro_torch.core import simulate as TS
 from repro_torch.models.params import to_numpy_tree
 from test_torch_simulate import AE, N, _close, _configs, _params0
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("isolated", [True, False])
