@@ -50,6 +50,24 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    torch.profiler ([multi-profile]); and a small dropout-free grid on
    the card against the CPU (curves within 1e-5 relative, assignments
    equal) and fused against per-cell on the card ([multi-reference]);
+   then the anomaly-scoring service (``serving/anomaly``) over the same
+   data: a model bank trained at the paper's scale (the global model and
+   the 10 isolated ones, 100 rounds each with dropout), which must launch
+   the fused round kernel 200 times and whose rows must equal the two
+   exports bit for bit ([anomaly-bank]); the service with 32-row windows
+   of the test set, buckets 1/8/64 (one CUDA graph each), 64 windows a
+   tick for 24 ticks, clean and under an iid, a Markov-churn and a
+   cluster-cascade failure process: windows/s, p50/p99, batches a
+   bucket, failovers and failbacks, 0 dropped, the cascade failing over
+   with every isolated-served window bit for bit its isolated model
+   scored directly at the same bucket shape, beside ``direct_bs64`` (one
+   graph replay of a full bucket) and a window alone against the same
+   window in a padded bucket ([anomaly-serve]); a warm service that
+   captures nothing, allocates nothing and never syncs while it
+   dispatches, and a second service resolving every bucket from memory
+   ([anomaly-warm]); 8 ticks under torch.profiler and a host-clock split
+   of a tick ([anomaly-profile]); and a small bank and service on the
+   card against the CPU ([anomaly-reference]);
 4. drives slice 2's main path, RecurrentGemma-9B serving
    (``prefill``, ``pad_cache``, greedy ``decode_step``), at full width
    and depth: random params on the card, 4 prompts of 4,096 tokens (past
@@ -1268,6 +1286,393 @@ def phase_multi_reference(torch, split, dx, counts):
         f"loss max rel diff {rel:.3e} before it")
 
 
+#: the anomaly-scoring service's phases: benchmarks/bench_serve.py's
+#: windows (32 rows) cut from the paper split's 5,250-row test set (164
+#: windows), buckets 1/8/64, 64 windows a tick spread over the 10 clients,
+#: 24 ticks, and its failure injections (sample seed 3, horizon 24), over a
+#: bank trained at the paper's scale (tolfl k = 5, 100 rounds, lr 1e-3,
+#: dropout on, seed 0)
+ANOMALY_WINDOW, ANOMALY_BUCKETS = 32, (1, 8, 64)
+ANOMALY_PER_TICK, ANOMALY_TICKS, ANOMALY_SEED = 64, 24, 3
+ANOMALY_REPS = 3          # each run's service stood up and streamed 3 times
+
+
+def _anomaly_processes():
+    """bench_serve.py's runs: clean and its three failure processes."""
+    from repro_torch.core.processes import (ClusterCascadeProcess,
+                                            IidRateProcess,
+                                            MarkovChurnProcess)
+    return {"clean": None, "iid": IidRateProcess(p=0.4),
+            "markov": MarkovChurnProcess(p_fail=0.15, p_recover=0.3),
+            "cascade": ClusterCascadeProcess(p_head=1.0, recover_prob=1.0,
+                                             recovery_lag=6)}
+
+
+def _anomaly_windows(split):
+    """(n, 32, 112) float32 windows of the test set and their row labels."""
+    import numpy as np
+    tx = np.asarray(split.test_x, np.float32)
+    ty = np.asarray(split.test_y)
+    n = tx.shape[0] // ANOMALY_WINDOW
+    return (tx[:n * ANOMALY_WINDOW].reshape(n, ANOMALY_WINDOW, -1),
+            ty[:n * ANOMALY_WINDOW].reshape(n, ANOMALY_WINDOW))
+
+
+def _anomaly_stream(svc, wins, labels, ticks, start=0):
+    """bench_serve.py's load: ``ANOMALY_PER_TICK`` windows a tick, window j
+    of tick t from client j % N, then one tick.  Returns each tick's
+    results and the host seconds spent in ``submit``."""
+    out, submit_s = [], 0.0
+    n, N = len(wins), svc.bank.num_clients
+    for t in range(start, start + ticks):
+        t0 = time.perf_counter()
+        for j in range(ANOMALY_PER_TICK):
+            i = (t * ANOMALY_PER_TICK + j) % n
+            svc.submit(j % N, wins[i], labels[i])
+        submit_s += time.perf_counter() - t0
+        out.append(svc.tick())
+    return out, submit_s
+
+
+def _anomaly_service(bank, failure=None, buckets=ANOMALY_BUCKETS):
+    from repro_torch.serving.anomaly import AnomalyService, ServiceConfig
+    return AnomalyService(bank, ServiceConfig(bucket_sizes=buckets,
+                                              window=ANOMALY_WINDOW),
+                          failure=failure, sample_seed=ANOMALY_SEED,
+                          horizon=ANOMALY_TICKS)
+
+
+def phase_anomaly_bank(torch, split, dx, counts):
+    """The scoring service's model bank at the paper's scale: the global
+    model and the 10 isolated ones, two 100-round runs of the round loop.
+    The fused round kernel must launch once a round a run (2 x 100) and
+    the standalone combine never; bank rows 0 and 1..N must equal the two
+    exports bit for bit.  Returns the bank and the fused kernel's
+    launches."""
+    import numpy as np
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core.simulate import SimConfig
+    from repro_torch.kernels import tolfl_combine as tc
+    from repro_torch.models.params import tree_items
+    from repro_torch.serving.anomaly import train_model_bank
+    cfg = SimConfig(scheme="tolfl", num_devices=10, num_clusters=5,
+                    rounds=ROUNDS, lr=1e-3, dropout=True, seed=0)
+    tc.ROUND_LAUNCHES = tc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    bank = train_model_bank(COMMSML, dx, counts, cfg, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (tc.ROUND_LAUNCHES, tc.LAUNCHES)
+    if got != (2 * ROUNDS, 0):
+        raise AssertionError(f"[anomaly-bank] fused / combine launches {got}, "
+                             f"expected ({2 * ROUNDS}, 0)")
+    iso = dict(tree_items(bank.iso_params))
+    for path, g in tree_items(bank.global_params):
+        rows = dict(tree_items(bank.row_params))[path]
+        if not (torch.equal(rows[0], g) and torch.equal(rows[1:], iso[path])
+                and bool(torch.isfinite(rows).all())):
+            raise AssertionError(f"[anomaly-bank] bank rows of {path} are not "
+                                 f"the exports, or not finite")
+    P = bank.detector.param_count()
+    log(f"[anomaly-bank] tolfl k=5, {ROUNDS} rounds, lr 1e-3, dropout on, "
+        f"seed 0: global + {bank.num_clients} isolated models (P = {P}; "
+        f"bank {(bank.num_clients + 1) * P * 4} bytes) in {wall:.3f} s "
+        f"({wall / (2 * ROUNDS) * 1e3:.3f} ms/round over both runs); "
+        f"tolfl_round_update launches {got[0]}, tolfl_combine {got[1]}; rows "
+        f"0 / 1..N equal the two exports bit for bit; isolated models' "
+        f"first-layer norms "
+        + ", ".join(f"{float(v):.2f}" for v in np.linalg.norm(
+            iso[("fc0", "w")].reshape(bank.num_clients, -1).cpu().numpy(),
+            axis=1)))
+    return bank, got[0]
+
+
+def phase_anomaly_serve(torch, bank, split):
+    """The service at full width: ``direct_bs64`` (one graph replay of a
+    64-bucket's 2,048 rows against row 0, synchronised), then the clean
+    run and the three process runs, each stood up and streamed
+    ``ANOMALY_REPS`` times (the graphs come from memory after the first).
+    Every run drops nothing; the cascade run fails over, and every
+    isolated-served window equals its isolated model scoring the same
+    padded bucket directly, bit for bit.  Then a window alone (a 1-bucket,
+    32 rows) against the same window in a padded 8-bucket (256 rows):
+    bitwise, or within 1e-6 relative."""
+    import numpy as np
+    from repro_torch.serving.anomaly import engine
+    det, D = bank.detector, bank.input_dim
+    wins, labels = _anomaly_windows(split)
+    n = len(wins)
+    entry, _ = engine.score_entry(det, bank.row_params,
+                                  (64, ANOMALY_WINDOW, D))
+    entry.x.copy_(torch.from_numpy(wins[np.arange(64) % n]))
+    entry.row.fill_(0)
+    for _ in range(3):
+        entry.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ANOMALY_TICKS):
+        entry.replay()
+        torch.cuda.synchronize()
+    direct_wall = time.perf_counter() - t0
+    direct_wps = 64 * ANOMALY_TICKS / direct_wall
+    replay_ms = _median_ms(torch, entry.replay, True)
+    ae = det.cfg
+    dims = ([D] + list(ae.hidden) + [ae.code_dim] + list(reversed(ae.hidden))
+            + [D])
+    flops = 2 * 64 * ANOMALY_WINDOW * sum(a * b for a, b in zip(dims[:-1],
+                                                                 dims[1:]))
+    log(f"[anomaly-serve] direct_bs64: one graph replay of 64 x "
+        f"{ANOMALY_WINDOW} rows against row 0, synchronised, x "
+        f"{ANOMALY_TICKS}: {direct_wall * 1e3:.3f} ms, {direct_wps:.1f} "
+        f"windows/s; the replay alone on the card (CUDA events, median of "
+        f"{SAMPLES}) {replay_ms:.6f} ms for {flops / 1e9:.4f} GFLOP of "
+        f"products ({flops / replay_ms / 1e9:.2f} TFLOP/s)")
+    runs = {}
+    for name, proc in _anomaly_processes().items():
+        walls = []
+        for _ in range(ANOMALY_REPS):
+            svc = _anomaly_service(bank, proc)
+            t0 = time.perf_counter()
+            ticks, submit_s = _anomaly_stream(svc, wins, labels,
+                                              ANOMALY_TICKS)
+            walls.append(time.perf_counter() - t0)
+            rep = svc.report()
+            if rep.dropped != 0 or rep.windows != (ANOMALY_TICKS
+                                                   * ANOMALY_PER_TICK):
+                raise AssertionError(f"[anomaly-serve] {name}: {rep}")
+        wall = statistics.median(walls)
+        wps = rep.windows / wall
+        runs[name] = (svc, ticks, rep, wps)
+        log(f"[anomaly-serve] {name}: {rep.windows} windows in "
+            f"{ANOMALY_TICKS} ticks, wall (submit included) median of "
+            f"{ANOMALY_REPS} {wall * 1e3:.3f} ms (all: "
+            + ", ".join(f"{w * 1e3:.3f}" for w in walls)
+            + f") = {wps:.1f} windows/s, {wps / direct_wps:.4f} of "
+            f"direct_bs64; the service's own (busy) {rep.windows_per_s:.1f} "
+            f"windows/s; p50 {rep.p50_ms:.3f} ms, p99 {rep.p99_ms:.3f} ms; "
+            f"batches a bucket {rep.bucket_batches}; failovers "
+            f"{rep.failovers}, failbacks {rep.failbacks}; AUROC head "
+            f"{rep.auroc_head:.4f}, isolated {rep.auroc_isolated:.4f}; "
+            f"dropped {rep.dropped}")
+    svc, ticks, rep, _ = runs["cascade"]
+    if rep.failovers <= 0:
+        raise AssertionError("[anomaly-serve] cascade: no failover")
+    checked = 0
+    for t, results in enumerate(ticks):
+        groups = {}
+        for j, r in enumerate(results):
+            row = r.client + 1 if r.served_by == "isolated" else 0
+            groups.setdefault(row, []).append(j)
+        for row, js in groups.items():
+            if row == 0:
+                continue
+            bs = svc._pick_bucket(len(js))
+            x = torch.zeros((bs, ANOMALY_WINDOW, D), device=DEV)
+            x[:len(js)] = torch.from_numpy(
+                wins[[(t * ANOMALY_PER_TICK + j) % n for j in js]]).to(DEV)
+            want = det.anomaly_scores(bank.client_iso_params(row - 1),
+                                      x.reshape(bs * ANOMALY_WINDOW, D))
+            want = want.reshape(bs, ANOMALY_WINDOW)[:len(js)].cpu().numpy()
+            got = np.stack([results[j].scores for j in js])
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"[anomaly-serve] cascade tick {t}: row {row}'s windows "
+                    f"differ from the isolated model scored directly, max "
+                    f"{float(np.abs(got - want).max())}")
+            checked += len(js)
+    log(f"[anomaly-serve] cascade: {checked} isolated-served windows equal "
+        f"their isolated model scoring the same padded bucket directly, bit "
+        f"for bit; timeline (first 6) {svc.timeline[:6]}")
+
+    # a window alone (M = 32 rows) against the same window at the head of a
+    # padded 8-bucket (M = 256): cuBLAS may pick another GEMM for another M
+    one, _ = engine.score_entry(det, bank.row_params, (1, ANOMALY_WINDOW, D))
+    eight, _ = engine.score_entry(det, bank.row_params,
+                                  (8, ANOMALY_WINDOW, D))
+    dev_wins = torch.from_numpy(wins).to(DEV)
+    alone, padded = [], []
+    for row in (0, 1):
+        one.row.fill_(row)
+        eight.row.fill_(row)
+        for i in range(n):
+            one.x.copy_(dev_wins[i:i + 1])
+            one.replay()
+            alone.append(one.out[0].clone())
+            eight.x.zero_()
+            eight.x[0].copy_(dev_wins[i])
+            eight.replay()
+            padded.append(eight.out[0].clone())
+    a = torch.stack(alone).cpu().numpy()
+    b = torch.stack(padded).cpu().numpy()
+    same = bool(np.array_equal(a, b))
+    diff = np.abs(a - b)
+    rel = float(np.max(diff / np.abs(b)))
+    log(f"[anomaly-serve] a window alone (1-bucket, M = {ANOMALY_WINDOW}) vs "
+        f"in a padded 8-bucket (M = {8 * ANOMALY_WINDOW}), rows 0 and 1, "
+        f"{n} windows: bitwise_equal={same}, max abs diff {float(diff.max())}"
+        f", max rel diff {rel:.3e}, {int((diff > 0).sum())} of {diff.size} "
+        f"scores differ")
+    if not same:
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=0)
+    return direct_wps, {name: r[3] for name, r in runs.items()}
+
+
+def phase_anomaly_warm(torch, bank, split):
+    """A warm service captures nothing: after one tick, ticks of 1, 5, 64,
+    70, 9 and 64 windows use every bucket and fail over (head 0 dies at
+    tick 1) with no new capture and ``memory_allocated`` unchanged, each
+    chunk's dispatch under the sync debug mode (its one copy to the host
+    outside it); a second service over the same bank resolves every
+    bucket from memory."""
+    from repro_torch.core.processes import trace_from_rows
+    from repro_torch.serving.anomaly import engine
+    wins, labels = _anomaly_windows(split)
+    svc = _anomaly_service(bank, trace_from_rows([(1, 0, 0.0, 2)], 4,
+                                                 device="cpu"))
+    svc.submit(0, wins[0])
+    svc.tick()
+    torch.cuda.synchronize()
+    captures, mem = engine.CAPTURES, torch.cuda.memory_allocated()
+    dispatch = svc._dispatch
+
+    def guarded(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    svc._dispatch = guarded
+    loads = (1, 5, 64, 70, 9, 64)
+    for t, load in enumerate(loads):
+        for j in range(load):
+            i = (t * 64 + j) % len(wins)
+            svc.submit(j % bank.num_clients, wins[i], labels[i])
+        svc.tick()
+    torch.cuda.synchronize()
+    rep = svc.report()
+    used = {b: c for b, c in rep.bucket_batches.items() if c}
+    if (engine.CAPTURES != captures or torch.cuda.memory_allocated() != mem
+            or len(used) != len(ANOMALY_BUCKETS) or rep.failovers == 0
+            or rep.dropped):
+        raise AssertionError(f"[anomaly-warm] captures "
+                             f"{engine.CAPTURES - captures}, memory "
+                             f"{torch.cuda.memory_allocated() - mem} "
+                             f"bytes more, buckets {rep.bucket_batches}, "
+                             f"failovers {rep.failovers}, dropped "
+                             f"{rep.dropped}")
+    again = _anomaly_service(bank)
+    if set(again.compile_sources.values()) != {"memory"} or \
+            engine.CAPTURES != captures:
+        raise AssertionError(f"[anomaly-warm] a second service: "
+                             f"{again.compile_sources}")
+    log(f"[anomaly-warm] {len(loads)} warm ticks of {list(loads)} windows "
+        f"(batches a bucket {rep.bucket_batches}, failovers "
+        f"{rep.failovers}): 0 new captures, memory_allocated unchanged "
+        f"({mem} bytes), every chunk dispatched under "
+        f"torch.cuda.set_sync_debug_mode('error'); a second service over "
+        f"the bank: compile_sources {again.compile_sources}")
+
+
+def phase_anomaly_profile(torch, bank, split):
+    """Where a service tick's time goes: 8 clean ticks under
+    torch.profiler (device busy share, device kernels a tick, top device
+    events), then 24 unprofiled clean ticks split on the host's clock
+    into submit, routing, padding, input copies, replays, score copies
+    and the copy to the host."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.anomaly.service import STAGES
+    wins, labels = _anomaly_windows(split)
+    svc = _anomaly_service(bank)
+    _anomaly_stream(svc, wins, labels, 2)
+    torch.cuda.synchronize()
+    ticks = 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _anomaly_stream(svc, wins, labels, ticks, start=2)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, by_name = _device_time(prof)
+    if busy == 0:
+        log("[anomaly-profile] the profiler recorded no device time: not "
+            "measured")
+    else:
+        events = sum(count for _, count in by_name.values())
+        log(f"[anomaly-profile] clean, {ticks} ticks of "
+            f"{ANOMALY_PER_TICK} windows under the profiler: wall "
+            f"{wall_us / ticks / 1e3:.3f} ms a tick, device busy "
+            f"{busy / ticks:.1f} us a tick ({busy / wall_us:.2%} of wall), "
+            f"{events / ticks:.1f} device kernels a tick; top device events: "
+            + _top(by_name, 10, ticks, "us/tick"))
+    svc = _anomaly_service(bank)
+    _anomaly_stream(svc, wins, labels, 1)
+    svc.stage_seconds = dict.fromkeys(STAGES, 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, submit_s = _anomaly_stream(svc, wins, labels, ANOMALY_TICKS, start=1)
+    wall = time.perf_counter() - t0
+    split_ms = {"submit": submit_s, **svc.stage_seconds}
+    split_ms["rest"] = wall - sum(split_ms.values())
+    log(f"[anomaly-profile] clean, {ANOMALY_TICKS} ticks, host clock: "
+        f"{wall / ANOMALY_TICKS * 1e3:.3f} ms a tick = "
+        + ", ".join(f"{k} {v / ANOMALY_TICKS * 1e3:.3f} ms ({v / wall:.1%})"
+                    for k, v in split_ms.items())
+        + " (d2h holds the wait for the device and the reassembly; rest: "
+        "per-window bookkeeping after the copy)")
+
+
+def phase_anomaly_reference(torch, split, dx, counts):
+    """A small dropout-free bank (6 rounds at lr 5e-4 on 64 samples a
+    device, the paper autoencoder, one init) on the card and on the CPU:
+    every bank leaf within 1e-5 of the CPU's relative to its largest
+    value; then both services under the cascade process over 8 ticks:
+    routing, timeline and bucket use identical, scores within rtol 1e-4 /
+    atol 1e-5."""
+    import numpy as np
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core.simulate import SimConfig
+    from repro_torch.models.detector import AutoencoderDetector
+    from repro_torch.models.params import tree_items
+    from repro_torch.serving.anomaly import train_model_bank
+    p0 = AutoencoderDetector(COMMSML).init_params(
+        torch.Generator().manual_seed(1), device="cpu")
+    small, small_counts = dx[:, :64], np.minimum(counts, 64)
+    cfg = SimConfig(scheme="tolfl", num_devices=10, num_clusters=5, rounds=6,
+                    lr=5e-4, dropout=False, seed=0)
+    banks = [train_model_bank(COMMSML, small, small_counts, cfg, params0=p0,
+                              device=device) for device in (DEV, "cpu")]
+    worst = 0.0
+    cpu_leaves = dict(tree_items(banks[1].row_params))
+    for path, leaf in tree_items(banks[0].row_params):
+        want = cpu_leaves[path]
+        rel = float((leaf.cpu() - want).abs().max() / want.abs().max())
+        if not rel <= 1e-5:
+            raise AssertionError(f"[anomaly-reference] bank leaf {path}: "
+                                 f"card vs CPU {rel:.3e} relative")
+        worst = max(worst, rel)
+    wins, labels = _anomaly_windows(split)
+    proc = _anomaly_processes()["cascade"]
+    runs = [_anomaly_stream(_anomaly_service(b, proc), wins, labels, 8)[0]
+            for b in banks]
+    flat = [[r for tick in run for r in tick] for run in runs]
+    for g, c in zip(*flat):
+        if (g.client, g.seq, g.epoch, g.served_by) != (
+                c.client, c.seq, c.epoch, c.served_by):
+            raise AssertionError(f"[anomaly-reference] routing differs: {g} "
+                                 f"vs {c}")
+        np.testing.assert_allclose(g.scores, c.scores, rtol=1e-4, atol=1e-5)
+    got = np.stack([r.scores for r in flat[0]])
+    want = np.stack([r.scores for r in flat[1]])
+    iso = sum(r.served_by == "isolated" for r in flat[0])
+    log(f"[anomaly-reference] bank (6 rounds at lr 5e-4, 64 samples a "
+        f"device): card vs CPU max leaf diff {worst:.3e} of the leaf's "
+        f"largest value; cascade service, 8 ticks of {ANOMALY_PER_TICK}: "
+        f"routing identical ({iso} of {len(flat[0])} windows isolated), "
+        f"scores max rel diff "
+        f"{float(np.max(np.abs(got - want) / np.abs(want))):.3e}")
+
+
 def _samples_ms(torch, fn, device_only, samples):
     """``samples`` times, in ms, between CUDA events recorded before and
     after one call of ``fn``, after 10 calls of warm-up.  With
@@ -1944,6 +2349,12 @@ def main() -> int:
     phase_multi_no_sync(torch, split, dx, counts)
     phase_multi_profile(torch, split, dx, counts)
     phase_multi_reference(torch, split, dx, counts)
+    bank, bank_launches = phase_anomaly_bank(torch, split, dx, counts)
+    launches["tolfl_round_update"] += bank_launches
+    phase_anomaly_serve(torch, bank, split)
+    phase_anomaly_warm(torch, bank, split)
+    phase_anomaly_profile(torch, bank, split)
+    phase_anomaly_reference(torch, split, dx, counts)
     kernels = phase_times(torch, launches, errs, parent)
     serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
     for arch, tag in SERVE_ARCHS:

@@ -7,6 +7,8 @@ with one, from the root of the repository:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
+import functools
+
 import pytest
 import torch
 
@@ -229,6 +231,154 @@ def test_multimodel_round_loop_never_syncs(cuda_device, scheme, monkeypatch):
                                      num_models=3, rounds=4, lr=1e-3)
     res = run_multimodel_campaign(ae, dx, counts, tx, ty, cfg, traces, seeds)
     assert res.num_scenarios == len(traces) * len(seeds)
+
+
+# ---------------------------------------------------------------------------
+# the anomaly-scoring service: one CUDA graph a bucket
+# ---------------------------------------------------------------------------
+ANOMALY_WINDOW = 16
+
+
+@functools.lru_cache(maxsize=2)
+def _card_bank(seed):
+    """A small bank trained on the card (tiny autoencoder, 2 rounds, the
+    fused kernel once a round a run) and a pool of (16, 112) windows."""
+    import numpy as np
+
+    from repro_torch.configs.autoencoder_paper import AutoencoderConfig
+    from repro_torch.core.simulate import SimConfig
+    from repro_torch.data import commsml, federated
+    from repro_torch.serving.anomaly import train_model_bank
+    X, y = commsml.generate(seed=0, samples_per_class=200)
+    split = federated.make_split(X, y, num_devices=10, num_clusters=5,
+                                 anomaly_classes=[3], seed=0)
+    dx, counts = federated.pad_devices(split)
+    cfg = SimConfig(scheme="tolfl", num_devices=10, num_clusters=5,
+                    rounds=2, lr=1e-3, dropout=False, seed=seed)
+    before = tc.ROUND_LAUNCHES
+    bank = train_model_bank(AutoencoderConfig(input_dim=112, hidden=(32, 16),
+                                              code_dim=8), dx, counts, cfg)
+    assert tc.ROUND_LAUNCHES - before == 2 * cfg.rounds
+    tx = np.asarray(split.test_x, np.float32)
+    n = tx.shape[0] // ANOMALY_WINDOW
+    return bank, tx[:n * ANOMALY_WINDOW].reshape(n, ANOMALY_WINDOW, -1)
+
+
+def _direct(bank, params, x):
+    """Direct scoring of one model at the batch shape of ``x`` (B, W, D)."""
+    B, W, D = x.shape
+    return bank.detector.anomaly_scores(params, x.reshape(B * W, D)).reshape(
+        B, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [1, 8, 64])
+def test_anomaly_bucket_graph_equals_eager_core(cuda_device, bs):
+    """Each bucket's graph replay equals the eager core on the same
+    inputs bit for bit, for the global row, the first isolated row and
+    the last."""
+    from repro_torch.serving.anomaly import engine
+    bank, _ = _card_bank(0)
+    entry, _ = engine.score_entry(bank.detector, bank.row_params,
+                                  (bs, ANOMALY_WINDOW, bank.input_dim))
+    assert entry.graph is not None
+    core = engine.score_core(bank.detector)
+    g = torch.Generator(device=cuda_device).manual_seed(bs)
+    for row in (0, 1, bank.num_clients):
+        entry.x.copy_(torch.randn(entry.x.shape, generator=g,
+                                  device=cuda_device) * 50)
+        entry.row.fill_(row)
+        entry.replay()
+        want = core(bank.row_params,
+                    torch.tensor([row], device=cuda_device), entry.x)
+        torch.cuda.synchronize()
+        assert torch.equal(entry.out, want), row
+
+
+@pytest.mark.cuda
+def test_anomaly_failover_bitwise_on_card(cuda_device):
+    """A window served by its isolated model while its head is dead
+    equals the isolated model scoring the same padded bucket directly;
+    a head-served one, the global model."""
+    import numpy as np
+
+    from repro_torch.core.processes import trace_from_rows
+    from repro_torch.serving.anomaly import AnomalyService, ServiceConfig
+    bank, wins = _card_bank(0)
+    svc = AnomalyService(bank, ServiceConfig(bucket_sizes=(1, 8, 64),
+                                             window=ANOMALY_WINDOW),
+                         failure=trace_from_rows([(0, 0, 0.0, 2)], 4,
+                                                 device="cpu"))
+    svc.submit(1, wins[0])            # cluster 0, head dead: isolated
+    svc.submit(1, wins[1])
+    svc.submit(7, wins[2])            # cluster 3: head
+    res = svc.tick()
+    assert [r.served_by for r in res] == ["isolated", "isolated", "head"]
+    for members, params, got in (
+            ((0, 1), bank.client_iso_params(1), res[:2]),
+            ((2,), bank.global_params, res[2:])):
+        x = torch.zeros((8 if len(members) > 1 else 1, ANOMALY_WINDOW,
+                         bank.input_dim), device=cuda_device)
+        x[:len(members)] = torch.from_numpy(wins[list(members)]).to(
+            cuda_device)
+        want = _direct(bank, params, x)[:len(members)].cpu().numpy()
+        np.testing.assert_array_equal(np.stack([r.scores for r in got]),
+                                      want)
+
+
+@pytest.mark.cuda
+def test_anomaly_warm_service_captures_nothing(cuda_device):
+    """Once its buckets are captured, serving every bucket and a failover
+    captures no graph and leaves the allocated memory as it was; a second
+    service over the same bank resolves every bucket from memory."""
+    from repro_torch.core.processes import trace_from_rows
+    from repro_torch.serving.anomaly import (AnomalyService, ServiceConfig,
+                                             engine)
+    bank, wins = _card_bank(0)
+    cfg = ServiceConfig(bucket_sizes=(1, 8, 64), window=ANOMALY_WINDOW)
+    svc = AnomalyService(bank, cfg, failure=trace_from_rows(
+        [(2, 0, 0.0, 2)], 4, device="cpu"))
+    svc.submit(0, wins[0])
+    svc.tick()
+    torch.cuda.synchronize()
+    captures, mem = engine.CAPTURES, torch.cuda.memory_allocated()
+    for t, n in enumerate((1, 5, 64, 70)):
+        for j in range(n):
+            svc.submit(j % 10, wins[(t + j) % len(wins)])
+        svc.tick()
+    torch.cuda.synchronize()
+    rep = svc.report()
+    assert rep.failovers > 0 and rep.dropped == 0
+    assert all(rep.bucket_batches[b] > 0 for b in (1, 8, 64))
+    assert engine.CAPTURES == captures
+    assert torch.cuda.memory_allocated() == mem
+    again = AnomalyService(bank, cfg)
+    assert again.compile_sources == {1: "memory", 8: "memory", 64: "memory"}
+    assert engine.CAPTURES == captures
+
+
+@pytest.mark.cuda
+def test_anomaly_second_bank_gets_its_own_graphs(cuda_device):
+    """A graph reads its bank's tensors at the captured addresses: a
+    second bank of the same shapes captures its own graphs and scores
+    with its own weights."""
+    import numpy as np
+
+    from repro_torch.serving.anomaly import AnomalyService, ServiceConfig
+    cfg = ServiceConfig(bucket_sizes=(1, 8), window=ANOMALY_WINDOW)
+    scores = []
+    for seed in (0, 1):
+        bank, wins = _card_bank(seed)
+        svc = AnomalyService(bank, cfg)
+        if seed == 1:
+            assert set(svc.compile_sources.values()) == {"capture"}
+        svc.submit(3, wins[4])
+        (res,) = svc.tick()
+        x = torch.from_numpy(wins[4:5]).to(cuda_device)
+        np.testing.assert_array_equal(
+            res.scores, _direct(bank, bank.global_params, x)[0].cpu().numpy())
+        scores.append(res.scores)
+    assert not np.array_equal(scores[0], scores[1])
 
 
 # ---------------------------------------------------------------------------
