@@ -68,6 +68,25 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    ([anomaly-warm]); 8 ticks under torch.profiler and a host-clock split
    of a tick ([anomaly-profile]); and a small bank and service on the
    card against the CPU ([anomaly-reference]);
+   then the sequence detector and the experiment pipeline (slice 10): the
+   RG-LRU scan at SeqDetector's campaign shape (720,000, 7, 16) and its
+   backward kernel there and at the serving shape, bit for bit against
+   their plain versions ([kernel]); ``run_simulation`` with SeqDetector
+   (P = 1,888) at the paper's scale, tolfl k = 5, 100 rounds at lr 1e-4,
+   which must launch the scan forward twice, its backward once and the
+   fused round kernel once a round ([seq-slice]), and 5 rounds of tolfl
+   and fl under the sync debug mode ([seq-no-sync]); the spec of tolfl
+   k = 5, fl and IFCA M = 3 under no failure, a server death at round 20
+   and sampled rates 0.1 and 0.3, seeds enough for 64 scenarios in the
+   fused tolfl bucket, through ``plan`` (its ``describe()`` printed) and
+   ``execute``, with SeqDetector at lr 1e-4 and then with the paper
+   autoencoder at the paper's lr 1e-3, where a few of its single-model
+   scenarios diverge (listed by cell, trace, seed and round):
+   scenarios/s and ms/round a bucket, peak device memory, each bucket's
+   launches, and the tolfl bucket's device busy share and device time
+   by operator under torch.profiler ([experiment]); and small SeqDetector
+   and autoencoder experiments on the card against the CPU, the latter at
+   lr 1e-3 through its divergences ([experiment-reference]);
 4. drives slice 2's main path, RecurrentGemma-9B serving
    (``prefill``, ``pad_cache``, greedy ``decode_step``), at full width
    and depth: random params on the card, 4 prompts of 4,096 tokens (past
@@ -89,7 +108,7 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    also at a decode step's shape; the fused round at S = 1 in turns with
    the unfused eager sequence (16 launches), beside an empty kernel's device
    time, and at the campaign's shapes (S = 64; S = 96 at k = 10) against
-   its bound.
+   its bound; the RG-LRU scan and its backward at SeqDetector's shape.
 
     python3 chip_smoke.py --parent DIR
 
@@ -156,6 +175,17 @@ ATTN_CASES = [(4, 4096, 16, 1, 256, True, 2048),
 SCAN_CASES = [(4, 4096, 4096, False), (4, 4096, 4096, True),
               (3, 4097, 4000, True), (2, 3, 4096, True),
               (4, 4096, 4097, True)]
+#: (B, S, W): SeqDetector's scan in a 64-scenario campaign of the paper's
+#: split, (64 * 10 * 1,125, 7, 16)
+SEQ_SCAN = (720_000, 7, 16)
+#: the backward's cases: the serving shape and SeqDetector's
+SCAN_BWD_CASES = [(4, 4096, 4096, False), (4, 4096, 4096, True),
+                  (720_000, 7, 16, False), (5, 33, 40, True)]
+#: the experiment phases: [experiment]'s spec (cells, explicit traces, the
+#: sampled rates) and the least scenarios of its fused single-model bucket
+EXP_CELLS = (("tolfl", 5), ("fl", 1), ("ifca", 3))
+EXP_RATES = (0.1, 0.3)
+EXP_MIN_SCENARIOS = 64
 #: the WKV scan's cases are ``rwkv6_scan.CARD_CASES``, shared with
 #: tests/test_torch_cuda.py
 WKV_TOL = 1e-4     # rtol = atol: FMA contraction and another order over n
@@ -288,9 +318,11 @@ def _ptxas_summary(text):
             spills = f"{m.group(1)}/{m.group(2)}"
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn:
-            args = re.search(r"ILi(\d+)E", fn)
+            args = re.search(r"(\d+[A-Za-z_]+)I((?:Li\d+E)+)E", fn)
             flags = re.search(r"([A-Za-z_]+)I((?:Lb[01]E)+)E", fn)
-            name = (f"<{args.group(1)}>" if args else
+            name = (re.sub(r"^\d+", "", args.group(1)) + "<"
+                    + ", ".join(re.findall(r"Li(\d+)E", args.group(2)))
+                    + ">" if args else
                     f"{flags.group(1)}<"
                     + ", ".join(re.findall(r"Lb([01])E", flags.group(2)))
                     + ">" if flags else fn)
@@ -1673,6 +1705,453 @@ def phase_anomaly_reference(torch, split, dx, counts):
         f"{float(np.max(np.abs(got - want) / np.abs(want))):.3e}")
 
 
+SEQ_LR = 1e-4   # SeqDetector's lr: at 1e-3 its loss turns non-finite on
+#                 these unnormalised features, in repro as in the port
+#                 (tests/test_torch_seq_detector.py)
+AE_LR = 1e-3    # the paper autoencoder's lr (the paper's)
+
+
+def _scan_counters():
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import tolfl_combine as tc
+    return rs, tc
+
+
+def _zero_seq_counts():
+    rs, tc = _scan_counters()
+    rs.LAUNCHES = rs.BWD_LAUNCHES = tc.ROUND_LAUNCHES = tc.LAUNCHES = 0
+
+
+def _seq_counts():
+    """(scan forward, scan backward, fused round, standalone combine)
+    launches since the last :func:`_zero_seq_counts`."""
+    rs, tc = _scan_counters()
+    return rs.LAUNCHES, rs.BWD_LAUNCHES, tc.ROUND_LAUNCHES, tc.LAUNCHES
+
+
+def phase_seq_kernels(torch):
+    """The RG-LRU scan at SeqDetector's campaign shape and its backward
+    kernel at that shape and the serving one, against their plain versions
+    on the card, bit for bit; returns each one's max |diff|."""
+    from repro_torch.kernels import rglru_scan as rs
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    worst = {"rglru_scan": 0.0, "rglru_scan_bwd": 0.0}
+    a = torch.sigmoid(torch.randn(SEQ_SCAN, generator=gen, device=DEV))
+    b = torch.randn(SEQ_SCAN, generator=gen, device=DEV)
+    got, want = rs.rglru_scan_cuda(a, b), rs.rglru_scan_plain(a, b)
+    torch.cuda.synchronize()
+    same, err = torch.equal(got, want), float((got - want).abs().max())
+    log(f"[kernel] rglru_scan (B, S, W) = {SEQ_SCAN} (SeqDetector, 64 "
+        f"scenarios): bitwise_equal={same} max_abs_err={err}")
+    if not same:
+        raise AssertionError(f"rglru_scan differs from its plain version at "
+                             f"{SEQ_SCAN}")
+    worst["rglru_scan"] = err
+    del a, b, got, want
+    for B, S, W, with_h0 in SCAN_BWD_CASES:
+        a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=DEV))
+        b = torch.randn((B, S, W), generator=gen, device=DEV)
+        dh = torch.randn((B, S, W), generator=gen, device=DEV)
+        h0 = (torch.randn((B, W), generator=gen, device=DEV)
+              if with_h0 else None)
+        h = rs.rglru_scan_cuda(a, b, h0)
+        got = rs.rglru_scan_bwd_cuda(a, h, h0, dh)
+        want = rs.rglru_scan_backward_plain(a, h, h0, dh)
+        torch.cuda.synchronize()
+        pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+        same = (got[2] is None) == (want[2] is None) and all(
+            torch.equal(g, w) for g, w in pairs)
+        err = max(float((g - w).abs().max()) for g, w in pairs)
+        log(f"[kernel] rglru_scan_bwd (B, S, W) = {(B, S, W)} h0={with_h0}: "
+            f"bitwise_equal={same} (da, db{', dh0' if with_h0 else ''}) "
+            f"max_abs_err={err}")
+        if not same:
+            raise AssertionError(f"rglru_scan_bwd differs from its plain "
+                                 f"version at {(B, S, W)} h0={with_h0}")
+        worst["rglru_scan_bwd"] = max(worst["rglru_scan_bwd"], err)
+        del a, b, dh, h0, h, got, want, pairs
+    return worst
+
+
+def phase_seq_slice(torch, split, dx, counts):
+    """SeqDetector through ``run_simulation`` at the paper's scale (S = 1):
+    tolfl k = 5, 100 rounds.  Every round must launch the scan forward
+    twice (the training loss, the test scores), its backward once and the
+    fused round kernel once; one more forward scores the final model.
+    Returns the launches of the run."""
+    import numpy as np
+    from repro_torch.core.simulate import SimConfig, run_simulation
+    from repro_torch.models.detector import SeqDetector
+    det = SeqDetector()
+    cfg = SimConfig(scheme="tolfl", num_devices=10, num_clusters=5,
+                    rounds=ROUNDS, lr=SEQ_LR, seed=0)
+    rows = dx.shape[0] * dx.shape[1]
+    log(f"[seq-slice] SeqDetector {det}: P = {det.param_count()}; the "
+        f"scan's batch a round: ({rows}, {det.seq_len}, "
+        f"{det.lru_width or det.d_model}) for the loss, "
+        f"({len(split.test_x)}, {det.seq_len}, "
+        f"{det.lru_width or det.d_model}) for the test scores; tolfl k=5, "
+        f"{ROUNDS} rounds, lr {SEQ_LR}")
+    run_simulation(det, dx, counts, split.test_x, split.test_y,
+                   SimConfig(rounds=2, lr=SEQ_LR))          # warm-up
+    _zero_seq_counts()
+    t0 = time.perf_counter()
+    res = run_simulation(det, dx, counts, split.test_x, split.test_y, cfg)
+    wall = time.perf_counter() - t0
+    got = _seq_counts()
+    want = (2 * ROUNDS + 1, ROUNDS, ROUNDS, 0)
+    curve = res.loss_curve
+    log(f"[seq-slice] {wall / ROUNDS * 1e3:.3f} ms/round; launches: scan "
+        f"forward {got[0]} ({got[0] / ROUNDS:.2f} a round), backward "
+        f"{got[1]} ({got[1] / ROUNDS:.2f} a round), fused round {got[2]}, "
+        f"standalone combine {got[3]}; loss {curve[0]:.4f} -> "
+        f"{curve[-1]:.4f}, auroc {res.final_auroc:.4f}")
+    if got != want:
+        raise AssertionError(f"[seq-slice] launches {got}, expected {want}")
+    if not (np.all(np.isfinite(curve)) and curve.shape == (ROUNDS,)
+            and curve[-1] < curve[0]):
+        raise AssertionError("[seq-slice] the loss curve is not finite and "
+                             "falling")
+    return {"rglru_scan": got[0], "rglru_scan_bwd": got[1],
+            "tolfl_round_update": got[2]}
+
+
+def phase_seq_no_sync(torch, split, dx, counts):
+    """SeqDetector's round loop (the scan kernels' forward and backward
+    included) never waits on the host: 5 rounds under the sync debug
+    mode."""
+    from repro_torch.core import simulate
+    from repro_torch.models.detector import SeqDetector
+    loop = simulate._round_loop
+
+    def guarded(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    simulate._round_loop = guarded
+    try:
+        for scheme, k in (("tolfl", 5), ("fl", 1)):
+            simulate.run_simulation(
+                SeqDetector(), dx, counts, split.test_x, split.test_y,
+                simulate.SimConfig(scheme=scheme, num_clusters=k, rounds=5,
+                                   lr=SEQ_LR), simulate.NO_FAILURE)
+    finally:
+        simulate._round_loop = loop
+    log("[seq-no-sync] SeqDetector tolfl and fl round loops ran 5 rounds "
+        "each under torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+
+def _exp_spec(model, split, dx, counts, seeds, rounds=None, lr=1e-3,
+              cells=EXP_CELLS):
+    """[experiment]'s spec: tolfl k = 5, fl and IFCA M = 3 under no
+    failure, a server death at round 20 and a sampled rate grid."""
+    from repro_torch.core import experiment as X
+    from repro_torch.core.failure import NO_FAILURE, FailureSpec
+    from repro_torch.core.simulate import SimConfig
+    return X.ExperimentSpec(
+        data=X.DataSpec(model=model, device_x=dx, device_counts=counts,
+                        test_x=split.test_x, test_y=split.test_y,
+                        name="commsml"),
+        base=SimConfig(num_devices=10, rounds=rounds or ROUNDS, lr=lr),
+        cells=tuple(X.CellSpec(s, k) for s, k in cells),
+        traces=X.TraceSpec(traces=(NO_FAILURE, FailureSpec(20, "server")),
+                           p_grid=EXP_RATES),
+        seeds=X.SeedSpec(tuple(range(seeds))))
+
+
+def _bucket_launches(bucket, cfg, rounds):
+    """(scan forward, scan backward, fused round) launches a bucket's
+    round loop makes: per round the training gradient (a forward and a
+    backward), the test scores (and, for fl, the isolated models'), IFCA's
+    probe of every model; the final scores once."""
+    chunks = bucket.num_chunks
+    if bucket.kind == "single":
+        fwd = (3 * rounds + 2) if bucket.track_iso else (2 * rounds + 1)
+        return fwd * chunks, rounds * chunks, rounds * chunks
+    if cfg.scheme != "ifca":
+        raise AssertionError(f"no launch count for {cfg.scheme}")
+    return (3 * rounds + 1) * chunks, rounds * chunks, 0
+
+
+def phase_experiment(torch, split, dx, counts):
+    """The declarative pipeline at the paper's scale: the spec of
+    tolfl k = 5, fl and IFCA M = 3 under no failure, a server death and
+    the sampled rates 0.1 and 0.3 (4 draws each), seeds enough that the
+    fused tolfl bucket holds at least 64 scenarios, through ``plan`` and
+    ``execute`` with SeqDetector at ``SEQ_LR``, then with the paper
+    autoencoder at the paper's lr (``AE_LR``).  Each bucket's round loop
+    is timed on the host clock (it ends in its copy to the host); the
+    launches must be those of the buckets' loops.  SeqDetector's curves
+    and AUROCs must all be finite.  The autoencoder at lr 1e-3 diverges
+    in a few single-model scenarios, in repro as in the port, with or
+    without failures (tests/test_torch_experiment.py::
+    test_paper_autoencoder_diverges_at_lr_1e3_like_repro, and
+    [experiment-reference] holds the card to the CPU through such
+    divergences): a tolfl or fl cell may turn non-finite in fewer than
+    half of its scenarios, never in the first round, and stays so; IFCA
+    and every other scenario must stay finite, AUROCs in [0, 1].  Returns
+    the launches of the two runs (the scans: SeqDetector's alone)."""
+    import numpy as np
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core import campaign
+    from repro_torch.core import experiment as X
+    from repro_torch.models.detector import SeqDetector
+    n_traces = len(X.plan(_exp_spec(SeqDetector(), split, dx, counts, 1))
+                   .cells[0].traces)
+    seeds = -(-EXP_MIN_SCENARIOS // n_traces)
+    timings = []
+    run_group, run_multi = campaign._run_group, campaign._run_multi_group
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            timings.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    launches = {}
+    for body, model, lr in (("seq", SeqDetector(), SEQ_LR),
+                            ("ae", COMMSML, AE_LR)):
+        spec = _exp_spec(model, split, dx, counts, seeds, lr=lr)
+        t0 = time.perf_counter()
+        plan = X.plan(spec)
+        plan_s = time.perf_counter() - t0
+        if body == "seq":
+            log(f"[experiment] {n_traces} traces in the tolfl cell -> "
+                f"{seeds} seeds; plan() on the host in {plan_s:.3f} s:\n"
+                + plan.describe())
+        fused = plan.buckets[0]
+        if not (fused.fused and fused.num_scenarios >= EXP_MIN_SCENARIOS):
+            raise AssertionError(f"[experiment] the fused bucket holds "
+                                 f"{fused.num_scenarios} scenarios")
+        timings.clear()
+        campaign._run_group = timed(run_group)
+        campaign._run_multi_group = timed(run_multi)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_seq_counts()
+        try:
+            t0 = time.perf_counter()
+            res = X.execute(plan)
+            wall = time.perf_counter() - t0
+        finally:
+            campaign._run_group, campaign._run_multi_group = (run_group,
+                                                              run_multi)
+        got = _seq_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = [0, 0, 0]
+        for b in plan.buckets:
+            for i, n in enumerate(_bucket_launches(
+                    b, plan.cells[b.cell_indices[0]].cfg, ROUNDS)):
+                want[i] += n
+        if body == "ae":
+            want[:2] = [0, 0]
+        if got[:3] != tuple(want) or got[3] != 0:
+            raise AssertionError(f"[experiment] {body}: launches {got}, "
+                                 f"expected {tuple(want)} and 0")
+        diverged, means = {}, {}
+        for c, r in zip(plan.cells, res.results):
+            auroc = r.auroc_used if hasattr(r, "auroc_used") else r.best_auroc
+            bad = ~np.isfinite(r.loss_curves)
+            rows = np.flatnonzero(bad.any(1))
+            firsts = [int(np.flatnonzero(bad[b])[0]) for b in rows]
+            fine = ~bad.any(1)
+            ok = (r.loss_curves.shape == (c.num_scenarios, ROUNDS)
+                  and np.all(np.isfinite(auroc[fine]))
+                  and np.all((auroc >= 0) & (auroc <= 1)))
+            # SeqDetector's lr is chosen so that it never diverges; the
+            # autoencoder's single-model cells may, in a minority
+            may_diverge = body == "ae" and c.kind == "single"
+            bounded = may_diverge and 2 * len(rows) < len(bad) and all(
+                f > 0 and bad[b, f:].all() for b, f in zip(rows, firsts))
+            if not ok or (len(rows) and not bounded):
+                raise AssertionError(
+                    f"[experiment] {body} {c.key}: AUROCs finite and in "
+                    f"[0, 1] of shape ({c.num_scenarios},): {ok}; "
+                    f"{len(rows)} scenarios with a non-finite loss, first "
+                    f"at rounds {firsts}")
+            diverged[c.key] = [(int(r.trace_index[b]), int(r.seed[b]), f)
+                               for b, f in zip(rows, firsts)]
+            means[c.key] = float(auroc[fine].mean())
+        per_bucket = "; ".join(
+            f"bucket {b.index} ({b.kind}, {'+'.join(str(plan.cells[i].key) for i in b.cell_indices)}, "
+            f"S = {b.chunk}) {t:.3f} s: {b.num_scenarios / t:.2f} "
+            f"scenarios/s, {t / ROUNDS * 1e3:.3f} ms/round"
+            for b, t in zip(plan.buckets, timings))
+        log(f"[experiment] {body} (lr {lr}): {res.num_scenarios} scenarios "
+            f"x {ROUNDS} rounds in {wall:.3f} s ({res.num_scenarios / wall:.2f}"
+            f" scenarios/s); {per_bucket}; peak device memory {peak} bytes "
+            f"({peak / 2**30:.2f} GiB); launches: scan forward {got[0]}, "
+            f"backward {got[1]}, fused round {got[2]}; scenarios with a "
+            f"non-finite loss (trace, seed, first round) {diverged}; AUROC "
+            f"means over the finite scenarios: "
+            + ", ".join(f"{key} {v:.4f}" for key, v in means.items()))
+        if body == "seq":
+            launches = {"rglru_scan": got[0], "rglru_scan_bwd": got[1],
+                        "tolfl_round_update": got[2]}
+            seq_spec, seq_plan = spec, plan
+        else:
+            launches["tolfl_round_update"] += got[2]
+        del res
+        torch.cuda.empty_cache()
+    _experiment_profile(torch, seq_spec, seq_plan)
+    return launches
+
+
+def _experiment_profile(torch, spec, plan):
+    """Where a round of the Seq experiment's fused tolfl bucket goes: 10
+    rounds of its cell at the same S under torch.profiler; the device's
+    busy share of the whole ``execute`` and of its round loop alone (the
+    host clock around ``simulate._round_loop``, synchronised), and the
+    device time by the aten operator that launched it."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import experiment as X
+    from repro_torch.core import simulate
+    rounds = 10
+    cell = plan.cells[plan.buckets[0].cell_indices[0]]
+    one = dataclasses.replace(spec, cells=(cell.spec,),
+                              base=dataclasses.replace(spec.base,
+                                                       rounds=rounds))
+    p = X.plan(one)
+    X.execute(p)                                         # warm-up
+    loop, loop_s = simulate._round_loop, []
+
+    def timed_loop(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loop(*args, **kwargs)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t0)
+        return out
+
+    simulate._round_loop = timed_loop
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            X.execute(p)
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        simulate._round_loop = loop
+    busy, by_name = _device_time(prof)
+    if busy == 0:
+        log("[experiment] the profiler recorded no device time: not "
+            "measured")
+        return
+    loop_us = loop_s[0] * 1e6
+    if busy > 1.05 * loop_us:
+        raise AssertionError(f"[experiment] profile: device busy {busy:.1f} "
+                             f"us over a round loop of {loop_us:.1f} us: "
+                             f"device spans counted twice?")
+    scan = sum(us for name, (us, _) in by_name.items()
+               if "rglru_scan" in name)
+    ops = sorted(((e.key, getattr(e, "self_device_time_total", 0.0))
+                  for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda kv: -kv[1])
+    log(f"[experiment] profile, seq {cell.key} at S = {p.buckets[0].chunk}, "
+        f"{rounds} rounds: execute wall {wall_us / rounds / 1e3:.3f} "
+        f"ms/round, its round loop {loop_us / rounds / 1e3:.3f} ms/round; "
+        f"device busy {busy / rounds / 1e3:.3f} ms/round, {busy / wall_us:.1%}"
+        f" of the execute's wall (inits, traces, the copy and AUROCs on the "
+        f"host included), {busy / loop_us:.1%} of the loop's; "
+        f"{sum(c for _, c in by_name.values()) / rounds:.1f} device kernels "
+        f"a round; the scan kernels {scan / rounds:.1f} us a round "
+        f"({scan / busy:.2%} of busy); top device events: "
+        + _top(by_name, 8, rounds, "us/round"))
+    log("[experiment] profile, device time by the operator that launched "
+        "it: " + "; ".join(f"{key} {us / rounds:.1f} us/round "
+                           f"({us / busy:.1%})" for key, us in ops[:12]))
+
+
+def phase_experiment_reference(torch, split, dx, counts):
+    """A small dropout-free SeqDetector experiment (tolfl, fl and IFCA
+    cells, 6 rounds on 64 samples a device, explicit and sampled traces)
+    on the card against the CPU: loss curves within rtol 1e-4 / atol
+    1e-5, AUROCs within 1e-3 (float32 sums in other orders), iso_active
+    and assignments equal.  Then the paper autoencoder at lr 1e-3 through
+    its divergences: tolfl k = 5 and fl without failure, 8 seeds, 12
+    rounds on 64 samples a device, dropout off.  Some scenarios must turn
+    non-finite, on the card in the same scenarios and rounds as on the
+    CPU; the curves agree within rtol 1e-4 / atol 1e-5 up to each
+    scenario's first overshoot (a round whose loss exceeds the first
+    round's: past it the unstable step amplifies the sums' rounding), the
+    AUROCs within 1e-3 where both stay finite."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core import experiment as X
+    from repro_torch.core.failure import NO_FAILURE
+    from repro_torch.models.detector import SeqDetector
+    small, small_counts = dx[:, :64], np.minimum(counts, 64)
+    sub = dataclasses.replace(split, test_x=split.test_x[::25],
+                              test_y=split.test_y[::25])
+    spec = _exp_spec(SeqDetector(), sub, small, small_counts, 2, rounds=6,
+                     lr=SEQ_LR, cells=(("tolfl", 2), ("fl", 1), ("ifca", 2)))
+    spec = dataclasses.replace(spec, base=dataclasses.replace(
+        spec.base, dropout=False))
+    p = X.plan(spec)
+    gpu, cpu = X.execute(p), X.execute(p, device="cpu")
+    for c, g, h in zip(p.cells, gpu.results, cpu.results):
+        np.testing.assert_allclose(g.loss_curves, h.loss_curves, rtol=1e-4,
+                                   atol=1e-5)
+        if hasattr(g, "auroc_used"):
+            np.testing.assert_array_equal(g.iso_active, h.iso_active)
+            pairs = (g.auroc_used, h.auroc_used)
+        else:
+            np.testing.assert_array_equal(g.assignments, h.assignments)
+            pairs = (g.best_auroc, h.best_auroc)
+        np.testing.assert_allclose(*pairs, rtol=0, atol=1e-3)
+        rel = float(np.max(np.abs(g.loss_curves - h.loss_curves)
+                           / np.abs(h.loss_curves)))
+        log(f"[experiment-reference] seq {c.key}, {c.num_scenarios} "
+            f"scenarios x 6 rounds on 64 samples a device: card vs CPU loss "
+            f"max rel diff {rel:.3e}, AUROC max abs diff "
+            f"{float(np.max(np.abs(pairs[0] - pairs[1]))):.3e}")
+
+    rounds = 12
+    spec = _exp_spec(COMMSML, sub, small, small_counts, 8, rounds=rounds,
+                     lr=AE_LR, cells=(("tolfl", 5), ("fl", 1)))
+    spec = dataclasses.replace(
+        spec, base=dataclasses.replace(spec.base, dropout=False),
+        traces=X.TraceSpec(traces=(NO_FAILURE,)))
+    p = X.plan(spec)
+    gpu, cpu = X.execute(p), X.execute(p, device="cpu")
+    for c, g, h in zip(p.cells, gpu.results, cpu.results):
+        firsts = [[int(np.flatnonzero(row)[0]) if row.any() else rounds
+                   for row in ~np.isfinite(r.loss_curves)] for r in (g, h)]
+        if firsts[0] != firsts[1] or min(firsts[1]) == rounds:
+            raise AssertionError(
+                f"[experiment-reference] ae {c.key} lr {AE_LR}: first "
+                f"non-finite rounds {firsts[0]} on the card, {firsts[1]} on "
+                f"the CPU ({rounds}: none)")
+        held = []
+        for b, f in enumerate(firsts[1]):
+            curve = h.loss_curves[b]
+            over = np.flatnonzero(~(curve[:f] <= curve[0]))
+            n = int(over[0]) if over.size else f
+            np.testing.assert_allclose(g.loss_curves[b, :n], curve[:n],
+                                       rtol=1e-4, atol=1e-5)
+            held.append(n)
+        fine = np.asarray(firsts[1]) == rounds
+        np.testing.assert_allclose(g.auroc_used[fine], h.auroc_used[fine],
+                                   rtol=0, atol=1e-3)
+        finite = np.isfinite(g.loss_curves) & np.isfinite(h.loss_curves)
+        rel = (np.abs(g.loss_curves[finite] - h.loss_curves[finite])
+               / np.abs(h.loss_curves[finite]))
+        log(f"[experiment-reference] ae {c.key}, lr {AE_LR}, dropout off, "
+            f"{c.num_scenarios} seeds x {rounds} rounds on 64 samples a "
+            f"device: first non-finite round a seed {firsts[0]} on the card "
+            f"and the CPU ({rounds}: none); held within 1e-4 for the first "
+            f"{held} rounds, card vs CPU loss max rel diff over every "
+            f"finite round {float(rel.max()):.3e}; AUROC of the "
+            f"finite seeds max abs diff "
+            f"{float(np.max(np.abs(g.auroc_used - h.auroc_used)[fine])):.3e}")
+
+
 def _samples_ms(torch, fn, device_only, samples):
     """``samples`` times, in ms, between CUDA events recorded before and
     after one call of ``fn``, after 10 calls of warm-up.  With
@@ -2229,6 +2708,7 @@ def phase_serve_times(torch, launches, errs, parent=None):
     if "parent kernel" in fns:
         _faster_than_parent(rows[-1], dev_ms["parent kernel"])
     del a, b, fns
+    rows += _seq_scan_times(torch, rows[-1], launches, errs, gen)
 
     for B, S, H, N, _, _ in (wk.CARD_CASES[0], WKV_DECODE):
         args = wk.random_inputs(B, S, H, N, True, gen)
@@ -2279,6 +2759,62 @@ def phase_serve_times(torch, launches, errs, parent=None):
             _faster_than_parent(rows[-1], dev_ms["parent kernel"])
         del args, fns
     return rows
+
+
+def _seq_scan_times(torch, fwd_row, launches, errs, gen):
+    """The scan forward and backward at SeqDetector's campaign shape
+    (720,000, 7, 16), each beside its plain version and its bound; the
+    forward's numbers join its row, the backward gets its own."""
+    from repro_torch.kernels import rglru_scan as rs
+    B, S, W = SEQ_SCAN
+    a = torch.sigmoid(torch.randn(SEQ_SCAN, generator=gen, device=DEV))
+    b = torch.randn(SEQ_SCAN, generator=gen, device=DEV)
+    dh = torch.randn(SEQ_SCAN, generator=gen, device=DEV)
+    h = rs.rglru_scan_cuda(a, b)
+    fns = {"forward": lambda: rs.rglru_scan_cuda(a, b),
+           "backward": lambda: rs.rglru_scan_bwd_cuda(a, h, None, dh)}
+    n = 48
+    dev_ms = _turns_ms(torch, fns, True, n)
+    call_ms = _turns_ms(torch, fns, False, n)
+    plain = {"forward": _median_ms(
+        torch, lambda: rs.rglru_scan_plain(a, b), True, 10),
+        "backward": _median_ms(torch, lambda: rs.rglru_scan_backward_plain(
+            a, h, None, dh), True, 10)}
+    # forward: a, b read, h written, a multiply and an add an element;
+    # backward: a, h, dh read, da, db written, g's multiply and add and
+    # da's multiply
+    work = {"forward": (3, 2), "backward": (5, 3)}
+    bound = {}
+    for key, (tensors, flops) in work.items():
+        b_bytes = tensors * B * S * W * 4 / H100_BYTES_PER_S * 1e3
+        b_ops = flops * B * S * W / H100_F32_FLOPS * 1e3
+        bound[key] = (max(b_bytes, b_ops),
+                      "bytes" if b_bytes >= b_ops else "operations")
+        log(f"[times] rglru_scan {key} (B, S, W) = {SEQ_SCAN} (SeqDetector, "
+            f"64 scenarios), median of {n} CUDA-event timings in 4 turns, "
+            f"card / call: {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms; plain "
+            f"{plain[key]:.6f} ms (median of 10, its {S} steps dispatched by "
+            f"the host), library none; bound {bound[key][0]:.6f} ms "
+            f"({tensors * B * S * W * 4} bytes at 3.35 TB/s), "
+            f"{bound[key][0] / dev_ms[key]:.1%} of it; clocks.sm, power.draw, "
+            f"temperature after: {_clocks()}")
+    fwd_row.update({"seq_ms": dev_ms["forward"],
+                    "seq_bound_ms": bound["forward"][0],
+                    "seq_plain_ms": plain["forward"],
+                    "seq_share_of_bound": bound["forward"][0]
+                    / dev_ms["forward"]})
+    return [{
+        "name": "rglru_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:48",
+        "note": "the gradient of the recurrence, which repro takes through "
+                "jax.lax.associative_scan (src/repro/models/rglru.py:72)",
+        "launches": launches["rglru_scan_bwd"],
+        "max_abs_err": errs["rglru_scan_bwd"],
+        "ms": dev_ms["backward"], "plain_ms": plain["backward"],
+        "bound_ms": bound["backward"][0], "bound_by": bound["backward"][1],
+        "library_ms": None, "call_ms": call_ms["backward"],
+        "share_of_bound": bound["backward"][0] / dev_ms["backward"]}]
 
 
 def _faster_than_parent(row, parent_ms):
@@ -2355,6 +2891,13 @@ def main() -> int:
     phase_anomaly_warm(torch, bank, split)
     phase_anomaly_profile(torch, bank, split)
     phase_anomaly_reference(torch, split, dx, counts)
+    seq_errs = phase_seq_kernels(torch)
+    seq = phase_seq_slice(torch, split, dx, counts)
+    phase_seq_no_sync(torch, split, dx, counts)
+    exp = phase_experiment(torch, split, dx, counts)
+    phase_experiment_reference(torch, split, dx, counts)
+    launches["tolfl_round_update"] += (seq["tolfl_round_update"]
+                                       + exp["tolfl_round_update"])
     kernels = phase_times(torch, launches, errs, parent)
     serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
     for arch, tag in SERVE_ARCHS:
@@ -2366,6 +2909,12 @@ def main() -> int:
         del params      # the next arch's params need the room
         torch.cuda.empty_cache()
         phase_serve_reference(torch, arch, tag)
+    serve_launches["rglru_scan"] += seq["rglru_scan"] + exp["rglru_scan"]
+    serve_launches["rglru_scan_bwd"] = (seq["rglru_scan_bwd"]
+                                        + exp["rglru_scan_bwd"])
+    serve_errs["rglru_scan"] = max(serve_errs["rglru_scan"],
+                                   seq_errs["rglru_scan"])
+    serve_errs["rglru_scan_bwd"] = seq_errs["rglru_scan_bwd"]
     kernels += phase_serve_times(torch, serve_launches, serve_errs, parent)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

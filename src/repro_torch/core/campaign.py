@@ -36,6 +36,11 @@ and the multi cells of :func:`sweep_grid` fuse the cells whose configs
 agree on everything but ``num_models`` into one loop, the model axis
 padded to the group's max M with a per-row ``model_valid`` mask.
 
+These entry points are shims over the declarative pipeline
+(:mod:`repro_torch.core.experiment`), as in ``repro``: its ``plan``
+groups the cells into buckets, and its ``execute`` runs each bucket
+through :func:`_run_group` or :func:`_run_multi_group`.
+
 Execution (:class:`ExecPlan`): ``chunk_size`` runs the scenario axis in
 chunks of at most that many scenarios (the last one padded by repeating
 scenario 0, the padding stripped), each one round loop and one copy to
@@ -64,14 +69,13 @@ RNG, by the port's rule that draws are operands:
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike
 from repro_torch.core import baselines as BL
 from repro_torch.core import simulate as sim
 from repro_torch.core.baselines import MultiDraws, MultiModelConfig
@@ -83,8 +87,7 @@ from repro_torch.models.detector import ModelLike
 from repro_torch.models.params import FlatLayout, Params
 from repro_torch.training.metrics import auroc_batch
 
-#: the single-model schemes, and the multi-model baselines
-SINGLE_SCHEMES = ("batch", "fl", "sbt", "tolfl")
+#: the multi-model baselines
 MULTI_SCHEMES = BL.SCHEMES
 _HASH_BASE = 1_000_003
 _CHUNK_STRIDE = 0x9E3779B97F4A7C15
@@ -405,11 +408,24 @@ def run_campaign(model: ModelLike, device_x: np.ndarray,
     ``pad_k`` (int >= the cluster count) pads the cluster axis, as
     :func:`sweep_grid`'s per-cell path does (results are unchanged).
     "batch" centralises the data, and ``pad_k`` is ignored for it.
-    ``params0``: see the module docstring."""
-    return _run_cells(model, (device_x, device_counts, test_x, test_y),
-                      [(cfg, traces)], seeds, target_loss, exec_plan,
-                      params0, device, fuse=False, pad_k=pad_k is not None,
-                      k_pad=pad_k)[0]
+    ``params0``: see the module docstring.  A one-cell spec through
+    :mod:`repro_torch.core.experiment`, per-cell dispatch."""
+    from repro_torch.core import experiment as X
+    spec = X.ExperimentSpec(
+        data=_data_spec(X, model, device_x, device_counts, test_x, test_y),
+        base=cfg,
+        cells=(X.CellSpec(scheme=cfg.scheme, k=cfg.num_clusters, cfg=cfg,
+                          traces=traces),),
+        seeds=X.SeedSpec(tuple(seeds)), exec_plan=exec_plan,
+        target_loss=target_loss, fuse=False,
+        pad_k=(pad_k is not None), k_pad=pad_k)
+    return X.run_experiment(spec, params0=params0, device=device).results[0]
+
+
+def _data_spec(X, model, device_x, device_counts, test_x, test_y):
+    return X.DataSpec(model=model, device_x=device_x,
+                      device_counts=device_counts, test_x=test_x,
+                      test_y=test_y)
 
 
 def _post_process_arrays(track_iso: bool, out, test_y, target_loss
@@ -463,69 +479,6 @@ def _post_process_arrays(track_iso: bool, out, test_y, target_loss
                 rounds_to_loss=r2l)
 
 
-def _group_key(cfg: SimConfig) -> Tuple[SimConfig, bool]:
-    """Cells whose configs agree on everything but (scheme, k) and share
-    an iso-tracking kind run in one round loop (``repro``'s fused
-    bucket key)."""
-    return (dataclasses.replace(cfg, seed=0, scheme="tolfl",
-                                num_clusters=1), cfg.scheme == "fl")
-
-
-def _run_cells(model: ModelLike, data, cells, seeds, target_loss,
-               exec_plan, params0, device, fuse: bool, pad_k: bool,
-               k_pad: Optional[int]) -> List[CampaignResult]:
-    """``repro``'s bucketing (``experiment.plan``) for single-model cells
-    (a list of (cfg, traces)): with ``fuse`` and ``pad_k`` one round loop
-    per (config, iso-tracking kind) group at the group's max k (or
-    ``k_pad``); else one per cell, the cluster axis padded to the
-    per-kind max k when ``pad_k``.  "batch" cells always run alone,
-    unpadded.  Results align with ``cells``."""
-    if not cells:
-        return []
-    for cfg, _ in cells:
-        if cfg.scheme not in SINGLE_SCHEMES:
-            raise ValueError(
-                f"unknown scheme {cfg.scheme!r}: single-model schemes are "
-                f"{SINGLE_SCHEMES}, multi-model baselines {MULTI_SCHEMES}")
-    seeds = list(seeds)
-    det, dev = D.as_detector(model), resolve_device(device)
-    results: List[Optional[CampaignResult]] = [None] * len(cells)
-    norm_cache: dict = {}        # normalised traces per distinct resolution
-    singles = [i for i, (cfg, _) in enumerate(cells) if cfg.scheme != "batch"]
-    buckets = []                 # (cell indices, loop cfg, k, track_iso)
-    if fuse and pad_k:
-        groups: Dict[Tuple[SimConfig, bool], List[int]] = {}
-        for i in singles:
-            groups.setdefault(_group_key(cells[i][0]), []).append(i)
-        for (key_cfg, track_iso), idxs in groups.items():
-            kp = k_pad or max(cells[i][0].topology().num_clusters
-                              for i in idxs)
-            buckets.append((idxs, key_cfg, kp, track_iso))
-    else:
-        k_kind: Dict[bool, int] = {}
-        if pad_k:
-            for i in singles:
-                fl = cells[i][0].scheme == "fl"
-                k_kind[fl] = max(k_kind.get(fl, 1),
-                                 cells[i][0].topology().num_clusters)
-        for i in singles:
-            cfg = cells[i][0]
-            kp = ((k_pad or k_kind[cfg.scheme == "fl"]) if pad_k
-                  else cfg.topology().num_clusters)
-            buckets.append(([i], cfg, kp, cfg.scheme == "fl"))
-    for i, (cfg, _) in enumerate(cells):
-        if cfg.scheme == "batch":
-            buckets.append(([i], cfg, cfg.topology().num_clusters, False))
-    for idxs, loop_cfg, kp, track_iso in buckets:
-        rows = [_cell_rows(cells[i][0], cells[i][1], seeds, kp, norm_cache)
-                for i in idxs]
-        for i, r in zip(idxs, _run_group(det, data, rows, loop_cfg, kp,
-                                         track_iso, seeds, params0,
-                                         target_loss, exec_plan, dev)):
-            results[i] = r
-    return results
-
-
 def run_fused_campaigns(model: ModelLike, device_x: np.ndarray,
                         device_counts: np.ndarray, test_x: np.ndarray,
                         test_y: np.ndarray,
@@ -553,9 +506,16 @@ def run_fused_campaigns(model: ModelLike, device_x: np.ndarray,
             raise ValueError("'batch' cells centralise the data onto one "
                              "device (different array shapes); run them "
                              "via run_campaign")
-    return _run_cells(model, (device_x, device_counts, test_x, test_y),
-                      list(cells), seeds, target_loss, exec_plan, params0,
-                      device, fuse=True, pad_k=True, k_pad=k_pad)
+    from repro_torch.core import experiment as X
+    spec = X.ExperimentSpec(
+        data=_data_spec(X, model, device_x, device_counts, test_x, test_y),
+        base=cells[0][0],
+        cells=tuple(X.CellSpec(scheme=cfg.scheme, k=cfg.num_clusters,
+                               cfg=cfg, traces=traces)
+                    for cfg, traces in cells),
+        seeds=X.SeedSpec(tuple(seeds)), exec_plan=exec_plan,
+        target_loss=target_loss, k_pad=k_pad)
+    return X.run_experiment(spec, params0=params0, device=device).results
 
 
 def sweep_grid(model: ModelLike, device_x: np.ndarray,
@@ -587,34 +547,16 @@ def sweep_grid(model: ModelLike, device_x: np.ndarray,
     ``fuse`` (and ``pad_k``) the cells of one scheme run in one loop, the
     model axis padded to their max M; else one loop per cell.  ``params0``
     seeds the single-model cells, ``draws`` the multi-model ones."""
-    for scheme, _ in scheme_ks:
-        if scheme not in SINGLE_SCHEMES + MULTI_SCHEMES:
-            raise ValueError(
-                f"unknown scheme {scheme!r}: single-model schemes are "
-                f"{SINGLE_SCHEMES}, multi-model baselines {MULTI_SCHEMES}")
-    data = (device_x, device_counts, test_x, test_y)
-    single = [i for i, (s, _) in enumerate(scheme_ks)
-              if s in SINGLE_SCHEMES]
-    multi = [i for i, (s, _) in enumerate(scheme_ks) if s in MULTI_SCHEMES]
-    res: List[Any] = [None] * len(scheme_ks)
-    cells = [(dataclasses.replace(base, scheme=scheme_ks[i][0],
-                                  num_clusters=scheme_ks[i][1]), traces)
-             for i in single]
-    for i, r in zip(single, _run_cells(
-            model, data, cells, seeds, target_loss, exec_plan, params0,
-            device, fuse=fuse, pad_k=pad_k, k_pad=None)):
-        res[i] = r
-    mcells = [(MultiModelConfig(scheme=scheme_ks[i][0],
-                                num_devices=base.num_devices,
-                                num_models=scheme_ks[i][1],
-                                rounds=base.rounds * base.local_epochs,
-                                lr=base.lr, dropout=base.dropout), traces)
-              for i in multi]
-    for i, r in zip(multi, _run_multi_cells(
-            model, data, mcells, seeds, exec_plan, draws, device,
-            fuse=fuse and pad_k, m_pad=None)):
-        res[i] = r
-    return dict(zip(tuple(scheme_ks), res))
+    from repro_torch.core import experiment as X
+    spec = X.ExperimentSpec(
+        data=_data_spec(X, model, device_x, device_counts, test_x, test_y),
+        base=base,
+        cells=tuple(X.CellSpec(scheme=s, k=k) for s, k in scheme_ks),
+        traces=X.TraceSpec(traces=tuple(traces)),
+        seeds=X.SeedSpec(tuple(seeds)), exec_plan=exec_plan,
+        target_loss=target_loss, fuse=fuse, pad_k=pad_k)
+    res = X.run_experiment(spec, params0=params0, draws=draws, device=device)
+    return dict(zip(tuple(scheme_ks), res.results))
 
 
 # ---------------------------------------------------------------------------
@@ -717,44 +659,6 @@ def _run_multi_group(det: D.DetectorModel, data,
     return results
 
 
-def _run_multi_cells(model: ModelLike, data, cells, seeds, exec_plan,
-                     draws, device, fuse: bool, m_pad: Optional[int]
-                     ) -> List[MultiCampaignResult]:
-    """``repro``'s bucketing (``experiment.plan``) for multi-model cells (a
-    list of (cfg, traces)): with ``fuse`` one round loop per group of
-    cells whose configs agree on everything but ``num_models`` (and
-    ``seed``), at the group's max M (or ``m_pad``); else one unpadded
-    loop per cell.  Results align with ``cells``."""
-    if not cells:
-        return []
-    for cfg, _ in cells:
-        if cfg.scheme not in MULTI_SCHEMES:
-            raise ValueError(
-                f"unknown scheme {cfg.scheme!r}: single-model schemes are "
-                f"{SINGLE_SCHEMES}, multi-model baselines {MULTI_SCHEMES}")
-    seeds = list(seeds)
-    det, dev = D.as_detector(model), resolve_device(device)
-    if fuse:
-        groups: Dict[MultiModelConfig, List[int]] = {}
-        for i, (cfg, _) in enumerate(cells):
-            groups.setdefault(dataclasses.replace(cfg, seed=0, num_models=0),
-                              []).append(i)
-        buckets = [(idxs, key_cfg,
-                    m_pad or max(cells[i][0].num_models for i in idxs))
-                   for key_cfg, idxs in groups.items()]
-    else:
-        buckets = [([i], cfg, cfg.num_models)
-                   for i, (cfg, _) in enumerate(cells)]
-    results: List[Optional[MultiCampaignResult]] = [None] * len(cells)
-    trace_cache: dict = {}
-    for idxs, loop_cfg, m in buckets:
-        for i, r in zip(idxs, _run_multi_group(
-                det, data, [cells[i] for i in idxs], loop_cfg, m, seeds,
-                draws, exec_plan, dev, trace_cache)):
-            results[i] = r
-    return results
-
-
 def run_multimodel_campaign(model: ModelLike, device_x: np.ndarray,
                             device_counts: np.ndarray, test_x: np.ndarray,
                             test_y: np.ndarray, cfg: MultiModelConfig,
@@ -772,9 +676,14 @@ def run_multimodel_campaign(model: ModelLike, device_x: np.ndarray,
     targets (``baselines.as_multimodel_trace``).  ``cfg.seed`` is ignored
     — seeds come from the grid; ``draws`` (one ``MultiDraws`` a seed) as
     in the module docstring."""
-    return _run_multi_cells(model, (device_x, device_counts, test_x, test_y),
-                            [(cfg, traces)], seeds, exec_plan, draws, device,
-                            fuse=False, m_pad=None)[0]
+    from repro_torch.core import experiment as X
+    spec = X.ExperimentSpec(
+        data=_data_spec(X, model, device_x, device_counts, test_x, test_y),
+        base=SimConfig(num_devices=cfg.num_devices),
+        cells=(X.CellSpec(scheme=cfg.scheme, k=cfg.num_models, cfg=cfg,
+                          traces=traces),),
+        seeds=X.SeedSpec(tuple(seeds)), exec_plan=exec_plan, fuse=False)
+    return X.run_experiment(spec, draws=draws, device=device).results[0]
 
 
 def run_fused_multimodel_campaigns(
@@ -793,6 +702,14 @@ def run_fused_multimodel_campaigns(
     seed) axis; padded model slots are exact no-ops, so per-cell results
     match :func:`run_multimodel_campaign`.  Results align with
     ``cells``."""
-    return _run_multi_cells(model, (device_x, device_counts, test_x, test_y),
-                            list(cells), seeds, exec_plan, draws, device,
-                            fuse=True, m_pad=pad_m)
+    if not cells:
+        return []
+    from repro_torch.core import experiment as X
+    spec = X.ExperimentSpec(
+        data=_data_spec(X, model, device_x, device_counts, test_x, test_y),
+        base=SimConfig(num_devices=cells[0][0].num_devices),
+        cells=tuple(X.CellSpec(scheme=cfg.scheme, k=cfg.num_models,
+                               cfg=cfg, traces=traces)
+                    for cfg, traces in cells),
+        seeds=X.SeedSpec(tuple(seeds)), exec_plan=exec_plan, m_pad=pad_m)
+    return X.run_experiment(spec, draws=draws, device=device).results

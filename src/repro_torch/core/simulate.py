@@ -1,8 +1,10 @@
 """Paper-scale Tol-FL simulator (Tables III-VI, Figures 4-5) in PyTorch.
 
-Port of ``repro.core.simulate``.  N federated devices train the paper's
-autoencoder with the single-model schemes — Batch (centralised), FL
-(k=1), SBT (k=N), Tol-FL (1<k<N) — under client / server failures.
+Port of ``repro.core.simulate``.  N federated devices train a detector
+body (the paper's autoencoder, or ``SeqDetector``, whose gradient runs
+through the RG-LRU scan's backward kernel) with the single-model
+schemes — Batch (centralised), FL (k=1), SBT (k=N), Tol-FL (1<k<N) —
+under client / server failures.
 Where ``repro`` jits one ``lax.scan`` over rounds, the port runs a
 Python loop over rounds on one device, for S scenarios at once (a leading
 scenario axis; ``run_simulation`` and ``trained_params`` run S = 1,

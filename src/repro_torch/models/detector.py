@@ -11,9 +11,19 @@ hashable spec exposing
 * ``anomaly_scores(params, x)`` -> (B,) per-sample scores
 * ``param_count()`` / ``param_bytes()``  for the comm-cost models
 
-With a leading device axis on params and data, ``loss`` returns one loss
-per device.  Only the paper autoencoder is ported; ``SeqDetector`` comes
-with the ``rglru_scan`` kernel.
+With leading axes on params and data (scenario and device in the round
+loop), ``loss`` returns one loss per leading index.
+
+Two bodies ship by default, registered as ``"autoencoder"`` and
+``"seq-rglru"``:
+
+* :class:`AutoencoderDetector` — the paper's fully-connected autoencoder.
+* :class:`SeqDetector` — a windowed sequence detector: features are folded
+  into (seq, window) patches and reconstructed through one RG-LRU block
+  (``models/rglru.py``), whose recurrence is the ``rglru_scan`` kernel,
+  forward and backward.
+
+``budget_family`` names each body's family ("ae", "seq"), as in ``repro``.
 """
 from __future__ import annotations
 
@@ -23,16 +33,22 @@ from typing import (Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import DeviceLike
 from repro_torch.configs.autoencoder_paper import CONFIG, AutoencoderConfig
+from repro_torch.configs.base import ModelConfig, RecurrentConfig
 from repro_torch.models import autoencoder as AE
 from repro_torch.models import params as P
+from repro_torch.models import rglru as R
 
 
 class DetectorModel:
     """Base class for detector specs (concrete specs are frozen
     dataclasses; the spec itself never holds tensors)."""
+
+    #: the body's family ("ae", "seq"), as ``repro`` names it
+    budget_family: str = "ae"
 
     def init_params(self, generator: torch.Generator,
                     device: DeviceLike = None) -> P.Params:
@@ -90,6 +106,92 @@ class AutoencoderDetector(DetectorModel):
         return AE.anomaly_scores(params, self.cfg, x)
 
 
+@dataclass(frozen=True)
+class SeqDetector(DetectorModel):
+    """Windowed sequence reconstruction through one RG-LRU block.
+
+    The (..., input_dim) feature rows are zero-padded to a multiple of
+    ``window`` and folded into (..., seq, window) patches; each patch is
+    embedded, run through the Griffin-style RG-LRU block
+    (:func:`repro_torch.models.rglru.rglru_block`), decoded back to window
+    space, and scored by squared reconstruction error — the loss / score
+    contract of the paper autoencoder, so it trains under the same
+    campaigns.  Dropout (rate ``dropout``) acts on the block's output, one
+    keep mask of (*lead, seq_len, d_model)."""
+
+    input_dim: int = 112
+    window: int = 16
+    d_model: int = 16
+    lru_width: Optional[int] = None
+    conv1d_width: int = 2
+    dropout: float = 0.0
+    act: str = "gelu"
+    name: str = "seq-rglru"
+
+    budget_family = "seq"
+
+    @property
+    def seq_len(self) -> int:
+        return -(-self.input_dim // self.window)
+
+    def _model_cfg(self) -> ModelConfig:
+        return ModelConfig(
+            name=self.name, d_model=self.d_model,
+            recurrent=RecurrentConfig(lru_width=self.lru_width,
+                                      conv1d_width=self.conv1d_width))
+
+    def _windows(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., input_dim) -> (..., seq_len, window), zero-padded."""
+        pad = self.seq_len * self.window - self.input_dim
+        return F.pad(x, (0, pad)).reshape(*x.shape[:-1], self.seq_len,
+                                          self.window)
+
+    def init_params(self, generator, device=None):
+        return {"enc": P.dense_init(generator, self.window, self.d_model,
+                                    bias=True, device=device),
+                "rglru": R.rglru_init(generator, self._model_cfg(), device),
+                "dec": P.dense_init(generator, self.d_model, self.window,
+                                    bias=True, device=device)}
+
+    def _reconstruct(self, params, x, generator=None, dropout_masks=None):
+        """x (..., n, input_dim) against params with leading axes that
+        broadcast against x's leading axes -> (*lead, n, input_dim)."""
+        h = P.activation(self.act)(R.dense_tokens(params["enc"],
+                                                   self._windows(x)))
+        h = R.rglru_block(params["rglru"], h)
+        keep = None
+        if dropout_masks is not None:
+            keep = dropout_masks[0]
+        elif generator is not None and self.dropout > 0:
+            keep = torch.rand(h.shape, generator=generator,
+                              device=h.device) < (1.0 - self.dropout)
+        if keep is not None:
+            h = torch.where(keep, h / (1.0 - self.dropout),
+                            torch.zeros((), device=h.device))
+        y = R.dense_tokens(params["dec"], h)
+        return y.reshape(*y.shape[:-2], -1)[..., :self.input_dim]
+
+    def loss(self, params, x, valid, generator=None, dropout_masks=None):
+        x_hat = self._reconstruct(params, x, generator, dropout_masks)
+        err = torch.sum(torch.square(x - x_hat), dim=-1) * valid
+        return (torch.sum(err, dim=-1)
+                / torch.clamp_min(torch.sum(valid, dim=-1), 1.0))
+
+    def dropout_masks(self, lead, generator):
+        """One keep mask of (*lead, seq_len, d_model) for the block's
+        output, drawn as :meth:`loss` draws it inline; ``None`` when
+        ``dropout`` is 0."""
+        if self.dropout <= 0:
+            return None
+        return [torch.rand((*lead, self.seq_len, self.d_model),
+                           generator=generator, device=generator.device)
+                < (1.0 - self.dropout)]
+
+    def anomaly_scores(self, params, x):
+        x_hat = self._reconstruct(params, x)
+        return torch.sum(torch.square(x - x_hat), dim=-1)
+
+
 ModelLike = Union[DetectorModel, AutoencoderConfig]
 
 
@@ -130,3 +232,4 @@ def detector_names() -> Tuple[str, ...]:
 
 
 register_detector("autoencoder", AutoencoderDetector)
+register_detector("seq-rglru", SeqDetector)

@@ -10,7 +10,10 @@ a sequence the recurrence runs in ``ops.rglru`` (the CUDA scan kernel on
 the card, its plain loop on the CPU); :func:`rglru_decode` takes one step
 with the formula itself, as ``repro``'s decode does.  The block wraps the
 LRU with the Griffin residual structure: gelu gate branch x conv1d + LRU
-branch, then an output projection.
+branch, then an output projection.  :func:`rglru_block` runs the same
+body for the sequence detector (``models/detector.py``): params with
+leading scenario / device axes, no carried state, and a gradient through
+the scan kernel's backward.
 """
 from __future__ import annotations
 
@@ -51,67 +54,104 @@ def rglru_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _col(t: torch.Tensor) -> torch.Tensor:
+    """(*lead, W) -> (*lead, 1, 1, W): a per-channel vector that
+    broadcasts against (*L, n, seq, W) activations."""
+    return t[..., None, None, :]
+
+
+def dense_tokens(p: P.Params, x: torch.Tensor,
+                 compute_dtype: Optional[torch.dtype] = None
+                 ) -> torch.Tensor:
+    """``dense_apply`` over the (n, seq) token axes of x (*L, n, seq, in):
+    one product per leading index, whose params broadcast against L."""
+    *lead, n, s, d = x.shape
+    y = P.dense_apply(p, x.reshape(*lead, n * s, d), compute_dtype)
+    return y.reshape(*y.shape[:-2], n, s, y.shape[-1])
+
+
 def _causal_conv1d(xw: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    state: Optional[torch.Tensor]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal conv over time.  xw: (B,S,W); w: (cw,W); state:
-    (B, cw-1, W) trailing context from the previous segment.  Returns the
-    output and the new trailing context."""
-    B, S, W = xw.shape
-    cw = w.shape[0]
-    pad = (torch.zeros((B, cw - 1, W), dtype=xw.dtype, device=xw.device)
-           if state is None else state.to(xw.dtype))
-    xp = torch.cat([pad, xw], dim=1)
+    """Depthwise causal conv over time.  xw: (*L, n, S, W); w: (*lead,
+    cw, W) and b: (*lead, W), whose leading axes broadcast against L;
+    state: (*L, n, cw-1, W) trailing context from the previous segment,
+    or None for zeros.  Returns the output and the new trailing
+    context."""
+    S, cw = xw.shape[-2], w.shape[-2]
+    xp = (F.pad(xw, (0, 0, cw - 1, 0)) if state is None
+          else torch.cat([state.to(xw.dtype), xw], dim=-2))
     out = torch.zeros_like(xw)
     for i in range(cw):
-        out = out + xp[:, i:i + S, :] * w[i].to(xw.dtype)
-    out = out + b.to(xw.dtype)
-    return out, xp[:, xp.shape[1] - (cw - 1):, :]
+        out = out + xp[..., i:i + S, :] * _col(w[..., i, :]).to(xw.dtype)
+    out = out + _col(b).to(xw.dtype)
+    return out, xp[..., xp.shape[-2] - (cw - 1):, :]
 
 
 def _lru_scan(a_t: torch.Tensor, b_t: torch.Tensor,
               h0: Optional[torch.Tensor]) -> torch.Tensor:
-    """h_t = a_t * h_{t-1} + b_t over axis 1.  a_t, b_t: (B,S,W) float32.
-    The one call of the scan kernel."""
-    return ops.rglru(a_t.contiguous(), b_t.contiguous(),
-                     None if h0 is None else h0.contiguous())
+    """h_t = a_t * h_{t-1} + b_t over axis -2.  a_t, b_t: (..., S, W)
+    float32, run as one (prod(...), S, W) batch; h0: (prod(...), W) or
+    None.  The one call of the scan kernel."""
+    S, W = a_t.shape[-2:]
+    h = ops.rglru(a_t.reshape(-1, S, W).contiguous(),
+                  b_t.reshape(-1, S, W).contiguous(),
+                  None if h0 is None else h0.contiguous())
+    return h.reshape(a_t.shape)
 
 
-def _gates(p: P.Params, x: torch.Tensor, state: Optional[dict]):
-    """The LRU's inputs: (a_t, b_t) float32, the gelu gate branch and the
-    new conv context."""
-    gate_branch = F.gelu(P.dense_apply(p["in_gate"], x, x.dtype),
+def _gates(p: P.Params, x: torch.Tensor, conv: Optional[torch.Tensor]):
+    """The LRU's inputs from x (*L, n, seq, d): (a_t, b_t) float32, the
+    gelu gate branch and the new conv context (``conv``: the trailing
+    context, or None)."""
+    gate_branch = F.gelu(dense_tokens(p["in_gate"], x, x.dtype),
                          approximate="tanh")
-    xw = P.dense_apply(p["in_x"], x, x.dtype)
-    xw, new_conv = _causal_conv1d(xw, p["conv_w"], p["conv_b"],
-                                  None if state is None else state["conv"])
+    xw, new_conv = _causal_conv1d(dense_tokens(p["in_x"], x, x.dtype),
+                                  p["conv_w"], p["conv_b"], conv)
     xw32 = xw.to(torch.float32)   # repro's bf16 @ f32 promotes x exactly
-    r = torch.sigmoid(P.dense_apply(p["gate_a"], xw32, torch.float32))
-    i = torch.sigmoid(P.dense_apply(p["gate_x"], xw32, torch.float32))
-    log_a = C_EXP * r * F.logsigmoid(p["lam"].to(torch.float32))
+    r = torch.sigmoid(dense_tokens(p["gate_a"], xw32, torch.float32))
+    i = torch.sigmoid(dense_tokens(p["gate_x"], xw32, torch.float32))
+    log_a = C_EXP * r * F.logsigmoid(_col(p["lam"]).to(torch.float32))
     a_t = torch.exp(log_a)
     # sqrt(1 - a^2) normaliser, clamped for stability
     norm = torch.sqrt(torch.clamp_min(1.0 - torch.square(a_t), 1e-12))
-    b_t = norm * (i * xw32)
-    return a_t, b_t, gate_branch, new_conv
+    return a_t, norm * (i * xw32), gate_branch, new_conv
+
+
+def _out(p: P.Params, h: torch.Tensor, gate_branch: torch.Tensor,
+         dtype: torch.dtype) -> torch.Tensor:
+    return dense_tokens(p["out"], h.to(dtype) * gate_branch, dtype)
 
 
 def rglru_apply(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
     """x: (B,S,d) -> (out, new_state), the recurrence through the scan
     kernel.  state: {'h': (B,W) f32, 'conv': (B,cw-1,W)} or None."""
-    a_t, b_t, gate_branch, new_conv = _gates(p, x, state)
+    a_t, b_t, gate_branch, new_conv = _gates(
+        p, x, None if state is None else state["conv"])
     h = _lru_scan(a_t, b_t, None if state is None else state["h"])
-    out = P.dense_apply(p["out"], h.to(x.dtype) * gate_branch, x.dtype)
+    out = _out(p, h, gate_branch, x.dtype)
     # copies, so the cache does not hold the whole (B, S, W) h alive
     return out, {"h": h[:, -1, :].clone(), "conv": new_conv.clone()}
+
+
+def rglru_block(p: P.Params, x: torch.Tensor) -> torch.Tensor:
+    """The block over x (*L, n, seq, d) from a zero state, for params
+    whose leaves carry leading axes that broadcast against L: none, (S, N)
+    a device in the round loop, (S, M, 1) in IFCA's probe of every model
+    on every device.  The detector's form of :func:`rglru_apply`, with
+    the same body; its recurrence goes through the scan kernel as one
+    (prod(L') * n, seq, W) batch, differentiable.  Returns (*L', n, seq,
+    d), L' the broadcast of L and the params' axes."""
+    a_t, b_t, gate_branch, _ = _gates(p, x, None)
+    return _out(p, _lru_scan(a_t, b_t, None), gate_branch, x.dtype)
 
 
 def rglru_decode(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
                  state: dict) -> Tuple[torch.Tensor, dict]:
     """Single-token step: x (B,1,d).  One step of the recurrence, h =
     a * h0 + b, computed here: a decode step launches no scan."""
-    a_t, b_t, gate_branch, new_conv = _gates(p, x, state)
+    a_t, b_t, gate_branch, new_conv = _gates(p, x, state["conv"])
     h = a_t * state["h"][:, None, :] + b_t
-    out = P.dense_apply(p["out"], h.to(x.dtype) * gate_branch, x.dtype)
-    return out, {"h": h[:, -1, :], "conv": new_conv}
+    return _out(p, h, gate_branch, x.dtype), {"h": h[:, -1, :],
+                                              "conv": new_conv}

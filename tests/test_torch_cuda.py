@@ -524,6 +524,154 @@ def test_rglru_scan_cuda_kernel_bitwise(cuda_device, B, S, W, with_h0):
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU scan backward: bit for bit equal to the plain backward; both
+# directions at SeqDetector's campaign batch (B past gridDim.y's 65,535)
+# ---------------------------------------------------------------------------
+def _scan_inputs(device, B, S, W, with_h0, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=device))
+    b = torch.randn((B, S, W), generator=g, device=device)
+    dh = torch.randn((B, S, W), generator=g, device=device)
+    h0 = (torch.randn((B, W), generator=g, device=device)
+          if with_h0 else None)
+    return a, b, h0, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W,with_h0", [
+    (2, 100, 70, False), (2, 100, 70, True), (1, 1, 5, True),
+    (3, 7, 16, False), (3, 7, 16, True), (5, 33, 40, True),
+    (4, 4096, 4096, True), (2, 3, 4096, False), (3, 4097, 4000, True)])
+def test_rglru_scan_backward_cuda_kernel_bitwise(cuda_device, B, S, W,
+                                                 with_h0):
+    from repro_torch.kernels import rglru_scan as rs
+    a, b, h0, dh = _scan_inputs(cuda_device, B, S, W, with_h0, B + S * W)
+    h = rs.rglru_scan_cuda(a, b, h0)
+    before = rs.BWD_LAUNCHES
+    got = rs.rglru_scan_bwd_cuda(a, h, h0, dh)
+    torch.cuda.synchronize()
+    assert rs.BWD_LAUNCHES == before + 1
+    want = rs.rglru_scan_backward_plain(a, h, h0, dh)
+    for g_, w_ in zip(got, want):
+        assert (g_ is None) == (w_ is None)
+        if w_ is not None:
+            assert torch.equal(g_, w_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [70_000, 720_000])
+def test_rglru_scan_both_directions_at_campaign_batch(cuda_device, B):
+    """SeqDetector folds every device row into the scan's batch: (S * N *
+    n_max, 7, 16), 720,000 rows at 64 scenarios of the paper's split."""
+    from repro_torch.kernels import rglru_scan as rs
+    a, b, h0, dh = _scan_inputs(cuda_device, B, 7, 16, False, B)
+    h = ops.rglru(a, b)
+    assert torch.equal(h, rs.rglru_scan_plain(a, b))
+    got = rs.rglru_scan_bwd_cuda(a, h, None, dh)
+    want = rs.rglru_scan_backward_plain(a, h, None, dh)
+    assert got[2] is None and want[2] is None
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_rglru_scan_autograd_launches_kernels(cuda_device):
+    """``ops.rglru`` is differentiable on the card: the forward and the
+    backward each launch their kernel once, and the gradients equal the
+    plain backward's."""
+    from repro_torch.kernels import rglru_scan as rs
+    a, b, h0, dh = _scan_inputs(cuda_device, 6, 9, 16, True, 3)
+    leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    before = rs.LAUNCHES, rs.BWD_LAUNCHES
+    h = ops.rglru(*leaves)
+    grads = torch.autograd.grad(h, leaves, dh)
+    assert (rs.LAUNCHES - before[0], rs.BWD_LAUNCHES - before[1]) == (1, 1)
+    want = rs.rglru_scan_backward_plain(a, h.detach(), h0, dh)
+    for g_, w_ in zip(grads, want):
+        assert torch.equal(g_, w_)
+
+
+def _seq_inputs(samples_per_class=60):
+    from repro_torch.data import commsml, federated
+    from repro_torch.models.detector import SeqDetector
+    X, y = commsml.generate(seed=0, samples_per_class=samples_per_class)
+    split = federated.make_split(X, y, num_devices=10, num_clusters=5,
+                                 anomaly_classes=[3], seed=0)
+    dx, counts = federated.pad_devices(split)
+    return SeqDetector(), dx, counts, split.test_x, split.test_y
+
+
+@pytest.mark.cuda
+def test_seq_detector_round_on_card_matches_cpu(cuda_device):
+    """A dropout-free SeqDetector run on the card: two forward scans and
+    one backward scan a round (the loss and its gradient, the test
+    scores), the fused round kernel once a round, and loss curves within
+    rtol 1e-5 of the same run on the CPU; one round's per-device
+    gradients within rtol 1e-5 (atol 1e-5 of the largest)."""
+    import numpy as np
+
+    from repro_torch.core import simulate
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.models.params import FlatLayout
+    det, dx, counts, tx, ty = _seq_inputs()
+    p0 = det.init_params(torch.Generator().manual_seed(0), device="cpu")
+    cfg = simulate.SimConfig(scheme="tolfl", num_devices=10, num_clusters=5,
+                             rounds=3, lr=1e-4, dropout=False)
+    before = rs.LAUNCHES, rs.BWD_LAUNCHES, tc.ROUND_LAUNCHES
+    gpu = simulate.run_simulation(det, dx, counts, tx, ty, cfg, params0=p0)
+    assert (rs.LAUNCHES - before[0], rs.BWD_LAUNCHES - before[1],
+            tc.ROUND_LAUNCHES - before[2]) == (2 * 3 + 1, 3, 3)
+    cpu = simulate.run_simulation(det, dx, counts, tx, ty, cfg, params0=p0,
+                                  device="cpu")
+    np.testing.assert_allclose(gpu.loss_curve, cpu.loss_curve, rtol=1e-5)
+    layout = FlatLayout.of(p0)
+    flat = layout.flatten(p0)[None, None].expand(1, 10, -1)
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        dxd, _, valid = simulate.device_arrays(dx, counts, dev)
+        grads.append(simulate._device_grads(
+            det, layout, flat.to(dev), dxd[None], valid, None).cpu())
+    scale = float(grads[1].abs().max())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_seq_experiment_on_card_matches_cpu(cuda_device):
+    """A small SeqDetector experiment (tolfl, fl and IFCA cells) through
+    plan -> execute on the card against the CPU: loss curves within rtol
+    1e-4, AUROCs within 1e-3, assignments and iso_active equal."""
+    import numpy as np
+
+    from repro_torch.core import experiment as X
+    from repro_torch.core.failure import NO_FAILURE, FailureSpec
+    from repro_torch.core.simulate import SimConfig
+    from repro_torch.models.detector import SeqDetector
+    _, dx, counts, tx, ty = _seq_inputs()
+    spec = X.ExperimentSpec(
+        data=X.DataSpec(model=SeqDetector(d_model=8), device_x=dx,
+                        device_counts=counts, test_x=tx, test_y=ty),
+        base=SimConfig(num_devices=10, rounds=3, lr=1e-4, dropout=False),
+        cells=(X.CellSpec("tolfl", 2), X.CellSpec("fl", 1),
+               X.CellSpec("ifca", 2)),
+        traces=X.TraceSpec(traces=(NO_FAILURE, FailureSpec(1, "server")),
+                           p_grid=(0.3,), traces_per_p=2),
+        seeds=X.SeedSpec((0, 1)))
+    p = X.plan(spec)
+    gpu, cpu = X.execute(p), X.execute(p, device="cpu")
+    for g, c in zip(gpu.results, cpu.results):
+        np.testing.assert_allclose(g.loss_curves, c.loss_curves, rtol=1e-4,
+                                   atol=1e-5)
+        if hasattr(g, "auroc_used"):
+            np.testing.assert_array_equal(g.iso_active, c.iso_active)
+            np.testing.assert_allclose(g.auroc_used, c.auroc_used, rtol=0,
+                                       atol=1e-3)
+        else:
+            np.testing.assert_array_equal(g.assignments, c.assignments)
+            np.testing.assert_allclose(g.best_auroc, c.best_auroc, rtol=0,
+                                       atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
 # RWKV6 WKV scan: within rtol = atol = 1e-4 of the plain version (the JAX
 # kernel's own tolerance): the kernel factors the bonus out, contracts into
 # FMAs and sums over n in another order.  A case with calls = 2 runs the
