@@ -12,8 +12,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    cases shared with tests/test_torch_cuda.py, 64 scenarios among them)
    and the RG-LRU scan bit for bit,
    flash attention within 2e-4 in float32 (the CUDA-core kernel) and
-   2e-2 in bfloat16 (the tensor-core kernel), the RWKV6 WKV scan within
-   1e-4;
+   2e-2 in bfloat16 (the tensor-core kernel, also at the four dense
+   decoders' prefill shapes), the RWKV6 WKV scan within 1e-4, and the
+   score path's row-stable product within its two-order error bound, each
+   row alone bit for bit as in the batch;
 3. drives slice 1's main path, the Tol-FL simulator (``run_simulation``), at
    the paper's full width and data scale: Comms-ML (12,000 x 112), 10
    devices in 5 clusters, the paper autoencoder (P = 49,680), 100 rounds
@@ -61,13 +63,20 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    bucket, failovers and failbacks, 0 dropped, the cascade failing over
    with every isolated-served window bit for bit its isolated model
    scored directly at the same bucket shape, beside ``direct_bs64`` (one
-   graph replay of a full bucket) and a window alone against the same
-   window in a padded bucket ([anomaly-serve]); a warm service that
+   graph replay of a full bucket), and every window alone, at the head of
+   a padded 8-bucket and inside a full 64-bucket, rows 0 and 1, bit for
+   bit ([anomaly-serve]); ``direct_bs64`` and the clean run with cuBLAS's
+   products in the score path, then the row-stable kernel's, in one call
+   ([anomaly-turns]); a warm service that
    captures nothing, allocates nothing and never syncs while it
    dispatches, and a second service resolving every bucket from memory
-   ([anomaly-warm]); 8 ticks under torch.profiler and a host-clock split
-   of a tick ([anomaly-profile]); and a small bank and service on the
-   card against the CPU ([anomaly-reference]);
+   ([anomaly-warm]); 8 ticks of each run under torch.profiler, the
+   products' launches a tick counted from the kernel events, and a
+   host-clock split of a tick ([anomaly-profile]); a small bank and
+   service on the card against the CPU ([anomaly-reference]); the same
+   bank, serve and profile phases over a SeqDetector bank at lr 1e-4,
+   each bucket's graph holding the scan kernel and replaying the eager
+   core bit for bit, the scan's launches a tick ([seq-anomaly-*]);
    then the sequence detector and the experiment pipeline (slice 10): the
    RG-LRU scan at SeqDetector's campaign shape (720,000, 7, 16) and its
    backward kernel there and at the serving shape, bit for bit against
@@ -86,7 +95,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    launches, and the tolfl bucket's device busy share and device time
    by operator under torch.profiler ([experiment]); and small SeqDetector
    and autoencoder experiments on the card against the CPU, the latter at
-   lr 1e-3 through its divergences ([experiment-reference]);
+   lr 1e-3 through its divergences ([experiment-reference]); the port's
+   four example scripts with ``--smoke`` on the card ([examples]);
 4. drives slice 2's main path, RecurrentGemma-9B serving
    (``prefill``, ``pad_cache``, greedy ``decode_step``), at full width
    and depth: random params on the card, 4 prompts of 4,096 tokens (past
@@ -101,14 +111,21 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    the same way ([rwkv-serve] and the phases after it): 32 RWKV6 layers,
    d 4,096, 64 heads of 64, untied head, 4 prompts of 4,096 tokens, 32
    greedy tokens.  A prefill and every decode step must launch the WKV
-   kernel once per layer and no other kernel;
+   kernel once per layer and no other kernel; then slice 11's four dense
+   GQA decoders the same way ([granite-serve], [internlm2-serve],
+   [qwen1.5-serve], [qwen3-serve] and their phases): a prefill launches
+   the tensor-core attention once a layer (40, 24, 24, 36), a decode step
+   no kernel;
 6. times each kernel, its plain version and one library call with CUDA
    events, beside the least time the card could take; attention's two
    kernels, its plain version and SDPA in turns in one run; the WKV scan
    also at a decode step's shape; the fused round at S = 1 in turns with
    the unfused eager sequence (16 launches), beside an empty kernel's device
    time, and at the campaign's shapes (S = 64; S = 96 at k = 10) against
-   its bound; the RG-LRU scan and its backward at SeqDetector's shape.
+   its bound; the RG-LRU scan and its backward at SeqDetector's shape;
+   the row-stable product at the service's products beside ``addmm``;
+   the tensor-core attention at each dense decoder's prefill shape beside
+   SDPA (causal, ``enable_gqa``).
 
     python3 chip_smoke.py --parent DIR
 
@@ -125,6 +142,7 @@ success its last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -162,7 +180,12 @@ SPIN_CYCLES = 5_000_000   # ~2.5 ms of the card's clock: covers the host's
 #                           dispatch of the slowest timed call (~1 ms)
 DEV = "cuda"               # the serving phases' device
 #: the serving archs, each with the prefix of its phases' log tags
-SERVE_ARCHS = (("recurrentgemma-9b", ""), ("rwkv6-7b", "rwkv-"))
+SERVE_ARCHS = (("recurrentgemma-9b", ""), ("rwkv6-7b", "rwkv-"),
+               ("granite-3-2b", "granite-"), ("internlm2-1.8b", "internlm2-"),
+               ("qwen1.5-0.5b", "qwen1.5-"), ("qwen3-8b", "qwen3-"))
+#: the dense GQA decoders, whose prefills put the tensor-core attention at
+#: D = 64 and 128 (causal, no window)
+DECODERS = ("granite-3-2b", "internlm2-1.8b", "qwen1.5-0.5b", "qwen3-8b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 4096, 32
 SERVE_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_scan")
 #: (B, S, H, KVH, D, causal, window): the serving prefill's attention
@@ -189,12 +212,27 @@ EXP_MIN_SCENARIOS = 64
 #: the WKV scan's cases are ``rwkv6_scan.CARD_CASES``, shared with
 #: tests/test_torch_cuda.py
 WKV_TOL = 1e-4     # rtol = atol: FMA contraction and another order over n
+#: the bf16 attention at the dense decoders' shapes: every (b, s, h) row's
+#: largest |kernel - plain| over the row's RMS.  A row that sees n keys has
+#: an output of RMS ~ sqrt(e / n) (0.026 at n = 4,096), so an absolute
+#: slack cannot serve every row; one bf16 ulp of a row's largest element
+#: is 2^-7 of it, ~0.03 of the row's RMS
+ATTN_ROW_TOL = 0.05
 #: a RWKV6-7B decode step's WKV scan, timed beside the prefill's
 WKV_DECODE = (4, 1, 64, 64, True, 1)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _decoder_attn(arch):
+    """(B, S, H, KVH, D, causal, window) of a dense decoder's prefill
+    attention at the served shape."""
+    from repro_torch.configs.registry import get_arch
+    a = get_arch(arch).attention
+    return (SERVE_BATCH, SERVE_PROMPT, a.num_heads, a.num_kv_heads,
+            a.head_dim, True, None)
 
 
 def _clocks():
@@ -227,7 +265,8 @@ def phase_device(torch, parent=None):
     for lib, what in (("flash_attention_wgmma", "tensor-core attention"),
                       ("rwkv6_scan", "WKV scan"),
                       ("rglru_scan", "RG-LRU scan"),
-                      ("tolfl_combine", "Tol-FL aggregation")):
+                      ("tolfl_combine", "Tol-FL aggregation"),
+                      ("row_dense", "row-stable product")):
         for fn, regs, spills, warned in _ptxas_summary(_build.build_log(lib)):
             log(f"[build] {what} {fn}: {regs} registers, spill stores/loads "
                 f"{spills}" + (f"; {warned}" if warned else ""))
@@ -385,7 +424,8 @@ def phase_kernels(torch):
 
 def phase_serve_kernels(torch):
     """The serving path's kernels against their plain versions on the
-    card; returns the max |diff| of each."""
+    card; returns the max |diff| of each, and of the attention at each
+    dense decoder's prefill shape under "flash_attention <arch>"."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru_scan as rs
@@ -418,6 +458,34 @@ def phase_serve_kernels(torch):
                 worst["flash_attention"] = max(worst["flash_attention"], err)
             del got, want
         del base, q, k, v
+    for arch in DECODERS:
+        B, S, H, KVH, D, causal, window = _decoder_attn(arch)
+        q = torch.randn((B, S, H, D), generator=gen, device=DEV).bfloat16()
+        k, v = (torch.randn((B, S, KVH, D), generator=gen,
+                            device=DEV).bfloat16() for _ in range(2))
+        tc_before = fa.TC_LAUNCHES
+        got = ops.attention(q, k, v, causal=causal, window=window)
+        if fa.TC_LAUNCHES - tc_before != 1:
+            raise AssertionError(f"{arch}'s attention did not go to the "
+                                 f"tensor-core kernel")
+        want = fa.flash_attention_plain(q, k, v, causal, window).float()
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        err = float(diff.max())
+        rel = diff.amax(-1) / want.pow(2).mean(-1).sqrt()
+        at = [int(i) for i in torch.unravel_index(rel.argmax(), rel.shape)]
+        rel = float(rel.max())
+        log(f"[kernel] flash_attention (B, S, H, KVH, D) = "
+            f"{(B, S, H, KVH, D)} causal ({arch}) bfloat16 (tensor_core "
+            f"kernel): max_abs_err={err}, at |out| up to "
+            f"{float(want.abs().max()):.4f}; the largest |diff| of a row over "
+            f"the row's RMS {rel:.6f} at (b, s, h) = {tuple(at)} (tolerance "
+            f"{ATTN_ROW_TOL})")
+        if not rel <= ATTN_ROW_TOL:
+            raise AssertionError(f"{arch}'s attention: a row's |diff| reaches "
+                                 f"{rel} of its RMS")
+        worst[f"flash_attention {arch}"] = err
+        del q, k, v, got, want, diff
     for B, S, W, with_h0 in SCAN_CASES:
         a = torch.sigmoid(torch.randn((B, S, W), generator=gen,
                                       device=DEV))
@@ -604,6 +672,28 @@ def phase_no_sync(torch, split, dx, counts):
         "torch.cuda.set_sync_debug_mode('error'): no host sync")
 
 
+#: idle seconds at each end of a torch.profiler window.  The profiler
+#: drops the device records whose timestamps, converted to the host's
+#: clock, fall outside its window, and the card's converted clock can read
+#: milliseconds early (kernels stamped before their own launch, and lost);
+#: with this much idle time on either side the work's records stay inside.
+PROFILE_PAD_S = 0.1
+
+
+@contextlib.contextmanager
+def _device_profile(torch):
+    """torch.profiler over the host and the card, with ``PROFILE_PAD_S``
+    of idle time before the body and, after it has been synchronised,
+    after it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
 def _device_time(prof):
     """The device's side of a torch.profiler window: (busy µs, the union
     of the intervals of the events that ran on the card; {name: [µs,
@@ -625,6 +715,22 @@ def _device_time(prof):
             busy += stop - max(start, end)
             end = stop
     return busy, by_name
+
+
+def _record_spans(prof):
+    """Where a profiler window's records lie, in µs on its clock: the card's
+    events and the host's graph launches (first start, last end, count),
+    to tell records lost at the window's edges from launches not made."""
+    from torch.autograd import DeviceType
+    spans = {"device events": [], "cudaGraphLaunch": []}
+    for e in prof.events():
+        key = ("device events" if e.device_type == DeviceType.CUDA
+               else e.name if e.name == "cudaGraphLaunch" else None)
+        if key:
+            spans[key].append((e.time_range.start, e.time_range.end))
+    return ", ".join(
+        f"{key} {min(s for s, _ in v):.1f}..{max(t for _, t in v):.1f} "
+        f"({len(v)})" if v else f"{key} none" for key, v in spans.items())
 
 
 def _top(by_name, n, per=1.0, unit="us"):
@@ -656,12 +762,10 @@ def _eager_round_update(torch, combine):
 def _profiled(torch, fn, calls=32):
     """``calls`` calls of ``fn`` under torch.profiler after a warm-up:
     (device busy µs a call, device events a call, {name: [µs, count]})."""
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _device_profile(torch) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -685,7 +789,6 @@ def phase_profile(torch, split, dx, counts, parent=None):
     rounds, with the fused aggregation and with the unfused eager sequence in
     its place (the parent's combine kernel with --parent, else the
     current one)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.autoencoder_paper import COMMSML
     from repro_torch.core import aggregation as agg
     from repro_torch.core.simulate import SimConfig, run_simulation
@@ -704,8 +807,7 @@ def phase_profile(torch, split, dx, counts, parent=None):
     for name, impl in (("fused", fused), ("eager", eager)):
         agg.round_update = impl
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with _device_profile(torch) as prof:
                 t0 = time.perf_counter()
                 run_simulation(COMMSML, dx, counts, split.test_x,
                                split.test_y, cfg)
@@ -920,14 +1022,12 @@ def phase_campaign_profile(torch, split, dx, counts):
     """Where a campaign round's time goes at S = 64: 10 rounds under
     torch.profiler; the device's busy share, device kernels a round, the
     top device events and the fused kernel's share of the busy time."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.autoencoder_paper import COMMSML
     from repro_torch.core.campaign import run_campaign
     rounds = 10
     traces = _campaign_traces()
     S = CAMPAIGN_TRACES * len(CAMPAIGN_SEEDS)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _device_profile(torch) as prof:
         t0 = time.perf_counter()
         run_campaign(COMMSML, dx, counts, split.test_x, split.test_y,
                      _campaign_cfg(rounds=rounds), traces, CAMPAIGN_SEEDS)
@@ -1208,14 +1308,12 @@ def phase_multi_profile(torch, split, dx, counts):
     3): 10 rounds under torch.profiler; the device's busy share, device
     kernels a round, the top device events and device time by the aten
     operator that launched it."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.autoencoder_paper import COMMSML
     from repro_torch.core.campaign import run_multimodel_campaign
     rounds = 10
     traces = _campaign_traces()
     S = CAMPAIGN_TRACES * len(CAMPAIGN_SEEDS)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _device_profile(torch) as prof:
         t0 = time.perf_counter()
         run_multimodel_campaign(COMMSML, dx, counts, split.test_x,
                                 split.test_y, _multi_cfg("ifca", rounds=rounds),
@@ -1374,69 +1472,90 @@ def _anomaly_service(bank, failure=None, buckets=ANOMALY_BUCKETS):
                           horizon=ANOMALY_TICKS)
 
 
-def phase_anomaly_bank(torch, split, dx, counts):
+def phase_anomaly_bank(torch, split, dx, counts, model=None, lr=1e-3,
+                       tag="anomaly"):
     """The scoring service's model bank at the paper's scale: the global
-    model and the 10 isolated ones, two 100-round runs of the round loop.
-    The fused round kernel must launch once a round a run (2 x 100) and
-    the standalone combine never; bank rows 0 and 1..N must equal the two
-    exports bit for bit.  Returns the bank and the fused kernel's
-    launches."""
+    model and the 10 isolated ones, two 100-round runs of the round loop,
+    of the paper autoencoder at lr 1e-3 (or ``model`` at ``lr``).  The
+    fused round kernel must launch once a round a run (2 x 100) and the
+    standalone combine never (a SeqDetector bank: the scan's backward
+    once a round a run, its forward at least as often); bank rows 0 and
+    1..N must equal the two exports bit for bit.  Returns the bank and
+    each kernel's launches."""
     import numpy as np
     from repro_torch.configs.autoencoder_paper import COMMSML
     from repro_torch.core.simulate import SimConfig
+    from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import tolfl_combine as tc
     from repro_torch.models.params import tree_items
     from repro_torch.serving.anomaly import train_model_bank
+    model = COMMSML if model is None else model
     cfg = SimConfig(scheme="tolfl", num_devices=10, num_clusters=5,
-                    rounds=ROUNDS, lr=1e-3, dropout=True, seed=0)
+                    rounds=ROUNDS, lr=lr, dropout=True, seed=0)
     tc.ROUND_LAUNCHES = tc.LAUNCHES = 0
+    rs.LAUNCHES = rs.BWD_LAUNCHES = 0
     t0 = time.perf_counter()
-    bank = train_model_bank(COMMSML, dx, counts, cfg, device=DEV)
+    bank = train_model_bank(model, dx, counts, cfg, device=DEV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = (tc.ROUND_LAUNCHES, tc.LAUNCHES)
+    scans = (rs.LAUNCHES, rs.BWD_LAUNCHES)
     if got != (2 * ROUNDS, 0):
-        raise AssertionError(f"[anomaly-bank] fused / combine launches {got}, "
+        raise AssertionError(f"[{tag}-bank] fused / combine launches {got}, "
                              f"expected ({2 * ROUNDS}, 0)")
+    seq = bank.detector.budget_family == "seq"
+    if (scans[1] != (2 * ROUNDS if seq else 0)
+            or scans[0] < scans[1] or (scans[0] > 0) != seq):
+        raise AssertionError(f"[{tag}-bank] scan forward / backward launches "
+                             f"{scans}")
     iso = dict(tree_items(bank.iso_params))
     for path, g in tree_items(bank.global_params):
         rows = dict(tree_items(bank.row_params))[path]
         if not (torch.equal(rows[0], g) and torch.equal(rows[1:], iso[path])
                 and bool(torch.isfinite(rows).all())):
-            raise AssertionError(f"[anomaly-bank] bank rows of {path} are not "
+            raise AssertionError(f"[{tag}-bank] bank rows of {path} are not "
                                  f"the exports, or not finite")
     P = bank.detector.param_count()
-    log(f"[anomaly-bank] tolfl k=5, {ROUNDS} rounds, lr 1e-3, dropout on, "
-        f"seed 0: global + {bank.num_clients} isolated models (P = {P}; "
-        f"bank {(bank.num_clients + 1) * P * 4} bytes) in {wall:.3f} s "
-        f"({wall / (2 * ROUNDS) * 1e3:.3f} ms/round over both runs); "
-        f"tolfl_round_update launches {got[0]}, tolfl_combine {got[1]}; rows "
-        f"0 / 1..N equal the two exports bit for bit; isolated models' "
+    first = iso[("enc", "w") if seq else ("fc0", "w")]
+    log(f"[{tag}-bank] {type(bank.detector).__name__} tolfl k=5, {ROUNDS} "
+        f"rounds, lr {lr}, dropout on, seed 0: global + {bank.num_clients} "
+        f"isolated models (P = {P}; bank {(bank.num_clients + 1) * P * 4} "
+        f"bytes) in {wall:.3f} s ({wall / (2 * ROUNDS) * 1e3:.3f} ms/round "
+        f"over both runs); tolfl_round_update launches {got[0]}, "
+        f"tolfl_combine {got[1]}, rglru_scan forward / backward {scans}; "
+        f"rows 0 / 1..N equal the two exports bit for bit; isolated models' "
         f"first-layer norms "
         + ", ".join(f"{float(v):.2f}" for v in np.linalg.norm(
-            iso[("fc0", "w")].reshape(bank.num_clients, -1).cpu().numpy(),
-            axis=1)))
-    return bank, got[0]
+            first.reshape(bank.num_clients, -1).cpu().numpy(), axis=1)))
+    return bank, {"tolfl_round_update": got[0], "rglru_scan": scans[0],
+                  "rglru_scan_bwd": scans[1]}
 
 
-def phase_anomaly_serve(torch, bank, split):
-    """The service at full width: ``direct_bs64`` (one graph replay of a
-    64-bucket's 2,048 rows against row 0, synchronised), then the clean
-    run and the three process runs, each stood up and streamed
-    ``ANOMALY_REPS`` times (the graphs come from memory after the first).
-    Every run drops nothing; the cascade run fails over, and every
-    isolated-served window equals its isolated model scoring the same
-    padded bucket directly, bit for bit.  Then a window alone (a 1-bucket,
-    32 rows) against the same window in a padded 8-bucket (256 rows):
-    bitwise, or within 1e-6 relative."""
+def _score_products(det, rows):
+    """(M, K, N) of each product a bucket of ``rows`` feature rows scores
+    with: the autoencoder's layers over the rows, SeqDetector's seven over
+    its (row, window) tokens."""
+    if det.budget_family == "seq":
+        t, d = rows * det.seq_len, det.d_model
+        w = det.lru_width or d
+        return [(t, det.window, d), (t, d, w), (t, d, w), (t, w, w),
+                (t, w, w), (t, w, d), (t, d, det.window)]
+    ae = det.cfg
+    dims = ([ae.input_dim] + list(ae.hidden) + [ae.code_dim]
+            + list(reversed(ae.hidden)) + [ae.input_dim])
+    return [(rows, a, b) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def _direct_bs64(torch, bank, wins, tag):
+    """``direct_bs64``: one graph replay of a 64-bucket against row 0,
+    synchronised, ``ANOMALY_TICKS`` times; returns windows/s and the
+    replay's card ms."""
     import numpy as np
     from repro_torch.serving.anomaly import engine
     det, D = bank.detector, bank.input_dim
-    wins, labels = _anomaly_windows(split)
-    n = len(wins)
     entry, _ = engine.score_entry(det, bank.row_params,
                                   (64, ANOMALY_WINDOW, D))
-    entry.x.copy_(torch.from_numpy(wins[np.arange(64) % n]))
+    entry.x.copy_(torch.from_numpy(wins[np.arange(64) % len(wins)]))
     entry.row.fill_(0)
     for _ in range(3):
         entry.replay()
@@ -1445,23 +1564,30 @@ def phase_anomaly_serve(torch, bank, split):
     for _ in range(ANOMALY_TICKS):
         entry.replay()
         torch.cuda.synchronize()
-    direct_wall = time.perf_counter() - t0
-    direct_wps = 64 * ANOMALY_TICKS / direct_wall
+    wall = time.perf_counter() - t0
+    wps = 64 * ANOMALY_TICKS / wall
     replay_ms = _median_ms(torch, entry.replay, True)
-    ae = det.cfg
-    dims = ([D] + list(ae.hidden) + [ae.code_dim] + list(reversed(ae.hidden))
-            + [D])
-    flops = 2 * 64 * ANOMALY_WINDOW * sum(a * b for a, b in zip(dims[:-1],
-                                                                 dims[1:]))
-    log(f"[anomaly-serve] direct_bs64: one graph replay of 64 x "
+    flops = sum(2 * m * k * n for m, k, n in
+                _score_products(det, 64 * ANOMALY_WINDOW))
+    log(f"[{tag}-serve] direct_bs64: one graph replay of 64 x "
         f"{ANOMALY_WINDOW} rows against row 0, synchronised, x "
-        f"{ANOMALY_TICKS}: {direct_wall * 1e3:.3f} ms, {direct_wps:.1f} "
-        f"windows/s; the replay alone on the card (CUDA events, median of "
-        f"{SAMPLES}) {replay_ms:.6f} ms for {flops / 1e9:.4f} GFLOP of "
-        f"products ({flops / replay_ms / 1e9:.2f} TFLOP/s)")
+        f"{ANOMALY_TICKS}: {wall * 1e3:.3f} ms, {wps:.1f} windows/s; the "
+        f"replay alone on the card (CUDA events, median of {SAMPLES}) "
+        f"{replay_ms:.6f} ms for {flops / 1e9:.4f} GFLOP of products "
+        f"({flops / replay_ms / 1e9:.2f} TFLOP/s)")
+    return wps, replay_ms
+
+
+def _anomaly_runs(bank, wins, labels, tag, direct_wps, names=None):
+    """Each of bench_serve.py's runs (or those in ``names``) stood up and
+    streamed ``ANOMALY_REPS`` times; {name: (service, ticks, report,
+    windows/s, bucket replays over all its streams)}.  Every run drops
+    nothing."""
     runs = {}
     for name, proc in _anomaly_processes().items():
-        walls = []
+        if names is not None and name not in names:
+            continue
+        walls, replays = [], 0
         for _ in range(ANOMALY_REPS):
             svc = _anomaly_service(bank, proc)
             t0 = time.perf_counter()
@@ -1469,13 +1595,14 @@ def phase_anomaly_serve(torch, bank, split):
                                               ANOMALY_TICKS)
             walls.append(time.perf_counter() - t0)
             rep = svc.report()
+            replays += rep.batches
             if rep.dropped != 0 or rep.windows != (ANOMALY_TICKS
                                                    * ANOMALY_PER_TICK):
-                raise AssertionError(f"[anomaly-serve] {name}: {rep}")
+                raise AssertionError(f"[{tag}-serve] {name}: {rep}")
         wall = statistics.median(walls)
         wps = rep.windows / wall
-        runs[name] = (svc, ticks, rep, wps)
-        log(f"[anomaly-serve] {name}: {rep.windows} windows in "
+        runs[name] = (svc, ticks, rep, wps, replays)
+        log(f"[{tag}-serve] {name}: {rep.windows} windows in "
             f"{ANOMALY_TICKS} ticks, wall (submit included) median of "
             f"{ANOMALY_REPS} {wall * 1e3:.3f} ms (all: "
             + ", ".join(f"{w * 1e3:.3f}" for w in walls)
@@ -1486,9 +1613,127 @@ def phase_anomaly_serve(torch, bank, split):
             f"{rep.failovers}, failbacks {rep.failbacks}; AUROC head "
             f"{rep.auroc_head:.4f}, isolated {rep.auroc_isolated:.4f}; "
             f"dropped {rep.dropped}")
-    svc, ticks, rep, _ = runs["cascade"]
+    return runs
+
+
+def _bucket_bitwise(torch, bank, wins, tag):
+    """Every window's scores alone (a 1-bucket, 32 rows), at the head of a
+    padded 8-bucket and inside a full 64-bucket, against rows 0 and 1:
+    bit for bit, or the phase fails (``repro``'s padded-equals-exact
+    contract)."""
+    import numpy as np
+    from repro_torch.serving.anomaly import engine
+    det, D = bank.detector, bank.input_dim
+    n = len(wins)
+    entries = {bs: engine.score_entry(det, bank.row_params,
+                                      (bs, ANOMALY_WINDOW, D))[0]
+               for bs in ANOMALY_BUCKETS}
+    dev_wins = torch.from_numpy(wins).to(DEV)
+    for row in (0, 1):
+        for e in entries.values():
+            e.row.fill_(row)
+        full = []
+        for start in range(0, n, 64):
+            entries[64].x.copy_(dev_wins[np.arange(start, start + 64) % n])
+            entries[64].replay()
+            full.append(entries[64].out.clone())
+        full = torch.cat(full)[:n].cpu().numpy()
+        alone, padded = [], []
+        for i in range(n):
+            entries[1].x.copy_(dev_wins[i:i + 1])
+            entries[1].replay()
+            alone.append(entries[1].out[0].clone())
+            entries[8].x.zero_()
+            entries[8].x[0].copy_(dev_wins[i])
+            entries[8].replay()
+            padded.append(entries[8].out[0].clone())
+        alone = torch.stack(alone).cpu().numpy()
+        padded = torch.stack(padded).cpu().numpy()
+        for what, got in (("a padded 8-bucket", padded),
+                          ("a full 64-bucket", full)):
+            if not np.array_equal(got, alone):
+                diff = np.abs(got - alone)
+                raise AssertionError(
+                    f"[{tag}-serve] row {row}: {int((diff > 0).sum())} of "
+                    f"{diff.size} scores differ between a window alone and "
+                    f"in {what} (max abs {float(diff.max())})")
+    log(f"[{tag}-serve] every one of {n} windows alone (1-bucket, "
+        f"{ANOMALY_WINDOW} rows), at the head of a padded 8-bucket and "
+        f"inside a full 64-bucket ({64 * ANOMALY_WINDOW} rows), rows 0 and "
+        f"1: bitwise_equal=True (np.array_equal)")
+
+
+def _graph_kernels(torch, bank):
+    """The row-stable product's and the scan's launches in one call of
+    the score core (a 1-bucket, row 0), counted by their wrappers: what
+    every bucket graph holds and launches a replay
+    (:func:`phase_anomaly_profile` holds the replays to it)."""
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import row_dense as rd
+    from repro_torch.serving.anomaly import engine
+    before = rd.LAUNCHES, rs.LAUNCHES
+    engine.score_core(bank.detector)(
+        bank.row_params, torch.zeros((1,), dtype=torch.int64, device=DEV),
+        torch.zeros((1, ANOMALY_WINDOW, bank.input_dim), device=DEV))
+    torch.cuda.synchronize()
+    return {"row_dense": rd.LAUNCHES - before[0],
+            "rglru_scan": rs.LAUNCHES - before[1]}
+
+
+def phase_anomaly_serve(torch, bank, split, tag="anomaly"):
+    """The service at full width: ``direct_bs64`` (one graph replay of a
+    64-bucket's 2,048 rows against row 0, synchronised), then the main
+    path, the clean run and the three process runs, each stood up and
+    streamed ``ANOMALY_REPS`` times, on graphs that its first service
+    captures (one a bucket; later ones come from memory).  The
+    wrappers' counts are set to 0 just before the runs and read just
+    after: they count the warm-ups' and captures' launches (two warm-ups
+    and a capture a bucket, each one core call), and a graph's replays
+    launch the kernels it holds without them, so the runs' replays
+    times :func:`_graph_kernels` give the graphs' launches.  Every run
+    drops nothing; the cascade run fails over, and every isolated-served
+    window equals its isolated model scoring the same padded bucket
+    directly, bit for bit.  Then every window alone, in a padded
+    8-bucket and in a full 64-bucket, rows 0 and 1: bit for bit.
+    Returns direct_bs64's windows/s, each run's, and the main path's
+    {"launches" | "graph_launches": {kernel: n}, "captures",
+    "replays"}."""
+    import numpy as np
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import row_dense as rd
+    from repro_torch.serving.anomaly import engine
+    det, D = bank.detector, bank.input_dim
+    wins, labels = _anomaly_windows(split)
+    n = len(wins)
+    direct_wps, _ = _direct_bs64(torch, bank, wins, tag)
+    engine.clear_score_cache()        # the main path captures its own
+    captures = engine.CAPTURES
+    rd.LAUNCHES = rs.LAUNCHES = 0
+    runs = _anomaly_runs(bank, wins, labels, tag, direct_wps)
+    torch.cuda.synchronize()
+    eager = {"row_dense": rd.LAUNCHES, "rglru_scan": rs.LAUNCHES}
+    captured = engine.CAPTURES - captures
+    replays = sum(r[4] for r in runs.values())
+    per_call = _graph_kernels(torch, bank)
+    graph = {k: replays * c for k, c in per_call.items()}
+    calls = 3 * len(ANOMALY_BUCKETS)
+    if captured != len(ANOMALY_BUCKETS) or per_call["row_dense"] == 0 or \
+            (per_call["rglru_scan"] > 0) != (det.budget_family == "seq") or \
+            eager != {k: calls * c for k, c in per_call.items()}:
+        raise AssertionError(f"[{tag}-serve] main path: {captured} captures, "
+                             f"wrapper launches {eager}, a core call "
+                             f"{per_call}")
+    log(f"[{tag}-serve] main path (the four runs): {captured} captures (one "
+        f"a bucket); the wrappers, set to 0 just before and read just "
+        f"after, launched row_dense {eager['row_dense']} and rglru_scan "
+        f"{eager['rglru_scan']} times ({calls} core calls: 2 warm-ups and "
+        f"a capture a bucket, {per_call['row_dense']} and "
+        f"{per_call['rglru_scan']} launches a call); {replays} graph "
+        f"replays launched row_dense {graph['row_dense']} and rglru_scan "
+        f"{graph['rglru_scan']} times without them")
+    svc, ticks, rep, _, _ = runs["cascade"]
     if rep.failovers <= 0:
-        raise AssertionError("[anomaly-serve] cascade: no failover")
+        raise AssertionError(f"[{tag}-serve] cascade: no failover")
     checked = 0
     for t, results in enumerate(ticks):
         groups = {}
@@ -1502,51 +1747,57 @@ def phase_anomaly_serve(torch, bank, split):
             x = torch.zeros((bs, ANOMALY_WINDOW, D), device=DEV)
             x[:len(js)] = torch.from_numpy(
                 wins[[(t * ANOMALY_PER_TICK + j) % n for j in js]]).to(DEV)
-            want = det.anomaly_scores(bank.client_iso_params(row - 1),
-                                      x.reshape(bs * ANOMALY_WINDOW, D))
-            want = want.reshape(bs, ANOMALY_WINDOW)[:len(js)].cpu().numpy()
+            want = engine.score_windows(det, bank.client_iso_params(row - 1),
+                                        x)[:len(js)].cpu().numpy()
             got = np.stack([results[j].scores for j in js])
             if not np.array_equal(got, want):
                 raise AssertionError(
-                    f"[anomaly-serve] cascade tick {t}: row {row}'s windows "
+                    f"[{tag}-serve] cascade tick {t}: row {row}'s windows "
                     f"differ from the isolated model scored directly, max "
                     f"{float(np.abs(got - want).max())}")
             checked += len(js)
-    log(f"[anomaly-serve] cascade: {checked} isolated-served windows equal "
+    log(f"[{tag}-serve] cascade: {checked} isolated-served windows equal "
         f"their isolated model scoring the same padded bucket directly, bit "
         f"for bit; timeline (first 6) {svc.timeline[:6]}")
+    _bucket_bitwise(torch, bank, wins, tag)
+    main = {"launches": eager, "graph_launches": graph,
+            "captures": captured, "replays": replays}
+    return direct_wps, {name: r[3] for name, r in runs.items()}, main
 
-    # a window alone (M = 32 rows) against the same window at the head of a
-    # padded 8-bucket (M = 256): cuBLAS may pick another GEMM for another M
-    one, _ = engine.score_entry(det, bank.row_params, (1, ANOMALY_WINDOW, D))
-    eight, _ = engine.score_entry(det, bank.row_params,
-                                  (8, ANOMALY_WINDOW, D))
-    dev_wins = torch.from_numpy(wins).to(DEV)
-    alone, padded = [], []
-    for row in (0, 1):
-        one.row.fill_(row)
-        eight.row.fill_(row)
-        for i in range(n):
-            one.x.copy_(dev_wins[i:i + 1])
-            one.replay()
-            alone.append(one.out[0].clone())
-            eight.x.zero_()
-            eight.x[0].copy_(dev_wins[i])
-            eight.replay()
-            padded.append(eight.out[0].clone())
-    a = torch.stack(alone).cpu().numpy()
-    b = torch.stack(padded).cpu().numpy()
-    same = bool(np.array_equal(a, b))
-    diff = np.abs(a - b)
-    rel = float(np.max(diff / np.abs(b)))
-    log(f"[anomaly-serve] a window alone (1-bucket, M = {ANOMALY_WINDOW}) vs "
-        f"in a padded 8-bucket (M = {8 * ANOMALY_WINDOW}), rows 0 and 1, "
-        f"{n} windows: bitwise_equal={same}, max abs diff {float(diff.max())}"
-        f", max rel diff {rel:.3e}, {int((diff > 0).sum())} of {diff.size} "
-        f"scores differ")
-    if not same:
-        np.testing.assert_allclose(a, b, rtol=1e-6, atol=0)
-    return direct_wps, {name: r[3] for name, r in runs.items()}
+
+def phase_score_path_turns(torch, bank, split, tag="anomaly"):
+    """The score path's products before and after they became the
+    row-stable kernel, in one call: ``direct_bs64`` and the clean run with
+    cuBLAS's products (the parent's score path: ``params.dense_apply`` on
+    the flattened bucket), then with the kernel's again.  Returns
+    {"cublas" | "row_dense": (direct windows/s, replay ms, clean
+    windows/s)}."""
+    import types
+    from repro_torch.models import params as P
+    from repro_torch.serving.anomaly import engine
+    wins, labels = _anomaly_windows(split)
+    out = {}
+    kernel = engine.row_dense
+    for name, products in (("cublas", types.SimpleNamespace(
+            dense_apply=P.dense_apply)), ("row_dense", kernel)):
+        engine.clear_score_cache()
+        engine.row_dense = products
+        try:
+            wps, replay_ms = _direct_bs64(torch, bank, wins,
+                                          f"{tag}-{name}")
+            runs = _anomaly_runs(bank, wins, labels, f"{tag}-{name}", wps,
+                                 names=("clean",))
+        finally:
+            engine.row_dense = kernel
+            engine.clear_score_cache()
+        out[name] = (wps, replay_ms, runs["clean"][3])
+    c, r = out["cublas"], out["row_dense"]
+    log(f"[{tag}-turns] score products by cuBLAS (before) vs the row-stable "
+        f"kernel (after), one call: direct_bs64 {c[0]:.1f} vs {r[0]:.1f} "
+        f"windows/s ({r[0] / c[0]:.3f}x), replay on the card {c[1]:.6f} vs "
+        f"{r[1]:.6f} ms ({r[1] / c[1]:.3f}x), clean {c[2]:.1f} vs {r[2]:.1f} "
+        f"windows/s ({r[2] / c[2]:.3f}x)")
+    return out
 
 
 def phase_anomaly_warm(torch, bank, split):
@@ -1606,37 +1857,61 @@ def phase_anomaly_warm(torch, bank, split):
         f"the bank: compile_sources {again.compile_sources}")
 
 
-def phase_anomaly_profile(torch, bank, split):
-    """Where a service tick's time goes: 8 clean ticks under
-    torch.profiler (device busy share, device kernels a tick, top device
-    events), then 24 unprofiled clean ticks split on the host's clock
-    into submit, routing, padding, input copies, replays, score copies
-    and the copy to the host."""
-    from torch.profiler import ProfilerActivity, profile
+def phase_anomaly_profile(torch, bank, split, tag="anomaly"):
+    """Where a service tick's time goes: 8 ticks under torch.profiler,
+    clean and under the three failure processes (device busy share,
+    device kernels a tick, the row-stable products' and the scan's
+    launches a tick counted from the kernel events, since a graph replay
+    launches without the wrappers' counters; top device events), then 24
+    unprofiled clean ticks split on the host's clock into submit, routing,
+    padding, input copies, replays, score copies and the copy to the
+    host.  Each kernel's events must equal the profiled ticks' replays
+    times its launches a core call (:func:`_graph_kernels`).  Returns
+    {run: {kernel: launches a tick}}."""
     from repro_torch.serving.anomaly.service import STAGES
     wins, labels = _anomaly_windows(split)
-    svc = _anomaly_service(bank)
-    _anomaly_stream(svc, wins, labels, 2)
-    torch.cuda.synchronize()
-    ticks = 8
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _anomaly_stream(svc, wins, labels, ticks, start=2)
+    ticks, per_tick = 8, {}
+    per_call = _graph_kernels(torch, bank)
+    for name, proc in _anomaly_processes().items():
+        svc = _anomaly_service(bank, proc)
+        _anomaly_stream(svc, wins, labels, 2)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy, by_name = _device_time(prof)
-    if busy == 0:
-        log("[anomaly-profile] the profiler recorded no device time: not "
-            "measured")
-    else:
+        replays = svc.report().batches
+        with _device_profile(torch) as prof:
+            t0 = time.perf_counter()
+            _anomaly_stream(svc, wins, labels, ticks, start=2)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, by_name = _device_time(prof)
+        if busy == 0:
+            raise AssertionError(f"[{tag}-profile] {name}: the profiler "
+                                 f"recorded no device time")
         events = sum(count for _, count in by_name.values())
-        log(f"[anomaly-profile] clean, {ticks} ticks of "
-            f"{ANOMALY_PER_TICK} windows under the profiler: wall "
-            f"{wall_us / ticks / 1e3:.3f} ms a tick, device busy "
-            f"{busy / ticks:.1f} us a tick ({busy / wall_us:.2%} of wall), "
-            f"{events / ticks:.1f} device kernels a tick; top device events: "
-            + _top(by_name, 10, ticks, "us/tick"))
+        counts = {k: sum(c for ev, (_, c) in by_name.items() if part in ev)
+                  / ticks for k, part in (("row_dense", "row_dense_kernel"),
+                                          ("rglru_scan", "rglru_scan_kernel"))}
+        per_tick[name] = counts
+        replays = svc.report().batches - replays
+        if any(round(counts[k] * ticks) != replays * c
+               for k, c in per_call.items()):
+            raise AssertionError(f"[{tag}-profile] {name}: {replays} replays "
+                                 f"of {per_call} launches each, but the "
+                                 f"profiler saw {counts} a tick; "
+                                 + _record_spans(prof))
+        log(f"[{tag}-profile] {name}, {ticks} ticks of {ANOMALY_PER_TICK} "
+            f"windows under the profiler: wall {wall_us / ticks / 1e3:.3f} "
+            f"ms a tick, device busy {busy / ticks:.1f} us a tick "
+            f"({busy / wall_us:.2%} of wall), {events / ticks:.1f} device "
+            f"kernels a tick, of them row_dense {counts['row_dense']:.2f} and "
+            f"rglru_scan {counts['rglru_scan']:.2f} a tick (= {replays} "
+            f"bucket replays in the {ticks} ticks x {per_call['row_dense']} "
+            f"and {per_call['rglru_scan']}); "
+            f"top device events: " + _top(by_name, 10, ticks, "us/tick"))
+    if per_tick["clean"]["row_dense"] <= 0:
+        raise AssertionError(f"[{tag}-profile] no row_dense launch in a tick")
+    if bank.detector.budget_family == "seq" and \
+            per_tick["clean"]["rglru_scan"] <= 0:
+        raise AssertionError(f"[{tag}-profile] no scan launch in a tick")
     svc = _anomaly_service(bank)
     _anomaly_stream(svc, wins, labels, 1)
     svc.stage_seconds = dict.fromkeys(STAGES, 0.0)
@@ -1646,12 +1921,93 @@ def phase_anomaly_profile(torch, bank, split):
     wall = time.perf_counter() - t0
     split_ms = {"submit": submit_s, **svc.stage_seconds}
     split_ms["rest"] = wall - sum(split_ms.values())
-    log(f"[anomaly-profile] clean, {ANOMALY_TICKS} ticks, host clock: "
+    log(f"[{tag}-profile] clean, {ANOMALY_TICKS} ticks, host clock: "
         f"{wall / ANOMALY_TICKS * 1e3:.3f} ms a tick = "
         + ", ".join(f"{k} {v / ANOMALY_TICKS * 1e3:.3f} ms ({v / wall:.1%})"
                     for k, v in split_ms.items())
         + " (d2h holds the wait for the device and the reassembly; rest: "
         "per-window bookkeeping after the copy)")
+    return per_tick
+
+
+def _graph_equals_eager(torch, bank, tag):
+    """Each bucket's graph replay against the eager core on the same
+    inputs, rows 0, 1 and N: bit for bit."""
+    from repro_torch.serving.anomaly import engine
+    core = engine.score_core(bank.detector)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    for bs in ANOMALY_BUCKETS:
+        entry, _ = engine.score_entry(bank.detector, bank.row_params,
+                                      (bs, ANOMALY_WINDOW, bank.input_dim))
+        for row in (0, 1, bank.num_clients):
+            entry.x.copy_(torch.randn(entry.x.shape, generator=gen,
+                                      device=DEV) * 50)
+            entry.row.fill_(row)
+            entry.replay()
+            want = core(bank.row_params, torch.tensor([row], device=DEV),
+                        entry.x)
+            torch.cuda.synchronize()
+            if not torch.equal(entry.out, want):
+                raise AssertionError(f"[{tag}-serve] bucket {bs} row {row}: "
+                                     f"the graph replay differs from the "
+                                     f"eager core")
+    log(f"[{tag}-serve] each bucket's graph replay equals the eager core bit "
+        f"for bit (buckets {ANOMALY_BUCKETS}, rows 0, 1, {bank.num_clients})")
+
+
+def phase_seq_anomaly(torch, split, dx, counts):
+    """The scoring service over a SeqDetector bank: [seq-anomaly-bank]
+    trains it at the paper's scale at ``SEQ_LR`` (the scan's forward and
+    backward kernels each round); [seq-anomaly-serve] runs what
+    [anomaly-serve] runs, each bucket's CUDA graph holding the scan
+    kernel, and holds a replay to the eager core; [seq-anomaly-profile]
+    counts the scan's launches a tick.  Returns the bank's launches, the
+    service's main path (:func:`phase_anomaly_serve`) and the profile's
+    launches a tick."""
+    from repro_torch.models.detector import SeqDetector
+    tag = "seq-anomaly"
+    bank, launches = phase_anomaly_bank(torch, split, dx, counts,
+                                        model=SeqDetector(), lr=SEQ_LR,
+                                        tag=tag)
+    _, _, main = phase_anomaly_serve(torch, bank, split, tag)
+    _graph_equals_eager(torch, bank, tag)
+    per_tick = phase_anomaly_profile(torch, bank, split, tag)
+    return launches, main, per_tick
+
+
+def phase_score_kernels(torch):
+    """The score path's row-stable product against its plain version at
+    the 64-bucket's products of both detector bodies and at ragged
+    shapes, within ``row_dense.error_bound``, and each row's bits alone
+    equal to the batch's; returns the max |diff|."""
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.kernels import row_dense as rd
+    from repro_torch.models.detector import AutoencoderDetector, SeqDetector
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    shapes = sorted({p for det in (AutoencoderDetector(COMMSML),
+                                   SeqDetector())
+                     for p in _score_products(det, 64 * ANOMALY_WINDOW)})
+    shapes += [(7, 5, 33), (100_003, 16, 8)]
+    worst = 0.0
+    for M, K, N in shapes:
+        x = torch.randn((M, K), generator=gen, device=DEV) * 3
+        w = torch.randn((K, N), generator=gen, device=DEV)
+        b = torch.randn((N,), generator=gen, device=DEV)
+        got = rd.row_dense(x, w, b)
+        want = rd.row_dense_plain(x, w, b)
+        err = (got.double() - want.double()).abs()
+        ok = bool((err <= rd.error_bound(x, w, b)).all())
+        rows = all(torch.equal(rd.row_dense(x[i:i + 1], w, b)[0], got[i])
+                   for i in (0, M // 2, M - 1))
+        torch.cuda.synchronize()
+        log(f"[kernel] row_dense (M, K, N) = {(M, K, N)}: max_abs_err "
+            f"{float(err.max())} (within error_bound: {ok}; |y| max "
+            f"{float(want.abs().max())}); rows alone bitwise_equal={rows}")
+        if not (ok and rows):
+            raise AssertionError(f"row_dense at {(M, K, N)}: within bound "
+                                 f"{ok}, rows alone equal {rows}")
+        worst = max(worst, float(err.max()))
+    return worst
 
 
 def phase_anomaly_reference(torch, split, dx, counts):
@@ -2008,7 +2364,6 @@ def _experiment_profile(torch, spec, plan):
     host clock around ``simulate._round_loop``, synchronised), and the
     device time by the aten operator that launched it."""
     import dataclasses
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import experiment as X
     from repro_torch.core import simulate
     rounds = 10
@@ -2030,8 +2385,7 @@ def _experiment_profile(torch, spec, plan):
 
     simulate._round_loop = timed_loop
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _device_profile(torch) as prof:
             t0 = time.perf_counter()
             X.execute(p)
             wall_us = (time.perf_counter() - t0) * 1e6
@@ -2150,6 +2504,53 @@ def phase_experiment_reference(torch, split, dx, counts):
             f"finite round {float(rel.max()):.3e}; AUROC of the "
             f"finite seeds max abs diff "
             f"{float(np.max(np.abs(g.auroc_used - h.auroc_used)[fine])):.3e}")
+
+
+def phase_examples(torch):
+    """Each of the port's example scripts with ``--smoke`` on the card, in
+    this process (``python -m repro_torch.examples.<name> --smoke``): the
+    quickstart's AUROCs, failure_scenarios with ``--shard`` (one warning,
+    the unsharded path), score_stream's service (nothing dropped, its
+    failover asserted bit for bit inside) and serve_batch's default archs
+    and ``--arch granite-3-2b``; their own output goes to a buffer, its
+    last lines to the log."""
+    import contextlib
+    import io
+    import warnings
+    import numpy as np
+    from repro_torch.examples import (failure_scenarios, quickstart,
+                                      score_stream, serve_batch)
+    runs = (("quickstart", quickstart, []),
+            ("failure_scenarios", failure_scenarios, ["--shard"]),
+            ("score_stream", score_stream, []),
+            ("serve_batch", serve_batch, []),
+            ("serve_batch", serve_batch, ["--arch", "granite-3-2b"]))
+    for name, mod, extra in runs:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), \
+                warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            out = mod.main(["--smoke"] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name == "quickstart":
+            ok = all(0.0 <= v <= 1.0 for v in out.values())
+        elif name == "failure_scenarios":
+            ok = (sum("single local device" in str(w.message) for w in rec)
+                  == 1 and all(np.isfinite(r.loss_curves).all()
+                               for r in out.results))
+        elif name == "score_stream":
+            ok = out[1].dropped == 0 and out[1].failovers > 0
+        else:
+            ok = all(t.is_cuda and t.shape == (2, 4) for t in out.values())
+        tail = " | ".join(ln for ln in buf.getvalue().splitlines()[-3:]
+                          if ln.strip())
+        log(f"[examples] {name} --smoke {' '.join(extra)} on the card: "
+            f"{wall:.2f} s, checks {'passed' if ok else 'FAILED'}; last "
+            f"lines: {tail}")
+        if not ok:
+            raise AssertionError(f"[examples] {name} {extra}: {out}")
 
 
 def _samples_ms(torch, fn, device_only, samples):
@@ -2341,7 +2742,65 @@ def phase_times(torch, launches, errs, parent=None):
                     f"{key}_share_of_bound": s_bound / ms})
         del args
     rows.append(row)
+    rows.append(_row_dense_times(torch, launches, errs))
     return rows
+
+
+def _row_dense_times(torch, launches, errs):
+    """The score path's row-stable product at the service's largest
+    product (the autoencoder's first layer over a 64-bucket, (2,048, 112,
+    128)) and at SeqDetector's (14,336, 16, 16): kernel, plain version
+    (``x @ w + b``) and ``torch.addmm``, beside the bound."""
+    from repro_torch.kernels import row_dense as rd
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    row = None
+    for key, (M, K, N) in (("ae", (64 * ANOMALY_WINDOW, 112, 128)),
+                           ("seq", (64 * ANOMALY_WINDOW * 7, 16, 16))):
+        x = torch.randn((M, K), generator=gen, device=DEV)
+        w = torch.randn((K, N), generator=gen, device=DEV)
+        b = torch.randn((N,), generator=gen, device=DEV)
+        fns = {"kernel": lambda: rd.row_dense_cuda(x, w, b),
+               "plain": lambda: rd.row_dense_plain(x, w, b),
+               "library addmm": lambda: torch.addmm(b, x, w)}
+        dev_ms = _turns_ms(torch, fns, True, SAMPLES)
+        call_ms = _turns_ms(torch, fns, False, SAMPLES)
+        _, _, by_name = _profiled(torch, fns["kernel"])
+        prof_us = _event_us(by_name, "row_dense_kernel")
+        moved = (M * K + K * N + N + M * N) * 4
+        flops = 2 * M * K * N
+        b_bytes = moved / H100_BYTES_PER_S * 1e3
+        b_ops = flops / H100_F32_FLOPS * 1e3
+        bound = max(b_bytes, b_ops)
+        ms = dev_ms["kernel"]
+        log(f"[times] row_dense (M, K, N) = {(M, K, N)} ({key} score "
+            f"product), median of {SAMPLES} CUDA-event timings in 4 turns, "
+            f"card / call: " + ", ".join(
+                f"{k} {dev_ms[k]:.6f} / {call_ms[k]:.6f} ms" for k in fns)
+            + f"; the kernel's device duration under torch.profiler "
+            f"{prof_us:.3f} us (32 calls); bound {bound:.6f} ms ({flops} "
+            f"flops at 67 TFLOP/s float32; {moved} bytes take "
+            f"{b_bytes:.6f} ms), {bound / ms:.1%} of it")
+        if row is None:
+            row = {
+                "name": "row_dense", "route": "cuda",
+                "source": "src/repro_torch/csrc/row_dense.cu",
+                "replaces": "src/repro/serving/anomaly/engine.py:55 (the "
+                            "score core's products, left to XLA; no Pallas "
+                            "kernel)",
+                "launches": launches["row_dense launches"],
+                "graph_launches": launches["row_dense graph_launches"],
+                "max_abs_err": errs["row_dense"],
+                "ms": ms, "plain_ms": dev_ms["plain"], "bound_ms": bound,
+                "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+                "library_ms": dev_ms["library addmm"],
+                "call_ms": call_ms["kernel"], "profiler_ms": prof_us / 1e3,
+                "share_of_bound": bound / ms}
+        else:
+            row.update({f"{key}_ms": ms, f"{key}_plain_ms": dev_ms["plain"],
+                        f"{key}_library_ms": dev_ms["library addmm"],
+                        f"{key}_bound_ms": bound})
+        del x, w, b, fns
+    return row
 
 
 def _parent_combine_fn(torch, parent):
@@ -2503,7 +2962,6 @@ def phase_serve_profile(torch, cfg, params, tag):
     """One prefill and 8 decode steps, each under its own torch.profiler
     window: the device's busy share, its top kernels and each kernel's
     share."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.decode import decode_step, pad_cache, prefill
     from repro_torch.serving.inputs import synthetic_batch
     steps = 8
@@ -2529,8 +2987,7 @@ def phase_serve_profile(torch, cfg, params, tag):
 
     for what, fn, per in (("prefill", run_prefill, 1),
                           ("decode", run_decode, steps)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _device_profile(torch) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2604,7 +3061,7 @@ def visible_pairs(S, causal, window):
     return total
 
 
-def phase_serve_times(torch, launches, errs, parent=None):
+def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
     """The serving kernels at their prefills' shapes: kernel, plain
     version and one library call, beside the card's bound.  "card" times
     the work on the card alone, "call" adds the host's dispatch."""
@@ -2658,10 +3115,11 @@ def phase_serve_times(torch, launches, errs, parent=None):
         raise AssertionError("the tensor-core kernel is not faster than SDPA "
                              "and the CUDA-core kernel")
     rows.append({
-        "name": "flash_attention", "route": "cuda",
+        "name": "flash_attention", "arch": "recurrentgemma-9b",
+        "route": "cuda", "shape": [B, S, H, KVH, D],
         "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:90",
-        "launches": launches["flash_attention"],
+        "launches": arch_launches["recurrentgemma-9b"]["flash_attention"],
         "max_abs_err": errs["flash_attention"],
         "ms": tc_ms, "plain_ms": dev_ms["plain"],
         "bound_ms": bound,
@@ -2669,6 +3127,9 @@ def phase_serve_times(torch, launches, errs, parent=None):
         "library_ms": dev_ms["library sdpa"],
         "tflops": flops / tc_ms / 1e9, "share_of_bound": bound / tc_ms})
     del q, k, v, qt, kt, vt, band, fns
+    for arch in DECODERS:
+        rows.append(_decoder_attn_times(torch, arch, arch_launches[arch],
+                                        errs, gen))
 
     B, S, W, _ = SCAN_CASES[0]
     a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=DEV))
@@ -2700,6 +3161,7 @@ def phase_serve_times(torch, launches, errs, parent=None):
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:48",
         "launches": launches["rglru_scan"],
+        "graph_launches": launches["rglru_scan graph_launches"],
         "max_abs_err": errs["rglru_scan"],
         "ms": dev_ms["kernel"], "plain_ms": plain_ms,
         "bound_ms": bound,
@@ -2759,6 +3221,60 @@ def phase_serve_times(torch, launches, errs, parent=None):
             _faster_than_parent(rows[-1], dev_ms["parent kernel"])
         del args, fns
     return rows
+
+
+def _decoder_attn_times(torch, arch, launches, errs, gen):
+    """The tensor-core attention at a dense decoder's prefill shape
+    (causal, no window) beside SDPA (``is_causal``, ``enable_gqa``), the
+    plain version and the bound.  A shape where the kernel loses to SDPA
+    is logged as such: it stays on the kernel."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, KVH, D, causal, window = _decoder_attn(arch)
+    q = torch.randn((B, S, H, D), generator=gen, device=DEV).bfloat16()
+    k = torch.randn((B, S, KVH, D), generator=gen, device=DEV).bfloat16()
+    v = torch.randn((B, S, KVH, D), generator=gen, device=DEV).bfloat16()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fns = {"tensor-core kernel": lambda: fa.flash_attention_cuda(
+               q, k, v, causal, window),
+           "library sdpa": lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True, enable_gqa=True)}
+    n = 20
+    dev_ms = _turns_ms(torch, fns, True, n)
+    call_ms = _turns_ms(torch, fns, False, n)
+    plain_ms = _median_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal, window), True, 3)
+    pairs = visible_pairs(S, causal, window)
+    flops = 4 * B * H * D * pairs
+    moved = (2 * B * S * H * D + 2 * B * S * KVH * D) * 2
+    b_ops = flops / H100_BF16_FLOPS * 1e3
+    b_bytes = moved / H100_BYTES_PER_S * 1e3
+    bound = max(b_ops, b_bytes)
+    tc_ms = dev_ms["tensor-core kernel"]
+    sdpa = dev_ms["library sdpa"]
+    log(f"[times] flash_attention bf16 (B, S, H, KVH, D) = "
+        f"{(B, S, H, KVH, D)} causal ({arch}'s prefill), median of {n} "
+        f"CUDA-event timings in 4 turns, card / call: " + ", ".join(
+            f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
+            for key in fns)
+        + f"; plain {plain_ms:.6f} ms (median of 3); bound {bound:.6f} ms "
+        f"({flops} flops over {pairs} visible pairs at 989 TFLOP/s; {moved} "
+        f"bytes take {b_bytes:.6f} ms); tensor-core kernel "
+        f"{flops / tc_ms / 1e9:.1f} TFLOP/s, {bound / tc_ms:.1%} of the "
+        f"bound, {sdpa / tc_ms:.2f}x SDPA's speed"
+        + ("" if tc_ms < sdpa else " (LOSES to SDPA)")
+        + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
+    return {
+        "name": "flash_attention", "arch": arch, "route": "cuda",
+        "shape": [B, S, H, KVH, D],
+        "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:90",
+        "launches": launches["flash_attention"],
+        "max_abs_err": errs[f"flash_attention {arch}"],
+        "ms": tc_ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+        "library_ms": sdpa, "call_ms": call_ms["tensor-core kernel"],
+        "tflops": flops / tc_ms / 1e9, "share_of_bound": bound / tc_ms}
 
 
 def _seq_scan_times(torch, fwd_row, launches, errs, gen):
@@ -2865,12 +3381,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import row_dense
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
     name, smi, parent = phase_device(torch, args.parent)
     errs = phase_kernels(torch)
+    errs["row_dense"] = phase_score_kernels(torch)
     serve_errs = phase_serve_kernels(torch)
     split, dx, counts = _paper_split()
     launches = phase_slice(torch, split, dx, counts)
@@ -2886,11 +3404,17 @@ def main() -> int:
     phase_multi_profile(torch, split, dx, counts)
     phase_multi_reference(torch, split, dx, counts)
     bank, bank_launches = phase_anomaly_bank(torch, split, dx, counts)
-    launches["tolfl_round_update"] += bank_launches
-    phase_anomaly_serve(torch, bank, split)
+    launches["tolfl_round_update"] += bank_launches["tolfl_round_update"]
+    _, _, ae_serve = phase_anomaly_serve(torch, bank, split)
+    phase_score_path_turns(torch, bank, split)
     phase_anomaly_warm(torch, bank, split)
     phase_anomaly_profile(torch, bank, split)
     phase_anomaly_reference(torch, split, dx, counts)
+    seq_bank, seq_serve, _ = phase_seq_anomaly(torch, split, dx, counts)
+    launches["tolfl_round_update"] += seq_bank["tolfl_round_update"]
+    for key in ("launches", "graph_launches"):
+        launches[f"row_dense {key}"] = sum(
+            serve[key]["row_dense"] for serve in (ae_serve, seq_serve))
     seq_errs = phase_seq_kernels(torch)
     seq = phase_seq_slice(torch, split, dx, counts)
     phase_seq_no_sync(torch, split, dx, counts)
@@ -2898,24 +3422,33 @@ def main() -> int:
     phase_experiment_reference(torch, split, dx, counts)
     launches["tolfl_round_update"] += (seq["tolfl_round_update"]
                                        + exp["tolfl_round_update"])
+    phase_examples(torch)
     kernels = phase_times(torch, launches, errs, parent)
     serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
+    arch_launches = {}
     for arch, tag in SERVE_ARCHS:
         cfg, params = _full_params(torch, arch, tag)
-        for kernel, count in phase_serve(torch, cfg, params, tag).items():
+        arch_launches[arch] = phase_serve(torch, cfg, params, tag)
+        for kernel, count in arch_launches[arch].items():
             serve_launches[kernel] += count
         phase_serve_consistency(torch, cfg, params, tag)
         phase_serve_profile(torch, cfg, params, tag)
         del params      # the next arch's params need the room
         torch.cuda.empty_cache()
         phase_serve_reference(torch, arch, tag)
-    serve_launches["rglru_scan"] += seq["rglru_scan"] + exp["rglru_scan"]
+    serve_launches["rglru_scan"] += (
+        seq["rglru_scan"] + exp["rglru_scan"] + seq_bank["rglru_scan"]
+        + seq_serve["launches"]["rglru_scan"])
+    serve_launches["rglru_scan graph_launches"] = \
+        seq_serve["graph_launches"]["rglru_scan"]
     serve_launches["rglru_scan_bwd"] = (seq["rglru_scan_bwd"]
-                                        + exp["rglru_scan_bwd"])
+                                        + exp["rglru_scan_bwd"]
+                                        + seq_bank["rglru_scan_bwd"])
     serve_errs["rglru_scan"] = max(serve_errs["rglru_scan"],
                                    seq_errs["rglru_scan"])
     serve_errs["rglru_scan_bwd"] = seq_errs["rglru_scan_bwd"]
-    kernels += phase_serve_times(torch, serve_launches, serve_errs, parent)
+    kernels += phase_serve_times(torch, serve_launches, serve_errs,
+                                 arch_launches, parent)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -8,17 +8,19 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import recurrentgemma_9b, rwkv6_7b
+from repro_torch.configs import (granite_3_2b, internlm2_18b, qwen3_8b,
+                                 qwen15_05b, recurrentgemma_9b, rwkv6_7b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (recurrentgemma_9b, rwkv6_7b)}
+    m.CONFIG.name: m.CONFIG for m in (recurrentgemma_9b, rwkv6_7b,
+                                      internlm2_18b, qwen3_8b, granite_3_2b,
+                                      qwen15_05b)}
 
 #: ``repro``'s other architecture ids, not ported yet
 NOT_PORTED = (
-    "whisper-large-v3", "internlm2-1.8b",
-    "llama4-maverick-400b-a17b", "internvl2-26b", "llama4-scout-17b-a16e",
-    "qwen3-8b", "granite-3-2b", "qwen1.5-0.5b",
+    "whisper-large-v3", "llama4-maverick-400b-a17b", "internvl2-26b",
+    "llama4-scout-17b-a16e",
 )
 
 

@@ -44,8 +44,10 @@ through :func:`_run_group` or :func:`_run_multi_group`.
 Execution (:class:`ExecPlan`): ``chunk_size`` runs the scenario axis in
 chunks of at most that many scenarios (the last one padded by repeating
 scenario 0, the padding stripped), each one round loop and one copy to
-the host.  Scenario sharding over several cards and ahead-of-time
-compilation are not ported.
+the host.  ``shard=True`` on one card (or on the CPU) warns and runs the
+unsharded path, whose results are the same, as ``repro`` does on one
+device; sharding over several cards and ahead-of-time compilation are
+not ported.
 
 RNG, by the port's rule that draws are operands:
 
@@ -69,6 +71,7 @@ RNG, by the port's rule that draws are operands:
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -102,10 +105,15 @@ class ExecPlan:
         At most this many scenarios run at once: every chunk is one round
         loop of the same padded size.  ``None`` runs the batch in one
         shot.
-    shard, devices, aot
-        ``repro``'s scenario sharding over several devices and its
-        ahead-of-time compilation.  Not ported: ``shard=True`` and
-        ``aot=True`` raise ``NotImplementedError``.
+    shard, devices
+        ``repro``'s scenario sharding over ``devices`` local devices (all
+        of them when ``None``).  With one device, or on the CPU, it warns
+        and degrades to the unsharded path (:meth:`resolved_devices`):
+        the results are the same.  Over more than one card it is not
+        ported and raises ``NotImplementedError`` when the plan runs.
+    aot
+        ``repro``'s ahead-of-time compilation: not ported,
+        ``aot=True`` raises ``NotImplementedError``.
 
     Invalid values raise ``ValueError`` at construction."""
     shard: bool = False
@@ -123,14 +131,39 @@ class ExecPlan:
             raise ValueError(
                 f"ExecPlan.devices must be a positive device count "
                 f"(or None for all local devices), got {self.devices}")
-        if self.shard:
-            raise NotImplementedError(
-                "ExecPlan(shard=True): scenario sharding over several "
-                "cards is not ported yet (ROADMAP queue 1, item 9)")
         if self.aot:
             raise NotImplementedError(
                 "ExecPlan(aot=True): ahead-of-time compilation is not "
                 "ported yet (ROADMAP queue 1, item 11)")
+
+    def num_devices(self, device: DeviceLike = None) -> int:
+        """Local devices a shard could span: the cards
+        (``torch.cuda.device_count()``), or one for a run on the CPU or
+        on a host without a card, capped at ``devices``."""
+        cpu = device is not None and torch.device(device).type == "cpu"
+        n = 1 if cpu else max(torch.cuda.device_count(), 1)
+        return min(self.devices, n) if self.devices else n
+
+    def resolved_devices(self, warn: bool = True,
+                         device: DeviceLike = None) -> Optional[int]:
+        """Shard width actually used: ``None`` when not sharding, and
+        when ``shard=True`` finds a single device, in which case it warns
+        and degrades to the unsharded path (the results are the same).
+        Over more than one card it raises: not ported yet."""
+        if not self.shard:
+            return None
+        n = self.num_devices(device)
+        if n <= 1:
+            if warn:
+                warnings.warn(
+                    "ExecPlan(shard=True) found a single local device; "
+                    "degrading to the unsharded path (results are "
+                    "identical).", UserWarning, stacklevel=2)
+            return None
+        raise NotImplementedError(
+            f"ExecPlan(shard=True) over {n} cards: scenario sharding "
+            f"over several cards is not ported yet (ROADMAP queue 1, "
+            f"item 9)")
 
 
 def mean_ci95(vals: np.ndarray) -> Tuple[float, float, float]:

@@ -347,7 +347,7 @@ class BucketPlan:
     chunk: int = 0                  # scenarios resident per round loop
     num_chunks: int = 0
     padded_scenarios: int = 0       # B rounded up to chunk * num_chunks
-    devices: Optional[int] = None   # shard width (not ported: always None)
+    devices: Optional[int] = None   # shard width (None: one device, unsharded)
 
     def describe(self) -> str:
         mode = ("fused" if self.fused else
@@ -475,8 +475,9 @@ def _faulty_variant(cfg):
 
 def _geometry(bucket: BucketPlan, exec_plan: Optional[ExecPlan]) -> None:
     """Fill the bucket's chunk geometry (``campaign._run_batched``'s
-    arithmetic); scenario sharding is not ported, so ``devices`` stays
-    None."""
+    arithmetic).  ``devices`` stays None: on one device ``shard=True``
+    degrades to the unsharded path, and over several cards it is not
+    ported (:meth:`ExecPlan.resolved_devices`, called by :func:`execute`)."""
     plan_ = exec_plan or ExecPlan()
     B = bucket.num_scenarios
     chunk = min(plan_.chunk_size or B, B)
@@ -691,10 +692,15 @@ def execute(plan_: ExecutionPlan,
     per-scenario operands moved to the device once a chunk.  ``params0``
     seeds the single-model cells and ``draws`` the multi-model ones (one
     entry a seed; see :mod:`repro_torch.core.campaign`).  Results align
-    with ``plan_.cells``."""
+    with ``plan_.cells``.
+
+    ``ExecPlan(shard=True)`` warns here, once, and runs unsharded on one
+    card or on the CPU; over several cards it raises (not ported)."""
     spec = plan_.spec
     data, seeds = spec.data, list(spec.seeds.seeds)
     dev = resolve_device(device)
+    if spec.exec_plan is not None:
+        spec.exec_plan.resolved_devices(warn=True, device=dev)
     det = data.model
     arrays = (data.device_x, data.device_counts, data.test_x, data.test_y)
     results: List[Optional[Any]] = [None] * len(plan_.cells)

@@ -6,7 +6,8 @@ Port of ``repro.models.attention`` (without its sharding constraints).
 Prefill and full-sequence attention go through ``ops.attention`` (the
 CUDA kernel on the card, its plain version on the CPU); ``repro``'s
 pure-XLA ``blocked_attention`` has no counterpart, since the kernel takes
-its place.  Masks: causal and sliding-window.
+its place.  Masks: causal and sliding-window.  Optional QKV bias
+(Qwen1.5) and qk-norm (Qwen3).
 """
 from __future__ import annotations
 
@@ -61,13 +62,19 @@ def attn_init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
             "k": P.dense_init(generator, d_model, kv_dim, **kw),
             "v": P.dense_init(generator, d_model, kv_dim, **kw),
             "o": P.dense_init(generator, q_dim, d_model, device=device,
-                              lead=lead)}
+                              lead=lead),
+            **({"q_norm": P.rmsnorm_init(cfg.head_dim, device, lead),
+                "k_norm": P.rmsnorm_init(cfg.head_dim, device, lead)}
+               if cfg.qk_norm else {})}
 
 
 def project_qkv(p: P.Params, x: torch.Tensor, cfg: AttentionConfig,
-                positions: torch.Tensor,
+                positions: torch.Tensor, norm_eps: float = 1e-6,
                 compute_dtype: Optional[torch.dtype] = None):
-    """x: (B,S,E) -> q (B,S,H,D), k/v (B,S,KVH,D) with RoPE on q and k."""
+    """x: (B,S,E) -> q (B,S,H,D), k/v (B,S,KVH,D) with RoPE on q and k,
+    after the per-head RMS norm of q and k (Qwen3's qk-norm: float32 over
+    the head dim, ``norm_eps``, times the scale, cast back) where
+    ``cfg.qk_norm``."""
     B, S, _ = x.shape
     q = P.dense_apply(p["q"], x, compute_dtype).reshape(
         B, S, cfg.num_heads, cfg.head_dim)
@@ -75,6 +82,9 @@ def project_qkv(p: P.Params, x: torch.Tensor, cfg: AttentionConfig,
         B, S, cfg.num_kv_heads, cfg.head_dim)
     v = P.dense_apply(p["v"], x, compute_dtype).reshape(
         B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = P.rmsnorm_apply(p["q_norm"], q, norm_eps)
+        k = P.rmsnorm_apply(p["k_norm"], k, norm_eps)
     if cfg.rope_theta > 0:
         cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
         q = apply_rope(q, cos, sin)
@@ -83,7 +93,8 @@ def project_qkv(p: P.Params, x: torch.Tensor, cfg: AttentionConfig,
 
 
 def attn_apply(p: P.Params, x: torch.Tensor, cfg: AttentionConfig,
-               window: Optional[int] = None, causal: Optional[bool] = None,
+               norm_eps: float = 1e-6, window: Optional[int] = None,
+               causal: Optional[bool] = None,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full self-attention block for prefill: x (B,S,E) -> (B,S,E),
     through ``ops.attention``."""
@@ -92,7 +103,8 @@ def attn_apply(p: P.Params, x: torch.Tensor, cfg: AttentionConfig,
         positions = torch.arange(S, device=x.device)
     causal = cfg.causal if causal is None else causal
     window = cfg.sliding_window if window is None else window
-    q, k, v = project_qkv(p, x, cfg, positions, compute_dtype=x.dtype)
+    q, k, v = project_qkv(p, x, cfg, positions, norm_eps,
+                          compute_dtype=x.dtype)
     out = ops.attention(q, k, v, causal=causal, window=window)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return P.dense_apply(p["o"], out, x.dtype)
@@ -157,7 +169,7 @@ def cache_slot_validity(Sc: int, position: int, window: Optional[int],
 
 
 def attn_decode(p: P.Params, x: torch.Tensor, cache: dict,
-                cfg: AttentionConfig, position: int,
+                cfg: AttentionConfig, position: int, norm_eps: float = 1e-6,
                 window: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
     """One-token decode: x (B,1,E), cache {'k','v': (B,Sc,KVH,D)}.
 
@@ -167,7 +179,7 @@ def attn_decode(p: P.Params, x: torch.Tensor, cache: dict,
     B = x.shape[0]
     positions = torch.full((B, 1), position, dtype=torch.int64,
                            device=x.device)
-    q, k_new, v_new = project_qkv(p, x, cfg, positions,
+    q, k_new, v_new = project_qkv(p, x, cfg, positions, norm_eps,
                                   compute_dtype=x.dtype)
     Sc = cache["k"].shape[1]
     valid = cache_slot_validity(Sc, position, window, x.device)

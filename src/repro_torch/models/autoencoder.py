@@ -38,20 +38,21 @@ def num_layers(cfg: AutoencoderConfig) -> int:
 
 def forward(params: P.Params, cfg: AutoencoderConfig, x: torch.Tensor,
             dropout_generator: Optional[torch.Generator] = None,
-            dropout_masks: Optional[Sequence[torch.Tensor]] = None
-            ) -> torch.Tensor:
+            dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+            dense: P.DenseFn = P.dense_apply) -> torch.Tensor:
     """x: (B, input_dim) -> reconstruction (B, input_dim).
 
     Pass ``dropout_generator`` (on ``x``'s device) during training to
     enable dropout on hidden layers (paper: p=0.2), drawn here.  Or pass
     ``dropout_masks``, one keep mask a hidden layer (:func:`dropout_masks`),
     drawn once and broadcast against each layer's activations: several
-    calls then see the same masks."""
+    calls then see the same masks.  ``dense`` computes each layer's
+    product (the score path passes the row-stable kernel's)."""
     act = P.activation(cfg.act)
     n = num_layers(cfg)
     h = x
     for i in range(n):
-        h = P.dense_apply(params[f"fc{i}"], h)
+        h = dense(params[f"fc{i}"], h)
         if i < n - 1:                      # hidden layers
             h = act(h)
             if dropout_masks is not None:
@@ -92,7 +93,8 @@ def recon_loss(params: P.Params, cfg: AutoencoderConfig, x: torch.Tensor,
 
 
 def anomaly_scores(params: P.Params, cfg: AutoencoderConfig,
-                   x: torch.Tensor) -> torch.Tensor:
+                   x: torch.Tensor, dense: P.DenseFn = P.dense_apply
+                   ) -> torch.Tensor:
     """Per-sample anomaly score (no dropout at eval)."""
-    x_hat = forward(params, cfg, x)
+    x_hat = forward(params, cfg, x, dense=dense)
     return torch.sum(torch.square(x - x_hat), dim=-1)

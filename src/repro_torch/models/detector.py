@@ -8,7 +8,9 @@ hashable spec exposing
   reconstruction loss; dropout draws from ``generator`` or applies the
   given ``dropout_masks`` (with neither, no dropout)
 * ``dropout_masks(lead, generator)`` -> one keep mask a hidden layer
-* ``anomaly_scores(params, x)`` -> (B,) per-sample scores
+* ``anomaly_scores(params, x, dense)`` -> (B,) per-sample scores, each
+  layer's product computed by ``dense`` (``params.dense_apply``; the
+  scoring service passes the row-stable kernel's)
 * ``param_count()`` / ``param_bytes()``  for the comm-cost models
 
 With leading axes on params and data (scenario and device in the round
@@ -65,8 +67,8 @@ class DetectorModel:
                       ) -> Optional[List[torch.Tensor]]:
         raise NotImplementedError
 
-    def anomaly_scores(self, params: P.Params, x: torch.Tensor
-                       ) -> torch.Tensor:
+    def anomaly_scores(self, params: P.Params, x: torch.Tensor,
+                       dense: P.DenseFn = P.dense_apply) -> torch.Tensor:
         raise NotImplementedError
 
     def param_count(self) -> int:
@@ -102,8 +104,8 @@ class AutoencoderDetector(DetectorModel):
     def dropout_masks(self, lead, generator):
         return AE.dropout_masks(self.cfg, lead, generator)
 
-    def anomaly_scores(self, params, x):
-        return AE.anomaly_scores(params, self.cfg, x)
+    def anomaly_scores(self, params, x, dense=P.dense_apply):
+        return AE.anomaly_scores(params, self.cfg, x, dense)
 
 
 @dataclass(frozen=True)
@@ -153,12 +155,13 @@ class SeqDetector(DetectorModel):
                 "dec": P.dense_init(generator, self.d_model, self.window,
                                     bias=True, device=device)}
 
-    def _reconstruct(self, params, x, generator=None, dropout_masks=None):
+    def _reconstruct(self, params, x, generator=None, dropout_masks=None,
+                     dense=P.dense_apply):
         """x (..., n, input_dim) against params with leading axes that
         broadcast against x's leading axes -> (*lead, n, input_dim)."""
-        h = P.activation(self.act)(R.dense_tokens(params["enc"],
-                                                   self._windows(x)))
-        h = R.rglru_block(params["rglru"], h)
+        h = P.activation(self.act)(R.dense_tokens(
+            params["enc"], self._windows(x), dense=dense))
+        h = R.rglru_block(params["rglru"], h, dense)
         keep = None
         if dropout_masks is not None:
             keep = dropout_masks[0]
@@ -168,7 +171,7 @@ class SeqDetector(DetectorModel):
         if keep is not None:
             h = torch.where(keep, h / (1.0 - self.dropout),
                             torch.zeros((), device=h.device))
-        y = R.dense_tokens(params["dec"], h)
+        y = R.dense_tokens(params["dec"], h, dense=dense)
         return y.reshape(*y.shape[:-2], -1)[..., :self.input_dim]
 
     def loss(self, params, x, valid, generator=None, dropout_masks=None):
@@ -187,8 +190,8 @@ class SeqDetector(DetectorModel):
                            generator=generator, device=generator.device)
                 < (1.0 - self.dropout)]
 
-    def anomaly_scores(self, params, x):
-        x_hat = self._reconstruct(params, x)
+    def anomaly_scores(self, params, x, dense=P.dense_apply):
+        x_hat = self._reconstruct(params, x, dense=dense)
         return torch.sum(torch.square(x - x_hat), dim=-1)
 
 

@@ -28,6 +28,9 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
+#: a layer's product, ``(p, x, compute_dtype=None) -> y``: :func:`dense_apply`
+#: or the score path's row-stable one (``kernels/row_dense.dense_apply``)
+DenseFn = Callable[..., torch.Tensor]
 
 
 def normal_init(generator: torch.Generator, shape: Tuple[int, ...],

@@ -61,12 +61,13 @@ def _col(t: torch.Tensor) -> torch.Tensor:
 
 
 def dense_tokens(p: P.Params, x: torch.Tensor,
-                 compute_dtype: Optional[torch.dtype] = None
-                 ) -> torch.Tensor:
-    """``dense_apply`` over the (n, seq) token axes of x (*L, n, seq, in):
-    one product per leading index, whose params broadcast against L."""
+                 compute_dtype: Optional[torch.dtype] = None,
+                 dense: P.DenseFn = P.dense_apply) -> torch.Tensor:
+    """``dense`` (``dense_apply``) over the (n, seq) token axes of x (*L,
+    n, seq, in): one product per leading index, whose params broadcast
+    against L."""
     *lead, n, s, d = x.shape
-    y = P.dense_apply(p, x.reshape(*lead, n * s, d), compute_dtype)
+    y = dense(p, x.reshape(*lead, n * s, d), compute_dtype)
     return y.reshape(*y.shape[:-2], n, s, y.shape[-1])
 
 
@@ -100,17 +101,18 @@ def _lru_scan(a_t: torch.Tensor, b_t: torch.Tensor,
     return h.reshape(a_t.shape)
 
 
-def _gates(p: P.Params, x: torch.Tensor, conv: Optional[torch.Tensor]):
+def _gates(p: P.Params, x: torch.Tensor, conv: Optional[torch.Tensor],
+           dense: P.DenseFn = P.dense_apply):
     """The LRU's inputs from x (*L, n, seq, d): (a_t, b_t) float32, the
     gelu gate branch and the new conv context (``conv``: the trailing
     context, or None)."""
-    gate_branch = F.gelu(dense_tokens(p["in_gate"], x, x.dtype),
+    gate_branch = F.gelu(dense_tokens(p["in_gate"], x, x.dtype, dense),
                          approximate="tanh")
-    xw, new_conv = _causal_conv1d(dense_tokens(p["in_x"], x, x.dtype),
+    xw, new_conv = _causal_conv1d(dense_tokens(p["in_x"], x, x.dtype, dense),
                                   p["conv_w"], p["conv_b"], conv)
     xw32 = xw.to(torch.float32)   # repro's bf16 @ f32 promotes x exactly
-    r = torch.sigmoid(dense_tokens(p["gate_a"], xw32, torch.float32))
-    i = torch.sigmoid(dense_tokens(p["gate_x"], xw32, torch.float32))
+    r = torch.sigmoid(dense_tokens(p["gate_a"], xw32, torch.float32, dense))
+    i = torch.sigmoid(dense_tokens(p["gate_x"], xw32, torch.float32, dense))
     log_a = C_EXP * r * F.logsigmoid(_col(p["lam"]).to(torch.float32))
     a_t = torch.exp(log_a)
     # sqrt(1 - a^2) normaliser, clamped for stability
@@ -119,8 +121,9 @@ def _gates(p: P.Params, x: torch.Tensor, conv: Optional[torch.Tensor]):
 
 
 def _out(p: P.Params, h: torch.Tensor, gate_branch: torch.Tensor,
-         dtype: torch.dtype) -> torch.Tensor:
-    return dense_tokens(p["out"], h.to(dtype) * gate_branch, dtype)
+         dtype: torch.dtype, dense: P.DenseFn = P.dense_apply
+         ) -> torch.Tensor:
+    return dense_tokens(p["out"], h.to(dtype) * gate_branch, dtype, dense)
 
 
 def rglru_apply(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
@@ -135,16 +138,18 @@ def rglru_apply(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
     return out, {"h": h[:, -1, :].clone(), "conv": new_conv.clone()}
 
 
-def rglru_block(p: P.Params, x: torch.Tensor) -> torch.Tensor:
+def rglru_block(p: P.Params, x: torch.Tensor,
+                dense: P.DenseFn = P.dense_apply) -> torch.Tensor:
     """The block over x (*L, n, seq, d) from a zero state, for params
     whose leaves carry leading axes that broadcast against L: none, (S, N)
     a device in the round loop, (S, M, 1) in IFCA's probe of every model
     on every device.  The detector's form of :func:`rglru_apply`, with
     the same body; its recurrence goes through the scan kernel as one
     (prod(L') * n, seq, W) batch, differentiable.  Returns (*L', n, seq,
-    d), L' the broadcast of L and the params' axes."""
-    a_t, b_t, gate_branch, _ = _gates(p, x, None)
-    return _out(p, _lru_scan(a_t, b_t, None), gate_branch, x.dtype)
+    d), L' the broadcast of L and the params' axes.  ``dense`` computes
+    the products (the score path passes the row-stable kernel's)."""
+    a_t, b_t, gate_branch, _ = _gates(p, x, None, dense)
+    return _out(p, _lru_scan(a_t, b_t, None), gate_branch, x.dtype, dense)
 
 
 def rglru_decode(p: P.Params, x: torch.Tensor, cfg: ModelConfig,

@@ -4,7 +4,7 @@ Port of the serving half of ``repro.models.transformer``: the layer
 pattern's repeating unit, parameter init with the units stacked along a
 leading ``layers`` dim (as ``repro`` stacks them for its scan), the
 token embedding and the logits head (tied or untied).  Decoder-only
-configs without MoE, qk-norm or a frontend; the others raise
+configs without MoE or a frontend; the others raise
 ``NotImplementedError`` (ROADMAP.md, queue 1).  Training
 (``forward_train``, ``xent_loss``) is a later slice.
 """
@@ -40,8 +40,6 @@ def check_servable(cfg: ModelConfig) -> None:
         missing.append("encoder-decoder")
     if cfg.frontend.kind != "none":
         missing.append("a modality frontend")
-    if cfg.attention.qk_norm:
-        missing.append("qk-norm")
     if cfg.attention.rope_theta <= 0:
         missing.append("sinusoidal positions")
     if missing:

@@ -13,9 +13,15 @@ ONE model the whole batch scores against (``index_select`` on every
 leaf).  The service groups a tick's windows by routed row and runs one
 bucket per distinct row.  Row selection is a gather, so scoring a
 failed-over group against row ``c + 1`` computes exactly what scoring
-the isolated model directly computes.  ``x`` is scored as one ``(B·W,
-D)`` batch through ``det.anomaly_scores``, so each layer is one product
-with weights shared by the batch, as ``repro``'s vmap lowers.
+the isolated model directly computes (:func:`score_windows`).  ``x`` is
+scored as one ``(B·W, D)`` batch through ``det.anomaly_scores``, each
+layer one product with weights shared by the batch, as ``repro``'s vmap
+lowers; the products are the row-stable kernel's
+(:mod:`repro_torch.kernels.row_dense`), so a window's scores do not
+depend on the bucket it is padded into, ``repro``'s contract (on the CPU
+its plain version, ``dense_apply``'s arithmetic).  Every other operation
+of both detector bodies (elementwise passes, the scan, the row sums) is
+row-stable already.
 
 On CUDA each bucket is one ``torch.cuda.CUDAGraph`` over static ``x``,
 ``row`` and output buffers (:class:`BucketEntry`): the caller copies a
@@ -49,6 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.failure import FailureTrace, trace_alive_mask
+from repro_torch.kernels import row_dense
 from repro_torch.models import detector as D
 from repro_torch.models.detector import ModelLike
 from repro_torch.models.params import Params, tree_items, tree_map_with_path
@@ -60,18 +67,27 @@ _SCORE_LOCK = threading.Lock()
 CAPTURES = 0
 
 
+def score_windows(model: ModelLike, params: Params, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """(B, W) scores of the window batch x (B, W, D) against one model's
+    ``params``, as one (B·W, D) batch whose products are row-stable."""
+    B, W, Dm = x.shape
+    return D.as_detector(model).anomaly_scores(
+        params, x.reshape(B * W, Dm), dense=row_dense.dense_apply
+    ).reshape(B, W)
+
+
 def score_core(model: ModelLike) -> Callable:
     """(row_params, row, x) -> (B, W) scores: ``row`` (a one-element
     int64 tensor) gathers one bank row from every leaf, ``x`` is the
-    (B, W, D) window batch scored against it as one (B·W, D) batch."""
+    (B, W, D) window batch scored against it (:func:`score_windows`)."""
     det = D.as_detector(model)
 
     def score(row_params: Params, row: torch.Tensor, x: torch.Tensor
               ) -> torch.Tensor:
-        B, W, Dm = x.shape
         rows = tree_map_with_path(lambda _, p: p.index_select(0, row)[0],
                                   row_params)
-        return det.anomaly_scores(rows, x.reshape(B * W, Dm)).reshape(B, W)
+        return score_windows(det, rows, x)
 
     return score
 

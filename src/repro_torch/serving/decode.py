@@ -167,7 +167,7 @@ def _attn_prefill(p: P.Params, h: torch.Tensor, cfg: ModelConfig, kind: str
     a = cfg.attention
     B, S, _ = h.shape
     q, k, v = A.project_qkv(p, h, a, torch.arange(S, device=h.device),
-                            compute_dtype=h.dtype)
+                            cfg.norm_eps, compute_dtype=h.dtype)
     out = ops.attention(q, k, v, causal=True, window=a.sliding_window)
     out = P.dense_apply(p["o"], out.reshape(B, S, a.num_heads * a.head_dim),
                         h.dtype)
@@ -185,7 +185,7 @@ def _mix(p: P.Params, h: torch.Tensor, cfg: ModelConfig, kind: str,
         if entry is None:
             return _attn_prefill(p, h, cfg, kind)
         return A.attn_decode(p, h, entry, cfg.attention, position,
-                             window=_decode_window(cfg, entry))
+                             cfg.norm_eps, window=_decode_window(cfg, entry))
     if kind == RECURRENT:
         if entry is None:
             return G.rglru_apply(p, h, cfg)

@@ -15,6 +15,7 @@ Port of ``tests/test_campaign.py``'s single-model cases, dropout off.
   scores swap ranks); ``iso_active``, ``trace_index`` and ``seed`` exact.
 """
 import dataclasses
+import warnings
 
 import jax
 import numpy as np
@@ -375,11 +376,41 @@ def test_exec_plan_errors_as_repro():
         with pytest.raises(ValueError) as got:
             TC.ExecPlan(**kw)
         assert str(got.value) == str(want.value)
-    for kw, item in ((dict(shard=True), "item 9"), (dict(aot=True),
-                                                     "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            TC.ExecPlan(**kw)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TC.ExecPlan(aot=True)
     assert TC.ExecPlan(chunk_size=4).chunk_size == 4
+    # shard=True on a single device: repro's degrade contract
+    # (tests/test_experiment.py), the port's warning repro's without its
+    # XLA_FLAGS hint
+    assert jax.local_device_count() == 1
+    msgs = []
+    for mod in (JC, TC):
+        with pytest.warns(UserWarning, match="single local device") as rec:
+            assert mod.ExecPlan(shard=True).resolved_devices() is None
+        msgs.append(str(rec[0].message))
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            assert mod.ExecPlan(shard=True).resolved_devices(
+                warn=False) is None
+            assert mod.ExecPlan(shard=False).resolved_devices() is None
+    assert msgs[0].startswith(msgs[1])
+
+
+def test_exec_plan_shard_over_cards(monkeypatch):
+    """Over more than one card sharding is not ported and raises; one
+    card of several (``devices=1``) and a run on the CPU degrade."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert TC.ExecPlan(shard=True).num_devices() == 4
+    assert TC.ExecPlan(shard=True, devices=2).num_devices() == 2
+    with pytest.raises(NotImplementedError, match="over 4 cards.*item 9"):
+        TC.ExecPlan(shard=True).resolved_devices()
+    with pytest.raises(NotImplementedError, match="over 2 cards"):
+        TC.ExecPlan(shard=True, devices=2).resolved_devices(warn=False)
+    for plan, dev in ((TC.ExecPlan(shard=True, devices=1), None),
+                      (TC.ExecPlan(shard=True), "cpu")):
+        with pytest.warns(UserWarning, match="single local device"):
+            assert plan.resolved_devices(device=dev) is None
+    assert TC.ExecPlan(shard=False).resolved_devices() is None
 
 
 def test_unported_and_bad_cells_raise(data):

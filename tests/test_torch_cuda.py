@@ -264,11 +264,121 @@ def _card_bank(seed):
     return bank, tx[:n * ANOMALY_WINDOW].reshape(n, ANOMALY_WINDOW, -1)
 
 
+@functools.lru_cache(maxsize=1)
+def _card_seq_bank():
+    """A small ``SeqDetector`` bank trained on the card (2 rounds at lr
+    1e-4: the scan forward and backward, the fused round kernel) and the
+    same pool of (16, 112) windows."""
+    from repro_torch.core.simulate import SimConfig
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.models.detector import SeqDetector
+    from repro_torch.serving.anomaly import train_model_bank
+    _, wins = _card_bank(0)
+    dx, counts = _seq_inputs(200)[1:3]
+    cfg = SimConfig(scheme="tolfl", num_devices=10, num_clusters=5,
+                    rounds=2, lr=1e-4, dropout=False, seed=0)
+    before = (tc.ROUND_LAUNCHES, rs.LAUNCHES, rs.BWD_LAUNCHES)
+    bank = train_model_bank(SeqDetector(), dx, counts, cfg)
+    assert (tc.ROUND_LAUNCHES - before[0], rs.BWD_LAUNCHES - before[2]) \
+        == (2 * cfg.rounds, 2 * cfg.rounds)
+    assert rs.LAUNCHES - before[1] >= 2 * cfg.rounds
+    return bank, wins
+
+
 def _direct(bank, params, x):
-    """Direct scoring of one model at the batch shape of ``x`` (B, W, D)."""
-    B, W, D = x.shape
-    return bank.detector.anomaly_scores(params, x.reshape(B * W, D)).reshape(
-        B, W)
+    """Direct scoring of one model at the batch shape of ``x`` (B, W, D),
+    through the score path's row-stable products."""
+    from repro_torch.serving.anomaly import engine
+    return engine.score_windows(bank.detector, params, x)
+
+
+def _bank(kind):
+    return _card_bank(0) if kind == "ae" else _card_seq_bank()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bias", [
+    (2048, 112, 128, True), (2048, 128, 64, True), (2048, 32, 64, True),
+    (2048, 128, 112, True), (14_336, 16, 16, True), (14_336, 16, 16, False),
+    (32, 112, 128, True), (7, 5, 33, True), (1, 1, 1, False),
+    (100_003, 16, 8, True)])
+def test_row_dense_cuda_kernel(cuda_device, M, K, N, bias):
+    """The row-stable product against its plain version within
+    ``error_bound`` (two float32 summation orders), and every row the
+    same bits alone as inside the batch."""
+    from repro_torch.kernels import row_dense as rd
+    g = torch.Generator(device=cuda_device).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=cuda_device) * 3
+    w = torch.randn((K, N), generator=g, device=cuda_device)
+    b = torch.randn((N,), generator=g, device=cuda_device) if bias else None
+    before = rd.LAUNCHES
+    got = rd.row_dense(x, w, b)
+    torch.cuda.synchronize()
+    assert rd.LAUNCHES == before + 1 and got.shape == (M, N)
+    err = (got.double() - rd.row_dense_plain(x, w, b).double()).abs()
+    assert bool((err <= rd.error_bound(x, w, b)).all()), float(err.max())
+    for i in sorted({0, M // 2, M - 1}):
+        assert torch.equal(rd.row_dense(x[i:i + 1], w, b)[0], got[i])
+    assert torch.equal(rd.row_dense(x[:M // 3 + 1], w, b), got[:M // 3 + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ae", "seq"])
+def test_anomaly_scores_bitwise_across_buckets(cuda_device, kind):
+    """A window's scores are the same bits alone (bucket 1), at the head
+    of a padded 8-bucket and inside a full 64-bucket, against rows 0 and
+    1 (``repro``'s padded-equals-exact contract, on the card)."""
+    import numpy as np
+
+    from repro_torch.serving.anomaly import engine
+    bank, wins = _bank(kind)
+    x = torch.from_numpy(wins[np.arange(64) % len(wins)]).to(cuda_device)
+    x *= 1.0 + 0.5 * (torch.arange(64, device=cuda_device)
+                      // len(wins))[:, None, None]     # 64 distinct windows
+    entries = {bs: engine.score_entry(bank.detector, bank.row_params,
+                                      (bs, ANOMALY_WINDOW, bank.input_dim)
+                                      )[0] for bs in (1, 8, 64)}
+    for row in (0, 1):
+        for e in entries.values():
+            e.row.fill_(row)
+        entries[64].x.copy_(x)
+        entries[64].replay()
+        full = entries[64].out.clone()
+        for i in range(0, 64, 9):
+            entries[1].x.copy_(x[i:i + 1])
+            entries[1].replay()
+            entries[8].x.zero_()
+            entries[8].x[0].copy_(x[i])
+            entries[8].replay()
+            assert torch.equal(entries[1].out[0], full[i]), (row, i)
+            assert torch.equal(entries[8].out[0], full[i]), (row, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [1, 8, 64])
+def test_seq_bucket_graph_equals_eager_core(cuda_device, bs):
+    """A Seq bucket's CUDA graph, which holds the scan kernel, replays
+    the eager core bit for bit."""
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.serving.anomaly import engine
+    bank, _ = _card_seq_bank()
+    before = rs.LAUNCHES
+    entry, source = engine.score_entry(bank.detector, bank.row_params,
+                                       (bs, ANOMALY_WINDOW, bank.input_dim))
+    assert entry.graph is not None
+    if source == "capture":            # two warm-ups and the capture
+        assert rs.LAUNCHES - before == 3
+    core = engine.score_core(bank.detector)
+    g = torch.Generator(device=cuda_device).manual_seed(bs)
+    for row in (0, 1, bank.num_clients):
+        entry.x.copy_(torch.randn(entry.x.shape, generator=g,
+                                  device=cuda_device) * 50)
+        entry.row.fill_(row)
+        entry.replay()
+        want = core(bank.row_params,
+                    torch.tensor([row], device=cuda_device), entry.x)
+        torch.cuda.synchronize()
+        assert torch.equal(entry.out, want), row
 
 
 @pytest.mark.cuda
@@ -762,3 +872,38 @@ def test_serving_prefill_attention_kernel(cuda_device, dtype, kernel):
     assert fa.LAUNCHES == n_attn
     assert fa.TC_LAUNCHES == (n_attn if kernel == "tensor_core" else 0)
     assert torch.isfinite(logits).all()
+
+
+@pytest.mark.cuda
+def test_qk_norm_prefill_on_card_matches_cpu(cuda_device):
+    """Qwen3's reduced config (qk-norm, 2 layers) in float32 on 2 kv
+    heads: prefill and two decode steps on the card agree with the CPU
+    within 1e-4, the prefill through the attention kernel."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    cfg = ARCHS["qwen3-8b"].reduced()
+    cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, num_kv_heads=2))
+    assert cfg.attention.qk_norm
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 98),
+                           generator=torch.Generator().manual_seed(1))
+    dev = P.tree_map_with_path(lambda _, x: x.to(cuda_device), params)
+    outs = []
+    for p, toks in ((params, tokens), (dev, tokens.to(cuda_device))):
+        fa.LAUNCHES = 0
+        logits, cache = prefill(p, cfg, {"tokens": toks[:, :96]})
+        assert fa.LAUNCHES == (2 if toks.is_cuda else 0)
+        steps = [logits]
+        cache = pad_cache(cache, cfg, 96, 98)
+        for t in (96, 97):
+            logits, cache = decode_step(p, cfg, toks[:, t:t + 1], cache, t)
+            steps.append(logits)
+        outs.append([s.float().cpu() for s in steps])
+    for want, got in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -4,8 +4,9 @@ against ``repro``'s.
 Port of ``tests/test_experiment.py``'s contracts, plus parity:
 
 * **ExecPlan validation** — ``chunk_size`` / ``devices`` <= 0 raise
-  ``repro``'s ``ValueError``; ``shard=True`` raises ``NotImplementedError``
-  (scenario sharding is not ported).
+  ``repro``'s ``ValueError``; ``shard=True`` on one device warns and
+  degrades to the unsharded path as ``repro``'s does, with the same
+  results (sharding over several cards is not ported).
 * **plan() is host work** — it runs here, with no card and no ``device``
   argument, and every sampled trace lies on the CPU.  For every spec of
   this file it equals ``repro``'s plan: the same ``describe()`` text; the
@@ -145,16 +146,52 @@ def test_execplan_rejects_nonpositive_devices():
 
 
 def test_execplan_shard_and_plan_check_not_ported(data):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.ExecPlan(shard=True)
     spec = T.ExperimentSpec(data=_data_spec(T, data), base=_base(T),
                             cells=(T.CellSpec("tolfl", 5),),
                             traces=T.TraceSpec.explicit(T.NO_FAILURE))
+    # shard=True on one device: one warning an execute, the unsharded
+    # path's results bit for bit
+    sharded = dataclasses.replace(spec, exec_plan=T.ExecPlan(shard=True))
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        got = T.run_experiment(sharded, device="cpu")
+    assert len(rec) == 1 and str(rec[0].message).startswith(
+        "ExecPlan(shard=True) found a single local device")
+    _assert_equal_results(T.run_experiment(spec, device="cpu").results[0],
+                          got.results[0])
+    assert T.plan(sharded).describe() == T.plan(spec).describe()
     with pytest.raises(NotImplementedError, match="item 11"):
         T.plan(spec, check=True)
     p = T.plan(spec)
     with pytest.raises(NotImplementedError, match="item 11"):
         p.static_report()
+
+
+def test_execplan_shard_degrades_like_repro(data):
+    """``repro``'s ``test_execplan_shard_degrades_on_single_device``
+    through both pipelines: a ``shard=True`` spec warns once in each
+    ``execute`` and runs unsharded, the port's results ``repro``'s within
+    the campaign tolerances (``repro``'s inits passed in)."""
+    assert jax.local_device_count() == 1
+    jspec, tspec = _both(lambda api: api.ExperimentSpec(
+        data=_data_spec(api, data), base=_base(api),
+        cells=(api.CellSpec("tolfl", 5),),
+        traces=api.TraceSpec(traces=tuple(_traces(api, 2))),
+        seeds=api.SeedSpec(SEEDS), exec_plan=api.ExecPlan(shard=True)))
+    assert_same_plan(JX.plan(jspec), T.plan(tspec))
+    params0 = [_repro_draws(s, 1, jspec.data.model)[0] for s in SEEDS]
+    with pytest.warns(UserWarning, match="single local device"):
+        want = JX.execute(JX.plan(jspec)).results[0]
+    with pytest.warns(UserWarning, match="single local device"):
+        got = T.execute(T.plan(tspec), params0=params0,
+                        device="cpu").results[0]
+    np.testing.assert_array_equal(got.trace_index, want.trace_index)
+    np.testing.assert_array_equal(got.seed, want.seed)
+    np.testing.assert_array_equal(got.iso_active, want.iso_active)
+    np.testing.assert_allclose(got.loss_curves, want.loss_curves, rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(got.auroc_used, want.auroc_used, rtol=0,
+                               atol=AUROC_ATOL)
 
 
 def test_plan_rejects_empty_grids(data):

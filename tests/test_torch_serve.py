@@ -1,4 +1,5 @@
-"""Port parity for serving: RecurrentGemma's and RWKV6's prefill,
+"""Port parity for serving: RecurrentGemma's, RWKV6's and the dense GQA
+decoders' (Granite-3-2B, InternLM2-1.8B, Qwen1.5-0.5B, Qwen3-8B) prefill,
 ``pad_cache`` and greedy ``decode_step`` against ``repro``'s
 ``prefill(..., use_pallas=True)`` (its Pallas kernels in interpret mode)
 and ``decode_step``, the configs, the cache tree and the launcher.
@@ -8,7 +9,10 @@ layer, d 256, window 64) runs at (B, S) = (2, 96), so the prompt is
 longer than the window and ``pad_cache`` rolls the ring; a 5-layer (rec,
 rec, local) variant adds the tail layers.  RWKV6's reduced config (two
 RWKV6 layers, d 256, 4 heads of 64) runs at (2, 128): ``repro``'s Pallas
-WKV kernel tiles time in blocks of 64.  Params come from ``repro``'s
+WKV kernel tiles time in blocks of 64.  The dense decoders' reduced
+configs (two attention layers, d 256, 4 heads of 64 on 4 kv heads; QKV
+bias for Qwen1.5, qk-norm for Qwen3, also on 2 kv heads) run at (2, 96)
+with full-length caches.  Params come from ``repro``'s
 ``init_params`` through the weight bridge, prompts from numpy.  Logits
 and every cache leaf agree within rtol = atol = 1e-4 (float32 sums in
 another order; ``repro``'s own two paths differ by ~1e-6 here).
@@ -35,16 +39,32 @@ from repro_torch.serving.inputs import synthetic_batch
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, STEPS = 2, 3
-PROMPT = {"recurrentgemma-9b": 96, "rwkv6-7b": 128}
 RG = "recurrentgemma-9b"
-#: (arch, layers): the reduced configs and RecurrentGemma's tail variant
-ARCH_CASES = [pytest.param(RG, 2, id="2"), pytest.param(RG, 5, id="5"),
-              pytest.param("rwkv6-7b", 2, id="rwkv6-7b")]
+#: the dense GQA decoders (full-length caches, no window)
+DENSE = ("granite-3-2b", "internlm2-1.8b", "qwen1.5-0.5b", "qwen3-8b")
+#: prompt lengths inside the Pallas kernels' block domains (one block of
+#: queries up to 256 for attention, 64-step WKV blocks)
+PROMPT = {RG: 96, "rwkv6-7b": 128, **{a: 96 for a in DENSE}}
+#: (arch, layers): the reduced configs, RecurrentGemma's tail variant and
+#: the dense decoders, which ``reduced()`` cuts to 4 heads on 4 kv heads;
+#: layers -2 keeps 2 layers on 2 kv heads, so the reduced Qwen3 is a GQA
+#: decoder with qk-norm; -3 sets its ``norm_eps`` to 0.25, which the
+#: qk-norm must follow as ``repro``'s does
+ARCH_CASES = ([pytest.param(RG, 2, id="2"), pytest.param(RG, 5, id="5"),
+               pytest.param("rwkv6-7b", 2, id="rwkv6-7b")]
+              + [pytest.param(a, 2, id=a) for a in DENSE]
+              + [pytest.param("qwen3-8b", -2, id="qwen3-8b-gqa"),
+                 pytest.param("qwen3-8b", -3, id="qwen3-8b-norm-eps")])
 
 
 def _variant(cfg, n_layers):
     if n_layers == 2:
         return cfg
+    if n_layers == -2:
+        return dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, num_kv_heads=2))
+    if n_layers == -3:
+        return dataclasses.replace(cfg, norm_eps=0.25)
     return dataclasses.replace(cfg, num_layers=n_layers, recurrent=(
         dataclasses.replace(cfg.recurrent, block_pattern=(
             TB.RECURRENT, TB.RECURRENT, TB.LOCAL_ATTN))))
@@ -72,7 +92,7 @@ def test_prefill_pad_decode_match_repro(arch, n_layers):
     jp, _ = JT.init_params(jax.random.PRNGKey(0), jcfg)
     tp = TP.from_numpy_tree(jax.tree.map(np.asarray, jp), device="cpu")
     assert TT.unit_counts(tcfg) == JT.unit_counts(jcfg)
-    toks = np.random.default_rng(n_layers).integers(
+    toks = np.random.default_rng(abs(n_layers)).integers(
         0, jcfg.vocab_size, (B, S + STEPS))
 
     jl, jc = JD.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :S],
@@ -133,7 +153,8 @@ def test_cache_shape_and_init_cache(arch, n_layers):
     assert all(not x.any() for _, x in TP.tree_items(zeros))
 
 
-@pytest.mark.parametrize("arch,n_layers", [(RG, 5), ("rwkv6-7b", 2)])
+@pytest.mark.parametrize("arch,n_layers", [(RG, 5), ("rwkv6-7b", 2)]
+                         + [(a, 2) for a in DENSE])
 def test_init_params_has_repros_tree(arch, n_layers):
     """Same keys and shapes as repro's init, all float32; the stacked
     units hold independent draws."""
@@ -149,6 +170,13 @@ def test_init_params_has_repros_tree(arch, n_layers):
         lam = got["units"]["l0"]["mix"]["lam"]
         a = torch.sigmoid(lam)
         assert float(a.min()) >= 0.9 - 1e-6 and float(a.max()) <= 0.999 + 1e-6
+    elif arch in DENSE:
+        mix = got["units"]["l0"]["mix"]
+        assert ("b" in mix["q"]) == tcfg.attention.qkv_bias
+        assert ("q_norm" in mix) == tcfg.attention.qk_norm
+        if tcfg.attention.qk_norm:
+            assert torch.equal(mix["k_norm"]["scale"],
+                               torch.ones_like(mix["k_norm"]["scale"]))
     else:
         ln = got["units"]["l0"]["mix"]["ln_x"]
         assert torch.equal(ln["scale"], torch.ones_like(ln["scale"]))
@@ -159,7 +187,7 @@ def test_init_params_has_repros_tree(arch, n_layers):
                in zip(titems, TP.tree_items(again)))
 
 
-@pytest.mark.parametrize("arch", [RG, "rwkv6-7b"])
+@pytest.mark.parametrize("arch", [RG, "rwkv6-7b", *DENSE])
 def test_configs_equal_repros(arch):
     jcfg, tcfg = JARCHS[arch], TARCHS[arch]
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
@@ -174,8 +202,15 @@ def test_configs_equal_repros(arch):
 
 
 def test_unported_archs_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("qwen3-8b")
+    assert sorted(NOT_PORTED) == sorted((
+        "whisper-large-v3", "llama4-maverick-400b-a17b", "internvl2-26b",
+        "llama4-scout-17b-a16e"))
+    for arch in NOT_PORTED:
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_arch(arch)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        TT.init_params(torch.Generator(), JARCHS["whisper-large-v3"]
+                       .reduced(), "cpu")
     moe = TB.ModelConfig(family=TB.MOE, num_layers=2,
                          moe=TB.MoEConfig(num_experts=4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -22,6 +22,12 @@ timeline, failovers/failbacks, bucket use and drops exactly; scores
 within rtol 1e-4 / atol 1e-5 (``test_torch_trained.py``'s tolerances:
 float32 sums in another order than XLA over the training rounds); the
 regime AUROCs within 1e-3; the alive table exactly.
+
+The same bank, routing and service contracts hold for a ``SeqDetector``
+bank (``repro``'s ``SeqDetector(input_dim=112, window=16, d_model=8)`` of
+``tests/test_serving_anomaly.py``, at lr 1e-4, where its loss stays
+finite), against ``repro``'s Seq bank and service with ``repro``'s init
+passed as ``params0``.
 """
 import dataclasses
 
@@ -32,14 +38,17 @@ import torch
 
 from repro.core import processes as JP
 from repro.core.simulate import SimConfig as JSimConfig
+from repro.models.detector import SeqDetector as JSeq
 from repro.serving import anomaly as JA
 from repro.serving.anomaly import engine as JE
 from repro_torch.configs.autoencoder_paper import AutoencoderConfig as TCfg
 from repro_torch.core import failure as TF
 from repro_torch.core import processes as TP
 from repro_torch.core import simulate as TS
+from repro_torch.models.detector import SeqDetector as TSeq
 from repro_torch.models.detector import as_detector
-from repro_torch.models.params import to_numpy_tree, tree_items
+from repro_torch.models.params import (from_numpy_tree, to_numpy_tree,
+                                       tree_items)
 from repro_torch.serving import anomaly as TA
 from repro_torch.serving.anomaly import engine as TE
 from test_torch_simulate import AE, _params0
@@ -359,6 +368,10 @@ def _drive(svc, wins, labels, ticks=6):
 
 @pytest.mark.parametrize("name", ["head_dead", "cascade"])
 def test_service_matches_repro(name, bank, jbank, windows):
+    _assert_service_matches(name, bank, jbank, windows)
+
+
+def _assert_service_matches(name, bank, jbank, windows):
     wins, labels = windows
     failure = _alive_cases()[name]
     kw = dict(sample_seed=3, horizon=8)
@@ -385,3 +398,82 @@ def test_service_matches_repro(name, bank, jbank, windows):
     for f in ("auroc_head", "auroc_isolated"):
         np.testing.assert_allclose(getattr(tr, f), getattr(jr, f), rtol=0,
                                    atol=AUROC_ATOL, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# a SeqDetector bank: the same contracts, against repro's Seq bank
+# ---------------------------------------------------------------------------
+SEQ = dict(input_dim=112, window=16, d_model=8)
+SEQ_CFG = dict(CFG, lr=1e-4)
+
+
+@pytest.fixture(scope="module")
+def seq_bank(tiny_padded):
+    dx, counts = tiny_padded
+    p0 = JSeq(**SEQ).init_params(jax.random.PRNGKey(0))
+    return TA.train_model_bank(
+        TSeq(**SEQ), dx, counts, TS.SimConfig(**SEQ_CFG),
+        params0=from_numpy_tree(jax.tree.map(np.asarray, p0), device="cpu"),
+        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jseq_bank(tiny_padded):
+    dx, counts = tiny_padded
+    return JA.train_model_bank(JSeq(**SEQ), dx, counts,
+                               JSimConfig(**SEQ_CFG))
+
+
+def seq_score(params, x):
+    return TSeq(**SEQ).anomaly_scores(params, torch.from_numpy(x)).numpy()
+
+
+def test_seq_bank_matches_repro(seq_bank, jseq_bank):
+    assert seq_bank.detector == TSeq(**SEQ)
+    want = dict(tree_items(jax.tree.map(np.asarray, jseq_bank.row_params)))
+    got = dict(tree_items(to_numpy_tree(seq_bank.row_params)))
+    assert sorted(got) == sorted(want)
+    for path, arr in want.items():
+        assert got[path].shape == arr.shape == (N + 1,) + arr.shape[1:]
+        assert got[path].dtype == arr.dtype
+        np.testing.assert_allclose(got[path], arr, rtol=RTOL, atol=ATOL,
+                                   err_msg=str(path))
+    rows = dict(tree_items(seq_bank.row_params))
+    for path, g in tree_items(seq_bank.global_params):
+        assert torch.equal(rows[path][0], g)
+    (_, g), = tree_items(seq_bank.global_params)[:1]
+    (_, i), = tree_items(seq_bank.iso_params)[:1]
+    assert not torch.equal(i[0], g) and not torch.equal(i[0], i[1])
+    assert seq_bank.input_dim == jseq_bank.input_dim
+
+
+def test_seq_routing_scores_bit_identical_to_direct(seq_bank, windows):
+    """Failover, head and padded-bucket scores of the Seq bank equal its
+    models scored directly, bit for bit."""
+    wins, _ = windows
+    svc = service(seq_bank, (1, 8), head_dead_trace(cluster=0))
+    svc.submit(1, wins[0])           # cluster 0, head dead
+    svc.submit(7, wins[1])           # cluster 3, head alive
+    iso, head = sorted(svc.tick(), key=lambda r: r.client)
+    assert (iso.served_by, head.served_by) == ("isolated", "head")
+    np.testing.assert_array_equal(
+        iso.scores, seq_score(seq_bank.client_iso_params(1), wins[0]))
+    np.testing.assert_array_equal(
+        head.scores, seq_score(seq_bank.global_params, wins[1]))
+    alone = service(seq_bank, (1,))
+    alone.submit(3, wins[0])
+    (solo,) = alone.tick()
+    padded = service(seq_bank, (1, 8))
+    for c in (3, 4, 5):
+        padded.submit(c, wins[0])    # n=3 -> bucket 8, 5 padded rows
+    assert all(np.array_equal(r.scores, solo.scores)
+               for r in padded.tick())
+    got = TE.score_windows(seq_bank.detector, seq_bank.global_params,
+                           torch.from_numpy(wins[:3]))
+    np.testing.assert_array_equal(got.numpy(), np.stack(
+        [seq_score(seq_bank.global_params, w) for w in wins[:3]]))
+
+
+@pytest.mark.parametrize("name", ["head_dead", "cascade"])
+def test_seq_service_matches_repro(name, seq_bank, jseq_bank, windows):
+    _assert_service_matches(name, seq_bank, jseq_bank, windows)
