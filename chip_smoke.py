@@ -95,7 +95,16 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    launches, and the tolfl bucket's device busy share and device time
    by operator under torch.profiler ([experiment]); and small SeqDetector
    and autoencoder experiments on the card against the CPU, the latter at
-   lr 1e-3 through its divergences ([experiment-reference]); the port's
+   lr 1e-3 through its divergences ([experiment-reference]); the same
+   spec at 10 rounds with ``ExecPlan(aot=True)`` in two fresh processes
+   sharing a new ``REPRO_CACHE_DIR``: the first must build every
+   ``csrc/*.cu`` with nvcc (every bucket "compiled"), the second none
+   (every bucket "disk"), a repeat reads "memory", and the curves and
+   AUROCs must be the same bits with ``aot`` on and off in both
+   processes ([aot]: nvcc and load seconds, warm-up and execute seconds
+   a bucket); ``plan(spec, check=True)`` on the full spec, one round a
+   bucket on the meta device, with zero findings and each bucket's aten
+   ops against its budget ([plancheck]); the port's
    four example scripts with ``--smoke`` on the card ([examples]);
 4. drives slice 2's main path, RecurrentGemma-9B serving
    (``prefill``, ``pad_cache``, greedy ``decode_step``), at full width
@@ -2218,6 +2227,16 @@ def _exp_spec(model, split, dx, counts, seeds, rounds=None, lr=1e-3,
         seeds=X.SeedSpec(tuple(range(seeds))))
 
 
+def _exp_seeds(split, dx, counts):
+    """(traces in the tolfl cell, seeds): seeds enough that [experiment]'s
+    fused tolfl bucket holds at least ``EXP_MIN_SCENARIOS`` scenarios."""
+    from repro_torch.core import experiment as X
+    from repro_torch.models.detector import SeqDetector
+    n_traces = len(X.plan(_exp_spec(SeqDetector(), split, dx, counts, 1))
+                   .cells[0].traces)
+    return n_traces, -(-EXP_MIN_SCENARIOS // n_traces)
+
+
 def _bucket_launches(bucket, cfg, rounds):
     """(scan forward, scan backward, fused round) launches a bucket's
     round loop makes: per round the training gradient (a forward and a
@@ -2251,13 +2270,9 @@ def phase_experiment(torch, split, dx, counts):
     and every other scenario must stay finite, AUROCs in [0, 1].  Returns
     the launches of the two runs (the scans: SeqDetector's alone)."""
     import numpy as np
-    from repro_torch.configs.autoencoder_paper import COMMSML
     from repro_torch.core import campaign
     from repro_torch.core import experiment as X
-    from repro_torch.models.detector import SeqDetector
-    n_traces = len(X.plan(_exp_spec(SeqDetector(), split, dx, counts, 1))
-                   .cells[0].traces)
-    seeds = -(-EXP_MIN_SCENARIOS // n_traces)
+    n_traces, seeds = _exp_seeds(split, dx, counts)
     timings = []
     run_group, run_multi = campaign._run_group, campaign._run_multi_group
 
@@ -2270,8 +2285,8 @@ def phase_experiment(torch, split, dx, counts):
         return run
 
     launches = {}
-    for body, model, lr in (("seq", SeqDetector(), SEQ_LR),
-                            ("ae", COMMSML, AE_LR)):
+    for body in ("seq", "ae"):
+        model, lr = _body(body)
         spec = _exp_spec(model, split, dx, counts, seeds, lr=lr)
         t0 = time.perf_counter()
         plan = X.plan(spec)
@@ -2504,6 +2519,190 @@ def phase_experiment_reference(torch, split, dx, counts):
             f"finite round {float(rel.max()):.3e}; AUROC of the "
             f"finite seeds max abs diff "
             f"{float(np.max(np.abs(g.auroc_used - h.auroc_used)[fine])):.3e}")
+
+
+AOT_ROUNDS = 10   # [aot]'s depth: the [experiment] spec cut to 10 rounds
+#: [aot]'s runs in each process: (body, aot), in order
+AOT_RUNS = {"first": (("seq", True), ("ae", True)),
+            "second": (("seq", True), ("seq", True), ("seq", False),
+                       ("ae", True), ("ae", False))}
+
+
+def _body(name):
+    """(model, lr) of [experiment]'s two detector bodies."""
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.models.detector import SeqDetector
+    return (SeqDetector(), SEQ_LR) if name == "seq" else (COMMSML, AE_LR)
+
+
+def aot_child(torch, which, out_dir):
+    """One of [aot]'s two processes (``--aot-child first|second``, with
+    ``REPRO_CACHE_DIR`` set by the parent): [experiment]'s spec at
+    ``AOT_ROUNDS`` rounds through ``execute``, for each run of
+    ``AOT_RUNS[which]``; every run's curves and AUROCs go to
+    ``<out_dir>/<which>-<i>.npz``, its compile report and launches (the
+    counters set to 0 just before the run and read just after) to
+    ``<out_dir>/<which>.json``."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import experiment as X
+    from repro_torch.core.campaign import ExecPlan
+    split, dx, counts = _paper_split()
+    _, seeds = _exp_seeds(split, dx, counts)
+    record = []
+    for i, (body, aot) in enumerate(AOT_RUNS[which]):
+        model, lr = _body(body)
+        spec = dataclasses.replace(
+            _exp_spec(model, split, dx, counts, seeds, rounds=AOT_ROUNDS,
+                      lr=lr), exec_plan=ExecPlan(aot=aot))
+        plan = X.plan(spec)
+        _zero_seq_counts()
+        t0 = time.perf_counter()
+        res = X.execute(plan)
+        wall = time.perf_counter() - t0
+        got = _seq_counts()
+        want = [0, 0, 0]
+        for b in plan.buckets:
+            cfg = plan.cells[b.cell_indices[0]].cfg
+            for rounds in ((AOT_ROUNDS, 1) if aot else (AOT_ROUNDS,)):
+                for j, n in enumerate(_bucket_launches(b, cfg, rounds)):
+                    want[j] += n
+        if body == "ae":
+            want[:2] = [0, 0]
+        arrays = {}
+        for c, r in zip(plan.cells, res.results):
+            arrays[f"loss{c.index}"] = r.loss_curves
+            arrays[f"auroc{c.index}"] = (r.auroc_used if hasattr(
+                r, "auroc_used") else r.best_auroc)
+        np.savez(Path(out_dir) / f"{which}-{i}.npz", **arrays)
+        rep = res.compile_report
+        log(f"[aot] {which} process, run {i} ({body}, aot={aot}): "
+            f"{res.num_scenarios} scenarios x {AOT_ROUNDS} rounds in "
+            f"{wall:.3f} s\n" + rep.describe())
+        record.append(dict(
+            body=body, aot=aot, wall=wall, launches=list(got),
+            want=want + [0], xla=rep.xla, cache_dir=rep.cache_dir,
+            buckets=[dataclasses.asdict(b) for b in rep.buckets]))
+    (Path(out_dir) / f"{which}.json").write_text(json.dumps(record))
+    return 0
+
+
+def phase_aot(torch, smi):
+    """``ExecPlan(aot=True)`` and the kernel cache across processes:
+    [experiment]'s spec (tolfl k = 5, fl, IFCA M = 3; SeqDetector and the
+    paper autoencoder; 64 scenarios a bucket) at ``AOT_ROUNDS`` rounds in
+    two fresh processes sharing a new, empty ``REPRO_CACHE_DIR``
+    (:func:`aot_child`).  The first process's first run must build every
+    ``csrc/*.cu`` (``misses`` = their count, every bucket "compiled");
+    the second process's first run must build none and load them all
+    (``misses`` 0, ``hits`` their count, every bucket "disk"); a repeat in
+    a process reads "memory" and counts nothing.  Every bucket's
+    predicted shapes must match.  Each body's curves and AUROCs must be
+    the same bits (``np.array_equal``, non-finite values where they
+    diverge included) in every run, with ``aot`` on or off and in either
+    process; each run's launches must be its buckets' loops plus, with
+    ``aot``, one warm-up round a bucket.  Returns those launches."""
+    import os
+    import tempfile
+    import numpy as np
+    from repro_torch.kernels import _build
+    n_src = len(_build.sources())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-aot-") as tmp:
+        env = dict(os.environ, REPRO_CACHE_DIR=str(Path(tmp) / "cache"))
+        walls = {}
+        for which in AOT_RUNS:
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--aot-child", which, "--aot-out", tmp],
+                           env=env, timeout=900, check=True)
+            walls[which] = time.perf_counter() - t0
+        runs = {which: json.loads((Path(tmp) / f"{which}.json").read_text())
+                for which in AOT_RUNS}
+        arrays = {(which, i): dict(np.load(Path(tmp) / f"{which}-{i}.npz"))
+                  for which in AOT_RUNS for i in range(len(AOT_RUNS[which]))}
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"[aot] {what}")
+
+    first, second = runs["first"], runs["second"]
+    want = {("first", 0): ("compiled", n_src, 0),
+            ("second", 0): ("disk", 0, n_src)}
+    for which, rs in runs.items():
+        for i, r in enumerate(rs):
+            cache, misses, hits = want.get(
+                (which, i), ("memory", 0, 0) if r["aot"] else ("", 0, 0))
+            caches = [b["cache"] for b in r["buckets"]]
+            check(caches == [cache] * len(caches),
+                  f"{which} run {i}: caches {caches}, expected {cache}")
+            check((r["xla"]["misses"], r["xla"]["hits"]) == (misses, hits),
+                  f"{which} run {i}: xla {r['xla']}, expected misses "
+                  f"{misses} and hits {hits}")
+            check(all(b["aval_match"] is (True if r["aot"] else None)
+                      for b in r["buckets"]),
+                  f"{which} run {i}: aval_match "
+                  f"{[b['aval_match'] for b in r['buckets']]}")
+            check(r["launches"] == r["want"], f"{which} run {i} "
+                  f"({r['body']}): launches {r['launches']}, expected "
+                  f"{r['want']}")
+    for body in ("seq", "ae"):
+        keys = [(which, i) for which in AOT_RUNS
+                for i, (b, _) in enumerate(AOT_RUNS[which]) if b == body]
+        ref = arrays[keys[0]]
+        for key in keys[1:]:
+            got = arrays[key]
+            check(sorted(got) == sorted(ref) and all(
+                np.array_equal(got[name], ref[name], equal_nan=True)
+                for name in ref),
+                f"{body}: {key} differs from {keys[0]} (aot on/off must "
+                f"give the same bits)")
+    nvcc_s = first[0]["buckets"][0]["compile_s"]
+    load_s = second[0]["buckets"][0]["compile_s"]
+    log(f"[aot] {smi}: {n_src} kernel libraries built by nvcc in "
+        f"{nvcc_s:.3f} s in the first process, loaded from the cache "
+        f"directory in {load_s:.3f} s (compile_s) in the second; warm-up "
+        f"rounds (lower_s) first "
+        + ", ".join(f"{b['lower_s']:.3f}" for b in first[0]["buckets"])
+        + " s, second "
+        + ", ".join(f"{b['lower_s']:.3f}" for b in second[0]["buckets"])
+        + " s; execute_s a bucket, Seq: first "
+        + ", ".join(f"{b['execute_s']:.3f}" for b in first[0]["buckets"])
+        + ", second (disk) "
+        + ", ".join(f"{b['execute_s']:.3f}" for b in second[0]["buckets"])
+        + ", second (memory) "
+        + ", ".join(f"{b['execute_s']:.3f}" for b in second[1]["buckets"])
+        + ", aot off "
+        + ", ".join(f"{b['execute_s']:.3f}" for b in second[2]["buckets"])
+        + f" s; processes {walls['first']:.1f} s and "
+        f"{walls['second']:.1f} s; curves and AUROCs bitwise equal with "
+        f"aot on and off, in both processes")
+    totals = [sum(r["launches"][j] for rs in runs.values() for r in rs)
+              for j in range(3)]
+    return {"rglru_scan": totals[0], "rglru_scan_bwd": totals[1],
+            "tolfl_round_update": totals[2]}
+
+
+def phase_plancheck(torch, split, dx, counts):
+    """``plan(spec, check=True)`` on [experiment]'s spec at full shapes,
+    for both bodies: one round of each bucket on the meta device, which
+    must give zero findings and launch no kernel; each bucket's aten ops
+    a round beside its budget."""
+    from repro_torch.core import experiment as X
+    _, seeds = _exp_seeds(split, dx, counts)
+    _zero_seq_counts()
+    for body in ("seq", "ae"):
+        model, lr = _body(body)
+        t0 = time.perf_counter()
+        plan = X.plan(_exp_spec(model, split, dx, counts, seeds, lr=lr),
+                      check=True)
+        rep = plan.report
+        log(f"[plancheck] {body}: plan(check=True) in "
+            f"{time.perf_counter() - t0:.3f} s\n" + rep.describe())
+        if not rep.clean or len(rep.buckets) != len(plan.buckets):
+            raise AssertionError(f"[plancheck] {body}: {rep.describe()}")
+    if any(_seq_counts()):
+        raise AssertionError(f"[plancheck] the meta rounds launched "
+                             f"kernels: {_seq_counts()}")
 
 
 def phase_examples(torch):
@@ -3371,6 +3570,11 @@ def main() -> int:
         "a checkout (e.g. a git archive) of another commit: its combine, "
         "RG-LRU and WKV kernels are built too and timed in turns with the "
         "current ones in [times]"))
+    ap.add_argument("--aot-child", choices=tuple(AOT_RUNS), default=None,
+                    help="run one of [aot]'s processes (phase_aot starts "
+                         "them)")
+    ap.add_argument("--aot-out", default=None,
+                    help="where an --aot-child process writes its results")
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -3384,6 +3588,8 @@ def main() -> int:
     from repro_torch.kernels import row_dense
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.aot_child:
+        return aot_child(torch, args.aot_child, args.aot_out)
 
     t_start = time.perf_counter()
     name, smi, parent = phase_device(torch, args.parent)
@@ -3420,8 +3626,11 @@ def main() -> int:
     phase_seq_no_sync(torch, split, dx, counts)
     exp = phase_experiment(torch, split, dx, counts)
     phase_experiment_reference(torch, split, dx, counts)
+    aot = phase_aot(torch, smi)
+    phase_plancheck(torch, split, dx, counts)
     launches["tolfl_round_update"] += (seq["tolfl_round_update"]
-                                       + exp["tolfl_round_update"])
+                                       + exp["tolfl_round_update"]
+                                       + aot["tolfl_round_update"])
     phase_examples(torch)
     kernels = phase_times(torch, launches, errs, parent)
     serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
@@ -3438,12 +3647,13 @@ def main() -> int:
         phase_serve_reference(torch, arch, tag)
     serve_launches["rglru_scan"] += (
         seq["rglru_scan"] + exp["rglru_scan"] + seq_bank["rglru_scan"]
-        + seq_serve["launches"]["rglru_scan"])
+        + seq_serve["launches"]["rglru_scan"] + aot["rglru_scan"])
     serve_launches["rglru_scan graph_launches"] = \
         seq_serve["graph_launches"]["rglru_scan"]
     serve_launches["rglru_scan_bwd"] = (seq["rglru_scan_bwd"]
                                         + exp["rglru_scan_bwd"]
-                                        + seq_bank["rglru_scan_bwd"])
+                                        + seq_bank["rglru_scan_bwd"]
+                                        + aot["rglru_scan_bwd"])
     serve_errs["rglru_scan"] = max(serve_errs["rglru_scan"],
                                    seq_errs["rglru_scan"])
     serve_errs["rglru_scan_bwd"] = seq_errs["rglru_scan_bwd"]

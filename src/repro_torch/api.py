@@ -10,24 +10,31 @@ re-exported from one place::
     res = api.run_experiment(spec)          # == execute(plan(spec))
 
 See :mod:`repro_torch.core.experiment` for the spec -> plan -> execute
-contract and :mod:`repro_torch.core.campaign` for the execution
-mechanism.  :data:`NOT_PORTED` names what ``repro.api`` exports and the
-port does not have yet, each with the ROADMAP item that brings it.
+contract, :mod:`repro_torch.core.campaign` for the execution mechanism
+and :mod:`repro_torch.core.compilecache` for where the compiled kernel
+libraries live.  :data:`NOT_PORTED` names what ``repro.api`` exports and
+the port does not: nothing.
 """
 from repro_torch.configs.autoencoder_paper import AutoencoderConfig
 from repro_torch.core.baselines import (FaultyMultiModelConfig,
                                         MultiModelConfig, MultiModelResult,
                                         run_multimodel)
 from repro_torch.core.campaign import (MULTI_SCHEMES, CampaignResult, ExecPlan,
-                                       MultiCampaignResult, mean_ci95,
+                                       MultiCampaignResult,
+                                       clear_executable_caches, mean_ci95,
                                        run_campaign, run_fused_campaigns,
                                        run_fused_multimodel_campaigns,
                                        run_multimodel_campaign, sweep_grid)
-from repro_torch.core.experiment import (SINGLE_SCHEMES, BucketPlan, CellPlan,
-                                         CellSpec, DataSpec, ExecutionPlan,
-                                         ExperimentResult, ExperimentSpec,
-                                         SeedSpec, TraceSpec, cell, execute,
-                                         plan, run_experiment)
+from repro_torch.core.compilecache import (disable_persistent_cache,
+                                           enable_persistent_cache,
+                                           persistent_cache_dir,
+                                           xla_compile_stats)
+from repro_torch.core.experiment import (SINGLE_SCHEMES, BucketCompileStats,
+                                         BucketPlan, CellPlan, CellSpec,
+                                         CompileReport, DataSpec,
+                                         ExecutionPlan, ExperimentResult,
+                                         ExperimentSpec, SeedSpec, TraceSpec,
+                                         cell, execute, plan, run_experiment)
 from repro_torch.core.failure import (MAX_EVENTS, NO_FAILURE, FailureEvent,
                                       FailureSpec, FailureTrace,
                                       sample_rate_grid, sample_traces,
@@ -48,19 +55,8 @@ from repro_torch.serving.anomaly import (AnomalyService, ModelBank,
                                          ScoredWindow, ServiceConfig,
                                          ServiceReport, train_model_bank)
 
-#: ``repro.api`` names the port does not export yet.  All are the JAX
-#: package's compile accounting and executable caching, which the port's
-#: eager round loops do not have; each comes with ROADMAP queue 1, item 11
-#: (the persistent cache and AOT compilation of the experiment pipeline).
-NOT_PORTED = (
-    "CompileReport",              # ROADMAP queue 1, item 11
-    "BucketCompileStats",         # ROADMAP queue 1, item 11
-    "clear_executable_caches",    # ROADMAP queue 1, item 11
-    "enable_persistent_cache",    # ROADMAP queue 1, item 11
-    "disable_persistent_cache",   # ROADMAP queue 1, item 11
-    "persistent_cache_dir",       # ROADMAP queue 1, item 11
-    "xla_compile_stats",          # ROADMAP queue 1, item 11
-)
+#: ``repro.api`` names the port does not export: none left
+NOT_PORTED: tuple = ()
 
 __all__ = [
     # declarative pipeline
@@ -69,6 +65,10 @@ __all__ = [
     "CellPlan", "BucketPlan", "ExperimentResult",
     # execution policy + results
     "ExecPlan", "CampaignResult", "MultiCampaignResult", "mean_ci95",
+    # compilation & caching
+    "CompileReport", "BucketCompileStats", "clear_executable_caches",
+    "enable_persistent_cache", "disable_persistent_cache",
+    "persistent_cache_dir", "xla_compile_stats",
     # configs / schemes
     "AutoencoderConfig", "SimConfig", "MultiModelConfig", "Topology",
     "SINGLE_SCHEMES", "MULTI_SCHEMES",

@@ -353,17 +353,17 @@ def _multimodel_loop(det: DetectorModel, cfg: MultiModelConfig,
     S, M, P = models0.shape
     N, n_max, R = dx.shape[0], dx.shape[1], cfg.rounds
     faulty = bool(getattr(cfg, "faulty_updates", False))
-    generator = (torch.Generator(device=dev).manual_seed(dropout_seed)
+    generator = (sim.device_generator(dev, dropout_seed)
                  if cfg.dropout else None)
     # one (S, N, n_max, D) copy for the whole loop, as simulate._round_loop
-    dxs = dx.expand(S, *dx.shape).contiguous()
+    dxs = dx.repeat(S, 1, 1, 1)
     client_tr, server_tr = _split_trace(trace)
     live = model_valid > 0                                   # (S, M)
     slots = torch.arange(M, device=dev)
     inf = torch.full((), float("inf"), device=dev)
 
     def masks():
-        return (det.dropout_masks((S, N, n_max), generator)
+        return (det.dropout_masks((S, N, n_max), generator, dev)
                 if generator is not None else None)
 
     def grads(flat, keep):

@@ -46,8 +46,13 @@ chunks of at most that many scenarios (the last one padded by repeating
 scenario 0, the padding stripped), each one round loop and one copy to
 the host.  ``shard=True`` on one card (or on the CPU) warns and runs the
 unsharded path, whose results are the same, as ``repro`` does on one
-device; sharding over several cards and ahead-of-time compilation are
-not ported.
+device; sharding over several cards is not ported.  ``aot=True``
+resolves every kernel library before the first round (built by ``nvcc``
+or loaded from the cache directory of :mod:`repro_torch.core.compilecache`)
+and runs one round of each bucket's loop on zeros at the bucket's
+shapes, so each of its kernels has launched once before the real rounds
+(:func:`one_round`); the results are the same bits as with ``aot=False``.
+:func:`clear_executable_caches` drops what a process holds of them.
 
 RNG, by the port's rule that draws are operands:
 
@@ -71,15 +76,17 @@ RNG, by the port's rule that draws are operands:
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import DeviceLike
 from repro_torch.core import baselines as BL
+from repro_torch.core import compilecache
 from repro_torch.core import simulate as sim
 from repro_torch.core.baselines import MultiDraws, MultiModelConfig
 from repro_torch.core.failure import (Failure, FailureTrace, as_trace,
@@ -112,8 +119,10 @@ class ExecPlan:
         the results are the same.  Over more than one card it is not
         ported and raises ``NotImplementedError`` when the plan runs.
     aot
-        ``repro``'s ahead-of-time compilation: not ported,
-        ``aot=True`` raises ``NotImplementedError``.
+        Before the first round, resolve every kernel library and launch
+        the kernels of each bucket once at its shapes (see the module
+        docstring); the results do not change.  ``execute`` reports what
+        it cost (``experiment.CompileReport``).
 
     Invalid values raise ``ValueError`` at construction."""
     shard: bool = False
@@ -131,10 +140,6 @@ class ExecPlan:
             raise ValueError(
                 f"ExecPlan.devices must be a positive device count "
                 f"(or None for all local devices), got {self.devices}")
-        if self.aot:
-            raise NotImplementedError(
-                "ExecPlan(aot=True): ahead-of-time compilation is not "
-                "ported yet (ROADMAP queue 1, item 11)")
 
     def num_devices(self, device: DeviceLike = None) -> int:
         """Local devices a shard could span: the cards
@@ -308,6 +313,92 @@ def _run_batched(run_chunk, mapped: Sequence[np.ndarray],
                            for xs in zip(*outs)))
 
 
+#: the dtype of each round-loop operand, by the name ``_run_group`` /
+#: ``_run_multi_group`` give it (``experiment._bucket_shapes`` predicts
+#: their shapes from a plan)
+OPERAND_DTYPES = {
+    "params0": torch.float32, "models0": torch.float32,
+    "model_valid": torch.float32, "dx": torch.float32,
+    "counts": torch.float32, "valid": torch.float32, "tx": torch.float32,
+    "cluster_ids": torch.int32, "heads": torch.int64,
+    "head_valid": torch.float32, "epochs": torch.int32,
+    "devices": torch.int32, "alive_after": torch.float32,
+    "kinds": torch.int32, "probe": torch.float32, "perm": torch.int64,
+    "reseed": torch.int64}
+
+
+def operand_shapes(ops: Dict[str, Optional[torch.Tensor]]
+                   ) -> Dict[str, Tuple[int, ...]]:
+    """{name: shape} of a round loop's operands (``None`` ones left out)."""
+    return {name: tuple(t.shape) for name, t in ops.items()
+            if t is not None}
+
+
+def _trace_of(ops) -> FailureTrace:
+    return FailureTrace(ops["epochs"], ops["devices"], ops["alive_after"],
+                        ops["kinds"])
+
+
+def _single_round_loop(det, cfg, layout, ops, k, track_iso, seed):
+    out, _, _ = sim._round_loop(
+        det, cfg, layout, ops["params0"], ops["dx"], ops["counts"],
+        ops["valid"], ops["tx"], ops["cluster_ids"], ops["heads"],
+        ops["head_valid"], _trace_of(ops), k, track_iso=track_iso,
+        score_history=False, dropout_seed=seed)
+    return out
+
+
+def _multi_round_loop(det, cfg, layout, ops, seed):
+    out, _ = BL._multimodel_loop(
+        det, cfg, layout, ops["models0"], ops["model_valid"], ops["dx"],
+        ops["counts"], ops["valid"], ops["tx"], _trace_of(ops),
+        ops.get("probe"), ops.get("perm"), ops.get("reseed"),
+        dropout_seed=seed)
+    return out
+
+
+def spec_layout(det: D.DetectorModel) -> FlatLayout:
+    """The flat layout of ``det``'s params (one tiny init on the CPU)."""
+    return FlatLayout.of(det.init_params(torch.Generator().manual_seed(0),
+                                         device="cpu"))
+
+
+def zero_operands(shapes: Dict[str, tuple], dev: torch.device
+                  ) -> Dict[str, torch.Tensor]:
+    """Zeros of a round loop's operand ``shapes`` on ``dev``."""
+    return {name: torch.zeros(shape, dtype=OPERAND_DTYPES[name], device=dev)
+            for name, shape in shapes.items()}
+
+
+def one_round(det: D.DetectorModel, loop_cfg, layout: FlatLayout,
+              ops: Dict[str, torch.Tensor], k: Optional[int] = None,
+              track_iso: bool = False) -> None:
+    """One round of a bucket's loop (``loop_cfg`` with ``rounds=1``, the
+    final scores included) on the operands ``ops``; single-model buckets
+    pass the padded cluster count ``k``.  Every kernel the bucket's
+    rounds launch launches here at their shapes: ``ExecPlan(aot=True)``
+    runs it on zeros on the card before the real rounds, and plancheck's
+    dispatch pass on the meta device, where it executes nothing."""
+    cfg = dataclasses.replace(loop_cfg, rounds=1)
+    if "params0" in ops:
+        _single_round_loop(det, cfg, layout, ops, k, track_iso, 0)
+    else:
+        _multi_round_loop(det, cfg, layout, ops, 0)
+
+
+def clear_executable_caches() -> None:
+    """Drop what this process holds of compiled work: the kernel
+    libraries it resolved (ctypes cannot unmap them, so the next
+    resolution reads them from the cache directory again: ``"disk"``),
+    the scoring service's CUDA graphs and the counters of
+    :func:`repro_torch.core.compilecache.xla_compile_stats`."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving.anomaly import engine
+    _build.clear()
+    engine.clear_score_cache()
+    compilecache.reset_xla_compile_stats()
+
+
 @dataclass
 class _Cell:
     """One cell's scenario rows, ready to stack with other cells'."""
@@ -357,12 +448,14 @@ def _single_trace_key(traces: Sequence[Failure], topo) -> tuple:
 def _run_group(det: D.DetectorModel, data, cells: List[_Cell], loop_cfg,
                k: int, track_iso: bool, seeds: Sequence[int],
                params0: Optional[Sequence[Params]], target_loss,
-               exec_plan: Optional[ExecPlan], dev: torch.device
+               exec_plan: Optional[ExecPlan], dev: torch.device,
+               on_chunk: Optional[Callable[[Dict[str, tuple]], Any]] = None
                ) -> List[CampaignResult]:
     """One round loop (per chunk) over the flattened (cell x trace x
     seed) axis of ``cells``, which share the data arrays, ``loop_cfg``'s
     training settings and the padded cluster count ``k``; the results
-    sliced back per cell."""
+    sliced back per cell.  ``on_chunk`` gets the shapes of each chunk's
+    loop operands (:func:`operand_shapes`)."""
     device_x, device_counts, test_x, test_y = data
     sim._use_f32_matmul()
     dx, counts, valid = sim._prepare_arrays(cells[0].cfg, device_x,
@@ -402,14 +495,15 @@ def _run_group(det: D.DetectorModel, data, cells: List[_Cell], loop_cfg,
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
     def run_chunk(c, ep, dv, alv, knd, rows, chunk_seeds, cids, heads, hv):
-        trace = FailureTrace(on_dev(ep), on_dev(dv), on_dev(alv),
-                             on_dev(knd))
-        out, _, _ = sim._round_loop(
-            det, loop_cfg, layout, table[on_dev(rows)], dx, counts, valid,
-            tx, on_dev(cids), on_dev(heads), on_dev(hv), trace, k,
-            track_iso=track_iso, score_history=False,
-            dropout_seed=dropout_seed(chunk_seeds, c))
-        return out
+        ops = dict(params0=table[on_dev(rows)], dx=dx, counts=counts,
+                   valid=valid, tx=tx, cluster_ids=on_dev(cids),
+                   heads=on_dev(heads), head_valid=on_dev(hv),
+                   epochs=on_dev(ep), devices=on_dev(dv),
+                   alive_after=on_dev(alv), kinds=on_dev(knd))
+        if on_chunk is not None:
+            on_chunk(operand_shapes(ops))
+        return _single_round_loop(det, loop_cfg, layout, ops, k, track_iso,
+                                  dropout_seed(chunk_seeds, c))
 
     out = _run_batched(run_chunk, mapped, exec_plan)
     fields = _post_process_arrays(track_iso, out, test_y, target_loss)
@@ -622,12 +716,16 @@ def _run_multi_group(det: D.DetectorModel, data,
                      seeds: Sequence[int],
                      draws: Optional[Sequence[MultiDraws]],
                      exec_plan: Optional[ExecPlan], dev: torch.device,
-                     trace_cache: dict) -> List[MultiCampaignResult]:
+                     trace_cache: dict,
+                     on_chunk: Optional[Callable[[Dict[str, tuple]],
+                                                 Any]] = None
+                     ) -> List[MultiCampaignResult]:
     """One round loop (per chunk) over the flattened (cell x trace x
     seed) axis of multi-model ``cells``, which share ``loop_cfg``'s
     settings, the model axis padded to ``m`` with a per-row
     ``model_valid``; the results sliced back per cell.  Cells that pass
-    the same trace list share one normalised stack (``trace_cache``)."""
+    the same trace list share one normalised stack (``trace_cache``).
+    ``on_chunk`` as in :func:`_run_group`."""
     device_x, device_counts, test_x, test_y = data
     if not seeds or not all(len(traces) for _, traces in cells):
         raise ValueError("empty campaign: need >=1 trace and >=1 seed")
@@ -670,14 +768,16 @@ def _run_multi_group(det: D.DetectorModel, data,
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
     def run_chunk(c, ep, dv, alv, knd, rows, chunk_seeds, mv):
-        trace = FailureTrace(on_dev(ep), on_dev(dv), on_dev(alv),
-                             on_dev(knd))
         inits, probe, perm, reseed = tables.rows(on_dev(rows))
-        out, _ = BL._multimodel_loop(
-            det, loop_cfg, tables.layout, inits, on_dev(mv), dx, counts,
-            valid, tx, trace, probe, perm, reseed,
-            dropout_seed=dropout_seed(chunk_seeds, c))
-        return out
+        ops = dict(models0=inits, model_valid=on_dev(mv), dx=dx,
+                   counts=counts, valid=valid, tx=tx, probe=probe,
+                   perm=perm, reseed=reseed, epochs=on_dev(ep),
+                   devices=on_dev(dv), alive_after=on_dev(alv),
+                   kinds=on_dev(knd))
+        if on_chunk is not None:
+            on_chunk(operand_shapes(ops))
+        return _multi_round_loop(det, loop_cfg, tables.layout, ops,
+                                 dropout_seed(chunk_seeds, c))
 
     out = _run_batched(run_chunk, mapped, exec_plan)
     best, multi = _multi_metrics(out.final_scores, test_y, model_valid)

@@ -33,10 +33,12 @@ RNG, by the port's rule that draws are operands: :func:`execute` takes
 cells) as the campaign entry points do; see
 :mod:`repro_torch.core.campaign`.
 
-Not ported (ROADMAP queue 1, item 11): the plan-time static analyzer
-(``plan(check=True)``, ``ExecutionPlan.static_report``), ahead-of-time
-compilation and the persistent executable cache, so
-:attr:`ExperimentResult.compile_report` is always ``None``.
+``plan(spec, check=True)`` (or :meth:`ExecutionPlan.static_report`) runs
+the plan-time static analyzer (:mod:`repro_torch.analysis.plancheck`):
+one round of each bucket at its predicted shapes on the meta device,
+which executes nothing.  ``ExecPlan(aot=True)`` resolves the kernel
+libraries and launches each bucket's kernels once before the first
+round; either way :func:`execute` attaches a :class:`CompileReport`.
 
 Typical use::
 
@@ -56,17 +58,21 @@ Typical use::
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.autoencoder_paper import AutoencoderConfig
 from repro_torch.core import campaign as _c
-from repro_torch.core.baselines import (FaultyMultiModelConfig, MultiDraws,
-                                        MultiModelConfig, as_multimodel_trace)
+from repro_torch.core import compilecache
+from repro_torch.core.baselines import (KMEANS_ITERS, FaultyMultiModelConfig,
+                                        MultiDraws, MultiModelConfig,
+                                        as_multimodel_trace)
 from repro_torch.core.campaign import (MULTI_SCHEMES, CampaignResult, ExecPlan,
                                        MultiCampaignResult)
 from repro_torch.core.failure import (Failure, FailureSpec, FailureTrace,
@@ -80,12 +86,6 @@ from repro_torch.models.params import Params
 
 #: single-model schemes the simulator core understands
 SINGLE_SCHEMES = ("batch", "fl", "sbt", "tolfl")
-
-#: what plan(check=True), the static report and the compile accounting
-#: would need, and where the ROADMAP lists it
-_NOT_PORTED = ("is not ported: the plan-time static analyzer, ahead-of-time "
-               "compilation and the persistent executable cache are ROADMAP "
-               "queue 1, item 11")
 
 #: fired at most once per process; tests reset it to re-pin the warning
 _AE_CFG_WARNED = False
@@ -376,6 +376,8 @@ class ExecutionPlan:
     spec: ExperimentSpec
     cells: List[CellPlan]
     buckets: List[BucketPlan]
+    #: cached plancheck report (populated by static_report / check=True)
+    report: Optional[object] = None
 
     @property
     def num_scenarios(self) -> int:
@@ -392,7 +394,13 @@ class ExecutionPlan:
         raise KeyError(key)
 
     def static_report(self, budgets: bool = True):
-        raise NotImplementedError(f"ExecutionPlan.static_report {_NOT_PORTED}")
+        """Run the plan-time static analyzer over every bucket (one round
+        at its predicted shapes on the meta device: nothing executes) and
+        cache its :class:`~repro_torch.analysis.plancheck.findings.Report`."""
+        if self.report is None:
+            from repro_torch.analysis.plancheck import check_plan
+            self.report = check_plan(self, budgets=budgets)
+        return self.report
 
     def describe(self) -> str:
         seeds = self.spec.seeds.seeds
@@ -403,6 +411,12 @@ class ExecutionPlan:
             lines.append(f"  cell {c.index} {c.key}: {len(c.traces)} "
                          f"traces, {c.num_scenarios} scenarios")
         lines.extend("  " + b.describe() for b in self.buckets)
+        if self.report is not None:
+            status = ("clean" if self.report.clean else
+                      f"{len(self.report.findings)} finding(s)")
+            lines.append(f"  static analysis: {status}")
+            lines.extend("    " + f.describe().replace("\n", "\n    ")
+                         for f in self.report.findings)
         return "\n".join(lines)
 
 
@@ -491,10 +505,9 @@ def plan(spec: ExperimentSpec, check: bool = False) -> ExecutionPlan:
     """Lower a spec to buckets — host work only, no card.
 
     Raises ``ValueError`` up front for empty grids and unknown schemes.
-    ``check=True`` (``repro``'s static analyzer) raises
-    ``NotImplementedError``: it is ROADMAP queue 1, item 11."""
-    if check:
-        raise NotImplementedError(f"plan(check=True) {_NOT_PORTED}")
+    ``check=True`` also runs the static analyzer
+    (:meth:`ExecutionPlan.static_report`): one round a bucket on the meta
+    device, no card needed."""
     if not spec.cells:
         raise ValueError("empty experiment: need >= 1 cell")
     if len(spec.seeds.seeds) == 0:
@@ -587,23 +600,155 @@ def plan(spec: ExperimentSpec, check: bool = False) -> ExecutionPlan:
         add(BucketPlan(index=0, kind="single", fused=False,
                        cell_indices=[c.index],
                        key_cfg=dataclasses.replace(c.cfg, seed=0)))
-    return ExecutionPlan(spec=spec, cells=cells, buckets=buckets)
+    out = ExecutionPlan(spec=spec, cells=cells, buckets=buckets)
+    if check:
+        out.static_report()
+    return out
 
 
 # ---------------------------------------------------------------------------
 # execute(): ExecutionPlan -> ExperimentResult
 # ---------------------------------------------------------------------------
 @dataclass
+class BucketCompileStats:
+    """What one bucket of an executed plan cost beyond its rounds.
+
+    With ``ExecPlan(aot=True)`` on the card: ``compile_s`` is the wall
+    time of resolving the kernel libraries (``nvcc`` builds, or the loads
+    on a disk hit), on the first bucket, since a plan's libraries resolve
+    as one set; ``cache`` is where this execute found that set:
+    ``"compiled"`` (``nvcc`` ran), ``"disk"`` (loaded from the cache
+    directory) or ``"memory"`` (loaded in this process already);
+    ``lower_s`` is the bucket's warm-up round (``campaign.one_round``).
+    On the CPU, or with ``aot=False``, those stay 0 and ``""``.
+    ``execute_s`` is the bucket's whole dispatch (array builds, round
+    loops, the copy and the metrics on the host).  ``aval_match`` (with
+    ``aot``) records whether the operand shapes predicted at plan time
+    (:func:`_bucket_shapes`) equal the ones the round loops got."""
+    bucket: int
+    kind: str
+    fused: bool
+    aot: bool
+    lower_s: float = 0.0
+    compile_s: float = 0.0
+    execute_s: float = 0.0
+    cache: str = ""
+    aval_match: Optional[bool] = None
+
+
+@dataclass
+class CompileReport:
+    """What one ``execute()`` spent on compiled work.
+
+    ``traces`` is 0: eager code is not traced (``repro`` counts its jit
+    traces here).  ``xla`` is the
+    :func:`repro_torch.core.compilecache.xla_compile_stats` delta:
+    ``xla['misses']`` counts the kernel libraries ``nvcc`` built, so a
+    warm cache directory reads ``misses == 0``.  ``cache_dir`` is the
+    cache directory in use (None when it is off)."""
+    aot: bool
+    buckets: List[BucketCompileStats]
+    traces: int = 0
+    xla: Dict[str, int] = field(default_factory=dict)
+    cache_dir: Optional[str] = None
+
+    @property
+    def lower_s(self) -> float:
+        return sum(b.lower_s for b in self.buckets)
+
+    @property
+    def compile_s(self) -> float:
+        return sum(b.compile_s for b in self.buckets)
+
+    @property
+    def execute_s(self) -> float:
+        return sum(b.execute_s for b in self.buckets)
+
+    def describe(self) -> str:
+        lines = [f"CompileReport: aot={self.aot} traces={self.traces} "
+                 f"xla={self.xla or '{}'} cache_dir={self.cache_dir}"]
+        for b in self.buckets:
+            lines.append(
+                f"  bucket {b.bucket} ({b.kind}"
+                f"{' fused' if b.fused else ''}): "
+                f"lower={b.lower_s:.3f}s compile={b.compile_s:.3f}s "
+                f"execute={b.execute_s:.3f}s"
+                + (f" cache={b.cache}" if b.cache else "")
+                + (f" aval_match={b.aval_match}"
+                   if b.aval_match is not None else ""))
+        return "\n".join(lines)
+
+
+def _bucket_shapes(data: DataSpec, bucket: BucketPlan,
+                   cells: Sequence[CellPlan], scenarios: Optional[int] = None
+                   ) -> Dict[str, Tuple[int, ...]]:
+    """The operand shapes of one chunk's round loop
+    (``campaign.operand_shapes``), predicted from the plan alone: the
+    data arrays' shapes (batch cells centralise onto one device), the
+    bucket's chunk (or ``scenarios``) as the scenario axis, the trace's
+    slots from cell 0's first trace (the bucket's traces all stack to
+    one width) and the param count from the detector's spec."""
+    det = data.model
+    S = bucket.chunk if scenarios is None else scenarios
+    c0 = cells[0]
+    dxa = np.asarray(data.device_x)
+    if bucket.kind == "single" and c0.cfg.scheme == "batch":
+        n_dev, n_max = 1, int(np.sum(np.asarray(data.device_counts)))
+    else:
+        n_dev, n_max = int(dxa.shape[0]), int(dxa.shape[1])
+    P = det.param_count()
+    shapes = {"dx": (n_dev, n_max, int(dxa.shape[2])), "counts": (n_dev,),
+              "valid": (n_dev, n_max),
+              "tx": tuple(np.asarray(data.test_x).shape)}
+    if bucket.kind == "multi":
+        t0 = as_multimodel_trace(c0.traces[0], c0.cfg.num_devices,
+                                 device="cpu")
+        m = bucket.m_pad or c0.cfg.num_models
+        shapes.update(models0=(S, m, P), model_valid=(S, m))
+        if bucket.key_cfg.scheme == "fedgroup":
+            shapes.update(probe=(S, P), perm=(S, m),
+                          reseed=(S, KMEANS_ITERS, m))
+    else:
+        t0 = as_trace(c0.traces[0], c0.cfg.topology(), device="cpu")
+        k = bucket.k_pad or bucket.key_cfg.topology().num_clusters
+        shapes.update(params0=(S, P), cluster_ids=(S, n_dev), heads=(S, k),
+                      head_valid=(S, k))
+    for name in ("epochs", "devices", "alive_after", "kinds"):
+        shapes[name] = (S, t0.max_events)
+    return shapes
+
+
+def bucket_k(bucket: BucketPlan) -> Optional[int]:
+    """The cluster count a single-model bucket's loop runs (padded), or
+    None for a multi-model one."""
+    if bucket.kind != "single":
+        return None
+    return bucket.k_pad or bucket.key_cfg.topology().num_clusters
+
+
+def _warm_up(data: DataSpec, bucket: BucketPlan,
+             shapes: Dict[str, Tuple[int, ...]], dev: torch.device) -> float:
+    """One round of the bucket's loop on zeros at ``shapes`` on the card
+    (``campaign.one_round``); returns its wall seconds, synchronised."""
+    t0 = time.perf_counter()
+    _c.one_round(data.model, bucket.key_cfg, _c.spec_layout(data.model),
+                 _c.zero_operands(shapes, dev), bucket_k(bucket),
+                 bucket.track_iso)
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+@dataclass
 class ExperimentResult:
     """Per-cell campaign results of one executed plan, in cell order.
 
     ``results[i]`` is the :class:`CampaignResult` /
     :class:`MultiCampaignResult` of ``plan.cells[i]`` — every scenario
-    keyed by (cell, trace index, seed).  ``compile_report`` is ``repro``'s
-    compile accounting: not ported, always ``None``."""
+    keyed by (cell, trace index, seed).  ``compile_report`` accounts for
+    the compiled work of the execute (:class:`CompileReport`)."""
     plan: ExecutionPlan
     results: List[Union[CampaignResult, MultiCampaignResult]]
-    compile_report: None = None
+    compile_report: Optional[CompileReport] = None
 
     @property
     def num_scenarios(self) -> int:
@@ -695,12 +840,34 @@ def execute(plan_: ExecutionPlan,
     with ``plan_.cells``.
 
     ``ExecPlan(shard=True)`` warns here, once, and runs unsharded on one
-    card or on the CPU; over several cards it raises (not ported)."""
+    card or on the CPU; over several cards it raises (not ported).
+    ``ExecPlan(aot=True)`` on the card resolves every kernel library
+    (one ``nvcc`` a stale source, all at once, or loads from the cache
+    directory) and runs each bucket's warm-up round before the first
+    real round; the results are the same bits as without it.  The
+    :class:`CompileReport` says what that cost."""
     spec = plan_.spec
     data, seeds = spec.data, list(spec.seeds.seeds)
     dev = resolve_device(device)
     if spec.exec_plan is not None:
         spec.exec_plan.resolved_devices(warn=True, device=dev)
+    compilecache.ensure_persistent_cache()
+    use_aot = bool(spec.exec_plan is not None and spec.exec_plan.aot)
+    stats = [BucketCompileStats(bucket=b.index, kind=b.kind, fused=b.fused,
+                                aot=use_aot) for b in plan_.buckets]
+    xla0 = compilecache.xla_compile_stats()
+    predicted = ([_bucket_shapes(data, b, [plan_.cells[i]
+                                           for i in b.cell_indices])
+                  for b in plan_.buckets] if use_aot else None)
+    if use_aot and dev.type == "cuda":
+        from repro_torch.kernels import _build
+        source, seconds = _build.resolve()
+        for b, st in zip(plan_.buckets, stats):
+            st.cache = source
+            st.lower_s = _warm_up(data, b, predicted[b.index], dev)
+        if stats:
+            stats[0].compile_s = seconds
+
     det = data.model
     arrays = (data.device_x, data.device_counts, data.test_x, data.test_y)
     results: List[Optional[Any]] = [None] * len(plan_.cells)
@@ -708,22 +875,36 @@ def execute(plan_: ExecutionPlan,
     trace_cache: dict = {}   # stacked multi traces per resolution
     for bucket in plan_.buckets:
         cells = [plan_.cells[i] for i in bucket.cell_indices]
+        seen: List[Dict[str, tuple]] = []
+        t0 = time.perf_counter()
         if bucket.kind == "single":
-            k = bucket.k_pad or bucket.key_cfg.topology().num_clusters
+            k = bucket_k(bucket)
             rows = [_c._cell_rows(c.cfg, c.traces, seeds, k, norm_cache)
                     for c in cells]
             rs = _c._run_group(det, arrays, rows, bucket.key_cfg, k,
                                bucket.track_iso, seeds, params0,
-                               spec.target_loss, spec.exec_plan, dev)
+                               spec.target_loss, spec.exec_plan, dev,
+                               on_chunk=seen.append)
         else:
             m = bucket.m_pad or cells[0].cfg.num_models
             rs = _c._run_multi_group(det, arrays,
                                      [(c.cfg, c.traces) for c in cells],
                                      bucket.key_cfg, m, seeds, draws,
-                                     spec.exec_plan, dev, trace_cache)
+                                     spec.exec_plan, dev, trace_cache,
+                                     on_chunk=seen.append)
+        st = stats[bucket.index]
+        st.execute_s = time.perf_counter() - t0
+        if use_aot:
+            st.aval_match = all(s == predicted[bucket.index] for s in seen)
         for c, r in zip(cells, rs):
             results[c.index] = r
-    return ExperimentResult(plan=plan_, results=results)
+    xla1 = compilecache.xla_compile_stats()
+    report = CompileReport(
+        aot=use_aot, buckets=stats,
+        xla={k: xla1[k] - xla0[k] for k in xla1},
+        cache_dir=compilecache.persistent_cache_dir())
+    return ExperimentResult(plan=plan_, results=results,
+                            compile_report=report)
 
 
 def run_experiment(spec: ExperimentSpec,

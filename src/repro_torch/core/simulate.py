@@ -123,6 +123,15 @@ def _use_f32_matmul() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def device_generator(dev: torch.device, seed: int) -> torch.Generator:
+    """The generator of a round loop's draws on ``dev``, seeded with
+    ``seed``.  The meta device (plancheck's dispatch pass) has no
+    generator and draws no values, so a CPU one stands in there: a round
+    on meta dispatches the draws it dispatches on the card."""
+    return torch.Generator(device="cpu" if dev.type == "meta"
+                           else dev).manual_seed(seed)
+
+
 def _device_grads(det: DetectorModel, layout: FlatLayout,
                   flat: torch.Tensor, dx: torch.Tensor, valid: torch.Tensor,
                   generator: Optional[torch.Generator],
@@ -193,12 +202,12 @@ def _round_loop(det: DetectorModel, cfg: SimConfig, layout: FlatLayout,
     P = layout.size
     k = num_clusters
     faulty = bool(getattr(cfg, "faulty_updates", False))
-    generator = (torch.Generator(device=dev).manual_seed(dropout_seed)
-                 if cfg.dropout else None)
+    generator = (device_generator(dev, dropout_seed) if cfg.dropout
+                 else None)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     # one (S, N, n_max, D) copy for the whole loop: the first layer's
     # product and its backward then run as one (S*N)-batched product
-    dxs = dx.expand(S, *dx.shape).contiguous()
+    dxs = dx.repeat(S, 1, 1, 1)
     ids = cluster_ids.long()                 # for gather; the kernel: int32
 
     def heads_alive_max(alive):
@@ -415,6 +424,9 @@ def iso_mean_auroc(iso_scores: np.ndarray, final_alive: np.ndarray,
                    test_y: np.ndarray) -> float:
     """Paper Fig 4 reporting: mean AUROC over the *alive* isolated
     devices (the dead server keeps its frozen model and is excluded)."""
+    # loops over the bounded DEVICE axis (N, not scenarios) with a
+    # data-dependent alive filter -- not the batched-metric bug class
+    # plancheck: ignore[PC-AST-LOOPMETRIC]
     per_dev = [auroc(iso_scores[i], test_y)
                for i in range(iso_scores.shape[0]) if final_alive[i] > 0]
     return float(np.mean(per_dev)) if per_dev else float("nan")

@@ -263,9 +263,11 @@ def tolfl_combine_cuda(gs: torch.Tensor, ns: torch.Tensor) -> torch.Tensor:
 
 
 def _on(device: DeviceLike, **tensors) -> torch.device:
-    """The device asked for (``None`` means CUDA); raises if a tensor lies
-    elsewhere."""
-    dev = resolve_device(device)
+    """The device asked for (``None`` means CUDA; the meta device, where
+    nothing executes, takes the plain version as the CPU does); raises if
+    a tensor lies elsewhere."""
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device(device) if meta else resolve_device(device)
     for name, t in tensors.items():
         if t is not None and (t.device.type != dev.type or (
                 dev.index is not None and t.device.index != dev.index)):

@@ -68,19 +68,20 @@ def forward(params: P.Params, cfg: AutoencoderConfig, x: torch.Tensor,
 
 
 def dropout_masks(cfg: AutoencoderConfig, lead: Sequence[int],
-                  generator: torch.Generator
-                  ) -> Optional[List[torch.Tensor]]:
+                  generator: torch.Generator,
+                  device: DeviceLike = None) -> Optional[List[torch.Tensor]]:
     """Keep masks of the hidden layers for activations of leading shape
     ``lead``: (*lead, width) bool a layer, in layer order, drawn on
-    ``generator``'s device as :func:`forward` draws them inline (so a
-    forward pass with the masks equals one with the generator in the same
-    state).  ``None`` when ``cfg.dropout`` is 0."""
+    ``device`` (default: ``generator``'s) as :func:`forward` draws them
+    inline (so a forward pass with the masks equals one with the generator
+    in the same state).  ``None`` when ``cfg.dropout`` is 0."""
     if cfg.dropout <= 0:
         return None
     dims = ([cfg.input_dim] + list(cfg.hidden) + [cfg.code_dim]
             + list(reversed(cfg.hidden)))
-    return [torch.rand((*lead, width), generator=generator,
-                       device=generator.device) < (1.0 - cfg.dropout)
+    device = generator.device if device is None else device
+    return [torch.rand((*lead, width), generator=generator, device=device)
+            < (1.0 - cfg.dropout)
             for width in dims[1:]]
 
 

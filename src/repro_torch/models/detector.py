@@ -7,7 +7,8 @@ hashable spec exposing
 * ``loss(params, x, valid, generator, dropout_masks)``  masked mean
   reconstruction loss; dropout draws from ``generator`` or applies the
   given ``dropout_masks`` (with neither, no dropout)
-* ``dropout_masks(lead, generator)`` -> one keep mask a hidden layer
+* ``dropout_masks(lead, generator, device)`` -> one keep mask a hidden
+  layer, drawn on ``device`` (default: the generator's)
 * ``anomaly_scores(params, x, dense)`` -> (B,) per-sample scores, each
   layer's product computed by ``dense`` (``params.dense_apply``; the
   scoring service passes the row-stable kernel's)
@@ -63,7 +64,8 @@ class DetectorModel:
         raise NotImplementedError
 
     def dropout_masks(self, lead: Sequence[int],
-                      generator: torch.Generator
+                      generator: torch.Generator,
+                      device: DeviceLike = None
                       ) -> Optional[List[torch.Tensor]]:
         raise NotImplementedError
 
@@ -101,8 +103,8 @@ class AutoencoderDetector(DetectorModel):
         return (torch.sum(err, dim=-1)
                 / torch.clamp_min(torch.sum(valid, dim=-1), 1.0))
 
-    def dropout_masks(self, lead, generator):
-        return AE.dropout_masks(self.cfg, lead, generator)
+    def dropout_masks(self, lead, generator, device=None):
+        return AE.dropout_masks(self.cfg, lead, generator, device)
 
     def anomaly_scores(self, params, x, dense=P.dense_apply):
         return AE.anomaly_scores(params, self.cfg, x, dense)
@@ -180,14 +182,15 @@ class SeqDetector(DetectorModel):
         return (torch.sum(err, dim=-1)
                 / torch.clamp_min(torch.sum(valid, dim=-1), 1.0))
 
-    def dropout_masks(self, lead, generator):
+    def dropout_masks(self, lead, generator, device=None):
         """One keep mask of (*lead, seq_len, d_model) for the block's
-        output, drawn as :meth:`loss` draws it inline; ``None`` when
-        ``dropout`` is 0."""
+        output, drawn as :meth:`loss` draws it inline, on ``device``
+        (default: the generator's); ``None`` when ``dropout`` is 0."""
         if self.dropout <= 0:
             return None
+        device = generator.device if device is None else device
         return [torch.rand((*lead, self.seq_len, self.d_model),
-                           generator=generator, device=generator.device)
+                           generator=generator, device=device)
                 < (1.0 - self.dropout)]
 
     def anomaly_scores(self, params, x, dense=P.dense_apply):
@@ -206,6 +209,19 @@ def as_detector(model: ModelLike) -> DetectorModel:
         return model
     if isinstance(model, AutoencoderConfig):
         return AutoencoderDetector(model)
+    raise TypeError(
+        f"expected a DetectorModel or AutoencoderConfig, got {model!r}")
+
+
+def canonical_model_key(model: ModelLike):
+    """The model's component of a cache key: autoencoder specs key on
+    their :class:`AutoencoderConfig`, whichever spelling the caller used
+    (as ``repro`` keys its executables), other bodies on the frozen spec
+    itself."""
+    if isinstance(model, AutoencoderDetector):
+        return model.cfg
+    if isinstance(model, (DetectorModel, AutoencoderConfig)):
+        return model
     raise TypeError(
         f"expected a DetectorModel or AutoencoderConfig, got {model!r}")
 
@@ -232,6 +248,12 @@ def make_detector(name: str, **kwargs) -> DetectorModel:
 
 def detector_names() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
+
+
+def spec_classes() -> Tuple[type, ...]:
+    """The registered spec classes (plancheck's cache-key check holds
+    each to a frozen, eq, hashable dataclass)."""
+    return tuple(f for f in _REGISTRY.values() if isinstance(f, type))
 
 
 register_detector("autoencoder", AutoencoderDetector)

@@ -14,12 +14,13 @@ Port of ``repro.serving.anomaly``.  Surface:
   and per-regime AUROC;
 * :func:`~repro_torch.serving.anomaly.engine.score_entry` — a bucket's
   entry point (on the card one CUDA graph, cached in-process) in place of
-  ``repro``'s ``score_executable``; :func:`clear_score_cache` drops them.
-
-``repro``'s ``score_budget_name`` (the plancheck budget) is not ported.
+  ``repro``'s ``score_executable``; :func:`clear_score_cache` drops them;
+  :func:`score_budget_name` names the score core's plancheck budget.
 """
 from repro_torch.serving.anomaly.bank import ModelBank, train_model_bank
-from repro_torch.serving.anomaly.engine import clear_score_cache, score_entry
+from repro_torch.serving.anomaly.engine import (clear_score_cache,
+                                                score_budget_name,
+                                                score_entry)
 from repro_torch.serving.anomaly.service import (AnomalyService,
                                                  ScoredWindow, ServiceConfig,
                                                  ServiceReport)
@@ -27,5 +28,5 @@ from repro_torch.serving.anomaly.service import (AnomalyService,
 __all__ = [
     "ModelBank", "train_model_bank",
     "AnomalyService", "ServiceConfig", "ServiceReport", "ScoredWindow",
-    "score_entry", "clear_score_cache",
+    "score_entry", "clear_score_cache", "score_budget_name",
 ]

@@ -30,8 +30,9 @@ replays.  The graph is warmed up on a side stream and captured with TF32
 off (the graph fixes the GEMMs it captured).  A capture that fails
 raises: there is no eager fallback on the card.  Entries live in an
 in-process cache (:func:`score_entry`: ``source`` "capture" or
-"memory"), keyed by the detector spec, the bucket shape and the identity
-of the bank's ``row_params`` tensors: a graph reads those tensors at the
+"memory"), keyed (:func:`_graph_key`) by the detector spec
+(``canonical_model_key``), the bucket shape and the identity of the
+bank's ``row_params`` tensors: a graph reads those tensors at the
 addresses it captured, so a second bank never hits the first bank's
 graphs, and a cached entry holds its bank's tensors so their memory is
 never handed to another tensor while the graph lives.  Services over
@@ -40,10 +41,12 @@ at a time.  :func:`clear_score_cache` drops the graphs (and with them
 those references).  On the CPU the core runs eagerly into the same buffers,
 and ``source`` is "eager".
 
-Not ported here: ``repro``'s persistent executable cache (``source ==
-"disk"``, ``core/compilecache``) and the plancheck budget of the score
-core (``score_budget_name``); both belong to the compile-cache and
-analysis slice (ROADMAP queue 1, item 11).
+There is no ``"disk"`` source, which ``repro``'s service has: a captured
+graph holds the device addresses of its tensors and is never written to
+disk.  The disk half of the service's compiled work is the kernel
+libraries its graphs launch, which ``core/compilecache`` keeps across
+processes and ``compilecache.xla_compile_stats()`` counts.
+:func:`score_budget_name` names the plancheck budget of the score core.
 """
 from __future__ import annotations
 
@@ -138,6 +141,16 @@ def _capture(model: ModelLike, row_params: Params,
     return BucketEntry(x, row, out, graph, core, row_params)
 
 
+def _graph_key(model: ModelLike, row_params: Params,
+               shape: Tuple[int, int, int]) -> tuple:
+    """The graph cache's key: the parameters of :func:`_capture`, each as
+    what the captured program depends on (plancheck's ``PC-KEY`` check
+    holds the two signatures equal)."""
+    leaves = _leaves(row_params)
+    return (("serve_score", D.canonical_model_key(model), shape,
+             str(leaves[0].device)) + tuple(id(leaf) for leaf in leaves))
+
+
 def score_entry(model: ModelLike, row_params: Params,
                 shape: Sequence[int]) -> Tuple[BucketEntry, str]:
     """The entry point of bucket ``shape`` = (B, W, D) for the bank
@@ -155,8 +168,7 @@ def score_entry(model: ModelLike, row_params: Params,
             torch.zeros(shape[:2], dtype=torch.float32, device=dev),
             None, core, row_params)
         return entry, "eager"
-    key = (("serve_score", D.as_detector(model), shape, str(dev))
-           + tuple(id(leaf) for leaf in leaves))
+    key = _graph_key(model, row_params, shape)
     with _SCORE_LOCK:
         hit = _SCORE_CACHE.get(key)
         if hit is not None:
@@ -178,6 +190,14 @@ def alive_table(trace: FailureTrace, num_devices: int, n_epochs: int
     epochs = torch.arange(n_epochs, dtype=torch.int32,
                           device=trace.epochs.device)[:, None]
     return trace_alive_mask(stacked, num_devices, epochs).cpu().numpy()
+
+
+def score_budget_name(family: str = "ae") -> str:
+    """The plancheck budget of the score core (one named ceiling a
+    detector ``budget_family``, like
+    :func:`repro_torch.analysis.plancheck.budgets.bucket_budget_name`)."""
+    return ("serving_score_core" if family == "ae"
+            else f"serving_score_core:{family}")
 
 
 def clear_score_cache() -> None:

@@ -376,8 +376,7 @@ def test_exec_plan_errors_as_repro():
         with pytest.raises(ValueError) as got:
             TC.ExecPlan(**kw)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TC.ExecPlan(aot=True)
+    assert TC.ExecPlan(aot=True).aot and JC.ExecPlan(aot=True).aot
     assert TC.ExecPlan(chunk_size=4).chunk_size == 4
     # shard=True on a single device: repro's degrade contract
     # (tests/test_experiment.py), the port's warning repro's without its

@@ -781,6 +781,91 @@ def test_seq_experiment_on_card_matches_cpu(cuda_device):
                                        atol=1e-3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["ae", "seq"])
+def test_aot_bitwise_equal_to_plain_on_card(cuda_device, body):
+    """``ExecPlan(aot=True)`` on the card: every bucket warms up at its
+    predicted shapes (``aval_match``), launches each kernel of its rounds
+    plus one warm-up round, and the results are the same bits as with
+    ``aot=False``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.autoencoder_paper import AutoencoderConfig
+    from repro_torch.core import experiment as X
+    from repro_torch.core.campaign import ExecPlan
+    from repro_torch.core.failure import NO_FAILURE, FailureSpec
+    from repro_torch.core.simulate import SimConfig
+    from repro_torch.models.detector import SeqDetector
+    _, dx, counts, tx, ty = _seq_inputs()
+    model = (SeqDetector(d_model=8) if body == "seq" else
+             AutoencoderConfig(input_dim=112, hidden=(32, 16), code_dim=8))
+    spec = X.ExperimentSpec(
+        data=X.DataSpec(model=model, device_x=dx, device_counts=counts,
+                        test_x=tx, test_y=ty),
+        base=SimConfig(num_devices=10, rounds=3, lr=1e-4),
+        cells=(X.CellSpec("tolfl", 2), X.CellSpec("fl", 1),
+               X.CellSpec("ifca", 2)),
+        traces=X.TraceSpec(traces=(NO_FAILURE, FailureSpec(1, "server")),
+                           p_grid=(0.3,), traces_per_p=2),
+        seeds=X.SeedSpec((0, 1)))
+    plain = X.execute(X.plan(spec))
+    before = tc.ROUND_LAUNCHES
+    aot = X.execute(X.plan(dataclasses.replace(
+        spec, exec_plan=ExecPlan(aot=True))))
+    # the rounds of the two single-model buckets, and one warm-up each
+    assert tc.ROUND_LAUNCHES - before == 2 * (3 + 1)
+    rep = aot.compile_report
+    assert rep.aot and all(b.aval_match for b in rep.buckets)
+    assert {b.cache for b in rep.buckets} <= {"compiled", "disk", "memory"}
+    assert all(b.lower_s > 0 for b in rep.buckets)
+    for g, w in zip(aot.results, plain.results):
+        for name in ("loss_curves", "auroc_used", "best_auroc",
+                     "assignments", "iso_active"):
+            if hasattr(w, name):
+                assert np.array_equal(getattr(g, name), getattr(w, name),
+                                      equal_nan=True), name
+
+
+_RESOLVE_CHILD = """
+import json
+from repro_torch.core import compilecache
+from repro_torch.kernels import _build
+source, seconds = _build.resolve()
+print(json.dumps({"source": source, "seconds": seconds,
+                  "stats": compilecache.xla_compile_stats()}))
+"""
+
+
+@pytest.mark.cuda
+def test_warm_cache_second_process_builds_nothing(cuda_device, tmp_path):
+    """Two processes resolve every kernel library against one new
+    ``REPRO_CACHE_DIR``: the first runs nvcc for each ``csrc/*.cu``, the
+    second loads them all from the directory and runs none."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    env = dict(os.environ, REPRO_CACHE_DIR=str(tmp_path / "cache"),
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    runs = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", _RESOLVE_CHILD],
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        assert out.returncode == 0, out.stderr
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    n = len(_build.sources())
+    assert runs[0]["source"] == "compiled"
+    assert (runs[0]["stats"]["misses"], runs[0]["stats"]["hits"]) == (n, 0)
+    assert runs[1]["source"] == "disk"
+    assert (runs[1]["stats"]["misses"], runs[1]["stats"]["hits"]) == (0, n)
+
+
 # ---------------------------------------------------------------------------
 # RWKV6 WKV scan: within rtol = atol = 1e-4 of the plain version (the JAX
 # kernel's own tolerance): the kernel factors the bonus out, contracts into

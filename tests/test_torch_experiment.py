@@ -27,7 +27,7 @@ Port of ``tests/test_experiment.py``'s contracts, plus parity:
   tolerances); ``summary``, ``per_process``, ``process_summary`` and
   ``to_rows`` have ``repro``'s keys and values within the same.
 * **api** — ``repro.api.__all__`` is the port's ``__all__`` plus
-  ``NOT_PORTED``.
+  ``NOT_PORTED``, which is empty.
 * **SeqDetector** — the cells of ``test_seq_detector_campaign_end_to_end``
   execute with finite AUROCs in [0, 1].
 """
@@ -160,11 +160,15 @@ def test_execplan_shard_and_plan_check_not_ported(data):
     _assert_equal_results(T.run_experiment(spec, device="cpu").results[0],
                           got.results[0])
     assert T.plan(sharded).describe() == T.plan(spec).describe()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.plan(spec, check=True)
+    # plan(check=True) and static_report() run the port's analyzer (on
+    # the meta device): the bucket is clean, the report cached
+    checked = T.plan(spec, check=True)
+    assert checked.report is not None and checked.report.clean, \
+        checked.report.describe()
+    assert "static analysis: clean" in checked.describe()
     p = T.plan(spec)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        p.static_report()
+    assert p.report is None
+    assert p.static_report() is p.static_report() and p.report.clean
 
 
 def test_execplan_shard_degrades_like_repro(data):
@@ -399,7 +403,8 @@ def test_spec_execute_reproduces_sweep_grid(data):
         target_loss=2430.0)
     res = T.execute(T.plan(spec), device="cpu")
     assert res.num_scenarios == len(GRID) * 6
-    assert res.compile_report is None
+    assert isinstance(res.compile_report, T.CompileReport)
+    assert not res.compile_report.aot and res.compile_report.traces == 0
     for key, r in res.per_cell().items():
         _assert_equal_results(grid[key], r)
         assert res[key] is r
@@ -544,6 +549,7 @@ def test_result_frames_match_repro(e2e):
 def test_api_surface_matches_repro():
     assert set(J.__all__) == set(T.__all__) | set(T.NOT_PORTED)
     assert not set(T.__all__) & set(T.NOT_PORTED)
+    assert T.NOT_PORTED == ()
     assert all(hasattr(T, name) for name in T.__all__)
     assert T.SINGLE_SCHEMES == J.SINGLE_SCHEMES
     assert T.MULTI_SCHEMES == J.MULTI_SCHEMES

@@ -2,9 +2,9 @@
 contracts on the CPU, bit for bit, and parity with ``repro``'s service.
 
 Ports every contract of ``tests/test_serving_anomaly.py`` but the
-plancheck budget of the score core (the analysis slice, ROADMAP queue 1,
-item 11; the warm-service contract is the card's and lives in
-``tests/test_torch_cuda.py``):
+plancheck budget of the score core (in ``tests/test_torch_plancheck.py``)
+and the warm-service contract, which is the card's and lives in
+``tests/test_torch_cuda.py``:
 
 * the bank stacks the global model then the isolated ones, the isolated
   models differ, and the exported global model scores exactly as the
