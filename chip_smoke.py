@@ -12,8 +12,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    cases shared with tests/test_torch_cuda.py, 64 scenarios among them)
    and the RG-LRU scan bit for bit,
    flash attention within 2e-4 in float32 (the CUDA-core kernel) and
-   2e-2 in bfloat16 (the tensor-core kernel, also at the four dense
-   decoders' prefill shapes), the RWKV6 WKV scan within 1e-4, and the
+   2e-2 in bfloat16 (the tensor-core kernel; at the four dense decoders'
+   and slice 13's prefill shapes each row's largest |diff| within
+   ``ATTN_ROW_TOL`` of its RMS), the RWKV6 WKV scan within 1e-4, and the
    score path's row-stable product within its two-order error bound, each
    row alone bit for bit as in the batch;
 3. drives slice 1's main path, the Tol-FL simulator (``run_simulation``), at
@@ -124,7 +125,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    GQA decoders the same way ([granite-serve], [internlm2-serve],
    [qwen1.5-serve], [qwen3-serve] and their phases): a prefill launches
    the tensor-core attention once a layer (40, 24, 24, 36), a decode step
-   no kernel;
+   no kernel; then slice 13's whisper-large-v3 at full width and depth
+   ([whisper-serve]: 32 encoder layers over 4 x 1,500 frames, 32 decoder
+   layers over 416-token prompts, 96 tensor-core attention launches a
+   prefill: encoder, self and cross), Llama-4 Scout at full width cut to
+   4 layers ([scout-serve]: 16 experts top-1 at capacity 1.25 and a
+   shared expert; [scout-serve-consistency] at capacity 16) and
+   InternVL2-26B at full width cut to 24 layers ([internvl2-serve]: 256
+   patches before each 4,096-token prompt), each with its phases; the
+   reduced Maverick only card vs CPU ([maverick-serve-reference]);
 6. times each kernel, its plain version and one library call with CUDA
    events, beside the least time the card could take; attention's two
    kernels, its plain version and SDPA in turns in one run; the WKV scan
@@ -133,8 +142,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    time, and at the campaign's shapes (S = 64; S = 96 at k = 10) against
    its bound; the RG-LRU scan and its backward at SeqDetector's shape;
    the row-stable product at the service's products beside ``addmm``;
-   the tensor-core attention at each dense decoder's prefill shape beside
-   SDPA (causal, ``enable_gqa``).
+   the tensor-core attention at each dense decoder's prefill shape and at
+   whisper's (encoder, cross, self), Scout's and InternVL2's beside SDPA
+   (``enable_gqa``).
 
     python3 chip_smoke.py --parent DIR
 
@@ -191,7 +201,24 @@ DEV = "cuda"               # the serving phases' device
 #: the serving archs, each with the prefix of its phases' log tags
 SERVE_ARCHS = (("recurrentgemma-9b", ""), ("rwkv6-7b", "rwkv-"),
                ("granite-3-2b", "granite-"), ("internlm2-1.8b", "internlm2-"),
-               ("qwen1.5-0.5b", "qwen1.5-"), ("qwen3-8b", "qwen3-"))
+               ("qwen1.5-0.5b", "qwen1.5-"), ("qwen3-8b", "qwen3-"),
+               ("whisper-large-v3", "whisper-"),
+               ("llama4-scout-17b-a16e", "scout-"),
+               ("internvl2-26b", "internvl2-"))
+#: depth cuts of served archs whose float32 params do not fit the card at
+#: full depth (Scout: 8.28 GB of embedding and head + 8.81 GB a layer, 48
+#: layers; InternVL2: 4.56 GB + 1.57 GB a layer, 48 layers); full width
+SERVE_DEPTH = {"llama4-scout-17b-a16e": 4, "internvl2-26b": 24}
+#: prompt lengths other than SERVE_PROMPT: whisper's text context is 448
+#: tokens, 416 of prompt and SERVE_TOKENS generated
+SERVE_PROMPTS = {"whisper-large-v3": 416}
+#: archs held only card vs CPU on their reduced config: Maverick's one MoE
+#: layer holds 64.4 GB of float32 experts, so no full-width layer fits
+REFERENCE_ONLY = (("llama4-maverick-400b-a17b", "maverick-"),)
+#: an MoE arch's capacity factor in [*serve-consistency]: capacity >= chunk
+#: drops no token, so a decode step equals a prefill one token longer
+#: (repro's tests/test_serving.py sets the same)
+CONSISTENCY_CAPACITY = 16.0
 #: the dense GQA decoders, whose prefills put the tensor-core attention at
 #: D = 64 and 128 (causal, no window)
 DECODERS = ("granite-3-2b", "internlm2-1.8b", "qwen1.5-0.5b", "qwen3-8b")
@@ -242,6 +269,47 @@ def _decoder_attn(arch):
     a = get_arch(arch).attention
     return (SERVE_BATCH, SERVE_PROMPT, a.num_heads, a.num_kv_heads,
             a.head_dim, True, None)
+
+
+def _zoo_attn():
+    """[(label, arch, (B, Sq, Sk, H, KVH, D, causal))]: the attention
+    shapes of the whisper, Scout and InternVL2 prefills as served: the
+    encoder over its frames, the cross-attention (prompt on frames) and
+    the decoder's causal self-attention; Scout's and InternVL2's causal
+    self-attention (InternVL2's over its patches and the prompt)."""
+    from repro_torch.configs.registry import get_arch
+    out = []
+    w = get_arch("whisper-large-v3")
+    a, F = w.attention, w.encoder_seq
+    S = SERVE_PROMPTS["whisper-large-v3"]
+    heads = (a.num_heads, a.num_kv_heads, a.head_dim)
+    out += [("whisper-large-v3 encoder", w.name,
+             (SERVE_BATCH, F, F, *heads, False)),
+            ("whisper-large-v3 cross", w.name,
+             (SERVE_BATCH, S, F, *heads, False)),
+            ("whisper-large-v3 self", w.name,
+             (SERVE_BATCH, S, S, *heads, True))]
+    for arch in ("llama4-scout-17b-a16e", "internvl2-26b"):
+        cfg = get_arch(arch)
+        a = cfg.attention
+        S = SERVE_PROMPT + cfg.frontend.frontend_seq
+        out.append((arch, arch, (SERVE_BATCH, S, S, a.num_heads,
+                                 a.num_kv_heads, a.head_dim, True)))
+    return out
+
+
+def _plain_attn(torch, q, k, v, causal, window=None):
+    """The attention's plain version on q, k, v, in slices of the batch
+    where the whole batch's float32 scores would pass 9 GB (the plain
+    version holds a few tensors of them; InternVL2's prefill shape has
+    14.5 GB of scores)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, H, _ = q.shape
+    if B * H * Sq * k.shape[1] * 4 <= 9e9:
+        return fa.flash_attention_plain(q, k, v, causal, window)
+    return torch.cat([fa.flash_attention_plain(q[b:b + 1], k[b:b + 1],
+                                               v[b:b + 1], causal, window)
+                      for b in range(B)])
 
 
 def _clocks():
@@ -468,33 +536,12 @@ def phase_serve_kernels(torch):
             del got, want
         del base, q, k, v
     for arch in DECODERS:
-        B, S, H, KVH, D, causal, window = _decoder_attn(arch)
-        q = torch.randn((B, S, H, D), generator=gen, device=DEV).bfloat16()
-        k, v = (torch.randn((B, S, KVH, D), generator=gen,
-                            device=DEV).bfloat16() for _ in range(2))
-        tc_before = fa.TC_LAUNCHES
-        got = ops.attention(q, k, v, causal=causal, window=window)
-        if fa.TC_LAUNCHES - tc_before != 1:
-            raise AssertionError(f"{arch}'s attention did not go to the "
-                                 f"tensor-core kernel")
-        want = fa.flash_attention_plain(q, k, v, causal, window).float()
-        torch.cuda.synchronize()
-        diff = (got.float() - want).abs()
-        err = float(diff.max())
-        rel = diff.amax(-1) / want.pow(2).mean(-1).sqrt()
-        at = [int(i) for i in torch.unravel_index(rel.argmax(), rel.shape)]
-        rel = float(rel.max())
-        log(f"[kernel] flash_attention (B, S, H, KVH, D) = "
-            f"{(B, S, H, KVH, D)} causal ({arch}) bfloat16 (tensor_core "
-            f"kernel): max_abs_err={err}, at |out| up to "
-            f"{float(want.abs().max()):.4f}; the largest |diff| of a row over "
-            f"the row's RMS {rel:.6f} at (b, s, h) = {tuple(at)} (tolerance "
-            f"{ATTN_ROW_TOL})")
-        if not rel <= ATTN_ROW_TOL:
-            raise AssertionError(f"{arch}'s attention: a row's |diff| reaches "
-                                 f"{rel} of its RMS")
-        worst[f"flash_attention {arch}"] = err
-        del q, k, v, got, want, diff
+        B, S, H, KVH, D, causal, _ = _decoder_attn(arch)
+        worst[f"flash_attention {arch}"] = _attn_rows_checked(
+            torch, arch, (B, S, S, H, KVH, D, causal), gen)
+    for label, _, shape in _zoo_attn():
+        worst[f"flash_attention {label}"] = _attn_rows_checked(
+            torch, label, shape, gen)
     for B, S, W, with_h0 in SCAN_CASES:
         a = torch.sigmoid(torch.randn((B, S, W), generator=gen,
                                       device=DEV))
@@ -531,6 +578,41 @@ def phase_serve_kernels(torch):
             raise AssertionError("rwkv6_scan wrote to its input state")
         worst["rwkv6_scan"] = max(worst["rwkv6_scan"], err)
     return worst
+
+
+def _attn_rows_checked(torch, label, shape, gen):
+    """The tensor-core attention at a served prefill's shape (B, Sq, Sk,
+    H, KVH, D, causal; no window) against its plain version: each (b, s,
+    h) row's largest |diff| within ATTN_ROW_TOL of the row's RMS.
+    Returns the max |diff|."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    B, Sq, Sk, H, KVH, D, causal = shape
+    q = torch.randn((B, Sq, H, D), generator=gen, device=DEV).bfloat16()
+    k, v = (torch.randn((B, Sk, KVH, D), generator=gen,
+                        device=DEV).bfloat16() for _ in range(2))
+    tc_before = fa.TC_LAUNCHES
+    got = ops.attention(q, k, v, causal=causal, window=None)
+    if fa.TC_LAUNCHES - tc_before != 1:
+        raise AssertionError(f"{label}'s attention did not go to the "
+                             f"tensor-core kernel")
+    want = _plain_attn(torch, q, k, v, causal).float()
+    torch.cuda.synchronize()
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    rel = diff.amax(-1) / want.pow(2).mean(-1).sqrt()
+    at = [int(i) for i in torch.unravel_index(rel.argmax(), rel.shape)]
+    rel = float(rel.max())
+    log(f"[kernel] flash_attention (B, Sq, Sk, H, KVH, D) = "
+        f"{(B, Sq, Sk, H, KVH, D)} {'causal' if causal else 'bidirectional'} "
+        f"({label}) bfloat16 (tensor_core kernel): max_abs_err={err}, at "
+        f"|out| up to {float(want.abs().max()):.4f}; the largest |diff| of a "
+        f"row over the row's RMS {rel:.6f} at (b, s, h) = {tuple(at)} "
+        f"(tolerance {ATTN_ROW_TOL})")
+    if not rel <= ATTN_ROW_TOL:
+        raise AssertionError(f"{label}'s attention: a row's |diff| reaches "
+                             f"{rel} of its RMS")
+    return err
 
 
 def _paper_split():
@@ -3017,23 +3099,54 @@ def _parent_combine_fn(torch, parent):
 
 
 def _full_params(torch, arch, tag):
+    """The arch's config at full width (its depth cut where SERVE_DEPTH
+    says, logged as ``reduced``) and random float32 params on the card."""
+    import dataclasses
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import params as P
     from repro_torch.models import transformer as T
     cfg = get_arch(arch)
+    if arch in SERVE_DEPTH:
+        full = cfg
+        cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTH[arch])
+        log(f"[{tag}serve] reduced: depth {full.num_layers} -> "
+            f"{cfg.num_layers} layers (full width); {full.param_count()} "
+            f"float32 params ({full.param_count() * 4 / 1e9:.1f} GB) at full "
+            f"depth do not fit the card's 80 GB, {cfg.param_count()} "
+            f"({cfg.param_count() * 4 / 1e9:.1f} GB) do")
     t0 = time.perf_counter()
     params = T.init_params(torch.Generator(device=DEV).manual_seed(0),
                            cfg, DEV)
     torch.cuda.synchronize()
+    extra = ""
+    if cfg.is_encdec:
+        extra += (f", encoder {cfg.num_encoder_layers} layers over "
+                  f"{cfg.encoder_seq} frames")
+    if cfg.moe.num_experts:
+        m = cfg.moe
+        extra += (f", MoE {m.num_experts} experts top-{m.num_experts_per_tok}"
+                  f" capacity {m.capacity_factor}"
+                  f"{' + shared expert' if m.shared_expert else ''} every "
+                  f"{m.interleave} layer(s)")
+    if cfg.frontend.kind == "vision":
+        extra += f", vision prefix of {cfg.frontend.frontend_seq} patches"
     log(f"[{tag}serve] {cfg.name}: {cfg.num_layers} layers "
         f"{''.join(k[0] for k in cfg.layer_pattern)}, d {cfg.d_model}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
-        f"{'' if cfg.tie_embeddings else ' (untied head)'}; params "
+        f"{'' if cfg.tie_embeddings else ' (untied head)'}{extra}; params "
         f"{P.param_count(params)} ({P.param_bytes(params)} bytes, "
         f"{cfg.param_dtype}; analytic {cfg.param_count()}), activations "
         f"{cfg.dtype}; random init on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     return cfg, params
+
+
+def _prompt(cfg):
+    """(prompt tokens, positions before the first generated one) of a
+    served arch: a vision prefix's patches come first."""
+    S = SERVE_PROMPTS.get(cfg.name, SERVE_PROMPT)
+    return S, S + (cfg.frontend.frontend_seq
+                   if cfg.frontend.kind == "vision" else 0)
 
 
 def _counters():
@@ -3055,12 +3168,16 @@ def _launches():
 
 def _expected_launches(cfg):
     """Each serving kernel's launches per prefill and per decode step:
-    attention once per attention layer and the RG-LRU scan once per
-    recurrent layer in a prefill only; the WKV scan once per RWKV6 layer
-    in a prefill and in every decode step."""
+    attention once per attention layer (for an encoder-decoder also once
+    per encoder layer and once per decoder layer's cross-attention) and
+    the RG-LRU scan once per recurrent layer in a prefill only; the WKV
+    scan once per RWKV6 layer in a prefill and in every decode step."""
     pat = cfg.layer_pattern
     n_rwkv = pat.count("rwkv")
-    prefill = {"flash_attention": pat.count("attn") + pat.count("local"),
+    n_attn = pat.count("attn") + pat.count("local")
+    if cfg.is_encdec:
+        n_attn += cfg.num_encoder_layers + cfg.num_layers
+    prefill = {"flash_attention": n_attn,
                "rglru_scan": pat.count("rec"), "rwkv6_scan": n_rwkv}
     step = {"flash_attention": 0, "rglru_scan": 0, "rwkv6_scan": n_rwkv}
     return prefill, step
@@ -3072,10 +3189,11 @@ def phase_serve(torch, cfg, params, tag):
     from repro_torch.serving.decode import decode_step, pad_cache, prefill
     from repro_torch.serving.inputs import synthetic_batch
     want_prefill, want_step = _expected_launches(cfg)
+    S, base = _prompt(cfg)
     gen = torch.Generator(device=DEV).manual_seed(1)
     # warm-up (cuBLAS handles and heuristics, the allocator), off the path
     prefill(params, cfg, synthetic_batch(cfg, 1, 256, gen, DEV))
-    batch = synthetic_batch(cfg, SERVE_BATCH, SERVE_PROMPT, gen, DEV)
+    batch = synthetic_batch(cfg, SERVE_BATCH, S, gen, DEV)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -3092,8 +3210,8 @@ def phase_serve(torch, cfg, params, tag):
         raise AssertionError(f"{tc} of the prefill's "
                              f"{counts['flash_attention']} attention launches "
                              f"went to the tensor-core kernel")
-    cache = pad_cache(cache, cfg, prompt_len=SERVE_PROMPT,
-                      target_len=SERVE_PROMPT + SERVE_TOKENS)
+    cache = pad_cache(cache, cfg, prompt_len=base,
+                      target_len=base + SERVE_TOKENS)
     finite = torch.isfinite(logits).all()
     tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
     out = [tok]
@@ -3103,8 +3221,7 @@ def phase_serve(torch, cfg, params, tag):
     torch.cuda.set_sync_debug_mode("error")
     try:
         for i in range(steps):
-            logits, cache = decode_step(params, cfg, tok, cache,
-                                        SERVE_PROMPT + i)
+            logits, cache = decode_step(params, cfg, tok, cache, base + i)
             finite &= torch.isfinite(logits).all()
             tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
             out.append(tok)
@@ -3120,9 +3237,11 @@ def phase_serve(torch, cfg, params, tag):
     if not bool(finite):
         raise AssertionError("non-finite logits in prefill or decode")
     gen_toks = torch.cat(out, dim=1)
-    log(f"[{tag}serve] batch {SERVE_BATCH} x prompt {SERVE_PROMPT}, "
+    inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+    log(f"[{tag}serve] batch {SERVE_BATCH} x prompt {S} ({inputs}; the first "
+        f"generated token at position {base}), "
         f"{SERVE_TOKENS} greedy tokens: prefill {prefill_ms:.3f} ms "
-        f"({SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3:.1f} tokens/s), "
+        f"({SERVE_BATCH * base / prefill_ms * 1e3:.1f} positions/s), "
         f"decode {decode_ms:.3f} ms/token over {steps} steps "
         f"(under sync debug mode 'error'); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes; launches per prefill "
@@ -3134,24 +3253,33 @@ def phase_serve(torch, cfg, params, tag):
 
 
 def phase_serve_consistency(torch, cfg, params, tag):
-    """float32, batch 1: decode_step at position S against the last
-    logits of a prefill over S + 1 tokens (tests/test_serving.py's 2e-3)."""
+    """float32, batch 1: decode_step at the prompt's end against the last
+    logits of a prefill one token longer (tests/test_serving.py's 2e-3),
+    on the same frames or patches; an MoE arch at capacity
+    CONSISTENCY_CAPACITY, where no token is dropped."""
     import dataclasses
     from repro_torch.serving.decode import decode_step, pad_cache, prefill
     from repro_torch.serving.inputs import synthetic_batch
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    S = SERVE_PROMPT
-    toks = synthetic_batch(cfg32, 1, S + 1,
-                           torch.Generator(device=DEV).manual_seed(3),
-                           DEV)["tokens"]
-    want, _ = prefill(params, cfg32, {"tokens": toks})
-    _, cache = prefill(params, cfg32, {"tokens": toks[:, :S]})
-    cache = pad_cache(cache, cfg32, prompt_len=S, target_len=S + 1)
-    got, _ = decode_step(params, cfg32, toks[:, S:], cache, S)
+    if cfg.moe.num_experts:
+        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=CONSISTENCY_CAPACITY))
+    S, base = _prompt(cfg)
+    batch = synthetic_batch(cfg32, 1, S + 1,
+                            torch.Generator(device=DEV).manual_seed(3), DEV)
+    toks = batch["tokens"]
+    want, _ = prefill(params, cfg32, batch)
+    _, cache = prefill(params, cfg32, dict(batch, tokens=toks[:, :S]))
+    cache = pad_cache(cache, cfg32, prompt_len=base, target_len=base + 1)
+    got, _ = decode_step(params, cfg32, toks[:, S:], cache, base)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    log(f"[{tag}serve-consistency] float32, batch 1: decode_step "
-        f"at position {S} vs prefill of {S + 1} tokens: max_abs_diff {err} "
+    log(f"[{tag}serve-consistency] float32, batch 1"
+        + (f", MoE capacity {CONSISTENCY_CAPACITY}" if cfg.moe.num_experts
+           else "") + f": decode_step "
+        f"at position {base} vs prefill of {S + 1} tokens"
+        + (f" after {base - S} patches" if base > S else "")
+        + f": max_abs_diff {err} "
         f"(max |logit| {float(want.abs().max())}; tolerance rtol = atol = "
         f"2e-3)")
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
@@ -3164,7 +3292,8 @@ def phase_serve_profile(torch, cfg, params, tag):
     from repro_torch.serving.decode import decode_step, pad_cache, prefill
     from repro_torch.serving.inputs import synthetic_batch
     steps = 8
-    batch = synthetic_batch(cfg, SERVE_BATCH, SERVE_PROMPT,
+    S, base = _prompt(cfg)
+    batch = synthetic_batch(cfg, SERVE_BATCH, S,
                             torch.Generator(device=DEV).manual_seed(4),
                             DEV)
     torch.cuda.synchronize()
@@ -3172,16 +3301,14 @@ def phase_serve_profile(torch, cfg, params, tag):
 
     def run_prefill():
         state["logits"], cache = prefill(params, cfg, batch)
-        state["cache"] = pad_cache(cache, cfg, SERVE_PROMPT,
-                                   SERVE_PROMPT + steps)
+        state["cache"] = pad_cache(cache, cfg, base, base + steps)
 
     def run_decode():
         tok = torch.argmax(state["logits"][:, :cfg.vocab_size], dim=-1)
         tok = tok[:, None]
         for i in range(steps):
             logits, state["cache"] = decode_step(params, cfg, tok,
-                                                 state["cache"],
-                                                 SERVE_PROMPT + i)
+                                                 state["cache"], base + i)
             tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
 
     for what, fn, per in (("prefill", run_prefill, 1),
@@ -3201,7 +3328,7 @@ def phase_serve_profile(torch, cfg, params, tag):
             for k, v in ((k, sum(us for name, (us, _) in by_name.items()
                                  if k in name))
                          for k in SERVE_KERNELS))
-        log(f"[{tag}serve-profile] {what} ({SERVE_BATCH} x {SERVE_PROMPT}"
+        log(f"[{tag}serve-profile] {what} ({SERVE_BATCH} x {S}"
             + (f", {steps} steps, per step" if per > 1 else "")
             + f") under the profiler: wall {wall / per / 1e3:.3f} ms, "
             f"device busy {busy / per / 1e3:.3f} ms ({busy / wall:.1%} of "
@@ -3213,26 +3340,31 @@ def phase_serve_profile(torch, cfg, params, tag):
 def phase_serve_reference(torch, arch, tag):
     """The reduced config on the card against the same calls on the CPU:
     a ragged prompt of 100 tokens (past RecurrentGemma's reduced window,
-    so the ring roll runs), pad_cache, 3 decode steps, the same params on
+    so the ring roll runs; after InternVL2's 16 patches; on whisper's 16
+    frames), pad_cache, 3 decode steps, the same params and inputs on
     both."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import params as P
     from repro_torch.models import transformer as T
     from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    from repro_torch.serving.inputs import synthetic_batch
     cfg = get_arch(arch).reduced()
     cpu = T.init_params(torch.Generator().manual_seed(5), cfg, "cpu")
     gpu = P.from_numpy_tree(P.to_numpy_tree(cpu), DEV)
     S, steps = 100, 3
-    toks = torch.randint(0, cfg.vocab_size, (2, S + steps),
-                         generator=torch.Generator().manual_seed(6))
+    inputs = synthetic_batch(cfg, 2, S + steps,
+                             torch.Generator().manual_seed(6), "cpu")
+    base = S + (inputs["prefix"].shape[1] if "prefix" in inputs else 0)
     runs = {}
     for dev, params in ((DEV, gpu), ("cpu", cpu)):
-        t = toks.to(dev)
-        logits, cache = prefill(params, cfg, {"tokens": t[:, :S]})
+        b = {k: v.to(dev) for k, v in inputs.items()}
+        t = b["tokens"]
+        logits, cache = prefill(params, cfg, dict(b, tokens=t[:, :S]))
         seq = [logits]
-        cache = pad_cache(cache, cfg, S, S + steps)
-        for i in range(S, S + steps):
-            logits, cache = decode_step(params, cfg, t[:, i:i + 1], cache, i)
+        cache = pad_cache(cache, cfg, base, base + steps)
+        for i in range(steps):
+            logits, cache = decode_step(params, cfg, t[:, S + i:S + i + 1],
+                                        cache, base + i)
             seq.append(logits)
         runs[dev] = [x.cpu() for x in seq] + [
             x.cpu() for _, x in P.tree_items(cache)]
@@ -3244,8 +3376,11 @@ def phase_serve_reference(torch, arch, tag):
     for a, b in zip(runs[DEV], runs["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     window = ("local" in cfg.layer_pattern) and cfg.attention.sliding_window
+    extra = ", ".join(f"{k} {tuple(v.shape)}" for k, v in inputs.items()
+                      if k != "tokens")
     log(f"[{tag}serve-reference] {cfg.name} (float32), prompt {S}"
         + (f" past the window {window}" if window else "")
+        + (f" ({extra})" if extra else "")
         + f", {steps} decode steps: card vs CPU max_abs_diff {worst} over "
         f"the logits and every cache leaf (tolerance rtol = atol = 1e-4)")
 
@@ -3327,8 +3462,13 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
         "tflops": flops / tc_ms / 1e9, "share_of_bound": bound / tc_ms})
     del q, k, v, qt, kt, vt, band, fns
     for arch in DECODERS:
-        rows.append(_decoder_attn_times(torch, arch, arch_launches[arch],
-                                        errs, gen))
+        B, S, H, KVH, D, causal, _ = _decoder_attn(arch)
+        rows.append(_attn_times(torch, arch, arch,
+                                (B, S, S, H, KVH, D, causal),
+                                arch_launches[arch], errs, gen))
+    for label, arch, shape in _zoo_attn():
+        rows.append(_attn_times(torch, label, arch, shape,
+                                arch_launches[arch], errs, gen))
 
     B, S, W, _ = SCAN_CASES[0]
     a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=DEV))
@@ -3422,40 +3562,42 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
     return rows
 
 
-def _decoder_attn_times(torch, arch, launches, errs, gen):
-    """The tensor-core attention at a dense decoder's prefill shape
-    (causal, no window) beside SDPA (``is_causal``, ``enable_gqa``), the
-    plain version and the bound.  A shape where the kernel loses to SDPA
-    is logged as such: it stays on the kernel."""
+def _attn_times(torch, label, arch, shape, launches, errs, gen):
+    """The tensor-core attention at a served prefill's shape (B, Sq, Sk, H,
+    KVH, D, causal; no window) beside SDPA (``enable_gqa``; ``is_causal``
+    where causal, no mask where bidirectional), the plain version and the
+    bound.  A shape where the kernel loses to SDPA is logged as such: it
+    stays on the kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B, S, H, KVH, D, causal, window = _decoder_attn(arch)
-    q = torch.randn((B, S, H, D), generator=gen, device=DEV).bfloat16()
-    k = torch.randn((B, S, KVH, D), generator=gen, device=DEV).bfloat16()
-    v = torch.randn((B, S, KVH, D), generator=gen, device=DEV).bfloat16()
+    B, Sq, Sk, H, KVH, D, causal = shape
+    q = torch.randn((B, Sq, H, D), generator=gen, device=DEV).bfloat16()
+    k = torch.randn((B, Sk, KVH, D), generator=gen, device=DEV).bfloat16()
+    v = torch.randn((B, Sk, KVH, D), generator=gen, device=DEV).bfloat16()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     fns = {"tensor-core kernel": lambda: fa.flash_attention_cuda(
-               q, k, v, causal, window),
+               q, k, v, causal, None),
            "library sdpa": lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, is_causal=True, enable_gqa=True)}
+               qt, kt, vt, is_causal=causal, enable_gqa=True)}
     n = 20
     dev_ms = _turns_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
-    plain_ms = _median_ms(torch, lambda: fa.flash_attention_plain(
-        q, k, v, causal, window), True, 3)
-    pairs = visible_pairs(S, causal, window)
+    plain_ms = _median_ms(torch, lambda: _plain_attn(torch, q, k, v, causal),
+                          True, 3)
+    pairs = visible_pairs(Sq, True, None) if causal else Sq * Sk
     flops = 4 * B * H * D * pairs
-    moved = (2 * B * S * H * D + 2 * B * S * KVH * D) * 2
+    moved = (2 * B * Sq * H * D + 2 * B * Sk * KVH * D) * 2
     b_ops = flops / H100_BF16_FLOPS * 1e3
     b_bytes = moved / H100_BYTES_PER_S * 1e3
     bound = max(b_ops, b_bytes)
     tc_ms = dev_ms["tensor-core kernel"]
     sdpa = dev_ms["library sdpa"]
-    log(f"[times] flash_attention bf16 (B, S, H, KVH, D) = "
-        f"{(B, S, H, KVH, D)} causal ({arch}'s prefill), median of {n} "
-        f"CUDA-event timings in 4 turns, card / call: " + ", ".join(
-            f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
-            for key in fns)
+    log(f"[times] flash_attention bf16 (B, Sq, Sk, H, KVH, D) = "
+        f"{(B, Sq, Sk, H, KVH, D)} "
+        f"{'causal' if causal else 'bidirectional'} ({label}'s prefill), "
+        f"median of {n} CUDA-event timings in 4 turns, card / call: "
+        + ", ".join(f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
+                    for key in fns)
         + f"; plain {plain_ms:.6f} ms (median of 3); bound {bound:.6f} ms "
         f"({flops} flops over {pairs} visible pairs at 989 TFLOP/s; {moved} "
         f"bytes take {b_bytes:.6f} ms); tensor-core kernel "
@@ -3464,12 +3606,12 @@ def _decoder_attn_times(torch, arch, launches, errs, gen):
         + ("" if tc_ms < sdpa else " (LOSES to SDPA)")
         + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
     return {
-        "name": "flash_attention", "arch": arch, "route": "cuda",
-        "shape": [B, S, H, KVH, D],
+        "name": "flash_attention", "arch": label, "route": "cuda",
+        "shape": [B, Sq, Sk, H, KVH, D], "causal": causal,
         "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:90",
         "launches": launches["flash_attention"],
-        "max_abs_err": errs[f"flash_attention {arch}"],
+        "max_abs_err": errs[f"flash_attention {label}"],
         "ms": tc_ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "operations" if b_ops >= b_bytes else "bytes",
         "library_ms": sdpa, "call_ms": call_ms["tensor-core kernel"],
@@ -3644,6 +3786,8 @@ def main() -> int:
         phase_serve_profile(torch, cfg, params, tag)
         del params      # the next arch's params need the room
         torch.cuda.empty_cache()
+        phase_serve_reference(torch, arch, tag)
+    for arch, tag in REFERENCE_ONLY:
         phase_serve_reference(torch, arch, tag)
     serve_launches["rglru_scan"] += (
         seq["rglru_scan"] + exp["rglru_scan"] + seq_bank["rglru_scan"]

@@ -2,10 +2,11 @@
 
 The port's twin of ``examples/serve_batch.py``: prefill a batch of
 prompts, extend the cache, then stream tokens with one-token
-``decode_step`` calls — for a dense, an SSM and a hybrid architecture
-(reduced configs, so it runs in seconds), on the card (``--device cpu``
-for the CPU).  ``--arch`` serves one id of the port's registry instead;
-``whisper-large-v3`` of ``repro``'s list is not ported.
+``decode_step`` calls — for a dense, an SSM, a hybrid and an
+encoder-decoder architecture (reduced configs, so it runs in seconds),
+on the card (``--device cpu`` for the CPU).  ``--arch`` serves one id of
+the registry instead; a vision prefix's patches count in the decode
+positions.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_batch [--tokens 16]
       PYTHONPATH=src python -m repro_torch.examples.serve_batch --arch granite-3-2b
@@ -23,8 +24,9 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.decode import decode_step, pad_cache, prefill
 from repro_torch.serving.inputs import synthetic_batch
 
-#: ``repro``'s example serves these, and whisper-large-v3 (not ported)
-DEFAULT_ARCHS = ("qwen3-8b", "rwkv6-7b", "recurrentgemma-9b")
+#: the archs ``repro``'s example serves
+DEFAULT_ARCHS = ("qwen3-8b", "rwkv6-7b", "recurrentgemma-9b",
+                 "whisper-large-v3")
 
 
 def _sync(dev: torch.device) -> None:
@@ -47,8 +49,10 @@ def serve(arch: str, batch_size: int, prompt_len: int, gen_tokens: int,
     batch = synthetic_batch(cfg, batch_size, prompt_len,
                             torch.Generator().manual_seed(seed), dev)
     logits, cache = prefill(params, cfg, batch)
-    cache = pad_cache(cache, cfg, prompt_len=prompt_len,
-                      target_len=prompt_len + gen_tokens)
+    base = prompt_len + (batch["prefix"].shape[1] if "prefix" in batch
+                         else 0)
+    cache = pad_cache(cache, cfg, prompt_len=base,
+                      target_len=base + gen_tokens)
     _sync(dev)
     t_prefill = time.time() - t0
 
@@ -57,7 +61,7 @@ def serve(arch: str, batch_size: int, prompt_len: int, gen_tokens: int,
     out = [tok]
     t0 = time.time()
     for i in range(gen_tokens - 1):
-        logits, cache = decode_step(params, cfg, tok, cache, prompt_len + i)
+        logits, cache = decode_step(params, cfg, tok, cache, base + i)
         tok = torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None]
         out.append(tok)
     _sync(dev)

@@ -1,8 +1,9 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> ...``.
 
 Port of ``repro.launch.serve``: random params from ``--seed``, a
-synthetic prompt batch, one batched prefill, then greedy decode of
-``--tokens`` tokens.  Reports prefill latency and per-token decode
+synthetic prompt batch (with whisper's frames or InternVL2's patch
+prefix), one batched prefill, then greedy decode of ``--tokens``
+tokens; decode positions count a vision prefix.  Reports prefill latency and per-token decode
 latency with the device's name.  Runs on the card (``--device cuda``,
 the default; it raises without one) or on the CPU (``--device cpu``).
 No mesh: one device.  The greedy tokens stay on the device during the
@@ -17,7 +18,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.registry import ARCHS, NOT_PORTED, get_arch
+from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.models import params as P
 from repro_torch.models import transformer as T
 from repro_torch.serving.decode import decode_step, pad_cache, prefill
@@ -37,7 +38,7 @@ def device_name(dev: torch.device) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="recurrentgemma-9b",
-                    choices=list(ARCHS) + list(NOT_PORTED))
+                    choices=list(ARCHS))
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--no-reduced", dest="reduced", action="store_false")
     ap.add_argument("--batch", type=int, default=4)
@@ -70,13 +71,16 @@ def main(argv=None) -> int:
     print(f"prefill: {(time.perf_counter() - t0) * 1000:.1f} ms "
           f"({args.batch * args.prompt} tokens)")
 
-    cache = pad_cache(cache, cfg, prompt_len=args.prompt,
-                      target_len=args.prompt + args.tokens)
+    # a vision prefix's patches take the first positions
+    base = args.prompt + (batch["prefix"].shape[1] if "prefix" in batch
+                          else 0)
+    cache = pad_cache(cache, cfg, prompt_len=base,
+                      target_len=base + args.tokens)
     tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
     out = [tok]
     t0 = time.perf_counter()
     for i in range(args.tokens - 1):
-        logits, cache = decode_step(params, cfg, tok, cache, args.prompt + i)
+        logits, cache = decode_step(params, cfg, tok, cache, base + i)
         tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
         out.append(tok)
     _sync(dev)

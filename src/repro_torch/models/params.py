@@ -56,7 +56,8 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
     shape = (*lead, in_dim, out_dim)
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    w = w * scale if scale is not None else w / math.sqrt(in_dim)
+    # in place: a stacked leaf (10.7 GB for Scout's experts) is held once
+    w = w.mul_(scale) if scale is not None else w.div_(math.sqrt(in_dim))
     p = {"w": w.to(resolve_device(device))}
     if bias:
         p["b"] = torch.zeros((*lead, out_dim), dtype=torch.float32,

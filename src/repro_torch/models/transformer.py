@@ -1,28 +1,31 @@
-"""The model zoo's decoder backbone, as far as serving needs it.
+"""The model zoo's backbone, as far as serving needs it.
 
 Port of the serving half of ``repro.models.transformer``: the layer
-pattern's repeating unit, parameter init with the units stacked along a
+pattern's repeating unit (1 layer for dense, 2 for interleaved MoE, 3
+for RecurrentGemma), parameter init with the units stacked along a
 leading ``layers`` dim (as ``repro`` stacks them for its scan), the
-token embedding and the logits head (tied or untied).  Decoder-only
-configs without MoE or a frontend; the others raise
-``NotImplementedError`` (ROADMAP.md, queue 1).  Training
-(``forward_train``, ``xent_loss``) is a later slice.
+token embedding, the logits head (tied or untied), sinusoidal positions
+and the encoder-decoder half (whisper's ``encode`` and ``cross_attend``).
+Training (``forward_train``, ``xent_loss``) is a later slice.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RECURRENT, RWKV,
                                       ModelConfig)
+from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import params as P
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
-from repro_torch.models.mlp import mlp_init
+from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.moe import moe_init
 
 VOCAB_PAD = 256
 
@@ -31,21 +34,13 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return ((cfg.vocab_size + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
 
 
-def check_servable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve."""
-    missing = []
-    if cfg.moe.num_experts > 0:
-        missing.append("MoE")
-    if cfg.is_encdec:
-        missing.append("encoder-decoder")
-    if cfg.frontend.kind != "none":
-        missing.append("a modality frontend")
-    if cfg.attention.rope_theta <= 0:
-        missing.append("sinusoidal positions")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet "
-            f"(ROADMAP.md, queue 1)")
+def divisor_block(S: int, target: int) -> int:
+    """Largest block size <= target that divides S (chunked passes need
+    exact tiling; e.g. whisper's encoder S=1500 -> 500)."""
+    b = max(1, min(target, S))
+    while S % b:
+        b -= 1
+    return b
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +70,8 @@ def unit_counts(cfg: ModelConfig) -> Tuple[int, int]:
 # Init
 # ---------------------------------------------------------------------------
 def _layer_init(generator: torch.Generator, cfg: ModelConfig, kind: str,
-                device: DeviceLike, lead: Tuple[int, ...] = ()) -> P.Params:
+                use_moe: bool, device: DeviceLike,
+                lead: Tuple[int, ...] = ()) -> P.Params:
     p = {"norm1": P.rmsnorm_init(cfg.d_model, device, lead),
          "norm2": P.rmsnorm_init(cfg.d_model, device, lead)}
     if kind == RWKV:        # time mix, and the channel mix as its MLP
@@ -89,26 +85,54 @@ def _layer_init(generator: torch.Generator, cfg: ModelConfig, kind: str,
         p["mix"] = G.rglru_init(generator, cfg, device, lead)
     else:
         raise ValueError(kind)
-    p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.glu, device,
-                        lead)
+    if use_moe:
+        p["mlp"] = moe_init(generator, cfg.d_model, cfg.d_ff, cfg.moe,
+                            cfg.glu, device, lead)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.glu,
+                            device, lead)
     return p
 
 
 def _unit_init(generator: torch.Generator, cfg: ModelConfig,
                device: DeviceLike, lead: Tuple[int, ...] = ()) -> P.Params:
-    return {f"l{i}": _layer_init(generator, cfg, kind, device, lead)
-            for i, (kind, _) in enumerate(unit_pattern(cfg))}
+    return {f"l{i}": _layer_init(generator, cfg, kind, use_moe, device, lead)
+            for i, (kind, use_moe) in enumerate(unit_pattern(cfg))}
+
+
+def _encoder_layer_init(generator: torch.Generator, cfg: ModelConfig,
+                        device: DeviceLike, lead: Tuple[int, ...] = ()
+                        ) -> P.Params:
+    """Whisper encoder layer: bidirectional self-attention + MLP."""
+    return {"norm1": P.rmsnorm_init(cfg.d_model, device, lead),
+            "norm2": P.rmsnorm_init(cfg.d_model, device, lead),
+            "attn": A.attn_init(generator, cfg.d_model, cfg.attention,
+                                device, lead),
+            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.glu,
+                            device, lead)}
+
+
+def _cross_layer_init(generator: torch.Generator, cfg: ModelConfig,
+                      device: DeviceLike, lead: Tuple[int, ...] = ()
+                      ) -> P.Params:
+    """A decoder layer's cross-attention: its pre-norm and projections."""
+    return {"norm": P.rmsnorm_init(cfg.d_model, device, lead),
+            "attn": A.attn_init(generator, cfg.d_model, cfg.attention,
+                                device, lead)}
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device: DeviceLike = None) -> P.Params:
     """Random float32 params with ``repro``'s tree: ``embed``, ``units``
-    (each leaf stacked over the units), ``tail`` (the layers that do not
-    fill a unit), ``final_norm``, and ``head`` when untied.  Every leaf is
-    drawn straight into its stacked shape, so the params are never held
-    twice (37.6 GB for RecurrentGemma-9B).  Drawn on ``generator``'s
-    device: a generator on the card keeps the init on the card."""
-    check_servable(cfg)
+    (each leaf stacked over the units; an MoE layer's experts over a
+    second, ``experts`` dim), ``tail`` (the layers that do not fill a
+    unit), ``final_norm``, ``head`` when untied, and for an
+    encoder-decoder ``encoder`` (``layers`` stacked over the encoder
+    layers, ``norm``) and ``cross`` (``layers`` stacked over the decoder
+    layers).  Every leaf is drawn straight into its stacked shape, so the
+    params are never held twice (37.6 GB for RecurrentGemma-9B).  Drawn
+    on ``generator``'s device: a generator on the card keeps the init on
+    the card."""
     dev = resolve_device(device)
     n_units, n_tail = unit_counts(cfg)
     unit = unit_pattern(cfg)
@@ -117,17 +141,24 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         "units": _unit_init(generator, cfg, dev, lead=(n_units,)),
     }
     if n_tail:
-        p["tail"] = {f"l{i}": _layer_init(generator, cfg, unit[i][0], dev)
+        p["tail"] = {f"l{i}": _layer_init(generator, cfg, *unit[i], dev)
                      for i in range(n_tail)}
     p["final_norm"] = P.rmsnorm_init(cfg.d_model, dev)
     if not cfg.tie_embeddings:
         p["head"] = P.dense_init(generator, cfg.d_model, padded_vocab(cfg),
                                  device=dev)
+    if cfg.is_encdec:
+        p["encoder"] = {
+            "layers": _encoder_layer_init(generator, cfg, dev,
+                                          lead=(cfg.num_encoder_layers,)),
+            "norm": P.rmsnorm_init(cfg.d_model, dev)}
+        p["cross"] = {"layers": _cross_layer_init(
+            generator, cfg, dev, lead=(cfg.num_layers,))}
     return p
 
 
 # ---------------------------------------------------------------------------
-# Embedding / head
+# Embedding / positions / head
 # ---------------------------------------------------------------------------
 def embed_tokens(params: P.Params, cfg: ModelConfig, tokens: torch.Tensor
                  ) -> torch.Tensor:
@@ -141,9 +172,76 @@ def embed_tokens(params: P.Params, cfg: ModelConfig, tokens: torch.Tensor
     return x * scale
 
 
+def sinusoidal_positions(S: int, d: int, offset: int = 0,
+                         device: DeviceLike = "cpu") -> torch.Tensor:
+    """(S, d) float32 table of positions offset .. offset + S - 1: sin in
+    the even columns, cos in the odd ones, computed in numpy float64 and
+    rounded to float32, as ``repro`` builds it."""
+    pos = np.arange(offset, offset + S)[:, None]
+    div = np.exp(np.arange(0, d, 2) * (-np.log(10000.0) / d))
+    pe = np.zeros((S, d), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return torch.from_numpy(pe).to(resolve_device(device))
+
+
 def logits_fn(params: P.Params, cfg: ModelConfig, h: torch.Tensor
               ) -> torch.Tensor:
     """h: (..., d) -> (..., Vp), in h's dtype."""
     if cfg.tie_embeddings:
         return h @ params["embed"]["table"].to(h.dtype).T
     return P.dense_apply(params["head"], h, h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+def cross_kv(p: P.Params, enc_out: torch.Tensor, cfg: ModelConfig,
+             dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A cross-attention's keys and values from the encoder's output:
+    (B, F, KVH, D) each, in ``dtype``."""
+    B, F, _ = enc_out.shape
+    a = cfg.attention
+    return tuple(P.dense_apply(p[name], enc_out, dtype).reshape(
+        B, F, a.num_kv_heads, a.head_dim) for name in ("k", "v"))
+
+
+def cross_out(p: P.Params, h: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Queries from h (B, S, d) against precomputed cross keys and values,
+    every key visible, through ``ops.attention``; returns (B, S, d)."""
+    B, S, _ = h.shape
+    a = cfg.attention
+    q = P.dense_apply(p["q"], h, h.dtype).reshape(B, S, a.num_heads,
+                                                  a.head_dim)
+    out = ops.attention(q, k, v, causal=False, window=None)
+    return P.dense_apply(p["o"], out.reshape(B, S, a.num_heads * a.head_dim),
+                         h.dtype)
+
+
+def cross_attend(p: P.Params, h: torch.Tensor, enc_out: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention: queries from h, keys/values from
+    enc_out."""
+    return cross_out(p, h, *cross_kv(p, enc_out, cfg, h.dtype), cfg)
+
+
+def encode(params: P.Params, cfg: ModelConfig, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """Whisper encoder over stubbed frame embeddings (B, F, d): sinusoidal
+    positions, then pre-norm layers of bidirectional self-attention (the
+    attention kernel, every frame visible) and the MLP, then the encoder's
+    norm.  In the working dtype."""
+    dt = getattr(torch, cfg.dtype)
+    x = frames.to(dt)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 device=x.device).to(dt)[None]
+    layers = params["encoder"]["layers"]
+    for i in range(cfg.num_encoder_layers):
+        lp = P.tree_map_with_path(lambda _, w: w[i], layers)
+        h = P.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+        x = x + A.attn_apply(lp["attn"], h, cfg.attention, cfg.norm_eps,
+                             causal=False, window=None)
+        h = P.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
+        x = x + mlp_apply(lp["mlp"], h, cfg.act, cfg.glu)
+    return P.rmsnorm_apply(params["encoder"]["norm"], x, cfg.norm_eps)

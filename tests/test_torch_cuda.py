@@ -546,6 +546,18 @@ TC_CASES = [
     (3, 1000, 1000, 5, 1, 64, True, 300),     # G = 5 over many blocks
     (1, 4097, 4097, 16, 1, 256, True, 2048),  # ragged past the window
     (4, 4096, 4096, 16, 1, 256, True, 2048),  # the serving prefill
+    # whisper-large-v3: the encoder (Sk = 1,500 = 18 x 80 + 60, a ragged
+    # last K/V tile), the cross-attention (Sq 416 on Sk 1,500) and the
+    # decoder's self-attention, all at D = 64 on 20 heads
+    (4, 1500, 1500, 20, 20, 64, False, None),
+    (4, 416, 1500, 20, 20, 64, False, None),
+    (4, 416, 416, 20, 20, 64, True, None),
+    # GQA groups of 5 (Scout: 40 heads on 8) and 6 (InternVL2: 48 on 8) at
+    # D = 128, where a 128-row block straddles queries
+    (1, 4096, 4096, 40, 8, 128, True, None),
+    (1, 4352, 4352, 48, 8, 128, True, None),
+    (2, 333, 333, 40, 8, 128, True, None),
+    (2, 333, 333, 48, 8, 128, True, None),
 ]
 
 
@@ -992,3 +1004,119 @@ def test_qk_norm_prefill_on_card_matches_cpu(cuda_device):
         outs.append([s.float().cpu() for s in steps])
     for want, got in zip(*outs):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the zoo: whisper's encoder-decoder, the MoE decoders and the
+# vision prefix, reduced, on the card against the CPU
+# ---------------------------------------------------------------------------
+NEW_ARCHS = ("whisper-large-v3", "llama4-scout-17b-a16e",
+             "llama4-maverick-400b-a17b", "internvl2-26b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_zoo_prefill_decode_on_card_matches_cpu(cuda_device, arch):
+    """The reduced config in float32: prefill (whisper's 16 frames,
+    InternVL2's 16 patches first), pad_cache and three decode steps on
+    the card agree with the CPU within 1e-4 on the logits and every cache
+    leaf.  A prefill launches the attention kernel once a layer (whisper:
+    once an encoder layer, and twice a decoder layer: self and cross), a
+    decode step never."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    from repro_torch.serving.inputs import synthetic_batch
+    cfg = ARCHS[arch].reduced()
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = synthetic_batch(cfg, 2, 99, torch.Generator().manual_seed(1),
+                            "cpu")
+    dev = P.tree_map_with_path(lambda _, x: x.to(cuda_device), params)
+    base = 96 + (batch["prefix"].shape[1] if "prefix" in batch else 0)
+    want_launches = cfg.num_layers * (2 if cfg.is_encdec else 1) \
+        + cfg.num_encoder_layers
+    outs = []
+    for p, on in ((params, "cpu"), (dev, cuda_device)):
+        b = {k: v.to(on) for k, v in batch.items()}
+        toks = b["tokens"]
+        fa.LAUNCHES = 0
+        logits, cache = prefill(p, cfg, dict(b, tokens=toks[:, :96]))
+        assert fa.LAUNCHES == (want_launches if on != "cpu" else 0)
+        steps = [logits]
+        cache = pad_cache(cache, cfg, base, base + 3)
+        for i in range(3):
+            logits, cache = decode_step(p, cfg, toks[:, 96 + i:97 + i], cache,
+                                        base + i)
+            steps.append(logits)
+        assert fa.LAUNCHES == (want_launches if on != "cpu" else 0)
+        outs.append([s.cpu() for s in steps]
+                    + [x.cpu() for _, x in P.tree_items(cache)])
+    for want, got in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_zoo_bf16_prefill_on_tensor_cores(cuda_device, arch):
+    """In bf16 every prefill attention of the reduced config (D = 64) goes
+    to the tensor-core kernel; a decode step launches none and its
+    logits are finite, under the sync debug mode."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    from repro_torch.serving.inputs import synthetic_batch
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), dtype="bfloat16")
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    params = T.init_params(g, cfg, cuda_device)
+    batch = synthetic_batch(cfg, 2, 100, g, cuda_device)
+    base = 100 + (batch["prefix"].shape[1] if "prefix" in batch else 0)
+    fa.LAUNCHES = fa.TC_LAUNCHES = 0
+    logits, cache = prefill(params, cfg, batch)
+    n = cfg.num_layers * (2 if cfg.is_encdec else 1) + cfg.num_encoder_layers
+    assert fa.LAUNCHES == fa.TC_LAUNCHES == n
+    cache = pad_cache(cache, cfg, base, base + 2)
+    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(2):
+            logits, cache = decode_step(params, cfg, tok, cache, base + i)
+            tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fa.LAUNCHES == n
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,chunk", [(96, 512), (1024, 512), (3, 1)])
+def test_moe_apply_on_card_matches_cpu(cuda_device, S, chunk):
+    """The reduced Scout's MoE layer at capacity 1.25 (a 96- or 512-token
+    chunk drops tokens) in float32: the same dispatch on the card as on
+    the CPU, the output and losses within 1e-5."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import moe as M
+    from repro_torch.models import params as P
+    cfg = ARCHS["llama4-scout-17b-a16e"].reduced()
+    g = torch.Generator().manual_seed(3)
+    p = M.moe_init(g, cfg.d_model, cfg.d_ff, cfg.moe, cfg.glu, "cpu")
+    x = torch.randn((2, S, cfg.d_model), generator=g)
+    dev = P.tree_map_with_path(lambda _, w: w.to(cuda_device), p)
+    x_dev = x.to(cuda_device)
+    want, want_aux = M.moe_apply(p, x, cfg.moe, cfg.act, cfg.glu, chunk)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, got_aux = M.moe_apply(dev, x_dev, cfg.moe, cfg.act, cfg.glu,
+                                   chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for name in ("lb_loss", "z_loss"):
+        torch.testing.assert_close(got_aux[name].cpu(), want_aux[name],
+                                   rtol=1e-5, atol=1e-5)

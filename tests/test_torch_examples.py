@@ -10,8 +10,10 @@
   ``--process`` path likewise.
 * ``score_stream``: its bank equals a directly trained one bit for bit,
   every window scores as its routed model scored directly, none dropped.
-* ``serve_batch``: the greedy tokens of each default arch and of
-  ``--arch granite-3-2b`` equal a direct prefill and decode loop.
+* ``serve_batch``: the greedy tokens of each default arch (whisper's
+  encoder-decoder among them) and of ``--arch granite-3-2b`` and
+  ``--arch internvl2-26b`` (a vision prefix before the prompt) equal a
+  direct prefill and decode loop.
 """
 import re
 import warnings
@@ -153,15 +155,16 @@ def _direct_tokens(arch, batch, prompt, tokens):
     inp = synthetic_batch(cfg, batch, prompt, torch.Generator().manual_seed(0),
                           "cpu")
     logits, cache = prefill(params, cfg, inp)
-    cache = pad_cache(cache, cfg, prompt, prompt + tokens)
+    base = prompt + (inp["prefix"].shape[1] if "prefix" in inp else 0)
+    cache = pad_cache(cache, cfg, base, base + tokens)
     out = [torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None]]
     for i in range(tokens - 1):
-        logits, cache = decode_step(params, cfg, out[-1], cache, prompt + i)
+        logits, cache = decode_step(params, cfg, out[-1], cache, base + i)
         out.append(torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None])
     return torch.cat(out, dim=1)
 
 
-@pytest.mark.parametrize("arch", [None, "granite-3-2b"])
+@pytest.mark.parametrize("arch", [None, "granite-3-2b", "internvl2-26b"])
 def test_serve_batch_smoke(capsys, arch):
     got = serve_batch.main(SMOKE + ([] if arch is None else ["--arch", arch]))
     out = capsys.readouterr().out

@@ -1,8 +1,10 @@
-"""Port parity for serving: RecurrentGemma's, RWKV6's and the dense GQA
-decoders' (Granite-3-2B, InternLM2-1.8B, Qwen1.5-0.5B, Qwen3-8B) prefill,
-``pad_cache`` and greedy ``decode_step`` against ``repro``'s
-``prefill(..., use_pallas=True)`` (its Pallas kernels in interpret mode)
-and ``decode_step``, the configs, the cache tree and the launcher.
+"""Port parity for serving: every arch of the zoo -- RecurrentGemma,
+RWKV6, the dense GQA decoders (Granite-3-2B, InternLM2-1.8B, Qwen1.5-0.5B,
+Qwen3-8B), whisper-large-v3 (encoder-decoder), Llama-4 Scout and Maverick
+(MoE) and InternVL2-26B (vision prefix) -- prefill, ``pad_cache`` and
+greedy ``decode_step`` against ``repro``'s ``prefill(..., use_pallas=True)``
+(its Pallas kernels in interpret mode) and ``decode_step``, the configs,
+the cache tree and the launcher.
 
 RecurrentGemma's reduced config (one recurrent + one local-attention
 layer, d 256, window 64) runs at (B, S) = (2, 96), so the prompt is
@@ -12,8 +14,14 @@ RWKV6 layers, d 256, 4 heads of 64) runs at (2, 128): ``repro``'s Pallas
 WKV kernel tiles time in blocks of 64.  The dense decoders' reduced
 configs (two attention layers, d 256, 4 heads of 64 on 4 kv heads; QKV
 bias for Qwen1.5, qk-norm for Qwen3, also on 2 kv heads) run at (2, 96)
-with full-length caches.  Params come from ``repro``'s
-``init_params`` through the weight bridge, prompts from numpy.  Logits
+with full-length caches.  Whisper's reduced config (2 encoder and 2
+decoder layers, d 256, 4 heads of 64, QKV bias, sinusoidal positions,
+GELU MLP without gate) runs at (2, 96) on 16 frames; the reduced Scout
+(4 experts, top-1, capacity 1.25, a shared expert) and Maverick (its
+2-layer unit: MoE, then dense) at (2, 96), where a 96-token chunk's
+capacity of 30 drops tokens; InternVL2's at 16 patches + 80 tokens.
+Frames and patches come from numpy like the prompts.  Params come from
+``repro``'s ``init_params`` through the weight bridge.  Logits
 and every cache leaf agree within rtol = atol = 1e-4 (float32 sums in
 another order; ``repro``'s own two paths differ by ~1e-6 here).
 """
@@ -30,7 +38,7 @@ from repro.models import transformer as JT
 from repro.serving import decode as JD
 from repro_torch.configs import base as TB
 from repro_torch.configs.registry import ARCHS as TARCHS
-from repro_torch.configs.registry import NOT_PORTED, get_arch
+from repro_torch.configs.registry import get_arch
 from repro_torch.launch import serve as tserve
 from repro_torch.models import params as TP
 from repro_torch.models import transformer as TT
@@ -42,9 +50,13 @@ B, STEPS = 2, 3
 RG = "recurrentgemma-9b"
 #: the dense GQA decoders (full-length caches, no window)
 DENSE = ("granite-3-2b", "internlm2-1.8b", "qwen1.5-0.5b", "qwen3-8b")
+WHISPER, VLM = "whisper-large-v3", "internvl2-26b"
+MOE = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b")
 #: prompt lengths inside the Pallas kernels' block domains (one block of
-#: queries up to 256 for attention, 64-step WKV blocks)
-PROMPT = {RG: 96, "rwkv6-7b": 128, **{a: 96 for a in DENSE}}
+#: queries up to 256 for attention, 64-step WKV blocks); InternVL2's 80
+#: tokens follow its reduced 16-patch prefix
+PROMPT = {RG: 96, "rwkv6-7b": 128, **{a: 96 for a in DENSE + MOE},
+          WHISPER: 96, VLM: 80}
 #: (arch, layers): the reduced configs, RecurrentGemma's tail variant and
 #: the dense decoders, which ``reduced()`` cuts to 4 heads on 4 kv heads;
 #: layers -2 keeps 2 layers on 2 kv heads, so the reduced Qwen3 is a GQA
@@ -54,7 +66,8 @@ ARCH_CASES = ([pytest.param(RG, 2, id="2"), pytest.param(RG, 5, id="5"),
                pytest.param("rwkv6-7b", 2, id="rwkv6-7b")]
               + [pytest.param(a, 2, id=a) for a in DENSE]
               + [pytest.param("qwen3-8b", -2, id="qwen3-8b-gqa"),
-                 pytest.param("qwen3-8b", -3, id="qwen3-8b-norm-eps")])
+                 pytest.param("qwen3-8b", -3, id="qwen3-8b-norm-eps")]
+              + [pytest.param(a, 2, id=a) for a in (WHISPER, *MOE, VLM)])
 
 
 def _variant(cfg, n_layers):
@@ -84,6 +97,29 @@ def _close_trees(jtree, ttree):
         np.testing.assert_allclose(b.numpy(), a, err_msg=str(path), **TOL)
 
 
+def _inputs(jcfg, seed, S, total):
+    """numpy prompt tokens (B, total), and 'frames' / 'prefix' (B, 16, d)
+    float32 where the config takes them."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, jcfg.vocab_size, (B, total))}
+    if jcfg.is_encdec:
+        out["frames"] = rng.standard_normal(
+            (B, jcfg.encoder_seq, jcfg.d_model)).astype(np.float32)
+    if jcfg.frontend.kind == "vision":
+        out["prefix"] = rng.standard_normal(
+            (B, jcfg.frontend.frontend_seq, jcfg.d_model)).astype(np.float32)
+    return out
+
+
+def _batches(inp, S):
+    """repro's and the port's prefill batches of the first S tokens."""
+    jb = {k: jnp.asarray(v[:, :S], jnp.int32) if k == "tokens"
+          else jnp.asarray(v) for k, v in inp.items()}
+    tb = {k: torch.from_numpy(v[:, :S] if k == "tokens" else v)
+          for k, v in inp.items()}
+    return jb, tb
+
+
 @pytest.mark.parametrize("arch,n_layers", ARCH_CASES)
 def test_prefill_pad_decode_match_repro(arch, n_layers):
     jcfg, tcfg = _cfgs(n_layers, arch)
@@ -92,25 +128,26 @@ def test_prefill_pad_decode_match_repro(arch, n_layers):
     jp, _ = JT.init_params(jax.random.PRNGKey(0), jcfg)
     tp = TP.from_numpy_tree(jax.tree.map(np.asarray, jp), device="cpu")
     assert TT.unit_counts(tcfg) == JT.unit_counts(jcfg)
-    toks = np.random.default_rng(abs(n_layers)).integers(
-        0, jcfg.vocab_size, (B, S + STEPS))
+    inp = _inputs(jcfg, abs(n_layers), S, S + STEPS)
+    toks = inp["tokens"]
+    # a vision prefix's patches take the first positions
+    P0 = inp["prefix"].shape[1] if "prefix" in inp else 0
 
-    jl, jc = JD.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :S],
-                                                         jnp.int32)},
-                        use_pallas=True)
-    tl, tc = TD.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks[:, :S])})
+    jb, tb = _batches(inp, S)
+    jl, jc = JD.prefill(jp, jcfg, jb, use_pallas=True)
+    tl, tc = TD.prefill(tp, tcfg, tb)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     _close_trees(jc, tc)
 
-    jc = JD.pad_cache(jc, jcfg, prompt_len=S, target_len=S + STEPS)
-    tc = TD.pad_cache(tc, tcfg, prompt_len=S, target_len=S + STEPS)
+    jc = JD.pad_cache(jc, jcfg, prompt_len=P0 + S, target_len=P0 + S + STEPS)
+    tc = TD.pad_cache(tc, tcfg, prompt_len=P0 + S, target_len=P0 + S + STEPS)
     _close_trees(jc, tc)
     for t in range(S, S + STEPS):
         jl, jc = JD.decode_step(jp, jcfg, jnp.asarray(toks[:, t:t + 1],
                                                       jnp.int32), jc,
-                                jnp.int32(t))
+                                jnp.int32(P0 + t))
         tl, tc = TD.decode_step(tp, tcfg, torch.from_numpy(toks[:, t:t + 1]),
-                                tc, t)
+                                tc, P0 + t)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     _close_trees(jc, tc)
 
@@ -154,7 +191,7 @@ def test_cache_shape_and_init_cache(arch, n_layers):
 
 
 @pytest.mark.parametrize("arch,n_layers", [(RG, 5), ("rwkv6-7b", 2)]
-                         + [(a, 2) for a in DENSE])
+                         + [(a, 2) for a in DENSE + (WHISPER, VLM) + MOE])
 def test_init_params_has_repros_tree(arch, n_layers):
     """Same keys and shapes as repro's init, all float32; the stacked
     units hold independent draws."""
@@ -170,7 +207,21 @@ def test_init_params_has_repros_tree(arch, n_layers):
         lam = got["units"]["l0"]["mix"]["lam"]
         a = torch.sigmoid(lam)
         assert float(a.min()) >= 0.9 - 1e-6 and float(a.max()) <= 0.999 + 1e-6
-    elif arch in DENSE:
+    elif arch in MOE:
+        mlp = got["units"]["l0"]["mlp"]
+        E = tcfg.moe.num_experts
+        assert mlp["experts"]["up"]["w"].shape[:2] == (
+            TT.unit_counts(tcfg)[0], E)
+        assert not torch.equal(mlp["experts"]["up"]["w"][0, 0],
+                               mlp["experts"]["up"]["w"][0, 1])
+        assert float(mlp["router"]["w"].std()) < 0.03     # stddev 0.02
+        assert "shared" in mlp
+    elif arch == WHISPER:
+        enc, cross = got["encoder"]["layers"], got["cross"]["layers"]
+        assert enc["attn"]["q"]["w"].shape[0] == tcfg.num_encoder_layers
+        assert cross["attn"]["q"]["w"].shape[0] == tcfg.num_layers
+        assert "gate" not in enc["mlp"] and "b" in cross["attn"]["k"]
+    elif arch in DENSE + (VLM,):
         mix = got["units"]["l0"]["mix"]
         assert ("b" in mix["q"]) == tcfg.attention.qkv_bias
         assert ("q_norm" in mix) == tcfg.attention.qk_norm
@@ -187,7 +238,7 @@ def test_init_params_has_repros_tree(arch, n_layers):
                in zip(titems, TP.tree_items(again)))
 
 
-@pytest.mark.parametrize("arch", [RG, "rwkv6-7b", *DENSE])
+@pytest.mark.parametrize("arch", sorted(JARCHS))
 def test_configs_equal_repros(arch):
     jcfg, tcfg = JARCHS[arch], TARCHS[arch]
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
@@ -198,23 +249,51 @@ def test_configs_equal_repros(arch):
     assert tcfg.reduced().param_count() == jcfg.reduced().param_count()
     assert TT.padded_vocab(tcfg) == JT.padded_vocab(jcfg)
     assert TT.unit_pattern(tcfg) == JT.unit_pattern(jcfg)
-    assert set(NOT_PORTED) | set(TARCHS) == set(JARCHS)
+    assert TT.unit_counts(tcfg) == JT.unit_counts(jcfg)
 
 
-def test_unported_archs_raise():
-    assert sorted(NOT_PORTED) == sorted((
-        "whisper-large-v3", "llama4-maverick-400b-a17b", "internvl2-26b",
-        "llama4-scout-17b-a16e"))
-    for arch in NOT_PORTED:
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_arch(arch)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        TT.init_params(torch.Generator(), JARCHS["whisper-large-v3"]
-                       .reduced(), "cpu")
-    moe = TB.ModelConfig(family=TB.MOE, num_layers=2,
-                         moe=TB.MoEConfig(num_experts=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(torch.Generator(), moe, "cpu")
+@pytest.mark.parametrize("arch", sorted(JARCHS))
+def test_every_repro_arch_resolves(arch):
+    """get_arch gives each of repro's ten ids its config, and the reduced
+    config's init and cache tree have repro's keys and shapes."""
+    assert set(TARCHS) == set(JARCHS)
+    tcfg = get_arch(arch)
+    assert tcfg is TARCHS[arch] and tcfg.name == arch
+    jcfg = JARCHS[arch].reduced()
+    want = jax.eval_shape(lambda k: JT.init_params(k, jcfg)[0],
+                          jax.random.PRNGKey(0))
+    got = TT.init_params(torch.Generator().manual_seed(1), tcfg.reduced(),
+                         "cpu")
+    assert [(p, tuple(x.shape)) for p, x in TP.tree_items(want)] == \
+        [(p, tuple(x.shape)) for p, x in TP.tree_items(got)]
+
+
+def test_unknown_arch_raises():
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("gpt-5")
+
+
+@pytest.mark.parametrize("arch,n_layers", [(WHISPER, 2), (VLM, 2)])
+def test_pad_cache_keeps_cross_and_prefix_positions(arch, n_layers):
+    """pad_cache leaves whisper's cross k / v as they were (the same
+    tensors) and pads the self-attention cache past the prompt; with a
+    vision prefix the prompt length counts the patches."""
+    _, tcfg = _cfgs(n_layers, arch)
+    tp = TT.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
+    batch = synthetic_batch(tcfg, 2, 24, torch.Generator().manual_seed(1),
+                            "cpu")
+    n = 24 + (batch["prefix"].shape[1] if "prefix" in batch else 0)
+    _, cache = TD.prefill(tp, tcfg, batch)
+    padded = TD.pad_cache(cache, tcfg, n, n + 5)
+    k = padded["units"]["l0"]["k"]
+    assert k.shape[2] == n + 5 and torch.equal(k[:, :, :n],
+                                               cache["units"]["l0"]["k"])
+    assert not k[:, :, n:].any()
+    if arch == WHISPER:
+        assert padded["cross"]["k"] is cache["cross"]["k"]
+        assert padded["cross"]["k"].shape == (
+            tcfg.num_layers, 2, tcfg.encoder_seq,
+            tcfg.attention.num_kv_heads, tcfg.attention.head_dim)
 
 
 def test_entry_points_default_to_cuda():
@@ -247,8 +326,13 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 
 def test_serve_launcher_runs_rwkv6_on_cpu(capsys):
-    assert tserve.main(["--arch", "rwkv6-7b", "--device", "cpu", "--batch",
+    test_serve_launcher_runs_arch_on_cpu(capsys, "rwkv6-7b")
+
+
+@pytest.mark.parametrize("arch", [WHISPER, *MOE, VLM])
+def test_serve_launcher_runs_arch_on_cpu(capsys, arch):
+    assert tserve.main(["--arch", arch, "--device", "cpu", "--batch",
                         "2", "--prompt", "33", "--tokens", "3"]) == 0
     out = capsys.readouterr().out
-    assert "arch=rwkv6-7b-reduced" in out and "device=cpu" in out
+    assert f"arch={arch}-reduced" in out and "device=cpu" in out
     assert "prefill:" in out and "decode:" in out and "sample[0]" in out
