@@ -134,7 +134,23 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    InternVL2-26B at full width cut to 24 layers ([internvl2-serve]: 256
    patches before each 4,096-token prompt), each with its phases; the
    reduced Maverick only card vs CPU ([maverick-serve-reference]);
-6. times each kernel, its plain version and one library call with CUDA
+6. drives slice 14's main path, training: the attention's and the WKV
+   scan's backward kernels against their plain backwards
+   ([kernel] flash_attention_bwd over masks, GQA groups 1-6, D 32-256,
+   Sq != Sk, ragged tiles, rows with no key, float32 and bf16;
+   [kernel] rwkv6_scan_bwd with a state0, a final-state gradient and S off
+   the checkpoint stride); ``launch/train``'s loop at qwen1.5-0.5b full
+   width and depth, 10 Adam steps of the ring schedule on 8 x 1,024
+   tokens, the loss falling and every kernel's launches as the config
+   says (forward twice a step under remat, backward once), then a server
+   failure at step 5 ([train]); one step of RWKV6-7B cut to 2 layers and
+   RecurrentGemma-9B cut to one unit at full width ([train-families]);
+   two steps under the sync debug mode ([train-no-sync]); one step under
+   torch.profiler ([train-profile]); every arch's reduced config card vs
+   CPU over 2 SGD steps ([train-reference]); a checkpoint at step 5
+   resumed to step 10 bit for bit ([train-ckpt]); ``train_100m`` at
+   12 x 768 for 5 steps ([examples]);
+7. times each kernel, its plain version and one library call with CUDA
    events, beside the least time the card could take; attention's two
    kernels, its plain version and SDPA in turns in one run; the WKV scan
    also at a decode step's shape; the fused round at S = 1 in turns with
@@ -144,7 +160,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    the row-stable product at the service's products beside ``addmm``;
    the tensor-core attention at each dense decoder's prefill shape and at
    whisper's (encoder, cross, self), Scout's and InternVL2's beside SDPA
-   (``enable_gqa``).
+   (``enable_gqa``); the two backward kernels at their training shapes
+   beside the plain backwards and SDPA's backward.
 
     python3 chip_smoke.py --parent DIR
 
@@ -163,6 +180,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -343,7 +361,9 @@ def phase_device(torch, parent=None):
                       ("rwkv6_scan", "WKV scan"),
                       ("rglru_scan", "RG-LRU scan"),
                       ("tolfl_combine", "Tol-FL aggregation"),
-                      ("row_dense", "row-stable product")):
+                      ("row_dense", "row-stable product"),
+                      ("flash_attention_bwd", "attention backward"),
+                      ("rwkv6_scan_bwd", "WKV backward")):
         for fn, regs, spills, warned in _ptxas_summary(_build.build_log(lib)):
             log(f"[build] {what} {fn}: {regs} registers, spill stores/loads "
                 f"{spills}" + (f"; {warned}" if warned else ""))
@@ -3705,6 +3725,833 @@ def _parent_wkv(torch, parent, r, k, v, w, u, s0):
     return y, st
 
 
+# ---------------------------------------------------------------------------
+# Slice 14: zoo training (the mesh engine's train step, the optimizers,
+# the token pipeline, checkpoints, launch/train) and the backward kernels
+# ---------------------------------------------------------------------------
+#: (B, Sq, Sk, H, KVH, D, causal, window, dtype) at which the attention's
+#: backward kernel is held to its plain backward: causal, bidirectional
+#: and windowed; G = 1, 2, 4, 5, 6 and 16; D = 32 .. 256; Sq != Sk;
+#: ragged last tiles; rows that see no key (bidirectional, window 8,
+#: Sq > Sk + 7); and the bf16 shapes the training path gives it, [train]'s
+#: qwen1.5-0.5b (8, 1024, 16 heads of 64, causal) and [train-families]'
+#: RecurrentGemma-9B (1, 2048, 16 heads on 1 kv head of 256, window 2,048)
+ATTN_BWD_CASES = [
+    (2, 300, 300, 4, 4, 64, True, None, "float32"),
+    (1, 257, 257, 8, 4, 128, True, None, "float32"),
+    (1, 200, 333, 8, 2, 32, False, None, "float32"),
+    (1, 190, 190, 10, 2, 64, True, 64, "float32"),
+    (1, 150, 150, 6, 1, 256, True, 48, "float32"),
+    (1, 100, 40, 4, 2, 64, False, 8, "float32"),
+    (2, 333, 200, 12, 2, 128, False, 50, "bfloat16"),
+    (1, 100, 40, 4, 2, 64, False, 8, "bfloat16"),
+    (8, 1024, 1024, 16, 16, 64, True, None, "bfloat16"),
+    (1, 2048, 2048, 16, 1, 256, True, 2048, "bfloat16"),
+]
+#: (B, S, H, N, with_state0, with_dstate) of the WKV backward's checks: S
+#: past and short of the checkpoint stride (32), every head size, a
+#: non-zero state0 and a gradient of the final state, and [train-families]'
+#: RWKV6-7B shape (zero state0, no final-state gradient, as training runs)
+WKV_BWD_CASES = [(2, 100, 4, 64, True, True), (1, 33, 2, 8, True, True),
+                 (2, 64, 3, 16, True, False), (1, 70, 2, 32, False, True),
+                 (1, 1, 2, 64, True, True), (1, 2048, 64, 64, False, False)]
+#: [train]: qwen1.5-0.5b at full width and depth, the launcher's flags
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
+#: [train-families]: (arch, layers kept, batch, seq)
+TRAIN_FAMILIES = (("rwkv6-7b", 2, 1, 2048), ("recurrentgemma-9b", 3, 1, 2048))
+TRAIN_BWD_KERNELS = ("flash_attention_bwd", "rwkv6_scan_bwd",
+                     "rglru_scan_bwd")
+
+
+def _bwd_counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import rwkv6_scan as wk
+    return {"flash_attention_bwd": fa, "rwkv6_scan_bwd": wk,
+            "rglru_scan_bwd": rs}
+
+
+def _reset_train_launches():
+    _reset_launches()
+    for mod in _bwd_counters().values():
+        mod.BWD_LAUNCHES = 0
+
+
+def _train_launches():
+    out = _launches()
+    out.update({k: m.BWD_LAUNCHES for k, m in _bwd_counters().items()})
+    return out
+
+
+def _expected_train_launches(cfg, steps):
+    """Each kernel's launches over ``steps`` training steps: under
+    ``remat == "full"`` every layer's forward in a unit (and every encoder
+    layer) runs twice a step (forward and recompute), a tail layer's
+    once; each backward once.  Attention once per
+    attention layer (for an encoder-decoder also per encoder layer and
+    per cross-attention), the RG-LRU scan per recurrent layer, the WKV
+    scan per RWKV6 layer."""
+    from repro_torch.models.transformer import unit_counts, unit_pattern
+    fwd, _ = _expected_launches(cfg)
+    out = {f"{k}_bwd": v * steps for k, v in fwd.items()}
+    if cfg.remat == "full":
+        # the tail layers (those that do not fill a unit) run unwrapped
+        tail = [kind for kind, _ in unit_pattern(cfg)[:unit_counts(cfg)[1]]]
+        once = {"flash_attention": tail.count("attn") + tail.count("local"),
+                "rglru_scan": tail.count("rec"),
+                "rwkv6_scan": tail.count("rwkv")}
+        fwd = {k: 2 * v - once[k] for k, v in fwd.items()}
+    out.update({k: v * steps for k, v in fwd.items()})
+    return out
+
+
+def _check_launches(tag, got, want):
+    log(f"[{tag}] kernel launches {got} (expected {want})")
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"[{tag}] {k}: {got[k]} launches, "
+                                 f"expected {v}")
+
+
+def _rows_rel(torch, got, want):
+    """Largest |diff| of a row (last dim) over the row's RMS, the RMS
+    floored at 1e-2 of the whole tensor's: a row whose exact value is 0
+    (a query that sees one key has dq = 0: p = 1 and dO . v = delta)
+    holds only rounding noise of either side."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    rms = want.float().pow(2).mean(-1).sqrt()
+    floor = 1e-2 * float(want.float().pow(2).mean().sqrt())
+    return float((diff / rms.clamp_min(max(floor, 1e-30))).max())
+
+
+def phase_train_kernels(torch):
+    """[kernel] flash_attention_bwd and rwkv6_scan_bwd: each backward
+    kernel against its plain backward on the card, on the same inputs.
+    Attention: float32 within 2e-4 of each gradient's largest |value|,
+    bfloat16 with each row's largest |diff| within ATTN_ROW_TOL of the
+    row's RMS (floored at 1e-2 of the gradient's); a query that sees no
+    key and a key no query sees must get exactly 0; WKV: within 1e-4 x
+    max(1, the gradient's largest |value|).  An unsupported dtype or D
+    must raise.  Returns the max |diff| of each."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as wk
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    worst = {"flash_attention_bwd": 0.0, "rwkv6_scan_bwd": 0.0}
+    for B, Sq, Sk, H, KVH, D, causal, window, dt in ATTN_BWD_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, Sq, H, D), generator=gen, device=DEV).to(dtype)
+        k, v = (torch.randn((B, Sk, KVH, D), generator=gen,
+                            device=DEV).to(dtype) for _ in range(2))
+        do = torch.randn((B, Sq, H, D), generator=gen, device=DEV).to(dtype)
+        o = fa.flash_attention_cuda(q, k, v, causal, window)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window)
+        want = fa.flash_attention_backward_plain(q, k, v, o, do, causal,
+                                                 window)
+        torch.cuda.synchronize()
+        seen = fa.visible(Sq, Sk, causal, window, DEV).any(dim=1)
+        errs, notes = [], []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            g, w = g.float(), w.float()
+            errs.append(float((g - w).abs().max()))
+            scale = float(w.abs().max())
+            if dtype == torch.float32:
+                ok = errs[-1] <= 2e-4 * scale
+                note = f"{errs[-1]:.3g} of max {scale:.3g}"
+            else:
+                rel = _rows_rel(torch, g, w)
+                ok = rel <= ATTN_ROW_TOL
+                note = f"row |diff| / RMS {rel:.4f}"
+            notes.append(note)
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd {name} at "
+                                     f"{(B, Sq, Sk, H, KVH, D)} {dt} "
+                                     f"causal={causal} window={window}: "
+                                     f"{note}")
+        # a query that sees no key, and a key that no query sees, have
+        # zero gradient
+        keys_seen = fa.visible(Sq, Sk, causal, window, DEV).any(dim=0)
+        for grad, live in ((got[0], seen), (got[1], keys_seen),
+                           (got[2], keys_seen)):
+            if not bool(live.all()) and float(grad[:, ~live].float().abs()
+                                              .max()) != 0.0:
+                raise AssertionError("an unseen row got a non-zero "
+                                     "gradient")
+        log(f"[kernel] flash_attention_bwd (B, Sq, Sk, H, KVH, D) = "
+            f"{(B, Sq, Sk, H, KVH, D)} G={H // KVH} causal={causal} "
+            f"window={window} {dt}: max_abs_err dq/dk/dv "
+            f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} ({'; '.join(notes)}); "
+            f"rows with no key "
+            f"{int((~seen).sum())} (tolerance: float32 2e-4 x max|grad|, "
+            f"bf16 row |diff| <= {ATTN_ROW_TOL} x RMS)")
+        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                           *errs)
+        del q, k, v, do, o, got, want
+    for bad in ((torch.float16, 64), (torch.float32, 96)):
+        x = torch.zeros((1, 8, 2, bad[1]), dtype=bad[0], device=DEV)
+        try:
+            fa.flash_attention_bwd_cuda(x, x, x, x, x)
+        except (TypeError, ValueError) as e:
+            log(f"[kernel] flash_attention_bwd {bad[0]} D={bad[1]} raises: "
+                f"{e}")
+        else:
+            raise AssertionError(f"flash_attention_bwd took {bad}")
+    for B, S, H, N, with_s0, with_ds in WKV_BWD_CASES:
+        r, k, v, w, u, s0 = wk.random_inputs(B, S, H, N, with_s0, gen)
+        dy = torch.randn((B, S, H, N), generator=gen, device=DEV)
+        ds = (torch.randn((B, H, N, N), generator=gen, device=DEV)
+              if with_ds else None)
+        got = wk.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds)
+        want = wk.rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, ds)
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, ref in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                                want):
+            err = float((g - ref).abs().max())
+            bound = 1e-4 * max(1.0, float(ref.abs().max()))
+            if not err <= bound:
+                raise AssertionError(f"rwkv6_scan_bwd {name} at "
+                                     f"{(B, S, H, N)}: {err} > {bound}")
+            errs.append(err)
+        log(f"[kernel] rwkv6_scan_bwd (B, S, H, N) = {(B, S, H, N)} "
+            f"state0={with_s0} dstate={with_ds}: max_abs_err "
+            + "/".join(f"{e:.3g}" for e in errs)
+            + " (dr/dk/dv/dw/du/ds0; tolerance 1e-4 x max(1, max|grad|))")
+        worst["rwkv6_scan_bwd"] = max(worst["rwkv6_scan_bwd"], *errs)
+    return worst
+
+
+def _train_args(*extra):
+    from repro_torch.launch import train
+    return train.parse_args(
+        ["--arch", TRAIN_ARCH, "--no-reduced", "--steps", str(TRAIN_STEPS),
+         "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+         "--data-axis", "1", "--schedule", "tolfl_ring", "--device", DEV]
+        + list(extra))
+
+
+def phase_train(torch):
+    """[train]: launch/train's loop at qwen1.5-0.5b full width and depth
+    (24 layers, d 1,024, 16 heads of 64, tied 151,936-word embeddings,
+    remat full), Adam with the cosine schedule, 10 steps of the ring
+    schedule on a world of one rank.  The loss must be finite and lower at
+    step 10 than at step 1, and the kernels' launches must equal the
+    config's count.  Then the same with a server failure at step 5: n_eff
+    0 from step 5 on, and a step under the failure applies exactly the
+    optimizer's update of zero gradients.  Returns each kernel's
+    launches over the first run."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.failure import FailureSpec, alive_mask
+    from repro_torch.core.topology import Topology
+    from repro_torch.launch import train
+    from repro_torch.models import params as P
+    from repro_torch.optim.optimizers import apply_updates, make_optimizer
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_launches()
+    t0 = time.perf_counter()
+    out = train.run(_train_args(), log=lambda m: log(f"[train] {m}"))
+    wall = time.perf_counter() - t0
+    launches = _train_launches()
+    cfg = out["config"]
+    _check_launches("train", launches,
+                    _expected_train_launches(cfg, TRAIN_STEPS))
+    losses = out["losses"]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"[train] losses {losses}")
+    ms = statistics.median(out["step_s"][1:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] {cfg.name} {cfg.num_layers} layers d {cfg.d_model}, "
+        f"{P.param_count(out['state']['params'])} params, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps in {wall:.2f} s "
+        f"(init included): loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"{ms:.2f} ms/step (median of steps 2-{TRAIN_STEPS}), "
+        f"{tokens / ms * 1e3:.0f} tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; clocks.sm, "
+        f"power.draw, temperature after: {_clocks()}")
+    del out
+    torch.cuda.empty_cache()
+
+    # the failure run
+    fail = train.run(_train_args("--fail-epoch", "5", "--fail-kind",
+                                 "server"),
+                     log=lambda m: None)
+    n_eff = fail["n_eff"]
+    if not (all(n > 0 for n in n_eff[:5]) and all(n == 0 for n in n_eff[5:])
+            and all(map(math.isfinite, fail["losses"]))):
+        raise AssertionError(f"[train] failure run n_eff {n_eff}, losses "
+                             f"{fail['losses']}")
+    # one more step under the failure, against Adam's update of zeros
+    state, mesh, cfg = fail["state"], fail["mesh"], fail["config"]
+    args = _train_args("--fail-epoch", "5")
+    tolfl = train.TolFLConfig(num_clusters=1, schedule="tolfl_ring")
+    ocfg = train.OptimizerConfig(lr=args.lr, warmup_steps=5,
+                                 total_steps=args.steps)
+    step_fn = D.make_train_step(cfg, tolfl, ocfg, mesh)
+    alive = alive_mask(FailureSpec(epoch=5, kind="server"), Topology(1, 1),
+                       TRAIN_STEPS, device=DEV)
+    batch = {k: torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64,
+                            device=DEV) for k in ("tokens", "labels")}
+    opt = make_optimizer(ocfg)
+    zeros = P.tree_zeros_like(state["params"])
+    upd, _ = opt.update(zeros, state["opt"], state["params"])
+    want = apply_updates(state["params"], upd)
+    new, metrics = step_fn(state, batch, alive)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(P.tree_items(new["params"]), P.tree_items(want)))
+    log(f"[train] --fail-epoch 5 --fail-kind server: losses "
+        f"{[round(x, 4) for x in fail['losses']]}, n_eff {n_eff}; a step "
+        f"under the failure: n_effective {float(metrics['n_effective'])}, "
+        f"params equal to Adam's update of zero gradients bit for bit: "
+        f"{same} (Adam's moments keep moving the params after has_update "
+        f"turns 0, as in repro)")
+    if not (same and float(metrics["n_effective"]) == 0.0):
+        raise AssertionError("[train] a step under the failure applied a "
+                             "gradient")
+    del fail, state, new, want, upd, zeros
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _family_cfg(arch, layers):
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    return dataclasses.replace(get_arch(arch), num_layers=layers)
+
+
+def phase_train_families(torch):
+    """[train-families]: one ring step (SGD) at full width with the depth
+    cut (RWKV6-7B over 2 of its 32 layers: the WKV forward and backward at
+    (1, 2048, 64, 64); RecurrentGemma-9B over one unit: two RG-LRU layers
+    and a local-attention layer at D = 256, window 2,048): the loss
+    finite, every param finite after the step and every mixing layer
+    moved, launches as expected.  Returns the launches."""
+    from repro_torch.configs.base import OptimizerConfig, TolFLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import distributed as D
+    from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    total = dict.fromkeys(list(_counters()) + list(TRAIN_BWD_KERNELS), 0)
+    mesh = make_host_mesh(data=1, model=1, device=DEV)
+    for arch, layers, B, S in TRAIN_FAMILIES:
+        cfg = _family_cfg(arch, layers)
+        # SGD: Adam's two moments of RecurrentGemma's 1.05 G-word embedding
+        # and unit would not leave room for the step on the card
+        ocfg = OptimizerConfig(name="sgd", lr=1e-3, schedule="constant",
+                               warmup_steps=0, grad_clip=0.0)
+        step_fn = D.make_train_step(
+            cfg, TolFLConfig(num_clusters=1, schedule="tolfl_ring"), ocfg,
+            mesh)
+        state = D.init_state(torch.Generator(device=DEV).manual_seed(3),
+                             cfg, ocfg)
+        before = {p: x.clone() for p, x in P.tree_items(state["params"])
+                  if p[0] in ("units",) and p[2] == "mix"}
+        batch = shard_batch(next(TokenPipeline(
+            cfg.vocab_size, S, B).batches(1)), mesh)
+        alive = torch.ones((1,), device=DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_train_launches()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, alive)
+        loss = float(metrics["loss"])
+        wall = time.perf_counter() - t0
+        got = _train_launches()
+        _check_launches(f"train-families {arch}", got,
+                        _expected_train_launches(cfg, 1))
+        finite = all(bool(torch.isfinite(x).all())
+                     for _, x in P.tree_items(state["params"]))
+        after = dict(P.tree_items(state["params"]))
+        still = [p for p, x in before.items() if torch.equal(x, after[p])]
+        # every mixing layer must have moved (a leaf whose gradient is
+        # below its ulp / lr, as the RG-LRU's lam under lr 1e-3, may not)
+        mixers = {p[:2] for p in before}
+        stuck = sorted(m for m in mixers
+                       if all(p in still for p in before if p[:2] == m))
+        log(f"[train-families] {cfg.name} cut to {layers} of "
+            f"{get_arch(arch).num_layers} layers ({cfg.layer_pattern}), d "
+            f"{cfg.d_model}, batch {B} x "
+            f"{S}: loss {loss:.4f}, one step {wall:.2f} s (first, with "
+            f"warm-up), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, params "
+            f"finite {finite}, mixing leaves that did not move {still}, "
+            f"mixing layers that did not move {stuck}")
+        if not (math.isfinite(loss) and finite and not stuck):
+            raise AssertionError(f"[train-families] {arch}: loss {loss}, "
+                                 f"finite {finite}, unmoved {stuck}")
+        for k in total:
+            total[k] += got[k]
+        del state, before, after, batch
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_no_sync(torch):
+    """[train-no-sync]: two [train] steps (qwen1.5-0.5b at full size, the
+    batch and alive mask already on the card) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in the step,
+    remat's recompute and the backward kernels included, waits on the
+    card."""
+    from repro_torch.configs.base import TolFLConfig
+    from repro_torch.core import distributed as D
+    from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.configs.registry import get_arch
+    args = _train_args()
+    cfg = get_arch(TRAIN_ARCH)
+    mesh = make_host_mesh(data=1, model=1, device=DEV)
+    ocfg = train.OptimizerConfig(lr=args.lr, warmup_steps=5,
+                                 total_steps=args.steps)
+    step_fn = D.make_train_step(
+        cfg, TolFLConfig(num_clusters=1, schedule="tolfl_ring"), ocfg, mesh)
+    state = D.init_state(torch.Generator(device=DEV).manual_seed(0), cfg,
+                         ocfg)
+    batches = [shard_batch(b, mesh) for b in TokenPipeline(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH).batches(3)]
+    alive = torch.ones((1,), device=DEV)
+    state, _ = step_fn(state, batches[0], alive)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches[1:]:
+            state, metrics = step_fn(state, b, alive)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[train-no-sync] 2 steps of {cfg.name} under the sync debug mode "
+        f"'error': no synchronising call; loss {float(metrics['loss']):.4f}")
+    return step_fn, state, batches[0], alive
+
+
+def phase_train_profile(torch, step_fn, state, batch, alive):
+    """[train-profile]: one [train] step under torch.profiler: the card's
+    busy share of the step's wall time and its top operations, and the
+    share of each kernel of the port."""
+    with _device_profile(torch) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch, alive)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    busy, by_name = _device_time(prof)
+    if busy == 0:
+        log("[train-profile] the profiler recorded no device time: not "
+            "measured")
+        return
+    mine = {k: sum(us for name, (us, _) in by_name.items() if k in name)
+            for k in ("flash_attention_wgmma", "attn_bwd_dq",
+                      "attn_bwd_dkdv")}
+    log(f"[train-profile] one {TRAIN_ARCH} step ({TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}) under the profiler: wall {wall / 1e3:.3f} ms, device "
+        f"busy {busy / 1e3:.3f} ms ({busy / wall:.1%} of wall); port kernels "
+        + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / busy:.1%})"
+                    for k, v in mine.items())
+        + "; top device events: " + _top(by_name, 12, 1e3, "ms"))
+
+
+def _reference_batch(cfg, B, S, seed):
+    import numpy as np
+    from repro_torch.data.pipeline import TokenPipeline
+    batch = next(TokenPipeline(cfg.vocab_size, S, B, seed=seed).batches(1))
+    rng = np.random.default_rng(seed)
+    if cfg.is_encdec:
+        batch["frames"] = rng.standard_normal(
+            (B, 16, cfg.d_model)).astype(np.float32)
+    if cfg.frontend.kind == "vision":
+        batch["prefix"] = rng.standard_normal(
+            (B, 16, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+#: [train-reference]'s limit on the card's gradients and updated params
+#: against the CPU's (see _train_reference_diff): above the sound
+#: readings (card vs CPU, and the CPU's float32 WKV scan vs one in
+#: float64, ~1e-7 to 1e-4) and below the bfloat16 control (~1e-2)
+TRAIN_REF_TOL = 1e-3
+
+
+def _state_to(torch, state, dev):
+    """A copy of a train state ({"params", "opt", "step"}) on ``dev``."""
+    from repro_torch.models import params as P
+
+    def move(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().to(dev, copy=True)
+        return None if x is None else P.tree_map(move, x)
+    return {"params": move(state["params"]),
+            "opt": type(state["opt"])(*(move(f) for f in state["opt"])),
+            "step": move(state["step"])}
+
+
+def _train_reference_step(torch, cfg, dev, ocfg, state, seed):
+    """One ring step of ``cfg`` on ``dev`` from a copy of ``state`` on
+    [train-reference]'s batch ``seed``: (loss, the gradient tree as
+    numpy, the new state on the CPU)."""
+    from repro_torch.configs.base import TolFLConfig
+    from repro_torch.core import distributed as D
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    mesh = make_host_mesh(data=1, model=1, device=dev)
+    step_fn = D.make_train_step(
+        cfg, TolFLConfig(num_clusters=1, schedule="tolfl_ring"), ocfg, mesh)
+    state = _state_to(torch, state, dev)
+    batch = shard_batch(_reference_batch(cfg, 4, 64, seed), mesh)
+    items = P.tree_items(state["params"])
+    leaves = [x.detach().requires_grad_(True) for _, x in items]
+    loss, _ = T.loss_fn(P.tree_from_items(
+        (path, x) for (path, _), x in zip(items, leaves)), cfg, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = P.to_numpy_tree(P.tree_from_items(
+        (path, torch.zeros_like(x) if g is None else g)
+        for (path, x), g in zip(items, grads)))
+    state, m = step_fn(state, batch, torch.ones((1,), device=dev))
+    return float(m["loss"]), grads, _state_to(torch, state, "cpu")
+
+
+def _train_reference_diff(P, got, want, before):
+    """Two readings of one step ``got`` against ``want`` (results of
+    _train_reference_step from the same state, whose params are
+    ``before``), each the worst leaf's: the gradient, max |diff| over the
+    leaf's max |gradient|; the params after the step, max (|diff| less
+    one float32 ulp of the value) over the leaf's max |change| in
+    ``want``'s step: two right updates θ - lr g from gradients a rounding
+    apart land up to an ulp apart, which for a norm's scale (1 + a small
+    change) is most of the change.  Each scale is floored at 1e-3 of the
+    largest over all leaves: a leaf whose exact gradient is 0 (a key's
+    bias, which shifts every score of a row alike) holds only rounding
+    noise of either side.  Returns ((grad, leaf), (params, leaf))."""
+    import numpy as np
+
+    def worst(diffs, scales):
+        floor = 1e-3 * max(scales.values())
+        return max(((float(d / max(scales[p], floor, 1e-30)), p)
+                    for p, d in diffs.items()), default=(0.0, None))
+
+    def leaves(state):
+        return dict(P.tree_items(P.to_numpy_tree(state["params"])))
+    g_want = dict(P.tree_items(want[1]))
+    grad = worst({p: abs(g - g_want[p]).max()
+                  for p, g in P.tree_items(got[1])},
+                 {p: abs(g).max() for p, g in g_want.items()})
+    p0, p1 = leaves(before), leaves(want[2])
+    par = worst({p: np.maximum(abs(x - p1[p]) - np.spacing(abs(p1[p])),
+                               0).max()
+                 for p, x in leaves(got[2]).items()},
+                {p: abs(p1[p] - p0[p]).max() for p in p0})
+    return grad, par
+
+
+def _wkv_float64(torch):
+    """``ops.rwkv6``'s stand-in for a rounding control: the WKV scan's
+    plain forward and backward in float64, rounded to float32."""
+    from repro_torch.kernels import rwkv6_scan as wk
+
+    class WKV64(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            ctx.save_for_backward(*args)
+            return tuple(t.float() for t in wk.rwkv6_scan_plain(
+                *(t.double() for t in args)))
+
+        @staticmethod
+        def backward(ctx, dy, dstate):
+            args = [t.double() for t in ctx.saved_tensors]
+            return tuple(t.float() for t in wk.rwkv6_scan_backward_plain(
+                *args, dy.double(),
+                None if dstate is None else dstate.double()))
+    return WKV64.apply
+
+
+def phase_train_reference(torch):
+    """[train-reference]: every arch's reduced config (float32, remat
+    none), 2 ring steps of SGD (lr 0.05, constant, no clip) on the CPU,
+    and each of those steps again on the card from the CPU's state before
+    it, on the same batch.  The losses within 1e-4 relative; each step's
+    gradient of every leaf, and every leaf after the step, within
+    TRAIN_REF_TOL (see _train_reference_diff).  Each step starts from the
+    same state on both sides: chained over steps, a gap of rounding
+    grows, and where step 2 undoes part of step 1 the net change of a
+    leaf holds no scale to measure it by.  The limit is held against a
+    bfloat16 control, the same steps on the CPU with the config's compute
+    dtype bf16, which must land above it in every arch; for the archs with
+    an RWKV6 layer, the CPU's float32 WKV scan against one in float64
+    gives the size of the scan's rounding alone.  The MoE configs route by
+    argmax: a route flipped by a near tie would show here as a failure."""
+    import dataclasses
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as P
+    ocfg = OptimizerConfig(name="sgd", lr=0.05, schedule="constant",
+                           warmup_steps=0, grad_clip=0.0)
+    worst = {"loss": 0.0, "grad": 0.0, "params": 0.0, "control": math.inf}
+    for arch in ARCHS:
+        cfg = ARCHS[arch].reduced()
+        bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+        states = [D.init_state(torch.Generator().manual_seed(9), cfg, ocfg)]
+        read = {"loss": 0.0, "grad": (0.0, None), "params": (0.0, None),
+                "control": math.inf, "wkv64": ((0.0, None), (0.0, None))}
+        losses = {"card": [], "cpu": []}
+        for seed in range(2):
+            before = states[-1]
+            cpu = _train_reference_step(torch, cfg, "cpu", ocfg, before, seed)
+            states.append(cpu[2])
+            card = _train_reference_step(torch, cfg, DEV, ocfg, before, seed)
+            ctrl = _train_reference_step(torch, bf16, "cpu", ocfg, before,
+                                         seed)
+            losses["cpu"].append(cpu[0])
+            losses["card"].append(card[0])
+            g, p = _train_reference_diff(P, card, cpu, before)
+            (cg, _), (cp, _) = _train_reference_diff(P, ctrl, cpu, before)
+            read = {"loss": max(read["loss"], abs(card[0] - cpu[0])
+                                / abs(cpu[0])),
+                    "grad": max(read["grad"], g), "params": max(
+                        read["params"], p),
+                    "control": min(read["control"], cg, cp),
+                    "wkv64": read["wkv64"]}
+            if "rwkv" in cfg.layer_pattern:
+                plain = ops.rwkv6
+                ops.rwkv6 = _wkv_float64(torch)
+                try:
+                    f64 = _train_reference_step(torch, cfg, "cpu", ocfg,
+                                                before, seed)
+                finally:
+                    ops.rwkv6 = plain
+                fg, fp = _train_reference_diff(P, f64, cpu, before)
+                read["wkv64"] = (max(read["wkv64"][0], fg),
+                                 max(read["wkv64"][1], fp))
+        note = ""
+        if "rwkv" in cfg.layer_pattern:
+            (fg, fg_at), (fp, fp_at) = read["wkv64"]
+            note = (f"; the CPU's float32 WKV scan vs one in float64: grad "
+                    f"{fg:.3g} at {fg_at}, params {fp:.3g} at {fp_at}")
+        (g, g_at), (p, p_at) = read["grad"], read["params"]
+        log(f"[train-reference] {cfg.name}: losses card {losses['card']} vs "
+            f"CPU {losses['cpu']} (rel diff {read['loss']:.3g}); gradient, "
+            f"max |diff| / max |grad| {g:.3g} at {g_at}; params after the "
+            f"step, max (|diff| - ulp) / max |change| {p:.3g} at {p_at}; bf16 "
+            f"control's least reading {read['control']:.3g}{note}")
+        if not (read["loss"] <= 1e-4 and g <= TRAIN_REF_TOL
+                and p <= TRAIN_REF_TOL):
+            raise AssertionError(f"[train-reference] {arch}: loss rel "
+                                 f"{read['loss']}, grad {g} at {g_at}, "
+                                 f"params {p} at {p_at}")
+        if not read["control"] > TRAIN_REF_TOL:
+            raise AssertionError(f"[train-reference] {arch}: the bf16 "
+                                 f"control ({read['control']}) is within "
+                                 f"the limit {TRAIN_REF_TOL}")
+        worst = {"loss": max(worst["loss"], read["loss"]),
+                 "grad": max(worst["grad"], g),
+                 "params": max(worst["params"], p),
+                 "control": min(worst["control"], read["control"])}
+    log(f"[train-reference] all {len(ARCHS)} archs: worst loss rel diff "
+        f"{worst['loss']:.3g} (bound 1e-4), worst grad {worst['grad']:.3g} "
+        f"and params {worst['params']:.3g} (bound {TRAIN_REF_TOL}); the "
+        f"bf16 control's least reading {worst['control']:.3g}")
+
+
+def phase_train_ckpt(torch):
+    """[train-ckpt]: qwen1.5-0.5b reduced in bf16 with remat (the
+    tensor-core forward and the backward kernel), Adam: 10 steps
+    uninterrupted; then 5 steps, a checkpoint of the whole state (params,
+    Adam's moments, step) saved and restored into a fresh state, and
+    steps 6-10: the params, moments and losses must equal the
+    uninterrupted run's bit for bit on the card."""
+    import dataclasses
+    from repro_torch.configs.base import OptimizerConfig, TolFLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import distributed as D
+    from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training.checkpoint import CheckpointManager, tree_leaves
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).reduced(),
+                              dtype="bfloat16", remat="full")
+    mesh = make_host_mesh(data=1, model=1, device=DEV)
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=5, total_steps=10)
+    step_fn = D.make_train_step(
+        cfg, TolFLConfig(num_clusters=1, schedule="tolfl_ring"), ocfg, mesh)
+    batches = [shard_batch(b, mesh) for b in TokenPipeline(
+        cfg.vocab_size, 256, 8).batches(10)]
+    alive = torch.ones((1,), device=DEV)
+
+    def fresh():
+        return D.init_state(torch.Generator(device=DEV).manual_seed(4), cfg,
+                            ocfg)
+
+    def steps(state, lo, hi, losses):
+        for i in range(lo, hi):
+            state, m = step_fn(state, batches[i], alive)
+            losses.append(float(m["loss"]))
+        return state
+
+    lw = []
+    whole = steps(fresh(), 0, 10, lw)
+    la = []
+    half = steps(fresh(), 0, 5, la)
+    directory = ROOT / "build" / "chip_smoke" / "train_ckpt"
+    if directory.exists():
+        for f in directory.iterdir():
+            f.unlink()
+    mgr = CheckpointManager(str(directory), keep=2)
+    path = mgr.save(half, 5)
+    restored, at = mgr.restore_latest(fresh())
+    resumed = steps(restored, at, 10, la)
+    same = (la == lw and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(resumed),
+                                          tree_leaves(whole))))
+    log(f"[train-ckpt] {cfg.name} bf16 remat full, Adam: saved at step 5 "
+        f"({Path(path).stat().st_size} bytes), restored at step {at}, run "
+        f"to step 10: params, moments and losses equal to the "
+        f"uninterrupted run bit for bit: {same}; losses {lw}")
+    if not same:
+        raise AssertionError("[train-ckpt] the resumed run differs")
+
+
+def phase_examples_train(torch):
+    """[examples] train_100m at its default 12 x 768 size with --steps 5
+    on the card: the loss finite and the checkpoint written."""
+    import contextlib
+    import io
+    from repro_torch.examples import train_100m
+    directory = ROOT / "build" / "chip_smoke" / "train_100m"
+    if directory.exists():
+        for f in directory.iterdir():
+            f.unlink()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = train_100m.main(["--steps", "5", "--ckpt-dir", str(directory),
+                               "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    files = sorted(p.name for p in directory.iterdir())
+    ok = (all(map(math.isfinite, out["losses"])) and out["latest_step"] == 5
+          and files == ["ckpt_00000005.msgpack"])
+    tail = " | ".join(ln for ln in buf.getvalue().splitlines()[-3:]
+                      if ln.strip())
+    log(f"[examples] train_100m --steps 5 on the card: {wall:.2f} s, losses "
+        f"{[round(x, 4) for x in out['losses']]}, checkpoint {files}, checks "
+        f"{'passed' if ok else 'FAILED'}; last lines: {tail}")
+    if not ok:
+        raise AssertionError(f"[examples] train_100m: {out}, {files}")
+
+
+def phase_train_times(torch, launches, errs):
+    """The two backward kernels at their training shapes beside the plain
+    backward, the bound and, for attention, SDPA's backward: attention at
+    [train]'s (8, 1024, 16, 16, 64) bf16 causal, the WKV scan at
+    [train-families]' RWKV6-7B shape (1, 2048, 64, 64)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as wk
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    rows = []
+    a = _family_cfg(TRAIN_ARCH, 1).attention
+    B, S, H, KVH, D = TRAIN_BATCH, TRAIN_SEQ, a.num_heads, a.num_kv_heads, \
+        a.head_dim
+    q = torch.randn((B, S, H, D), generator=gen, device=DEV).bfloat16()
+    k, v = (torch.randn((B, S, KVH, D), generator=gen, device=DEV).bfloat16()
+            for _ in range(2))
+    do = torch.randn((B, S, H, D), generator=gen, device=DEV).bfloat16()
+    o = fa.flash_attention_cuda(q, k, v, True, None)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    fns = {"kernel": lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do,
+                                                         True, None),
+           "library sdpa backward": lambda: torch.autograd.grad(
+               out, (qt, kt, vt), dot, retain_graph=True)}
+    n = 20
+    dev_ms = _turns_ms(torch, fns, True, n)
+    call_ms = _turns_ms(torch, fns, False, n)
+    plain_ms = _median_ms(torch, lambda: fa.flash_attention_backward_plain(
+        q, k, v, o, do, True, None), True, 3)
+    pairs = visible_pairs(S, True, None)
+    flops = 10 * D * pairs * B * H
+    # q, o and dO read and dq written; k and v read and dk, dv written
+    moved = (4 * B * S * H * D + 4 * B * S * KVH * D) * 2
+    b_ops = flops / H100_BF16_FLOPS * 1e3
+    b_bytes = moved / H100_BYTES_PER_S * 1e3
+    bound = max(b_ops, b_bytes)
+    ms = dev_ms["kernel"]
+    log(f"[times] flash_attention_bwd bf16 (B, S, H, KVH, D) = "
+        f"{(B, S, H, KVH, D)} causal ([train]'s), median of {n} CUDA-event "
+        f"timings in 4 turns, card / call: " + ", ".join(
+            f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
+            for key in fns)
+        + f"; plain {plain_ms:.6f} ms (median of 3); bound {bound:.6f} ms "
+        f"({flops} flops over {pairs} visible pairs x B x H at 989 TFLOP/s; "
+        f"{moved} bytes take {b_bytes:.6f} ms); kernel "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound, "
+        f"{dev_ms['library sdpa backward'] / ms:.2f}x SDPA backward's speed; "
+        f"clocks.sm, power.draw, temperature after: {_clocks()}")
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:90",
+        "note": "the gradient of the attention, which repro takes through "
+                "its jnp attention (use_pallas=False in training)",
+        "launches": launches["flash_attention_bwd"],
+        "max_abs_err": errs["flash_attention_bwd"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+        "library_ms": dev_ms["library sdpa backward"],
+        "call_ms": call_ms["kernel"],
+        "shape": [B, S, S, H, KVH, D], "tflops": flops / ms / 1e9,
+        "share_of_bound": bound / ms})
+    del q, k, v, do, o, qt, kt, vt, out, fns
+
+    B, S, H, N = 1, TRAIN_FAMILIES[0][3], 64, 64
+    r, kk, vv, w, u, s0 = wk.random_inputs(B, S, H, N, True, gen)
+    dy = torch.randn((B, S, H, N), generator=gen, device=DEV)
+    fns = {"kernel": lambda: wk.rwkv6_scan_bwd_cuda(r, kk, vv, w, u, s0, dy)}
+    dev_ms = _turns_ms(torch, fns, True, 8)
+    call_ms = _turns_ms(torch, fns, False, 8)
+    plain_ms = _median_ms(torch, lambda: wk.rwkv6_scan_backward_plain(
+        r, kk, vv, w, u, s0, dy), True, 2)
+    # r, k, v, w, dy read and dr, dk, dv, dw written once, u and the two
+    # states (s0 read, ds0 written), du written
+    moved = (9 * B * S * H * N + 2 * B * H * N * N + 2 * H * N) * 4
+    # per (b, t, h, n, m): dr's and dk's, dv's and dw's multiply-adds and
+    # dS's update (w dS + r dy): 6 multiply-adds, 12 flops
+    flops = 12 * B * S * H * N * N
+    b_bytes = moved / H100_BYTES_PER_S * 1e3
+    b_ops = flops / H100_F32_FLOPS * 1e3
+    bound = max(b_bytes, b_ops)
+    ms = dev_ms["kernel"]
+    log(f"[times] rwkv6_scan_bwd (B, S, H, N) = {(B, S, H, N)} "
+        f"([train-families]' RWKV6-7B), median of 8 CUDA-event timings in 4 "
+        f"turns, card / call: kernel {ms:.6f} / {call_ms['kernel']:.6f} ms; "
+        f"plain {plain_ms:.6f} ms (median "
+        f"of 2, its {S} steps dispatched by the host), library none (no "
+        f"single PyTorch call computes the recurrence's gradient); bound "
+        f"{bound:.6f} ms ({moved} bytes at 3.35 TB/s take {b_bytes:.6f} ms; "
+        f"{flops} flops at 67 TFLOP/s float32 {b_ops:.6f} ms), kernel "
+        f"{bound / ms:.1%} of the bound; clocks.sm, power.draw, temperature "
+        f"after: {_clocks()}")
+    rows.append({
+        "name": "rwkv6_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:59",
+        "note": "the gradient of the WKV recurrence, which repro takes "
+                "through its jnp scan (use_pallas=False in training)",
+        "launches": launches["rwkv6_scan_bwd"],
+        "max_abs_err": errs["rwkv6_scan_bwd"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": None, "call_ms": call_ms["kernel"],
+        "shape": [B, S, H, N],
+        "share_of_bound": bound / ms})
+    return rows
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3774,6 +4621,17 @@ def main() -> int:
                                        + exp["tolfl_round_update"]
                                        + aot["tolfl_round_update"])
     phase_examples(torch)
+    train_errs = phase_train_kernels(torch)
+    train_launches = phase_train(torch)
+    for kernel, count in phase_train_families(torch).items():
+        train_launches[kernel] += count
+    train_run = phase_train_no_sync(torch)
+    phase_train_profile(torch, *train_run)
+    del train_run
+    torch.cuda.empty_cache()
+    phase_train_reference(torch)
+    phase_train_ckpt(torch)
+    phase_examples_train(torch)
     kernels = phase_times(torch, launches, errs, parent)
     serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
     arch_launches = {}
@@ -3801,8 +4659,13 @@ def main() -> int:
     serve_errs["rglru_scan"] = max(serve_errs["rglru_scan"],
                                    seq_errs["rglru_scan"])
     serve_errs["rglru_scan_bwd"] = seq_errs["rglru_scan_bwd"]
+    # the training path's launches join the forward kernels' and the
+    # RG-LRU backward's counts
+    for kernel in SERVE_KERNELS + ("rglru_scan_bwd",):
+        serve_launches[kernel] += train_launches[kernel]
     kernels += phase_serve_times(torch, serve_launches, serve_errs,
                                  arch_launches, parent)
+    kernels += phase_train_times(torch, train_launches, train_errs)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

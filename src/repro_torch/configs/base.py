@@ -4,9 +4,9 @@ The port's copy of the model half of ``repro.configs.base``
 (``AttentionConfig``, ``MoEConfig``, ``RecurrentConfig``,
 ``FrontendConfig``, ``ModelConfig`` and the family / layer-kind
 constants), field for field, so that a config compares equal to
-``repro``'s by ``dataclasses.asdict``.  The run-level configs (Tol-FL,
-optimizer, mesh, input shapes) belong to the training slice and are not
-copied yet.
+``repro``'s by ``dataclasses.asdict``, and the run-level half (``InputShape``,
+``INPUT_SHAPES``, ``TolFLConfig``, ``OptimizerConfig``, ``MeshConfig``,
+``RunConfig``) field for field as well.
 
 * ``reduced()`` produces the CPU-smoke-test variant of the same family
   (2 layers, d_model<=512, <=4 experts).
@@ -215,3 +215,94 @@ class ModelConfig:
                 frontend_seq=min(self.frontend.frontend_seq, 16),
                 frontend_dim=d if self.frontend.frontend_dim else 0),
             max_seq_len=512, remat="none", dtype="float32")
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Training / run config
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class TolFLConfig:
+    """The paper's technique: hierarchical aggregation over the data axis.
+
+    num_clusters == 1  -> plain FedAvg (FL)
+    num_clusters == N  -> SBT (flat ring)
+    1 < k < N          -> Tol-FL proper
+    """
+    num_clusters: int = 4
+    # "tolfl_ring": paper-faithful — all-reduce inside clusters + a
+    #               sequential send/recv chain over cluster heads
+    #               (Algorithm 1).
+    # "tolfl_psum": beyond-paper — algebraically identical weighted
+    #               all-reduce.
+    # "fedavg":     single global all-reduce with a designated server.
+    # "sbt_ring":   full sequential ring (k = N).
+    schedule: str = "tolfl_ring"
+    local_epochs: int = 1          # E: local steps per round
+    server_coord: int = 0          # which member index acts as cluster head
+    pod_ring: bool = True          # multi-pod: SBT ring over the pod axis
+    # dtype the gradients are cast to for the cross-rank sync; f32 master
+    # grads are restored after.
+    grad_sync_dtype: Optional[str] = None        # e.g. "bfloat16"
+    # gradient accumulation: split the batch into m microbatches run one
+    # after the other — divides activation memory by m.
+    microbatches: int = 1
+    # cast the f32 params once at step start to this dtype.
+    param_cast_dtype: Optional[str] = None       # e.g. "bfloat16"
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adam"             # "sgd" | "adam" | "adamw"
+    lr: float = 1e-3
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    schedule: str = "cosine"       # "constant" | "cosine" | "linear"
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+
+    @property
+    def multi_pod(self) -> bool:
+        return self.pods > 1
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    tolfl: TolFLConfig = field(default_factory=TolFLConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    shape: InputShape = field(default_factory=lambda: INPUT_SHAPES["train_4k"])
+    seed: int = 0
+    use_pallas: bool = False       # repro's Pallas switch, kept for parity
+    log_every: int = 10
+    ckpt_every: int = 0            # 0 => disabled
+    ckpt_dir: str = "/tmp/repro_ckpt"

@@ -19,6 +19,13 @@ ARCHS: Dict[str, ModelConfig] = {
         llama4_maverick, internvl2_26b, llama4_scout, qwen3_8b, granite_3_2b,
         qwen15_05b)}
 
+# ids as assigned in the brief
+ASSIGNED = (
+    "recurrentgemma-9b", "rwkv6-7b", "whisper-large-v3", "internlm2-1.8b",
+    "llama4-maverick-400b-a17b", "internvl2-26b", "llama4-scout-17b-a16e",
+    "qwen3-8b", "granite-3-2b", "qwen1.5-0.5b",
+)
+
 
 def get_arch(name: str) -> ModelConfig:
     if name not in ARCHS:

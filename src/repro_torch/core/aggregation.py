@@ -33,7 +33,8 @@ def combine_pair(n_a: torch.Tensor, g_a: torch.Tensor, n_b: torch.Tensor,
     n = n_a + n_b
     r = torch.where(n > 0, n_b / torch.clamp_min(n, 1e-30),
                     torch.zeros_like(n))
-    return n, (1.0 - r) * g_a + r * g_b
+    # the weights in g's dtype, as repro casts them (a no-op for float32)
+    return n, (1.0 - r).to(g_a.dtype) * g_a + r.to(g_a.dtype) * g_b
 
 
 def stacked_streaming_mean(gs: torch.Tensor, ns: torch.Tensor

@@ -1,0 +1,409 @@
+"""Tol-FL over ``torch.distributed``: the production train step.
+
+Port of ``repro.core.distributed``.  Each rank of the world is one
+federated group (a data-parallel replica holding the whole model on its
+device); the mesh (:mod:`repro_torch.launch.mesh`) names the ranks'
+``pod`` and ``data`` axes.  Two interchangeable gradient-sync schedules:
+
+* ``tolfl_ring`` (paper-faithful, Algorithm 1): per-rank gradients;
+  intra-cluster FedAvg = one all-reduce over each cluster's process
+  group; the inter-cluster SBT chain = k - 1 sequential point-to-point
+  hops from ``heads[hop]`` to ``heads[hop + 1]`` carrying the running
+  (n, g, loss); the pods' ring (or their weighted all-reduce); the final
+  broadcast = one masked all-reduce over the world.
+* ``tolfl_psum`` (beyond-paper): the algebraically identical
+  failure-weighted mean as a weighted loss: each rank's gradient of its
+  rows' mask-weighted loss sum, one all-reduce, divided by the global
+  mask mass (computed on every rank from ``alive``), so it equals the
+  single-process value.
+
+Failure tolerance is in the step for both: ``alive: (G,)`` enters it and
+weights follow the paper's head-failure semantics
+(:func:`repro_torch.core.failure.effective_weights`).  Every collective
+sends one flat buffer (:class:`~repro_torch.models.params.FlatLayout`),
+every process group is made once when the step is built (each rank
+calls ``new_group`` for every group, in one order), and a collective
+over one rank is skipped: it is the identity.  Nothing in a step waits
+on the host.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ModelConfig, OptimizerConfig, TolFLConfig
+from repro_torch.core import aggregation as agg
+from repro_torch.core.failure import effective_weights_arrays
+from repro_torch.core.topology import Topology
+from repro_torch.launch.mesh import HostMesh, mesh_axis_sizes
+from repro_torch.models import params as P
+from repro_torch.models import transformer as T
+from repro_torch.optim.optimizers import apply_updates, make_optimizer
+
+Batch = Dict[str, torch.Tensor]
+
+
+def data_axis_size(mesh: HostMesh) -> int:
+    return mesh_axis_sizes(mesh).get("data", 1)
+
+
+def num_groups(mesh: HostMesh) -> int:
+    """Total federated groups = pod x data axis sizes."""
+    sizes = mesh_axis_sizes(mesh)
+    return sizes.get("pod", 1) * sizes.get("data", 1)
+
+
+def global_topology(mesh: HostMesh, tolfl: TolFLConfig) -> Topology:
+    return Topology(num_groups(mesh), tolfl.num_clusters)
+
+
+# ---------------------------------------------------------------------------
+# State
+# ---------------------------------------------------------------------------
+def init_state(generator: torch.Generator, mcfg: ModelConfig,
+               ocfg: OptimizerConfig, state_dtype: Optional[str] = None
+               ) -> Dict[str, Any]:
+    """``{"params", "opt", "step"}`` on ``generator``'s device: params
+    drawn there, the optimizer's state and an int32 step count."""
+    params = T.init_params(generator, mcfg, generator.device)
+    opt = make_optimizer(ocfg, state_dtype=state_dtype)
+    return {"params": params, "opt": opt.init(params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=generator.device)}
+
+
+# ---------------------------------------------------------------------------
+# Pieces shared by both schedules
+# ---------------------------------------------------------------------------
+def _weights_fn(topo: Topology, device: torch.device
+                ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """alive (G,) -> effective weights, with the topology's index tensors
+    made once on ``device`` (so a step copies nothing from the host)."""
+    cids = torch.from_numpy(topo.device_cluster_array()).to(device)
+    heads = torch.tensor(topo.heads, dtype=torch.int64, device=device)
+    return lambda alive: effective_weights_arrays(alive, cids, heads)
+
+
+def _value_and_grad(params: P.Params, loss: Callable[[P.Params], Any]
+                    ) -> Tuple[torch.Tensor, Any, P.Params]:
+    """(value, aux, grads) of ``loss(params) -> (value, aux)`` with
+    respect to every leaf; a leaf the loss does not reach gets zeros."""
+    items = P.tree_items(params)
+    leaves = [x.detach().requires_grad_(True) for _, x in items]
+    value, aux = loss(P.tree_from_items(
+        (path, leaf) for (path, _), leaf in zip(items, leaves)))
+    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    return (value.detach(), aux, P.tree_from_items(
+        (path, g) for (path, _), g in zip(items, grads)))
+
+
+def _cast_params(params: P.Params, dtype: Optional[str]) -> P.Params:
+    """``param_cast_dtype``: float32 leaves cast once, others as they
+    are."""
+    if not dtype:
+        return params
+    dt = getattr(torch, dtype)
+    return P.tree_map(lambda q: q.to(dt) if q.dtype == torch.float32 else q,
+                      params)
+
+
+def _split(batch: Batch, parts: int) -> List[Batch]:
+    """``parts`` consecutive row blocks of every field."""
+    rows = next(iter(batch.values())).shape[0] // parts
+    return [{k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            for i in range(parts)]
+
+
+class _Comm:
+    """Collectives over this rank's world, skipped where the group has one
+    rank (the identity)."""
+
+    def __init__(self, mesh: HostMesh):
+        self.world = mesh.size
+        self.rank = mesh.rank
+
+    def new_groups(self, rank_lists: List[List[int]]) -> Dict[str, Any]:
+        """Make a process group of each list of ranks with more than one
+        (every rank calls this with the same lists, in the same order);
+        returns the ``group`` and ``size`` of the list holding this rank,
+        as :meth:`all_reduce`'s keyword arguments."""
+        mine: Dict[str, Any] = {}
+        for ranks in rank_lists:
+            grp = (dist.new_group(ranks) if len(ranks) > 1
+                   and self.world > 1 else None)
+            if self.rank in ranks:
+                mine = {"group": grp, "size": len(ranks)}
+        return mine
+
+    def all_reduce(self, buf: torch.Tensor, group=None, size: int = 0
+                   ) -> torch.Tensor:
+        if (size or self.world) > 1:
+            dist.all_reduce(buf, group=group)
+        return buf
+
+    def send(self, buf: torch.Tensor, dst: int) -> None:
+        dist.send(buf, dst=dst)
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        buf = torch.empty_like(like)
+        dist.recv(buf, src=src)
+        return buf
+
+
+def _pack(g: torch.Tensor, *scalars: torch.Tensor) -> torch.Tensor:
+    """One message of float32 scalars and g (in its dtype), as bytes: the
+    scalars first, so both parts stay aligned to their dtypes."""
+    head = torch.stack([s.to(torch.float32) for s in scalars])
+    return torch.cat([head.view(torch.uint8), g.reshape(-1).view(torch.uint8)])
+
+
+def _unpack(buf: torch.Tensor, g_like: torch.Tensor, count: int
+            ) -> Tuple[torch.Tensor, ...]:
+    """:func:`_pack`'s inverse: (g, scalar, ...)."""
+    head = buf[:4 * count].view(torch.float32)
+    g = buf[4 * count:].view(g_like.dtype).reshape(g_like.shape)
+    return (g,) + tuple(head[i] for i in range(count))
+
+
+# ---------------------------------------------------------------------------
+# Weighted all-reduce schedule (optimised)
+# ---------------------------------------------------------------------------
+def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
+                         ocfg: OptimizerConfig, mesh: HostMesh,
+                         state_dtype: Optional[str] = None) -> Callable:
+    """``step(state, batch, alive) -> (state, {"loss", "xent",
+    "moe_aux"})``, ``batch`` this rank's rows of the global batch.
+
+    The global batch's rows carry their group's effective weight as the
+    loss mask; with ``microbatches`` m > 1 the GLOBAL batch is split into
+    m row blocks, each weighted by its mask mass, so the accumulated
+    gradient equals the single-batch weighted mean.  A rank computes, for
+    its rows of each block, the gradient of (the block's loss on those
+    rows) x (their mask mass); the all-reduce sums these and the total is
+    divided by the global mass.  The MoE aux loss is each rank's rows'
+    (exact at world 1)."""
+    topo = global_topology(mesh, tolfl)
+    G = topo.num_devices
+    weights = _weights_fn(topo, mesh.device)
+    opt = make_optimizer(ocfg, state_dtype=state_dtype)
+    comm = _Comm(mesh)
+    mb = tolfl.microbatches
+
+    def train_step(state, batch: Batch, alive: torch.Tensor):
+        w = weights(alive)                               # (G,)
+        B_loc, S = batch["labels"].shape
+        B = B_loc * G
+        my_w = w[mesh.group]
+        mass = torch.sum(w) * (B_loc * S)                # global mask mass
+        # this rank's rows [lo, hi) of the global batch, cut at the
+        # microbatch boundaries
+        lo = mesh.group * B_loc
+        cuts = sorted({lo, lo + B_loc} | {
+            i * (B // mb) for i in range(mb + 1)
+            if lo < i * (B // mb) < lo + B_loc})
+        layout = P.FlatLayout.of(state["params"])
+        g_acc = torch.zeros(layout.size + 1, dtype=torch.float32,
+                            device=mesh.device)
+        metrics = {}
+        for a, b in zip(cuts, cuts[1:]):
+            part = {k: v[a - lo:b - lo] for k, v in batch.items()}
+            m = my_w.expand(b - a, S)
+            part["mask"] = m
+            wi = my_w * ((b - a) * S)
+
+            def f(p, part=part, wi=wi):
+                # through the cast, so the f32 master gets f32 grads
+                lv, mets = T.loss_fn(_cast_params(p, tolfl.param_cast_dtype),
+                                     mcfg, part)
+                return lv * wi, mets
+
+            jv, metrics, g = _value_and_grad(state["params"], f)
+            g_acc[:-1] += layout.flatten(g)
+            g_acc[-1] += jv
+        comm.all_reduce(g_acc)
+        g_acc = g_acc / torch.clamp_min(mass, 1e-30)
+        grads = layout.unflatten(g_acc[:-1])
+        updates, new_opt = opt.update(grads, state["opt"], state["params"])
+        new_params = apply_updates(state["params"], updates)
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        return new_state, {"loss": g_acc[-1],
+                           **{k: v.detach() for k, v in metrics.items()}}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Paper-faithful ring schedule
+# ---------------------------------------------------------------------------
+def make_ring_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
+                         ocfg: OptimizerConfig, mesh: HostMesh,
+                         state_dtype: Optional[str] = None) -> Callable:
+    """``step(state, batch, alive) -> (state, {"loss", "n_effective"})``,
+    ``batch`` this rank's rows: Algorithm 1 with this rank as one group."""
+    sizes = mesh_axis_sizes(mesh)
+    d_sz = sizes.get("data", 1)
+    p_sz = sizes.get("pod", 1)
+    has_pod = "pod" in sizes and p_sz > 1
+    topo_data = Topology(d_sz, min(tolfl.num_clusters, d_sz))
+    topo_glob = Topology(p_sz * d_sz, min(tolfl.num_clusters * p_sz,
+                                          p_sz * d_sz))
+    heads = topo_data.heads
+    last_head = heads[-1]
+    weights = _weights_fn(topo_glob, mesh.device)
+    opt = make_optimizer(ocfg, state_dtype=state_dtype)
+    comm = _Comm(mesh)
+    gi = mesh.group
+    di, pi = gi % d_sz, gi // d_sz
+    f32 = torch.float32
+
+    # bf16 grad sync: the point-to-point chain carries the narrow dtype on
+    # every backend; the all-reduces only with NCCL (gloo's CPU reductions
+    # stay float32, as repro keeps its CPU psums float32)
+    sync_dt = getattr(torch, tolfl.grad_sync_dtype) \
+        if tolfl.grad_sync_dtype else None
+    psum_dt = (sync_dt if sync_dt is not None and dist.is_initialized()
+               and dist.get_backend() == "nccl" else None)
+
+    # every process group, once, in one order on every rank
+    cluster = comm.new_groups([[p * d_sz + d for d in c]
+                               for p in range(p_sz)
+                               for c in topo_data.psum_index_groups()])
+    pods = (comm.new_groups([[p * d_sz + d for p in range(p_sz)]
+                             for d in range(d_sz)])
+            if has_pod and not tolfl.pod_ring else {})
+
+    def hop(carry, src: int, dst: int, is_tgt: bool):
+        """One chain hop: ``src`` sends (n, g, loss); ``dst`` combines."""
+        n, g, loss = carry
+        if gi == src:
+            comm.send(_pack(g, n, loss), dst)
+        elif gi == dst:
+            rg, rn, rl = _unpack(comm.recv(_pack(g, n, loss), src), g, 2)
+            if is_tgt:
+                n_new, g_new = agg.combine_pair(rn, rg, n, g)
+                _, l_new = agg.combine_pair(rn, rl, n, loss)
+                return n_new, g_new, l_new
+        return carry
+
+    def aggregate(g: torch.Tensor, n: torch.Tensor, loss: torch.Tensor):
+        # ---- intra-cluster FedAvg (an all-reduce over member groups) ----
+        # normalise BEFORE the reduce: r = n_i / sum n stays in [0, 1], so
+        # the payload is well-scaled even under bf16 grad sync
+        den = comm.all_reduce(n.reshape(1).clone(), **cluster)[0]
+        r_w = n / torch.clamp_min(den, 1e-30)
+        if psum_dt is None:
+            buf = comm.all_reduce(torch.cat([g * r_w.to(g.dtype),
+                                             (loss * r_w).reshape(1)]),
+                                  **cluster)
+            g_c, loss_c = buf[:-1], buf[-1]
+        else:
+            g_c = comm.all_reduce((g * r_w.to(g.dtype)).to(psum_dt),
+                                  **cluster)
+            loss_c = comm.all_reduce((loss * r_w).reshape(1),
+                                     **cluster)[0]
+        if sync_dt is not None:
+            g_c = g_c.to(sync_dt)         # the chain's payload
+        carry = (den, g_c, loss_c)
+        # ---- sequential SBT chain over cluster heads (Algorithm 1) ----
+        for h, perm in enumerate(topo_data.ring_perms()):
+            (src, dst), = perm
+            carry = hop(carry, pi * d_sz + src, pi * d_sz + dst,
+                        di == heads[h + 1])
+        # ---- outer SBT ring over pods ----
+        at_last = di == last_head
+        if has_pod and tolfl.pod_ring:
+            for h in range(p_sz - 1):
+                carry = hop(carry, h * d_sz + last_head,
+                            (h + 1) * d_sz + last_head,
+                            at_last and pi == h + 1)
+            is_final = at_last and pi == p_sz - 1
+        else:
+            is_final = at_last
+        n_c, g_c, l_c = carry
+        fin = float(is_final)
+        if has_pod and not tolfl.pod_ring:
+            if sync_dt is not None and psum_dt is None:
+                g_c = g_c.to(f32)
+            # no pod ring: weighted all-reduce across pods at the heads
+            wn = n_c * fin
+            buf = comm.all_reduce(torch.cat([
+                (g_c * wn.to(g_c.dtype)).to(f32), wn.reshape(1),
+                (l_c * wn).reshape(1)]), **pods)
+            nsum = buf[-2]
+            g_c = (buf[:-2] / torch.clamp_min(nsum, 1e-30)).to(g_c.dtype)
+            l_c = buf[-1] / torch.clamp_min(nsum, 1e-30)
+            n_c = nsum
+        # ---- broadcast theta_{t+1} (masked all-reduce) ----
+        if sync_dt is not None and psum_dt is None:
+            g_c = g_c.to(f32)
+        if g_c.dtype == f32:
+            buf = comm.all_reduce(torch.cat([
+                g_c * fin, (l_c * fin).reshape(1), (n_c * fin).reshape(1)]))
+            g_fin, l_fin, n_fin = buf[:-2], buf[-2], buf[-1]
+        else:
+            g_fin = comm.all_reduce(g_c * fin)
+            tail = comm.all_reduce(torch.stack([l_c * fin, n_c * fin]))
+            l_fin, n_fin = tail[0], tail[1]
+        return g_fin, l_fin, n_fin
+
+    def local_grads(params: P.Params, batch: Batch):
+        def local_loss(p, b=batch):
+            return T.loss_fn(p, mcfg, b)
+
+        if tolfl.local_epochs > 1:
+            p, lv = params, None
+            for _ in range(tolfl.local_epochs):
+                lv, _, g = _value_and_grad(p, local_loss)
+                p = P.tree_map(lambda a, b: a - ocfg.lr * b.to(a.dtype), p, g)
+            grads = P.tree_map(lambda a, b: (a - b).to(f32) / ocfg.lr,
+                               params, p)
+            return grads, lv
+        if tolfl.microbatches > 1:
+            mb = tolfl.microbatches
+            grads = P.tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
+                                                     device=p.device), params)
+            lv = torch.zeros((), dtype=f32, device=mesh.device)
+            for part in _split(batch, mb):
+                lv_i, _, g_i = _value_and_grad(
+                    params, lambda p, b=part: T.loss_fn(p, mcfg, b))
+                grads = P.tree_map(lambda a, g: a + g / mb, grads, g_i)
+                lv = lv + lv_i / mb
+            return grads, lv
+        lv, _, grads = _value_and_grad(params, local_loss)
+        return grads, lv
+
+    def train_step(state, batch: Batch, alive: torch.Tensor):
+        params = state["params"]
+        layout = P.FlatLayout.of(params)
+        grads, lv = local_grads(params, batch)
+        flat = layout.flatten(grads)
+        del grads                         # the tree's memory, before the sync
+        n = weights(alive)[gi] * batch["tokens"].numel()
+        g_fin, loss, n_tot = aggregate(flat, n, lv)
+        del flat
+        if tolfl.grad_sync_dtype:
+            g_fin = g_fin.to(f32)         # f32 master grads for the optimizer
+        # g_fin is the broadcast's own buffer: masked in place
+        g = layout.unflatten(g_fin.mul_((n_tot > 0).to(f32)))
+        updates, new_opt = opt.update(g, state["opt"], params)
+        new_params = apply_updates(params, updates)
+        return ({"params": new_params, "opt": new_opt,
+                 "step": state["step"] + 1},
+                {"loss": loss, "n_effective": n_tot})
+
+    return train_step
+
+
+def make_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
+                    ocfg: OptimizerConfig, mesh: HostMesh,
+                    state_dtype: Optional[str] = None) -> Callable:
+    if tolfl.schedule in ("tolfl_psum", "fedavg"):
+        return make_psum_train_step(mcfg, tolfl, ocfg, mesh, state_dtype)
+    if tolfl.schedule in ("tolfl_ring", "sbt_ring"):
+        return make_ring_train_step(mcfg, tolfl, ocfg, mesh, state_dtype)
+    raise ValueError(tolfl.schedule)

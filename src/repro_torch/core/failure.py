@@ -328,6 +328,21 @@ def alive_mask(failure: Failure, topo: Topology, epoch,
     return (~dead).to(torch.float32)
 
 
+def effective_weights(alive: torch.Tensor, topo: Topology) -> torch.Tensor:
+    """(N,) per-device weight given head-failure semantics, on ``alive``'s
+    device: :func:`effective_weights_arrays` with ``topo``'s clusters."""
+    cluster_ids = torch.from_numpy(topo.device_cluster_array()).to(
+        alive.device)
+    heads = torch.tensor(topo.heads, dtype=torch.int64, device=alive.device)
+    return effective_weights_arrays(alive, cluster_ids, heads)
+
+
+def surviving_fraction(alive, topo: Topology) -> float:
+    """Mean effective weight: the share of devices still training."""
+    a = torch.as_tensor(np.asarray(alive), dtype=torch.float32)
+    return float(torch.mean(effective_weights(a, topo)))
+
+
 def effective_weights_arrays(alive: torch.Tensor, cluster_ids: torch.Tensor,
                              heads: torch.Tensor) -> torch.Tensor:
     """Per-device weight given head-failure semantics:

@@ -8,7 +8,7 @@ member 0 of each block is the cluster head.  The mesh-engine plumbing
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -43,6 +43,17 @@ class Topology:
 
     def is_head(self, device: int) -> bool:
         return device % self.members_per_cluster == 0
+
+    # ---------------- collective plumbing ----------------
+    def psum_index_groups(self) -> List[List[int]]:
+        """Rank groups of the intra-cluster FedAvg all-reduce."""
+        return self.clusters
+
+    def ring_perms(self) -> List[List[Tuple[int, int]]]:
+        """One (source, target) pair per sequential SBT hop: hop i moves
+        the running (n, g) pair from head_i to head_{i+1}."""
+        h = self.heads
+        return [[(h[i], h[i + 1])] for i in range(len(h) - 1)]
 
     def device_cluster_array(self) -> np.ndarray:
         """(N,) int cluster id per device."""

@@ -22,6 +22,14 @@ routed kernel for CUDA tensors and runs :func:`flash_attention_plain` for
 CPU tensors.  ``LAUNCHES`` counts every attention kernel launch and
 ``TC_LAUNCHES`` the tensor-core kernel's, so a run can show which kernel
 served it.
+
+The gradient (:class:`FlashAttentionFn`) is a third hand-written kernel,
+``repro_torch/csrc/flash_attention_bwd.cu``: float32 or bfloat16 at D in
+``HEAD_DIMS``, every product in float32 on the CUDA cores, lse
+recomputed from q and k so the forward kernels stay as they are.  On CPU
+tensors the gradient is :func:`flash_attention_backward_plain`, written
+out (not autograd through the plain forward).  ``BWD_LAUNCHES`` counts
+the backward kernel's launches.
 """
 from __future__ import annotations
 
@@ -38,6 +46,8 @@ from repro_torch.kernels import _build
 LAUNCHES = 0
 #: launches of the tensor-core kernel among them
 TC_LAUNCHES = 0
+#: backward kernel launches (one per :func:`flash_attention_bwd_cuda`)
+BWD_LAUNCHES = 0
 #: head dims the CUDA-core kernel is built for
 HEAD_DIMS = (32, 64, 128, 256)
 #: head dims the tensor-core kernel is built for (bfloat16 only)
@@ -123,6 +133,45 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   do: torch.Tensor, causal: bool = True,
+                                   window: Optional[int] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_plain` given its output o and
+    the output's gradient do, written out in float32 as the backward
+    kernel computes it: lse = m + log l over the visible keys, p =
+    exp(s - lse), delta = rowsum(do * o), ds = p (do v^T - delta), dq =
+    ds k / sqrt(D), dk = ds^T q / sqrt(D) and dv = p^T do summed over each
+    kv head's G query heads.  A row with no visible key has zero
+    gradient.  Returned in the inputs' dtype."""
+    B, Sq, H, D = q.shape
+    _, Sk, KVH, _ = k.shape
+    G = H // KVH
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Sq, KVH, G, D).to(f32)
+    dog = do.reshape(B, Sq, KVH, G, D).to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    ok = visible(Sq, Sk, causal, window, q.device)
+    s = torch.where(ok, torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale,
+                    NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    l = torch.sum(torch.where(ok, torch.exp(s - m), 0.0), dim=-1,  # noqa: E741
+                  keepdim=True)
+    lse = torch.where(l > 0, m + torch.log(l), 0.0)
+    p = torch.where(ok, torch.exp(s - lse), 0.0)
+    delta = torch.sum(dog * o.reshape(B, Sq, KVH, G, D).to(f32), dim=-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(kernel: str, dtype: torch.dtype):
     lib, name = _ENTRIES[(kernel, dtype)]
@@ -193,6 +242,94 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_entry(dtype: torch.dtype):
+    lib = _build.load("flash_attention_bwd")
+    fn = (lib.flash_attention_bwd_f32 if dtype == torch.float32
+          else lib.flash_attention_bwd_bf16)
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, causal: bool = True,
+                             window: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Launch the backward kernel on PyTorch's current stream: (dq, dk,
+    dv) in the inputs' dtype.  float32 or bfloat16 at D in
+    ``HEAD_DIMS``; raises for anything else."""
+    global BWD_LAUNCHES
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
+                         f"{q.device}")
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the backward kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the backward kernel is built for head dims "
+                         f"{HEAD_DIMS}, got {D}")
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype \
+                or t.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if not all(t.is_contiguous() for t in (q, k, v, o, do)):
+        raise ValueError("q, k, v, o and do must be contiguous")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_entry(q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KVH, D,
+            int(causal), -1 if window is None else window, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"error {err}")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention and its gradient: the kernels on CUDA tensors, the plain
+    versions on CPU ones.  Saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.device.type == "cuda":
+            o = flash_attention_cuda(q, k, v, causal, window)
+        else:
+            _check(q, k, v)
+            o = flash_attention_plain(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        do = do.contiguous()
+        if q.device.type == "cuda":
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, ctx.causal,
+                                                  ctx.window)
+        else:
+            dq, dk, dv = flash_attention_backward_plain(
+                q, k, v, o, do, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None
                     ) -> torch.Tensor:
@@ -200,9 +337,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, D) in q's dtype.
 
     The one entry point of the attention kernels (``ops.attention``
-    re-exports it): CUDA tensors launch the kernel :func:`route` picks or
-    raise; CPU tensors run the plain version."""
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal, window)
-    _check(q, k, v)
-    return flash_attention_plain(q, k, v, causal, window)
+    re-exports it), differentiable through :class:`FlashAttentionFn`:
+    CUDA tensors launch the kernels or raise; CPU tensors run the plain
+    versions."""
+    return FlashAttentionFn.apply(q, k, v, causal, window)

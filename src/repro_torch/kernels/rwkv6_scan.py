@@ -15,12 +15,19 @@ It takes any S >= 1, and N in {8, 16, 32, 64}.
 :func:`rwkv6_scan` launches the kernel for CUDA tensors and runs
 :func:`rwkv6_scan_plain` for CPU tensors; there is no fallback from one
 to the other.  ``LAUNCHES`` counts kernel launches.
+
+The gradient (:class:`WKVScanFn`) is a second hand-written kernel,
+``repro_torch/csrc/rwkv6_scan_bwd.cu``: the states are recomputed from
+checkpoints every ``BWD_CHUNK`` steps, not stored, and the reverse pass
+walks each row of the state alone.  On CPU tensors the gradient is
+:func:`rwkv6_scan_backward_plain`, written out (not autograd through the
+plain loop).  ``BWD_LAUNCHES`` counts the backward's launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,6 +35,11 @@ from repro_torch.kernels import _build, ref
 
 #: kernel launches in this process (one per :func:`rwkv6_scan_cuda`)
 LAUNCHES = 0
+#: backward launches (one per :func:`rwkv6_scan_bwd_cuda`)
+BWD_LAUNCHES = 0
+#: steps between the backward kernel's state checkpoints
+#: (``csrc/rwkv6_scan_bwd.cu``)
+BWD_CHUNK = 32
 #: the head sizes the kernel is built for
 HEAD_SIZES = (8, 16, 32, 64)
 #: (B, S, H, N, with_state0, calls) at which the kernel is held to its
@@ -71,6 +83,43 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, N) f32; u (H, N); state0 (B, H, N, N) -> (y (B, S, H, N),
     final state (B, H, N, N))."""
     return ref.rwkv6_reference(r, k, v, w, u, state0)
+
+
+def rwkv6_scan_backward_plain(r: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, w: torch.Tensor,
+                              u: torch.Tensor, state0: torch.Tensor,
+                              dy: torch.Tensor,
+                              dstate: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du, dstate0) of :func:`rwkv6_scan_plain` given the
+    output's gradient dy and the final state's (None: zero), written out
+    as the backward kernel computes it.  With dS the gradient of the state
+    after step t, for t = S - 1 down to 0: dr_t = (S_{t-1} + diag(u) k_t
+    v_t^T) dy_t, du += r_t o k_t (v_t . dy_t), dk_t = dS v_t + u o r_t
+    (v_t . dy_t), dv_t = dS^T k_t + (r_t . (u o k_t)) dy_t, dw_t =
+    rowsum(dS o S_{t-1}), dS <- diag(w_t) dS + r_t dy_t^T; dstate0 is the
+    last dS."""
+    S = r.shape[1]
+    states, st = [], state0
+    for t in range(S):
+        states.append(st)
+        st = (w[:, t, ..., None] * st
+              + k[:, t, ..., None] * v[:, t, ..., None, :])
+    ds = torch.zeros_like(state0) if dstate is None else dstate
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    for t in range(S - 1, -1, -1):
+        rt, kt, vt, wt, dyt = (x[:, t] for x in (r, k, v, w, dy))
+        sp = states[t]
+        vdy = torch.sum(vt * dyt, dim=-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhnm,bhm->bhn", sp, dyt) + u * kt * vdy
+        du = du + torch.sum(rt * kt * vdy, dim=0)
+        dk[:, t] = torch.einsum("bhnm,bhm->bhn", ds, vt) + u * rt * vdy
+        beta = torch.sum(rt * u * kt, dim=-1, keepdim=True)
+        dv[:, t] = torch.einsum("bhnm,bhn->bhm", ds, kt) + beta * dyt
+        dw[:, t] = torch.sum(ds * sp, dim=-1)
+        ds = wt[..., None] * ds + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du, ds
 
 
 def in_calls(fn, calls: int, r: torch.Tensor, k: torch.Tensor,
@@ -195,6 +244,81 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, state
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    fn = _build.load("rwkv6_scan_bwd").rwkv6_scan_bwd_f32
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor,
+                        state0: torch.Tensor, dy: torch.Tensor,
+                        dstate: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward kernel on PyTorch's current stream: (dr, dk, dv,
+    dw, du, dstate0); ``dstate`` None means a zero gradient of the final
+    state."""
+    global BWD_LAUNCHES
+    _check(r, k, v, w, u, state0)
+    _check(r, dy, dy, dy, u, state0 if dstate is None else dstate)
+    ts = (r, k, v, w, u, state0, dy) + (() if dstate is None else (dstate,))
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan_bwd_cuda needs CUDA tensors, got "
+                         f"{r.device}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("every input of the WKV backward must be "
+                         "contiguous")
+    B, S, H, N = r.shape
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du, ds0 = torch.empty_like(u), torch.empty_like(state0)
+    ckpt = torch.empty((B, H, -(-S // BWD_CHUNK), N, N), dtype=torch.float32,
+                       device=r.device)
+    du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_entry()(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), state0.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            ds0.data_ptr(), ckpt.data_ptr(), du_part.data_ptr(), B, S, H, N,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan backward kernel launch failed: CUDA "
+                           f"error {err}")
+    BWD_LAUNCHES += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+class WKVScanFn(torch.autograd.Function):
+    """The WKV scan and its gradient: the kernels on CUDA tensors, the
+    plain versions on CPU ones.  Saves the inputs; the states are
+    recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        ctx.set_materialize_grads(False)
+        if r.device.type == "cuda":
+            y, state = rwkv6_scan_cuda(r, k, v, w, u, state0)
+        else:
+            _check(r, k, v, w, u, state0)
+            y, state = rwkv6_scan_plain(r, k, v, w, u, state0)
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state0 = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.contiguous()
+        dstate = None if dstate is None else dstate.contiguous()
+        if r.device.type == "cuda":
+            return rwkv6_scan_bwd_cuda(r, k, v, w, u, state0, dy, dstate)
+        return rwkv6_scan_backward_plain(r, k, v, w, u, state0, dy, dstate)
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -202,10 +326,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32; state0 (B, H, N, N) f32.  Returns (y (B, S, H, N), final state
     (B, H, N, N)); state0 is left as it was.
 
-    The one entry point of the WKV kernel (``ops.rwkv6`` re-exports it):
-    CUDA tensors launch the kernel or raise; CPU tensors run the plain
-    version."""
-    if r.device.type == "cuda":
-        return rwkv6_scan_cuda(r, k, v, w, u, state0)
-    _check(r, k, v, w, u, state0)
-    return rwkv6_scan_plain(r, k, v, w, u, state0)
+    The one entry point of the WKV kernels (``ops.rwkv6`` re-exports it),
+    differentiable through :class:`WKVScanFn`: CUDA tensors launch the
+    kernels or raise; CPU tensors run the plain versions."""
+    return WKVScanFn.apply(r, k, v, w, u, state0)

@@ -128,7 +128,8 @@ def tree_items(tree: Params, prefix: Tuple[str, ...] = ()
     return out
 
 
-def _tree_from_items(items) -> Params:
+def tree_from_items(items) -> Params:
+    """The tree of (path, leaf) pairs (:func:`tree_items`' inverse)."""
     tree: Params = {}
     for path, leaf in items:
         node = tree
@@ -141,8 +142,52 @@ def _tree_from_items(items) -> Params:
 def tree_map_with_path(fn: Callable[[Tuple[str, ...], Any], Any],
                        tree: Params) -> Params:
     """The tree of ``fn(path, leaf)`` for each leaf of ``tree``."""
-    return _tree_from_items((path, fn(path, leaf))
+    return tree_from_items((path, fn(path, leaf))
                             for path, leaf in tree_items(tree))
+
+
+def tree_map(fn: Callable[..., Any], tree: Params, *rest: Params) -> Params:
+    """The tree of ``fn(leaf, *leaves of rest at the same path)``: the
+    trees share ``tree``'s keys (as ``jax.tree.map`` over several trees)."""
+    others = [dict(tree_items(t)) for t in rest]
+    return tree_map_with_path(
+        lambda path, leaf: fn(leaf, *(o[path] for o in others)), tree)
+
+
+def cast_tree(params: Params, dtype: torch.dtype) -> Params:
+    return tree_map(lambda x: x.to(dtype), params)
+
+
+def tree_zeros_like(params: Params) -> Params:
+    return tree_map(torch.zeros_like, params)
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares
+    (as ``repro`` stacks the per-leaf sums and adds them)."""
+    leaves = [torch.sum(torch.square(x.to(torch.float32)))
+              for _, x in tree_items(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+class GradBF16Boundary(torch.autograd.Function):
+    """Identity in the forward pass; rounds a float32 cotangent through
+    bfloat16 on the way back (``repro``'s ``grad_bf16_boundary``: the
+    backward's partial sums then carry bf16 numbers)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.dtype == torch.float32:
+            g = g.to(torch.bfloat16).to(torch.float32)
+        return g
+
+
+def grad_bf16_boundary(x: torch.Tensor) -> torch.Tensor:
+    return GradBF16Boundary.apply(x)
 
 
 def param_count(params: Params) -> int:
@@ -198,7 +243,7 @@ class FlatLayout:
         """(..., P) -> tree of VIEWS into ``flat`` with the same leading
         dims (gradients taken w.r.t. ``flat`` come out flat)."""
         lead = flat.shape[:-1]
-        return _tree_from_items(
+        return tree_from_items(
             (path, flat[..., off:off + int(np.prod(shape))].reshape(
                 *lead, *shape))
             for path, shape, off in self.entries)

@@ -1,20 +1,29 @@
-"""The model zoo's backbone, as far as serving needs it.
+"""The model zoo's backbone.
 
-Port of the serving half of ``repro.models.transformer``: the layer
-pattern's repeating unit (1 layer for dense, 2 for interleaved MoE, 3
-for RecurrentGemma), parameter init with the units stacked along a
-leading ``layers`` dim (as ``repro`` stacks them for its scan), the
-token embedding, the logits head (tied or untied), sinusoidal positions
-and the encoder-decoder half (whisper's ``encode`` and ``cross_attend``).
-Training (``forward_train``, ``xent_loss``) is a later slice.
+Port of ``repro.models.transformer``: the layer pattern's repeating unit
+(1 layer for dense, 2 for interleaved MoE, 3 for RecurrentGemma),
+parameter init with the units stacked along a leading ``layers`` dim (as
+``repro`` stacks them for its scan), the token embedding, the logits head
+(tied or untied), sinusoidal positions, the encoder-decoder half
+(whisper's ``encode`` and ``cross_attend``) and training: the chunked
+cross-entropy (``xent_loss``), ``forward_train`` and ``loss_fn``.
+
+Where ``repro`` scans the stacked units under ``jax.checkpoint``
+(``cfg.remat == "full"``), the port loops over them and wraps each unit,
+each encoder-decoder layer and each encoder layer in
+``torch.utils.checkpoint``: their activations are recomputed in the
+backward, so each kernel of the forward runs twice a training step.
+The gradient flows through the kernels' own backwards
+(``FlashAttentionFn``, ``WKVScanFn``, ``RGLRUScanFn``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RECURRENT, RWKV,
@@ -25,7 +34,7 @@ from repro_torch.models import params as P
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.mlp import mlp_apply, mlp_init
-from repro_torch.models.moe import moe_init
+from repro_torch.models.moe import moe_apply, moe_init
 
 VOCAB_PAD = 256
 
@@ -226,22 +235,187 @@ def cross_attend(p: P.Params, h: torch.Tensor, enc_out: torch.Tensor,
     return cross_out(p, h, *cross_kv(p, enc_out, cfg, h.dtype), cfg)
 
 
-def encode(params: P.Params, cfg: ModelConfig, frames: torch.Tensor
-           ) -> torch.Tensor:
+def take_layer(tree: P.Params, i: int) -> P.Params:
+    """Layer (or unit) ``i`` of a stacked tree: views into the stacked
+    leaves."""
+    return P.tree_map_with_path(lambda _, w: w[i], tree)
+
+
+def _remat(fn: Callable, on: bool) -> Callable:
+    """``fn`` whose activations are recomputed in the backward where
+    ``on`` (``jax.checkpoint``'s counterpart).  The forward draws no random
+    numbers, so the RNG state is not stashed."""
+    if not on:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
+def _encoder_layer(lp: P.Params, x: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    h = P.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+    x = x + A.attn_apply(lp["attn"], h, cfg.attention, cfg.norm_eps,
+                         causal=False, window=None)
+    h = P.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h, cfg.act, cfg.glu)
+
+
+def encode(params: P.Params, cfg: ModelConfig, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """Whisper encoder over stubbed frame embeddings (B, F, d): sinusoidal
     positions, then pre-norm layers of bidirectional self-attention (the
     attention kernel, every frame visible) and the MLP, then the encoder's
-    norm.  In the working dtype."""
+    norm.  In the working dtype; ``remat`` recomputes each layer in the
+    backward."""
     dt = getattr(torch, cfg.dtype)
     x = frames.to(dt)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  device=x.device).to(dt)[None]
-    layers = params["encoder"]["layers"]
+    layer = _remat(_encoder_layer, remat)
     for i in range(cfg.num_encoder_layers):
-        lp = P.tree_map_with_path(lambda _, w: w[i], layers)
-        h = P.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
-        x = x + A.attn_apply(lp["attn"], h, cfg.attention, cfg.norm_eps,
-                             causal=False, window=None)
-        h = P.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h, cfg.act, cfg.glu)
+        x = layer(take_layer(params["encoder"]["layers"], i), x, cfg)
     return P.rmsnorm_apply(params["encoder"]["norm"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def xent_loss(params: P.Params, cfg: ModelConfig, h: torch.Tensor,
+              labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+              chunk: int = 512) -> torch.Tensor:
+    """Chunked softmax cross-entropy.  h: (B, S, d), labels: (B, S) int.
+
+    Padded vocab entries are excluded via a -inf additive mask; the seq
+    dim is processed in chunks of ``divisor_block(S, chunk)`` so a chunk's
+    logits are (B, chunk, Vp); logsumexp in float32; the mean over the
+    mask's mass, at least 1."""
+    B, S, _ = h.shape
+    Vp = padded_vocab(cfg)
+    chunk = divisor_block(S, chunk)
+    f32 = torch.float32
+    pad_mask = torch.where(torch.arange(Vp, device=h.device)
+                           < cfg.vocab_size, 0.0, A.NEG_INF).to(f32)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=f32, device=h.device)
+    tot = torch.zeros((), dtype=f32, device=h.device)
+    cnt = torch.zeros((), dtype=f32, device=h.device)
+    for c0 in range(0, S, chunk):
+        mc = mask[:, c0:c0 + chunk]
+        logits = logits_fn(params, cfg, h[:, c0:c0 + chunk]).to(f32) + pad_mask
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, c0:c0 + chunk, None].long())[..., 0]
+        tot = tot + torch.sum((lse - gold) * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Layer application (training)
+# ---------------------------------------------------------------------------
+def _mix_train(p: P.Params, h: torch.Tensor, cfg: ModelConfig, kind: str
+               ) -> torch.Tensor:
+    a = cfg.attention
+    if kind == ATTN:
+        return A.attn_apply(p, h, a, cfg.norm_eps, window=a.sliding_window)
+    if kind == LOCAL_ATTN:
+        return A.attn_apply(p, h, a, cfg.norm_eps,
+                            window=a.sliding_window or a.long_context_window)
+    if kind == RECURRENT:
+        return G.rglru_apply(p, h, cfg)[0]
+    if kind == RWKV:
+        return R.timemix_apply(p, h, cfg)[0]
+    raise ValueError(kind)
+
+
+def _apply_layer_train(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
+                       kind: str, use_moe: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, moe_aux_loss): the MoE layer's aux is
+    ``router_aux_loss_coef * lb_loss + 1e-3 * z_loss``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = P.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    x = x + _mix_train(p["mix"], h, cfg, kind)
+    h = P.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+    if kind == RWKV:
+        h, _ = R.channelmix_apply(p["mlp"], h)
+    elif use_moe:
+        h, moe_aux = moe_apply(p["mlp"], h, cfg.moe, cfg.act, cfg.glu)
+        aux = (aux + cfg.moe.router_aux_loss_coef * moe_aux["lb_loss"]
+               + 1e-3 * moe_aux["z_loss"])
+    else:
+        h = mlp_apply(p["mlp"], h, cfg.act, cfg.glu)
+    return x + h, aux
+
+
+def _apply_unit_train(unit_p: P.Params, x: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (kind, use_moe) in enumerate(unit_pattern(cfg)):
+        x, a = _apply_layer_train(unit_p[f"l{i}"], x, cfg, kind, use_moe)
+        aux = aux + a
+    return x, aux
+
+
+def _encdec_layer_train(up: P.Params, cp: P.Params, x: torch.Tensor,
+                        enc_out: torch.Tensor, cfg: ModelConfig
+                        ) -> torch.Tensor:
+    """A decoder layer of an encoder-decoder: causal self-attention,
+    cross-attention to the encoder's output, then the MLP, each
+    pre-norm."""
+    h = P.rmsnorm_apply(up["l0"]["norm1"], x, cfg.norm_eps)
+    x = x + _mix_train(up["l0"]["mix"], h, cfg, ATTN)
+    h = P.rmsnorm_apply(cp["norm"], x, cfg.norm_eps)
+    x = x + cross_attend(cp["attn"], h, enc_out, cfg)
+    h = P.rmsnorm_apply(up["l0"]["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(up["l0"]["mlp"], h, cfg.act, cfg.glu)
+
+
+# ---------------------------------------------------------------------------
+# Forward: train
+# ---------------------------------------------------------------------------
+def forward_train(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (hidden (B, S, d), moe_aux scalar).
+
+    batch: tokens (B, S_text); optional 'prefix' (B, P, d) early-fusion
+    embeddings (vlm); optional 'frames' (B, F, d) encoder stub input
+    (audio)."""
+    remat = cfg.remat == "full"
+    x = embed_tokens(params, cfg, batch["tokens"])
+    if cfg.frontend.kind == "vision" and "prefix" in batch:
+        x = torch.cat([batch["prefix"].to(x.dtype), x], dim=1)
+    if cfg.attention.rope_theta == 0:
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     device=x.device).to(x.dtype)[None]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_units, n_tail = unit_counts(cfg)
+    if cfg.is_encdec:
+        enc_out = encode(params, cfg, batch["frames"], remat=remat)
+        layer = _remat(_encdec_layer_train, remat)
+        for u in range(n_units):
+            x = layer(take_layer(params["units"], u),
+                      take_layer(params["cross"]["layers"], u), x, enc_out,
+                      cfg)
+    else:
+        unit_fn = _remat(_apply_unit_train, remat)
+        for u in range(n_units):
+            x, a = unit_fn(take_layer(params["units"], u), x, cfg)
+            aux = aux + a
+        unit = unit_pattern(cfg)
+        for i in range(n_tail):
+            x, a = _apply_layer_train(params["tail"][f"l{i}"], x, cfg,
+                                      *unit[i])
+            aux = aux + a
+    return P.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def loss_fn(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(xent + moe_aux, {"xent", "moe_aux"}); with a vision prefix the
+    loss covers the text positions only."""
+    h, aux = forward_train(params, cfg, batch)
+    if cfg.frontend.kind == "vision" and "prefix" in batch:
+        h = h[:, batch["prefix"].shape[1]:, :]
+    loss = xent_loss(params, cfg, h, batch["labels"], batch.get("mask"))
+    return loss + aux, {"xent": loss, "moe_aux": aux}

@@ -36,15 +36,10 @@ from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.transformer import (cross_kv, cross_out,
                                             embed_tokens, encode, logits_fn,
-                                            sinusoidal_positions,
+                                            sinusoidal_positions, take_layer,
                                             unit_counts, unit_pattern)
 
 Tree = Dict[str, Any]
-
-
-def _index(tree: Tree, u: int) -> Tree:
-    """One unit's slice of a stacked tree (views)."""
-    return P.tree_map_with_path(lambda _, x: x[u], tree)
 
 
 def _stack(trees) -> Tree:
@@ -247,8 +242,8 @@ def _run_layers(params: P.Params, cfg: ModelConfig, x: torch.Tensor,
     n_units, n_tail = unit_counts(cfg)
     per_unit = []
     for u in range(n_units):
-        up = _index(params["units"], u)
-        uc = None if cache is None else _index(cache["units"], u)
+        up = take_layer(params["units"], u)
+        uc = None if cache is None else take_layer(cache["units"], u)
         entries = {}
         for i, (kind, use_moe) in enumerate(unit):
             x, entries[f"l{i}"] = _apply_layer(
@@ -313,14 +308,14 @@ def _run_encdec(params: P.Params, cfg: ModelConfig, x: torch.Tensor,
     step reads them from ``cache["cross"]``, which it passes on."""
     entries, xks, xvs = [], [], []
     for u in range(cfg.num_layers):
-        up = _index(params["units"], u)["l0"]
-        cp = _index(params["cross"]["layers"], u)
+        up = take_layer(params["units"], u)["l0"]
+        cp = take_layer(params["cross"]["layers"], u)
         h = P.rmsnorm_apply(up["norm1"], x, cfg.norm_eps)
         if cache is None:
             h, entry = _attn_prefill(up["mix"], h, cfg, ATTN)
         else:
             h, entry = A.attn_decode(up["mix"], h,
-                                     _index(cache["units"], u)["l0"],
+                                     take_layer(cache["units"], u)["l0"],
                                      cfg.attention, position, cfg.norm_eps)
         x = x + h
         if cache is None:

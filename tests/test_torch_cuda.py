@@ -1120,3 +1120,180 @@ def test_moe_apply_on_card_matches_cpu(cuda_device, S, chunk):
     for name in ("lb_loss", "z_loss"):
         torch.testing.assert_close(got_aux[name].cpu(), want_aux[name],
                                    rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Training: the backward kernels and the train step on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,causal,window,dt", [
+    (2, 300, 300, 4, 4, 64, True, None, "float32"),
+    (1, 257, 257, 8, 4, 128, True, None, "float32"),
+    (1, 200, 333, 8, 2, 32, False, None, "float32"),
+    (1, 190, 190, 10, 2, 64, True, 64, "float32"),
+    (1, 150, 150, 6, 1, 256, True, 48, "float32"),
+    (1, 100, 40, 4, 2, 64, False, 8, "float32"),
+    (2, 333, 200, 12, 2, 128, False, 50, "bfloat16"),
+    (2, 128, 128, 16, 16, 64, True, None, "bfloat16")])
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, Sq, Sk, H,
+                                                  KVH, D, causal, window,
+                                                  dt):
+    """The backward kernel against the plain backward on the same card
+    inputs: float32 within 2e-4 of each gradient's largest |value|;
+    bfloat16 within 2e-2 of it (one bf16 rounding of each output); rows
+    that see no key get exactly 0."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + D)
+    dtype = getattr(torch, dt)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn((B, Sk, KVH, D), generator=g,
+                        device=cuda_device).to(dtype) for _ in range(2))
+    do = torch.randn((B, Sq, H, D), generator=g, device=cuda_device).to(dtype)
+    o = fa.flash_attention_cuda(q, k, v, causal, window)
+    before = fa.BWD_LAUNCHES
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == before + 1
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale
+    seen = fa.visible(Sq, Sk, causal, window, cuda_device).any(dim=1)
+    if not bool(seen.all()):
+        assert float(got[0][:, ~seen].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64),
+                                     (torch.float32, 96)])
+def test_flash_attention_bwd_kernel_rejects(cuda_device, dtype, D):
+    from repro_torch.kernels import flash_attention as fa
+    x = torch.zeros((1, 8, 2, D), dtype=dtype, device=cuda_device)
+    with pytest.raises((TypeError, ValueError)):
+        fa.flash_attention_bwd_cuda(x, x, x, x, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,N,with_s0,with_ds", [
+    (2, 100, 4, 64, True, True), (1, 33, 2, 8, True, True),
+    (2, 64, 3, 16, True, False), (1, 70, 2, 32, False, True),
+    (1, 1, 2, 64, True, True)])
+def test_rwkv6_scan_bwd_kernel_matches_plain(cuda_device, B, S, H, N,
+                                             with_s0, with_ds):
+    """The WKV backward kernel against the plain backward: S past and
+    short of the 32-step checkpoint stride, a state0, a final-state
+    gradient; within 1e-4 x max(1, each gradient's largest |value|)."""
+    g = torch.Generator(device=cuda_device).manual_seed(S * N)
+    r, k, v, w, u, s0 = wk.random_inputs(B, S, H, N, with_s0, g)
+    dy = torch.randn((B, S, H, N), generator=g, device=cuda_device)
+    ds = (torch.randn((B, H, N, N), generator=g, device=cuda_device)
+          if with_ds else None)
+    before = wk.BWD_LAUNCHES
+    got = wk.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds)
+    want = wk.rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, ds)
+    torch.cuda.synchronize()
+    assert wk.BWD_LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        bound = 1e-4 * max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= bound
+
+
+def _layer_grads(fn, params, x):
+    """Gradients of sum(fn(params, x) * c) w.r.t. every leaf and x."""
+    from repro_torch.models import params as P
+    leaves = {p: t.clone().requires_grad_(True)
+              for p, t in P.tree_items(params)}
+    xg = x.clone().requires_grad_(True)
+    out = fn(P.tree_from_items(leaves.items()), xg)
+    c = torch.ones_like(out).mul_(0.01).add_(torch.linspace(
+        0, 1, out.numel(), device=out.device).reshape(out.shape))
+    (out * c).sum().backward()
+    return {p: t.grad for p, t in leaves.items()}, xg.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-7b"])
+def test_layer_gradients_reach_the_kernels_inputs(cuda_device, arch):
+    """A reduced layer (attention, or RWKV6's time mix) on the card in
+    float32: the gradients of every projection feeding the kernel (q, k,
+    v; r, k, v, the decay's LoRA and the bonus) are non-zero and match
+    the same layer on the CPU (plain versions) within 1e-4 x each
+    gradient's largest |value|, and so does the input's; the backward
+    kernel ran once."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as A
+    from repro_torch.models import params as P
+    from repro_torch.models import rwkv6 as R
+    cfg = ARCHS[arch].reduced()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 48, cfg.d_model), generator=g)
+    if arch == "rwkv6-7b":
+        p = R.timemix_init(g, cfg, "cpu")
+
+        def fn(pp, xx):
+            return R.timemix_apply(pp, xx, cfg)[0]
+        feeds, mod = ("r", "k", "v", "decay_a", "decay_b", "bonus"), wk
+    else:
+        p = A.attn_init(g, cfg.d_model, cfg.attention, "cpu")
+
+        def fn(pp, xx):
+            return A.attn_apply(pp, xx, cfg.attention, cfg.norm_eps)
+        feeds, mod = ("q", "k", "v"), fa
+    before = mod.BWD_LAUNCHES
+    dev_grads, dev_dx = _layer_grads(
+        fn, P.tree_map_with_path(lambda _, t: t.to(cuda_device), p),
+        x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert mod.BWD_LAUNCHES == before + 1
+    cpu_grads, cpu_dx = _layer_grads(fn, p, x)
+    for path, want in cpu_grads.items():
+        got = dev_grads[path].cpu()
+        scale = max(float(want.abs().max()), 1e-6)
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * scale, (path, err, scale)
+        if path[0] in feeds:
+            assert float(got.abs().max()) > 0, path
+    err = float((dev_dx.cpu() - cpu_dx).abs().max())
+    assert err <= 1e-4 * float(cpu_dx.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_launches_kernels_without_sync(cuda_device):
+    """Two ring steps of the reduced qwen1.5-0.5b in bf16 with remat on
+    the card: the forward kernel twice and the backward once per layer a
+    step, no synchronising call in the second step, a finite falling
+    loss."""
+    import dataclasses
+    from repro_torch.configs.base import OptimizerConfig, TolFLConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core import distributed as D
+    from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = dataclasses.replace(ARCHS["qwen1.5-0.5b"].reduced(),
+                              dtype="bfloat16", remat="full")
+    mesh = make_host_mesh(device="cuda")
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    step = D.make_train_step(cfg, TolFLConfig(num_clusters=1), ocfg, mesh)
+    state = D.init_state(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg, ocfg)
+    batches = [shard_batch(b, mesh) for b in
+               TokenPipeline(cfg.vocab_size, 128, 4).batches(3)]
+    alive = torch.ones((1,), device=cuda_device)
+    state, m0 = step(state, batches[0], alive)
+    fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m1 = step(state, batches[1], alive)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    state, m2 = step(state, batches[2], alive)
+    assert fa.LAUNCHES - fwd == 2 * 2 * cfg.num_layers
+    assert fa.BWD_LAUNCHES - bwd == 2 * cfg.num_layers
+    losses = [float(m["loss"]) for m in (m0, m1, m2)]
+    assert all(map(lambda v: v == v and abs(v) < 1e4, losses))
+    assert losses[-1] < losses[0]
