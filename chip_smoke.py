@@ -137,12 +137,16 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
 6. drives slice 14's main path, training: the attention's and the WKV
    scan's backward kernels against their plain backwards
    ([kernel] flash_attention_bwd over masks, GQA groups 1-6, D 32-256,
-   Sq != Sk, ragged tiles, rows with no key, float32 and bf16;
+   Sq != Sk, ragged tiles, rows with no key, float32 and bf16, bf16 at D
+   64 and 128 on both the tensor-core and the CUDA-core route, the
+   tensor-core one twice bit for bit and the forward's lse entry point
+   against the serving one and the plain lse;
    [kernel] rwkv6_scan_bwd with a state0, a final-state gradient and S off
    the checkpoint stride); ``launch/train``'s loop at qwen1.5-0.5b full
    width and depth, 10 Adam steps of the ring schedule on 8 x 1,024
    tokens, the loss falling and every kernel's launches as the config
-   says (forward twice a step under remat, backward once), then a server
+   says (forward twice a step under remat, backward once, on the tensor
+   cores), then a server
    failure at step 5 ([train]); one step of RWKV6-7B cut to 2 layers and
    RecurrentGemma-9B cut to one unit at full width ([train-families]);
    two steps under the sync debug mode ([train-no-sync]); one step under
@@ -160,8 +164,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    the row-stable product at the service's products beside ``addmm``;
    the tensor-core attention at each dense decoder's prefill shape and at
    whisper's (encoder, cross, self), Scout's and InternVL2's beside SDPA
-   (``enable_gqa``); the two backward kernels at their training shapes
-   beside the plain backwards and SDPA's backward.
+   (``enable_gqa``); the backward kernels at their training shapes
+   beside the plain backwards and SDPA's backward: the tensor-core
+   attention backward at [train]'s and internlm2's head shapes beside the
+   CUDA-core one, with the serving forward beside the lse entry point,
+   and the CUDA-core one at RecurrentGemma's local attention.
 
     python3 chip_smoke.py --parent DIR
 
@@ -363,6 +370,8 @@ def phase_device(torch, parent=None):
                       ("tolfl_combine", "Tol-FL aggregation"),
                       ("row_dense", "row-stable product"),
                       ("flash_attention_bwd", "attention backward"),
+                      ("flash_attention_bwd_wgmma",
+                       "tensor-core attention backward"),
                       ("rwkv6_scan_bwd", "WKV backward")):
         for fn, regs, spills, warned in _ptxas_summary(_build.build_log(lib)):
             log(f"[build] {what} {fn}: {regs} registers, spill stores/loads "
@@ -3730,12 +3739,14 @@ def _parent_wkv(torch, parent, r, k, v, w, u, s0):
 # the token pipeline, checkpoints, launch/train) and the backward kernels
 # ---------------------------------------------------------------------------
 #: (B, Sq, Sk, H, KVH, D, causal, window, dtype) at which the attention's
-#: backward kernel is held to its plain backward: causal, bidirectional
+#: backward kernels are held to the plain backward: causal, bidirectional
 #: and windowed; G = 1, 2, 4, 5, 6 and 16; D = 32 .. 256; Sq != Sk;
 #: ragged last tiles; rows that see no key (bidirectional, window 8,
-#: Sq > Sk + 7); and the bf16 shapes the training path gives it, [train]'s
-#: qwen1.5-0.5b (8, 1024, 16 heads of 64, causal) and [train-families]'
-#: RecurrentGemma-9B (1, 2048, 16 heads on 1 kv head of 256, window 2,048)
+#: Sq > Sk + 7); lse rows off a 16-byte boundary (Sq = 201); and the bf16
+#: shapes the training path gives it, [train]'s qwen1.5-0.5b (8, 1024, 16
+#: heads of 64, causal), internlm2's heads (16 on 8 of 128) and
+#: [train-families]' RecurrentGemma-9B (1, 2048, 16 heads on 1 kv head of
+#: 256, window 2,048).  bf16 at D 64 and 128 runs both routes.
 ATTN_BWD_CASES = [
     (2, 300, 300, 4, 4, 64, True, None, "float32"),
     (1, 257, 257, 8, 4, 128, True, None, "float32"),
@@ -3746,6 +3757,9 @@ ATTN_BWD_CASES = [
     (2, 333, 200, 12, 2, 128, False, 50, "bfloat16"),
     (1, 100, 40, 4, 2, 64, False, 8, "bfloat16"),
     (8, 1024, 1024, 16, 16, 64, True, None, "bfloat16"),
+    (1, 201, 201, 4, 4, 64, True, None, "bfloat16"),
+    (1, 1000, 1000, 5, 1, 128, True, 300, "bfloat16"),
+    (8, 1024, 1024, 16, 8, 128, True, None, "bfloat16"),
     (1, 2048, 2048, 16, 1, 256, True, 2048, "bfloat16"),
 ]
 #: (B, S, H, N, with_state0, with_dstate) of the WKV backward's checks: S
@@ -3760,8 +3774,8 @@ TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
 #: [train-families]: (arch, layers kept, batch, seq)
 TRAIN_FAMILIES = (("rwkv6-7b", 2, 1, 2048), ("recurrentgemma-9b", 3, 1, 2048))
-TRAIN_BWD_KERNELS = ("flash_attention_bwd", "rwkv6_scan_bwd",
-                     "rglru_scan_bwd")
+TRAIN_BWD_KERNELS = ("flash_attention_bwd", "flash_attention_bwd_wgmma",
+                     "rwkv6_scan_bwd", "rglru_scan_bwd")
 
 
 def _bwd_counters():
@@ -3776,11 +3790,17 @@ def _reset_train_launches():
     _reset_launches()
     for mod in _bwd_counters().values():
         mod.BWD_LAUNCHES = 0
+    _bwd_counters()["flash_attention_bwd"].TC_BWD_LAUNCHES = 0
 
 
 def _train_launches():
+    """Each kernel's launches: every attention backward counts in
+    ``flash_attention_bwd``, the tensor-core one also in
+    ``flash_attention_bwd_wgmma``."""
     out = _launches()
     out.update({k: m.BWD_LAUNCHES for k, m in _bwd_counters().items()})
+    out["flash_attention_bwd_wgmma"] = \
+        _bwd_counters()["flash_attention_bwd"].TC_BWD_LAUNCHES
     return out
 
 
@@ -3791,10 +3811,16 @@ def _expected_train_launches(cfg, steps):
     once; each backward once.  Attention once per
     attention layer (for an encoder-decoder also per encoder layer and
     per cross-attention), the RG-LRU scan per recurrent layer, the WKV
-    scan per RWKV6 layer."""
+    scan per RWKV6 layer; each attention backward on the tensor cores
+    where ``bwd_route`` sends the config's dtype and head dim."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.transformer import unit_counts, unit_pattern
     fwd, _ = _expected_launches(cfg)
     out = {f"{k}_bwd": v * steps for k, v in fwd.items()}
+    tc = out["flash_attention_bwd"] > 0 and fa.bwd_route(
+        getattr(torch, cfg.dtype), cfg.attention.head_dim) == "tensor_core"
+    out["flash_attention_bwd_wgmma"] = out["flash_attention_bwd"] * tc
     if cfg.remat == "full":
         # the tail layers (those that do not fill a unit) run unwrapped
         tail = [kind for kind, _ in unit_pattern(cfg)[:unit_counts(cfg)[1]]]
@@ -3828,16 +3854,21 @@ def _rows_rel(torch, got, want):
 def phase_train_kernels(torch):
     """[kernel] flash_attention_bwd and rwkv6_scan_bwd: each backward
     kernel against its plain backward on the card, on the same inputs.
-    Attention: float32 within 2e-4 of each gradient's largest |value|,
-    bfloat16 with each row's largest |diff| within ATTN_ROW_TOL of the
-    row's RMS (floored at 1e-2 of the gradient's); a query that sees no
-    key and a key no query sees must get exactly 0; WKV: within 1e-4 x
-    max(1, the gradient's largest |value|).  An unsupported dtype or D
-    must raise.  Returns the max |diff| of each."""
+    Attention, on the route ``bwd_route`` picks and, for bf16 at D 64
+    and 128, on the CUDA-core route too: float32 within 2e-4 of each
+    gradient's largest |value|, bfloat16 with each row's largest |diff|
+    within ATTN_ROW_TOL of the row's RMS (floored at 1e-2 of the
+    gradient's); a query that sees no key and a key no query sees must get
+    exactly 0; two launches of the tensor-core backward must give the same
+    bits, and the forward's lse entry point must return the serving entry
+    point's output bit for bit and an lse within 1e-5 of the plain one.
+    WKV: within 1e-4 x max(1, the gradient's largest |value|).  An
+    unsupported dtype or D must raise.  Returns the max |diff| of each."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as wk
     gen = torch.Generator(device=DEV).manual_seed(21)
-    worst = {"flash_attention_bwd": 0.0, "rwkv6_scan_bwd": 0.0}
+    worst = {"flash_attention_bwd": 0.0, "flash_attention_bwd_wgmma": 0.0,
+             "rwkv6_scan_bwd": 0.0}
     for B, Sq, Sk, H, KVH, D, causal, window, dt in ATTN_BWD_CASES:
         dtype = getattr(torch, dt)
         q = torch.randn((B, Sq, H, D), generator=gen, device=DEV).to(dtype)
@@ -3845,48 +3876,81 @@ def phase_train_kernels(torch):
                             device=DEV).to(dtype) for _ in range(2))
         do = torch.randn((B, Sq, H, D), generator=gen, device=DEV).to(dtype)
         o = fa.flash_attention_cuda(q, k, v, causal, window)
-        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window)
+        lse, lse_note = None, ""
+        routes = [fa.bwd_route(dtype, D)]
+        if routes[0] == "tensor_core":
+            routes.append("cuda_core")
+            o_lse, lse = fa.flash_attention_cuda(q, k, v, causal, window,
+                                                 return_lse=True)
+            _, lse_plain = fa.flash_attention_plain(q, k, v, causal, window,
+                                                    return_lse=True)
+            lse_err = float((lse - lse_plain).abs().max())
+            lse_note = (f"; the lse forward's output bit for bit the "
+                        f"serving one's: {torch.equal(o_lse, o)}, lse "
+                        f"max_abs_err {lse_err:.3g} (tolerance 1e-5)")
+            if not (torch.equal(o_lse, o) and lse_err <= 1e-5):
+                raise AssertionError(f"flash_attention lse entry point at "
+                                     f"{(B, Sq, Sk, H, KVH, D)}{lse_note}")
+            del o_lse, lse_plain
         want = fa.flash_attention_backward_plain(q, k, v, o, do, causal,
                                                  window)
-        torch.cuda.synchronize()
         seen = fa.visible(Sq, Sk, causal, window, DEV).any(dim=1)
-        errs, notes = [], []
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            g, w = g.float(), w.float()
-            errs.append(float((g - w).abs().max()))
-            scale = float(w.abs().max())
-            if dtype == torch.float32:
-                ok = errs[-1] <= 2e-4 * scale
-                note = f"{errs[-1]:.3g} of max {scale:.3g}"
-            else:
-                rel = _rows_rel(torch, g, w)
-                ok = rel <= ATTN_ROW_TOL
-                note = f"row |diff| / RMS {rel:.4f}"
-            notes.append(note)
-            if not ok:
-                raise AssertionError(f"flash_attention_bwd {name} at "
-                                     f"{(B, Sq, Sk, H, KVH, D)} {dt} "
-                                     f"causal={causal} window={window}: "
-                                     f"{note}")
-        # a query that sees no key, and a key that no query sees, have
-        # zero gradient
         keys_seen = fa.visible(Sq, Sk, causal, window, DEV).any(dim=0)
-        for grad, live in ((got[0], seen), (got[1], keys_seen),
-                           (got[2], keys_seen)):
-            if not bool(live.all()) and float(grad[:, ~live].float().abs()
-                                              .max()) != 0.0:
-                raise AssertionError("an unseen row got a non-zero "
-                                     "gradient")
-        log(f"[kernel] flash_attention_bwd (B, Sq, Sk, H, KVH, D) = "
-            f"{(B, Sq, Sk, H, KVH, D)} G={H // KVH} causal={causal} "
-            f"window={window} {dt}: max_abs_err dq/dk/dv "
-            f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} ({'; '.join(notes)}); "
-            f"rows with no key "
-            f"{int((~seen).sum())} (tolerance: float32 2e-4 x max|grad|, "
-            f"bf16 row |diff| <= {ATTN_ROW_TOL} x RMS)")
-        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
-                                           *errs)
-        del q, k, v, do, o, got, want
+        for kernel in routes:
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window,
+                                              lse=lse, kernel=kernel)
+            torch.cuda.synchronize()
+            errs, notes = [], []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                g, w = g.float(), w.float()
+                errs.append(float((g - w).abs().max()))
+                scale = float(w.abs().max())
+                if dtype == torch.float32:
+                    ok = errs[-1] <= 2e-4 * scale
+                    note = f"{errs[-1]:.3g} of max {scale:.3g}"
+                else:
+                    rel = _rows_rel(torch, g, w)
+                    ok = rel <= ATTN_ROW_TOL
+                    note = f"row |diff| / RMS {rel:.4f}"
+                notes.append(note)
+                if not ok:
+                    raise AssertionError(f"flash_attention_bwd {kernel} {name} "
+                                         f"at {(B, Sq, Sk, H, KVH, D)} {dt} "
+                                         f"causal={causal} window={window}: "
+                                         f"{note}")
+            # a query that sees no key, and a key that no query sees, have
+            # zero gradient
+            for grad, live in ((got[0], seen), (got[1], keys_seen),
+                               (got[2], keys_seen)):
+                if not bool(live.all()) and float(
+                        grad[:, ~live].float().abs().max()) != 0.0:
+                    raise AssertionError(f"{kernel}: an unseen row got a "
+                                         f"non-zero gradient")
+            det = ""
+            if kernel == "tensor_core":
+                again = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal,
+                                                    window, lse=lse)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                det = f"; two launches bit for bit: {same}"
+                if not same:
+                    raise AssertionError(f"the tensor-core backward at "
+                                         f"{(B, Sq, Sk, H, KVH, D)} differs "
+                                         f"between two launches")
+                del again
+            log(f"[kernel] flash_attention_bwd {kernel} (B, Sq, Sk, H, KVH, D)"
+                f" = {(B, Sq, Sk, H, KVH, D)} G={H // KVH} causal={causal} "
+                f"window={window} {dt}: max_abs_err dq/dk/dv "
+                f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} "
+                f"({'; '.join(notes)}); rows with no key "
+                f"{int((~seen).sum())}, keys no query sees "
+                f"{int((~keys_seen).sum())} (tolerance: float32 2e-4 x "
+                f"max|grad|, bf16 row |diff| <= {ATTN_ROW_TOL} x RMS)"
+                + det + (lse_note if kernel == "tensor_core" else ""))
+            key = ("flash_attention_bwd_wgmma" if kernel == "tensor_core"
+                   else "flash_attention_bwd")
+            worst[key] = max(worst[key], *errs)
+            del got
+        del q, k, v, do, o, lse, want
     for bad in ((torch.float16, 64), (torch.float32, 96)):
         x = torch.zeros((1, 8, 2, bad[1]), dtype=bad[0], device=DEV)
         try:
@@ -3904,19 +3968,21 @@ def phase_train_kernels(torch):
         got = wk.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds)
         want = wk.rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, ds)
         torch.cuda.synchronize()
-        errs = []
+        errs, scales = [], []
         for name, g, ref in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
                                 want):
             err = float((g - ref).abs().max())
-            bound = 1e-4 * max(1.0, float(ref.abs().max()))
+            scales.append(float(ref.abs().max()))
+            bound = 1e-4 * max(1.0, scales[-1])
             if not err <= bound:
                 raise AssertionError(f"rwkv6_scan_bwd {name} at "
                                      f"{(B, S, H, N)}: {err} > {bound}")
             errs.append(err)
         log(f"[kernel] rwkv6_scan_bwd (B, S, H, N) = {(B, S, H, N)} "
-            f"state0={with_s0} dstate={with_ds}: max_abs_err "
-            + "/".join(f"{e:.3g}" for e in errs)
-            + " (dr/dk/dv/dw/du/ds0; tolerance 1e-4 x max(1, max|grad|))")
+            f"state0={with_s0} dstate={with_ds}: max_abs_err / max|grad| "
+            + ", ".join(f"{name} {e:.3g} / {m:.3g}" for name, e, m in zip(
+                ("dr", "dk", "dv", "dw", "du", "ds0"), errs, scales))
+            + " (tolerance 1e-4 x max(1, max|grad|))")
         worst["rwkv6_scan_bwd"] = max(worst["rwkv6_scan_bwd"], *errs)
     return worst
 
@@ -4129,7 +4195,9 @@ def phase_train_no_sync(torch):
 def phase_train_profile(torch, step_fn, state, batch, alive):
     """[train-profile]: one [train] step under torch.profiler: the card's
     busy share of the step's wall time and its top operations, and the
-    share of each kernel of the port."""
+    share of each kernel of the port: the attention forward, the
+    tensor-core backward's three kernels (delta, dq, dk/dv), the CUDA-core
+    backward's two, and the attention backward's whole share."""
     with _device_profile(torch) as prof:
         t0 = time.perf_counter()
         state, _ = step_fn(state, batch, alive)
@@ -4141,8 +4209,11 @@ def phase_train_profile(torch, step_fn, state, batch, alive):
             "measured")
         return
     mine = {k: sum(us for name, (us, _) in by_name.items() if k in name)
-            for k in ("flash_attention_wgmma", "attn_bwd_dq",
-                      "attn_bwd_dkdv")}
+            for k in ("flash_attention_wgmma", "attn_bwd_delta",
+                      "attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma",
+                      "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")}
+    mine["attention backward"] = sum(v for k, v in mine.items()
+                                     if k.startswith("attn_bwd"))
     log(f"[train-profile] one {TRAIN_ARCH} step ({TRAIN_BATCH} x "
         f"{TRAIN_SEQ}) under the profiler: wall {wall / 1e3:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms ({busy / wall:.1%} of wall); port kernels "
@@ -4441,72 +4512,127 @@ def phase_examples_train(torch):
         raise AssertionError(f"[examples] train_100m: {out}, {files}")
 
 
-def phase_train_times(torch, launches, errs):
-    """The two backward kernels at their training shapes beside the plain
-    backward, the bound and, for attention, SDPA's backward: attention at
-    [train]'s (8, 1024, 16, 16, 64) bf16 causal, the WKV scan at
-    [train-families]' RWKV6-7B shape (1, 2048, 64, 64)."""
+#: [times]' attention backward shapes, (B, S, H, KVH, D, window), bf16,
+#: causal: [train]'s qwen1.5-0.5b and internlm2's heads on the tensor-core
+#: route, [train-families]' RecurrentGemma-9B local attention on the
+#: CUDA-core route
+BWD_TIME_TC = ((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, None),
+               (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128, None))
+BWD_TIME_CC = (1, 2048, 16, 1, 256, 2048)
+
+
+def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20):
+    """One attention backward shape's readings: the routed backward (and,
+    with ``with_cuda_core``, the CUDA-core one at the same inputs), SDPA's
+    backward (``enable_gqa``, a band mask where the window cuts the causal
+    band) and, on the
+    tensor-core route, the serving forward and the forward's lse entry
+    point, in turns, card and call times; the plain backward; the bound
+    (10 D flops per visible (query, head, key) triple at 989 TFLOP/s, or
+    q, o, dO, k, v and lse read and dq, dk, dv written once at 3.35
+    TB/s)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rwkv6_scan as wk
-    gen = torch.Generator(device=DEV).manual_seed(23)
-    rows = []
-    a = _family_cfg(TRAIN_ARCH, 1).attention
-    B, S, H, KVH, D = TRAIN_BATCH, TRAIN_SEQ, a.num_heads, a.num_kv_heads, \
-        a.head_dim
+    B, S, H, KVH, D, window = shape
     q = torch.randn((B, S, H, D), generator=gen, device=DEV).bfloat16()
     k, v = (torch.randn((B, S, KVH, D), generator=gen, device=DEV).bfloat16()
             for _ in range(2))
     do = torch.randn((B, S, H, D), generator=gen, device=DEV).bfloat16()
-    o = fa.flash_attention_cuda(q, k, v, True, None)
+    tc = fa.bwd_route(torch.bfloat16, D) == "tensor_core"
+    if tc:
+        o, lse = fa.flash_attention_cuda(q, k, v, True, window,
+                                         return_lse=True)
+    else:
+        o, lse = fa.flash_attention_cuda(q, k, v, True, window), None
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    # a window of S or more cuts nothing from the causal band
+    mask = (None if window is None or window >= S else
+            fa.visible(S, S, True, window, DEV))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         is_causal=mask is None,
                                          enable_gqa=True)
     dot = do.transpose(1, 2)
-    fns = {"kernel": lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do,
-                                                         True, None),
-           "library sdpa backward": lambda: torch.autograd.grad(
-               out, (qt, kt, vt), dot, retain_graph=True)}
-    n = 20
+    fns = {"kernel": lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, o, do, True, window, lse=lse)}
+    if with_cuda_core:
+        fns["cuda_core"] = lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, o, do, True, window, kernel="cuda_core")
+    fns["library sdpa backward"] = lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True)
+    if tc:
+        fns["forward"] = lambda: fa.flash_attention_cuda(q, k, v, True,
+                                                         window)
+        fns["forward lse"] = lambda: fa.flash_attention_cuda(
+            q, k, v, True, window, return_lse=True)
     dev_ms = _turns_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
     plain_ms = _median_ms(torch, lambda: fa.flash_attention_backward_plain(
-        q, k, v, o, do, True, None), True, 3)
-    pairs = visible_pairs(S, True, None)
+        q, k, v, o, do, True, window), True, 3)
+    pairs = visible_pairs(S, True, window)
     flops = 10 * D * pairs * B * H
-    # q, o and dO read and dq written; k and v read and dk, dv written
-    moved = (4 * B * S * H * D + 4 * B * S * KVH * D) * 2
+    moved = (4 * B * S * H * D + 4 * B * S * KVH * D) * 2 + tc * B * H * S * 4
     b_ops = flops / H100_BF16_FLOPS * 1e3
     b_bytes = moved / H100_BYTES_PER_S * 1e3
     bound = max(b_ops, b_bytes)
     ms = dev_ms["kernel"]
-    log(f"[times] flash_attention_bwd bf16 (B, S, H, KVH, D) = "
-        f"{(B, S, H, KVH, D)} causal ([train]'s), median of {n} CUDA-event "
-        f"timings in 4 turns, card / call: " + ", ".join(
-            f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
-            for key in fns)
+    log(f"[times] flash_attention_bwd {'tensor_core' if tc else 'cuda_core'}"
+        f" bf16 (B, S, H, KVH, D) = {(B, S, H, KVH, D)} causal window="
+        f"{window}, median of {n} CUDA-event timings in 4 turns, card / "
+        f"call: " + ", ".join(f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f}"
+                              f" ms" for key in fns)
         + f"; plain {plain_ms:.6f} ms (median of 3); bound {bound:.6f} ms "
         f"({flops} flops over {pairs} visible pairs x B x H at 989 TFLOP/s; "
         f"{moved} bytes take {b_bytes:.6f} ms); kernel "
         f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound, "
-        f"{dev_ms['library sdpa backward'] / ms:.2f}x SDPA backward's speed; "
-        f"clocks.sm, power.draw, temperature after: {_clocks()}")
+        f"{dev_ms['library sdpa backward'] / ms:.2f}x SDPA backward's speed"
+        + (f", {dev_ms['cuda_core'] / ms:.2f}x the CUDA-core backward's"
+           if with_cuda_core else "")
+        + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
+    return {"shape": [B, S, S, H, KVH, D], "window": window, "ms": ms,
+            "call_ms": call_ms["kernel"], "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+            "library_ms": dev_ms["library sdpa backward"],
+            "tflops": flops / ms / 1e9, "share_of_bound": bound / ms,
+            **{f"{key.replace(' ', '_')}_ms": dev_ms[key] for key in fns
+               if key in ("cuda_core", "forward", "forward lse")}}
+
+
+def phase_train_times(torch, launches, errs):
+    """The backward kernels at their training shapes beside the plain
+    backward, the bound and, for attention, SDPA's backward: the
+    tensor-core attention backward at [train]'s (8, 1024, 16, 16, 64) and
+    internlm2's heads (8, 1024, 16, 8, 128), bf16 causal, beside the
+    CUDA-core one at the same inputs and the serving forward beside the
+    forward's lse entry point; the CUDA-core backward at [train-families]'
+    RecurrentGemma-9B local attention (1, 2048, 16, 1, 256, window 2,048);
+    the WKV scan at [train-families]' RWKV6-7B shape (1, 2048, 64, 64)."""
+    from repro_torch.kernels import rwkv6_scan as wk
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    tc = [_attn_bwd_times(torch, gen, shape, True) for shape in BWD_TIME_TC]
+    rows = [{
+        "name": "flash_attention_bwd_wgmma", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:90",
+        "note": "the gradient of the attention on the tensor cores (bf16, D "
+                "64 and 128), which repro takes through its jnp attention "
+                "(use_pallas=False in training); reads the lse that "
+                "flash_attention_wgmma.cu's lse entry point writes",
+        "launches": launches["flash_attention_bwd_wgmma"],
+        "max_abs_err": errs["flash_attention_bwd_wgmma"],
+        **tc[0], "also": tc[1:]}]
+    cc = _attn_bwd_times(torch, gen, BWD_TIME_CC, False, n=8)
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:90",
-        "note": "the gradient of the attention, which repro takes through "
-                "its jnp attention (use_pallas=False in training)",
-        "launches": launches["flash_attention_bwd"],
-        "max_abs_err": errs["flash_attention_bwd"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-        "library_ms": dev_ms["library sdpa backward"],
-        "call_ms": call_ms["kernel"],
-        "shape": [B, S, S, H, KVH, D], "tflops": flops / ms / 1e9,
-        "share_of_bound": bound / ms})
-    del q, k, v, do, o, qt, kt, vt, out, fns
+        "note": "the CUDA-core gradient of the attention (float32, and bf16 "
+                "at D 32 and 256), which repro takes through its jnp "
+                "attention (use_pallas=False in training)",
+        "launches": (launches["flash_attention_bwd"]
+                     - launches["flash_attention_bwd_wgmma"]),
+        "max_abs_err": errs["flash_attention_bwd"], **cc})
 
     B, S, H, N = 1, TRAIN_FAMILIES[0][3], 64, 64
     r, kk, vv, w, u, s0 = wk.random_inputs(B, S, H, N, True, gen)

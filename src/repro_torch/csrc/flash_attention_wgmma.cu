@@ -57,6 +57,12 @@
 // - Epilogue: O / max(l, 1e-30) as bf16 into the warpgroup's Q tile (same
 //   swizzle: no bank conflicts), then 16-byte coalesced stores to the rows'
 //   addresses.
+// - lse (the second entry point, flash_attention_wgmma_lse_bf16, for
+//   training): the epilogue also writes each row's lse = m / sqrt(D) + log l
+//   in float32 to a (B, H, Sq) tensor, 0 for a row that sees no key, which
+//   the tensor-core backward (flash_attention_bwd_wgmma.cu) reads instead of
+//   recomputing it.  The template flag kLse is 0 in the serving entry point,
+//   whose code is the same as without it.
 //
 // The launch goes on the caller's stream, does not synchronise and
 // allocates nothing; the C entry point returns cudaGetLastError(), or 1000 +
@@ -84,6 +90,7 @@ constexpr int kQAtomBytes = kRowsWG * 128;    // one atom of a warpgroup's Q
 constexpr int kKVAtomBytes = kKeys * 128;     // one atom of a K or V tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Smem {
@@ -147,14 +154,15 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* kmap, const CUtenso
                 k0, b);
 }
 
-// window < 0: no window.  causal: 0 or 1.
-template <int D>
+// window < 0: no window.  causal: 0 or 1.  kLse: also write lse (B, H, Sq).
+template <int D, int kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                                  const __grid_constant__ CUtensorMap vmap,
                                  const __nv_bfloat16* __restrict__ q,
-                                 __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KVH,
-                                 int causal, int window, float scale_log2) {
+                                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                                 int Sq, int Sk, int H, int KVH, int causal, int window,
+                                 float scale_log2) {
   using L = Smem<D>;
   constexpr int kUnits = D / 8;   // 16-byte units of a row
   extern __shared__ uint8_t smem_raw[];
@@ -326,6 +334,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  if constexpr (kLse != 0) {
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long row = wrow0 + (half ? r_b : r_a);
+        const float l = half ? l_b : l_a;
+        const float m = half ? m_b : m_a;
+        if (row < rows) {
+          const int h = kvh * G + static_cast<int>(row % G);
+          lse[(static_cast<long long>(b) * H + h) * Sq + row / G] =
+              l > 0.0f ? (m * scale_log2 + log2f(l)) * kLn2 : 0.0f;
+        }
+      }
+    }
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int atom = j / 8;
@@ -350,82 +373,56 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (so the
-// library needs no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// K or V (B, Sk, KVH, D) as a 4-d map (D, KVH, Sk, B), boxes of one atom x
-// kKeys keys of one (batch, kv head), 128-byte swizzle, zeros out of bounds.
-int kv_map(CUtensorMap* map, const __nv_bfloat16* x, int B, int Sk, int KVH, int D) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(KVH),
-                              static_cast<cuuint64_t>(Sk), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
-  const cuuint64_t strides[3] = {row, row * KVH, row * KVH * Sk};
-  const cuuint32_t box[4] = {kAtom, 1, kKeys, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<__nv_bfloat16*>(x),
-                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(res);
-}
-
-template <int D>
+template <int D, int kLse>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-           __nv_bfloat16* o, int B, int Sq, int Sk, int H, int KVH, int causal, int window,
-           cudaStream_t stream) {
+           __nv_bfloat16* o, float* lse, int B, int Sq, int Sk, int H, int KVH, int causal,
+           int window, cudaStream_t stream) {
   CUtensorMap kmap, vmap;
-  int err = kv_map(&kmap, k, B, Sk, KVH, D);
+  int err = rows_map(&kmap, k, B, Sk, KVH, D, kKeys);
   if (err != 0) return err;
-  err = kv_map(&vmap, v, B, Sk, KVH, D);
+  err = rows_map(&vmap, v, B, Sk, KVH, D, kKeys);
   if (err != 0) return err;
   constexpr int bytes = Smem<D>::kBytes;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_attention_wgmma_kernel<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long rows = static_cast<long long>(Sq) * (H / KVH);
   const dim3 grid(static_cast<unsigned int>((rows + kRows - 1) / kRows),
                   static_cast<unsigned int>(B * KVH));
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
-  flash_attention_wgmma_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      kmap, vmap, q, o, Sq, Sk, H, KVH, causal, window, scale_log2);
+  flash_attention_wgmma_kernel<D, kLse><<<grid, kThreads, bytes, stream>>>(
+      kmap, vmap, q, o, lse, Sq, Sk, H, KVH, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kLse>
+int dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+             __nv_bfloat16* o, float* lse, int B, int Sq, int Sk, int H, int KVH, int D,
+             int causal, int window, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch<64, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KVH, causal, window, s);
+    case 128: return launch<128, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KVH, causal, window, s);
+    case 256: return launch<256, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KVH, causal, window, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
+// Serving: o only.
 extern "C" int flash_attention_wgmma_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                           const __nv_bfloat16* v, __nv_bfloat16* o, int B,
                                           int Sq, int Sk, int H, int KVH, int D, int causal,
                                           int window, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, KVH, causal, window, s);
-    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, KVH, causal, window, s);
-    case 256: return launch<256>(q, k, v, o, B, Sq, Sk, H, KVH, causal, window, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<0>(q, k, v, o, nullptr, B, Sq, Sk, H, KVH, D, causal, window, stream);
+}
+
+// Training: o and lse (B, H, Sq) float32.
+extern "C" int flash_attention_wgmma_lse_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                              const __nv_bfloat16* v, __nv_bfloat16* o,
+                                              float* lse, int B, int Sq, int Sk, int H, int KVH,
+                                              int D, int causal, int window, void* stream) {
+  return dispatch<1>(q, k, v, o, lse, B, Sq, Sk, H, KVH, D, causal, window, stream);
 }

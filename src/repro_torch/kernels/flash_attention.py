@@ -23,20 +23,30 @@ CPU tensors.  ``LAUNCHES`` counts every attention kernel launch and
 ``TC_LAUNCHES`` the tensor-core kernel's, so a run can show which kernel
 served it.
 
-The gradient (:class:`FlashAttentionFn`) is a third hand-written kernel,
-``repro_torch/csrc/flash_attention_bwd.cu``: float32 or bfloat16 at D in
-``HEAD_DIMS``, every product in float32 on the CUDA cores, lse
-recomputed from q and k so the forward kernels stay as they are.  On CPU
-tensors the gradient is :func:`flash_attention_backward_plain`, written
-out (not autograd through the plain forward).  ``BWD_LAUNCHES`` counts
-the backward kernel's launches.
+The gradient (:class:`FlashAttentionFn`) has two hand-written kernels;
+:func:`bwd_route` picks one, again with no fallback:
+
+- ``"tensor_core"``, ``repro_torch/csrc/flash_attention_bwd_wgmma.cu``:
+  bfloat16 at D in {64, 128}.  A delta pre-pass, then dq by (query,
+  head) rows and dk, dv by key blocks, each product on wgmma, no
+  atomics.  It reads each row's lse, which the forward's lse entry point
+  (``flash_attention_cuda(..., return_lse=True)``) writes when a
+  gradient is needed.
+- ``"cuda_core"``, ``repro_torch/csrc/flash_attention_bwd.cu``: float32
+  at D in ``HEAD_DIMS`` and bfloat16 at D in {32, 256}; every product in
+  float32 on the CUDA cores, lse recomputed from q and k.
+
+On CPU tensors the gradient is :func:`flash_attention_backward_plain`,
+written out (not autograd through the plain forward).  ``BWD_LAUNCHES``
+counts every backward launch and ``TC_BWD_LAUNCHES`` the tensor-core
+backward's.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -48,12 +58,20 @@ LAUNCHES = 0
 TC_LAUNCHES = 0
 #: backward kernel launches (one per :func:`flash_attention_bwd_cuda`)
 BWD_LAUNCHES = 0
+#: launches of the tensor-core backward among them
+TC_BWD_LAUNCHES = 0
 #: head dims the CUDA-core kernel is built for
 HEAD_DIMS = (32, 64, 128, 256)
 #: head dims the tensor-core kernel is built for (bfloat16 only)
 TC_HEAD_DIMS = (64, 128, 256)
 #: the tensor-core kernel's tiles: (query, head) rows a block, keys a K/V tile
 TC_ROWS, TC_KEYS = 128, 80
+#: head dims the tensor-core backward is built for (bfloat16 only)
+TC_BWD_HEAD_DIMS = (64, 128)
+#: the tensor-core dk/dv kernel's tiles: keys a warpgroup, queries a Q/dO
+#: tile, and warpgroups a block at each D (``KvPlan`` in the source)
+TC_BWD_KEYS, TC_BWD_QUERIES = 64, 64
+TC_BWD_GROUPS = {64: 3, 128: 2}
 NEG_INF = -1e30
 #: the library and C entry point of each (route, dtype)
 _ENTRIES = {
@@ -78,6 +96,22 @@ def route(dtype: torch.dtype, D: int) -> str:
                      f"got {D}")
 
 
+def bwd_route(dtype: torch.dtype, D: int) -> str:
+    """The backward kernel that serves (dtype, D): ``"tensor_core"`` for
+    bfloat16 at D in ``TC_BWD_HEAD_DIMS``, ``"cuda_core"`` for float32 at
+    D in ``HEAD_DIMS`` and bfloat16 at D in {32, 256}; raises for
+    anything else."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the backward kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    if dtype == torch.bfloat16 and D in TC_BWD_HEAD_DIMS:
+        return "tensor_core"
+    if D in HEAD_DIMS:
+        return "cuda_core"
+    raise ValueError(f"the backward kernels are built for head dims "
+                     f"{HEAD_DIMS}, got {D}")
+
+
 def wgmma_tiles(Sq: int, Sk: int, G: int, causal: bool,
                 window: Optional[int]) -> List[Tuple[int, int]]:
     """The key tiles each block of the tensor-core kernel visits, as the
@@ -97,6 +131,58 @@ def wgmma_tiles(Sq: int, Sk: int, G: int, causal: bool,
     return plan
 
 
+def bwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
+              window: Optional[int], D: int = 64
+              ) -> Dict[str, List[Tuple[int, ...]]]:
+    """The tiles the tensor-core backward's two kernels compute at head
+    dim D, as they compute them, for one (batch, kv head):
+
+    - ``"dkdv"``: (kw0, g, q0, masked) for each tile a warpgroup
+      computes: keys [kw0, kw0 + ``TC_BWD_KEYS``) against queries [q0, q0
+      + ``TC_BWD_QUERIES``) of head g of the group.  A block owns
+      ``TC_BWD_GROUPS[D]`` warpgroups' keys and walks the heads, then the
+      query tiles that can see one of its keys; a warpgroup skips a tile
+      none of its keys sees.
+    - ``"dq"``: (row0, k0, masked) for each K/V tile a block of
+      ``TC_ROWS`` (query, head) rows from row0 computes: keys [k0, k0 +
+      ``TC_KEYS``), the tiles of :func:`wgmma_tiles`.
+
+    ``masked`` is False only for a tile whose every pair is visible."""
+    w = -1 if window is None else window
+    block = TC_BWD_GROUPS[D] * TC_BWD_KEYS
+    dkdv = []
+    for key0 in range(0, Sk, block):
+        key_hi = min(key0 + block - 1, Sk - 1)
+        q_lo = key0 if causal else 0
+        q_hi = min(Sq - 1, key_hi + w - 1) if w >= 0 else Sq - 1
+        t_lo = q_lo // TC_BWD_QUERIES
+        n_qt = q_hi // TC_BWD_QUERIES - t_lo + 1 if q_hi >= q_lo else 0
+        for i in range(G * n_qt):
+            g, q0 = i // n_qt, (t_lo + i % n_qt) * TC_BWD_QUERIES
+            q_end = q0 + TC_BWD_QUERIES - 1
+            for kw0 in range(key0, key0 + block, TC_BWD_KEYS):
+                kw_end = kw0 + TC_BWD_KEYS - 1
+                if not (kw0 < Sk and (not causal or q_end >= kw0)
+                        and (w < 0 or q0 - kw_end < w)):
+                    continue
+                inside = (kw_end < Sk and q_end < Sq
+                          and (not causal or q0 >= kw_end)
+                          and (w < 0 or q_end - kw0 < w))
+                dkdv.append((kw0, g, q0, not inside))
+    dq = []
+    rows = Sq * G
+    for row0, (first, count) in zip(range(0, rows, TC_ROWS),
+                                    wgmma_tiles(Sq, Sk, G, causal, window)):
+        q_lo, q_hi = row0 // G, (min(row0 + TC_ROWS, rows) - 1) // G
+        for t in range(first, first + count):
+            k0 = t * TC_KEYS
+            inside = (k0 + TC_KEYS <= Sk
+                      and (not causal or k0 + TC_KEYS - 1 <= q_lo)
+                      and (w < 0 or k0 >= q_hi - w + 1))
+            dq.append((row0, k0, not inside))
+    return {"dkdv": dkdv, "dq": dq}
+
+
 def visible(Sq: int, Sk: int, causal: bool, window: Optional[int],
             device=None) -> torch.Tensor:
     """(Sq, Sk) bool: key j is visible from query i (d = i - j; d >= 0
@@ -111,12 +197,21 @@ def visible(Sq: int, Sk: int, causal: bool, window: Optional[int],
     return ok
 
 
+def _lse(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:  # noqa: E741
+    """m + log l, 0 where no key is visible (l = 0), as the kernels."""
+    return torch.where(l > 0, m + torch.log(l), 0.0)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, window: Optional[int] = None
-                          ) -> torch.Tensor:
+                          causal: bool = True, window: Optional[int] = None,
+                          return_lse: bool = False
+                          ) -> Union[torch.Tensor,
+                                     Tuple[torch.Tensor, torch.Tensor]]:
     """Masked softmax attention in float32, output in ``q.dtype``; a row
     with no visible key is 0, as in the kernel.  q (B, Sq, H, D); k, v
-    (B, Sk, KVH, D)."""
+    (B, Sk, KVH, D).  With ``return_lse`` also each row's lse = m + log l
+    (B, H, Sq) in float32, 0 for a row with no visible key, as the
+    tensor-core kernel's lse entry point writes it."""
     B, Sq, H, D = q.shape
     _, Sk, KVH, _ = k.shape
     G = H // KVH
@@ -130,22 +225,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.sum(p, dim=-1, keepdim=True)  # noqa: E741
     out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(torch.float32))
     out = out / torch.clamp_min(l, 1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    return (out, _lse(m, l).reshape(B, H, Sq)) if return_lse else out
 
 
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, o: torch.Tensor,
                                    do: torch.Tensor, causal: bool = True,
-                                   window: Optional[int] = None
+                                   window: Optional[int] = None,
+                                   lse: Optional[torch.Tensor] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_plain` given its output o and
     the output's gradient do, written out in float32 as the backward
-    kernel computes it: lse = m + log l over the visible keys, p =
-    exp(s - lse), delta = rowsum(do * o), ds = p (do v^T - delta), dq =
-    ds k / sqrt(D), dk = ds^T q / sqrt(D) and dv = p^T do summed over each
-    kv head's G query heads.  A row with no visible key has zero
-    gradient.  Returned in the inputs' dtype."""
+    kernels compute it: lse = m + log l over the visible keys (or the
+    forward's ``lse`` (B, H, Sq) where given), p = exp(s - lse), delta =
+    rowsum(do * o), ds = p (do v^T - delta), dq = ds k / sqrt(D), dk =
+    ds^T q / sqrt(D) and dv = p^T do summed over each kv head's G query
+    heads.  A row with no visible key has zero gradient.  Returned in the
+    inputs' dtype."""
     B, Sq, H, D = q.shape
     _, Sk, KVH, _ = k.shape
     G = H // KVH
@@ -157,10 +255,13 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     ok = visible(Sq, Sk, causal, window, q.device)
     s = torch.where(ok, torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale,
                     NEG_INF)
-    m = torch.amax(s, dim=-1, keepdim=True)
-    l = torch.sum(torch.where(ok, torch.exp(s - m), 0.0), dim=-1,  # noqa: E741
-                  keepdim=True)
-    lse = torch.where(l > 0, m + torch.log(l), 0.0)
+    if lse is None:
+        m = torch.amax(s, dim=-1, keepdim=True)
+        l = torch.sum(torch.where(ok, torch.exp(s - m), 0.0),  # noqa: E741
+                      dim=-1, keepdim=True)
+        lse = _lse(m, l)
+    else:
+        lse = lse.to(f32).reshape(B, KVH, G, Sq, 1)
     p = torch.where(ok, torch.exp(s - lse), 0.0)
     delta = torch.sum(dog * o.reshape(B, Sq, KVH, G, D).to(f32), dim=-1)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
@@ -201,12 +302,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def _lse_entry():
+    fn = _build.load("flash_attention_wgmma").flash_attention_wgmma_lse_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: Optional[int] = None,
-                         kernel: Optional[str] = None) -> torch.Tensor:
+                         kernel: Optional[str] = None, return_lse: bool = False
+                         ) -> Union[torch.Tensor,
+                                    Tuple[torch.Tensor, torch.Tensor]]:
     """Launch a CUDA kernel on PyTorch's current stream: the one
     :func:`route` picks, or ``kernel`` ("tensor_core" or "cuda_core") where
-    that kernel takes the inputs' dtype and D."""
+    that kernel takes the inputs' dtype and D.  ``return_lse`` launches
+    the tensor-core kernel's lse entry point, which also returns each
+    row's lse (B, H, Sq) float32 for the tensor-core backward; its output
+    is the serving entry point's, bit for bit."""
     global LAUNCHES, TC_LAUNCHES
     _check(q, k, v)
     if q.device.type != "cuda":
@@ -226,27 +341,37 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        for x in (q, k, v)):
         raise ValueError("the tensor-core kernel needs q, k, v on 16-byte "
                          "boundaries")
+    if return_lse and kernel != "tensor_core":
+        raise ValueError(f"only the tensor-core kernel returns lse, not "
+                         f"{kernel}")
     out = torch.empty_like(q)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if return_lse:
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        args.append(lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _entry(kernel, q.dtype)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Sk, H, KVH, D, int(causal), -1 if window is None else window,
-            stream)
+        fn = _lse_entry() if return_lse else _entry(kernel, q.dtype)
+        err = fn(*args, B, Sq, Sk, H, KVH, D, int(causal),
+                 -1 if window is None else window, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
                            f"error {err}")
     LAUNCHES += 1
     if kernel == "tensor_core":
         TC_LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_entry(dtype: torch.dtype):
-    lib = _build.load("flash_attention_bwd")
-    fn = (lib.flash_attention_bwd_f32 if dtype == torch.float32
-          else lib.flash_attention_bwd_bf16)
+def _bwd_entry(kernel: str, dtype: torch.dtype):
+    if kernel == "tensor_core":
+        fn = _build.load("flash_attention_bwd_wgmma") \
+            .flash_attention_bwd_wgmma_bf16
+    else:
+        lib = _build.load("flash_attention_bwd")
+        fn = (lib.flash_attention_bwd_f32 if dtype == torch.float32
+              else lib.flash_attention_bwd_bf16)
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -256,25 +381,47 @@ def _bwd_entry(dtype: torch.dtype):
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, causal: bool = True,
-                             window: Optional[int] = None
+                             window: Optional[int] = None,
+                             lse: Optional[torch.Tensor] = None,
+                             kernel: Optional[str] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Launch the backward kernel on PyTorch's current stream: (dq, dk,
-    dv) in the inputs' dtype.  float32 or bfloat16 at D in
-    ``HEAD_DIMS``; raises for anything else."""
-    global BWD_LAUNCHES
+    """Launch a backward kernel on PyTorch's current stream: (dq, dk, dv)
+    in the inputs' dtype.  The one :func:`bwd_route` picks, or ``kernel``
+    ("tensor_core" or "cuda_core") where that kernel takes the inputs'
+    dtype and D.  The tensor-core kernel reads the forward's ``lse`` (B,
+    H, Sq) float32 and raises without it; the CUDA-core kernel
+    recomputes lse and takes none."""
+    global BWD_LAUNCHES, TC_BWD_LAUNCHES
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
                          f"{q.device}")
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the backward kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the backward kernel is built for head dims "
-                         f"{HEAD_DIMS}, got {D}")
+    kernel = kernel or bwd_route(q.dtype, D)
+    if kernel == "tensor_core":
+        if q.dtype != torch.bfloat16 or D not in TC_BWD_HEAD_DIMS:
+            raise ValueError(f"no tensor-core backward for {q.dtype} at "
+                             f"D = {D}")
+        if lse is None or tuple(lse.shape) != (B, H, Sq) \
+                or lse.dtype != torch.float32 or lse.device != q.device \
+                or not lse.is_contiguous() or lse.data_ptr() % 16:
+            raise ValueError(f"the tensor-core backward needs the forward's "
+                             f"lse, ({B}, {H}, {Sq}) float32 contiguous on "
+                             f"{q.device}")
+        if B * H * Sq >= 2 ** 31:
+            raise ValueError(f"B H Sq = {B * H * Sq} rows: the tensor-core "
+                             f"backward indexes them with 32-bit ints")
+    elif kernel == "cuda_core":
+        if q.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"the CUDA-core backward takes float32 or "
+                            f"bfloat16, got {q.dtype}")
+        if D not in HEAD_DIMS:
+            raise ValueError(f"the CUDA-core backward is built for head "
+                             f"dims {HEAD_DIMS}, got {D}")
+    else:
+        raise ValueError(f"no backward kernel {kernel!r}")
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype \
                 or t.device != q.device:
@@ -285,49 +432,70 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if not all(t.is_contiguous() for t in (q, k, v, o, do)):
         raise ValueError("q, k, v, o and do must be contiguous")
+    if kernel == "tensor_core" and any(t.data_ptr() % 16
+                                       for t in (q, k, v, o, do)):
+        raise ValueError("the tensor-core backward needs q, k, v, o and do "
+                         "on 16-byte boundaries")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_entry(q.dtype)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KVH, D,
+        if kernel == "tensor_core":
+            ptrs = (q, k, v, o, do, lse, dq, dk, dv, delta)
+        else:
+            # the CUDA-core kernel writes the lse it recomputes
+            ptrs = (q, k, v, o, do, dq, dk, dv, torch.empty_like(delta),
+                    delta)
+        err = _bwd_entry(kernel, q.dtype)(
+            *(t.data_ptr() for t in ptrs), B, Sq, Sk, H, KVH, D,
             int(causal), -1 if window is None else window, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed: "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention {kernel} backward kernel launch "
+                           f"failed: error {err}")
     BWD_LAUNCHES += 1
+    if kernel == "tensor_core":
+        TC_BWD_LAUNCHES += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention and its gradient: the kernels on CUDA tensors, the plain
-    versions on CPU ones.  Saves q, k, v and the output."""
+    versions on CPU ones.  Saves q, k, v, the output and, where a
+    gradient is needed (``need_lse``) and the backward reads it (the
+    tensor-core backward on the card, the plain one on the CPU), each
+    row's lse from the forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, need_lse):
+        lse = None
         if q.device.type == "cuda":
-            o = flash_attention_cuda(q, k, v, causal, window)
+            if need_lse and bwd_route(q.dtype, q.shape[3]) == "tensor_core":
+                o, lse = flash_attention_cuda(q, k, v, causal, window,
+                                              return_lse=True)
+            else:
+                o = flash_attention_cuda(q, k, v, causal, window)
         else:
             _check(q, k, v)
-            o = flash_attention_plain(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, o)
+            if need_lse:
+                o, lse = flash_attention_plain(q, k, v, causal, window,
+                                               return_lse=True)
+            else:
+                o = flash_attention_plain(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         if q.device.type == "cuda":
             dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, ctx.causal,
-                                                  ctx.window)
+                                                  ctx.window, lse)
         else:
             dq, dk, dv = flash_attention_backward_plain(
-                q, k, v, o, do, ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+                q, k, v, o, do, ctx.causal, ctx.window, lse)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -339,5 +507,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The one entry point of the attention kernels (``ops.attention``
     re-exports it), differentiable through :class:`FlashAttentionFn`:
     CUDA tensors launch the kernels or raise; CPU tensors run the plain
-    versions."""
-    return FlashAttentionFn.apply(q, k, v, causal, window)
+    versions.  Only a call that needs a gradient launches the forward's
+    lse entry point; serving launches the plain one."""
+    need_lse = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return FlashAttentionFn.apply(q, k, v, causal, window, need_lse)

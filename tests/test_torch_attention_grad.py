@@ -55,13 +55,20 @@ def _close(got, ref):
 
 @pytest.mark.parametrize("case", CASES)
 def test_plain_backward_equals_jax_grad(case):
+    """The plain backward, recomputing lse and given the forward's lse (as
+    the tensor-core backward reads it): the two bit for bit, both within
+    the bound of jax.grad."""
     causal, window = case[6], case[7]
     q, k, v, do = _inputs(case, hash(case) % 2**32)
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
-    o = fa.flash_attention_plain(tq, tk, tv, causal, window)
+    o, lse = fa.flash_attention_plain(tq, tk, tv, causal, window,
+                                      return_lse=True)
     got = fa.flash_attention_backward_plain(tq, tk, tv, o, tdo, causal,
                                             window)
-    for g, r in zip(got, _jax_grads(q, k, v, do, causal, window)):
+    given = fa.flash_attention_backward_plain(tq, tk, tv, o, tdo, causal,
+                                              window, lse=lse)
+    for g, h, r in zip(got, given, _jax_grads(q, k, v, do, causal, window)):
+        assert torch.equal(g, h)
         _close(g.numpy(), r)
 
 

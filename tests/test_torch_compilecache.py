@@ -92,7 +92,7 @@ def _child(bin_dir, cache):
 def test_second_process_builds_nothing(fake_nvcc, tmp_path):
     cache = str(tmp_path / "cache")
     first = _child(fake_nvcc, cache)
-    assert first["stats"]["misses"] == N_SOURCES == 8
+    assert first["stats"]["misses"] == N_SOURCES == 9
     assert first["stats"]["hits"] == 0
     assert first["stats"]["requests"] == N_SOURCES
     assert first["dirs"] == [str(tmp_path / "cache" / "repro_torch"

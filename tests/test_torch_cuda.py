@@ -1138,9 +1138,10 @@ def test_moe_apply_on_card_matches_cpu(cuda_device, S, chunk):
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, Sq, Sk, H,
                                                   KVH, D, causal, window,
                                                   dt):
-    """The backward kernel against the plain backward on the same card
-    inputs: float32 within 2e-4 of each gradient's largest |value|;
-    bfloat16 within 2e-2 of it (one bf16 rounding of each output); rows
+    """The routed backward kernel against the plain backward on the same
+    card inputs: float32 within 2e-4 of each gradient's largest |value|;
+    bfloat16 within 2e-2 of it (one bf16 rounding of each output; at D 64
+    and 128 the tensor-core kernel, which also rounds p and ds); rows
     that see no key get exactly 0."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + D)
@@ -1149,12 +1150,18 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, Sq, Sk, H,
     k, v = (torch.randn((B, Sk, KVH, D), generator=g,
                         device=cuda_device).to(dtype) for _ in range(2))
     do = torch.randn((B, Sq, H, D), generator=g, device=cuda_device).to(dtype)
-    o = fa.flash_attention_cuda(q, k, v, causal, window)
-    before = fa.BWD_LAUNCHES
-    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window)
+    tc = fa.bwd_route(dtype, D) == "tensor_core"
+    if tc:
+        o, lse = fa.flash_attention_cuda(q, k, v, causal, window,
+                                         return_lse=True)
+    else:
+        o, lse = fa.flash_attention_cuda(q, k, v, causal, window), None
+    before, tc_before = fa.BWD_LAUNCHES, fa.TC_BWD_LAUNCHES
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
     want = fa.flash_attention_backward_plain(q, k, v, o, do, causal, window)
     torch.cuda.synchronize()
-    assert fa.BWD_LAUNCHES == before + 1
+    assert (fa.BWD_LAUNCHES, fa.TC_BWD_LAUNCHES) == (before + 1,
+                                                     tc_before + tc)
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     for a, b in zip(got, want):
         assert a.dtype == dtype
@@ -1173,6 +1180,132 @@ def test_flash_attention_bwd_kernel_rejects(cuda_device, dtype, D):
     x = torch.zeros((1, 8, 2, D), dtype=dtype, device=cuda_device)
     with pytest.raises((TypeError, ValueError)):
         fa.flash_attention_bwd_cuda(x, x, x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core backward (bf16, D 64 and 128) and the forward's lse entry
+# point: each gradient row's largest |diff| within 0.05 of the row's RMS
+# (chip_smoke.py's ATTN_ROW_TOL: p and ds are rounded to bf16 before their
+# products) and within 2e-2 of the gradient's largest |value|; zeros exact;
+# the same bits on every launch (no atomics)
+# ---------------------------------------------------------------------------
+TC_BWD_CASES = [
+    # (B, Sq, Sk, H, KVH, D, causal, window)
+    (2, 333, 200, 12, 2, 128, False, 50),     # Sq > Sk, G = 6, window
+    (1, 100, 40, 4, 2, 64, False, 8),         # rows that see no key
+    (8, 1024, 1024, 16, 16, 64, True, None),  # [train]'s qwen1.5-0.5b
+    (1, 201, 201, 4, 4, 64, True, None),      # lse rows off 16 bytes
+    (1, 1000, 1000, 5, 1, 128, True, 300),    # G = 5, causal window
+    (8, 1024, 1024, 16, 8, 128, True, None),  # internlm2's heads
+    (1, 200, 333, 8, 2, 128, False, None),    # Sq < Sk
+    (1, 6, 10, 2, 2, 64, True, None),         # keys no query sees
+]
+
+
+def _row_rel(got, want):
+    """Largest |diff| of a row over its RMS, floored at 1e-2 of the
+    gradient's RMS (chip_smoke.py's _rows_rel)."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    rms = want.float().pow(2).mean(-1).sqrt()
+    floor = 1e-2 * float(want.float().pow(2).mean().sqrt())
+    return float((diff / rms.clamp_min(max(floor, 1e-30))).max())
+
+
+def _tc_inputs(case, device, seed):
+    B, Sq, Sk, H, KVH, D, _, _ = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, Sq, H, D), generator=g, device=device).bfloat16()
+    k, v = (torch.randn((B, Sk, KVH, D), generator=g,
+                        device=device).bfloat16() for _ in range(2))
+    do = torch.randn((B, Sq, H, D), generator=g, device=device).bfloat16()
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_BWD_CASES)
+def test_flash_attention_tensor_core_bwd_matches_plain(cuda_device, case):
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, KVH, D, causal, window = case
+    assert fa.bwd_route(torch.bfloat16, D) == "tensor_core"
+    q, k, v, do = _tc_inputs(case, cuda_device, Sq + Sk)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window,
+                                     return_lse=True)
+    before = fa.BWD_LAUNCHES, fa.TC_BWD_LAUNCHES
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    assert (fa.BWD_LAUNCHES, fa.TC_BWD_LAUNCHES) == (before[0] + 1,
+                                                     before[1] + 1)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        assert _row_rel(a, b) <= 0.05
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * scale
+    ok = fa.visible(Sq, Sk, causal, window, cuda_device)
+    for grad, live in ((got[0], ok.any(1)), (got[1], ok.any(0)),
+                       (got[2], ok.any(0))):
+        if not bool(live.all()):
+            assert float(grad[:, ~live].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [TC_BWD_CASES[0], TC_BWD_CASES[2]])
+def test_flash_attention_tensor_core_bwd_is_deterministic(cuda_device, case):
+    """Two launches give the same bits: dq and (dk, dv) come from kernels
+    of their own, with no atomics."""
+    from repro_torch.kernels import flash_attention as fa
+    causal, window = case[6], case[7]
+    q, k, v, do = _tc_inputs(case, cuda_device, 7)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window,
+                                     return_lse=True)
+    first = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
+    second = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,causal,window", [
+    (1, 300, 100, 16, 1, 64, True, 64),       # rows 163 on see no key
+    (2, 333, 200, 12, 2, 128, False, 50),
+    (8, 1024, 1024, 16, 16, 64, True, None),
+    (1, 200, 200, 16, 1, 256, True, 64)])
+def test_flash_attention_lse_entry_point(cuda_device, B, Sq, Sk, H, KVH, D,
+                                         causal, window):
+    """The forward's lse entry point returns the serving entry point's
+    output bit for bit, and an lse within 1e-5 of the plain one (0 where a
+    row sees no key); both count as tensor-core launches."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _tc_inputs((B, Sq, Sk, H, KVH, D, causal, window),
+                            cuda_device, D)
+    before = fa.LAUNCHES, fa.TC_LAUNCHES
+    served = fa.flash_attention_cuda(q, k, v, causal, window)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window,
+                                     return_lse=True)
+    _, want = fa.flash_attention_plain(q, k, v, causal, window,
+                                       return_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(o, served)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) <= 1e-5
+    seen = fa.visible(Sq, Sk, causal, window, cuda_device).any(1)
+    if not bool(seen.all()):
+        assert torch.equal(lse[:, :, ~seen], torch.zeros_like(
+            lse[:, :, ~seen]))
+
+
+@pytest.mark.cuda
+def test_flash_attention_tensor_core_bwd_needs_lse(cuda_device):
+    """bf16 at D 64 on a CUDA tensor goes to the tensor-core backward,
+    which raises without the forward's lse: no fallback to the CUDA-core
+    kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    x = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda_device)
+    before = fa.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_cuda(x, x, x, x, x)
+    assert fa.BWD_LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -1264,8 +1397,8 @@ def test_layer_gradients_reach_the_kernels_inputs(cuda_device, arch):
 def test_train_step_on_card_launches_kernels_without_sync(cuda_device):
     """Two ring steps of the reduced qwen1.5-0.5b in bf16 with remat on
     the card: the forward kernel twice and the backward once per layer a
-    step, no synchronising call in the second step, a finite falling
-    loss."""
+    step, the backward on the tensor cores (D = 64), no synchronising call
+    in the second step, a finite falling loss."""
     import dataclasses
     from repro_torch.configs.base import OptimizerConfig, TolFLConfig
     from repro_torch.configs.registry import ARCHS
@@ -1284,7 +1417,7 @@ def test_train_step_on_card_launches_kernels_without_sync(cuda_device):
                TokenPipeline(cfg.vocab_size, 128, 4).batches(3)]
     alive = torch.ones((1,), device=cuda_device)
     state, m0 = step(state, batches[0], alive)
-    fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    fwd, bwd, tc_bwd = fa.LAUNCHES, fa.BWD_LAUNCHES, fa.TC_BWD_LAUNCHES
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1294,6 +1427,7 @@ def test_train_step_on_card_launches_kernels_without_sync(cuda_device):
     state, m2 = step(state, batches[2], alive)
     assert fa.LAUNCHES - fwd == 2 * 2 * cfg.num_layers
     assert fa.BWD_LAUNCHES - bwd == 2 * cfg.num_layers
+    assert fa.TC_BWD_LAUNCHES - tc_bwd == 2 * cfg.num_layers
     losses = [float(m["loss"]) for m in (m0, m1, m2)]
     assert all(map(lambda v: v == v and abs(v) < 1e4, losses))
     assert losses[-1] < losses[0]
