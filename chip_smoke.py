@@ -138,7 +138,7 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    scan's backward kernels against their plain backwards
    ([kernel] flash_attention_bwd over masks, GQA groups 1-6, D 32-256,
    Sq != Sk, ragged tiles, rows with no key, float32 and bf16, bf16 at D
-   64 and 128 on both the tensor-core and the CUDA-core route, the
+   64, 128 and 256 on both the tensor-core and the CUDA-core route, the
    tensor-core one twice bit for bit and the forward's lse entry point
    against the serving one and the plain lse;
    [kernel] rwkv6_scan_bwd with a state0, a final-state gradient and S off
@@ -147,11 +147,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    tokens, the loss falling and every kernel's launches as the config
    says (forward twice a step under remat, backward once, on the tensor
    cores), then a server
-   failure at step 5 ([train]); one step of RWKV6-7B cut to 2 layers and
-   RecurrentGemma-9B cut to one unit at full width ([train-families]);
+   failure at step 5 ([train]); two steps of RWKV6-7B cut to 2 layers and
+   RecurrentGemma-9B cut to one unit at full width, its local attention's
+   backward on the tensor cores at D = 256, the second step timed warm
+   ([train-families]);
    two steps under the sync debug mode ([train-no-sync]); one step under
    torch.profiler ([train-profile]); every arch's reduced config card vs
-   CPU over 2 SGD steps ([train-reference]); a checkpoint at step 5
+   CPU over 2 SGD steps in float32, the attention's backward on the
+   CUDA-core route ([train-reference]); a checkpoint at step 5
    resumed to step 10 bit for bit ([train-ckpt]); ``train_100m`` at
    12 x 768 for 5 steps ([examples]);
 7. times each kernel, its plain version and one library call with CUDA
@@ -166,16 +169,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    whisper's (encoder, cross, self), Scout's and InternVL2's beside SDPA
    (``enable_gqa``); the backward kernels at their training shapes
    beside the plain backwards and SDPA's backward: the tensor-core
-   attention backward at [train]'s and internlm2's head shapes beside the
-   CUDA-core one, with the serving forward beside the lse entry point,
-   and the CUDA-core one at RecurrentGemma's local attention.
+   attention backward at [train]'s and internlm2's head shapes and at
+   RecurrentGemma's local attention (D = 256) beside the CUDA-core one,
+   with the serving forward beside the lse entry point.
 
     python3 chip_smoke.py --parent DIR
 
-also builds the combine, RG-LRU and WKV kernels of another commit's
-checkout in DIR (e.g. ``git archive`` of the parent, unpacked under the
-ignored ``build/``) and times them in turns with the current ones; the
-eager sequence then runs the parent's combine.  The build's
+also builds the combine, RG-LRU, WKV and tensor-core attention backward
+kernels of another commit's checkout in DIR (e.g. ``git archive`` of the
+parent, unpacked under the ignored ``build/``), where their C entry
+points are declared as the current ones, and times them in turns with
+the current ones; the eager sequence then runs the parent's combine.  The build's
 compiler log gives the registers and spill bytes of the tensor-core
 attention kernel and of the two scans; any spill fails the run.
 
@@ -389,12 +393,23 @@ def phase_device(torch, parent=None):
 
 
 #: the parent's kernels that --parent builds, with their C entry points'
-#: arguments (the same interfaces as the current ones): the symbol, its
-#: pointers, its integers and, optionally, how many of those integers at
-#: the end are ``long long``; the stream comes last
+#: arguments: the symbol, its pointers, its integers and, optionally, how
+#: many of those integers at the end are ``long long``; the stream comes
+#: last.  A parent whose entry point is declared otherwise than the
+#: current one is not built.
 PARENT_KERNELS = {"rglru_scan": ("rglru_scan_f32", 4, 3),
                   "rwkv6_scan": ("rwkv6_scan_f32", 8, 4),
-                  "tolfl_combine": ("tolfl_combine_f32", 3, 2, 1)}
+                  "tolfl_combine": ("tolfl_combine_f32", 3, 2, 1),
+                  "flash_attention_bwd_wgmma": (
+                      "flash_attention_bwd_wgmma_bf16", 11, 9)}
+
+
+def _entry_decl(source: bytes, symbol: str) -> str:
+    """The declaration of ``symbol``'s extern "C" entry point in a source,
+    whitespace folded ("" if there is none)."""
+    m = re.search(rb"extern \"C\" int " + symbol.encode() + rb"\s*\([^)]*\)",
+                  source)
+    return " ".join(m.group(0).decode().split()) if m else ""
 
 
 def _start_parent_build(parent):
@@ -415,6 +430,13 @@ def _start_parent_build(parent):
         if text(old_csrc, name) == text(_build.CSRC, name):
             log(f"[build] the parent's {name} is the current one: not timed "
                 f"against it")
+            continue
+        symbol = PARENT_KERNELS[name][0]
+        if (_entry_decl((old_csrc / f"{name}.cu").read_bytes(), symbol)
+                != _entry_decl((_build.CSRC / f"{name}.cu").read_bytes(),
+                               symbol)):
+            log(f"[build] the parent's {symbol} is declared otherwise: not "
+                f"timed against it")
             continue
         src = old_csrc / f"{name}.cu"
         lib = out_dir / f"{name}.so"
@@ -465,12 +487,13 @@ def _ptxas_summary(text):
         if m and fn:
             args = re.search(r"(\d+[A-Za-z_]+)I((?:Li\d+E)+)E", fn)
             flags = re.search(r"([A-Za-z_]+)I((?:Lb[01]E)+)E", fn)
+            plain = re.search(r"\d([a-z][a-z_]*_kernel)E", fn)
             name = (re.sub(r"^\d+", "", args.group(1)) + "<"
                     + ", ".join(re.findall(r"Li(\d+)E", args.group(2)))
                     + ">" if args else
                     f"{flags.group(1)}<"
                     + ", ".join(re.findall(r"Lb([01])E", flags.group(2)))
-                    + ">" if flags else fn)
+                    + ">" if flags else plain.group(1) if plain else fn)
             out.append((name, int(m.group(1)), spills, warned.get(fn, "")))
             fn = None
     return out
@@ -3746,7 +3769,9 @@ def _parent_wkv(torch, parent, r, k, v, w, u, s0):
 #: shapes the training path gives it, [train]'s qwen1.5-0.5b (8, 1024, 16
 #: heads of 64, causal), internlm2's heads (16 on 8 of 128) and
 #: [train-families]' RecurrentGemma-9B (1, 2048, 16 heads on 1 kv head of
-#: 256, window 2,048).  bf16 at D 64 and 128 runs both routes.
+#: 256, window 2,048), with a window that binds and a ragged bidirectional
+#: case with rows that see no key at D = 256.  bf16 at D 64, 128 and 256
+#: runs both routes.
 ATTN_BWD_CASES = [
     (2, 300, 300, 4, 4, 64, True, None, "float32"),
     (1, 257, 257, 8, 4, 128, True, None, "float32"),
@@ -3761,6 +3786,8 @@ ATTN_BWD_CASES = [
     (1, 1000, 1000, 5, 1, 128, True, 300, "bfloat16"),
     (8, 1024, 1024, 16, 8, 128, True, None, "bfloat16"),
     (1, 2048, 2048, 16, 1, 256, True, 2048, "bfloat16"),
+    (1, 700, 700, 4, 1, 256, True, 300, "bfloat16"),
+    (1, 333, 200, 4, 2, 256, False, 50, "bfloat16"),
 ]
 #: (B, S, H, N, with_state0, with_dstate) of the WKV backward's checks: S
 #: past and short of the checkpoint stride (32), every head size, a
@@ -3854,8 +3881,8 @@ def _rows_rel(torch, got, want):
 def phase_train_kernels(torch):
     """[kernel] flash_attention_bwd and rwkv6_scan_bwd: each backward
     kernel against its plain backward on the card, on the same inputs.
-    Attention, on the route ``bwd_route`` picks and, for bf16 at D 64
-    and 128, on the CUDA-core route too: float32 within 2e-4 of each
+    Attention, on the route ``bwd_route`` picks and, for bf16 at D 64,
+    128 and 256, on the CUDA-core route too: float32 within 2e-4 of each
     gradient's largest |value|, bfloat16 with each row's largest |diff|
     within ATTN_ROW_TOL of the row's RMS (floored at 1e-2 of the
     gradient's); a query that sees no key and a key no query sees must get
@@ -4087,12 +4114,15 @@ def _family_cfg(arch, layers):
 
 
 def phase_train_families(torch):
-    """[train-families]: one ring step (SGD) at full width with the depth
+    """[train-families]: two ring steps (SGD) at full width with the depth
     cut (RWKV6-7B over 2 of its 32 layers: the WKV forward and backward at
     (1, 2048, 64, 64); RecurrentGemma-9B over one unit: two RG-LRU layers
-    and a local-attention layer at D = 256, window 2,048): the loss
-    finite, every param finite after the step and every mixing layer
-    moved, launches as expected.  Returns the launches."""
+    and a local-attention layer at D = 256, window 2,048, whose backward
+    runs on the tensor cores): the first step with its warm-up, the second
+    timed warm after a synchronize, each with its peak memory and the
+    memory held before it; both losses finite, every param finite after
+    the steps and every mixing layer moved, launches as expected after
+    each step.  Returns the launches of both steps."""
     from repro_torch.configs.base import OptimizerConfig, TolFLConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import distributed as D
@@ -4117,16 +4147,20 @@ def phase_train_families(torch):
         batch = shard_batch(next(TokenPipeline(
             cfg.vocab_size, S, B).batches(1)), mesh)
         alive = torch.ones((1,), device=DEV)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         _reset_train_launches()
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch, alive)
-        loss = float(metrics["loss"])
-        wall = time.perf_counter() - t0
-        got = _train_launches()
-        _check_launches(f"train-families {arch}", got,
-                        _expected_train_launches(cfg, 1))
+        walls, peaks, held, losses = [], [], [], []
+        for n_step in (1, 2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held.append(torch.cuda.memory_allocated() / 1e9)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch, alive)
+            losses.append(float(metrics["loss"]))
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            got = _train_launches()
+            _check_launches(f"train-families {arch} step {n_step}", got,
+                            _expected_train_launches(cfg, n_step))
         finite = all(bool(torch.isfinite(x).all())
                      for _, x in P.tree_items(state["params"]))
         after = dict(P.tree_items(state["params"]))
@@ -4138,15 +4172,18 @@ def phase_train_families(torch):
                        if all(p in still for p in before if p[:2] == m))
         log(f"[train-families] {cfg.name} cut to {layers} of "
             f"{get_arch(arch).num_layers} layers ({cfg.layer_pattern}), d "
-            f"{cfg.d_model}, batch {B} x "
-            f"{S}: loss {loss:.4f}, one step {wall:.2f} s (first, with "
-            f"warm-up), peak memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, params "
-            f"finite {finite}, mixing leaves that did not move {still}, "
-            f"mixing layers that did not move {stuck}")
-        if not (math.isfinite(loss) and finite and not stuck):
-            raise AssertionError(f"[train-families] {arch}: loss {loss}, "
-                                 f"finite {finite}, unmoved {stuck}")
+            f"{cfg.d_model}, batch {B} x {S}: losses {losses}; first step "
+            f"{walls[0]:.6f} s (with warm-up), peak memory {peaks[0]:.2f} "
+            f"GB ({held[0]:.2f} GB held before it); warm step "
+            f"{walls[1]:.6f} s (host clock, synchronize before, the loss's "
+            f".item() after), peak memory {peaks[1]:.2f} GB ({held[1]:.2f} "
+            f"GB held before it); params finite {finite}, mixing leaves "
+            f"that did not move {still}, mixing layers that did not move "
+            f"{stuck}")
+        if not (all(map(math.isfinite, losses)) and finite and not stuck):
+            raise AssertionError(f"[train-families] {arch}: losses "
+                                 f"{losses}, finite {finite}, unmoved "
+                                 f"{stuck}")
         for k in total:
             total[k] += got[k]
         del state, before, after, batch
@@ -4351,7 +4388,9 @@ def phase_train_reference(torch):
     dtype bf16, which must land above it in every arch; for the archs with
     an RWKV6 layer, the CPU's float32 WKV scan against one in float64
     gives the size of the scan's rounding alone.  The MoE configs route by
-    argmax: a route flipped by a near tie would show here as a failure."""
+    argmax: a route flipped by a near tie would show here as a failure.
+    Returns the card steps' kernel launches (float32: the attention's
+    backward on the CUDA-core route)."""
     import dataclasses
     from repro_torch.configs.base import OptimizerConfig
     from repro_torch.configs.registry import ARCHS
@@ -4361,6 +4400,7 @@ def phase_train_reference(torch):
     ocfg = OptimizerConfig(name="sgd", lr=0.05, schedule="constant",
                            warmup_steps=0, grad_clip=0.0)
     worst = {"loss": 0.0, "grad": 0.0, "params": 0.0, "control": math.inf}
+    _reset_train_launches()
     for arch in ARCHS:
         cfg = ARCHS[arch].reduced()
         bf16 = dataclasses.replace(cfg, dtype="bfloat16")
@@ -4424,6 +4464,7 @@ def phase_train_reference(torch):
         f"{worst['loss']:.3g} (bound 1e-4), worst grad {worst['grad']:.3g} "
         f"and params {worst['params']:.3g} (bound {TRAIN_REF_TOL}); the "
         f"bf16 control's least reading {worst['control']:.3g}")
+    return _train_launches()
 
 
 def phase_train_ckpt(torch):
@@ -4513,21 +4554,22 @@ def phase_examples_train(torch):
 
 
 #: [times]' attention backward shapes, (B, S, H, KVH, D, window), bf16,
-#: causal: [train]'s qwen1.5-0.5b and internlm2's heads on the tensor-core
-#: route, [train-families]' RecurrentGemma-9B local attention on the
-#: CUDA-core route
+#: causal, each on the tensor-core route beside the CUDA-core one:
+#: [train]'s qwen1.5-0.5b, internlm2's heads and [train-families]'
+#: RecurrentGemma-9B local attention, whose reading also fills the
+#: CUDA-core kernel's row
 BWD_TIME_TC = ((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, None),
-               (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128, None))
-BWD_TIME_CC = (1, 2048, 16, 1, 256, 2048)
+               (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128, None),
+               (1, 2048, 16, 1, 256, 2048))
 
 
-def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20):
+def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
     """One attention backward shape's readings: the routed backward (and,
     with ``with_cuda_core``, the CUDA-core one at the same inputs), SDPA's
     backward (``enable_gqa``, a band mask where the window cuts the causal
-    band) and, on the
-    tensor-core route, the serving forward and the forward's lse entry
-    point, in turns, card and call times; the plain backward; the bound
+    band) and, on the tensor-core route, the serving forward, the
+    forward's lse entry point and (with --parent) the parent's tensor-core
+    backward, in turns, card and call times; the plain backward; the bound
     (10 D flops per visible (query, head, key) triple at 989 TFLOP/s, or
     q, o, dO, k, v and lse read and dq, dk, dv written once at 3.35
     TB/s)."""
@@ -4565,6 +4607,12 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20):
                                                          window)
         fns["forward lse"] = lambda: fa.flash_attention_cuda(
             q, k, v, True, window, return_lse=True)
+    same = None
+    if tc and parent and "flash_attention_bwd_wgmma" in parent:
+        fns["parent kernel"] = lambda: _parent_attn_bwd(
+            torch, parent, q, k, v, o, do, lse, window)
+        same = all(torch.equal(a, b) for a, b in zip(
+            fns["kernel"](), fns["parent kernel"]()))
     dev_ms = _turns_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
     plain_ms = _median_ms(torch, lambda: fa.flash_attention_backward_plain(
@@ -4588,6 +4636,9 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20):
         f"{dev_ms['library sdpa backward'] / ms:.2f}x SDPA backward's speed"
         + (f", {dev_ms['cuda_core'] / ms:.2f}x the CUDA-core backward's"
            if with_cuda_core else "")
+        + (f", {dev_ms['parent kernel'] / ms:.3f}x the parent's (dq, dk, "
+           f"dv bitwise equal to the parent's: {same})"
+           if same is not None else "")
         + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
     return {"shape": [B, S, S, H, KVH, D], "window": window, "ms": ms,
             "call_ms": call_ms["kernel"], "plain_ms": plain_ms,
@@ -4596,43 +4647,79 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20):
             "library_ms": dev_ms["library sdpa backward"],
             "tflops": flops / ms / 1e9, "share_of_bound": bound / ms,
             **{f"{key.replace(' ', '_')}_ms": dev_ms[key] for key in fns
-               if key in ("cuda_core", "forward", "forward lse")}}
+               if key in ("cuda_core", "forward", "forward lse")},
+            **({"cuda_core_call_ms": call_ms["cuda_core"]}
+               if with_cuda_core else {}),
+            **({"parent_ms": dev_ms["parent kernel"], "parent_equal": same}
+               if same is not None else {})}
 
 
-def phase_train_times(torch, launches, errs):
+def _parent_attn_bwd(torch, parent, q, k, v, o, do, lse, window):
+    """The parent's tensor-core attention backward, causal, on the current
+    wrapper's head split: (dq, dk, dv)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    hs = fa.bwd_head_split(B, Sk, KVH, H // KVH, D)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    part = (torch.empty((hs, 2, B, Sk, KVH, D), dtype=torch.float32,
+                        device=q.device) if hs > 1 else None)
+    err = parent["flash_attention_bwd_wgmma"](
+        *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta)),
+        None if part is None else part.data_ptr(), B, Sq, Sk, H, KVH, D, 1,
+        -1 if window is None else window, hs,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the parent's attention backward failed: {err}")
+    return dq, dk, dv
+
+
+def phase_train_times(torch, launches, errs, parent=None):
     """The backward kernels at their training shapes beside the plain
     backward, the bound and, for attention, SDPA's backward: the
-    tensor-core attention backward at [train]'s (8, 1024, 16, 16, 64) and
-    internlm2's heads (8, 1024, 16, 8, 128), bf16 causal, beside the
-    CUDA-core one at the same inputs and the serving forward beside the
-    forward's lse entry point; the CUDA-core backward at [train-families]'
-    RecurrentGemma-9B local attention (1, 2048, 16, 1, 256, window 2,048);
-    the WKV scan at [train-families]' RWKV6-7B shape (1, 2048, 64, 64)."""
+    tensor-core attention backward at [train]'s (8, 1024, 16, 16, 64),
+    internlm2's heads (8, 1024, 16, 8, 128) and [train-families]'
+    RecurrentGemma-9B local attention (1, 2048, 16, 1, 256, window 2,048),
+    bf16 causal, beside the CUDA-core one at the same inputs and the
+    serving forward beside the forward's lse entry point (the CUDA-core
+    kernel's row is its reading at RecurrentGemma's shape); the WKV scan
+    at [train-families]' RWKV6-7B shape (1, 2048, 64, 64).  With --parent
+    the parent's tensor-core backward is timed in turns with it."""
     from repro_torch.kernels import rwkv6_scan as wk
     gen = torch.Generator(device=DEV).manual_seed(23)
-    tc = [_attn_bwd_times(torch, gen, shape, True) for shape in BWD_TIME_TC]
+    tc = [_attn_bwd_times(torch, gen, shape, True, parent=parent)
+          for shape in BWD_TIME_TC]
     rows = [{
         "name": "flash_attention_bwd_wgmma", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:90",
         "note": "the gradient of the attention on the tensor cores (bf16, D "
-                "64 and 128), which repro takes through its jnp attention "
-                "(use_pallas=False in training); reads the lse that "
-                "flash_attention_wgmma.cu's lse entry point writes",
+                "64, 128 and 256), which repro takes through its jnp "
+                "attention (use_pallas=False in training); reads the lse "
+                "that flash_attention_wgmma.cu's lse entry point writes",
         "launches": launches["flash_attention_bwd_wgmma"],
         "max_abs_err": errs["flash_attention_bwd_wgmma"],
         **tc[0], "also": tc[1:]}]
-    cc = _attn_bwd_times(torch, gen, BWD_TIME_CC, False, n=8)
+    at = tc[-1]
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:90",
         "note": "the CUDA-core gradient of the attention (float32, and bf16 "
-                "at D 32 and 256), which repro takes through its jnp "
-                "attention (use_pallas=False in training)",
+                "at D = 32), which repro takes through its jnp attention "
+                "(use_pallas=False in training); timed at RecurrentGemma's "
+                "bf16 shape beside the tensor-core kernel, its launches from "
+                "[train-reference]'s float32 steps",
         "launches": (launches["flash_attention_bwd"]
                      - launches["flash_attention_bwd_wgmma"]),
-        "max_abs_err": errs["flash_attention_bwd"], **cc})
+        "max_abs_err": errs["flash_attention_bwd"],
+        "shape": at["shape"], "window": at["window"],
+        "ms": at["cuda_core_ms"], "call_ms": at["cuda_core_call_ms"],
+        "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+        "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+        "tflops": at["tflops"] * at["ms"] / at["cuda_core_ms"],
+        "share_of_bound": at["bound_ms"] / at["cuda_core_ms"]})
 
     B, S, H, N = 1, TRAIN_FAMILIES[0][3], 64, 64
     r, kk, vv, w, u, s0 = wk.random_inputs(B, S, H, N, True, gen)
@@ -4683,8 +4770,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None, help=(
         "a checkout (e.g. a git archive) of another commit: its combine, "
-        "RG-LRU and WKV kernels are built too and timed in turns with the "
-        "current ones in [times]"))
+        "RG-LRU, WKV and tensor-core attention backward kernels are built "
+        "too and timed in turns with the current ones in [times]"))
     ap.add_argument("--aot-child", choices=tuple(AOT_RUNS), default=None,
                     help="run one of [aot]'s processes (phase_aot starts "
                          "them)")
@@ -4755,7 +4842,8 @@ def main() -> int:
     phase_train_profile(torch, *train_run)
     del train_run
     torch.cuda.empty_cache()
-    phase_train_reference(torch)
+    for kernel, count in phase_train_reference(torch).items():
+        train_launches[kernel] += count
     phase_train_ckpt(torch)
     phase_examples_train(torch)
     kernels = phase_times(torch, launches, errs, parent)
@@ -4791,7 +4879,7 @@ def main() -> int:
         serve_launches[kernel] += train_launches[kernel]
     kernels += phase_serve_times(torch, serve_launches, serve_errs,
                                  arch_launches, parent)
-    kernels += phase_train_times(torch, train_launches, train_errs)
+    kernels += phase_train_times(torch, train_launches, train_errs, parent)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -33,7 +33,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import ModelConfig, OptimizerConfig, TolFLConfig
+from repro_torch.configs.base import (ModelConfig, MoEConfig, OptimizerConfig,
+                                      TolFLConfig)
 from repro_torch.core import aggregation as agg
 from repro_torch.core.failure import effective_weights_arrays
 from repro_torch.core.topology import Topology
@@ -184,14 +185,27 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
     gradient equals the single-batch weighted mean.  A rank computes, for
     its rows of each block, the gradient of (the block's loss on those
     rows) x (their mask mass); the all-reduce sums these and the total is
-    divided by the global mass.  The MoE aux loss is each rank's rows'
-    (exact at world 1)."""
+    divided by the global mass.
+
+    The MoE aux loss is ``repro``'s: that of the whole global batch (or of
+    each global block, weighted by the block's mask mass), its rows of
+    dead groups included.  Over more than one rank it is no sum of the
+    ranks' own aux losses (the load-balance term is a product of two
+    means over all rows).  So a forward without a graph first gives each
+    rank's ``moe_apply`` row sums of its blocks, one all-reduce sums them
+    into the global blocks' sums, and each block's forward and backward
+    then takes :func:`_moe_aux` of the rank's own row sums against the
+    global ones: summed over ranks, that is the gradient of the global
+    aux.  That costs one forward more a step, and keeps the activations
+    held at one block's, as ``microbatches`` promises.  A dense config,
+    or one rank, skips it: there a block's own aux is the global one."""
     topo = global_topology(mesh, tolfl)
     G = topo.num_devices
     weights = _weights_fn(topo, mesh.device)
     opt = make_optimizer(ocfg, state_dtype=state_dtype)
     comm = _Comm(mesh)
     mb = tolfl.microbatches
+    spread_moe = mcfg.moe.num_experts > 0 and G > 1
 
     def train_step(state, batch: Batch, alive: torch.Tensor):
         w = weights(alive)                               # (G,)
@@ -209,17 +223,32 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
         g_acc = torch.zeros(layout.size + 1, dtype=torch.float32,
                             device=mesh.device)
         metrics = {}
+        parts = []
         for a, b in zip(cuts, cuts[1:]):
             part = {k: v[a - lo:b - lo] for k, v in batch.items()}
-            m = my_w.expand(b - a, S)
-            part["mask"] = m
-            wi = my_w * ((b - a) * S)
+            part["mask"] = my_w.expand(b - a, S)
+            parts.append((a // (B // mb), part, my_w * ((b - a) * S)))
+        if spread_moe:
+            glob = _moe_block_sums(
+                _cast_params(state["params"], tolfl.param_cast_dtype), mcfg,
+                parts, mb, comm)
+            # each global block's mask mass
+            block_w = torch.sum(torch.repeat_interleave(w, B_loc).reshape(
+                mb, B // mb), dim=1) * S
+        for blk, part, wi in parts:
 
-            def f(p, part=part, wi=wi):
+            def f(p, blk=blk, part=part, wi=wi):
                 # through the cast, so the f32 master gets f32 grads
-                lv, mets = T.loss_fn(_cast_params(p, tolfl.param_cast_dtype),
-                                     mcfg, part)
-                return lv * wi, mets
+                p = _cast_params(p, tolfl.param_cast_dtype)
+                if not spread_moe:
+                    lv, mets = T.loss_fn(p, mcfg, part)
+                    return lv * wi, mets
+                _, mets = T.loss_fn(p, mcfg, part, moe_sums=True)
+                lv = (mets["xent"] * wi + block_w[blk] * _moe_aux(
+                    mets["moe_sums"], glob[blk], mcfg.moe))
+                # repro reports the last global block's aux
+                return lv, {"xent": mets["xent"],
+                            "moe_aux": _moe_aux(glob[-1], glob[-1], mcfg.moe)}
 
             jv, metrics, g = _value_and_grad(state["params"], f)
             g_acc[:-1] += layout.flatten(g)
@@ -231,10 +260,46 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
         new_params = apply_updates(state["params"], updates)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
-        return new_state, {"loss": g_acc[-1],
+        # the loss copied out of g_acc: a view would keep the flat
+        # gradient alive as long as the caller keeps the metrics
+        return new_state, {"loss": g_acc[-1].clone(),
                            **{k: v.detach() for k, v in metrics.items()}}
 
     return train_step
+
+
+def _moe_aux(sums: torch.Tensor, glob: torch.Tensor, moe: MoEConfig
+             ) -> torch.Tensor:
+    """The aux loss ``loss_fn`` adds (``router_aux_loss_coef`` x the mean
+    over chunks of the load-balance term plus 1e-3 x that of z, summed over
+    the MoE layers) from row sums (layers, chunks, 2 E + 2) as
+    ``moe_apply`` gives them.  The dispatch fractions and the token count
+    come from ``glob``, the probabilities and z from ``sums``: with sums =
+    glob it is the aux of glob's rows, and it is linear in ``sums``, so
+    the ranks' values (and gradients) sum to the global ones."""
+    E = moe.num_experts
+    n = glob[..., -1:]
+    lb = E * torch.sum(glob[..., :E] / n * (sums[..., E:2 * E] / n), dim=-1)
+    z = sums[..., 2 * E] / n[..., 0]
+    return torch.sum(moe.router_aux_loss_coef * torch.mean(lb, dim=-1)
+                     + 1e-3 * torch.mean(z, dim=-1))
+
+
+def _moe_block_sums(params: P.Params, mcfg: ModelConfig,
+                    parts: List[Tuple[int, Batch, torch.Tensor]], mb: int,
+                    comm: _Comm) -> torch.Tensor:
+    """The ``mb`` global row blocks' ``moe_apply`` row sums (mb, MoE
+    layers, chunks, 2 E + 2): this rank's ``parts`` (block, rows, mask
+    mass) through a forward without a graph, then one all-reduce."""
+    glob = None
+    with torch.no_grad():
+        for blk, part, _ in parts:
+            sums = T.loss_fn(params, mcfg, part, moe_sums=True)[1]["moe_sums"]
+            if glob is None:
+                glob = torch.zeros((mb,) + tuple(sums.shape),
+                                   dtype=torch.float32, device=sums.device)
+            glob[blk] += sums
+    return comm.all_reduce(glob)
 
 
 # ---------------------------------------------------------------------------
@@ -392,9 +457,11 @@ def make_ring_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
         g = layout.unflatten(g_fin.mul_((n_tot > 0).to(f32)))
         updates, new_opt = opt.update(g, state["opt"], params)
         new_params = apply_updates(params, updates)
+        # copied out of the broadcast's buffer: views would keep the flat
+        # gradient alive as long as the caller keeps the metrics
         return ({"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1},
-                {"loss": loss, "n_effective": n_tot})
+                {"loss": loss.clone(), "n_effective": n_tot.clone()})
 
     return train_step
 

@@ -27,14 +27,17 @@ The gradient (:class:`FlashAttentionFn`) has two hand-written kernels;
 :func:`bwd_route` picks one, again with no fallback:
 
 - ``"tensor_core"``, ``repro_torch/csrc/flash_attention_bwd_wgmma.cu``:
-  bfloat16 at D in {64, 128}.  A delta pre-pass, then dq by (query,
-  head) rows and dk, dv by key blocks, each product on wgmma, no
-  atomics.  It reads each row's lse, which the forward's lse entry point
-  (``flash_attention_cuda(..., return_lse=True)``) writes when a
-  gradient is needed.
+  bfloat16 at D in {64, 128, 256}.  A delta pre-pass, then dq by
+  (query, head) rows and dk, dv by key blocks (at D = 256 two warpgroups
+  a key block, one a column half), each product on wgmma, no atomics;
+  where the key blocks are too few to fill the card, each group's heads
+  are split over :func:`bwd_head_split` blocks whose float32 partials a
+  last pass sums in a fixed order.  It reads each row's lse, which the
+  forward's lse entry point (``flash_attention_cuda(...,
+  return_lse=True)``) writes when a gradient is needed.
 - ``"cuda_core"``, ``repro_torch/csrc/flash_attention_bwd.cu``: float32
-  at D in ``HEAD_DIMS`` and bfloat16 at D in {32, 256}; every product in
-  float32 on the CUDA cores, lse recomputed from q and k.
+  at D in ``HEAD_DIMS`` and bfloat16 at D = 32; every product in float32
+  on the CUDA cores, lse recomputed from q and k.
 
 On CPU tensors the gradient is :func:`flash_attention_backward_plain`,
 written out (not autograd through the plain forward).  ``BWD_LAUNCHES``
@@ -67,11 +70,21 @@ TC_HEAD_DIMS = (64, 128, 256)
 #: the tensor-core kernel's tiles: (query, head) rows a block, keys a K/V tile
 TC_ROWS, TC_KEYS = 128, 80
 #: head dims the tensor-core backward is built for (bfloat16 only)
-TC_BWD_HEAD_DIMS = (64, 128)
-#: the tensor-core dk/dv kernel's tiles: keys a warpgroup, queries a Q/dO
-#: tile, and warpgroups a block at each D (``KvPlan`` in the source)
+TC_BWD_HEAD_DIMS = (64, 128, 256)
+#: the tensor-core dk/dv kernel's tiles: keys a key group, queries a Q/dO
+#: tile, key groups a block and the column parts each key group's dk and
+#: dv are cut into (one warpgroup each) at each D (``KvPlan`` in the
+#: source)
 TC_BWD_KEYS, TC_BWD_QUERIES = 64, 64
-TC_BWD_GROUPS = {64: 3, 128: 2}
+TC_BWD_GROUPS = {64: 3, 128: 2, 256: 1}
+TC_BWD_HALVES = {64: 1, 128: 1, 256: 2}
+#: the tensor-core dq kernel's (query, head) rows a block and keys a K/V
+#: tile at each D (``DqPlan`` in the source)
+TC_BWD_DQ = {64: (TC_ROWS, TC_KEYS), 128: (TC_ROWS, TC_KEYS), 256: (64, 64)}
+#: the H100 SXM's SMs, and the warpgroups a dk/dv grid should hold (two
+#: for each SM) before :func:`bwd_head_split` stops splitting heads
+SMS = 132
+BWD_MIN_WARPGROUPS = 2 * SMS
 NEG_INF = -1e30
 #: the library and C entry point of each (route, dtype)
 _ENTRIES = {
@@ -99,8 +112,8 @@ def route(dtype: torch.dtype, D: int) -> str:
 def bwd_route(dtype: torch.dtype, D: int) -> str:
     """The backward kernel that serves (dtype, D): ``"tensor_core"`` for
     bfloat16 at D in ``TC_BWD_HEAD_DIMS``, ``"cuda_core"`` for float32 at
-    D in ``HEAD_DIMS`` and bfloat16 at D in {32, 256}; raises for
-    anything else."""
+    D in ``HEAD_DIMS`` and bfloat16 at D = 32; raises for anything
+    else."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the backward kernels take float32 or bfloat16, "
                         f"got {dtype}")
@@ -112,6 +125,22 @@ def bwd_route(dtype: torch.dtype, D: int) -> str:
                      f"{HEAD_DIMS}, got {D}")
 
 
+def _row_tiles(Sq: int, Sk: int, G: int, causal: bool,
+               window: Optional[int], rows: int, keys: int
+               ) -> List[Tuple[int, int]]:
+    """[(first, count)] of the ``keys``-key tiles each block of ``rows``
+    (query, head) rows visits, block x owning rows [rows x, rows (x + 1))
+    of the Sq G rows of a (batch, kv head), row r being query r // G."""
+    plan = []
+    for row0 in range(0, Sq * G, rows):
+        q_lo, q_hi = row0 // G, (min(row0 + rows, Sq * G) - 1) // G
+        k_lo = max(0, q_lo - window + 1) if window is not None else 0
+        k_hi = min(q_hi, Sk - 1) if causal else Sk - 1
+        first = k_lo // keys
+        plan.append((first, k_hi // keys - first + 1 if k_hi >= k_lo else 0))
+    return plan
+
+
 def wgmma_tiles(Sq: int, Sk: int, G: int, causal: bool,
                 window: Optional[int]) -> List[Tuple[int, int]]:
     """The key tiles each block of the tensor-core kernel visits, as the
@@ -119,68 +148,96 @@ def wgmma_tiles(Sq: int, Sk: int, G: int, causal: bool,
     Sq G (query, head) rows of a (batch, kv head), row r being query r // G,
     and visits ``count`` tiles of ``TC_KEYS`` keys from tile ``first``.
     Returns [(first, count)] per block."""
-    rows = Sq * G
-    plan = []
-    for row0 in range(0, rows, TC_ROWS):
-        q_lo, q_hi = row0 // G, (min(row0 + TC_ROWS, rows) - 1) // G
-        k_lo = max(0, q_lo - window + 1) if window is not None else 0
-        k_hi = min(q_hi, Sk - 1) if causal else Sk - 1
-        first = k_lo // TC_KEYS
-        plan.append((first, k_hi // TC_KEYS - first + 1 if k_hi >= k_lo
-                     else 0))
-    return plan
+    return _row_tiles(Sq, Sk, G, causal, window, TC_ROWS, TC_KEYS)
+
+
+def bwd_head_split(B: int, Sk: int, KVH: int, G: int, D: int) -> int:
+    """hs, the parts the tensor-core backward's dk/dv kernel splits each
+    group's G heads into: the smallest divisor of G whose grid (key blocks
+    x B x KVH x hs blocks of ``TC_BWD_GROUPS[D] * TC_BWD_HALVES[D]``
+    warpgroups) holds at least ``BWD_MIN_WARPGROUPS``, and G where none
+    does.  hs = 1 writes dk and dv directly; a larger hs writes float32
+    partials (hs, 2, B, Sk, KVH, D) that a last pass sums."""
+    blocks = -(-Sk // (TC_BWD_GROUPS[D] * TC_BWD_KEYS)) * B * KVH
+    per_block = TC_BWD_GROUPS[D] * TC_BWD_HALVES[D]
+    for hs in range(1, G + 1):
+        if G % hs == 0 and blocks * hs * per_block >= BWD_MIN_WARPGROUPS:
+            return hs
+    return G
 
 
 def bwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
-              window: Optional[int], D: int = 64
-              ) -> Dict[str, List[Tuple[int, ...]]]:
-    """The tiles the tensor-core backward's two kernels compute at head
-    dim D, as they compute them, for one (batch, kv head):
+              window: Optional[int], D: int = 64, B: int = 1, KVH: int = 1
+              ) -> Dict[str, list]:
+    """The tiles the tensor-core backward's kernels compute at head dim D,
+    as they compute them, for one (batch, kv head) of a (B, KVH) grid:
 
-    - ``"dkdv"``: (kw0, g, q0, masked) for each tile a warpgroup
-      computes: keys [kw0, kw0 + ``TC_BWD_KEYS``) against queries [q0, q0
-      + ``TC_BWD_QUERIES``) of head g of the group.  A block owns
-      ``TC_BWD_GROUPS[D]`` warpgroups' keys and walks the heads, then the
-      query tiles that can see one of its keys; a warpgroup skips a tile
-      none of its keys sees.
+    - ``"hs"``: :func:`bwd_head_split`; ``"heads"``: [(g0, g1)], the heads
+      [g0, g1) of the group that split z walks.
+    - ``"blocks"``: (key0, z, n) for each dk/dv block in launch order
+      (first keys first: under a causal mask the heaviest): keys [key0,
+      key0 + ``TC_BWD_GROUPS[D] * TC_BWD_KEYS``), split z's heads, and
+      the n entries of ``"dkdv"`` its warpgroups of one column part
+      compute, which follow in the blocks' order.  The sum pass adds a
+      key's hs partials in the order z = 0 .. hs - 1.
+    - ``"columns"``: [(c0, c1)], the column parts of dk and dv, each held
+      by a warpgroup of its own whose dk and dv products take every tile
+      of ``"dkdv"`` (at D = 256 the two form S^T and dP^T by query
+      halves and share P^T and dS^T).
+    - ``"dkdv"``: (kw0, g, q0, masked) for each tile a warpgroup of one
+      column part computes: keys [kw0, kw0 + ``TC_BWD_KEYS``) against
+      queries [q0, q0 + ``TC_BWD_QUERIES``) of head g of the group.  A
+      block walks its heads, then the query tiles that can see one of its
+      keys; a warpgroup skips a tile none of its keys sees.
     - ``"dq"``: (row0, k0, masked) for each K/V tile a block of
-      ``TC_ROWS`` (query, head) rows from row0 computes: keys [k0, k0 +
-      ``TC_KEYS``), the tiles of :func:`wgmma_tiles`.
+      ``"dq_rows"`` (query, head) rows from row0 computes: keys [k0, k0 +
+      ``"dq_keys"``), blocks in launch order (causal at D = 256: the
+      last rows first).
 
     ``masked`` is False only for a tile whose every pair is visible."""
     w = -1 if window is None else window
     block = TC_BWD_GROUPS[D] * TC_BWD_KEYS
-    dkdv = []
+    hs = bwd_head_split(B, Sk, KVH, G, D)
+    part = D // TC_BWD_HALVES[D]
+    heads = [(z * (G // hs), (z + 1) * (G // hs)) for z in range(hs)]
+    blocks, dkdv = [], []
     for key0 in range(0, Sk, block):
         key_hi = min(key0 + block - 1, Sk - 1)
         q_lo = key0 if causal else 0
         q_hi = min(Sq - 1, key_hi + w - 1) if w >= 0 else Sq - 1
         t_lo = q_lo // TC_BWD_QUERIES
         n_qt = q_hi // TC_BWD_QUERIES - t_lo + 1 if q_hi >= q_lo else 0
-        for i in range(G * n_qt):
-            g, q0 = i // n_qt, (t_lo + i % n_qt) * TC_BWD_QUERIES
-            q_end = q0 + TC_BWD_QUERIES - 1
-            for kw0 in range(key0, key0 + block, TC_BWD_KEYS):
-                kw_end = kw0 + TC_BWD_KEYS - 1
-                if not (kw0 < Sk and (not causal or q_end >= kw0)
-                        and (w < 0 or q0 - kw_end < w)):
-                    continue
-                inside = (kw_end < Sk and q_end < Sq
-                          and (not causal or q0 >= kw_end)
-                          and (w < 0 or q_end - kw0 < w))
-                dkdv.append((kw0, g, q0, not inside))
+        for z, (g0, g1) in enumerate(heads):
+            n0 = len(dkdv)
+            for i in range((g1 - g0) * n_qt):
+                g, q0 = g0 + i // n_qt, (t_lo + i % n_qt) * TC_BWD_QUERIES
+                q_end = q0 + TC_BWD_QUERIES - 1
+                for kw0 in range(key0, key0 + block, TC_BWD_KEYS):
+                    kw_end = kw0 + TC_BWD_KEYS - 1
+                    if not (kw0 < Sk and (not causal or q_end >= kw0)
+                            and (w < 0 or q0 - kw_end < w)):
+                        continue
+                    inside = (kw_end < Sk and q_end < Sq
+                              and (not causal or q0 >= kw_end)
+                              and (w < 0 or q_end - kw0 < w))
+                    dkdv.append((kw0, g, q0, not inside))
+            blocks.append((key0, z, len(dkdv) - n0))
+    rows, keys = TC_BWD_DQ[D]
+    row_blocks = list(zip(range(0, Sq * G, rows),
+                          _row_tiles(Sq, Sk, G, causal, window, rows, keys)))
     dq = []
-    rows = Sq * G
-    for row0, (first, count) in zip(range(0, rows, TC_ROWS),
-                                    wgmma_tiles(Sq, Sk, G, causal, window)):
-        q_lo, q_hi = row0 // G, (min(row0 + TC_ROWS, rows) - 1) // G
+    for row0, (first, count) in (row_blocks[::-1] if causal and D == 256
+                                 else row_blocks):
+        q_lo, q_hi = row0 // G, (min(row0 + rows, Sq * G) - 1) // G
         for t in range(first, first + count):
-            k0 = t * TC_KEYS
-            inside = (k0 + TC_KEYS <= Sk
-                      and (not causal or k0 + TC_KEYS - 1 <= q_lo)
+            k0 = t * keys
+            inside = (k0 + keys <= Sk
+                      and (not causal or k0 + keys - 1 <= q_lo)
                       and (w < 0 or k0 >= q_hi - w + 1))
             dq.append((row0, k0, not inside))
-    return {"dkdv": dkdv, "dq": dq}
+    return {"hs": hs, "heads": heads, "blocks": blocks,
+            "columns": [(c, c + part) for c in range(0, D, part)],
+            "dkdv": dkdv, "dq": dq, "dq_rows": rows, "dq_keys": keys}
 
 
 def visible(Sq: int, Sk: int, causal: bool, window: Optional[int],
@@ -368,12 +425,14 @@ def _bwd_entry(kernel: str, dtype: torch.dtype):
     if kernel == "tensor_core":
         fn = _build.load("flash_attention_bwd_wgmma") \
             .flash_attention_bwd_wgmma_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
     else:
         lib = _build.load("flash_attention_bwd")
         fn = (lib.flash_attention_bwd_f32 if dtype == torch.float32
               else lib.flash_attention_bwd_bf16)
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -390,8 +449,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     in the inputs' dtype.  The one :func:`bwd_route` picks, or ``kernel``
     ("tensor_core" or "cuda_core") where that kernel takes the inputs'
     dtype and D.  The tensor-core kernel reads the forward's ``lse`` (B,
-    H, Sq) float32 and raises without it; the CUDA-core kernel
-    recomputes lse and takes none."""
+    H, Sq) float32 and raises without it, and splits each group's heads
+    as :func:`bwd_head_split` says, with a float32 scratch for the
+    partials where it splits them; the CUDA-core kernel recomputes lse
+    and takes none."""
     global BWD_LAUNCHES, TC_BWD_LAUNCHES
     _check(q, k, v)
     if q.device.type != "cuda":
@@ -440,15 +501,21 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ints = [B, Sq, Sk, H, KVH, D, int(causal),
+                -1 if window is None else window]
         if kernel == "tensor_core":
-            ptrs = (q, k, v, o, do, lse, dq, dk, dv, delta)
+            hs = bwd_head_split(B, Sk, KVH, H // KVH, D)
+            part = (torch.empty((hs, 2, B, Sk, KVH, D), dtype=torch.float32,
+                                device=q.device) if hs > 1 else None)
+            ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
+                                           delta)]
+            ptrs.append(0 if part is None else part.data_ptr())
+            ints.append(hs)
         else:
             # the CUDA-core kernel writes the lse it recomputes
-            ptrs = (q, k, v, o, do, dq, dk, dv, torch.empty_like(delta),
-                    delta)
-        err = _bwd_entry(kernel, q.dtype)(
-            *(t.data_ptr() for t in ptrs), B, Sq, Sk, H, KVH, D,
-            int(causal), -1 if window is None else window, stream)
+            ptrs = [t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv,
+                                           torch.empty_like(delta), delta)]
+        err = _bwd_entry(kernel, q.dtype)(*ptrs, *ints, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention {kernel} backward kernel launch "
                            f"failed: error {err}")

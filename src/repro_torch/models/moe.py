@@ -102,17 +102,23 @@ def _expert_mlp(exp_p: P.Params, h: torch.Tensor, act: str, glu: bool
 
 
 def moe_apply(p: P.Params, x: torch.Tensor, cfg: MoEConfig, act: str,
-              glu: bool, chunk: int = 512
+              glu: bool, chunk: int = 512, sums: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (out, aux) with aux = {'lb_loss', 'z_loss'}, float32
     scalars.  The router's logits are float32; dispatch, the experts and
-    the combine run in x's dtype, the combine weights rounded to it."""
+    the combine run in x's dtype, the combine weights rounded to it.
+
+    With ``sums`` aux also holds ``'sums'`` (chunks, 2 E + 2) float32: a
+    chunk's sums over its B T tokens of the dispatch counts (E), of the
+    router probabilities (E) and of the squared logsumexp, then B T.  The
+    losses are means of these, so a batch cut into row blocks gets its
+    losses from the blocks' summed sums."""
     from repro_torch.models.transformer import divisor_block
     B, S, d = x.shape
     chunk = divisor_block(S, chunk)
     C = _capacity(chunk, cfg)
     experts = P.tree_map_with_path(lambda _, w: w.to(x.dtype), p["experts"])
-    outs, lbs, zs = [], [], []
+    outs, lbs, zs, rows = [], [], [], []
     for c0 in range(0, S, chunk):
         xc = x[:, c0:c0 + chunk]
         logits = P.dense_apply(p["router"], xc.to(torch.float32),
@@ -121,13 +127,22 @@ def moe_apply(p: P.Params, x: torch.Tensor, cfg: MoEConfig, act: str,
         h = torch.einsum("btec,btd->becd", dispatch.to(xc.dtype), xc)
         o = _expert_mlp(experts, h, act, glu)
         outs.append(torch.einsum("btec,becd->btd", combine.to(xc.dtype), o))
-        frac_tokens = torch.mean(torch.sum(dispatch, dim=-1), dim=(0, 1))
+        tokens = torch.sum(dispatch, dim=-1)
+        frac_tokens = torch.mean(tokens, dim=(0, 1))
         frac_probs = torch.mean(probs, dim=(0, 1))
         lbs.append(cfg.num_experts * torch.sum(frac_tokens * frac_probs))
-        zs.append(torch.mean(torch.square(torch.logsumexp(logits, dim=-1))))
+        z2 = torch.square(torch.logsumexp(logits, dim=-1))
+        zs.append(torch.mean(z2))
+        if sums:
+            rows.append(torch.cat([
+                torch.sum(tokens, dim=(0, 1)), torch.sum(probs, dim=(0, 1)),
+                torch.sum(z2).reshape(1),
+                torch.full((1,), float(z2.numel()), device=x.device)]))
     out = torch.cat(outs, dim=1)
     if cfg.shared_expert:
         out = out + mlp_apply(p["shared"], x, act, glu)
     aux = {"lb_loss": torch.mean(torch.stack(lbs)),
            "z_loss": torch.mean(torch.stack(zs))}
+    if sums:
+        aux["sums"] = torch.stack(rows)
     return out, aux

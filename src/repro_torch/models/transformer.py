@@ -329,32 +329,43 @@ def _mix_train(p: P.Params, h: torch.Tensor, cfg: ModelConfig, kind: str
 
 
 def _apply_layer_train(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
-                       kind: str, use_moe: bool
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, moe_aux_loss): the MoE layer's aux is
-    ``router_aux_loss_coef * lb_loss + 1e-3 * z_loss``."""
+                       kind: str, use_moe: bool, sums: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  Tuple[torch.Tensor, ...]]:
+    """Returns (x, moe_aux_loss, moe_sums): the MoE layer's aux is
+    ``router_aux_loss_coef * lb_loss + 1e-3 * z_loss``; with ``sums``
+    ``moe_sums`` holds its ``moe_apply`` row sums, else it is empty."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    rows: Tuple[torch.Tensor, ...] = ()
     h = P.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     x = x + _mix_train(p["mix"], h, cfg, kind)
     h = P.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if kind == RWKV:
         h, _ = R.channelmix_apply(p["mlp"], h)
     elif use_moe:
-        h, moe_aux = moe_apply(p["mlp"], h, cfg.moe, cfg.act, cfg.glu)
+        h, moe_aux = moe_apply(p["mlp"], h, cfg.moe, cfg.act, cfg.glu,
+                               sums=sums)
         aux = (aux + cfg.moe.router_aux_loss_coef * moe_aux["lb_loss"]
                + 1e-3 * moe_aux["z_loss"])
+        if sums:
+            rows = (moe_aux["sums"],)
     else:
         h = mlp_apply(p["mlp"], h, cfg.act, cfg.glu)
-    return x + h, aux
+    return x + h, aux, rows
 
 
-def _apply_unit_train(unit_p: P.Params, x: torch.Tensor, cfg: ModelConfig
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _apply_unit_train(unit_p: P.Params, x: torch.Tensor, cfg: ModelConfig,
+                      sums: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 Tuple[torch.Tensor, ...]]:
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    rows: Tuple[torch.Tensor, ...] = ()
     for i, (kind, use_moe) in enumerate(unit_pattern(cfg)):
-        x, a = _apply_layer_train(unit_p[f"l{i}"], x, cfg, kind, use_moe)
+        x, a, r = _apply_layer_train(unit_p[f"l{i}"], x, cfg, kind, use_moe,
+                                     sums)
         aux = aux + a
-    return x, aux
+        rows += r
+    return x, aux, rows
 
 
 def _encdec_layer_train(up: P.Params, cp: P.Params, x: torch.Tensor,
@@ -381,6 +392,15 @@ def forward_train(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any]
     batch: tokens (B, S_text); optional 'prefix' (B, P, d) early-fusion
     embeddings (vlm); optional 'frames' (B, F, d) encoder stub input
     (audio)."""
+    h, aux, _ = _forward_train(params, cfg, batch, False)
+    return h, aux
+
+
+def _forward_train(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any],
+                   sums: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                        Tuple[torch.Tensor, ...]]:
+    """:func:`forward_train`, and with ``sums`` each MoE layer's
+    ``moe_apply`` row sums in layer order."""
     remat = cfg.remat == "full"
     x = embed_tokens(params, cfg, batch["tokens"])
     if cfg.frontend.kind == "vision" and "prefix" in batch:
@@ -389,6 +409,7 @@ def forward_train(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any]
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      device=x.device).to(x.dtype)[None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    rows: Tuple[torch.Tensor, ...] = ()
     n_units, n_tail = unit_counts(cfg)
     if cfg.is_encdec:
         enc_out = encode(params, cfg, batch["frames"], remat=remat)
@@ -400,22 +421,31 @@ def forward_train(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any]
     else:
         unit_fn = _remat(_apply_unit_train, remat)
         for u in range(n_units):
-            x, a = unit_fn(take_layer(params["units"], u), x, cfg)
+            x, a, r = unit_fn(take_layer(params["units"], u), x, cfg, sums)
             aux = aux + a
+            rows += r
         unit = unit_pattern(cfg)
         for i in range(n_tail):
-            x, a = _apply_layer_train(params["tail"][f"l{i}"], x, cfg,
-                                      *unit[i])
+            x, a, r = _apply_layer_train(params["tail"][f"l{i}"], x, cfg,
+                                         *unit[i], sums)
             aux = aux + a
-    return P.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps), aux
+            rows += r
+    return P.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps), aux, rows
 
 
-def loss_fn(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any]
+def loss_fn(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any],
+            moe_sums: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(xent + moe_aux, {"xent", "moe_aux"}); with a vision prefix the
-    loss covers the text positions only."""
-    h, aux = forward_train(params, cfg, batch)
+    loss covers the text positions only.  With ``moe_sums`` (an MoE
+    config) the dict also holds ``"moe_sums"`` (MoE layers, chunks, 2 E +
+    2): each layer's ``moe_apply`` row sums, from which a multi-rank step
+    forms the aux loss of a batch spread over ranks."""
+    h, aux, rows = _forward_train(params, cfg, batch, moe_sums)
     if cfg.frontend.kind == "vision" and "prefix" in batch:
         h = h[:, batch["prefix"].shape[1]:, :]
     loss = xent_loss(params, cfg, h, batch["labels"], batch.get("mask"))
-    return loss + aux, {"xent": loss, "moe_aux": aux}
+    mets = {"xent": loss, "moe_aux": aux}
+    if rows:
+        mets["moe_sums"] = torch.stack(rows)
+    return loss + aux, mets

@@ -1,6 +1,7 @@
 """The tensor-core attention backward's host side on the CPU: its routing
-rule (``bwd_route``), a mirror of its two kernels' tile plans
-(``bwd_tiles``) against ``visible()``, the plain forward's lse against
+rule (``bwd_route``), a mirror of its kernels' tile plans (``bwd_tiles``,
+at D = 256 with its column halves and head split, ``bwd_head_split``)
+against ``visible()``, the plain forward's lse against
 ``jax.nn.logsumexp`` of the masked scores ``repro``'s
 ``attention_reference`` builds, the plain backward given the forward's
 lse, and ``flash_attention`` asking the forward for lse only where a
@@ -27,26 +28,28 @@ one_torch_thread = torch_threads.one_torch_thread
                                    torch.float16])
 @pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 def test_bwd_route(dtype, D):
-    """bf16 at D 64 and 128 on the tensor cores; float32 at every built D
-    and bf16 at 32 and 256 on the CUDA cores; float16 and D = 96 raise."""
+    """bf16 at D 64, 128 and 256 on the tensor cores; float32 at every
+    built D and bf16 at 32 on the CUDA cores; float16 and D = 96 raise."""
     if dtype == torch.float16:
         with pytest.raises(TypeError):
             fa.bwd_route(dtype, D)
     elif D == 96:
         with pytest.raises(ValueError):
             fa.bwd_route(dtype, D)
-    elif dtype == torch.bfloat16 and D in (64, 128):
+    elif dtype == torch.bfloat16 and D in (64, 128, 256):
         assert fa.bwd_route(dtype, D) == "tensor_core"
     else:
         assert fa.bwd_route(dtype, D) == "cuda_core"
 
 
-def _covered(Sq, Sk, G, causal, window, D):
+def _covered(Sq, Sk, G, causal, window, D, B=1, KVH=1):
     """How often each (head, query, key) triple is computed by the dk/dv
-    plan and by the dq plan, and whether every unmasked tile holds only
-    visible pairs inside the sequences."""
+    plan (the warpgroups of one column part) and by the dq plan, and
+    whether every unmasked tile holds only visible pairs inside the
+    sequences."""
     ok = fa.visible(Sq, Sk, causal, window).numpy()
-    plan = fa.bwd_tiles(Sq, Sk, G, causal, window, D)
+    plan = fa.bwd_tiles(Sq, Sk, G, causal, window, D, B, KVH)
+    rows, keys = plan["dq_rows"], plan["dq_keys"]
     dkdv = np.zeros((G, Sq, Sk), np.int64)
     for kw0, g, q0, masked in plan["dkdv"]:
         qs = slice(q0, min(q0 + fa.TC_BWD_QUERIES, Sq))
@@ -61,12 +64,12 @@ def _covered(Sq, Sk, G, causal, window, D):
     dq = np.zeros((Sq * G, Sk), np.int64)
     okr = np.repeat(ok, G, axis=0)       # row r = query r // G, head r % G
     for row0, k0, masked in plan["dq"]:
-        rs = slice(row0, min(row0 + fa.TC_ROWS, Sq * G))
-        ks = slice(k0, min(k0 + fa.TC_KEYS, Sk))
+        rs = slice(row0, min(row0 + rows, Sq * G))
+        ks = slice(k0, min(k0 + keys, Sk))
         if masked:
             dq[rs, ks] += okr[rs, ks]
         else:
-            assert k0 + fa.TC_KEYS <= Sk
+            assert k0 + keys <= Sk
             assert okr[rs, ks].all()
             dq[rs, ks] += 1
     dq = dq.reshape(Sq, G, Sk).transpose(1, 0, 2)
@@ -108,11 +111,83 @@ def test_bwd_tiles_train_shapes(G, D):
     assert seen < computed <= 1.07 * seen
 
 
+@settings(max_examples=60, deadline=None)
+@given(Sq=st.integers(1, 300), Sk=st.integers(1, 300),
+       G=st.sampled_from([1, 2, 3, 4, 6, 16]), causal=st.booleans(),
+       window=st.sampled_from([None, 1, 2, 7, 64, 65, 100, 200]),
+       B=st.integers(1, 3), KVH=st.integers(1, 4))
+def test_bwd_tiles_d256_cover_each_triple_once_per_column_half(
+        Sq, Sk, G, causal, window, B, KVH):
+    """At D = 256 the dk/dv kernel's two column halves, [0, 128) and
+    [128, 256), each compute every visible (query, head, key) triple
+    exactly once (a warpgroup a half and key group, each through the whole
+    tile plan), the dq kernel's blocks of 64 rows and 64-key tiles once,
+    and no invisible triple is computed unmasked.  The head split's parts
+    are hs contiguous, equal runs of the group's heads; each block's tiles
+    lie in its keys and its part's heads, and its partials are summed in
+    the order z = 0 .. hs - 1."""
+    plan = fa.bwd_tiles(Sq, Sk, G, causal, window, 256, B, KVH)
+    assert plan["columns"] == [(0, 128), (128, 256)]
+    assert (plan["dq_rows"], plan["dq_keys"]) == (64, 64)
+    hs = plan["hs"]
+    assert G % hs == 0
+    assert plan["heads"] == [(z * G // hs, (z + 1) * G // hs)
+                             for z in range(hs)]
+    at = 0
+    for n_block, (key0, z, n) in enumerate(plan["blocks"]):
+        assert z == n_block % hs      # a key block's splits in order
+        g0, g1 = plan["heads"][z]
+        for kw0, g, q0, _ in plan["dkdv"][at:at + n]:
+            assert key0 <= kw0 < key0 + fa.TC_BWD_KEYS and g0 <= g < g1
+        at += n
+    assert at == len(plan["dkdv"])
+    ok, dkdv, dq = _covered(Sq, Sk, G, causal, window, 256, B, KVH)
+    want = np.broadcast_to(ok, (G, Sq, Sk)).astype(np.int64)
+    assert np.array_equal(dkdv, want)
+    assert np.array_equal(dq, want)
+
+
+@pytest.mark.parametrize("shape,hs", [
+    ((1, 2048, 1, 16, 256), 8),     # [train-families]' RecurrentGemma-9B
+    ((8, 1024, 16, 1, 64), 1),      # [train]'s qwen1.5-0.5b
+    ((8, 1024, 8, 2, 128), 1),      # internlm2's heads
+    ((1, 700, 1, 4, 256), 4),       # too few key blocks at any split
+])
+def test_bwd_head_split(shape, hs):
+    """bwd_head_split: RecurrentGemma's 32 key blocks of 64 keys (B = 1,
+    KVH = 1) reach 2 x 132 warpgroups at hs = 8 (2 x 32 x 4 = 256 fall
+    short); [train]'s and internlm2's grids are large enough unsplit, so
+    the dk/dv kernel writes its gradients directly there; a grid that no
+    divisor fills splits every head."""
+    B, Sk, KVH, G, D = shape
+    assert fa.bwd_head_split(B, Sk, KVH, G, D) == hs
+    plan = fa.bwd_tiles(Sk, Sk, G, True, None, D, B, KVH)
+    assert plan["hs"] == hs and len(plan["heads"]) == hs
+
+
+def test_bwd_tiles_heaviest_first():
+    """Causal: the dk/dv blocks run first keys first, so the blocks with
+    the most tiles start first; the dq blocks at D = 256 (a block an SM)
+    last rows first, at D 64 and 128 in row order."""
+    plan = fa.bwd_tiles(2048, 2048, 16, True, None, 256)
+    per_key_block = [n for _, z, n in plan["blocks"] if z == 0]
+    assert per_key_block == sorted(per_key_block, reverse=True)
+    assert per_key_block[0] > per_key_block[-1]
+    row0s = [row0 for row0, _, _ in plan["dq"]]
+    assert row0s == sorted(row0s, reverse=True)
+    for D in (64, 128):
+        row0s = [row0 for row0, _, _ in
+                 fa.bwd_tiles(1024, 1024, 2, True, None, D)["dq"]]
+        assert row0s == sorted(row0s)
+
+
 LSE_CASES = [  # (B, Sq, Sk, H, KVH, D, causal, window)
     (2, 16, 16, 4, 4, 8, True, None),
     (1, 13, 20, 4, 2, 16, False, 5),
     (1, 10, 4, 2, 1, 8, False, 2),        # rows past Sk + window: no key
     (2, 9, 12, 6, 1, 8, True, 3),
+    (1, 70, 70, 4, 1, 256, True, 30),     # D = 256, the window binding
+    (1, 33, 20, 4, 2, 256, False, 5),     # D = 256, rows that see no key
 ]
 
 

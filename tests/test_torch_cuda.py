@@ -1183,8 +1183,8 @@ def test_flash_attention_bwd_kernel_rejects(cuda_device, dtype, D):
 
 
 # ---------------------------------------------------------------------------
-# the tensor-core backward (bf16, D 64 and 128) and the forward's lse entry
-# point: each gradient row's largest |diff| within 0.05 of the row's RMS
+# the tensor-core backward (bf16, D 64, 128 and 256) and the forward's lse
+# entry point: each gradient row's largest |diff| within 0.05 of the row's RMS
 # (chip_smoke.py's ATTN_ROW_TOL: p and ds are rounded to bf16 before their
 # products) and within 2e-2 of the gradient's largest |value|; zeros exact;
 # the same bits on every launch (no atomics)
@@ -1200,6 +1200,15 @@ TC_BWD_CASES = [
     (1, 200, 333, 8, 2, 128, False, None),    # Sq < Sk
     (1, 6, 10, 2, 2, 64, True, None),         # keys no query sees
 ]
+#: D = 256 (column halves, the head split): [train-families]'
+#: RecurrentGemma-9B local attention, a window that binds, and a ragged
+#: bidirectional case with rows that see no key
+TC_BWD_D256 = [
+    (1, 2048, 2048, 16, 1, 256, True, 2048),
+    (1, 700, 700, 4, 1, 256, True, 300),
+    (1, 333, 200, 4, 2, 256, False, 50),
+]
+TC_BWD_CASES += TC_BWD_D256
 
 
 def _row_rel(got, want):
@@ -1249,7 +1258,8 @@ def test_flash_attention_tensor_core_bwd_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [TC_BWD_CASES[0], TC_BWD_CASES[2]])
+@pytest.mark.parametrize("case", [TC_BWD_CASES[0], TC_BWD_CASES[2]]
+                         + TC_BWD_D256)
 def test_flash_attention_tensor_core_bwd_is_deterministic(cuda_device, case):
     """Two launches give the same bits: dq and (dk, dv) come from kernels
     of their own, with no atomics."""
@@ -1269,7 +1279,7 @@ def test_flash_attention_tensor_core_bwd_is_deterministic(cuda_device, case):
     (1, 300, 100, 16, 1, 64, True, 64),       # rows 163 on see no key
     (2, 333, 200, 12, 2, 128, False, 50),
     (8, 1024, 1024, 16, 16, 64, True, None),
-    (1, 200, 200, 16, 1, 256, True, 64)])
+    (1, 200, 200, 16, 1, 256, True, 64)] + TC_BWD_D256)
 def test_flash_attention_lse_entry_point(cuda_device, B, Sq, Sk, H, KVH, D,
                                          causal, window):
     """The forward's lse entry point returns the serving entry point's

@@ -11,6 +11,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import ARCHS as RARCHS
@@ -18,9 +19,11 @@ from repro.configs import OptimizerConfig as ROptimizerConfig
 from repro.data.pipeline import TokenPipeline as RPipeline
 from repro.models import transformer as RT
 from repro.optim.optimizers import apply_updates, make_optimizer
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, TolFLConfig
 from repro_torch.core import distributed as D
+from repro_torch.data.pipeline import TokenPipeline, shard_batch
 from repro_torch.launch import train
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import params as P
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -67,6 +70,27 @@ def test_train_launcher_checkpointing(capsys, tmp_path):
     launch(capsys, "--arch", "qwen1.5-0.5b", "--steps", "10",
            "--ckpt-dir", str(tmp_path))
     assert os.listdir(tmp_path) == ["ckpt_00000010.msgpack"]
+
+
+@pytest.mark.parametrize("schedule", ["tolfl_ring", "tolfl_psum"])
+def test_step_metrics_hold_no_gradient_buffer(schedule):
+    """A step's metrics are tensors of their own: none is a view of the
+    flat gradient or broadcast buffer, which a caller holding the metrics
+    over the next step would otherwise keep alive (a params-sized float32
+    buffer of device memory)."""
+    cfg = ARCHS["qwen1.5-0.5b"].reduced()
+    ocfg = train.OptimizerConfig()
+    mesh = make_host_mesh(data=1, model=1, device="cpu")
+    step = D.make_train_step(
+        cfg, TolFLConfig(num_clusters=1, schedule=schedule), ocfg, mesh)
+    state = D.init_state(torch.Generator().manual_seed(0), cfg, ocfg)
+    batch = shard_batch(next(TokenPipeline(cfg.vocab_size, 64, 4)
+                             .batches(1)), mesh)
+    _, metrics = step(state, batch, torch.ones((1,)))
+    assert metrics
+    for name, value in metrics.items():
+        assert (value.untyped_storage().nbytes()
+                == value.numel() * value.element_size()), name
 
 
 def test_three_steps_equal_the_repro_oracle():
