@@ -142,8 +142,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    tensor-core one twice bit for bit and the forward's lse entry point
    against the serving one and the plain lse;
    [kernel] rwkv6_scan_bwd with a state0, a final-state gradient and S off
-   the checkpoint stride); ``launch/train``'s loop at qwen1.5-0.5b full
-   width and depth, 10 Adam steps of the ring schedule on 8 x 1,024
+   the sub-chunk and the checkpoint stride, at every head size and
+   [train-families]' shape, twice bit for bit); ``launch/train``'s loop
+   at qwen1.5-0.5b full width and depth, 10 Adam steps of the ring
+   schedule on 8 x 1,024
    tokens, the loss falling and every kernel's launches as the config
    says (forward twice a step under remat, backward once, on the tensor
    cores), then a server
@@ -151,7 +153,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    RecurrentGemma-9B cut to one unit at full width, its local attention's
    backward on the tensor cores at D = 256, the second step timed warm
    ([train-families]);
-   two steps under the sync debug mode ([train-no-sync]); one step under
+   two steps under the sync debug mode ([train-no-sync]); one step, and
+   the WKV backward's two kernels at RWKV6-7B's shape, under
    torch.profiler ([train-profile]); every arch's reduced config card vs
    CPU over 2 SGD steps in float32, the attention's backward on the
    CUDA-core route ([train-reference]); a checkpoint at step 5
@@ -171,7 +174,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    beside the plain backwards and SDPA's backward: the tensor-core
    attention backward at [train]'s and internlm2's head shapes and at
    RecurrentGemma's local attention (D = 256) beside the CUDA-core one,
-   with the serving forward beside the lse entry point.
+   with the serving forward beside the lse entry point, and the WKV
+   backward at RWKV6-7B's training shape with each of its two kernels'
+   device time under torch.profiler.
 
     python3 chip_smoke.py --parent DIR
 
@@ -3790,12 +3795,16 @@ ATTN_BWD_CASES = [
     (1, 333, 200, 4, 2, 256, False, 50, "bfloat16"),
 ]
 #: (B, S, H, N, with_state0, with_dstate) of the WKV backward's checks: S
-#: past and short of the checkpoint stride (32), every head size, a
-#: non-zero state0 and a gradient of the final state, and [train-families]'
-#: RWKV6-7B shape (zero state0, no final-state gradient, as training runs)
+#: past and short of the 16-step sub-chunk and the 64-step checkpoint
+#: stride, every head size, a non-zero state0 and a gradient of the final
+#: state; [train-families]' RWKV6-7B shape (a cluster of 2 blocks a head)
+#: as training runs it (zero state0, no final-state gradient) and with
+#: both, a ragged S at its heads, and 4 batches (512 blocks)
 WKV_BWD_CASES = [(2, 100, 4, 64, True, True), (1, 33, 2, 8, True, True),
                  (2, 64, 3, 16, True, False), (1, 70, 2, 32, False, True),
-                 (1, 1, 2, 64, True, True), (1, 2048, 64, 64, False, False)]
+                 (1, 1, 2, 64, True, True), (1, 2048, 64, 64, False, False),
+                 (1, 2048, 64, 64, True, True), (1, 1000, 64, 64, True, True),
+                 (4, 100, 64, 64, True, True)]
 #: [train]: qwen1.5-0.5b at full width and depth, the launcher's flags
 TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
@@ -3803,6 +3812,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
 TRAIN_FAMILIES = (("rwkv6-7b", 2, 1, 2048), ("recurrentgemma-9b", 3, 1, 2048))
 TRAIN_BWD_KERNELS = ("flash_attention_bwd", "flash_attention_bwd_wgmma",
                      "rwkv6_scan_bwd", "rglru_scan_bwd")
+#: the device kernels of one rwkv6_scan_bwd call (csrc/rwkv6_scan_bwd.cu)
+WKV_BWD_KERNELS = ("wkv_bwd_kernel", "wkv_du_sum_kernel")
 
 
 def _bwd_counters():
@@ -3889,8 +3900,9 @@ def phase_train_kernels(torch):
     exactly 0; two launches of the tensor-core backward must give the same
     bits, and the forward's lse entry point must return the serving entry
     point's output bit for bit and an lse within 1e-5 of the plain one.
-    WKV: within 1e-4 x max(1, the gradient's largest |value|).  An
-    unsupported dtype or D must raise.  Returns the max |diff| of each."""
+    WKV: within 1e-4 x max(1, the gradient's largest |value|), and two
+    launches bit for bit.  An unsupported dtype or D must raise.  Returns
+    the max |diff| of each."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as wk
     gen = torch.Generator(device=DEV).manual_seed(21)
@@ -3993,8 +4005,14 @@ def phase_train_kernels(torch):
         ds = (torch.randn((B, H, N, N), generator=gen, device=DEV)
               if with_ds else None)
         got = wk.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds)
+        again = wk.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds)
         want = wk.rwkv6_scan_backward_plain(r, k, v, w, u, s0, dy, ds)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not same:
+            raise AssertionError(f"rwkv6_scan_bwd at {(B, S, H, N)} differs "
+                                 f"between two launches")
+        del again
         errs, scales = [], []
         for name, g, ref in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
                                 want):
@@ -4009,7 +4027,8 @@ def phase_train_kernels(torch):
             f"state0={with_s0} dstate={with_ds}: max_abs_err / max|grad| "
             + ", ".join(f"{name} {e:.3g} / {m:.3g}" for name, e, m in zip(
                 ("dr", "dk", "dv", "dw", "du", "ds0"), errs, scales))
-            + " (tolerance 1e-4 x max(1, max|grad|))")
+            + " (tolerance 1e-4 x max(1, max|grad|)); two launches bit for "
+            f"bit: {same}")
         worst["rwkv6_scan_bwd"] = max(worst["rwkv6_scan_bwd"], *errs)
     return worst
 
@@ -4229,12 +4248,48 @@ def phase_train_no_sync(torch):
     return step_fn, state, batches[0], alive
 
 
+def _wkv_bwd_inputs(torch, gen):
+    """The WKV backward's inputs at [train-families]' RWKV6-7B shape (1,
+    2048, 64, 64): (r, k, v, w, u, state0, dy)."""
+    from repro_torch.kernels import rwkv6_scan as wk
+    B, S, H, N = 1, TRAIN_FAMILIES[0][3], 64, 64
+    r, k, v, w, u, s0 = wk.random_inputs(B, S, H, N, True, gen)
+    return r, k, v, w, u, s0, torch.randn((B, S, H, N), generator=gen,
+                                          device=DEV)
+
+
+def _wkv_bwd_split(torch):
+    """Each device kernel of one WKV backward call at [train-families]'
+    shape, in ms a call under torch.profiler: the mean over the events a
+    window of 8 calls kept (records at a window's edge can be lost), a
+    window taken again (up to 3) where a kernel has none; None where no
+    window had one."""
+    from repro_torch.kernels import rwkv6_scan as wk
+    args = _wkv_bwd_inputs(torch, torch.Generator(device=DEV).manual_seed(29))
+    for _ in range(3):
+        _, _, by_name = _profiled(torch, lambda: wk.rwkv6_scan_bwd_cuda(
+            *args), calls=8)
+        seen = {name: [(us, n) for ev, (us, n) in by_name.items()
+                       if name in ev] for name in WKV_BWD_KERNELS}
+        if all(seen.values()):
+            break
+    return {name: (sum(us for us, _ in hits) / sum(n for _, n in hits)
+                   / 1e3) if hits else None for name, hits in seen.items()}
+
+
 def phase_train_profile(torch, step_fn, state, batch, alive):
     """[train-profile]: one [train] step under torch.profiler: the card's
     busy share of the step's wall time and its top operations, and the
     share of each kernel of the port: the attention forward, the
     tensor-core backward's three kernels (delta, dq, dk/dv), the CUDA-core
-    backward's two, and the attention backward's whole share."""
+    backward's two, and the attention backward's whole share; then each of
+    the WKV backward's two kernels at [train-families]' RWKV6-7B shape
+    (:func:`_wkv_bwd_split`), which it returns for [times]."""
+    split = _wkv_bwd_split(torch)
+    log("[train-profile] rwkv6_scan_bwd (1, 2048, 64, 64), device time by "
+        "kernel, ms a call: " + ", ".join(
+            f"{name} " + ("not measured" if t is None else f"{t:.6f}")
+            for name, t in split.items()))
     with _device_profile(torch) as prof:
         t0 = time.perf_counter()
         state, _ = step_fn(state, batch, alive)
@@ -4244,7 +4299,7 @@ def phase_train_profile(torch, step_fn, state, batch, alive):
     if busy == 0:
         log("[train-profile] the profiler recorded no device time: not "
             "measured")
-        return
+        return split
     mine = {k: sum(us for name, (us, _) in by_name.items() if k in name)
             for k in ("flash_attention_wgmma", "attn_bwd_delta",
                       "attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma",
@@ -4257,6 +4312,7 @@ def phase_train_profile(torch, step_fn, state, batch, alive):
         + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / busy:.1%})"
                     for k, v in mine.items())
         + "; top device events: " + _top(by_name, 12, 1e3, "ms"))
+    return split
 
 
 def _reference_batch(cfg, B, S, seed):
@@ -4675,7 +4731,7 @@ def _parent_attn_bwd(torch, parent, q, k, v, o, do, lse, window):
     return dq, dk, dv
 
 
-def phase_train_times(torch, launches, errs, parent=None):
+def phase_train_times(torch, launches, errs, wkv_split, parent=None):
     """The backward kernels at their training shapes beside the plain
     backward, the bound and, for attention, SDPA's backward: the
     tensor-core attention backward at [train]'s (8, 1024, 16, 16, 64),
@@ -4721,9 +4777,8 @@ def phase_train_times(torch, launches, errs, parent=None):
         "tflops": at["tflops"] * at["ms"] / at["cuda_core_ms"],
         "share_of_bound": at["bound_ms"] / at["cuda_core_ms"]})
 
-    B, S, H, N = 1, TRAIN_FAMILIES[0][3], 64, 64
-    r, kk, vv, w, u, s0 = wk.random_inputs(B, S, H, N, True, gen)
-    dy = torch.randn((B, S, H, N), generator=gen, device=DEV)
+    r, kk, vv, w, u, s0, dy = _wkv_bwd_inputs(torch, gen)
+    B, S, H, N = r.shape
     fns = {"kernel": lambda: wk.rwkv6_scan_bwd_cuda(r, kk, vv, w, u, s0, dy)}
     dev_ms = _turns_ms(torch, fns, True, 8)
     call_ms = _turns_ms(torch, fns, False, 8)
@@ -4747,8 +4802,12 @@ def phase_train_times(torch, launches, errs, parent=None):
         f"single PyTorch call computes the recurrence's gradient); bound "
         f"{bound:.6f} ms ({moved} bytes at 3.35 TB/s take {b_bytes:.6f} ms; "
         f"{flops} flops at 67 TFLOP/s float32 {b_ops:.6f} ms), kernel "
-        f"{bound / ms:.1%} of the bound; clocks.sm, power.draw, temperature "
-        f"after: {_clocks()}")
+        f"{bound / ms:.1%} of the bound; device time by kernel under "
+        f"torch.profiler ([train-profile]): "
+        + ", ".join(f"{name} " + ("not measured" if t is None
+                                   else f"{t:.6f} ms")
+                    for name, t in wkv_split.items())
+        + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
     rows.append({
         "name": "rwkv6_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
@@ -4760,7 +4819,7 @@ def phase_train_times(torch, launches, errs, parent=None):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None, "call_ms": call_ms["kernel"],
-        "shape": [B, S, H, N],
+        "kernels_ms": wkv_split, "shape": [B, S, H, N],
         "share_of_bound": bound / ms})
     return rows
 
@@ -4839,7 +4898,7 @@ def main() -> int:
     for kernel, count in phase_train_families(torch).items():
         train_launches[kernel] += count
     train_run = phase_train_no_sync(torch)
-    phase_train_profile(torch, *train_run)
+    wkv_split = phase_train_profile(torch, *train_run)
     del train_run
     torch.cuda.empty_cache()
     for kernel, count in phase_train_reference(torch).items():
@@ -4879,7 +4938,8 @@ def main() -> int:
         serve_launches[kernel] += train_launches[kernel]
     kernels += phase_serve_times(torch, serve_launches, serve_errs,
                                  arch_launches, parent)
-    kernels += phase_train_times(torch, train_launches, train_errs, parent)
+    kernels += phase_train_times(torch, train_launches, train_errs,
+                                 wkv_split, parent)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

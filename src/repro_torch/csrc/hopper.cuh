@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels, as
 // inline PTX: shared-memory addresses, mbarriers, TMA tile loads, cp.async,
-// named barriers, wgmma descriptors and the wgmma instructions the kernels
-// use; on the host, the TMA tensor maps they read.
+// named barriers, the cluster barrier and distributed shared memory, wgmma
+// descriptors and the wgmma instructions the kernels use; on the host,
+// cluster launches and the TMA tensor maps the kernels read.
 //
 // Shared-memory tiles are bf16 in the 128-byte swizzle that TMA writes and
 // wgmma reads: a tile of R rows x 64 columns (128 bytes a row) is stored
@@ -139,6 +140,35 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- thread block clusters -------------------------------------------------
+// The cluster's barrier, in two halves: every thread of every block of the
+// cluster arrives (its earlier writes to shared memory released), and a
+// wait returns once all have arrived (their writes then visible).  Every
+// thread of a warp must take part.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The distributed-shared-memory address, in the block of cluster rank
+// `rank`, of what sits at shared::cta address `addr` in this block.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// A float to a distributed-shared-memory address (from cluster_map); the
+// writer does not wait for it, and the cluster barrier publishes it.
+// No "memory" clobber: ordinary loads and stores may move across it (the
+// cluster barrier's clobber keeps it on its side of the barrier).
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v));
 }
 
 // ---- registers -------------------------------------------------------------
@@ -367,6 +397,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 }
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
   wgmma_rs_m64n256k16(d, a, b);
+}
+
+// ---- cluster launch (host) -------------------------------------------------
+// Launch `kernel` on `stream` in clusters of `cluster_x` blocks along x
+// (grid.x a multiple of it), with `smem` bytes of dynamic shared memory.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                                  cudaStream_t stream, unsigned cluster_x, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // ---- tensor maps (host) ---------------------------------------------------

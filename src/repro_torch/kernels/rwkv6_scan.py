@@ -17,11 +17,19 @@ It takes any S >= 1, and N in {8, 16, 32, 64}.
 to the other.  ``LAUNCHES`` counts kernel launches.
 
 The gradient (:class:`WKVScanFn`) is a second hand-written kernel,
-``repro_torch/csrc/rwkv6_scan_bwd.cu``: the states are recomputed from
-checkpoints every ``BWD_CHUNK`` steps, not stored, and the reverse pass
-walks each row of the state alone.  On CPU tensors the gradient is
-:func:`rwkv6_scan_backward_plain`, written out (not autograd through the
-plain loop).  ``BWD_LAUNCHES`` counts the backward's launches.
+``repro_torch/csrc/rwkv6_scan_bwd.cu`` (:func:`bwd_plan`,
+:func:`bwd_tile_owners`): a block takes one (batch, head) and 32 of its
+state rows (a cluster of 2 blocks a head at N = 64), each thread an A x C
+tile of the state and of its gradient in registers; the inputs come
+through a ring of TMA stages of ``BWD_SUB`` steps; the states are
+recomputed, not stored, from checkpoints every ``BWD_CHUNK`` steps and,
+within a chunk, from each sub-chunk's entry state; dr, dk, dw and dv are
+summed by shuffles into shared memory and added up once a sub-chunk,
+dv across the cluster in rank order.  Its bound is the float32
+operations (12 a (b, t, h, n, m)); the bytes are nearly as high.  On CPU
+tensors the gradient is :func:`rwkv6_scan_backward_plain`, written out
+(not autograd through the plain loop).  ``BWD_LAUNCHES`` counts the
+backward's launches.
 """
 from __future__ import annotations
 
@@ -37,9 +45,10 @@ from repro_torch.kernels import _build, ref
 LAUNCHES = 0
 #: backward launches (one per :func:`rwkv6_scan_bwd_cuda`)
 BWD_LAUNCHES = 0
-#: steps between the backward kernel's state checkpoints
-#: (``csrc/rwkv6_scan_bwd.cu``)
-BWD_CHUNK = 32
+#: the backward kernel's sub-chunk (the steps of a ring stage, and of the
+#: states it keeps in shared memory), its steps between state checkpoints
+#: and its ring's stages (``csrc/rwkv6_scan_bwd.cu``)
+BWD_SUB, BWD_CHUNK, BWD_STAGES = 16, 64, 4
 #: the head sizes the kernel is built for
 HEAD_SIZES = (8, 16, 32, 64)
 #: (B, S, H, N, with_state0, calls) at which the kernel is held to its
@@ -187,6 +196,84 @@ def tile_owners(N: int) -> List[Dict]:
     return out
 
 
+def bwd_plan(N: int) -> Dict[str, int]:
+    """The backward kernel's launch plan at head size N, as
+    ``csrc/rwkv6_scan_bwd.cu`` sets it: a block takes ``rows`` = min(N,
+    32) state rows of one (batch, head), ``cluster`` = N / rows blocks a
+    head; each of its ``threads`` (``warps`` warps of 8 row groups x 4
+    column groups) holds ``tile_rows`` x ``tile_cols`` of the state and
+    of its gradient; ``smem_bytes`` of dynamic shared memory: the ring of
+    ``BWD_STAGES`` stages (r, k, w of the block's rows, v, dy of all N
+    columns, ``BWD_SUB`` steps each), a sub-chunk's states (``BWD_SUB``
+    x rows x N), the warps' row sums (``BWD_SUB`` x warps x 3 x rows), two
+    dv slots (each rank's partial of the block's N / cluster columns and
+    its betas, ``BWD_SUB`` steps each, and dy of those columns), v . dy
+    (``BWD_SUB``), u of the block's rows, the ring's mbarriers, and 128
+    bytes of alignment."""
+    if N not in HEAD_SIZES:
+        raise ValueError(f"head size N = {N} is not one of {HEAD_SIZES}")
+    rows = min(N, 32)
+    A, C = rows // ROW_GROUPS, 2 if N == 8 else 4
+    warps = N // C // 4
+    ring = BWD_STAGES * BWD_SUB * (3 * rows + 2 * N)
+    cluster = N // rows
+    slot = BWD_SUB * N + cluster * BWD_SUB + BWD_SUB * N // cluster
+    floats = (ring + BWD_SUB * rows * N + BWD_SUB * warps * 3 * rows
+              + 2 * slot + BWD_SUB + rows)
+    floats = -(-floats // 2) * 2 + 2 * BWD_STAGES
+    return {"rows": rows, "cluster": cluster, "tile_rows": A,
+            "tile_cols": C, "warps": warps, "threads": 32 * warps,
+            "smem_bytes": floats * 4 + 128}
+
+
+def bwd_tile_owners(N: int) -> List[Dict]:
+    """Each thread's share of a head in the backward kernel: block
+    ``rank`` of the cluster, its ``rows[i]`` (of the head) and ``cols[j]``
+    are the state row and column of its register (i, j).  Lane bits 0-2
+    are the row group rg (rows rg A .. rg A + A - 1 of the block's), lane
+    bits 3-4 with the warp the column group cg (columns cg C .. cg C + C
+    - 1).  The shuffle sums (row sums over lane bits 4, 3; column sums
+    over 2, 1, 0) halve the live registers at each level while several
+    are left, a lane keeping the upper half where its bit is set; after
+    them its register 0 holds the row ``row`` (its dr, dk and dw over the
+    warp's columns) and the column ``col`` (its dv over the block's
+    rows)."""
+    p = bwd_plan(N)
+    A, C = p["tile_rows"], p["tile_cols"]
+    h_a, h_c = A.bit_length() - 1, C.bit_length() - 1
+    out = []
+    for rank in range(p["cluster"]):
+        for warp in range(p["warps"]):
+            for lane in range(32):
+                rg, cgw = lane % 8, lane // 8
+                r0 = rank * p["rows"] + rg * A
+                c0 = (warp * 4 + cgw) * C
+                out.append({"rank": rank, "warp": warp, "lane": lane,
+                            "rows": [r0 + i for i in range(A)],
+                            "cols": [c0 + j for j in range(C)],
+                            "row": r0 + (cgw >> (2 - h_a)),
+                            "col": c0 + (rg >> (3 - h_c))})
+    return out
+
+
+def bwd_items(S: int) -> List[Tuple[int, bool]]:
+    """The backward kernel's ring, in the order it brings sub-chunks in
+    (``item_at`` in ``csrc/rwkv6_scan_bwd.cu``): (sub-chunk, whether it
+    brings every input or only k, w and v).  The first forward walk takes
+    every sub-chunk before the last chunk; then each chunk from the last
+    takes its sub-chunks but the last for the walk over the chunk, and all
+    of them from the last for the reverse."""
+    Q = BWD_CHUNK // BWD_SUB
+    nq = -(-S // BWD_SUB)
+    nc = -(-nq // Q)
+    items = [(q, False) for q in range((nc - 1) * Q)]
+    for c in range(nc - 1, -1, -1):
+        nqc = nq - c * Q if c == nc - 1 else Q
+        items += [(c * Q + i, False) for i in range(nqc - 1)]
+        items += [(c * Q + i, True) for i in range(nqc - 1, -1, -1)]
+    return items
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("rwkv6_scan").rwkv6_scan_f32
@@ -272,6 +359,12 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("every input of the WKV backward must be "
                          "contiguous")
     B, S, H, N = r.shape
+    # TMA reads r, k, v, w and dy, and 16-byte loads the states, from
+    # 16-byte-aligned addresses
+    r, k, v, w, dy, state0 = (t if t.data_ptr() % 16 == 0 else t.clone()
+                              for t in (r, k, v, w, dy, state0))
+    if dstate is not None and dstate.data_ptr() % 16 != 0:
+        dstate = dstate.clone()
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du, ds0 = torch.empty_like(u), torch.empty_like(state0)
     ckpt = torch.empty((B, H, -(-S // BWD_CHUNK), N, N), dtype=torch.float32,

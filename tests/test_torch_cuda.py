@@ -1322,11 +1322,14 @@ def test_flash_attention_tensor_core_bwd_needs_lse(cuda_device):
 @pytest.mark.parametrize("B,S,H,N,with_s0,with_ds", [
     (2, 100, 4, 64, True, True), (1, 33, 2, 8, True, True),
     (2, 64, 3, 16, True, False), (1, 70, 2, 32, False, True),
-    (1, 1, 2, 64, True, True)])
+    (1, 1, 2, 64, True, True), (1, 2048, 64, 64, True, True),
+    (1, 1000, 64, 64, True, True), (4, 100, 64, 64, True, True)])
 def test_rwkv6_scan_bwd_kernel_matches_plain(cuda_device, B, S, H, N,
                                              with_s0, with_ds):
     """The WKV backward kernel against the plain backward: S past and
-    short of the 32-step checkpoint stride, a state0, a final-state
+    short of the 16-step sub-chunk and the 64-step checkpoint stride,
+    every head size, RWKV6-7B's training shape (a cluster of 2 blocks a
+    head), a ragged S at its heads and 512 blocks, a state0, a final-state
     gradient; within 1e-4 x max(1, each gradient's largest |value|)."""
     g = torch.Generator(device=cuda_device).manual_seed(S * N)
     r, k, v, w, u, s0 = wk.random_inputs(B, S, H, N, with_s0, g)
@@ -1341,6 +1344,43 @@ def test_rwkv6_scan_bwd_kernel_matches_plain(cuda_device, B, S, H, N,
     for a, b in zip(got, want):
         bound = 1e-4 * max(1.0, float(b.abs().max()))
         assert float((a - b).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,N", [(1, 2048, 64, 64), (2, 77, 3, 32)])
+def test_rwkv6_scan_bwd_kernel_is_deterministic(cuda_device, B, S, H, N):
+    """Two launches of the WKV backward give the same bits: no atomics, dv
+    summed across the cluster and du over b in a fixed order."""
+    g = torch.Generator(device=cuda_device).manual_seed(B * S + N)
+    r, k, v, w, u, s0 = wk.random_inputs(B, S, H, N, True, g)
+    dy = torch.randn((B, S, H, N), generator=g, device=cuda_device)
+    ds = torch.randn((B, H, N, N), generator=g, device=cuda_device)
+    a = wk.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds)
+    b = wk.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_bwd_kernel_takes_misaligned_inputs(cuda_device):
+    """Inputs one float past a 16-byte boundary (which TMA and the
+    kernel's 16-byte loads cannot read) give the gradient of their aligned
+    copies, bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    B, S, H, N = 1, 40, 2, 16
+    r, k, v, w, u, s0 = wk.random_inputs(B, S, H, N, True, g)
+    dy = torch.randn((B, S, H, N), generator=g, device=cuda_device)
+    ds = torch.randn((B, H, N, N), generator=g, device=cuda_device)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=cuda_device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+    want = wk.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds)
+    got = wk.rwkv6_scan_bwd_cuda(*(shifted(t) for t in (r, k, v, w)), u,
+                                 shifted(s0), shifted(dy), shifted(ds))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def _layer_grads(fn, params, x):
