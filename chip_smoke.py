@@ -124,7 +124,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    kernel once per layer and no other kernel; then slice 11's four dense
    GQA decoders the same way ([granite-serve], [internlm2-serve],
    [qwen1.5-serve], [qwen3-serve] and their phases): a prefill launches
-   the tensor-core attention once a layer (40, 24, 24, 36), a decode step
+   the tensor-core attention once a layer (40, 24, 24, 36), each on its
+   warp-specialized kernel (D 64 and 128; ``WS_LAUNCHES``), a decode step
    no kernel; then slice 13's whisper-large-v3 at full width and depth
    ([whisper-serve]: 32 encoder layers over 4 x 1,500 frames, 32 decoder
    layers over 416-token prompts, 96 tensor-core attention launches a
@@ -170,23 +171,35 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    the row-stable product at the service's products beside ``addmm``;
    the tensor-core attention at each dense decoder's prefill shape and at
    whisper's (encoder, cross, self), Scout's and InternVL2's beside SDPA
-   (``enable_gqa``); the backward kernels at their training shapes
+   (``enable_gqa``); the float32 route, the CUDA-core attention, at
+   [serve-consistency]'s shape beside SDPA on float32 inputs; the
+   backward kernels at their training shapes
    beside the plain backwards and SDPA's backward: the tensor-core
    attention backward at [train]'s and internlm2's head shapes and at
    RecurrentGemma's local attention (D = 256) beside the CUDA-core one,
-   with the serving forward beside the lse entry point, and the WKV
+   with the serving forward beside the lse entry point, the CUDA-core
+   backward on float32 inputs beside SDPA's float32 backward, and the WKV
    backward at RWKV6-7B's training shape with each of its two kernels'
    device time under torch.profiler.
 
     python3 chip_smoke.py --parent DIR
 
-also builds the combine, RG-LRU, WKV and tensor-core attention backward
-kernels of another commit's checkout in DIR (e.g. ``git archive`` of the
-parent, unpacked under the ignored ``build/``), where their C entry
-points are declared as the current ones, and times them in turns with
-the current ones; the eager sequence then runs the parent's combine.  The build's
-compiler log gives the registers and spill bytes of the tensor-core
-attention kernel and of the two scans; any spill fails the run.
+also builds the combine, RG-LRU, WKV, tensor-core attention forward and
+tensor-core attention backward kernels of another commit's checkout in
+DIR (e.g. ``git archive`` of the parent, unpacked under the ignored
+``build/``), where their C entry points are declared as the current
+ones, and times them in turns with the current ones; the eager sequence
+then runs the parent's combine.  The attention forward must beat the
+parent's at the six 4,096-token prefills, and may lose to it at
+whisper's and RecurrentGemma's shapes and, through its lse entry point,
+at the training shapes of [times]' backward rows by no more than the
+spread of the turns' medians; RecurrentGemma's output is compared with
+the parent's bit for bit (logged).  A RG-LRU or WKV kernel must beat the
+parent's where its own source changed, and where only a shared header
+did, not lose to it by more than that spread.  The build's compiler
+log gives the registers and spill bytes of the tensor-core attention
+kernels (both D = 256's and the warp-specialized one at D 64 and 128)
+and of the scans; any spill fails the run.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero
 without a CUDA device, outside a checkout, or if any phase fails; on
@@ -406,7 +419,15 @@ PARENT_KERNELS = {"rglru_scan": ("rglru_scan_f32", 4, 3),
                   "rwkv6_scan": ("rwkv6_scan_f32", 8, 4),
                   "tolfl_combine": ("tolfl_combine_f32", 3, 2, 1),
                   "flash_attention_bwd_wgmma": (
-                      "flash_attention_bwd_wgmma_bf16", 11, 9)}
+                      "flash_attention_bwd_wgmma_bf16", 11, 9),
+                  "flash_attention_wgmma": ("flash_attention_wgmma_bf16", 4, 8)}
+#: further C entry points of a parent's library, each bound under a key of
+#: its own: {kernel: ((key, symbol, pointers, integers), ...)}
+PARENT_EXTRA = {"flash_attention_wgmma": (
+    ("flash_attention_wgmma_lse", "flash_attention_wgmma_lse_bf16", 5, 8),)}
+#: the parent's kernels whose own source is the current one's (only the
+#: shared headers differ): timed against the parent, they need not beat it
+PARENT_SAME_SOURCE = set()
 
 
 def _entry_decl(source: bytes, symbol: str) -> str:
@@ -421,7 +442,9 @@ def _start_parent_build(parent):
     """Start one nvcc for each of the parent's kernels (``parent`` holds a
     checkout, e.g. a git archive, of another commit), beside the build of
     the current ones, into ``build/parent/``.  A kernel whose source and
-    headers are the same in both is not built: it has nothing to compare."""
+    headers are the same in both is not built: it has nothing to compare;
+    one whose own source is the same but a shared header differs is built
+    and noted in ``PARENT_SAME_SOURCE``."""
     from repro_torch.kernels import _build
     out_dir = ROOT / "build" / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -436,14 +459,20 @@ def _start_parent_build(parent):
             log(f"[build] the parent's {name} is the current one: not timed "
                 f"against it")
             continue
-        symbol = PARENT_KERNELS[name][0]
-        if (_entry_decl((old_csrc / f"{name}.cu").read_bytes(), symbol)
-                != _entry_decl((_build.CSRC / f"{name}.cu").read_bytes(),
-                               symbol)):
-            log(f"[build] the parent's {symbol} is declared otherwise: not "
+        symbols = [PARENT_KERNELS[name][0]] + [
+            extra[1] for extra in PARENT_EXTRA.get(name, ())]
+        src = old_csrc / f"{name}.cu"
+        odd = [symbol for symbol in symbols
+               if _entry_decl(src.read_bytes(), symbol) != _entry_decl(
+                   (_build.CSRC / f"{name}.cu").read_bytes(), symbol)]
+        if odd:
+            log(f"[build] the parent's {odd} declared otherwise: {name} not "
                 f"timed against it")
             continue
-        src = old_csrc / f"{name}.cu"
+        if src.read_bytes() == (_build.CSRC / f"{name}.cu").read_bytes():
+            PARENT_SAME_SOURCE.add(name)
+            log(f"[build] the parent's {name} has the current source (a "
+                f"shared header differs): timed against it, need not beat it")
         lib = out_dir / f"{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
@@ -460,13 +489,16 @@ def _finish_parent_build(procs):
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the parent's {name}:\n{text}")
-        symbol, n_ptr, n_int, n_long = (PARENT_KERNELS[name] + (0,))[:4]
-        fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr
-                       + [ctypes.c_int] * (n_int - n_long)
-                       + [ctypes.c_longlong] * n_long + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        entries[name] = fn
+        dll = ctypes.CDLL(str(lib))
+        for key, symbol, n_ptr, n_int, n_long in [
+                (name, *(PARENT_KERNELS[name] + (0,))[:4])] + [
+                (*extra, 0) for extra in PARENT_EXTRA.get(name, ())]:
+            fn = getattr(dll, symbol)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                           + [ctypes.c_int] * (n_int - n_long)
+                           + [ctypes.c_longlong] * n_long + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            entries[key] = fn
     return entries
 
 
@@ -565,7 +597,8 @@ def phase_serve_kernels(torch):
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import rwkv6_scan as wk
     gen = torch.Generator(device=DEV).manual_seed(2)
-    worst = {"flash_attention": 0.0, "rglru_scan": 0.0}
+    worst = {"flash_attention": 0.0, "flash_attention f32": 0.0,
+             "rglru_scan": 0.0}
     for B, S, H, KVH, D, causal, window in ATTN_CASES:
         shapes = ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D))
         base = [torch.randn(sh, generator=gen, device=DEV)
@@ -590,6 +623,9 @@ def phase_serve_kernels(torch):
                                        atol=tol)
             if kernel == "tensor_core":     # the kernel of the main path
                 worst["flash_attention"] = max(worst["flash_attention"], err)
+            else:
+                worst["flash_attention f32"] = max(
+                    worst["flash_attention f32"], err)
             del got, want
         del base, q, k, v
     for arch in DECODERS:
@@ -648,11 +684,14 @@ def _attn_rows_checked(torch, label, shape, gen):
     q = torch.randn((B, Sq, H, D), generator=gen, device=DEV).bfloat16()
     k, v = (torch.randn((B, Sk, KVH, D), generator=gen,
                         device=DEV).bfloat16() for _ in range(2))
-    tc_before = fa.TC_LAUNCHES
+    tc_before, ws_before = fa.TC_LAUNCHES, fa.WS_LAUNCHES
     got = ops.attention(q, k, v, causal=causal, window=None)
-    if fa.TC_LAUNCHES - tc_before != 1:
+    if (fa.TC_LAUNCHES - tc_before, fa.WS_LAUNCHES - ws_before) != (
+            1, int(D in fa.WS_HEAD_DIMS)):
         raise AssertionError(f"{label}'s attention did not go to the "
-                             f"tensor-core kernel")
+                             f"tensor-core kernel's "
+                             f"{'warp-specialized ' * (D in fa.WS_HEAD_DIMS)}"
+                             f"kernel")
     want = _plain_attn(torch, q, k, v, causal).float()
     torch.cuda.synchronize()
     diff = (got.float() - want).abs()
@@ -2924,12 +2963,21 @@ def _turns_ms(torch, fns, device_only, samples, turns=4):
     """Median ms of each of ``fns`` timed in turns: ``turns`` rounds of
     ``samples / turns`` timings each, in order and then in reverse, so
     that a drift of the card's clock falls on all of them alike."""
+    return _turns_spread_ms(torch, fns, device_only, samples, turns)[0]
+
+
+def _turns_spread_ms(torch, fns, device_only, samples, turns=4):
+    """:func:`_turns_ms`'s medians, and each function's spread: the range
+    of its ``turns`` per-turn medians, in ms."""
     times = {key: [] for key in fns}
+    per_turn = {key: [] for key in fns}
     for t in range(turns):
         for key in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
-            times[key] += _samples_ms(torch, fns[key], device_only,
-                                      samples // turns)
-    return {key: statistics.median(v) for key, v in times.items()}
+            got = _samples_ms(torch, fns[key], device_only, samples // turns)
+            times[key] += got
+            per_turn[key].append(statistics.median(got))
+    return ({key: statistics.median(v) for key, v in times.items()},
+            {key: max(v) - min(v) for key, v in per_turn.items()})
 
 
 def _round_bytes(S, N, P, faulty):
@@ -3217,6 +3265,7 @@ def _reset_launches():
     for mod in _counters().values():
         mod.LAUNCHES = 0
     _counters()["flash_attention"].TC_LAUNCHES = 0
+    _counters()["flash_attention"].WS_LAUNCHES = 0
 
 
 def _launches():
@@ -3262,11 +3311,18 @@ def phase_serve(torch, cfg, params, tag):
     if counts != want_prefill:
         raise AssertionError(f"prefill launched {counts}, expected "
                              f"{want_prefill}")
-    tc = _counters()["flash_attention"].TC_LAUNCHES
+    fa = _counters()["flash_attention"]
+    tc, ws = fa.TC_LAUNCHES, fa.WS_LAUNCHES
     if tc != counts["flash_attention"]:
         raise AssertionError(f"{tc} of the prefill's "
                              f"{counts['flash_attention']} attention launches "
                              f"went to the tensor-core kernel")
+    # every attention of a D <= 128 model on the warp-specialized kernel
+    want_ws = (tc if cfg.attention.head_dim in fa.WS_HEAD_DIMS else 0)
+    if ws != want_ws:
+        raise AssertionError(f"{ws} of the prefill's {tc} tensor-core "
+                             f"attention launches went to the warp-specialized "
+                             f"kernel, expected {want_ws}")
     cache = pad_cache(cache, cfg, prompt_len=base,
                       target_len=base + SERVE_TOKENS)
     finite = torch.isfinite(logits).all()
@@ -3302,7 +3358,8 @@ def phase_serve(torch, cfg, params, tag):
         f"decode {decode_ms:.3f} ms/token over {steps} steps "
         f"(under sync debug mode 'error'); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes; launches per prefill "
-        f"{counts} ({tc} attention launches on the tensor cores), per decode "
+        f"{counts} ({tc} attention launches on the tensor cores, {ws} of "
+        f"them on the warp-specialized kernel), per decode "
         f"step {want_step}, over the run {after}; all "
         f"logits finite; sample[0] {gen_toks[0, :12].tolist()}; clocks.sm, "
         f"power.draw, temperature after decode: {_clocks()}")
@@ -3475,8 +3532,13 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
            "plain": lambda: fa.flash_attention_plain(q, k, v, causal, window),
            "library sdpa": lambda: F.scaled_dot_product_attention(
                qt, kt, vt, attn_mask=band, enable_gqa=True)}
+    same = None
+    if parent and "flash_attention_wgmma" in parent:
+        fns["parent kernel"] = lambda: _parent_attn(torch, parent, q, k, v,
+                                                    causal, window)
+        same = torch.equal(fns["tensor-core kernel"](), fns["parent kernel"]())
     n = 20
-    dev_ms = _turns_ms(torch, fns, True, n)
+    dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
     pairs = visible_pairs(S, causal, window)
     flops = 4 * B * H * D * pairs
@@ -3486,8 +3548,9 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
     bound = max(b_ops, b_bytes)
     tc_ms = dev_ms["tensor-core kernel"]
     tiles = sum(count for _, count in fa.wgmma_tiles(S, S, H // KVH, causal,
-                                                     window))
-    tile_pairs = tiles * fa.TC_KEYS * fa.TC_ROWS * B * KVH
+                                                     window, D))
+    rows_b, keys_t = fa.wgmma_plan(D)[:2]
+    tile_pairs = tiles * keys_t * rows_b * B * KVH
     log(f"[times] flash_attention bf16 (B, S, H, KVH, D) = "
         f"{(B, S, H, KVH, D)} window {window}, median of {n} CUDA-event "
         f"timings in 4 turns, card / call: " + ", ".join(
@@ -3500,8 +3563,12 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
         f"{dev_ms['CUDA-core kernel'] / tc_ms:.2f}x faster than the CUDA-core "
         f"kernel and {dev_ms['library sdpa'] / tc_ms:.2f}x than SDPA; its "
         f"tiles hold {tile_pairs} (query, key) pairs of rows, "
-        f"{tile_pairs / (B * H * pairs) - 1:.2%} more than visible; clocks.sm, "
-        f"power.draw, temperature after: {_clocks()}")
+        f"{tile_pairs / (B * H * pairs) - 1:.2%} more than visible"
+        + (f"; {dev_ms['parent kernel'] / tc_ms:.3f}x the parent's speed "
+           f"(turns' spread: kernel {spread['tensor-core kernel']:.6f}, parent "
+           f"{spread['parent kernel']:.6f} ms), output bitwise equal to the "
+           f"parent's: {same}" if "parent kernel" in fns else "")
+        + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
     if not tc_ms < min(dev_ms["library sdpa"], dev_ms["CUDA-core kernel"]):
         raise AssertionError("the tensor-core kernel is not faster than SDPA "
                              "and the CUDA-core kernel")
@@ -3517,15 +3584,20 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
         "bound_by": "operations" if b_ops >= b_bytes else "bytes",
         "library_ms": dev_ms["library sdpa"],
         "tflops": flops / tc_ms / 1e9, "share_of_bound": bound / tc_ms})
+    if "parent kernel" in fns:
+        rows[-1]["parent_equal"] = same
+        _no_slower_than_parent(rows[-1], dev_ms["parent kernel"], max(
+            spread["tensor-core kernel"], spread["parent kernel"]))
     del q, k, v, qt, kt, vt, band, fns
+    rows.append(_attn_f32_times(torch, launches, errs, gen))
     for arch in DECODERS:
         B, S, H, KVH, D, causal, _ = _decoder_attn(arch)
         rows.append(_attn_times(torch, arch, arch,
                                 (B, S, S, H, KVH, D, causal),
-                                arch_launches[arch], errs, gen))
+                                arch_launches[arch], errs, gen, parent))
     for label, arch, shape in _zoo_attn():
         rows.append(_attn_times(torch, label, arch, shape,
-                                arch_launches[arch], errs, gen))
+                                arch_launches[arch], errs, gen, parent))
 
     B, S, W, _ = SCAN_CASES[0]
     a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=DEV))
@@ -3536,7 +3608,7 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
         if not torch.equal(fns["kernel"](), fns["parent kernel"]()):
             raise AssertionError("rglru_scan differs from the parent's kernel")
     n = 48
-    dev_ms = _turns_ms(torch, fns, True, n)
+    dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
     plain_ms = _median_ms(torch, lambda: rs.rglru_scan_plain(a, b), True, 3)
     moved = 3 * B * S * W * 4
@@ -3564,7 +3636,7 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None, "share_of_bound": bound / dev_ms["kernel"]})
     if "parent kernel" in fns:
-        _faster_than_parent(rows[-1], dev_ms["parent kernel"])
+        _parent_gate(rows[-1], "rglru_scan", dev_ms, spread)
     del a, b, fns
     rows += _seq_scan_times(torch, rows[-1], launches, errs, gen)
 
@@ -3577,7 +3649,7 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
                 torch.testing.assert_close(got, want, rtol=WKV_TOL,
                                            atol=WKV_TOL)
         n = 48 if S > 1 else 200
-        dev_ms = _turns_ms(torch, fns, True, n)
+        dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
         call_ms = _turns_ms(torch, fns, False, n)
         plain_ms = _median_ms(torch, lambda: wk.rwkv6_scan_plain(*args),
                               True, 3)
@@ -3614,17 +3686,79 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
             "library_ms": None, "share_of_bound": bound / dev_ms["kernel"]})
         if "parent kernel" in fns:
-            _faster_than_parent(rows[-1], dev_ms["parent kernel"])
+            _parent_gate(rows[-1], "rwkv6_scan", dev_ms, spread)
         del args, fns
     return rows
 
 
-def _attn_times(torch, label, arch, shape, launches, errs, gen):
+def _attn_f32_times(torch, launches, errs, gen):
+    """The float32 route, the CUDA-core kernel (csrc/flash_attention.cu), at
+    [serve-consistency]'s attention (RecurrentGemma-9B at batch 1 on 4,097
+    tokens, window 2,048) beside SDPA on the same float32 inputs, the plain
+    version and the bound (4 D flops per visible (query, head, key) triple
+    at 67 TFLOP/s float32, or its float32 bytes at 3.35 TB/s)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, KVH, D, causal, window = ATTN_CASES[1]
+    q = torch.randn((B, S, H, D), generator=gen, device=DEV)
+    k, v = (torch.randn((B, S, KVH, D), generator=gen, device=DEV)
+            for _ in range(2))
+    band = fa.visible(S, S, causal, window, DEV)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fns = {"CUDA-core kernel": lambda: fa.flash_attention_cuda(
+               q, k, v, causal, window),
+           "library sdpa": lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=band, enable_gqa=True)}
+    n = 8
+    dev_ms = _turns_ms(torch, fns, True, n)
+    call_ms = _turns_ms(torch, fns, False, n)
+    plain_ms = _median_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal, window), True, 3)
+    pairs = visible_pairs(S, causal, window)
+    flops = 4 * B * H * D * pairs
+    moved = (2 * B * S * H * D + 2 * B * S * KVH * D) * 4
+    b_ops = flops / H100_F32_FLOPS * 1e3
+    b_bytes = moved / H100_BYTES_PER_S * 1e3
+    bound = max(b_ops, b_bytes)
+    ms = dev_ms["CUDA-core kernel"]
+    log(f"[times] flash_attention float32 (B, S, H, KVH, D) = "
+        f"{(B, S, H, KVH, D)} window {window} ([serve-consistency]'s), "
+        f"median of {n} CUDA-event timings in 4 turns, card / call: "
+        + ", ".join(f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
+                    for key in fns)
+        + f"; plain {plain_ms:.6f} ms (median of 3); bound {bound:.6f} ms "
+        f"({flops} flops at 67 TFLOP/s float32; {moved} bytes take "
+        f"{b_bytes:.6f} ms); kernel {bound / ms:.1%} of the bound, "
+        f"{dev_ms['library sdpa'] / ms:.2f}x SDPA's speed on float32 inputs; "
+        f"launches on the main path {launches['flash_attention f32']} "
+        f"([serve-consistency] and [train-reference]); clocks.sm, "
+        f"power.draw, temperature after: {_clocks()}")
+    return {
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:90",
+        "note": "the float32 route (and bf16 at D = 32) on the CUDA cores; "
+                "its launches are the float32 runs of [serve-consistency] "
+                "and [train-reference]",
+        "shape": [B, S, H, KVH, D], "window": window,
+        "launches": launches["flash_attention f32"],
+        "max_abs_err": errs["flash_attention f32"],
+        "ms": ms, "call_ms": call_ms["CUDA-core kernel"], "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+        "library_ms": dev_ms["library sdpa"],
+        "share_of_bound": bound / ms}
+
+
+def _attn_times(torch, label, arch, shape, launches, errs, gen, parent=None):
     """The tensor-core attention at a served prefill's shape (B, Sq, Sk, H,
     KVH, D, causal; no window) beside SDPA (``enable_gqa``; ``is_causal``
     where causal, no mask where bidirectional), the plain version and the
     bound.  A shape where the kernel loses to SDPA is logged as such: it
-    stays on the kernel."""
+    stays on the kernel.  With the parent's kernel, it is timed in the same
+    turns: at a 4,096-token prefill the kernel must beat it, elsewhere
+    (whisper's shorter ones) not lose to it by more than the turns'
+    spread."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     B, Sq, Sk, H, KVH, D, causal = shape
@@ -3636,8 +3770,11 @@ def _attn_times(torch, label, arch, shape, launches, errs, gen):
                q, k, v, causal, None),
            "library sdpa": lambda: F.scaled_dot_product_attention(
                qt, kt, vt, is_causal=causal, enable_gqa=True)}
+    if parent and "flash_attention_wgmma" in parent:
+        fns["parent kernel"] = lambda: _parent_attn(torch, parent, q, k, v,
+                                                    causal, None)
     n = 20
-    dev_ms = _turns_ms(torch, fns, True, n)
+    dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
     plain_ms = _median_ms(torch, lambda: _plain_attn(torch, q, k, v, causal),
                           True, 3)
@@ -3661,8 +3798,12 @@ def _attn_times(torch, label, arch, shape, launches, errs, gen):
         f"{flops / tc_ms / 1e9:.1f} TFLOP/s, {bound / tc_ms:.1%} of the "
         f"bound, {sdpa / tc_ms:.2f}x SDPA's speed"
         + ("" if tc_ms < sdpa else " (LOSES to SDPA)")
+        + (f", {dev_ms['parent kernel'] / tc_ms:.3f}x the parent's speed "
+           f"(turns' spread: kernel {spread['tensor-core kernel']:.6f}, parent "
+           f"{spread['parent kernel']:.6f} ms)" if "parent kernel" in fns
+           else "")
         + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
-    return {
+    row = {
         "name": "flash_attention", "arch": label, "route": "cuda",
         "shape": [B, Sq, Sk, H, KVH, D], "causal": causal,
         "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
@@ -3673,6 +3814,13 @@ def _attn_times(torch, label, arch, shape, launches, errs, gen):
         "bound_by": "operations" if b_ops >= b_bytes else "bytes",
         "library_ms": sdpa, "call_ms": call_ms["tensor-core kernel"],
         "tflops": flops / tc_ms / 1e9, "share_of_bound": bound / tc_ms}
+    if "parent kernel" in fns:
+        if Sq >= SERVE_PROMPT:
+            _faster_than_parent(row, dev_ms["parent kernel"])
+        else:
+            _no_slower_than_parent(row, dev_ms["parent kernel"], max(
+                spread["tensor-core kernel"], spread["parent kernel"]))
+    return row
 
 
 def _seq_scan_times(torch, fwd_row, launches, errs, gen):
@@ -3737,6 +3885,63 @@ def _faster_than_parent(row, parent_ms):
     if not row["ms"] < parent_ms:
         raise AssertionError(f"{row['name']}: {row['ms']} ms on the card, not "
                              f"faster than the parent's {parent_ms} ms")
+
+
+def _parent_gate(row, name, dev_ms, spread):
+    """The parent check of kernel ``name``'s row from its turns' medians and
+    spreads (keys "kernel" and "parent kernel"): a kernel whose own source
+    changed must beat the parent's; one whose source is the parent's
+    (``PARENT_SAME_SOURCE``: only a shared header differs) may not be
+    slower than it by more than the turns' spread."""
+    if name in PARENT_SAME_SOURCE:
+        _no_slower_than_parent(row, dev_ms["parent kernel"],
+                               max(spread["kernel"], spread["parent kernel"]))
+    else:
+        _faster_than_parent(row, dev_ms["parent kernel"])
+
+
+def _no_slower_than_parent(row, parent_ms, spread_ms):
+    """Record the parent's time of a kernel row, and the turns' spread; the
+    kernel may not be slower than the parent by more than that spread."""
+    row["parent_ms"] = parent_ms
+    row["turns_spread_ms"] = spread_ms
+    if row["ms"] > parent_ms + spread_ms:
+        raise AssertionError(f"{row['name']} ({row.get('arch')}): {row['ms']} "
+                             f"ms on the card, slower than the parent's "
+                             f"{parent_ms} ms by more than the turns' spread "
+                             f"{spread_ms} ms")
+
+
+def _parent_attn(torch, parent, q, k, v, causal, window):
+    """The parent's tensor-core attention forward (its serving entry
+    point) on q, k, v."""
+    B, Sq, H, D = q.shape
+    o = torch.empty_like(q)
+    err = parent["flash_attention_wgmma"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
+        k.shape[1], H, k.shape[2], D, int(causal),
+        -1 if window is None else window,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the parent's flash_attention_wgmma failed: {err}")
+    return o
+
+
+def _parent_attn_lse(torch, parent, q, k, v, causal, window):
+    """The parent's tensor-core attention forward through its lse entry
+    point (the one training launches): (o, lse)."""
+    B, Sq, H, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = parent["flash_attention_wgmma_lse"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, Sq, k.shape[1], H, k.shape[2], D, int(causal),
+        -1 if window is None else window,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the parent's flash_attention_wgmma_lse failed: "
+                           f"{err}")
+    return o, lse
 
 
 def _parent_rglru(torch, parent, a, b):
@@ -4625,7 +4830,9 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
     backward (``enable_gqa``, a band mask where the window cuts the causal
     band) and, on the tensor-core route, the serving forward, the
     forward's lse entry point and (with --parent) the parent's tensor-core
-    backward, in turns, card and call times; the plain backward; the bound
+    backward and lse entry point, in turns, card and call times (the lse
+    forward, which training launches, may not be slower than the parent's
+    by more than the turns' spread); the plain backward; the bound
     (10 D flops per visible (query, head, key) triple at 989 TFLOP/s, or
     q, o, dO, k, v and lse read and dq, dk, dv written once at 3.35
     TB/s)."""
@@ -4669,7 +4876,10 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
             torch, parent, q, k, v, o, do, lse, window)
         same = all(torch.equal(a, b) for a, b in zip(
             fns["kernel"](), fns["parent kernel"]()))
-    dev_ms = _turns_ms(torch, fns, True, n)
+    if tc and parent and "flash_attention_wgmma_lse" in parent:
+        fns["parent forward lse"] = lambda: _parent_attn_lse(
+            torch, parent, q, k, v, True, window)
+    dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
     plain_ms = _median_ms(torch, lambda: fa.flash_attention_backward_plain(
         q, k, v, o, do, True, window), True, 3)
@@ -4695,7 +4905,20 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
         + (f", {dev_ms['parent kernel'] / ms:.3f}x the parent's (dq, dk, "
            f"dv bitwise equal to the parent's: {same})"
            if same is not None else "")
+        + (f"; the forward's lse entry point "
+           f"{dev_ms['parent forward lse'] / dev_ms['forward lse']:.3f}x the "
+           f"parent's speed (turns' spread: "
+           f"{spread['forward lse']:.6f}, parent "
+           f"{spread['parent forward lse']:.6f} ms)"
+           if "parent forward lse" in fns else "")
         + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
+    fwd = None
+    if "parent forward lse" in fns:
+        # the forward [train] launches: not slower than the parent's
+        fwd = {"name": "flash_attention", "arch": "forward lse entry",
+               "ms": dev_ms["forward lse"]}
+        _no_slower_than_parent(fwd, dev_ms["parent forward lse"], max(
+            spread["forward lse"], spread["parent forward lse"]))
     return {"shape": [B, S, S, H, KVH, D], "window": window, "ms": ms,
             "call_ms": call_ms["kernel"], "plain_ms": plain_ms,
             "bound_ms": bound,
@@ -4707,7 +4930,66 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
             **({"cuda_core_call_ms": call_ms["cuda_core"]}
                if with_cuda_core else {}),
             **({"parent_ms": dev_ms["parent kernel"], "parent_equal": same}
-               if same is not None else {})}
+               if same is not None else {}),
+            **({"forward_lse_parent_ms": fwd["parent_ms"],
+                "forward_lse_turns_spread_ms": fwd["turns_spread_ms"]}
+               if fwd is not None else {})}
+
+
+def _attn_bwd_f32_times(torch, gen, shape, n=8):
+    """The CUDA-core backward (the float32 route) at one causal training
+    shape on float32 inputs, in turns with SDPA's backward on the same
+    float32 inputs; the plain backward; the bound (10 D flops per visible
+    (query, head, key) triple at 67 TFLOP/s float32, or q, o, dO, k, v read
+    and dq, dk, dv written once in float32 at 3.35 TB/s)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, KVH, D, window = shape
+    q = torch.randn((B, S, H, D), generator=gen, device=DEV)
+    k, v = (torch.randn((B, S, KVH, D), generator=gen, device=DEV)
+            for _ in range(2))
+    do = torch.randn((B, S, H, D), generator=gen, device=DEV)
+    assert fa.bwd_route(torch.float32, D) == "cuda_core"
+    o = fa.flash_attention_cuda(q, k, v, True, window)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    mask = (None if window is None or window >= S else
+            fa.visible(S, S, True, window, DEV))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         is_causal=mask is None,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    fns = {"kernel": lambda: fa.flash_attention_bwd_cuda(
+               q, k, v, o, do, True, window),
+           "library sdpa backward": lambda: torch.autograd.grad(
+               out, (qt, kt, vt), dot, retain_graph=True)}
+    dev_ms = _turns_ms(torch, fns, True, n)
+    call_ms = _turns_ms(torch, fns, False, n)
+    plain_ms = _median_ms(torch, lambda: fa.flash_attention_backward_plain(
+        q, k, v, o, do, True, window), True, 3)
+    pairs = visible_pairs(S, True, window)
+    flops = 10 * D * pairs * B * H
+    moved = (4 * B * S * H * D + 4 * B * S * KVH * D) * 4
+    b_ops = flops / H100_F32_FLOPS * 1e3
+    b_bytes = moved / H100_BYTES_PER_S * 1e3
+    bound = max(b_ops, b_bytes)
+    ms = dev_ms["kernel"]
+    log(f"[times] flash_attention_bwd cuda_core float32 (B, S, H, KVH, D) = "
+        f"{(B, S, H, KVH, D)} causal window={window}, median of {n} "
+        f"CUDA-event timings in 4 turns, card / call: " + ", ".join(
+            f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms" for key in fns)
+        + f"; plain {plain_ms:.6f} ms (median of 3); bound {bound:.6f} ms "
+        f"({flops} flops at 67 TFLOP/s float32; {moved} bytes take "
+        f"{b_bytes:.6f} ms); kernel {bound / ms:.1%} of the bound, "
+        f"{dev_ms['library sdpa backward'] / ms:.2f}x SDPA backward's speed "
+        f"on float32 inputs; clocks.sm, power.draw, temperature after: "
+        f"{_clocks()}")
+    return {"ms": ms, "call_ms": call_ms["kernel"], "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+            "library_ms": dev_ms["library sdpa backward"],
+            "tflops": flops / ms / 1e9, "share_of_bound": bound / ms,
+            "dtype": "float32"}
 
 
 def _parent_attn_bwd(torch, parent, q, k, v, o, do, lse, window):
@@ -4758,24 +5040,23 @@ def phase_train_times(torch, launches, errs, wkv_split, parent=None):
         "max_abs_err": errs["flash_attention_bwd_wgmma"],
         **tc[0], "also": tc[1:]}]
     at = tc[-1]
+    f32 = _attn_bwd_f32_times(torch, gen, BWD_TIME_TC[-1])
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:90",
         "note": "the CUDA-core gradient of the attention (float32, and bf16 "
                 "at D = 32), which repro takes through its jnp attention "
-                "(use_pallas=False in training); timed at RecurrentGemma's "
-                "bf16 shape beside the tensor-core kernel, its launches from "
-                "[train-reference]'s float32 steps",
+                "(use_pallas=False in training); timed on float32 inputs at "
+                "RecurrentGemma's shape beside SDPA's float32 backward (and "
+                "on the bf16 inputs beside the tensor-core kernel, bf16_ms), "
+                "its launches from [train-reference]'s float32 steps",
         "launches": (launches["flash_attention_bwd"]
                      - launches["flash_attention_bwd_wgmma"]),
         "max_abs_err": errs["flash_attention_bwd"],
-        "shape": at["shape"], "window": at["window"],
-        "ms": at["cuda_core_ms"], "call_ms": at["cuda_core_call_ms"],
-        "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
-        "bound_by": at["bound_by"], "library_ms": at["library_ms"],
-        "tflops": at["tflops"] * at["ms"] / at["cuda_core_ms"],
-        "share_of_bound": at["bound_ms"] / at["cuda_core_ms"]})
+        "shape": at["shape"], "window": at["window"], **f32,
+        "bf16_ms": at["cuda_core_ms"], "bf16_call_ms": at["cuda_core_call_ms"],
+        "bf16_library_ms": at["library_ms"]})
 
     r, kk, vv, w, u, s0, dy = _wkv_bwd_inputs(torch, gen)
     B, S, H, N = r.shape
@@ -4903,6 +5184,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for kernel, count in phase_train_reference(torch).items():
         train_launches[kernel] += count
+    fa = _counters()["flash_attention"]
+    # its float32 steps' forwards: the CUDA-core kernel's launches
+    f32_launches = fa.LAUNCHES - fa.TC_LAUNCHES
     phase_train_ckpt(torch)
     phase_examples_train(torch)
     kernels = phase_times(torch, launches, errs, parent)
@@ -4913,7 +5197,9 @@ def main() -> int:
         arch_launches[arch] = phase_serve(torch, cfg, params, tag)
         for kernel, count in arch_launches[arch].items():
             serve_launches[kernel] += count
+        before = fa.LAUNCHES - fa.TC_LAUNCHES
         phase_serve_consistency(torch, cfg, params, tag)
+        f32_launches += fa.LAUNCHES - fa.TC_LAUNCHES - before
         phase_serve_profile(torch, cfg, params, tag)
         del params      # the next arch's params need the room
         torch.cuda.empty_cache()
@@ -4932,6 +5218,7 @@ def main() -> int:
     serve_errs["rglru_scan"] = max(serve_errs["rglru_scan"],
                                    seq_errs["rglru_scan"])
     serve_errs["rglru_scan_bwd"] = seq_errs["rglru_scan_bwd"]
+    serve_launches["flash_attention f32"] = f32_launches
     # the training path's launches join the forward kernels' and the
     # RG-LRU backward's counts
     for kernel in SERVE_KERNELS + ("rglru_scan_bwd",):

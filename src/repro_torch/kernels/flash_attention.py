@@ -10,8 +10,12 @@ head dim D, with no fallback from one to the other:
 
 - ``"tensor_core"``, ``repro_torch/csrc/flash_attention_wgmma.cu``:
   bfloat16 at D in {64, 128, 256}.  wgmma on the bf16 tensor cores, K/V
-  tiles brought by TMA into a two-stage ring, two warpgroups of 64
-  (query, head) rows each.
+  tiles brought by TMA, warpgroups of 64 (query, head) rows.  At D = 256
+  two warpgroups share a two-stage ring; at D 64 and 128 a producer warp
+  keeps a ring of 4 and 3 stages full for 3 and 2 warpgroups, each of
+  which runs a tile's softmax while the previous tile's P V runs, row
+  blocks heaviest first and ending at the last row (:func:`wgmma_plan`,
+  :func:`wgmma_blocks`, :func:`wgmma_order`).
 - ``"cuda_core"``, ``repro_torch/csrc/flash_attention.cu``: float32 at D
   in {32, 64, 128, 256} and bfloat16 at D = 32.  Both products in float32
   on the CUDA cores; float32 inputs stay off the bf16 tensor cores, whose
@@ -19,8 +23,9 @@ head dim D, with no fallback from one to the other:
 
 Any other dtype or D raises.  :func:`flash_attention` launches the
 routed kernel for CUDA tensors and runs :func:`flash_attention_plain` for
-CPU tensors.  ``LAUNCHES`` counts every attention kernel launch and
-``TC_LAUNCHES`` the tensor-core kernel's, so a run can show which kernel
+CPU tensors.  ``LAUNCHES`` counts every attention kernel launch,
+``TC_LAUNCHES`` the tensor-core kernel's and ``WS_LAUNCHES`` those of its
+warp-specialized kernel (D 64 and 128), so a run can show which kernel
 served it.
 
 The gradient (:class:`FlashAttentionFn`) has two hand-written kernels;
@@ -59,16 +64,22 @@ from repro_torch.kernels import _build
 LAUNCHES = 0
 #: launches of the tensor-core kernel among them
 TC_LAUNCHES = 0
+#: launches of its warp-specialized kernel (bf16 at D in ``WS_HEAD_DIMS``)
+#: among those
+WS_LAUNCHES = 0
 #: backward kernel launches (one per :func:`flash_attention_bwd_cuda`)
 BWD_LAUNCHES = 0
 #: launches of the tensor-core backward among them
 TC_BWD_LAUNCHES = 0
 #: head dims the CUDA-core kernel is built for
 HEAD_DIMS = (32, 64, 128, 256)
-#: head dims the tensor-core kernel is built for (bfloat16 only)
+#: head dims the tensor-core kernel is built for (bfloat16 only), and
+#: those its warp-specialized kernel serves
 TC_HEAD_DIMS = (64, 128, 256)
-#: the tensor-core kernel's tiles: (query, head) rows a block, keys a K/V tile
-TC_ROWS, TC_KEYS = 128, 80
+WS_HEAD_DIMS = (64, 128)
+#: the tensor-core forward's tiles at each D (``Smem`` at D = 256 and
+#: ``WsPlan`` at D 64 / 128 in the source): see :func:`wgmma_plan`
+TC_PLANS = {64: (192, 80, 4), 128: (128, 96, 3), 256: (128, 80, 2)}
 #: head dims the tensor-core backward is built for (bfloat16 only)
 TC_BWD_HEAD_DIMS = (64, 128, 256)
 #: the tensor-core dk/dv kernel's tiles: keys a key group, queries a Q/dO
@@ -80,7 +91,7 @@ TC_BWD_GROUPS = {64: 3, 128: 2, 256: 1}
 TC_BWD_HALVES = {64: 1, 128: 1, 256: 2}
 #: the tensor-core dq kernel's (query, head) rows a block and keys a K/V
 #: tile at each D (``DqPlan`` in the source)
-TC_BWD_DQ = {64: (TC_ROWS, TC_KEYS), 128: (TC_ROWS, TC_KEYS), 256: (64, 64)}
+TC_BWD_DQ = {64: (128, 80), 128: (128, 80), 256: (64, 64)}
 #: the H100 SXM's SMs, and the warpgroups a dk/dv grid should hold (two
 #: for each SM) before :func:`bwd_head_split` stops splitting heads
 SMS = 132
@@ -125,15 +136,24 @@ def bwd_route(dtype: torch.dtype, D: int) -> str:
                      f"{HEAD_DIMS}, got {D}")
 
 
-def _row_tiles(Sq: int, Sk: int, G: int, causal: bool,
-               window: Optional[int], rows: int, keys: int
-               ) -> List[Tuple[int, int]]:
-    """[(first, count)] of the ``keys``-key tiles each block of ``rows``
-    (query, head) rows visits, block x owning rows [rows x, rows (x + 1))
-    of the Sq G rows of a (batch, kv head), row r being query r // G."""
+def _row_blocks(R: int, rows: int, end_aligned: bool
+                ) -> List[Tuple[int, int]]:
+    """[(r0, r1)]: the rows [r0, r1) of each block of ``rows`` rows over
+    R rows, in block order; the last block is the short one, or with
+    ``end_aligned`` the first (the blocks then end at row R)."""
+    n = -(-R // rows)
+    pad = n * rows - R if end_aligned else 0
+    return [(max(0, y * rows - pad), min((y + 1) * rows - pad, R))
+            for y in range(n)]
+
+
+def _row_tiles(blocks: List[Tuple[int, int]], Sk: int, G: int, causal: bool,
+               window: Optional[int], keys: int) -> List[Tuple[int, int]]:
+    """[(first, count)] of the ``keys``-key tiles each block of (query,
+    head) rows [r0, r1) of ``blocks`` visits, row r being query r // G."""
     plan = []
-    for row0 in range(0, Sq * G, rows):
-        q_lo, q_hi = row0 // G, (min(row0 + rows, Sq * G) - 1) // G
+    for r0, r1 in blocks:
+        q_lo, q_hi = r0 // G, (r1 - 1) // G
         k_lo = max(0, q_lo - window + 1) if window is not None else 0
         k_hi = min(q_hi, Sk - 1) if causal else Sk - 1
         first = k_lo // keys
@@ -141,14 +161,94 @@ def _row_tiles(Sq: int, Sk: int, G: int, causal: bool,
     return plan
 
 
+def wgmma_plan(D: int) -> Tuple[int, int, int]:
+    """(rows, keys, stages) of the tensor-core forward at head dim D: the
+    (query, head) rows a block owns, in warpgroups of 64, the keys of a K/V
+    tile and the stages of the K/V ring.  D = 256 runs
+    ``flash_attention_wgmma_kernel`` (two warpgroups), D 64 and 128 the
+    warp-specialized ``flash_attention_wgmma_ws_kernel`` (three and two
+    warpgroups and a producer warp), whose warpgroups compute the block's
+    key tiles up to their own rows' last (:func:`wgmma_group_tiles`)."""
+    if D not in TC_PLANS:
+        raise ValueError(f"the tensor-core kernel is built for head dims "
+                         f"{TC_HEAD_DIMS}, got {D}")
+    return TC_PLANS[D]
+
+
+def wgmma_blocks(Sq: int, G: int, D: int) -> List[Tuple[int, int]]:
+    """[(r0, r1)]: the (query, head) rows [r0, r1) of a (batch, kv head)
+    that each row block of the tensor-core forward owns at head dim D,
+    by block index y, with rows = :func:`wgmma_plan` (D)[0].  At D = 256
+    block y owns rows [rows y, rows (y + 1)) and the last is short; at D
+    64 and 128 the blocks end at the last row (``end`` in the source), so
+    the first is the short one: under a causal mask the block whose
+    warpgroups are partly idle is the lightest."""
+    return _row_blocks(Sq * G, wgmma_plan(D)[0], D in WS_HEAD_DIMS)
+
+
 def wgmma_tiles(Sq: int, Sk: int, G: int, causal: bool,
-                window: Optional[int]) -> List[Tuple[int, int]]:
-    """The key tiles each block of the tensor-core kernel visits, as the
-    kernel computes them: block x owns rows [128 x, 128 x + 128) of the
-    Sq G (query, head) rows of a (batch, kv head), row r being query r // G,
-    and visits ``count`` tiles of ``TC_KEYS`` keys from tile ``first``.
-    Returns [(first, count)] per block."""
-    return _row_tiles(Sq, Sk, G, causal, window, TC_ROWS, TC_KEYS)
+                window: Optional[int], D: int) -> List[Tuple[int, int]]:
+    """The key tiles each row block of the tensor-core kernel visits at
+    head dim D, as the kernel computes them: block y owns the rows
+    :func:`wgmma_blocks` gives, row r being query r // G, and visits
+    ``count`` tiles of :func:`wgmma_plan` (D)[1] keys from tile ``first``.
+    Returns [(first, count)] by row block; :func:`wgmma_order` gives the
+    order the blocks start in."""
+    return _row_tiles(wgmma_blocks(Sq, G, D), Sk, G, causal, window,
+                      wgmma_plan(D)[1])
+
+
+def wgmma_group_tiles(Sq: int, Sk: int, G: int, causal: bool,
+                      window: Optional[int], D: int) -> List[List[int]]:
+    """How many of its block's :func:`wgmma_tiles`, from the block's
+    first, each 64-row warpgroup of a block computes, by block: at D = 256
+    every warpgroup all of them; at D 64 and 128 a warpgroup stops at the
+    tile of the last key its own rows see (under a causal mask), and one
+    past the block's last row computes none (``n_mine`` in the source)."""
+    rows, keys, _ = wgmma_plan(D)
+    out = []
+    for (b0, b1), (first, count) in zip(
+            wgmma_blocks(Sq, G, D),
+            wgmma_tiles(Sq, Sk, G, causal, window, D)):
+        counts = []
+        for w0 in range(b0, b0 + rows, 64):
+            if w0 >= b1 or count == 0:
+                counts.append(0)
+            elif D == 256 or not causal:
+                counts.append(count)
+            else:
+                k_hi = min((min(w0 + 64, b1) - 1) // G, Sk - 1)
+                counts.append(min(count, max(1, k_hi // keys - first + 1)))
+        out.append(counts)
+    return out
+
+
+def wgmma_order(Sq: int, G: int, causal: bool, D: int, BKVH: int
+                ) -> List[Tuple[int, int]]:
+    """(bh, y) of every block of the tensor-core forward, (batch, kv head)
+    bh = b KVH + kvh and row block y, in the order the blocks start
+    (blockIdx x fastest).  D = 256: a grid (row blocks, B KVH), first rows
+    first.  D 64 and 128: a grid (B KVH, row blocks) whose blockIdx.y
+    counts from the last row block down when causal, so the blocks that
+    visit the most key tiles start first."""
+    rows = wgmma_plan(D)[0]
+    n = -(-Sq * G // rows)
+    if D == 256:
+        return [(bh, y) for bh in range(BKVH) for y in range(n)]
+    return [(bh, n - 1 - y if causal else y)
+            for y in range(n) for bh in range(BKVH)]
+
+
+def wgmma_tile_masked(k0: int, Sk: int, q_lo: int, q_hi: int, causal: bool,
+                      window: Optional[int], D: int) -> bool:
+    """Whether the tensor-core kernel masks the K/V tile of keys [k0, k0 +
+    keys) for a block whose rows are queries [q_lo, q_hi]: every tile but
+    those wholly inside every row's band (``inside`` / ``edge`` in the
+    source)."""
+    keys = wgmma_plan(D)[1]
+    return not (k0 + keys <= Sk
+                and (not causal or k0 + keys - 1 <= q_lo)
+                and (window is None or k0 >= q_hi - window + 1))
 
 
 def bwd_head_split(B: int, Sk: int, KVH: int, G: int, D: int) -> int:
@@ -223,8 +323,9 @@ def bwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
                     dkdv.append((kw0, g, q0, not inside))
             blocks.append((key0, z, len(dkdv) - n0))
     rows, keys = TC_BWD_DQ[D]
-    row_blocks = list(zip(range(0, Sq * G, rows),
-                          _row_tiles(Sq, Sk, G, causal, window, rows, keys)))
+    dq_blocks = _row_blocks(Sq * G, rows, False)
+    row_blocks = list(zip((r0 for r0, _ in dq_blocks),
+                          _row_tiles(dq_blocks, Sk, G, causal, window, keys)))
     dq = []
     for row0, (first, count) in (row_blocks[::-1] if causal and D == 256
                                  else row_blocks):
@@ -379,7 +480,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the tensor-core kernel's lse entry point, which also returns each
     row's lse (B, H, Sq) float32 for the tensor-core backward; its output
     is the serving entry point's, bit for bit."""
-    global LAUNCHES, TC_LAUNCHES
+    global LAUNCHES, TC_LAUNCHES, WS_LAUNCHES
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
@@ -417,6 +518,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES += 1
     if kernel == "tensor_core":
         TC_LAUNCHES += 1
+        if D in WS_HEAD_DIMS:
+            WS_LAUNCHES += 1
     return (out, lse) if return_lse else out
 
 

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis_compat import given, settings, st
 
 from repro.configs import ARCHS as JARCHS
 from repro.kernels.flash_attention import flash_attention as j_flash
@@ -117,54 +118,181 @@ TILE_CASES = [(4096, 4096, 16, True, 2048), (300, 100, 16, True, 64),
               (97, 97, 5, True, 1), (1000, 1000, 2, True, 300)]
 
 
-def _unmasked(k0, Sk, q_lo, q_hi, causal, window):
-    """The tensor-core kernel's rule for a tile it does not mask: keys
-    [k0, k0 + TC_KEYS) inside every band of queries [q_lo, q_hi]
-    (``inside`` in csrc/flash_attention_wgmma.cu)."""
-    return (k0 + tfa.TC_KEYS <= Sk
-            and (not causal or k0 + tfa.TC_KEYS - 1 <= q_lo)
-            and (window is None or k0 >= q_hi - window + 1))
-
-
+@pytest.mark.parametrize("D", tfa.TC_HEAD_DIMS)
 @pytest.mark.parametrize("Sq,Sk,G,causal,window", TILE_CASES)
-def test_wgmma_tiles_cover_each_rows_band(Sq, Sk, G, causal, window):
-    """The tensor-core kernel's key tiles, block by block: every key any
-    of the block's rows sees lies in a visited tile, the first and last
-    visited tiles hold a visible key, a block whose rows see nothing visits
-    none, and a tile the kernel leaves unmasked is visible from every row
-    of the block."""
+def test_wgmma_tiles_cover_each_rows_band(Sq, Sk, G, causal, window, D):
+    """The tensor-core kernel's key tiles at head dim D, block by block:
+    every key any of the block's rows sees lies in a visited tile, the
+    first and last visited tiles hold a visible key, a block whose rows see
+    nothing visits none, and a tile the kernel leaves unmasked is visible
+    from every row of the block."""
+    rows_b, keys_t, _ = tfa.wgmma_plan(D)
     ok = tfa.visible(Sq, Sk, causal, window)
     rows = Sq * G
-    plan = tfa.wgmma_tiles(Sq, Sk, G, causal, window)
-    assert len(plan) == -(-rows // tfa.TC_ROWS)
-    for x, (first, count) in enumerate(plan):
-        q_lo = x * tfa.TC_ROWS // G
-        q_hi = (min((x + 1) * tfa.TC_ROWS, rows) - 1) // G
+    plan = tfa.wgmma_tiles(Sq, Sk, G, causal, window, D)
+    assert len(plan) == -(-rows // rows_b)
+    for (r0, r1), (first, count) in zip(tfa.wgmma_blocks(Sq, G, D), plan):
+        q_lo, q_hi = r0 // G, (r1 - 1) // G
         band = ok[q_lo:q_hi + 1]
         keys = torch.nonzero(band.any(0)).flatten()
         if keys.numel() == 0:
             assert count == 0
             continue
-        lo, hi = first * tfa.TC_KEYS, (first + count) * tfa.TC_KEYS
+        lo, hi = first * keys_t, (first + count) * keys_t
         assert lo <= int(keys.min()) and int(keys.max()) < hi
-        assert int(keys.min()) < lo + tfa.TC_KEYS
-        assert int(keys.max()) >= hi - tfa.TC_KEYS
+        assert int(keys.min()) < lo + keys_t
+        assert int(keys.max()) >= hi - keys_t
         for t in range(first, first + count):
-            k0 = t * tfa.TC_KEYS
-            if _unmasked(k0, Sk, q_lo, q_hi, causal, window):
-                assert k0 + tfa.TC_KEYS <= Sk
-                assert bool(band[:, k0:k0 + tfa.TC_KEYS].all())
+            k0 = t * keys_t
+            if not tfa.wgmma_tile_masked(k0, Sk, q_lo, q_hi, causal, window,
+                                         D):
+                assert k0 + keys_t <= Sk
+                assert bool(band[:, k0:k0 + keys_t].all())
 
 
-def test_wgmma_tiles_serving_band_waste():
+@pytest.mark.parametrize("D", tfa.TC_HEAD_DIMS)
+def test_wgmma_tiles_serving_band_waste(D):
     """At the serving prefill (S 4,096, 16 heads on one kv head, window
     2,048) a block's 128 rows are 8 queries, and its tiles hold at most
-    7% more (query, key) pairs than its rows see."""
+    7% more (query, key) pairs than its rows see, at every D's tiles."""
     S, G, window = 4096, 16, 2048
-    plan = tfa.wgmma_tiles(S, S, G, True, window)
-    computed = sum(count for _, count in plan) * tfa.TC_KEYS * tfa.TC_ROWS
+    rows_b, keys_t, _ = tfa.wgmma_plan(D)
+    plan = tfa.wgmma_tiles(S, S, G, True, window, D)
+    computed = sum(count for _, count in plan) * keys_t * rows_b
     seen = int(tfa.visible(S, S, True, window).sum()) * G
     assert seen < computed <= 1.07 * seen
+
+
+def test_wgmma_plan_fits_the_card():
+    """Each D's tiles: blocks of 64-row warpgroups, keys a multiple of
+    wgmma's 16-key step, at least 3 stages at D 64 / 128 (the producer's
+    ring), and shared memory (Q, the ring's K and V, three mbarriers a
+    stage and 1 KB to align) within the 232,448 bytes a block may use."""
+    for D in tfa.TC_HEAD_DIMS:
+        rows, keys, stages = tfa.wgmma_plan(D)
+        assert rows % 64 == 0 and keys % 16 == 0
+        assert stages >= (2 if D == 256 else 3)
+        smem = rows * D * 2 + 2 * stages * keys * D * 2 + 3 * stages * 8 + 1024
+        assert smem <= 232_448
+    with pytest.raises(ValueError):
+        tfa.wgmma_plan(32)
+
+
+def _covered(Sq, Sk, G, causal, window, D):
+    """(rows Sq G, Sk) int: how often the kernel's warpgroups compute each
+    (query-head row, key) pair, and (rows, Sk) bool: the pairs a masked
+    tile computes."""
+    rows_b, keys_t, _ = tfa.wgmma_plan(D)
+    rows = Sq * G
+    cover = np.zeros((rows, Sk), dtype=np.int64)
+    masked = np.zeros((rows, Sk), dtype=bool)
+    plan = tfa.wgmma_tiles(Sq, Sk, G, causal, window, D)
+    groups = tfa.wgmma_group_tiles(Sq, Sk, G, causal, window, D)
+    blocks = tfa.wgmma_blocks(Sq, G, D)
+    for (b0, b1), (first, count), counts in zip(blocks, plan, groups):
+        q_lo, q_hi = b0 // G, (b1 - 1) // G
+        assert len(counts) == rows_b // 64 and max(counts) <= count
+        for g, n in enumerate(counts):
+            r0, r1 = min(b0 + 64 * g, b1), min(b0 + 64 * (g + 1), b1)
+            for t in range(first, first + n):
+                k0, k1 = t * keys_t, min((t + 1) * keys_t, Sk)
+                cover[r0:r1, k0:k1] += 1
+                if tfa.wgmma_tile_masked(t * keys_t, Sk, q_lo, q_hi, causal,
+                                         window, D):
+                    masked[r0:r1, k0:k1] = True
+    return cover, masked
+
+
+@settings(max_examples=60, deadline=None)
+@given(Sq=st.integers(1, 300), Sk=st.integers(1, 300), G=st.integers(1, 8),
+       causal=st.booleans(), window=st.sampled_from([None, 1, 7, 64, 200]),
+       D=st.sampled_from([64, 128, 256]))
+def test_wgmma_tiles_cover_each_visible_triple_once(Sq, Sk, G, causal,
+                                                    window, D):
+    """Every visible (query, head, key) triple lies in exactly one tile a
+    warpgroup computes, and every pair an unmasked tile computes is
+    visible: only the band's edge tiles are masked."""
+    cover, masked = _covered(Sq, Sk, G, causal, window, D)
+    ok = np.repeat(tfa.visible(Sq, Sk, causal, window).numpy(), G, axis=0)
+    assert (cover[ok] == 1).all()
+    assert (cover <= 1).all()
+    assert ok[(cover == 1) & ~masked].all()
+
+
+@settings(max_examples=60, deadline=None)
+@given(Sq=st.integers(1, 2000), G=st.integers(1, 16),
+       D=st.sampled_from([64, 128, 256]))
+def test_wgmma_blocks_partition_the_rows(Sq, G, D):
+    """The row blocks cover the Sq G rows of a (batch, kv head) once, in
+    order, each of at most a block's rows; only one block is short: the
+    last at D = 256, the first at D 64 / 128, whose blocks end at the last
+    row, so that under a causal mask the short block visits the fewest
+    key tiles."""
+    rows_b = tfa.wgmma_plan(D)[0]
+    blocks = tfa.wgmma_blocks(Sq, G, D)
+    assert len(blocks) == -(-Sq * G // rows_b)
+    assert blocks[0][0] == 0 and blocks[-1][1] == Sq * G
+    assert all(a[1] == b[0] for a, b in zip(blocks, blocks[1:]))
+    sizes = [r1 - r0 for r0, r1 in blocks]
+    short = sizes[-1] if D == 256 else sizes[0]
+    rest = sizes[:-1] if D == 256 else sizes[1:]
+    assert 0 < short <= rows_b and all(n == rows_b for n in rest)
+    plan = tfa.wgmma_tiles(Sq, Sq, G, True, None, D)
+    if D != 256:
+        assert plan[0][1] == min(count for _, count in plan)
+
+
+@settings(max_examples=60, deadline=None)
+@given(Sq=st.integers(1, 2000), G=st.integers(1, 16), causal=st.booleans(),
+       D=st.sampled_from([64, 128, 256]), BKVH=st.integers(1, 5))
+def test_wgmma_order_is_a_permutation_heaviest_first(Sq, G, causal, D,
+                                                     BKVH):
+    """The blocks start in an order that holds every (batch-kv head, row
+    block) once; at D 64 / 128 under a causal mask (no window) every (batch,
+    kv head)'s last row block starts first, and the key tiles a block
+    visits never grow along the order: the heaviest start first."""
+    rows = tfa.wgmma_plan(D)[0]
+    order = tfa.wgmma_order(Sq, G, causal, D, BKVH)
+    n = -(-Sq * G // rows)
+    assert sorted(order) == [(bh, y) for bh in range(BKVH) for y in range(n)]
+    if D == 256 or not causal:
+        return
+    plan = tfa.wgmma_tiles(Sq, Sq, G, True, None, D)
+    work = [plan[y][1] for _, y in order]
+    assert work == sorted(work, reverse=True)
+    assert [y for _, y in order[:BKVH]] == [n - 1] * BKVH
+
+
+# the nine served D <= 128 prefill shapes (B, Sq, Sk, H, KVH, D, causal)
+# and the most their warpgroups may compute beyond the (query, head, key)
+# triples their rows see: a warpgroup's tiles at the causal diagonal, a
+# ragged last key tile, a ragged last warpgroup (whisper's 416 rows are
+# 6.5 warpgroups)
+SERVED_SHAPES = [
+    ((4, 4352, 4352, 48, 8, 128, True), 0.025),    # InternVL2
+    ((4, 4096, 4096, 32, 8, 128, True), 0.025),    # qwen3-8b
+    ((4, 4096, 4096, 32, 8, 64, True), 0.025),     # granite-3-2b
+    ((4, 4096, 4096, 16, 8, 128, True), 0.025),    # internlm2-1.8b
+    ((4, 4096, 4096, 16, 16, 64, True), 0.035),    # qwen1.5-0.5b
+    ((4, 4096, 4096, 40, 8, 128, True), 0.025),    # Scout
+    ((4, 1500, 1500, 20, 20, 64, False), 0.04),    # whisper encoder
+    ((4, 416, 1500, 20, 20, 64, False), 0.1),      # whisper cross
+    ((4, 416, 416, 20, 20, 64, True), 0.5),        # whisper self
+]
+
+
+@pytest.mark.parametrize("shape,waste", SERVED_SHAPES)
+def test_wgmma_tiles_served_band_waste(shape, waste):
+    """At each served D <= 128 prefill the warp-specialized kernel's
+    warpgroups compute at most ``waste`` more (query, head, key) triples
+    than their rows see (:func:`wgmma_group_tiles`)."""
+    B, Sq, Sk, H, KVH, D, causal = shape
+    G = H // KVH
+    keys_t = tfa.wgmma_plan(D)[1]
+    groups = tfa.wgmma_group_tiles(Sq, Sk, G, causal, None, D)
+    computed = sum(sum(counts) for counts in groups) * keys_t * 64
+    seen = int(tfa.visible(Sq, Sk, causal, None).sum()) * G
+    assert seen < computed <= (1 + waste) * seen
 
 
 def test_build_hash_covers_headers(tmp_path, monkeypatch):

@@ -604,6 +604,62 @@ def test_flash_attention_tensor_core_masked_rows_are_zero(cuda_device):
                                atol=2e-2)
 
 
+# the warp-specialized kernel (bfloat16 at D 64 and 128): GQA groups 1, 2,
+# 4, 5, 6, 8 and 16, ragged Sq up to 4,097, Sq != Sk both ways (whisper's
+# 416 queries on 1,500 frames), bidirectional, windows down to 1, and rows
+# that see no key (Sq 300 on Sk 100, window 64: none from query 163 on)
+WS_CASES = [
+    # (B, Sq, Sk, H, KVH, D, causal, window)
+    (1, 256, 256, 8, 8, 64, True, None),       # G = 1
+    (2, 300, 300, 8, 4, 128, True, None),      # G = 2, ragged
+    (1, 333, 333, 16, 4, 64, True, None),      # G = 4
+    (2, 257, 257, 40, 8, 128, True, None),     # G = 5 (Scout's heads)
+    (2, 257, 257, 48, 8, 64, True, None),      # G = 6 (InternVL2's)
+    (1, 200, 200, 64, 8, 128, True, 100),      # G = 8, window
+    (1, 4097, 4097, 16, 1, 64, True, None),    # G = 16, ragged past 4,096
+    (1, 4097, 4097, 16, 8, 128, True, None),
+    (4, 416, 1500, 20, 20, 64, False, None),   # whisper's cross-attention
+    (2, 130, 130, 8, 2, 128, False, None),     # bidirectional
+    (1, 97, 97, 12, 2, 64, True, 1),           # window 1: the diagonal
+    (1, 300, 100, 16, 2, 128, True, 64),       # rows that see no key
+    (1, 300, 100, 16, 16, 64, True, 64),
+    (2, 97, 200, 12, 4, 128, False, 50),       # Sq < Sk, two-sided window
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,causal,window", WS_CASES)
+def test_flash_attention_ws_kernel(cuda_device, B, Sq, Sk, H, KVH, D, causal,
+                                   window):
+    """bf16 at D 64 and 128 runs the warp-specialized kernel: within 2e-2
+    of the plain version, two launches bit for bit, the lse entry point's
+    output the serving one's bit for bit and its lse within 1e-5 of the
+    plain lse, and a row that sees no key exactly 0 (lse 0)."""
+    from repro_torch.kernels import flash_attention as fa
+    assert D in fa.WS_HEAD_DIMS
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + D + H)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).bfloat16()
+               for shape in ((B, Sq, H, D), (B, Sk, KVH, D), (B, Sk, KVH, D)))
+    before = fa.TC_LAUNCHES, fa.WS_LAUNCHES
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention_cuda(q, k, v, causal, window)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window,
+                                     return_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.TC_LAUNCHES, fa.WS_LAUNCHES) == (before[0] + 3, before[1] + 3)
+    assert torch.equal(got, again) and torch.equal(got, o)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal, window,
+                                              return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    seen = fa.visible(Sq, Sk, causal, window, cuda_device).any(1)
+    if not bool(seen.all()):
+        assert torch.equal(got[:, ~seen], torch.zeros_like(got[:, ~seen]))
+        assert torch.equal(lse[:, :, ~seen], torch.zeros_like(lse[:, :, ~seen]))
+        assert got[:, seen].abs().amax() > 0
+
+
 @pytest.mark.cuda
 def test_flash_attention_cuda_core_kernel_bf16_on_request(cuda_device):
     """The CUDA-core kernel still takes bf16 at D = 256 when asked (the
