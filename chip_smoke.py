@@ -138,10 +138,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
 6. drives slice 14's main path, training: the attention's and the WKV
    scan's backward kernels against their plain backwards
    ([kernel] flash_attention_bwd over masks, GQA groups 1-6, D 32-256,
-   Sq != Sk, ragged tiles, rows with no key, float32 and bf16, bf16 at D
-   64, 128 and 256 on both the tensor-core and the CUDA-core route, the
-   tensor-core one twice bit for bit and the forward's lse entry point
-   against the serving one and the plain lse;
+   Sq != Sk, ragged tiles, rows with no key, float32 and bf16 at D = 32
+   on the split-TF32 route, bf16 at D 64, 128 and 256 on the tensor-core
+   one, each twice bit for bit, reading the lse of the forward's lse
+   entry point (the CUDA-core or the tensor-core one), which must match
+   the serving one and the plain lse;
    [kernel] rwkv6_scan_bwd with a state0, a final-state gradient and S off
    the sub-chunk and the checkpoint stride, at every head size and
    [train-families]' shape, twice bit for bit); ``launch/train``'s loop
@@ -158,7 +159,7 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    the WKV backward's two kernels at RWKV6-7B's shape, under
    torch.profiler ([train-profile]); every arch's reduced config card vs
    CPU over 2 SGD steps in float32, the attention's backward on the
-   CUDA-core route ([train-reference]); a checkpoint at step 5
+   split-TF32 route ([train-reference]); a checkpoint at step 5
    resumed to step 10 bit for bit ([train-ckpt]); ``train_100m`` at
    12 x 768 for 5 steps ([examples]);
 7. times each kernel, its plain version and one library call with CUDA
@@ -176,16 +177,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    backward kernels at their training shapes
    beside the plain backwards and SDPA's backward: the tensor-core
    attention backward at [train]'s and internlm2's head shapes and at
-   RecurrentGemma's local attention (D = 256) beside the CUDA-core one,
-   with the serving forward beside the lse entry point, the CUDA-core
-   backward on float32 inputs beside SDPA's float32 backward, and the WKV
+   RecurrentGemma's local attention (D = 256), with the serving forward
+   beside the lse entry point, the split-TF32
+   backward on float32 inputs at RecurrentGemma's and [train]'s shapes
+   beside SDPA's float32 backward (its kernels named under
+   torch.profiler), and the WKV
    backward at RWKV6-7B's training shape with each of its two kernels'
    device time under torch.profiler.
 
     python3 chip_smoke.py --parent DIR
 
 also builds the combine, RG-LRU, WKV, tensor-core attention forward and
-tensor-core attention backward kernels of another commit's checkout in
+both attention backward kernels of another commit's checkout in
 DIR (e.g. ``git archive`` of the parent, unpacked under the ignored
 ``build/``), where their C entry points are declared as the current
 ones, and times them in turns with the current ones; the eager sequence
@@ -194,12 +197,14 @@ parent's at the six 4,096-token prefills, and may lose to it at
 whisper's and RecurrentGemma's shapes and, through its lse entry point,
 at the training shapes of [times]' backward rows by no more than the
 spread of the turns' medians; RecurrentGemma's output is compared with
-the parent's bit for bit (logged).  A RG-LRU or WKV kernel must beat the
-parent's where its own source changed, and where only a shared header
-did, not lose to it by more than that spread.  The build's compiler
-log gives the registers and spill bytes of the tensor-core attention
-kernels (both D = 256's and the warp-specialized one at D 64 and 128)
-and of the scans; any spill fails the run.
+the parent's bit for bit (logged).  The float32 attention backward must
+beat the parent's at both its [times] shapes.  A RG-LRU or WKV kernel
+must beat the parent's where its own source changed, and where only a
+shared header did, not lose to it by more than that spread.  The build's
+compiler log gives the registers and spill bytes of the attention
+kernels (the tensor-core forward at D = 256 and its warp-specialized one
+at D 64 and 128, the CUDA-core forward, both backwards) and of the
+scans; any spill fails the run.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero
 without a CUDA device, outside a checkout, or if any phase fails; on
@@ -223,6 +228,7 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
 H100_BF16_FLOPS = 989e12     # dense, tensor cores
+H100_TF32_FLOPS = 495e12     # dense, tensor cores
 COMBINE_SHAPES = [(5, 49_680), (1, 49_680), (10, 49_680), (5, 1_000_003)]
 ROUNDS = 100
 PAIR_LR = 1e-4         # the streaming / direct pair's lr: a monotone descent
@@ -387,11 +393,12 @@ def phase_device(torch, parent=None):
             ln.strip() for ln in _build.build_log(lib).splitlines()
             if ln.strip()))
     for lib, what in (("flash_attention_wgmma", "tensor-core attention"),
+                      ("flash_attention", "CUDA-core attention"),
                       ("rwkv6_scan", "WKV scan"),
                       ("rglru_scan", "RG-LRU scan"),
                       ("tolfl_combine", "Tol-FL aggregation"),
                       ("row_dense", "row-stable product"),
-                      ("flash_attention_bwd", "attention backward"),
+                      ("flash_attention_bwd", "split-TF32 attention backward"),
                       ("flash_attention_bwd_wgmma",
                        "tensor-core attention backward"),
                       ("rwkv6_scan_bwd", "WKV backward")):
@@ -418,6 +425,7 @@ def phase_device(torch, parent=None):
 PARENT_KERNELS = {"rglru_scan": ("rglru_scan_f32", 4, 3),
                   "rwkv6_scan": ("rwkv6_scan_f32", 8, 4),
                   "tolfl_combine": ("tolfl_combine_f32", 3, 2, 1),
+                  "flash_attention_bwd": ("flash_attention_bwd_f32", 10, 8),
                   "flash_attention_bwd_wgmma": (
                       "flash_attention_bwd_wgmma_bf16", 11, 9),
                   "flash_attention_wgmma": ("flash_attention_wgmma_bf16", 4, 8)}
@@ -3975,13 +3983,14 @@ def _parent_wkv(torch, parent, r, k, v, w, u, s0):
 #: backward kernels are held to the plain backward: causal, bidirectional
 #: and windowed; G = 1, 2, 4, 5, 6 and 16; D = 32 .. 256; Sq != Sk;
 #: ragged last tiles; rows that see no key (bidirectional, window 8,
-#: Sq > Sk + 7); lse rows off a 16-byte boundary (Sq = 201); and the bf16
-#: shapes the training path gives it, [train]'s qwen1.5-0.5b (8, 1024, 16
-#: heads of 64, causal), internlm2's heads (16 on 8 of 128) and
+#: Sq > Sk + 7); lse rows off a 16-byte boundary (Sq = 201); the shapes
+#: the training path gives it, [train]'s qwen1.5-0.5b (8, 1024, 16 heads
+#: of 64, causal), internlm2's heads (16 on 8 of 128) and
 #: [train-families]' RecurrentGemma-9B (1, 2048, 16 heads on 1 kv head of
-#: 256, window 2,048), with a window that binds and a ragged bidirectional
-#: case with rows that see no key at D = 256.  bf16 at D 64, 128 and 256
-#: runs both routes.
+#: 256, window 2,048), in bf16 and, as [times] times the float32 backward
+#: (BWD_TIME_F32), in float32, with a window that binds and a ragged
+#: bidirectional case with rows that see no key at D = 256; and bf16 at
+#: D = 32, which the split-TF32 kernel serves.
 ATTN_BWD_CASES = [
     (2, 300, 300, 4, 4, 64, True, None, "float32"),
     (1, 257, 257, 8, 4, 128, True, None, "float32"),
@@ -3989,6 +3998,9 @@ ATTN_BWD_CASES = [
     (1, 190, 190, 10, 2, 64, True, 64, "float32"),
     (1, 150, 150, 6, 1, 256, True, 48, "float32"),
     (1, 100, 40, 4, 2, 64, False, 8, "float32"),
+    (8, 1024, 1024, 16, 16, 64, True, None, "float32"),
+    (1, 2048, 2048, 16, 1, 256, True, 2048, "float32"),
+    (2, 333, 200, 12, 2, 32, False, 50, "bfloat16"),
     (2, 333, 200, 12, 2, 128, False, 50, "bfloat16"),
     (1, 100, 40, 4, 2, 64, False, 8, "bfloat16"),
     (8, 1024, 1024, 16, 16, 64, True, None, "bfloat16"),
@@ -4034,16 +4046,19 @@ def _reset_train_launches():
     for mod in _bwd_counters().values():
         mod.BWD_LAUNCHES = 0
     _bwd_counters()["flash_attention_bwd"].TC_BWD_LAUNCHES = 0
+    _bwd_counters()["flash_attention_bwd"].TF32_BWD_LAUNCHES = 0
 
 
 def _train_launches():
     """Each kernel's launches: every attention backward counts in
     ``flash_attention_bwd``, the tensor-core one also in
-    ``flash_attention_bwd_wgmma``."""
+    ``flash_attention_bwd_wgmma`` and the split-TF32 one in
+    ``flash_attention_bwd_tf32x3``."""
     out = _launches()
     out.update({k: m.BWD_LAUNCHES for k, m in _bwd_counters().items()})
-    out["flash_attention_bwd_wgmma"] = \
-        _bwd_counters()["flash_attention_bwd"].TC_BWD_LAUNCHES
+    fa = _bwd_counters()["flash_attention_bwd"]
+    out["flash_attention_bwd_wgmma"] = fa.TC_BWD_LAUNCHES
+    out["flash_attention_bwd_tf32x3"] = fa.TF32_BWD_LAUNCHES
     return out
 
 
@@ -4054,16 +4069,20 @@ def _expected_train_launches(cfg, steps):
     once; each backward once.  Attention once per
     attention layer (for an encoder-decoder also per encoder layer and
     per cross-attention), the RG-LRU scan per recurrent layer, the WKV
-    scan per RWKV6 layer; each attention backward on the tensor cores
-    where ``bwd_route`` sends the config's dtype and head dim."""
+    scan per RWKV6 layer; each attention backward on the bf16 tensor
+    cores or in split TF32, where ``bwd_route`` sends the config's dtype
+    and head dim."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.transformer import unit_counts, unit_pattern
     fwd, _ = _expected_launches(cfg)
     out = {f"{k}_bwd": v * steps for k, v in fwd.items()}
-    tc = out["flash_attention_bwd"] > 0 and fa.bwd_route(
-        getattr(torch, cfg.dtype), cfg.attention.head_dim) == "tensor_core"
-    out["flash_attention_bwd_wgmma"] = out["flash_attention_bwd"] * tc
+    route = (fa.bwd_route(getattr(torch, cfg.dtype), cfg.attention.head_dim)
+             if out["flash_attention_bwd"] > 0 else None)
+    out["flash_attention_bwd_wgmma"] = out["flash_attention_bwd"] * (
+        route == "tensor_core")
+    out["flash_attention_bwd_tf32x3"] = out["flash_attention_bwd"] * (
+        route == "tf32x3")
     if cfg.remat == "full":
         # the tail layers (those that do not fill a unit) run unwrapped
         tail = [kind for kind, _ in unit_pattern(cfg)[:unit_counts(cfg)[1]]]
@@ -4097,14 +4116,16 @@ def _rows_rel(torch, got, want):
 def phase_train_kernels(torch):
     """[kernel] flash_attention_bwd and rwkv6_scan_bwd: each backward
     kernel against its plain backward on the card, on the same inputs.
-    Attention, on the route ``bwd_route`` picks and, for bf16 at D 64,
-    128 and 256, on the CUDA-core route too: float32 within 2e-4 of each
+    Attention, on the route ``bwd_route`` picks (the split-TF32 kernel for
+    float32 and bf16 at D = 32, the tensor-core one for bf16 at D 64, 128
+    and 256), reading the forward's lse: float32 within 2e-4 of each
     gradient's largest |value|, bfloat16 with each row's largest |diff|
     within ATTN_ROW_TOL of the row's RMS (floored at 1e-2 of the
-    gradient's); a query that sees no key and a key no query sees must get
-    exactly 0; two launches of the tensor-core backward must give the same
-    bits, and the forward's lse entry point must return the serving entry
-    point's output bit for bit and an lse within 1e-5 of the plain one.
+    gradient's); a query that sees no key and a key no query sees must
+    get exactly 0; two launches must give the same bits, and the
+    forward's lse entry point (the tensor-core or the CUDA-core one) must
+    return the serving entry point's output bit for bit and an lse within
+    1e-5 of the plain one.
     WKV: within 1e-4 x max(1, the gradient's largest |value|), and two
     launches bit for bit.  An unsupported dtype or D must raise.  Returns
     the max |diff| of each."""
@@ -4120,81 +4141,73 @@ def phase_train_kernels(torch):
                             device=DEV).to(dtype) for _ in range(2))
         do = torch.randn((B, Sq, H, D), generator=gen, device=DEV).to(dtype)
         o = fa.flash_attention_cuda(q, k, v, causal, window)
-        lse, lse_note = None, ""
-        routes = [fa.bwd_route(dtype, D)]
-        if routes[0] == "tensor_core":
-            routes.append("cuda_core")
-            o_lse, lse = fa.flash_attention_cuda(q, k, v, causal, window,
-                                                 return_lse=True)
-            _, lse_plain = fa.flash_attention_plain(q, k, v, causal, window,
-                                                    return_lse=True)
-            lse_err = float((lse - lse_plain).abs().max())
-            lse_note = (f"; the lse forward's output bit for bit the "
-                        f"serving one's: {torch.equal(o_lse, o)}, lse "
-                        f"max_abs_err {lse_err:.3g} (tolerance 1e-5)")
-            if not (torch.equal(o_lse, o) and lse_err <= 1e-5):
-                raise AssertionError(f"flash_attention lse entry point at "
-                                     f"{(B, Sq, Sk, H, KVH, D)}{lse_note}")
-            del o_lse, lse_plain
+        kernel = fa.bwd_route(dtype, D)
+        o_lse, lse = fa.flash_attention_cuda(q, k, v, causal, window,
+                                             return_lse=True)
+        _, lse_plain = fa.flash_attention_plain(q, k, v, causal, window,
+                                                return_lse=True)
+        lse_err = float((lse - lse_plain).abs().max())
+        lse_note = (f"; the {fa.route(dtype, D)} lse forward's output bit "
+                    f"for bit the serving one's: {torch.equal(o_lse, o)}, "
+                    f"lse max_abs_err {lse_err:.3g} (tolerance 1e-5)")
+        if not (torch.equal(o_lse, o) and lse_err <= 1e-5):
+            raise AssertionError(f"flash_attention lse entry point at "
+                                 f"{(B, Sq, Sk, H, KVH, D)}{lse_note}")
+        del o_lse, lse_plain
         want = fa.flash_attention_backward_plain(q, k, v, o, do, causal,
                                                  window)
         seen = fa.visible(Sq, Sk, causal, window, DEV).any(dim=1)
         keys_seen = fa.visible(Sq, Sk, causal, window, DEV).any(dim=0)
-        for kernel in routes:
-            got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window,
-                                              lse=lse, kernel=kernel)
-            torch.cuda.synchronize()
-            errs, notes = [], []
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                g, w = g.float(), w.float()
-                errs.append(float((g - w).abs().max()))
-                scale = float(w.abs().max())
-                if dtype == torch.float32:
-                    ok = errs[-1] <= 2e-4 * scale
-                    note = f"{errs[-1]:.3g} of max {scale:.3g}"
-                else:
-                    rel = _rows_rel(torch, g, w)
-                    ok = rel <= ATTN_ROW_TOL
-                    note = f"row |diff| / RMS {rel:.4f}"
-                notes.append(note)
-                if not ok:
-                    raise AssertionError(f"flash_attention_bwd {kernel} {name} "
-                                         f"at {(B, Sq, Sk, H, KVH, D)} {dt} "
-                                         f"causal={causal} window={window}: "
-                                         f"{note}")
-            # a query that sees no key, and a key that no query sees, have
-            # zero gradient
-            for grad, live in ((got[0], seen), (got[1], keys_seen),
-                               (got[2], keys_seen)):
-                if not bool(live.all()) and float(
-                        grad[:, ~live].float().abs().max()) != 0.0:
-                    raise AssertionError(f"{kernel}: an unseen row got a "
-                                         f"non-zero gradient")
-            det = ""
-            if kernel == "tensor_core":
-                again = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal,
-                                                    window, lse=lse)
-                same = all(torch.equal(a, b) for a, b in zip(got, again))
-                det = f"; two launches bit for bit: {same}"
-                if not same:
-                    raise AssertionError(f"the tensor-core backward at "
-                                         f"{(B, Sq, Sk, H, KVH, D)} differs "
-                                         f"between two launches")
-                del again
-            log(f"[kernel] flash_attention_bwd {kernel} (B, Sq, Sk, H, KVH, D)"
-                f" = {(B, Sq, Sk, H, KVH, D)} G={H // KVH} causal={causal} "
-                f"window={window} {dt}: max_abs_err dq/dk/dv "
-                f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} "
-                f"({'; '.join(notes)}); rows with no key "
-                f"{int((~seen).sum())}, keys no query sees "
-                f"{int((~keys_seen).sum())} (tolerance: float32 2e-4 x "
-                f"max|grad|, bf16 row |diff| <= {ATTN_ROW_TOL} x RMS)"
-                + det + (lse_note if kernel == "tensor_core" else ""))
-            key = ("flash_attention_bwd_wgmma" if kernel == "tensor_core"
-                   else "flash_attention_bwd")
-            worst[key] = max(worst[key], *errs)
-            del got
-        del q, k, v, do, o, lse, want
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window,
+                                          lse=lse)
+        torch.cuda.synchronize()
+        errs, notes = [], []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            g, w = g.float(), w.float()
+            errs.append(float((g - w).abs().max()))
+            scale = float(w.abs().max())
+            if dtype == torch.float32:
+                ok = errs[-1] <= 2e-4 * scale
+                note = f"{errs[-1]:.3g} of max {scale:.3g}"
+            else:
+                rel = _rows_rel(torch, g, w)
+                ok = rel <= ATTN_ROW_TOL
+                note = f"row |diff| / RMS {rel:.4f}"
+            notes.append(note)
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd {kernel} {name} "
+                                     f"at {(B, Sq, Sk, H, KVH, D)} {dt} "
+                                     f"causal={causal} window={window}: "
+                                     f"{note}")
+        # a query that sees no key, and a key that no query sees, have
+        # zero gradient
+        for grad, live in ((got[0], seen), (got[1], keys_seen),
+                           (got[2], keys_seen)):
+            if not bool(live.all()) and float(
+                    grad[:, ~live].float().abs().max()) != 0.0:
+                raise AssertionError(f"{kernel}: an unseen row got a "
+                                     f"non-zero gradient")
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal,
+                                            window, lse=lse)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        det = f"; two launches bit for bit: {same}"
+        if not same:
+            raise AssertionError(f"the {kernel} backward at "
+                                 f"{(B, Sq, Sk, H, KVH, D)} differs "
+                                 f"between two launches")
+        log(f"[kernel] flash_attention_bwd {kernel} (B, Sq, Sk, H, KVH, D)"
+            f" = {(B, Sq, Sk, H, KVH, D)} G={H // KVH} causal={causal} "
+            f"window={window} {dt}: max_abs_err dq/dk/dv "
+            f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} "
+            f"({'; '.join(notes)}); rows with no key "
+            f"{int((~seen).sum())}, keys no query sees "
+            f"{int((~keys_seen).sum())} (tolerance: float32 2e-4 x "
+            f"max|grad|, bf16 row |diff| <= {ATTN_ROW_TOL} x RMS)"
+            + det + lse_note)
+        key = ("flash_attention_bwd_wgmma" if kernel == "tensor_core"
+               else "flash_attention_bwd")
+        worst[key] = max(worst[key], *errs)
+        del q, k, v, do, o, lse, want, got, again
     for bad in ((torch.float16, 64), (torch.float32, 96)):
         x = torch.zeros((1, 8, 2, bad[1]), dtype=bad[0], device=DEV)
         try:
@@ -4486,8 +4499,9 @@ def phase_train_profile(torch, step_fn, state, batch, alive):
     """[train-profile]: one [train] step under torch.profiler: the card's
     busy share of the step's wall time and its top operations, and the
     share of each kernel of the port: the attention forward, the
-    tensor-core backward's three kernels (delta, dq, dk/dv), the CUDA-core
-    backward's two, and the attention backward's whole share; then each of
+    backward's delta kernels, the tensor-core and the split-TF32 backward's
+    dq and dk/dv kernels, and the attention backward's whole share; then
+    each of
     the WKV backward's two kernels at [train-families]' RWKV6-7B shape
     (:func:`_wkv_bwd_split`), which it returns for [times]."""
     split = _wkv_bwd_split(torch)
@@ -4508,7 +4522,7 @@ def phase_train_profile(torch, step_fn, state, batch, alive):
     mine = {k: sum(us for name, (us, _) in by_name.items() if k in name)
             for k in ("flash_attention_wgmma", "attn_bwd_delta",
                       "attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma",
-                      "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")}
+                      "attn_bwd_dq_tf32", "attn_bwd_dkdv_tf32")}
     mine["attention backward"] = sum(v for k, v in mine.items()
                                      if k.startswith("attn_bwd"))
     log(f"[train-profile] one {TRAIN_ARCH} step ({TRAIN_BATCH} x "
@@ -4650,8 +4664,8 @@ def phase_train_reference(torch):
     an RWKV6 layer, the CPU's float32 WKV scan against one in float64
     gives the size of the scan's rounding alone.  The MoE configs route by
     argmax: a route flipped by a near tie would show here as a failure.
-    Returns the card steps' kernel launches (float32: the attention's
-    backward on the CUDA-core route)."""
+    Every attention backward of the card steps must run on the split-TF32
+    kernel (float32).  Returns the card steps' kernel launches."""
     import dataclasses
     from repro_torch.configs.base import OptimizerConfig
     from repro_torch.configs.registry import ARCHS
@@ -4721,11 +4735,17 @@ def phase_train_reference(torch):
                  "grad": max(worst["grad"], g),
                  "params": max(worst["params"], p),
                  "control": min(worst["control"], read["control"])}
+    got = _train_launches()
     log(f"[train-reference] all {len(ARCHS)} archs: worst loss rel diff "
         f"{worst['loss']:.3g} (bound 1e-4), worst grad {worst['grad']:.3g} "
         f"and params {worst['params']:.3g} (bound {TRAIN_REF_TOL}); the "
-        f"bf16 control's least reading {worst['control']:.3g}")
-    return _train_launches()
+        f"bf16 control's least reading {worst['control']:.3g}; attention "
+        f"backward launches {got['flash_attention_bwd']}, on the split-TF32 "
+        f"kernel {got['flash_attention_bwd_tf32x3']}")
+    if not 0 < got["flash_attention_bwd_tf32x3"] == got["flash_attention_bwd"]:
+        raise AssertionError(f"[train-reference]: {got} attention backward "
+                             f"launches, not all on the split-TF32 kernel")
+    return got
 
 
 def phase_train_ckpt(torch):
@@ -4815,18 +4835,19 @@ def phase_examples_train(torch):
 
 
 #: [times]' attention backward shapes, (B, S, H, KVH, D, window), bf16,
-#: causal, each on the tensor-core route beside the CUDA-core one:
-#: [train]'s qwen1.5-0.5b, internlm2's heads and [train-families]'
-#: RecurrentGemma-9B local attention, whose reading also fills the
-#: CUDA-core kernel's row
+#: causal, on the tensor-core route: [train]'s qwen1.5-0.5b, internlm2's
+#: heads and [train-families]' RecurrentGemma-9B local attention
 BWD_TIME_TC = ((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, None),
                (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128, None),
                (1, 2048, 16, 1, 256, 2048))
+#: the float32 backward's timing shapes, causal: [train-families]'
+#: RecurrentGemma-9B local attention and [train]'s qwen1.5-0.5b
+BWD_TIME_F32 = ((1, 2048, 16, 1, 256, 2048),
+                (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, None))
 
 
-def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
-    """One attention backward shape's readings: the routed backward (and,
-    with ``with_cuda_core``, the CUDA-core one at the same inputs), SDPA's
+def _attn_bwd_times(torch, gen, shape, n=20, parent=None):
+    """One attention backward shape's readings: the routed backward, SDPA's
     backward (``enable_gqa``, a band mask where the window cuts the causal
     band) and, on the tensor-core route, the serving forward, the
     forward's lse entry point and (with --parent) the parent's tensor-core
@@ -4844,11 +4865,7 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
             for _ in range(2))
     do = torch.randn((B, S, H, D), generator=gen, device=DEV).bfloat16()
     tc = fa.bwd_route(torch.bfloat16, D) == "tensor_core"
-    if tc:
-        o, lse = fa.flash_attention_cuda(q, k, v, True, window,
-                                         return_lse=True)
-    else:
-        o, lse = fa.flash_attention_cuda(q, k, v, True, window), None
+    o, lse = fa.flash_attention_cuda(q, k, v, True, window, return_lse=True)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     # a window of S or more cuts nothing from the causal band
@@ -4860,9 +4877,6 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
     dot = do.transpose(1, 2)
     fns = {"kernel": lambda: fa.flash_attention_bwd_cuda(
         q, k, v, o, do, True, window, lse=lse)}
-    if with_cuda_core:
-        fns["cuda_core"] = lambda: fa.flash_attention_bwd_cuda(
-            q, k, v, o, do, True, window, kernel="cuda_core")
     fns["library sdpa backward"] = lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True)
     if tc:
@@ -4885,12 +4899,12 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
         q, k, v, o, do, True, window), True, 3)
     pairs = visible_pairs(S, True, window)
     flops = 10 * D * pairs * B * H
-    moved = (4 * B * S * H * D + 4 * B * S * KVH * D) * 2 + tc * B * H * S * 4
+    moved = (4 * B * S * H * D + 4 * B * S * KVH * D) * 2 + B * H * S * 4
     b_ops = flops / H100_BF16_FLOPS * 1e3
     b_bytes = moved / H100_BYTES_PER_S * 1e3
     bound = max(b_ops, b_bytes)
     ms = dev_ms["kernel"]
-    log(f"[times] flash_attention_bwd {'tensor_core' if tc else 'cuda_core'}"
+    log(f"[times] flash_attention_bwd {'tensor_core' if tc else 'tf32x3'}"
         f" bf16 (B, S, H, KVH, D) = {(B, S, H, KVH, D)} causal window="
         f"{window}, median of {n} CUDA-event timings in 4 turns, card / "
         f"call: " + ", ".join(f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f}"
@@ -4900,8 +4914,6 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
         f"{moved} bytes take {b_bytes:.6f} ms); kernel "
         f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound, "
         f"{dev_ms['library sdpa backward'] / ms:.2f}x SDPA backward's speed"
-        + (f", {dev_ms['cuda_core'] / ms:.2f}x the CUDA-core backward's"
-           if with_cuda_core else "")
         + (f", {dev_ms['parent kernel'] / ms:.3f}x the parent's (dq, dk, "
            f"dv bitwise equal to the parent's: {same})"
            if same is not None else "")
@@ -4926,9 +4938,7 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
             "library_ms": dev_ms["library sdpa backward"],
             "tflops": flops / ms / 1e9, "share_of_bound": bound / ms,
             **{f"{key.replace(' ', '_')}_ms": dev_ms[key] for key in fns
-               if key in ("cuda_core", "forward", "forward lse")},
-            **({"cuda_core_call_ms": call_ms["cuda_core"]}
-               if with_cuda_core else {}),
+               if key in ("forward", "forward lse")},
             **({"parent_ms": dev_ms["parent kernel"], "parent_equal": same}
                if same is not None else {}),
             **({"forward_lse_parent_ms": fwd["parent_ms"],
@@ -4936,12 +4946,67 @@ def _attn_bwd_times(torch, gen, shape, with_cuda_core, n=20, parent=None):
                if fwd is not None else {})}
 
 
-def _attn_bwd_f32_times(torch, gen, shape, n=8):
-    """The CUDA-core backward (the float32 route) at one causal training
+#: a child process's SDPA float32 backward under torch.profiler: argv[1]
+#: a JSON list of causal (B, S, H, KVH, D, window); prints, for each, its
+#: device kernels' ms a call
+SDPA_BWD_PROFILE = """
+import json, sys
+import torch
+import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out = []
+for B, S, H, KVH, D, window in json.loads(sys.argv[1]):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((B, H, S, D), generator=g, device="cuda").requires_grad_()
+    k, v = (torch.randn((B, KVH, S, D), generator=g,
+                        device="cuda").requires_grad_() for _ in range(2))
+    mask = None
+    if window is not None and window < S:
+        d = torch.arange(S, device="cuda")[:, None] - torch.arange(
+            S, device="cuda")[None, :]
+        mask = (d >= 0) & (d < window)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                       is_causal=mask is None,
+                                       enable_gqa=True)
+    do = torch.randn_like(o)
+    for _ in range(3):
+        torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+        torch.cuda.synchronize()
+    out.append({e.key: e.device_time_total / 4e3 for e in prof.key_averages()
+                if e.device_time_total > 0})
+print(json.dumps(out))
+"""
+
+
+def _sdpa_bwd_kernels(shapes):
+    """SDPA's float32 backward at each causal training shape: its device
+    kernels by name, ms a call, under torch.profiler in a child process
+    (in this one, after the phases before, the profiler records no device
+    event of the backward autograd runs on its device thread)."""
+    got = subprocess.run([sys.executable, "-c", SDPA_BWD_PROFILE,
+                          json.dumps([list(shape) for shape in shapes])],
+                         capture_output=True, text=True, timeout=600,
+                         check=True)
+    return json.loads(got.stdout.strip().splitlines()[-1])
+
+
+def _attn_bwd_f32_times(torch, gen, shape, sdpa_kernels, n=8, parent=None):
+    """The split-TF32 backward (the float32 route) at one causal training
     shape on float32 inputs, in turns with SDPA's backward on the same
-    float32 inputs; the plain backward; the bound (10 D flops per visible
-    (query, head, key) triple at 67 TFLOP/s float32, or q, o, dO, k, v read
-    and dq, dk, dv written once in float32 at 3.35 TB/s)."""
+    float32 inputs and, with --parent, the parent's float32 backward
+    (given a copy of the forward's lse, which the CUDA-core kernel
+    overwrites), which it must beat; SDPA's device kernels
+    (``sdpa_kernels``, {name: ms a call}); the plain backward; the bound,
+    the larger of the split products' three TF32
+    passes of 10 D flops per visible (query, head, key) triple at 495
+    TFLOP/s and q, o, dO, k, v, lse read and dq, dk, dv written once at
+    3.35 TB/s, beside the float32 CUDA cores' 67 TFLOP/s."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     B, S, H, KVH, D, window = shape
@@ -4949,8 +5014,8 @@ def _attn_bwd_f32_times(torch, gen, shape, n=8):
     k, v = (torch.randn((B, S, KVH, D), generator=gen, device=DEV)
             for _ in range(2))
     do = torch.randn((B, S, H, D), generator=gen, device=DEV)
-    assert fa.bwd_route(torch.float32, D) == "cuda_core"
-    o = fa.flash_attention_cuda(q, k, v, True, window)
+    assert fa.bwd_route(torch.float32, D) == "tf32x3"
+    o, lse = fa.flash_attention_cuda(q, k, v, True, window, return_lse=True)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     mask = (None if window is None or window >= S else
@@ -4960,36 +5025,81 @@ def _attn_bwd_f32_times(torch, gen, shape, n=8):
                                          enable_gqa=True)
     dot = do.transpose(1, 2)
     fns = {"kernel": lambda: fa.flash_attention_bwd_cuda(
-               q, k, v, o, do, True, window),
+               q, k, v, o, do, True, window, lse=lse),
            "library sdpa backward": lambda: torch.autograd.grad(
                out, (qt, kt, vt), dot, retain_graph=True)}
-    dev_ms = _turns_ms(torch, fns, True, n)
+    if parent and "flash_attention_bwd" in parent:
+        scratch_lse = lse.clone()
+        fns["parent kernel"] = lambda: _parent_attn_bwd_f32(
+            torch, parent, q, k, v, o, do, scratch_lse, window)
+    dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
     plain_ms = _median_ms(torch, lambda: fa.flash_attention_backward_plain(
         q, k, v, o, do, True, window), True, 3)
     pairs = visible_pairs(S, True, window)
     flops = 10 * D * pairs * B * H
-    moved = (4 * B * S * H * D + 4 * B * S * KVH * D) * 4
-    b_ops = flops / H100_F32_FLOPS * 1e3
+    moved = (4 * B * S * H * D + 4 * B * S * KVH * D) * 4 + B * H * S * 4
+    b_ops = 3 * flops / H100_TF32_FLOPS * 1e3
+    b_f32 = flops / H100_F32_FLOPS * 1e3
     b_bytes = moved / H100_BYTES_PER_S * 1e3
     bound = max(b_ops, b_bytes)
     ms = dev_ms["kernel"]
-    log(f"[times] flash_attention_bwd cuda_core float32 (B, S, H, KVH, D) = "
+    log(f"[times] flash_attention_bwd tf32x3 float32 (B, S, H, KVH, D) = "
         f"{(B, S, H, KVH, D)} causal window={window}, median of {n} "
         f"CUDA-event timings in 4 turns, card / call: " + ", ".join(
             f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms" for key in fns)
-        + f"; plain {plain_ms:.6f} ms (median of 3); bound {bound:.6f} ms "
-        f"({flops} flops at 67 TFLOP/s float32; {moved} bytes take "
-        f"{b_bytes:.6f} ms); kernel {bound / ms:.1%} of the bound, "
-        f"{dev_ms['library sdpa backward'] / ms:.2f}x SDPA backward's speed "
-        f"on float32 inputs; clocks.sm, power.draw, temperature after: "
-        f"{_clocks()}")
-    return {"ms": ms, "call_ms": call_ms["kernel"], "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            "library_ms": dev_ms["library sdpa backward"],
-            "tflops": flops / ms / 1e9, "share_of_bound": bound / ms,
-            "dtype": "float32"}
+        + f" (turns' spread: " + ", ".join(
+            f"{key} {spread[key]:.6f}" for key in fns)
+        + f"); plain {plain_ms:.6f} ms (median of 3); bound {bound:.6f} ms "
+        f"({flops} flops over {pairs} visible pairs x B x H, three TF32 "
+        f"passes at 495 TFLOP/s; {moved} bytes take {b_bytes:.6f} ms; on "
+        f"the CUDA cores at 67 TFLOP/s float32 {b_f32:.6f} ms); kernel "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound, "
+        f"{dev_ms['library sdpa backward'] / ms:.3f}x SDPA's float32 "
+        f"backward's speed"
+        + (f", {dev_ms['parent kernel'] / ms:.3f}x the parent's"
+           if "parent kernel" in fns else "")
+        + "; SDPA's backward's device kernels under torch.profiler (a "
+        "child process), ms a call: " + ("; ".join(f"{name} {t:.6f}" for name, t in sorted(
+            sdpa_kernels.items(), key=lambda kv: -kv[1])) or "not measured")
+        + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
+    row = {"name": "flash_attention_bwd", "shape": [B, S, S, H, KVH, D],
+           "window": window, "ms": ms, "call_ms": call_ms["kernel"],
+           "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+           "bound_cuda_core_ms": b_f32,
+           "library_ms": dev_ms["library sdpa backward"],
+           "library_kernels": sorted(sdpa_kernels),
+           "tflops": flops / ms / 1e9, "share_of_bound": bound / ms,
+           "dtype": "float32"}
+    if "parent kernel" in fns:
+        _faster_than_parent(row, dev_ms["parent kernel"])
+        row["turns_spread_ms"] = spread["kernel"]
+    del q, k, v, do, o, lse, qt, kt, vt, out
+    return row
+
+
+def _parent_attn_bwd_f32(torch, parent, q, k, v, o, do, lse, window):
+    """The parent's float32 attention backward, causal: (dq, dk, dv).  A
+    CUDA-core parent writes the lse it recomputes into ``lse`` and delta
+    into the scratch; a split-TF32 one reads ``lse`` (a copy of the
+    forward's) and writes delta and its head split's partials into the
+    scratch, which has this plan's size (``f32_bwd_scratch``, at least
+    delta's)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, H, D = q.shape
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((fa.f32_bwd_scratch(B, Sq, k.shape[1], H, k.shape[2],
+                                            D),),
+                        dtype=torch.float32, device=q.device)
+    err = parent["flash_attention_bwd"](
+        *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, lse, delta)), B,
+        Sq, k.shape[1], H, k.shape[2], D, 1, -1 if window is None else window,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the parent's float32 attention backward failed: "
+                           f"{err}")
+    return dq, dk, dv
 
 
 def _parent_attn_bwd(torch, parent, q, k, v, o, do, lse, window):
@@ -5019,14 +5129,14 @@ def phase_train_times(torch, launches, errs, wkv_split, parent=None):
     tensor-core attention backward at [train]'s (8, 1024, 16, 16, 64),
     internlm2's heads (8, 1024, 16, 8, 128) and [train-families]'
     RecurrentGemma-9B local attention (1, 2048, 16, 1, 256, window 2,048),
-    bf16 causal, beside the CUDA-core one at the same inputs and the
-    serving forward beside the forward's lse entry point (the CUDA-core
-    kernel's row is its reading at RecurrentGemma's shape); the WKV scan
-    at [train-families]' RWKV6-7B shape (1, 2048, 64, 64).  With --parent
-    the parent's tensor-core backward is timed in turns with it."""
+    bf16 causal, with the serving forward beside the forward's lse entry
+    point; the split-TF32 backward on float32 inputs at RecurrentGemma's
+    and [train]'s shapes; the WKV scan at [train-families]' RWKV6-7B
+    shape (1, 2048, 64, 64).  With --parent the parent's tensor-core and float32 backwards
+    are timed in turns with them."""
     from repro_torch.kernels import rwkv6_scan as wk
     gen = torch.Generator(device=DEV).manual_seed(23)
-    tc = [_attn_bwd_times(torch, gen, shape, True, parent=parent)
+    tc = [_attn_bwd_times(torch, gen, shape, parent=parent)
           for shape in BWD_TIME_TC]
     rows = [{
         "name": "flash_attention_bwd_wgmma", "route": "cuda",
@@ -5039,24 +5149,23 @@ def phase_train_times(torch, launches, errs, wkv_split, parent=None):
         "launches": launches["flash_attention_bwd_wgmma"],
         "max_abs_err": errs["flash_attention_bwd_wgmma"],
         **tc[0], "also": tc[1:]}]
-    at = tc[-1]
-    f32 = _attn_bwd_f32_times(torch, gen, BWD_TIME_TC[-1])
+    f32 = [_attn_bwd_f32_times(torch, gen, shape, names, parent=parent)
+           for shape, names in zip(BWD_TIME_F32,
+                                   _sdpa_bwd_kernels(BWD_TIME_F32))]
     rows.append({
-        "name": "flash_attention_bwd", "route": "cuda",
+        **f32[0], "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:90",
-        "note": "the CUDA-core gradient of the attention (float32, and bf16 "
-                "at D = 32), which repro takes through its jnp attention "
-                "(use_pallas=False in training); timed on float32 inputs at "
-                "RecurrentGemma's shape beside SDPA's float32 backward (and "
-                "on the bf16 inputs beside the tensor-core kernel, bf16_ms), "
-                "its launches from [train-reference]'s float32 steps",
-        "launches": (launches["flash_attention_bwd"]
-                     - launches["flash_attention_bwd_wgmma"]),
-        "max_abs_err": errs["flash_attention_bwd"],
-        "shape": at["shape"], "window": at["window"], **f32,
-        "bf16_ms": at["cuda_core_ms"], "bf16_call_ms": at["cuda_core_call_ms"],
-        "bf16_library_ms": at["library_ms"]})
+        "note": "the gradient of the attention in split TF32 on the tensor "
+                "cores (float32, and bf16 at D = 32), which repro takes "
+                "through its jnp attention (use_pallas=False in training); "
+                "reads the lse that flash_attention.cu's lse entry point "
+                "writes; timed on float32 inputs at RecurrentGemma's shape "
+                "beside SDPA's float32 backward (also at [train]'s shape in "
+                "float32), its launches from [train-reference]'s float32 "
+                "steps",
+        "launches": launches["flash_attention_bwd_tf32x3"],
+        "max_abs_err": errs["flash_attention_bwd"], "also": f32[1:]})
 
     r, kk, vv, w, u, s0, dy = _wkv_bwd_inputs(torch, gen)
     B, S, H, N = r.shape

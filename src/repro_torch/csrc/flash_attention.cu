@@ -41,6 +41,12 @@
 // that lie wholly outside [i - window + 1, i] for every row of the block
 // are skipped; ragged rows and keys are masked, never padded.
 //
+// A second entry point (flash_attention_lse_*) runs the same kernel and
+// also writes each row's lse = m + log l (B, H, Sq) float32 from the max
+// and denominator it keeps, 0 for a row that sees no key, for the
+// backward of flash_attention_bwd.cu; its output is the serving entry
+// point's, bit for bit (the same arithmetic, only the lse store added).
+//
 // The launch goes on the caller's stream, does not synchronise and
 // allocates nothing; the C entry points return cudaGetLastError().
 #include <cuda_bf16.h>
@@ -82,13 +88,13 @@ constexpr int smem_floats() {
   return kRows * D + D * kKtStride + kKeys * D + kRows * kKeys;
 }
 
-// window < 0: no window.  causal: 0 or 1.
-template <typename T, int D>
+// window < 0: no window.  causal: 0 or 1.  kLse: also write lse (B, H, Sq).
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int Sq,
-                           int Sk, int H, int KVH, int causal, int window,
-                           float scale) {
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
+                           int causal, int window, float scale) {
   constexpr int kCols = D / 32;  // accumulator columns a lane holds per row
   extern __shared__ float smem[];
   float* qs = smem;                     // [kRows][D]
@@ -231,34 +237,39 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) store_from_f32(orow + lane + 32 * j, acc[i][j] / den);
+    if (kLse && lane == 0)
+      lse[(static_cast<long long>(b) * H + h) * Sq + qpos[i]] =
+          l[i] > 0.0f ? m[i] + logf(l[i]) : 0.0f;
   }
 }
 
-template <typename T, int D>
-int launch(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
+template <typename T, int D, bool kLse>
+int launch(const T* q, const T* k, const T* v, T* o, float* lse, int B, int Sq, int Sk,
            int H, int KVH, int causal, int window, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_attention_kernel<T, D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(Sq) * (H / KVH);
   const dim3 grid(static_cast<unsigned int>((rows + kRows - 1) / kRows),
                   static_cast<unsigned int>(B * KVH));
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, Sq, Sk, H, KVH, causal, window, scale);
+  flash_attention_kernel<T, D, kLse><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, o, lse, Sq, Sk, H, KVH, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
+template <typename T, bool kLse>
+int dispatch(const T* q, const T* k, const T* v, T* o, float* lse, int B, int Sq, int Sk,
              int H, int KVH, int D, int causal, int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KVH, causal, window, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KVH, causal, window, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KVH, causal, window, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, KVH, causal, window, s);
+    case 32: return launch<T, 32, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KVH, causal, window, s);
+    case 64: return launch<T, 64, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KVH, causal, window, s);
+    case 128:
+      return launch<T, 128, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KVH, causal, window, s);
+    case 256:
+      return launch<T, 256, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KVH, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -268,13 +279,30 @@ int dispatch(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
 extern "C" int flash_attention_f32(const float* q, const float* k, const float* v,
                                    float* o, int B, int Sq, int Sk, int H, int KVH,
                                    int D, int causal, int window, void* stream) {
-  return dispatch<float>(q, k, v, o, B, Sq, Sk, H, KVH, D, causal, window, stream);
+  return dispatch<float, false>(q, k, v, o, nullptr, B, Sq, Sk, H, KVH, D, causal, window,
+                                stream);
 }
 
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                     const __nv_bfloat16* v, __nv_bfloat16* o, int B,
                                     int Sq, int Sk, int H, int KVH, int D, int causal,
                                     int window, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KVH, D, causal, window,
-                                 stream);
+  return dispatch<__nv_bfloat16, false>(q, k, v, o, nullptr, B, Sq, Sk, H, KVH, D, causal,
+                                        window, stream);
+}
+
+// As flash_attention_f32 / _bf16, and each row's lse into `lse` (B, H, Sq)
+// float32: m + log l over the row's visible keys, 0 where it sees none.
+extern "C" int flash_attention_lse_f32(const float* q, const float* k, const float* v,
+                                       float* o, float* lse, int B, int Sq, int Sk, int H,
+                                       int KVH, int D, int causal, int window, void* stream) {
+  return dispatch<float, true>(q, k, v, o, lse, B, Sq, Sk, H, KVH, D, causal, window, stream);
+}
+
+extern "C" int flash_attention_lse_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                        const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+                                        int B, int Sq, int Sk, int H, int KVH, int D,
+                                        int causal, int window, void* stream) {
+  return dispatch<__nv_bfloat16, true>(q, k, v, o, lse, B, Sq, Sk, H, KVH, D, causal, window,
+                                       stream);
 }

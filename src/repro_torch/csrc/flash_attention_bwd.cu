@@ -1,4 +1,5 @@
-// Backward of the causal / sliding-window GQA attention, for Hopper.
+// Backward of the causal / sliding-window GQA attention for Hopper, every
+// product on the tensor cores in split TF32 (float32-accurate).
 //
 // The gradient of repro/kernels/flash_attention.py::flash_attention (the
 // Pallas TPU kernel _flash_kernel), which repro differentiates through
@@ -8,466 +9,804 @@
 // keys j visible from query i as in the forward (d = i - j, d >= 0 when
 // causal, d < window when windowed):
 //
-//     lse_i   = log sum_j exp(s_ij),   s_ij = q_i . k_j / sqrt(D)
-//     p_ij    = exp(s_ij - lse_i)
+//     p_ij    = exp(s_ij - lse_i),   s_ij = q_i . k_j / sqrt(D)
 //     delta_i = sum_d dO_i[d] o_i[d]
 //     ds_ij   = p_ij (dO_i . v_j - delta_i)
 //     dq_i    = sum_j ds_ij k_j / sqrt(D)
 //     dk_j    = sum_(i, h in the kv head's group) ds_ij q_i / sqrt(D)
 //     dv_j    = sum_(i, h in the kv head's group) p_ij dO_i
 //
-// A row that sees no key has p = 0 and zero gradient (its output is 0).
-// Every sum is float32; the gradients are written in the inputs' type
-// (float32 or bfloat16).  Sq and Sk need not be multiples of any tile.
+// lse (B, H, Sq) float32 is read from the forward (flash_attention.cu's lse
+// entry point: 0 for a row that sees no key), so no pass recomputes it.  A
+// row that sees no key has p = 0 and zero gradient.  Float32 inputs at D
+// in {32, 64, 128, 256} and bfloat16 at D = 32 (converted to float32
+// exactly); every sum is float32; the gradients are written in the
+// inputs' type.  Sq and Sk need not be multiples of any tile.
 //
-// Bound: operations.  The five products (s, dO v^T, dq, dk, dv) take
-// 10 D flops per visible (query, head, key) triple; at the training shape
-// of qwen1.5-0.5b (B, S, H, D) = (4, 1024, 16, 64), causal, that is
-// 43 GFLOP against 50 MB moved.  This kernel runs every product on the
-// CUDA cores in float32 (67 TFLOP/s peak), far from the bf16 tensor-core
-// bound of 989 TFLOP/s: it is the simple, right version, for a later PR
-// to move onto wgmma.
+// Bound: operations.  The five products take 10 D flops per visible
+// (query, head, key) triple; at RecurrentGemma-9B's local attention (1,
+// 2048, 16, 1, 256), window 2,048, 86 GFLOP.  Float32 on the CUDA cores
+// peaks at 67 TFLOP/s (1.28 ms); the TF32 tensor cores at 495 TFLOP/s,
+// but TF32 keeps 10 bits of mantissa.  Each product here splits both
+// operands, x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (rounded
+// as cvt.rna rounds, by integer ops: split_tf32), and sums lo.hi + hi.lo +
+// hi.hi into float32 accumulators (the lo.lo term is below float32's
+// rounding): three TF32 products a product, as accurate as float32, 0.52
+// ms at that shape.  mma.sync, not wgmma: wgmma takes TF32 operands only
+// K-major from shared memory, which P^T dO, dS^T Q and dS K (reducing
+// over the query or key axis of tiles stored row-major by D) are not;
+// mma.sync takes its fragments from registers.  (mma.sync's TF32 peaks
+// at 308 TFLOP/s on an H100 at 700 W, 62% of wgmma's.)
 //
-// Design.  Two kernels, one after the other on the caller's stream, no
-// atomics, so the result is the same bit for bit on every run:
-//  1. dq.  A block of 8 warps takes 32 (query, head) rows of one (batch,
-//     kv head), row r being query r / G of head r % G, as the forward
-//     orders them; a warp owns 4 rows end to end.  A first pass over the
-//     visible key tiles (32 keys, one a lane) recomputes each row's
-//     running max and denominator, so lse needs nothing from the forward
-//     (whose kernels stay as they are).  delta is one warp reduction a
-//     row.  A second pass recomputes s and dO v^T, forms ds and adds
-//     ds k into dq, lane l holding columns l, l + 32, ... of its 4 rows.
-//     The block writes lse and delta to a (B, H, Sq) scratch.
-//  2. dk, dv.  A block takes 32 keys of one (batch, kv head); a warp owns
-//     4 keys, lane l holding columns l, l + 32, ... of their dk and dv.
-//     It loops over the G query heads and, for each, over the 32-query
-//     tiles that can see one of its keys, reading lse and delta from the
-//     scratch: p and ds are recomputed, lane c for query c of the tile,
-//     then p^T dO and ds^T q are added into the registers.
-// The tile that lanes index by key (kernel 1) or query (kernel 2) sits in
-// shared memory with a row stride of D + 1 floats, so lane c reading
-// element d of row c and a warp reading one row across its lanes are both
-// free of bank conflicts.  Shared memory: 4 x 32 x (D + 1) floats plus
-// 32 x 32 floats (kernel 1) or 2 x 32 x 32 (kernel 2), 134 / 138 KB at
-// D = 256 (set with cudaFuncSetAttribute).
+// Design.  Four kernels on the caller's stream (three where the heads are
+// not split), no atomics, so the result is the same bit for bit on every
+// run.  dq and (dk, dv) come from kernels of their own, which costs two
+// products more than five (S and dP are formed in both): 14 D flops a
+// triple.
+//  1. delta = rowsum(dO o), a warp a (batch, query, head) row, into the
+//     first B H Sq floats of the `delta` scratch.
+//  2. dq by 16-row slices of the (query, head) rows of one (batch, kv
+//     head) (row r: query r / G, head kvh G + r % G), so a K/V tile serves
+//     all G heads; blocks of DqPlan::kRows rows, last rows first under a
+//     causal mask (they see the most keys).  Q and dO rows stay in shared
+//     memory; K/V tiles of DqPlan::kKeys keys come by cp.async, two
+//     stages (one at D = 256, where a 64 x 256 float32 tile is 66 KB).  A
+//     tile: S = Q K^T and dP = dO V^T (A from Q / dO by ldmatrix, B from
+//     the K / V rows), P = exp2(S scale log2e - lse log2e), dS = P (dP -
+//     delta), then dq += dS K with dS straight from the accumulators: the
+//     C fragment of a 16 x 8 tile is the A fragment of a 16 x 8 product
+//     whose depth is read in the order 0, 4, 1, 5, 2, 6, 3, 7, and the B
+//     fragment reads K's rows in that order too.  A warp owns a slice at D
+//     64 and 128, S and dP in one loop (twice the independent
+//     accumulators); at D = 256 two warps share it (DqPlan::kHalves): one
+//     forms S and P, the other dP and dS, handing P over and dS back
+//     through shared memory (named barriers of the two), and each adds
+//     dS K into one column half of dq, so a block of 64 rows runs 8 warps.
+//  3. dk, dv by blocks of 64 keys of one (batch, kv head), whose K and V
+//     stay in shared memory; a pair of warps owns 16 keys: one forms S^T
+//     = K Q^T, P^T (masked, from lse) and dv += P^T dO, the other dP^T = V
+//     dO^T, dS^T = P^T (dP^T - delta) with P^T handed over through shared
+//     memory (a named barrier of the pair), and dk += dS^T Q; each holds D
+//     / 2 floats of accumulator a thread.  A block walks the heads of its
+//     split, then the query tiles (KvPlan::kQueries queries: Q, dO, lse
+//     and delta by cp.async, two stages; one of 32 queries at D = 256,
+//     where K and V take 133 KB) that can see one of its keys; a pair
+//     skips a tile none of its keys sees.  Blocks run first keys first,
+//     which under a causal mask are the heaviest.
+//  4. Where the key blocks are too few to fill the card (RecurrentGemma's
+//     B = KVH = 1: 32 blocks of 64 keys), each group's G heads are split
+//     into hs parts (head_split; flash_attention.py's f32_bwd_head_split,
+//     16 there): a block walks its part's heads only and writes float32
+//     partial dk, dv after delta in the scratch, (hs, 2, B, Sk, KVH, D),
+//     and a fourth kernel sums the hs partials of each element in the
+//     order 0 .. hs - 1 and writes dk / sqrt(D) and dv.
+// Operands are split where they are loaded into registers: an A fragment
+// once a k-step, kept split in registers over the k-step's n-tiles, a B
+// fragment once a product.  Shared-memory rows are D + 4 floats apart, so
+// ldmatrix's eight rows, a warp reading a row's 8 x 4 fragment and one
+// reading 8 columns of rows 2t, 2t + 1 are all free of bank conflicts.
 //
 // The launches go on the caller's stream, do not synchronise and allocate
-// nothing; the C entry points return cudaGetLastError().
+// nothing (the wrapper allocates the scratch); the C entry points return
+// cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPerWarp = 4;                 // rows (kernel 1) or keys (kernel 2) a warp
-constexpr int kBlock = kWarps * kPerWarp;   // 32 rows or keys a block
-constexpr int kTile = 32;                   // keys (kernel 1) or queries (kernel 2) a tile
-constexpr float kNegInf = -1e30f;
+using namespace hopper;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
+constexpr int kPad = 4;                       // floats past a shared-memory row
+constexpr int kSms = 132;                     // the H100 SXM's SMs
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ bool visible(int dpos, int causal, int window) {
-  return (!causal || dpos >= 0) && (window < 0 || dpos < window);
-}
-
+// The dq kernel's tiles at each D (flash_attention.py's F32_BWD_PLANS).
 template <int D>
-constexpr int dq_smem_floats() {
-  return 2 * kBlock * D + 2 * kTile * (D + 1) + kBlock * kTile;
-}
+struct DqPlan {
+  static constexpr int kRows = D == 256 ? 64 : 128;        // (query, head) rows a block
+  static constexpr int kHalves = D == 256 ? 2 : 1;         // warps a 16-row slice
+  static constexpr int kWarps = kRows / 16 * kHalves;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kKeys = D >= 128 ? 32 : 64;         // keys a K/V tile
+  static constexpr int kStages = D == 256 ? 1 : 2;
+  static constexpr int kStride = D + kPad;
+  static constexpr int kBytes = 4 * ((2 * kRows + 2 * kStages * kKeys) * kStride +
+                                     (kHalves > 1 ? kRows * kKeys : 0));
+};
 
+// The dk/dv kernel's tiles at each D.
 template <int D>
-constexpr int dkdv_smem_floats() {
-  return 2 * kBlock * D + 2 * kTile * (D + 1) + 2 * kBlock * kTile + 2 * kTile;
+struct KvPlan {
+  static constexpr int kKeys = 64;                         // keys a block, 16 a warp pair
+  static constexpr int kWarps = kKeys / 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kQueries = D == 256 ? 32 : 64;      // queries a Q/dO tile
+  static constexpr int kStages = D == 256 ? 1 : 2;         // Q/dO tiles in flight
+  static constexpr int kStride = D + kPad;
+  static constexpr int kStage = 2 * kQueries * kStride + 2 * kQueries;   // Q, dO, lse, delta
+  static constexpr int kBytes = 4 * (2 * kKeys * kStride + kStages * kStage + kKeys * kQueries);
+};
+
+static_assert(DqPlan<128>::kBytes <= 232448 && DqPlan<256>::kBytes <= 232448 &&
+                  KvPlan<128>::kBytes <= 232448 && KvPlan<256>::kBytes <= 232448,
+              "more shared memory than a block may use");
+
+__device__ __forceinline__ bool visible(int qpos, int key, int Sq, int Sk, int causal,
+                                        int window) {
+  const int d = qpos - key;
+  return qpos < Sq && key < Sk && (!causal || d >= 0) && (window < 0 || d < window);
 }
 
-// Kernel 1: dq, and lse / delta into the scratch.  window < 0: no window.
+// ---- split TF32 products -------------------------------------------------------
+// x = hi + lo as the MMA reads them: hi = tf32(x), lo = tf32(x - hi), each
+// rounded to nearest with ties away from zero, as cvt.rna.tf32.f32 rounds
+// a finite value.  cvt.rna compiles to four instructions (an add, a mask
+// and an inf/NaN test and select); the same rounding of a finite value is
+// an add of half a TF32 ulp (0x1000) to the bits and the mask, and lo
+// needs no mask: the MMA reads only a TF32 operand's top 19 bits.  An
+// infinite x rounds to itself.  A NaN's add may carry into the sign bit
+// (0x7fffffff gives -0) or leave only low bits the MMA ignores (an
+// infinity), so a NaN x selects a NaN hi (0x7fffffff, a NaN in its top 19
+// bits too) and every product it enters is NaN, as in float32.  Its lo
+// may read as anything: hi.hi is NaN.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = x != x ? 0x7fffffffu : (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+template <int N>
+__device__ __forceinline__ void split_frag(const float (&x)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (16 x 8) += a b over a k-step of 8: lo.hi, hi.lo, then hi.hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t* bh,
+                                     const uint32_t* bl) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// Four 8 x 4 float tiles from shared memory, one a register (ldmatrix
+// moves 16-byte rows: thread 4 r + c gets float c of row r).
+__device__ __forceinline__ void ldsm_x4(float (&x)[4], uint32_t addr) {
+  uint32_t r[4];
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = __uint_as_float(r[i]);
+}
+
+// d (16 x N) += A (16 rows x D) B^T (N rows x D), and as many more such
+// products (M of them, each its own A, B and d) in the same loop, every
+// operand rows of float32 in shared memory `stride` floats apart, reduced
+// over D.  a[m], b[m] are the ldmatrix addresses of this lane for column
+// 0 (a_lane and b_lane).  The products' accumulators are independent
+// chains, so the loop keeps M N / 8 of them in flight.
+template <int M, int N, int D, int kStride>
+__device__ __forceinline__ void gemm_rows_rows(float (&d)[M][N / 8][4], const uint32_t (&a)[M],
+                                               const uint32_t (&b)[M]) {
+#pragma unroll 2
+  for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float x[4];
+      uint32_t ah[4], al[4];
+      ldsm_x4(x, a[m] + kk * 32);
+      split_frag(x, ah, al);
+#pragma unroll
+      for (int j = 0; j < N / 8; j += 2) {
+        uint32_t bh[4], bl[4];
+        ldsm_x4(x, b[m] + (j * 8 * kStride + kk * 8) * 4);
+        split_frag(x, bh, bl);
+        mma3(d[m][j], ah, al, bh, bl);
+        mma3(d[m][j + 1], ah, al, bh + 2, bl + 2);
+      }
+    }
+  }
+}
+
+// acc (16 x D) += C (16 x K) B (K rows x D of float32 in shared memory from
+// `rows`), C the accumulator fragments of a 16 x K product.  Fragment j of
+// C, read as {c0, c2, c1, c3}, is the A fragment of a k-step whose depth
+// is in the order 2t, 2t + 1 for t = 0..3 (columns 0, 4, 1, 5, ... of the
+// step), and B's rows are read in that order.
+template <int K, int D, int kStride>
+__device__ __forceinline__ void gemm_frags_rows(float (&acc)[D / 8][4], const float (&c)[K / 8][4],
+                                                const float* rows, int g, int t4) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const float x[4] = {c[j][0], c[j][2], c[j][1], c[j][3]};
+    uint32_t ah[4], al[4];
+    split_frag(x, ah, al);
+    const float* r0 = rows + (8 * j + 2 * t4) * kStride + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bh[2], bl[2];
+      split_tf32(r0[8 * n], bh[0], bl[0]);
+      split_tf32(r0[kStride + 8 * n], bh[1], bl[1]);
+      mma3(acc[n], ah, al, bh, bl);
+    }
+  }
+}
+
+// This lane's ldmatrix address offsets (floats) in a tile of rows `stride`
+// apart: as A (16 rows x 8: the four 8 x 4 tiles a0..a3) and as B (16 rows x
+// 8: b0, b1 of rows 0..7, then of rows 8..15).
+__device__ __forceinline__ int a_lane(int lane, int stride) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * stride + (lane >> 4) * 4;
+}
+__device__ __forceinline__ int b_lane(int lane, int stride) {
+  return ((lane & 7) + (lane >> 4) * 8) * stride + ((lane >> 3) & 1) * 4;
+}
+
+// ---- loads and stores ------------------------------------------------------------
+// Four elements from global memory into shared memory as float32: by cp.async
+// for float32 (complete at cp_async_wait_all), converted in registers for
+// bf16; zeros if !valid (`src` must still be mapped).
+__device__ __forceinline__ void load4(float* dst, const float* src, bool valid) {
+  cp_async_16(smem_addr(dst), src, valid);
+}
+__device__ __forceinline__ void load4(float* dst, const __nv_bfloat16* src, bool valid) {
+  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (valid) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    x = make_float4(a.x, a.y, b.x, b.y);
+  }
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
+__device__ __forceinline__ float4 read4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 read4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Named barrier `id` (1..8) of two warps, by an immediate id (a register id
+// makes ptxas reserve all 16 barriers for the block): the writer of a
+// hand-over arrives, the reader waits.
+template <int kId>
+__device__ __forceinline__ void bar2(bool wait) {
+  if (wait)
+    asm volatile("bar.sync %0, 64;\n" ::"n"(kId) : "memory");
+  else
+    asm volatile("bar.arrive %0, 64;\n" ::"n"(kId) : "memory");
+}
+__device__ __forceinline__ void pair_barrier(int id, bool wait) {
+  switch (id) {
+    case 1: bar2<1>(wait); break;
+    case 2: bar2<2>(wait); break;
+    case 3: bar2<3>(wait); break;
+    case 4: bar2<4>(wait); break;
+    case 5: bar2<5>(wait); break;
+    case 6: bar2<6>(wait); break;
+    case 7: bar2<7>(wait); break;
+    default: bar2<8>(wait); break;
+  }
+}
+
+// ---- 1. delta ----------------------------------------------------------------------
+// A warp a (batch, query, head) row, 4 columns a lane at a time.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ o,
-                       const T* __restrict__ dout, T* __restrict__ dq,
-                       float* __restrict__ lse_out, float* __restrict__ delta_out,
-                       int Sq, int Sk, int H, int KVH, int causal, int window,
-                       float scale) {
-  constexpr int kCols = D / 32;
-  constexpr int kStride = D + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;                     // [kBlock][D]
-  float* dos = qs + kBlock * D;         // [kBlock][D]
-  float* ks = dos + kBlock * D;         // [kTile][kStride]
-  float* vs = ks + kTile * kStride;     // [kTile][kStride]
-  float* dss = vs + kTile * kStride;    // [kBlock][kTile]
+__global__ void __launch_bounds__(256)
+    attn_bwd_delta_tf32_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                               float* __restrict__ delta, long long n_rows, int Sq, int H) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n_rows) return;
+  float acc = 0.0f;
+#pragma unroll
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 a = read4(o + row * D + c);
+    const float4 g = read4(dout + row * D + c);
+    acc = fmaf(a.x, g.x, acc);
+    acc = fmaf(a.y, g.y, acc);
+    acc = fmaf(a.z, g.z, acc);
+    acc = fmaf(a.w, g.w, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = static_cast<int>(row % H);
+    const long long bq = row / H;   // b Sq + query
+    delta[(bq / Sq * H + h) * Sq + bq % Sq] = acc;
+  }
+}
+
+// ---- 2. dq -----------------------------------------------------------------------------
+// Grid (row blocks, B KVH).  window < 0: no window.  causal: 0 or 1.
+template <typename T, int D>
+__global__ void __launch_bounds__(DqPlan<D>::kThreads, 1)
+    attn_bwd_dq_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            T* __restrict__ dq, int Sq, int Sk, int H, int KVH, int causal,
+                            int window, float scale_log2, float scale) {
+  using P = DqPlan<D>;
+  constexpr int S = P::kStride;
+  constexpr int KT = P::kKeys;
+  constexpr int kUnits = D / 4;   // 4-float units of a row
+  extern __shared__ __align__(16) float smem[];
+  float* const qs = smem;                       // [kRows][S]
+  float* const dos = qs + P::kRows * S;         // [kRows][S]
+  float* const ks = dos + P::kRows * S;         // [stage][KT][S]
+  float* const vs = ks + P::kStages * KT * S;   // [stage][KT][S]
 
   const int G = H / KVH;
   const int b = blockIdx.y / KVH;
   const int kvh = blockIdx.y % KVH;
   const long long rows = static_cast<long long>(Sq) * G;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kBlock;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  for (int idx = tid; idx < kBlock * D; idx += kThreads) {
-    const long long row = row0 + idx / D;
-    const int d = idx % D;
-    float x = 0.0f, g = 0.0f;
-    if (row < rows) {
-      const int h = kvh * G + static_cast<int>(row % G);
-      const long long off = ((static_cast<long long>(b) * Sq + row / G) * H + h) * D + d;
-      x = load_f32(q + off);
-      g = load_f32(dout + off);
-    }
-    qs[idx] = x;
-    dos[idx] = g;
-  }
-  __syncthreads();
-
-  int qpos[kPerWarp], head[kPerWarp];
-  bool live[kPerWarp];
-  float delta[kPerWarp], lse[kPerWarp], m[kPerWarp], l[kPerWarp];
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i) {
-    const long long row = row0 + warp * kPerWarp + i;
-    live[i] = row < rows;
-    qpos[i] = live[i] ? static_cast<int>(row / G) : 0;
-    head[i] = kvh * G + (live[i] ? static_cast<int>(row % G) : 0);
-    float acc = 0.0f;
-    if (live[i]) {
-      const T* orow = o + ((static_cast<long long>(b) * Sq + qpos[i]) * H + head[i]) * D;
-      for (int d = lane; d < D; d += 32)
-        acc = fmaf(dos[(warp * kPerWarp + i) * D + d], load_f32(orow + d), acc);
-    }
-    delta[i] = warp_sum(acc);
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-  }
-
-  const long long last_row = (row0 + kBlock - 1 < rows ? row0 + kBlock : rows) - 1;
+  // causal: the last rows, which see the most keys, first
+  const int xb = causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const long long row0 = static_cast<long long>(xb) * P::kRows;
+  const long long last_row = (row0 + P::kRows < rows ? row0 + P::kRows : rows) - 1;
   const int q_lo = static_cast<int>(row0 / G);
   const int q_hi = static_cast<int>(last_row / G);
-  int k_lo = 0;
-  if (window >= 0) k_lo = q_lo - window + 1 > 0 ? q_lo - window + 1 : 0;
-  const int k_hi = causal ? (q_hi < Sk - 1 ? q_hi : Sk - 1) : Sk - 1;
-  const int t_lo = k_lo / kTile;
-  const int t_hi = k_hi >= k_lo ? k_hi / kTile : t_lo - 1;
+  const int k_lo = window >= 0 ? max(0, q_lo - window + 1) : 0;
+  const int k_hi = causal ? min(q_hi, Sk - 1) : Sk - 1;
+  const int t_lo = k_lo / KT;
+  const int n_tiles = k_hi >= k_lo ? k_hi / KT - t_lo + 1 : 0;
   const long long kv_base = static_cast<long long>(b) * Sk * KVH + kvh;
-  const float* qw = qs + warp * kPerWarp * D;
-  const float* dow = dos + warp * kPerWarp * D;
 
-  // pass 1: each row's max and denominator over its visible keys
-  for (int t = t_lo; t <= t_hi; ++t) {
-    __syncthreads();
-    for (int idx = tid; idx < kTile * D; idx += kThreads) {
-      const int c = idx / D;
-      const int d = idx % D;
-      const int key = t * kTile + c;
-      ks[c * kStride + d] =
-          key < Sk ? load_f32(k + (kv_base + static_cast<long long>(key) * KVH) * D + d) : 0.0f;
-    }
-    __syncthreads();
-    float s[kPerWarp];
-#pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) s[i] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = ks[lane * kStride + d];
-#pragma unroll
-      for (int i = 0; i < kPerWarp; ++i) s[i] = fmaf(qw[i * D + d], kd, s[i]);
-    }
-    const int key = t * kTile + lane;
-#pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) {
-      const bool ok = live[i] && key < Sk && visible(qpos[i] - key, causal, window);
-      const float si = ok ? s[i] * scale : kNegInf;
-      const float m_new = fmaxf(m[i], warp_max(si));
-      const float p = ok ? expf(si - m_new) : 0.0f;
-      const float alpha = m[i] <= kNegInf * 0.5f ? 0.0f : expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(p);
-      m[i] = m_new;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i) {
-    lse[i] = l[i] > 0.0f ? m[i] + logf(l[i]) : 0.0f;
-    if (live[i] && lane == 0) {
-      const long long at = (static_cast<long long>(b) * H + head[i]) * Sq + qpos[i];
-      lse_out[at] = lse[i];
-      delta_out[at] = delta[i];
-    }
-  }
-
-  // pass 2: ds = p (dO v^T - delta), dq += ds k
-  float acc[kPerWarp][kCols];
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
-  for (int t = t_lo; t <= t_hi; ++t) {
-    __syncthreads();
-    for (int idx = tid; idx < kTile * D; idx += kThreads) {
-      const int c = idx / D;
-      const int d = idx % D;
-      const int key = t * kTile + c;
-      float kx = 0.0f, vx = 0.0f;
-      if (key < Sk) {
-        const long long off = (kv_base + static_cast<long long>(key) * KVH) * D + d;
-        kx = load_f32(k + off);
-        vx = load_f32(v + off);
-      }
-      ks[c * kStride + d] = kx;
-      vs[c * kStride + d] = vx;
-    }
-    __syncthreads();
-    float s[kPerWarp], dp[kPerWarp];
-#pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) s[i] = dp[i] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = ks[lane * kStride + d];
-      const float vd = vs[lane * kStride + d];
-#pragma unroll
-      for (int i = 0; i < kPerWarp; ++i) {
-        s[i] = fmaf(qw[i * D + d], kd, s[i]);
-        dp[i] = fmaf(dow[i * D + d], vd, dp[i]);
-      }
-    }
-    const int key = t * kTile + lane;
-#pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) {
-      const bool ok = live[i] && key < Sk && visible(qpos[i] - key, causal, window);
-      const float p = ok ? expf(s[i] * scale - lse[i]) : 0.0f;
-      dss[(warp * kPerWarp + i) * kTile + lane] = p * (dp[i] - delta[i]);
-    }
-    __syncwarp();
-    const float* dsw = dss + warp * kPerWarp * kTile;
-    for (int c = 0; c < kTile; ++c) {
-      float kc[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kc[j] = ks[c * kStride + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < kPerWarp; ++i) {
-        const float ds = dsw[i * kTile + c];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(ds, kc[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i) {
-    if (!live[i]) continue;
-    T* out = dq + ((static_cast<long long>(b) * Sq + qpos[i]) * H + head[i]) * D;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) store_from_f32(out + lane + 32 * j, acc[i][j] * scale);
-  }
-}
-
-// Kernel 2: dk and dv from lse / delta.  window < 0: no window.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse_in,
-                         const float* __restrict__ delta_in, T* __restrict__ dk,
-                         T* __restrict__ dv, int Sq, int Sk, int H, int KVH,
-                         int causal, int window, float scale) {
-  constexpr int kCols = D / 32;
-  constexpr int kStride = D + 1;
-  extern __shared__ float smem[];
-  float* ks = smem;                     // [kBlock][D]
-  float* vs = ks + kBlock * D;          // [kBlock][D]
-  float* qs = vs + kBlock * D;          // [kTile][kStride]
-  float* dos = qs + kTile * kStride;    // [kTile][kStride]
-  float* ps = dos + kTile * kStride;    // [kBlock][kTile]
-  float* dss = ps + kBlock * kTile;     // [kBlock][kTile]
-  float* lses = dss + kBlock * kTile;   // [kTile]
-  float* deltas = lses + kTile;         // [kTile]
-
-  const int G = H / KVH;
-  const int b = blockIdx.y / KVH;
-  const int kvh = blockIdx.y % KVH;
-  const int key0 = blockIdx.x * kBlock;
   const int tid = threadIdx.x;
+  for (int u = tid; u < P::kRows * kUnits; u += P::kThreads) {
+    const int r = u / kUnits;
+    const int c = 4 * (u % kUnits);
+    const long long row = row0 + r;
+    const bool live = row < rows;
+    long long off = 0;
+    if (live)
+      off = ((static_cast<long long>(b) * Sq + row / G) * H + kvh * G + row % G) * D + c;
+    load4(qs + r * S + c, q + off, live);
+    load4(dos + r * S + c, dout + off, live);
+  }
+  auto load_kv = [&](int i) {
+    const int st = i % P::kStages;
+    const int k0 = (t_lo + i) * KT;
+    for (int u = tid; u < KT * kUnits; u += P::kThreads) {
+      const int r = u / kUnits;
+      const int c = 4 * (u % kUnits);
+      const bool live = k0 + r < Sk;
+      const long long off = live ? (kv_base + static_cast<long long>(k0 + r) * KVH) * D + c : 0;
+      load4(ks + (st * KT + r) * S + c, k + off, live);
+      load4(vs + (st * KT + r) * S + c, v + off, live);
+    }
+  };
+  if (n_tiles > 0) load_kv(0);
+
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int slice = warp / P::kHalves;   // the warp's 16 rows
+  const int part = warp % P::kHalves;    // halves: 0 S, P; 1 dP, dS; each a column half of dq
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  // the thread's two rows, slice 16 + g and + 8: their queries, lse (log2
+  // units) and delta; a row past the last has qpos >= Sq (nothing visible)
+  int qpos[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long row = row0 + slice * 16 + g + 8 * half;
+    qpos[half] = static_cast<int>(row / G);
+    lse2[half] = 0.0f;
+    dl[half] = 0.0f;
+    if (row < rows) {
+      const long long at = (static_cast<long long>(b) * H + kvh * G + row % G) * Sq + qpos[half];
+      lse2[half] = lse[at] * kLog2e;
+      dl[half] = delta[at];
+    }
+  }
+  const uint32_t q_rows = smem_addr(qs + slice * 16 * S + a_lane(lane, S));
+  const uint32_t do_rows = smem_addr(dos + slice * 16 * S + a_lane(lane, S));
+  // halves: S or dP hands P, then dS, to the other warp of the slice
+  float4* const xw = reinterpret_cast<float4*>(vs + P::kStages * KT * S) + slice * (KT / 8) * 32 +
+                     lane;
+  constexpr int kCols = D / P::kHalves;   // columns of dq a warp holds
+
+  float acc[kCols / 8][4];
+#pragma unroll
+  for (int n = 0; n < kCols / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();
+    __syncthreads();   // tile i (and the rows) landed; every warp is done with tile i - 1
+    if (P::kStages == 2 && i + 1 < n_tiles) load_kv(i + 1);
+    const int st = i % P::kStages;
+    const int k0 = (t_lo + i) * KT;
+    const float* kt = ks + st * KT * S;
+    const float* vt = vs + st * KT * S;
+    const bool inside = k0 + KT <= Sk && (!causal || k0 + KT - 1 <= q_lo) &&
+                        (window < 0 || k0 >= q_hi - window + 1);
+
+    // P from lse, masked on the band's edges only
+    auto softmax = [&](float (&sc)[KT / 8][4]) {
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e / 2;
+          float p = ex2(fmaf(sc[j][e], scale_log2, -lse2[half]));
+          if (!inside &&
+              !visible(qpos[half], k0 + 8 * j + 2 * t4 + (e & 1), Sq, Sk, causal, window))
+            p = 0.0f;
+          sc[j][e] = p;
+        }
+    };
+    float sd[P::kHalves == 1 ? 2 : 1][KT / 8][4];
+#pragma unroll
+    for (int m = 0; m < (P::kHalves == 1 ? 2 : 1); ++m)
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sd[m][j][e] = 0.0f;
+    if constexpr (P::kHalves == 1) {
+      // S = Q K^T and dP = dO V^T in one loop; dS = P (dP - delta) into sd[0]
+      const uint32_t a_rows[2] = {q_rows, do_rows};
+      const uint32_t b_rows[2] = {smem_addr(kt + b_lane(lane, S)),
+                                  smem_addr(vt + b_lane(lane, S))};
+      gemm_rows_rows<2, KT, D, S>(sd, a_rows, b_rows);
+      softmax(sd[0]);
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sd[0][j][e] *= sd[1][j][e] - dl[e / 2];
+    } else {
+      // part 0: S, P (handed over), then dS back; part 1: dP, dS (handed back)
+      const uint32_t a_rows[1] = {part == 0 ? q_rows : do_rows};
+      const uint32_t b_rows[1] = {smem_addr((part == 0 ? kt : vt) + b_lane(lane, S))};
+      gemm_rows_rows<1, KT, D, S>(sd, a_rows, b_rows);
+      if (part == 0) {
+        softmax(sd[0]);
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+          xw[j * 32] = make_float4(sd[0][j][0], sd[0][j][1], sd[0][j][2], sd[0][j][3]);
+        pair_barrier(1 + slice, false);
+        pair_barrier(5 + slice, true);
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+          const float4 x = xw[j * 32];
+          sd[0][j][0] = x.x;
+          sd[0][j][1] = x.y;
+          sd[0][j][2] = x.z;
+          sd[0][j][3] = x.w;
+        }
+      } else {
+        pair_barrier(1 + slice, true);
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+          const float4 x = xw[j * 32];
+          const float pe[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sd[0][j][e] = pe[e] * (sd[0][j][e] - dl[e / 2]);
+          xw[j * 32] = make_float4(sd[0][j][0], sd[0][j][1], sd[0][j][2], sd[0][j][3]);
+        }
+        pair_barrier(5 + slice, false);
+      }
+    }
+    // dq += dS K over this warp's columns
+    gemm_frags_rows<KT, kCols, S>(acc, sd[0], kt + part * kCols, g, t4);
+    if (P::kStages == 1) {
+      __syncthreads();   // every warp is done with the stage
+      if (i + 1 < n_tiles) load_kv(i + 1);
+    }
+  }
+
+  // dq / sqrt(D): row g (e 0, 1) and g + 8 (e 2, 3), columns 8 n + 2 t4, + 1
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long row = row0 + slice * 16 + g + 8 * half;
+    if (row >= rows) continue;
+    T* out = dq + ((static_cast<long long>(b) * Sq + qpos[half]) * H + kvh * G + row % G) * D +
+             part * kCols + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n)
+      store2(out + 8 * n, acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+  }
+}
+
+// ---- 3. dk, dv -------------------------------------------------------------------------
+// Grid (hs, key blocks, B KVH): block (z, kb, b KVH + kvh) owns the keys
+// [kb kKeys, (kb + 1) kKeys) and walks heads [z G / hs, (z + 1) G / hs) of
+// the group.  hs = 1: dk, dv in T; hs > 1: float32 partials into `part`
+// (hs, 2, B, Sk, KVH, D).  window < 0: no window.  causal: 0 or 1.
+template <typename T, int D>
+__global__ void __launch_bounds__(KvPlan<D>::kThreads, 1)
+    attn_bwd_dkdv_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part,
+                              int Sq, int Sk, int H, int KVH, int causal, int window,
+                              float scale_log2, float scale) {
+  using P = KvPlan<D>;
+  constexpr int S = P::kStride;
+  constexpr int QT = P::kQueries;
+  constexpr int kUnits = D / 4;
+  extern __shared__ __align__(16) float smem[];
+  float* const ks = smem;                              // [kKeys][S]
+  float* const vs = ks + P::kKeys * S;                 // [kKeys][S]
+  float* const stages = vs + P::kKeys * S;             // [stage]: Q, dO [QT][S], lse, delta [QT]
+  float* const pshare = stages + P::kStages * P::kStage;   // [pair][QT / 8][32 lanes][4]
+
+  const int G = H / KVH;
+  const int hs = gridDim.x;
+  const int z = blockIdx.x;
+  const int b = blockIdx.z / KVH;
+  const int kvh = blockIdx.z % KVH;
+  const int key0 = blockIdx.y * P::kKeys;
+  const int key_hi = min(key0 + P::kKeys - 1, Sk - 1);
+  const int h0 = kvh * G + z * (G / hs);   // the split's first head
+  // the queries that can see one of the block's keys
+  const int q_lo = causal ? key0 : 0;
+  const int q_hi = window >= 0 ? min(Sq - 1, key_hi + window - 1) : Sq - 1;
+  const int t_lo = q_lo / QT;
+  const int n_qt = q_hi >= q_lo ? q_hi / QT - t_lo + 1 : 0;
+  const int n_iter = (G / hs) * n_qt;
   const long long kv_base = static_cast<long long>(b) * Sk * KVH + kvh;
 
-  for (int idx = tid; idx < kBlock * D; idx += kThreads) {
-    const int key = key0 + idx / D;
-    const int d = idx % D;
-    float kx = 0.0f, vx = 0.0f;
-    if (key < Sk) {
-      const long long off = (kv_base + static_cast<long long>(key) * KVH) * D + d;
-      kx = load_f32(k + off);
-      vx = load_f32(v + off);
-    }
-    ks[idx] = kx;
-    vs[idx] = vx;
+  const int tid = threadIdx.x;
+  for (int u = tid; u < P::kKeys * kUnits; u += P::kThreads) {
+    const int r = u / kUnits;
+    const int c = 4 * (u % kUnits);
+    const bool live = key0 + r < Sk;
+    const long long off = live ? (kv_base + static_cast<long long>(key0 + r) * KVH) * D + c : 0;
+    load4(ks + r * S + c, k + off, live);
+    load4(vs + r * S + c, v + off, live);
   }
+  // query tile i: head h0 + i / n_qt, queries q0 .. q0 + QT
+  auto load_q = [&](int i) {
+    float* const at = stages + (i % P::kStages) * P::kStage;
+    const int h = h0 + i / n_qt;
+    const int q0 = (t_lo + i % n_qt) * QT;
+    for (int u = tid; u < QT * kUnits; u += P::kThreads) {
+      const int r = u / kUnits;
+      const int c = 4 * (u % kUnits);
+      const bool live = q0 + r < Sq;
+      const long long off =
+          live ? ((static_cast<long long>(b) * Sq + q0 + r) * H + h) * D + c : 0;
+      load4(at + r * S + c, q + off, live);
+      load4(at + (QT + r) * S + c, dout + off, live);
+    }
+    if (tid < 2 * QT) {
+      const int r = tid % QT;
+      const bool live = q0 + r < Sq;
+      const long long row = live ? (static_cast<long long>(b) * H + h) * Sq + q0 + r : 0;
+      cp_async_4(smem_addr(at + 2 * QT * S + tid), (tid < QT ? lse : delta) + row, live);
+    }
+  };
+  if (n_iter > 0) load_q(0);
 
-  float acc_k[kPerWarp][kCols], acc_v[kPerWarp][kCols];
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc_k[i][j] = acc_v[i][j] = 0.0f;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int pair = warp / 2;
+  const int role = warp % 2;   // 0: S^T, P^T, dv; 1: dP^T, dS^T, dk
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int kw0 = key0 + 16 * pair;
+  const int key[2] = {kw0 + g, kw0 + g + 8};
+  // A: this pair's 16 rows of K (role 0) or V (role 1)
+  const uint32_t a_rows[1] = {smem_addr((role == 0 ? ks : vs) + 16 * pair * S + a_lane(lane, S))};
+  float4* const pw = reinterpret_cast<float4*>(pshare) + pair * (QT / 8) * 32 + lane;
 
-  // the queries that can see one of the block's keys
-  const int key_hi = (key0 + kBlock - 1 < Sk - 1 ? key0 + kBlock - 1 : Sk - 1);
-  const int qlo = causal ? key0 : 0;
-  int qhi = Sq - 1;
-  if (window >= 0 && key_hi + window - 1 < qhi) qhi = key_hi + window - 1;
-  const int t_lo = qlo / kTile;
-  const int t_hi = qhi >= qlo ? qhi / kTile : t_lo - 1;
-  const float* kw = ks + warp * kPerWarp * D;
-  const float* vw = vs + warp * kPerWarp * D;
+  float acc[D / 8][4];   // dv (role 0) or dk (role 1), unscaled
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
 
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    for (int t = t_lo; t <= t_hi; ++t) {
-      __syncthreads();  // the previous tile is consumed (and K, V are stored)
-      for (int idx = tid; idx < kTile * D; idx += kThreads) {
-        const int c = idx / D;
-        const int d = idx % D;
-        const int qi = t * kTile + c;
-        float x = 0.0f, gx = 0.0f;
-        if (qi < Sq) {
-          const long long off = ((static_cast<long long>(b) * Sq + qi) * H + h) * D + d;
-          x = load_f32(q + off);
-          gx = load_f32(dout + off);
-        }
-        qs[c * kStride + d] = x;
-        dos[c * kStride + d] = gx;
-      }
-      if (tid < kTile) {
-        const int qi = t * kTile + tid;
-        const long long at = (static_cast<long long>(b) * H + h) * Sq + qi;
-        lses[tid] = qi < Sq ? lse_in[at] : 0.0f;
-        deltas[tid] = qi < Sq ? delta_in[at] : 0.0f;
-      }
-      __syncthreads();
+  for (int i = 0; i < n_iter; ++i) {
+    cp_async_wait_all();
+    __syncthreads();   // tile i landed; every warp is done with tile i - 1
+    if (P::kStages == 2 && i + 1 < n_iter) load_q(i + 1);
+    const float* const qt = stages + (i % P::kStages) * P::kStage;
+    const float* const dot = qt + QT * S;
+    const float* const ls = qt + 2 * QT * S;
+    const float* const dls = ls + QT;
+    const int q0 = (t_lo + i % n_qt) * QT;
+    // does one of this pair's keys see one of the tile's queries?
+    const bool any = kw0 < Sk && (!causal || q0 + QT - 1 >= kw0) &&
+                     (window < 0 || q0 - (kw0 + 15) < window);
+    if (any) {
+      const bool inside = kw0 + 16 <= Sk && q0 + QT <= Sq && (!causal || q0 >= kw0 + 15) &&
+                          (window < 0 || q0 + QT - 1 - kw0 < window);
+      float sd[1][QT / 8][4];   // S^T (role 0) or dP^T (role 1): key rows, query columns
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sd[0][j][e] = 0.0f;
+      const uint32_t b_rows[1] = {smem_addr((role == 0 ? qt : dot) + b_lane(lane, S))};
+      gemm_rows_rows<1, QT, D, S>(sd, a_rows, b_rows);
+      float (&st)[QT / 8][4] = sd[0];
 
-      const int qi = t * kTile + lane;
-      float s[kPerWarp], dp[kPerWarp];
+      if (role == 0) {
+        // P^T from lse, handed to the pair's other warp; dv += P^T dO
 #pragma unroll
-      for (int i = 0; i < kPerWarp; ++i) s[i] = dp[i] = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        const float qd = qs[lane * kStride + d];
-        const float gd = dos[lane * kStride + d];
+        for (int j = 0; j < QT / 8; ++j) {
 #pragma unroll
-        for (int i = 0; i < kPerWarp; ++i) {
-          s[i] = fmaf(qd, kw[i * D + d], s[i]);
-          dp[i] = fmaf(gd, vw[i * D + d], dp[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kPerWarp; ++i) {
-        const int key = key0 + warp * kPerWarp + i;
-        const bool ok = qi < Sq && key < Sk && visible(qi - key, causal, window);
-        const float p = ok ? expf(s[i] * scale - lses[lane]) : 0.0f;
-        ps[(warp * kPerWarp + i) * kTile + lane] = p;
-        dss[(warp * kPerWarp + i) * kTile + lane] = p * (dp[i] - deltas[lane]);
-      }
-      __syncwarp();
-      const float* pw = ps + warp * kPerWarp * kTile;
-      const float* dsw = dss + warp * kPerWarp * kTile;
-      for (int c = 0; c < kTile; ++c) {
-        float qc[kCols], gc[kCols];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          qc[j] = qs[c * kStride + lane + 32 * j];
-          gc[j] = dos[c * kStride + lane + 32 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < kPerWarp; ++i) {
-          const float p = pw[i * kTile + c];
-          const float ds = dsw[i * kTile + c];
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            acc_v[i][j] = fmaf(p, gc[j], acc_v[i][j]);
-            acc_k[i][j] = fmaf(ds, qc[j], acc_k[i][j]);
+          for (int e = 0; e < 4; ++e) {
+            const int qc = 8 * j + 2 * t4 + (e & 1);   // query column in the tile
+            float p = ex2(fmaf(st[j][e], scale_log2, -ls[qc] * kLog2e));
+            if (!inside && !visible(q0 + qc, key[e / 2], Sq, Sk, causal, window)) p = 0.0f;
+            st[j][e] = p;
           }
+          pw[j * 32] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
         }
+        pair_barrier(1 + pair, false);
+        gemm_frags_rows<QT, D, S>(acc, st, dot, g, t4);
+      } else {
+        // dS^T = P^T (dP^T - delta); dk += dS^T Q
+        pair_barrier(1 + pair, true);
+#pragma unroll
+        for (int j = 0; j < QT / 8; ++j) {
+          const float4 p = pw[j * 32];
+          const float pe[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[j][e] = pe[e] * (st[j][e] - dls[8 * j + 2 * t4 + (e & 1)]);
+        }
+        gemm_frags_rows<QT, D, S>(acc, st, qt, g, t4);
       }
+    }
+    if (P::kStages == 1) {
+      __syncthreads();   // every warp is done with the stage
+      if (i + 1 < n_iter) load_q(i + 1);
     }
   }
 
+  // keys g and g + 8 of the pair (e 0, 1 and 2, 3), columns 8 n + 2 t4, + 1
+  const long long n_all = static_cast<long long>(gridDim.z) * Sk * D;   // B Sk KVH D
 #pragma unroll
-  for (int i = 0; i < kPerWarp; ++i) {
-    const int key = key0 + warp * kPerWarp + i;
-    if (key >= Sk) continue;
-    const long long off = (kv_base + static_cast<long long>(key) * KVH) * D;
+  for (int half = 0; half < 2; ++half) {
+    if (key[half] >= Sk) continue;
+    const long long off = (kv_base + static_cast<long long>(key[half]) * KVH) * D + 2 * t4;
+    if (hs > 1) {
+      float* out = part + (2 * z + 1 - role) * n_all + off;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      store_from_f32(dk + off + lane + 32 * j, acc_k[i][j] * scale);
-      store_from_f32(dv + off + lane + 32 * j, acc_v[i][j]);
+      for (int n = 0; n < D / 8; ++n) store2(out + 8 * n, acc[n][2 * half], acc[n][2 * half + 1]);
+    } else {
+      const float mul = role == 0 ? 1.0f : scale;
+      T* out = (role == 0 ? dv : dk) + off;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        store2(out + 8 * n, acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
     }
   }
 }
 
+// ---- 4. the head split's sum -----------------------------------------------------------
+// dk = scale sum_z part[z][0], dv = sum_z part[z][1], z = 0 .. hs - 1 in
+// order, written in T; 4 elements a thread.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    attn_bwd_dkdv_sum_tf32_kernel(const float* __restrict__ part, T* __restrict__ dk,
+                                  T* __restrict__ dv, long long n, int hs, float scale) {
+  const long long i = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 a = read4(part + i);
+  float4 c = read4(part + n + i);
+  for (int zz = 1; zz < hs; ++zz) {
+    const float4 x = read4(part + 2 * zz * n + i);
+    const float4 y = read4(part + (2 * zz + 1) * n + i);
+    a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
+    c = make_float4(c.x + y.x, c.y + y.y, c.z + y.z, c.w + y.w);
+  }
+  store2(dk + i, a.x * scale, a.y * scale);
+  store2(dk + i + 2, a.z * scale, a.w * scale);
+  store2(dv + i, c.x, c.y);
+  store2(dv + i + 2, c.z, c.w);
+}
+
+// hs: the smallest divisor of G whose dk/dv grid holds two blocks an SM,
+// else G (flash_attention.py's f32_bwd_head_split).
+template <int D>
+int head_split(int B, int Sk, int KVH, int G) {
+  const long long blocks =
+      static_cast<long long>((Sk + KvPlan<D>::kKeys - 1) / KvPlan<D>::kKeys) * B * KVH;
+  for (int hs = 1; hs <= G; ++hs)
+    if (G % hs == 0 && blocks * hs >= 2 * kSms) return hs;
+  return G;
+}
+
+// Where the partials start in the scratch: after delta, 16-byte aligned.
+long long part_offset(int B, int Sq, int H) {
+  return (static_cast<long long>(B) * H * Sq + 3) / 4 * 4;
+}
+
 template <typename T, int D>
-int launch(const T* q, const T* k, const T* v, const T* o, const T* dout, T* dq,
-           T* dk, T* dv, float* lse, float* delta, int B, int Sq, int Sk, int H,
-           int KVH, int causal, int window, cudaStream_t stream) {
-  constexpr int dq_bytes = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
-  constexpr int dkdv_bytes = dkdv_smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+int launch(const T* q, const T* k, const T* v, const T* o, const T* dout, T* dq, T* dk, T* dv,
+           const float* lse, float* scratch, int B, int Sq, int Sk, int H, int KVH, int causal,
+           int window, cudaStream_t stream) {
+  const int G = H / KVH;
+  const long long n_rows = static_cast<long long>(B) * Sq * H;
+  float* const delta = scratch;
+  attn_bwd_delta_tf32_kernel<T, D>
+      <<<static_cast<unsigned int>((n_rows + 7) / 8), 256, 0, stream>>>(o, dout, delta, n_rows,
+                                                                        Sq, H);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  const long long rows = static_cast<long long>(Sq) * (H / KVH);
-  const dim3 grid_q(static_cast<unsigned int>((rows + kBlock - 1) / kBlock),
+  const float scale_log2 = kLog2e * scale;
+  using PQ = DqPlan<D>;
+  using PK = KvPlan<D>;
+  err = cudaFuncSetAttribute(attn_bwd_dq_tf32_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, PQ::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(attn_bwd_dkdv_tf32_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, PK::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const long long rows = static_cast<long long>(Sq) * G;
+  const dim3 grid_q(static_cast<unsigned int>((rows + PQ::kRows - 1) / PQ::kRows),
                     static_cast<unsigned int>(B * KVH));
-  attn_bwd_dq_kernel<T, D><<<grid_q, kThreads, dq_bytes, stream>>>(
-      q, k, v, o, dout, dq, lse, delta, Sq, Sk, H, KVH, causal, window, scale);
+  attn_bwd_dq_tf32_kernel<T, D><<<grid_q, PQ::kThreads, PQ::kBytes, stream>>>(
+      q, k, v, dout, lse, delta, dq, Sq, Sk, H, KVH, causal, window, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_k(static_cast<unsigned int>((Sk + kBlock - 1) / kBlock),
+
+  const int hs = head_split<D>(B, Sk, KVH, G);
+  float* const part = scratch + part_offset(B, Sq, H);
+  const dim3 grid_k(static_cast<unsigned int>(hs),
+                    static_cast<unsigned int>((Sk + PK::kKeys - 1) / PK::kKeys),
                     static_cast<unsigned int>(B * KVH));
-  attn_bwd_dkdv_kernel<T, D><<<grid_k, kThreads, dkdv_bytes, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, KVH, causal, window, scale);
+  attn_bwd_dkdv_tf32_kernel<T, D><<<grid_k, PK::kThreads, PK::kBytes, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, part, Sq, Sk, H, KVH, causal, window, scale_log2,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || hs == 1) return static_cast<int>(err);
+  const long long n = static_cast<long long>(B) * Sk * KVH * D;
+  attn_bwd_dkdv_sum_tf32_kernel<T>
+      <<<static_cast<unsigned int>((n / 4 + 255) / 256), 256, 0, stream>>>(part, dk, dv, n, hs,
+                                                                          scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const T* q, const T* k, const T* v, const T* o, const T* dout, T* dq,
-             T* dk, T* dv, float* lse, float* delta, int B, int Sq, int Sk, int H,
-             int KVH, int D, int causal, int window, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+int dispatch(const float* q, const float* k, const float* v, const float* o, const float* dout,
+             float* dq, float* dk, float* dv, const float* lse, float* scratch, int B, int Sq,
+             int Sk, int H, int KVH, int D, int causal, int window, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk, H, KVH,
-                           causal, window, s);
+      return launch<float, 32>(q, k, v, o, dout, dq, dk, dv, lse, scratch, B, Sq, Sk, H, KVH,
+                               causal, window, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk, H, KVH,
-                           causal, window, s);
+      return launch<float, 64>(q, k, v, o, dout, dq, dk, dv, lse, scratch, B, Sq, Sk, H, KVH,
+                               causal, window, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk, H, KVH,
-                            causal, window, s);
+      return launch<float, 128>(q, k, v, o, dout, dq, dk, dv, lse, scratch, B, Sq, Sk, H, KVH,
+                                causal, window, s);
     case 256:
-      return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk, H, KVH,
-                            causal, window, s);
+      return launch<float, 256>(q, k, v, o, dout, dq, dk, dv, lse, scratch, B, Sq, Sk, H, KVH,
+                                causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -475,13 +814,20 @@ int dispatch(const T* q, const T* k, const T* v, const T* o, const T* dout, T* d
 
 }  // namespace
 
+// q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D); all 16-byte
+// aligned.  lse (B, H, Sq) float32 is the forward's, read only.  `delta`
+// is a float32 scratch of flash_attention.py's f32_bwd_scratch floats:
+// delta (B, H, Sq), then, 16-byte aligned, the head split's partials
+// (hs, 2, B, Sk, KVH, D) where hs > 1.  float32 at D in {32, 64, 128,
+// 256}; bf16 at D = 32 only (bf16 at the other D trains on
+// flash_attention_bwd_wgmma.cu).
 extern "C" int flash_attention_bwd_f32(const float* q, const float* k, const float* v,
                                        const float* o, const float* dout, float* dq,
                                        float* dk, float* dv, float* lse, float* delta,
                                        int B, int Sq, int Sk, int H, int KVH, int D,
                                        int causal, int window, void* stream) {
-  return dispatch<float>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk, H, KVH, D,
-                         causal, window, stream);
+  return dispatch(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk, H, KVH, D, causal,
+                  window, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -491,6 +837,7 @@ extern "C" int flash_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloa
                                         float* delta, int B, int Sq, int Sk, int H,
                                         int KVH, int D, int causal, int window,
                                         void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk, H,
-                                 KVH, D, causal, window, stream);
+  if (D != 32) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<__nv_bfloat16, 32>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk, H, KVH,
+                                   causal, window, static_cast<cudaStream_t>(stream));
 }

@@ -19,7 +19,9 @@ head dim D, with no fallback from one to the other:
 - ``"cuda_core"``, ``repro_torch/csrc/flash_attention.cu``: float32 at D
   in {32, 64, 128, 256} and bfloat16 at D = 32.  Both products in float32
   on the CUDA cores; float32 inputs stay off the bf16 tensor cores, whose
-  inputs would round them.
+  inputs would round them.  Its lse entry point
+  (``flash_attention_cuda(..., return_lse=True)``) also writes each row's
+  lse for the split-TF32 backward.
 
 Any other dtype or D raises.  :func:`flash_attention` launches the
 routed kernel for CUDA tensors and runs :func:`flash_attention_plain` for
@@ -40,14 +42,21 @@ The gradient (:class:`FlashAttentionFn`) has two hand-written kernels;
   last pass sums in a fixed order.  It reads each row's lse, which the
   forward's lse entry point (``flash_attention_cuda(...,
   return_lse=True)``) writes when a gradient is needed.
-- ``"cuda_core"``, ``repro_torch/csrc/flash_attention_bwd.cu``: float32
-  at D in ``HEAD_DIMS`` and bfloat16 at D = 32; every product in float32
-  on the CUDA cores, lse recomputed from q and k.
+- ``"tf32x3"``, ``repro_torch/csrc/flash_attention_bwd.cu``: float32 at D
+  in ``HEAD_DIMS`` and bfloat16 at D = 32.  Every product on the tensor
+  cores in split TF32: each operand x = hi + lo (:func:`split_tf32`), and
+  lo.hi + hi.lo + hi.hi summed in float32 (three TF32 ``mma.sync`` a
+  product, as accurate as float32).  A delta pre-pass, dq by 16-row slices of (query, head)
+  rows (at D = 256 a warp pair a slice, each a column half of dq), dk and
+  dv by warp pairs of 16 keys (one forms P^T and dv, the other dS^T and
+  dk), no atomics; heads split over :func:`f32_bwd_head_split` blocks
+  where the key blocks are few (:func:`f32_bwd_tiles` mirrors the plan).
+  It reads the forward's lse too.
 
 On CPU tensors the gradient is :func:`flash_attention_backward_plain`,
 written out (not autograd through the plain forward).  ``BWD_LAUNCHES``
-counts every backward launch and ``TC_BWD_LAUNCHES`` the tensor-core
-backward's.
+counts every backward launch, ``TC_BWD_LAUNCHES`` the tensor-core
+backward's and ``TF32_BWD_LAUNCHES`` the split-TF32 backward's.
 """
 from __future__ import annotations
 
@@ -71,6 +80,8 @@ WS_LAUNCHES = 0
 BWD_LAUNCHES = 0
 #: launches of the tensor-core backward among them
 TC_BWD_LAUNCHES = 0
+#: launches of the split-TF32 backward among them
+TF32_BWD_LAUNCHES = 0
 #: head dims the CUDA-core kernel is built for
 HEAD_DIMS = (32, 64, 128, 256)
 #: head dims the tensor-core kernel is built for (bfloat16 only), and
@@ -96,13 +107,26 @@ TC_BWD_DQ = {64: (128, 80), 128: (128, 80), 256: (64, 64)}
 #: for each SM) before :func:`bwd_head_split` stops splitting heads
 SMS = 132
 BWD_MIN_WARPGROUPS = 2 * SMS
+#: the split-TF32 backward's tiles at each D (``DqPlan`` and ``KvPlan`` in
+#: csrc/flash_attention_bwd.cu): (query, head) rows a dq block (16 a warp),
+#: keys a dq K/V tile, keys a dk/dv block (16 a warp pair) and queries a
+#: dk/dv Q/dO tile
+F32_BWD_PLANS = {32: (128, 64, 64, 64), 64: (128, 64, 64, 64),
+                 128: (128, 32, 64, 64), 256: (64, 32, 64, 32)}
+#: the dk/dv blocks the split-TF32 backward's grid should hold (two an SM)
+#: before :func:`f32_bwd_head_split` stops splitting heads
+F32_BWD_MIN_BLOCKS = 2 * SMS
 NEG_INF = -1e30
-#: the library and C entry point of each (route, dtype)
+#: the library, the C entry point and the one that also writes lse, of
+#: each (route, dtype)
 _ENTRIES = {
     ("tensor_core", torch.bfloat16): ("flash_attention_wgmma",
-                                      "flash_attention_wgmma_bf16"),
-    ("cuda_core", torch.bfloat16): ("flash_attention", "flash_attention_bf16"),
-    ("cuda_core", torch.float32): ("flash_attention", "flash_attention_f32"),
+                                      "flash_attention_wgmma_bf16",
+                                      "flash_attention_wgmma_lse_bf16"),
+    ("cuda_core", torch.bfloat16): ("flash_attention", "flash_attention_bf16",
+                                    "flash_attention_lse_bf16"),
+    ("cuda_core", torch.float32): ("flash_attention", "flash_attention_f32",
+                                   "flash_attention_lse_f32"),
 }
 
 
@@ -122,16 +146,16 @@ def route(dtype: torch.dtype, D: int) -> str:
 
 def bwd_route(dtype: torch.dtype, D: int) -> str:
     """The backward kernel that serves (dtype, D): ``"tensor_core"`` for
-    bfloat16 at D in ``TC_BWD_HEAD_DIMS``, ``"cuda_core"`` for float32 at
-    D in ``HEAD_DIMS`` and bfloat16 at D = 32; raises for anything
-    else."""
+    bfloat16 at D in ``TC_BWD_HEAD_DIMS``, ``"tf32x3"`` (split TF32) for
+    float32 at D in ``HEAD_DIMS`` and bfloat16 at D = 32; raises for
+    anything else."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the backward kernels take float32 or bfloat16, "
                         f"got {dtype}")
     if dtype == torch.bfloat16 and D in TC_BWD_HEAD_DIMS:
         return "tensor_core"
     if D in HEAD_DIMS:
-        return "cuda_core"
+        return "tf32x3"
     raise ValueError(f"the backward kernels are built for head dims "
                      f"{HEAD_DIMS}, got {D}")
 
@@ -251,6 +275,16 @@ def wgmma_tile_masked(k0: int, Sk: int, q_lo: int, q_hi: int, causal: bool,
                 and (window is None or k0 >= q_hi - window + 1))
 
 
+def _head_split(units: int, G: int, need: int) -> int:
+    """The smallest divisor hs of G with ``units`` x hs >= ``need``, else
+    G: the parts a backward's dk/dv kernel splits each group's heads into
+    (``units``: what one split's grid holds)."""
+    for hs in range(1, G + 1):
+        if G % hs == 0 and units * hs >= need:
+            return hs
+    return G
+
+
 def bwd_head_split(B: int, Sk: int, KVH: int, G: int, D: int) -> int:
     """hs, the parts the tensor-core backward's dk/dv kernel splits each
     group's G heads into: the smallest divisor of G whose grid (key blocks
@@ -259,11 +293,90 @@ def bwd_head_split(B: int, Sk: int, KVH: int, G: int, D: int) -> int:
     does.  hs = 1 writes dk and dv directly; a larger hs writes float32
     partials (hs, 2, B, Sk, KVH, D) that a last pass sums."""
     blocks = -(-Sk // (TC_BWD_GROUPS[D] * TC_BWD_KEYS)) * B * KVH
-    per_block = TC_BWD_GROUPS[D] * TC_BWD_HALVES[D]
-    for hs in range(1, G + 1):
-        if G % hs == 0 and blocks * hs * per_block >= BWD_MIN_WARPGROUPS:
-            return hs
-    return G
+    return _head_split(blocks * TC_BWD_GROUPS[D] * TC_BWD_HALVES[D], G,
+                       BWD_MIN_WARPGROUPS)
+
+
+def f32_bwd_head_split(B: int, Sk: int, KVH: int, G: int, D: int) -> int:
+    """hs, the parts the split-TF32 backward's dk/dv kernel splits each
+    group's G heads into: the smallest divisor of G whose grid (key blocks
+    of ``F32_BWD_PLANS[D][2]`` keys x B x KVH x hs) holds at least
+    ``F32_BWD_MIN_BLOCKS`` blocks, and G where none does (``head_split``
+    in the source).  hs > 1 writes float32 partials that a last pass
+    sums."""
+    blocks = -(-Sk // F32_BWD_PLANS[D][2]) * B * KVH
+    return _head_split(blocks, G, F32_BWD_MIN_BLOCKS)
+
+
+def f32_bwd_scratch(B: int, Sq: int, Sk: int, H: int, KVH: int,
+                    D: int) -> int:
+    """The float32 scratch (floats) the split-TF32 backward takes as its
+    ``delta`` argument: delta (B, H, Sq), then from the next multiple of 4
+    the head split's partials (hs, 2, B, Sk, KVH, D) where hs > 1."""
+    hs = f32_bwd_head_split(B, Sk, KVH, H // KVH, D)
+    at = -(-B * H * Sq // 4) * 4
+    return at + (2 * hs * B * Sk * KVH * D if hs > 1 else 0)
+
+
+def _kv_tiles(Sq: int, Sk: int, causal: bool, window: Optional[int],
+              block: int, keys: int, queries: int,
+              heads: List[Tuple[int, int]]) -> Tuple[list, list]:
+    """(blocks, tiles) of a dk/dv kernel whose blocks own ``block`` keys
+    and walk, split z of each, the heads ``heads[z]``, then the
+    ``queries``-query tiles that can see one of the block's keys; a
+    worker of ``keys`` keys computes (kw0, g, q0, masked) for each tile
+    one of its keys sees.  blocks: (key0, z, n) in launch order (split z
+    fastest), n the tiles of the block, which follow in that order."""
+    w = -1 if window is None else window
+    blocks, tiles = [], []
+    for key0 in range(0, Sk, block):
+        key_hi = min(key0 + block - 1, Sk - 1)
+        q_lo = key0 if causal else 0
+        q_hi = min(Sq - 1, key_hi + w - 1) if w >= 0 else Sq - 1
+        t_lo = q_lo // queries
+        n_qt = q_hi // queries - t_lo + 1 if q_hi >= q_lo else 0
+        for z, (g0, g1) in enumerate(heads):
+            n0 = len(tiles)
+            for i in range((g1 - g0) * n_qt):
+                g, q0 = g0 + i // n_qt, (t_lo + i % n_qt) * queries
+                q_end = q0 + queries - 1
+                for kw0 in range(key0, key0 + block, keys):
+                    kw_end = kw0 + keys - 1
+                    if not (kw0 < Sk and (not causal or q_end >= kw0)
+                            and (w < 0 or q0 - kw_end < w)):
+                        continue
+                    inside = (kw_end < Sk and q_end < Sq
+                              and (not causal or q0 >= kw_end)
+                              and (w < 0 or q_end - kw0 < w))
+                    tiles.append((kw0, g, q0, not inside))
+            blocks.append((key0, z, len(tiles) - n0))
+    return blocks, tiles
+
+
+def _dq_tiles(Sq: int, Sk: int, G: int, causal: bool,
+              window: Optional[int], rows: int, keys: int,
+              last_first: bool) -> list:
+    """(row0, k0, masked) for each ``keys``-key tile each block of
+    ``rows`` (query, head) rows of a dq kernel computes, blocks in launch
+    order (``last_first``: the last rows first)."""
+    w = -1 if window is None else window
+    row_blocks = _row_blocks(Sq * G, rows, False)
+    tiles = list(zip((r0 for r0, _ in row_blocks),
+                     _row_tiles(row_blocks, Sk, G, causal, window, keys)))
+    dq = []
+    for row0, (first, count) in tiles[::-1] if last_first else tiles:
+        q_lo, q_hi = row0 // G, (min(row0 + rows, Sq * G) - 1) // G
+        for t in range(first, first + count):
+            k0 = t * keys
+            inside = (k0 + keys <= Sk
+                      and (not causal or k0 + keys - 1 <= q_lo)
+                      and (w < 0 or k0 >= q_hi - w + 1))
+            dq.append((row0, k0, not inside))
+    return dq
+
+
+def _split_heads(G: int, hs: int) -> List[Tuple[int, int]]:
+    return [(z * (G // hs), (z + 1) * (G // hs)) for z in range(hs)]
 
 
 def bwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
@@ -295,50 +408,71 @@ def bwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
       last rows first).
 
     ``masked`` is False only for a tile whose every pair is visible."""
-    w = -1 if window is None else window
-    block = TC_BWD_GROUPS[D] * TC_BWD_KEYS
     hs = bwd_head_split(B, Sk, KVH, G, D)
     part = D // TC_BWD_HALVES[D]
-    heads = [(z * (G // hs), (z + 1) * (G // hs)) for z in range(hs)]
-    blocks, dkdv = [], []
-    for key0 in range(0, Sk, block):
-        key_hi = min(key0 + block - 1, Sk - 1)
-        q_lo = key0 if causal else 0
-        q_hi = min(Sq - 1, key_hi + w - 1) if w >= 0 else Sq - 1
-        t_lo = q_lo // TC_BWD_QUERIES
-        n_qt = q_hi // TC_BWD_QUERIES - t_lo + 1 if q_hi >= q_lo else 0
-        for z, (g0, g1) in enumerate(heads):
-            n0 = len(dkdv)
-            for i in range((g1 - g0) * n_qt):
-                g, q0 = g0 + i // n_qt, (t_lo + i % n_qt) * TC_BWD_QUERIES
-                q_end = q0 + TC_BWD_QUERIES - 1
-                for kw0 in range(key0, key0 + block, TC_BWD_KEYS):
-                    kw_end = kw0 + TC_BWD_KEYS - 1
-                    if not (kw0 < Sk and (not causal or q_end >= kw0)
-                            and (w < 0 or q0 - kw_end < w)):
-                        continue
-                    inside = (kw_end < Sk and q_end < Sq
-                              and (not causal or q0 >= kw_end)
-                              and (w < 0 or q_end - kw0 < w))
-                    dkdv.append((kw0, g, q0, not inside))
-            blocks.append((key0, z, len(dkdv) - n0))
+    heads = _split_heads(G, hs)
+    blocks, dkdv = _kv_tiles(Sq, Sk, causal, window,
+                             TC_BWD_GROUPS[D] * TC_BWD_KEYS, TC_BWD_KEYS,
+                             TC_BWD_QUERIES, heads)
     rows, keys = TC_BWD_DQ[D]
-    dq_blocks = _row_blocks(Sq * G, rows, False)
-    row_blocks = list(zip((r0 for r0, _ in dq_blocks),
-                          _row_tiles(dq_blocks, Sk, G, causal, window, keys)))
-    dq = []
-    for row0, (first, count) in (row_blocks[::-1] if causal and D == 256
-                                 else row_blocks):
-        q_lo, q_hi = row0 // G, (min(row0 + rows, Sq * G) - 1) // G
-        for t in range(first, first + count):
-            k0 = t * keys
-            inside = (k0 + keys <= Sk
-                      and (not causal or k0 + keys - 1 <= q_lo)
-                      and (w < 0 or k0 >= q_hi - w + 1))
-            dq.append((row0, k0, not inside))
     return {"hs": hs, "heads": heads, "blocks": blocks,
             "columns": [(c, c + part) for c in range(0, D, part)],
-            "dkdv": dkdv, "dq": dq, "dq_rows": rows, "dq_keys": keys}
+            "dkdv": dkdv,
+            "dq": _dq_tiles(Sq, Sk, G, causal, window, rows, keys,
+                            causal and D == 256),
+            "dq_rows": rows, "dq_keys": keys}
+
+
+def f32_bwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
+                  window: Optional[int], D: int = 64, B: int = 1,
+                  KVH: int = 1) -> Dict[str, list]:
+    """The tiles the split-TF32 backward's kernels compute at head dim D,
+    as they compute them, for one (batch, kv head) of a (B, KVH) grid,
+    in :func:`bwd_tiles`' form:
+
+    - ``"hs"``: :func:`f32_bwd_head_split`; ``"heads"``: [(g0, g1)], the
+      heads [g0, g1) of the group that split z walks.
+    - ``"blocks"``: (key0, z, n) for each dk/dv block in launch order:
+      keys [key0, key0 + ``"kv_keys"``), split z's heads, and the n
+      entries of ``"dkdv"`` its warp pairs compute.  The sum pass adds a
+      key's hs partials in the order z = 0 .. hs - 1.
+    - ``"dkdv"``: (kw0, g, q0, masked) for each tile a warp pair computes:
+      its 16 keys [kw0, kw0 + 16) against queries [q0, q0 +
+      ``"kv_queries"``) of head g of the group; a pair skips a tile none
+      of its keys sees.
+    - ``"dq"``: (row0, k0, masked) for each K/V tile a block of
+      ``"dq_rows"`` (query, head) rows from row0 computes: keys [k0, k0 +
+      ``"dq_keys"``), blocks in launch order (causal: the last rows
+      first).
+
+    ``masked`` is False only for a tile whose every pair is visible."""
+    dq_rows, dq_keys, block, queries = F32_BWD_PLANS[D]
+    hs = f32_bwd_head_split(B, Sk, KVH, G, D)
+    heads = _split_heads(G, hs)
+    blocks, dkdv = _kv_tiles(Sq, Sk, causal, window, block, 16, queries,
+                             heads)
+    return {"hs": hs, "heads": heads, "blocks": blocks, "dkdv": dkdv,
+            "dq": _dq_tiles(Sq, Sk, G, causal, window, dq_rows, dq_keys,
+                            causal),
+            "dq_rows": dq_rows, "dq_keys": dq_keys, "kv_keys": block,
+            "kv_queries": queries}
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``x`` as the split-TF32 backward splits its
+    operands and its MMAs read them (the low 13 bits dropped), by the
+    kernel's integer ops on the int32 view: hi = tf32(x), lo = tf32(x -
+    hi), each rounded as ``cvt.rna.tf32.f32`` rounds a finite value (to
+    the nearest value with 10 bits of mantissa, ties away from zero: half
+    a TF32 ulp added to the bits); x = hi + lo to within 2^-22 |x|.  An
+    infinite x gives itself as hi, a NaN x a NaN hi (the kernel selects
+    one: the add would carry a NaN into the sign bit or down to an
+    infinity), so a product of a non-finite operand is non-finite."""
+    def rna(bits: torch.Tensor) -> torch.Tensor:
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    x = x.to(torch.float32).contiguous()
+    hi = torch.where(torch.isnan(x), math.nan, rna(x.view(torch.int32)))
+    return hi, rna((x - hi).view(torch.int32))
 
 
 def visible(Sq: int, Sk: int, causal: bool, window: Optional[int],
@@ -432,10 +566,10 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(kernel: str, dtype: torch.dtype):
-    lib, name = _ENTRIES[(kernel, dtype)]
-    fn = getattr(_build.load(lib), name)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+def _entry(kernel: str, dtype: torch.dtype, with_lse: bool = False):
+    lib, name, lse_name = _ENTRIES[(kernel, dtype)]
+    fn = getattr(_build.load(lib), lse_name if with_lse else name)
+    fn.argtypes = ([ctypes.c_void_p] * (4 + with_lse) + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -460,15 +594,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
 
 
-@functools.lru_cache(maxsize=None)
-def _lse_entry():
-    fn = _build.load("flash_attention_wgmma").flash_attention_wgmma_lse_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: Optional[int] = None,
                          kernel: Optional[str] = None, return_lse: bool = False
@@ -477,9 +602,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch a CUDA kernel on PyTorch's current stream: the one
     :func:`route` picks, or ``kernel`` ("tensor_core" or "cuda_core") where
     that kernel takes the inputs' dtype and D.  ``return_lse`` launches
-    the tensor-core kernel's lse entry point, which also returns each
-    row's lse (B, H, Sq) float32 for the tensor-core backward; its output
-    is the serving entry point's, bit for bit."""
+    the kernel's lse entry point, which also returns each row's lse (B,
+    H, Sq) float32 for the backward kernels; its output is the serving
+    entry point's, bit for bit."""
     global LAUNCHES, TC_LAUNCHES, WS_LAUNCHES
     _check(q, k, v)
     if q.device.type != "cuda":
@@ -499,9 +624,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        for x in (q, k, v)):
         raise ValueError("the tensor-core kernel needs q, k, v on 16-byte "
                          "boundaries")
-    if return_lse and kernel != "tensor_core":
-        raise ValueError(f"only the tensor-core kernel returns lse, not "
-                         f"{kernel}")
     out = torch.empty_like(q)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
     if return_lse:
@@ -509,8 +631,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         args.append(lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = _lse_entry() if return_lse else _entry(kernel, q.dtype)
-        err = fn(*args, B, Sq, Sk, H, KVH, D, int(causal),
+        err = _entry(kernel, q.dtype, return_lse)(*args, B, Sq, Sk, H, KVH, D, int(causal),
                  -1 if window is None else window, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
@@ -544,48 +665,34 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, causal: bool = True,
                              window: Optional[int] = None,
-                             lse: Optional[torch.Tensor] = None,
-                             kernel: Optional[str] = None
+                             lse: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Launch a backward kernel on PyTorch's current stream: (dq, dk, dv)
-    in the inputs' dtype.  The one :func:`bwd_route` picks, or ``kernel``
-    ("tensor_core" or "cuda_core") where that kernel takes the inputs'
-    dtype and D.  The tensor-core kernel reads the forward's ``lse`` (B,
-    H, Sq) float32 and raises without it, and splits each group's heads
-    as :func:`bwd_head_split` says, with a float32 scratch for the
-    partials where it splits them; the CUDA-core kernel recomputes lse
-    and takes none."""
-    global BWD_LAUNCHES, TC_BWD_LAUNCHES
+    """Launch the backward kernel :func:`bwd_route` picks on PyTorch's
+    current stream: (dq, dk, dv) in the inputs' dtype.  Both kernels read
+    the forward's ``lse`` (B, H, Sq) float32 and raise without it.  The
+    tensor-core kernel splits each group's heads as :func:`bwd_head_split`
+    says, the split-TF32 one as :func:`f32_bwd_head_split` says, each with
+    a float32 scratch for the partials where it splits them.  An input
+    that is not on a 16-byte boundary (which the kernels' 16-byte loads
+    need) is copied to one."""
+    global BWD_LAUNCHES, TC_BWD_LAUNCHES, TF32_BWD_LAUNCHES
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
                          f"{q.device}")
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    kernel = kernel or bwd_route(q.dtype, D)
-    if kernel == "tensor_core":
-        if q.dtype != torch.bfloat16 or D not in TC_BWD_HEAD_DIMS:
-            raise ValueError(f"no tensor-core backward for {q.dtype} at "
-                             f"D = {D}")
-        if lse is None or tuple(lse.shape) != (B, H, Sq) \
-                or lse.dtype != torch.float32 or lse.device != q.device \
-                or not lse.is_contiguous() or lse.data_ptr() % 16:
-            raise ValueError(f"the tensor-core backward needs the forward's "
-                             f"lse, ({B}, {H}, {Sq}) float32 contiguous on "
-                             f"{q.device}")
-        if B * H * Sq >= 2 ** 31:
-            raise ValueError(f"B H Sq = {B * H * Sq} rows: the tensor-core "
-                             f"backward indexes them with 32-bit ints")
-    elif kernel == "cuda_core":
-        if q.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"the CUDA-core backward takes float32 or "
-                            f"bfloat16, got {q.dtype}")
-        if D not in HEAD_DIMS:
-            raise ValueError(f"the CUDA-core backward is built for head "
-                             f"dims {HEAD_DIMS}, got {D}")
-    else:
-        raise ValueError(f"no backward kernel {kernel!r}")
+    kernel = bwd_route(q.dtype, D)
+    if lse is None or tuple(lse.shape) != (B, H, Sq) \
+            or lse.dtype != torch.float32 or lse.device != q.device \
+            or not lse.is_contiguous() or lse.data_ptr() % 16:
+        raise ValueError(f"the {kernel} backward needs the forward's lse, "
+                         f"({B}, {H}, {Sq}) float32 contiguous on "
+                         f"{q.device}")
+    if kernel == "tensor_core" and B * H * Sq >= 2 ** 31:
+        raise ValueError(f"B H Sq = {B * H * Sq} rows: the tensor-core "
+                         f"backward indexes them with 32-bit ints")
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype \
                 or t.device != q.device:
@@ -596,17 +703,16 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if not all(t.is_contiguous() for t in (q, k, v, o, do)):
         raise ValueError("q, k, v, o and do must be contiguous")
-    if kernel == "tensor_core" and any(t.data_ptr() % 16
-                                       for t in (q, k, v, o, do)):
-        raise ValueError("the tensor-core backward needs q, k, v, o and do "
-                         "on 16-byte boundaries")
+    q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         ints = [B, Sq, Sk, H, KVH, D, int(causal),
                 -1 if window is None else window]
         if kernel == "tensor_core":
+            delta = torch.empty((B, H, Sq), dtype=torch.float32,
+                                device=q.device)
             hs = bwd_head_split(B, Sk, KVH, H // KVH, D)
             part = (torch.empty((hs, 2, B, Sk, KVH, D), dtype=torch.float32,
                                 device=q.device) if hs > 1 else None)
@@ -615,9 +721,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             ptrs.append(0 if part is None else part.data_ptr())
             ints.append(hs)
         else:
-            # the CUDA-core kernel writes the lse it recomputes
-            ptrs = [t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv,
-                                           torch.empty_like(delta), delta)]
+            # delta, then the head split's partials (f32_bwd_scratch)
+            scratch = torch.empty((f32_bwd_scratch(B, Sq, Sk, H, KVH, D),),
+                                  dtype=torch.float32, device=q.device)
+            ptrs = [t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, lse,
+                                           scratch)]
         err = _bwd_entry(kernel, q.dtype)(*ptrs, *ints, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention {kernel} backward kernel launch "
@@ -625,21 +733,22 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     BWD_LAUNCHES += 1
     if kernel == "tensor_core":
         TC_BWD_LAUNCHES += 1
+    else:
+        TF32_BWD_LAUNCHES += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention and its gradient: the kernels on CUDA tensors, the plain
     versions on CPU ones.  Saves q, k, v, the output and, where a
-    gradient is needed (``need_lse``) and the backward reads it (the
-    tensor-core backward on the card, the plain one on the CPU), each
-    row's lse from the forward."""
+    gradient is needed (``need_lse``), each row's lse from the forward,
+    which every backward reads."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, need_lse):
         lse = None
         if q.device.type == "cuda":
-            if need_lse and bwd_route(q.dtype, q.shape[3]) == "tensor_core":
+            if need_lse:
                 o, lse = flash_attention_cuda(q, k, v, causal, window,
                                               return_lse=True)
             else:

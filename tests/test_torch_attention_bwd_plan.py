@@ -29,7 +29,7 @@ one_torch_thread = torch_threads.one_torch_thread
 @pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 def test_bwd_route(dtype, D):
     """bf16 at D 64, 128 and 256 on the tensor cores; float32 at every
-    built D and bf16 at 32 on the CUDA cores; float16 and D = 96 raise."""
+    built D and bf16 at 32 in split TF32; float16 and D = 96 raise."""
     if dtype == torch.float16:
         with pytest.raises(TypeError):
             fa.bwd_route(dtype, D)
@@ -39,7 +39,7 @@ def test_bwd_route(dtype, D):
     elif dtype == torch.bfloat16 and D in (64, 128, 256):
         assert fa.bwd_route(dtype, D) == "tensor_core"
     else:
-        assert fa.bwd_route(dtype, D) == "cuda_core"
+        assert fa.bwd_route(dtype, D) == "tf32x3"
 
 
 def _covered(Sq, Sk, G, causal, window, D, B=1, KVH=1):

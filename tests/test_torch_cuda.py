@@ -1194,11 +1194,12 @@ def test_moe_apply_on_card_matches_cpu(cuda_device, S, chunk):
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, Sq, Sk, H,
                                                   KVH, D, causal, window,
                                                   dt):
-    """The routed backward kernel against the plain backward on the same
-    card inputs: float32 within 2e-4 of each gradient's largest |value|;
-    bfloat16 within 2e-2 of it (one bf16 rounding of each output; at D 64
-    and 128 the tensor-core kernel, which also rounds p and ds); rows
-    that see no key get exactly 0."""
+    """The routed backward kernel, given the forward's lse, against the
+    plain backward on the same card inputs: float32 within 2e-4 of each
+    gradient's largest |value| (the split-TF32 kernel); bfloat16 within
+    2e-2 of it (one bf16 rounding of each output; at D 64 and 128 the
+    tensor-core kernel, which also rounds p and ds); rows that see no key
+    get exactly 0."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + D)
     dtype = getattr(torch, dt)
@@ -1207,17 +1208,13 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, Sq, Sk, H,
                         device=cuda_device).to(dtype) for _ in range(2))
     do = torch.randn((B, Sq, H, D), generator=g, device=cuda_device).to(dtype)
     tc = fa.bwd_route(dtype, D) == "tensor_core"
-    if tc:
-        o, lse = fa.flash_attention_cuda(q, k, v, causal, window,
-                                         return_lse=True)
-    else:
-        o, lse = fa.flash_attention_cuda(q, k, v, causal, window), None
-    before, tc_before = fa.BWD_LAUNCHES, fa.TC_BWD_LAUNCHES
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window, return_lse=True)
+    before = fa.BWD_LAUNCHES, fa.TC_BWD_LAUNCHES, fa.TF32_BWD_LAUNCHES
     got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
     want = fa.flash_attention_backward_plain(q, k, v, o, do, causal, window)
     torch.cuda.synchronize()
-    assert (fa.BWD_LAUNCHES, fa.TC_BWD_LAUNCHES) == (before + 1,
-                                                     tc_before + tc)
+    assert (fa.BWD_LAUNCHES, fa.TC_BWD_LAUNCHES, fa.TF32_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + tc, before[2] + (not tc))
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     for a, b in zip(got, want):
         assert a.dtype == dtype
@@ -1236,6 +1233,176 @@ def test_flash_attention_bwd_kernel_rejects(cuda_device, dtype, D):
     x = torch.zeros((1, 8, 2, D), dtype=dtype, device=cuda_device)
     with pytest.raises((TypeError, ValueError)):
         fa.flash_attention_bwd_cuda(x, x, x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# the split-TF32 backward (float32 at every D, bf16 at D = 32) and the
+# CUDA-core forward's lse entry point it reads
+# ---------------------------------------------------------------------------
+F32_BWD_CASES = [
+    # (B, Sq, Sk, H, KVH, D, causal, window, dtype)
+    (1, 700, 700, 16, 1, 256, True, 300, "float32"),   # KVH = 1: heads split
+    (1, 300, 100, 16, 1, 128, True, 64, "float32"),    # rows 163 on: no key
+    (2, 333, 200, 12, 2, 32, False, 50, "bfloat16"),   # bf16 at D = 32
+    (1, 6, 10, 2, 2, 64, True, None, "float32"),       # keys no query sees
+    (1, 2048, 2048, 16, 1, 256, True, 2048, "float32"),  # RecurrentGemma-9B
+    (8, 1024, 1024, 16, 16, 64, True, None, "float32"),  # [train]'s heads
+]
+
+
+def _f32_inputs(case, device, seed):
+    B, Sq, Sk, H, KVH, D, _, _, dt = case
+    dtype = getattr(torch, dt)
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, Sq, H, D), generator=g, device=device).to(dtype)
+    k, v = (torch.randn((B, Sk, KVH, D), generator=g,
+                        device=device).to(dtype) for _ in range(2))
+    do = torch.randn((B, Sq, H, D), generator=g, device=device).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_BWD_CASES)
+def test_flash_attention_cuda_core_lse_entry_point(cuda_device, case):
+    """The CUDA-core forward's lse entry point returns the serving entry
+    point's output bit for bit and an lse within 1e-6 (relative and
+    absolute) of the plain one, 0 where a row sees no key; both count as
+    launches of the CUDA-core kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, KVH, D, causal, window, _ = case
+    q, k, v, _ = _f32_inputs(case, cuda_device, D)
+    assert fa.route(q.dtype, D) == "cuda_core"
+    before = fa.LAUNCHES, fa.TC_LAUNCHES
+    served = fa.flash_attention_cuda(q, k, v, causal, window)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window,
+                                     return_lse=True)
+    _, want = fa.flash_attention_plain(q, k, v, causal, window,
+                                       return_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES) == (before[0] + 2, before[1])
+    assert torch.equal(o, served)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-6)
+    seen = fa.visible(Sq, Sk, causal, window, cuda_device).any(1)
+    assert torch.all(lse[:, :, ~seen] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_BWD_CASES)
+def test_flash_attention_tf32_bwd_matches_plain(cuda_device, case):
+    """The split-TF32 backward against the plain backward: float32 within
+    2e-4 of each gradient's largest |value|, bf16 within 2e-2; zeros
+    exact for rows that see no key and keys no row sees; KVH = 1 splits
+    the heads over blocks (f32_bwd_head_split above 1) and sums their
+    partials; RecurrentGemma-9B's local attention and [train]'s heads in
+    float32, the shapes chip_smoke.py times, among the cases."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, KVH, D, causal, window, dt = case
+    q, k, v, do = _f32_inputs(case, cuda_device, Sq + D)
+    assert fa.bwd_route(q.dtype, D) == "tf32x3"
+    if KVH == 1:
+        assert fa.f32_bwd_head_split(B, Sk, KVH, H, D) > 1
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window, return_lse=True)
+    before = fa.TF32_BWD_LAUNCHES
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa.TF32_BWD_LAUNCHES == before + 1
+    tol = 2e-4 if dt == "float32" else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == q.dtype and torch.isfinite(a).all()
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale
+    ok = fa.visible(Sq, Sk, causal, window, cuda_device)
+    for grad, live in ((got[0], ok.any(1)), (got[1], ok.any(0)),
+                       (got[2], ok.any(0))):
+        if not bool(live.all()):
+            assert float(grad[:, ~live].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_BWD_CASES[:3]
+                         + [(1, 2048, 2048, 16, 1, 256, True, 2048,
+                             "float32")])
+def test_flash_attention_tf32_bwd_is_deterministic(cuda_device, case):
+    """Two launches give the same bits (no atomics; the head split's
+    partials summed in a fixed order), RecurrentGemma-9B's local
+    attention in float32 among them."""
+    from repro_torch.kernels import flash_attention as fa
+    causal, window = case[6], case[7]
+    q, k, v, do = _f32_inputs(case, cuda_device, 11)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window, return_lse=True)
+    first = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
+    second = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_flash_attention_tf32_bwd_needs_lse(cuda_device):
+    """float32 on a CUDA tensor goes to the split-TF32 backward, which
+    raises without the forward's lse: nothing falls back."""
+    from repro_torch.kernels import flash_attention as fa
+    x = torch.zeros((1, 8, 2, 64), device=cuda_device)
+    before = fa.BWD_LAUNCHES, fa.TF32_BWD_LAUNCHES
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_cuda(x, x, x, x, x)
+    assert (fa.BWD_LAUNCHES, fa.TF32_BWD_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [F32_BWD_CASES[0], F32_BWD_CASES[2],
+                                  (2, 70, 70, 4, 2, 64, True, None,
+                                   "float32")])
+@pytest.mark.parametrize("at", ["q", "do"])
+def test_flash_attention_tf32_bwd_keeps_nan(cuda_device, case, at):
+    """A NaN in q or dO makes NaN the gradients it reaches, as in the
+    plain backward: dq of its row, dk and dv of every key the row sees
+    (dv only in the NaN's column when dO holds it); the split of a NaN
+    operand keeps it a NaN.  The other batch entries stay finite."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, KVH, D, causal, window, dt = case
+    q, k, v, do = _f32_inputs(case, cuda_device, 3)
+    row = Sq // 2
+    (q if at == "q" else do)[0, row, 0, 3] = float("nan")
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window, return_lse=True)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    keys = fa.visible(Sq, Sk, causal, window, cuda_device)[row]
+    assert bool(keys.any())
+    cols = 3 if at == "do" else slice(None)
+    for dq, dk, dv in (got, want):
+        assert torch.isnan(dq[0, row, 0]).all()
+        assert torch.isnan(dk[0, keys, 0]).all()
+        assert torch.isnan(dv[0, keys, 0][..., cols]).all()
+    if B > 1:
+        assert all(torch.isfinite(g[1:]).all() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,D", [("float32", 64), ("bfloat16", 32),
+                                  ("bfloat16", 64)])
+def test_flash_attention_bwd_takes_misaligned_inputs(cuda_device, dt, D):
+    """q, k, v, o and dO one element past a 16-byte boundary (which the
+    kernels' 16-byte loads cannot read) give the gradients of their
+    aligned copies bit for bit, on both routes."""
+    from repro_torch.kernels import flash_attention as fa
+    case = (1, 100, 100, 4, 2, D, True, None, dt)
+    q, k, v, do = _f32_inputs(case, cuda_device, 5)
+    o, lse = fa.flash_attention_cuda(q, k, v, True, None, return_lse=True)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 != 0
+        return out
+    want = fa.flash_attention_bwd_cuda(q, k, v, o, do, True, None, lse)
+    got = fa.flash_attention_bwd_cuda(*map(shifted, (q, k, v, o, do)), True,
+                                      None, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
