@@ -11,7 +11,7 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    the main paths' shapes: the combine, the fused round aggregation (its
    cases shared with tests/test_torch_cuda.py, 64 scenarios among them)
    and the RG-LRU scan bit for bit,
-   flash attention within 2e-4 in float32 (the CUDA-core kernel) and
+   flash attention within 2e-4 in float32 (the split-TF32 kernel) and
    2e-2 in bfloat16 (the tensor-core kernel; at the four dense decoders'
    and slice 13's prefill shapes each row's largest |diff| within
    ``ATTN_ROW_TOL`` of its RMS), the RWKV6 WKV scan within 1e-4, and the
@@ -141,7 +141,7 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    Sq != Sk, ragged tiles, rows with no key, float32 and bf16 at D = 32
    on the split-TF32 route, bf16 at D 64, 128 and 256 on the tensor-core
    one, each twice bit for bit, reading the lse of the forward's lse
-   entry point (the CUDA-core or the tensor-core one), which must match
+   entry point (the split-TF32 or the tensor-core one), which must match
    the serving one and the plain lse;
    [kernel] rwkv6_scan_bwd with a state0, a final-state gradient and S off
    the sub-chunk and the checkpoint stride, at every head size and
@@ -169,11 +169,13 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    the unfused eager sequence (16 launches), beside an empty kernel's device
    time, and at the campaign's shapes (S = 64; S = 96 at k = 10) against
    its bound; the RG-LRU scan and its backward at SeqDetector's shape;
-   the row-stable product at the service's products beside ``addmm``;
+   the row-stable product at the service's products beside ``addmm``
+   and an empty kernel's launch floor;
    the tensor-core attention at each dense decoder's prefill shape and at
    whisper's (encoder, cross, self), Scout's and InternVL2's beside SDPA
-   (``enable_gqa``); the float32 route, the CUDA-core attention, at
-   [serve-consistency]'s shape beside SDPA on float32 inputs; the
+   (``enable_gqa``); the float32 route, the split-TF32 attention
+   forward, at [serve-consistency]'s shape and, through its lse entry
+   point, at [train]'s heads in float32, beside SDPA on float32 inputs; the
    backward kernels at their training shapes
    beside the plain backwards and SDPA's backward: the tensor-core
    attention backward at [train]'s and internlm2's head shapes and at
@@ -187,23 +189,31 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
 
     python3 chip_smoke.py --parent DIR
 
-also builds the combine, RG-LRU, WKV, tensor-core attention forward and
-both attention backward kernels of another commit's checkout in
-DIR (e.g. ``git archive`` of the parent, unpacked under the ignored
-``build/``), where their C entry points are declared as the current
-ones, and times them in turns with the current ones; the eager sequence
-then runs the parent's combine.  The attention forward must beat the
-parent's at the six 4,096-token prefills, and may lose to it at
+also builds the row-stable product, combine, RG-LRU, WKV, both attention
+forward and both attention backward kernels of another commit's
+checkout in DIR (e.g. ``git archive`` of the parent, unpacked under the
+ignored ``build/``) whose source or included headers differ from the
+current ones and whose C entry points are declared as the current ones,
+and times them in turns with the current ones; the eager sequence then
+runs the parent's combine.  The row-stable product must give the
+parent's bits at every service product and the ragged shapes of
+[kernel] row_dense, and beat the parent at both its [times] shapes; the
+float32 attention forward must lie within 2e-4 of the parent's output
+and beat it at both its [times] shapes.  The tensor-core attention
+forward must beat the parent's at the six 4,096-token prefills, and may lose to it at
 whisper's and RecurrentGemma's shapes and, through its lse entry point,
 at the training shapes of [times]' backward rows by no more than the
 spread of the turns' medians; RecurrentGemma's output is compared with
 the parent's bit for bit (logged).  The float32 attention backward must
-beat the parent's at both its [times] shapes.  A RG-LRU or WKV kernel
+beat the parent's at both its [times] shapes, or, where its dq, dk and
+dv are bitwise the parent's, not lose to it by more than the turns'
+spread.  A RG-LRU or WKV kernel
 must beat the parent's where its own source changed, and where only a
 shared header did, not lose to it by more than that spread.  The build's
 compiler log gives the registers and spill bytes of the attention
 kernels (the tensor-core forward at D = 256 and its warp-specialized one
-at D 64 and 128, the CUDA-core forward, both backwards) and of the
+at D 64 and 128, the split-TF32 forward, both backwards), of the
+row-stable product and of the
 scans; any spill fails the run.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero
@@ -393,7 +403,7 @@ def phase_device(torch, parent=None):
             ln.strip() for ln in _build.build_log(lib).splitlines()
             if ln.strip()))
     for lib, what in (("flash_attention_wgmma", "tensor-core attention"),
-                      ("flash_attention", "CUDA-core attention"),
+                      ("flash_attention", "split-TF32 attention forward"),
                       ("rwkv6_scan", "WKV scan"),
                       ("rglru_scan", "RG-LRU scan"),
                       ("tolfl_combine", "Tol-FL aggregation"),
@@ -422,7 +432,9 @@ def phase_device(torch, parent=None):
 #: many of those integers at the end are ``long long``; the stream comes
 #: last.  A parent whose entry point is declared otherwise than the
 #: current one is not built.
-PARENT_KERNELS = {"rglru_scan": ("rglru_scan_f32", 4, 3),
+PARENT_KERNELS = {"row_dense": ("row_dense_f32", 4, 3),
+                  "flash_attention": ("flash_attention_f32", 4, 8),
+                  "rglru_scan": ("rglru_scan_f32", 4, 3),
                   "rwkv6_scan": ("rwkv6_scan_f32", 8, 4),
                   "tolfl_combine": ("tolfl_combine_f32", 3, 2, 1),
                   "flash_attention_bwd": ("flash_attention_bwd_f32", 10, 8),
@@ -432,7 +444,9 @@ PARENT_KERNELS = {"rglru_scan": ("rglru_scan_f32", 4, 3),
 #: further C entry points of a parent's library, each bound under a key of
 #: its own: {kernel: ((key, symbol, pointers, integers), ...)}
 PARENT_EXTRA = {"flash_attention_wgmma": (
-    ("flash_attention_wgmma_lse", "flash_attention_wgmma_lse_bf16", 5, 8),)}
+    ("flash_attention_wgmma_lse", "flash_attention_wgmma_lse_bf16", 5, 8),),
+                "flash_attention": (
+    ("flash_attention_lse", "flash_attention_lse_f32", 5, 8),)}
 #: the parent's kernels whose own source is the current one's (only the
 #: shared headers differ): timed against the parent, they need not beat it
 PARENT_SAME_SOURCE = set()
@@ -446,21 +460,33 @@ def _entry_decl(source: bytes, symbol: str) -> str:
     return " ".join(m.group(0).decode().split()) if m else ""
 
 
+def _included(csrc, path, seen=None):
+    """``path`` and the headers of ``csrc`` it includes (``#include
+    "name"``), those headers' own included ones too, in order."""
+    seen = [] if seen is None else seen
+    seen.append(path)
+    for name in re.findall(rb'#include "([^"]+)"', path.read_bytes()):
+        header = csrc / name.decode()
+        if header.is_file() and header not in seen:
+            _included(csrc, header, seen)
+    return seen
+
+
 def _start_parent_build(parent):
     """Start one nvcc for each of the parent's kernels (``parent`` holds a
     checkout, e.g. a git archive, of another commit), beside the build of
     the current ones, into ``build/parent/``.  A kernel whose source and
-    headers are the same in both is not built: it has nothing to compare;
-    one whose own source is the same but a shared header differs is built
-    and noted in ``PARENT_SAME_SOURCE``."""
+    the headers it includes are the same in both is not built: it has
+    nothing to compare; one whose own source is the same but an included
+    header differs is built and noted in ``PARENT_SAME_SOURCE``."""
     from repro_torch.kernels import _build
     out_dir = ROOT / "build" / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
     old_csrc = Path(parent) / "src" / "repro_torch" / "csrc"
 
     def text(csrc, name):
-        return b"".join(p.read_bytes() for p in [csrc / f"{name}.cu"]
-                        + sorted(csrc.glob("*.cuh")))
+        return b"".join(p.name.encode() + p.read_bytes()
+                        for p in _included(csrc, csrc / f"{name}.cu"))
     procs = {}
     for name in PARENT_KERNELS:
         if text(old_csrc, name) == text(_build.CSRC, name):
@@ -2170,11 +2196,13 @@ def phase_seq_anomaly(torch, split, dx, counts):
     return launches, main, per_tick
 
 
-def phase_score_kernels(torch):
+def phase_score_kernels(torch, parent=None):
     """The score path's row-stable product against its plain version at
     the 64-bucket's products of both detector bodies and at ragged
     shapes, within ``row_dense.error_bound``, and each row's bits alone
-    equal to the batch's; returns the max |diff|."""
+    equal to the batch's; with --parent, the output (with its bias and
+    without) bit for bit the parent kernel's at every shape; returns the
+    max |diff|."""
     from repro_torch.configs.autoencoder_paper import COMMSML
     from repro_torch.kernels import row_dense as rd
     from repro_torch.models.detector import AutoencoderDetector, SeqDetector
@@ -2194,15 +2222,36 @@ def phase_score_kernels(torch):
         ok = bool((err <= rd.error_bound(x, w, b)).all())
         rows = all(torch.equal(rd.row_dense(x[i:i + 1], w, b)[0], got[i])
                    for i in (0, M // 2, M - 1))
+        same = None
+        if parent and "row_dense" in parent:
+            same = (torch.equal(got, _parent_row_dense(torch, parent, x, w, b))
+                    and torch.equal(rd.row_dense(x, w),
+                                    _parent_row_dense(torch, parent, x, w)))
         torch.cuda.synchronize()
         log(f"[kernel] row_dense (M, K, N) = {(M, K, N)}: max_abs_err "
             f"{float(err.max())} (within error_bound: {ok}; |y| max "
-            f"{float(want.abs().max())}); rows alone bitwise_equal={rows}")
-        if not (ok and rows):
+            f"{float(want.abs().max())}); rows alone bitwise_equal={rows}"
+            + ("" if same is None else
+               f"; bitwise the parent kernel's (bias and none): {same}"))
+        if not (ok and rows and same is not False):
             raise AssertionError(f"row_dense at {(M, K, N)}: within bound "
-                                 f"{ok}, rows alone equal {rows}")
+                                 f"{ok}, rows alone equal {rows}, the "
+                                 f"parent's bits {same}")
         worst = max(worst, float(err.max()))
     return worst
+
+
+def _parent_row_dense(torch, parent, x, w, b=None):
+    """The parent's row-stable product y = x @ w (+ b)."""
+    (M, K), N = x.shape, w.shape[1]
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    err = parent["row_dense"](x.data_ptr(), w.data_ptr(),
+                              None if b is None else b.data_ptr(),
+                              y.data_ptr(), M, K, N,
+                              torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the parent's row_dense failed: {err}")
+    return y
 
 
 def phase_anomaly_reference(torch, split, dx, counts):
@@ -3136,16 +3185,20 @@ def phase_times(torch, launches, errs, parent=None):
                     f"{key}_share_of_bound": s_bound / ms})
         del args
     rows.append(row)
-    rows.append(_row_dense_times(torch, launches, errs))
+    rows.append(_row_dense_times(torch, launches, errs, parent))
     return rows
 
 
-def _row_dense_times(torch, launches, errs):
+def _row_dense_times(torch, launches, errs, parent=None):
     """The score path's row-stable product at the service's largest
     product (the autoencoder's first layer over a 64-bucket, (2,048, 112,
     128)) and at SeqDetector's (14,336, 16, 16): kernel, plain version
-    (``x @ w + b``) and ``torch.addmm``, beside the bound."""
+    (``x @ w + b``), ``torch.addmm`` and an empty kernel (the launch
+    floor; ``tolfl_combine``'s, on a grid of 1 x 49,680), in turns with,
+    under --parent, the parent's kernel, which it must beat at both,
+    beside the bound."""
     from repro_torch.kernels import row_dense as rd
+    from repro_torch.kernels import tolfl_combine as tc
     gen = torch.Generator(device=DEV).manual_seed(10)
     row = None
     for key, (M, K, N) in (("ae", (64 * ANOMALY_WINDOW, 112, 128)),
@@ -3155,11 +3208,17 @@ def _row_dense_times(torch, launches, errs):
         b = torch.randn((N,), generator=gen, device=DEV)
         fns = {"kernel": lambda: rd.row_dense_cuda(x, w, b),
                "plain": lambda: rd.row_dense_plain(x, w, b),
-               "library addmm": lambda: torch.addmm(b, x, w)}
-        dev_ms = _turns_ms(torch, fns, True, SAMPLES)
+               "library addmm": lambda: torch.addmm(b, x, w),
+               "empty kernel": lambda: tc.empty_launch(1, 49_680)}
+        if parent and "row_dense" in parent:
+            fns["parent kernel"] = lambda: _parent_row_dense(torch, parent,
+                                                             x, w, b)
+        dev_ms, spread = _turns_spread_ms(torch, fns, True, SAMPLES)
         call_ms = _turns_ms(torch, fns, False, SAMPLES)
         _, _, by_name = _profiled(torch, fns["kernel"])
         prof_us = _event_us(by_name, "row_dense_kernel")
+        _, _, by_name = _profiled(torch, fns["empty kernel"])
+        floor_us = _event_us(by_name, "empty_kernel")
         moved = (M * K + K * N + N + M * N) * 4
         flops = 2 * M * K * N
         b_bytes = moved / H100_BYTES_PER_S * 1e3
@@ -3170,10 +3229,15 @@ def _row_dense_times(torch, launches, errs):
             f"product), median of {SAMPLES} CUDA-event timings in 4 turns, "
             f"card / call: " + ", ".join(
                 f"{k} {dev_ms[k]:.6f} / {call_ms[k]:.6f} ms" for k in fns)
-            + f"; the kernel's device duration under torch.profiler "
-            f"{prof_us:.3f} us (32 calls); bound {bound:.6f} ms ({flops} "
-            f"flops at 67 TFLOP/s float32; {moved} bytes take "
-            f"{b_bytes:.6f} ms), {bound / ms:.1%} of it")
+            + " (turns' spread: " + ", ".join(
+                f"{k} {spread[k]:.6f}" for k in fns)
+            + f"); {dev_ms['library addmm'] / ms:.3f}x addmm's speed"
+            + (f", {dev_ms['parent kernel'] / ms:.3f}x the parent's"
+               if "parent kernel" in fns else "")
+            + f"; device durations under torch.profiler (32 calls): the "
+            f"kernel {prof_us:.3f} us, the empty kernel {floor_us:.3f} us; "
+            f"bound {bound:.6f} ms ({flops} flops at 67 TFLOP/s float32; "
+            f"{moved} bytes take {b_bytes:.6f} ms), {bound / ms:.1%} of it")
         if row is None:
             row = {
                 "name": "row_dense", "route": "cuda",
@@ -3188,11 +3252,22 @@ def _row_dense_times(torch, launches, errs):
                 "bound_by": "operations" if b_ops >= b_bytes else "bytes",
                 "library_ms": dev_ms["library addmm"],
                 "call_ms": call_ms["kernel"], "profiler_ms": prof_us / 1e3,
+                "launch_floor_ms": dev_ms["empty kernel"],
+                "profiler_floor_ms": floor_us / 1e3,
                 "share_of_bound": bound / ms}
+            if "parent kernel" in fns:
+                _faster_than_parent(row, dev_ms["parent kernel"])
         else:
             row.update({f"{key}_ms": ms, f"{key}_plain_ms": dev_ms["plain"],
                         f"{key}_library_ms": dev_ms["library addmm"],
-                        f"{key}_bound_ms": bound})
+                        f"{key}_bound_ms": bound,
+                        f"{key}_launch_floor_ms": dev_ms["empty kernel"],
+                        f"{key}_profiler_ms": prof_us / 1e3,
+                        f"{key}_profiler_floor_ms": floor_us / 1e3})
+            if "parent kernel" in fns:
+                seq_row = {"name": "row_dense seq", "ms": ms}
+                _faster_than_parent(seq_row, dev_ms["parent kernel"])
+                row[f"{key}_parent_ms"] = seq_row["parent_ms"]
         del x, w, b, fns
     return row
 
@@ -3535,8 +3610,8 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     fns = {"tensor-core kernel": lambda: fa.flash_attention_cuda(
                q, k, v, causal, window),
-           "CUDA-core kernel": lambda: fa.flash_attention_cuda(
-               q, k, v, causal, window, kernel="cuda_core"),
+           "split-TF32 kernel": lambda: fa.flash_attention_cuda(
+               q, k, v, causal, window, kernel="tf32x3"),
            "plain": lambda: fa.flash_attention_plain(q, k, v, causal, window),
            "library sdpa": lambda: F.scaled_dot_product_attention(
                qt, kt, vt, attn_mask=band, enable_gqa=True)}
@@ -3568,8 +3643,9 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
         f"{pairs} visible pairs at 989 TFLOP/s; {moved} bytes take "
         f"{b_bytes:.6f} ms); tensor-core kernel {flops / tc_ms / 1e9:.1f} "
         f"TFLOP/s, {bound / tc_ms:.1%} of the bound, "
-        f"{dev_ms['CUDA-core kernel'] / tc_ms:.2f}x faster than the CUDA-core "
-        f"kernel and {dev_ms['library sdpa'] / tc_ms:.2f}x than SDPA; its "
+        f"{dev_ms['split-TF32 kernel'] / tc_ms:.2f}x faster than the "
+        f"split-TF32 kernel and {dev_ms['library sdpa'] / tc_ms:.2f}x than "
+        f"SDPA; its "
         f"tiles hold {tile_pairs} (query, key) pairs of rows, "
         f"{tile_pairs / (B * H * pairs) - 1:.2%} more than visible"
         + (f"; {dev_ms['parent kernel'] / tc_ms:.3f}x the parent's speed "
@@ -3577,9 +3653,9 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
            f"{spread['parent kernel']:.6f} ms), output bitwise equal to the "
            f"parent's: {same}" if "parent kernel" in fns else "")
         + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
-    if not tc_ms < min(dev_ms["library sdpa"], dev_ms["CUDA-core kernel"]):
+    if not tc_ms < min(dev_ms["library sdpa"], dev_ms["split-TF32 kernel"]):
         raise AssertionError("the tensor-core kernel is not faster than SDPA "
-                             "and the CUDA-core kernel")
+                             "and the split-TF32 kernel")
     rows.append({
         "name": "flash_attention", "arch": "recurrentgemma-9b",
         "route": "cuda", "shape": [B, S, H, KVH, D],
@@ -3597,7 +3673,7 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
         _no_slower_than_parent(rows[-1], dev_ms["parent kernel"], max(
             spread["tensor-core kernel"], spread["parent kernel"]))
     del q, k, v, qt, kt, vt, band, fns
-    rows.append(_attn_f32_times(torch, launches, errs, gen))
+    rows.append(_attn_f32_times(torch, launches, errs, gen, parent))
     for arch in DECODERS:
         B, S, H, KVH, D, causal, _ = _decoder_attn(arch)
         rows.append(_attn_times(torch, arch, arch,
@@ -3699,63 +3775,117 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
     return rows
 
 
-def _attn_f32_times(torch, launches, errs, gen):
-    """The float32 route, the CUDA-core kernel (csrc/flash_attention.cu), at
-    [serve-consistency]'s attention (RecurrentGemma-9B at batch 1 on 4,097
-    tokens, window 2,048) beside SDPA on the same float32 inputs, the plain
-    version and the bound (4 D flops per visible (query, head, key) triple
-    at 67 TFLOP/s float32, or its float32 bytes at 3.35 TB/s)."""
+def _attn_f32_times(torch, launches, errs, gen, parent=None):
+    """The float32 route, the split-TF32 forward (csrc/flash_attention.cu),
+    at ``F32_FWD_TIMES`` beside SDPA on the same float32 inputs, the plain
+    version and the bound: three TF32 passes of 4 D flops per visible
+    (query, head, key) triple at 495 TFLOP/s, or its float32 bytes at 3.35
+    TB/s (and one float32 pass on the CUDA cores at 67 TFLOP/s beside it).
+    With --parent the parent's kernel (the same entry point) runs in
+    turns: the output within 2e-4 of the parent's, and faster."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B, S, H, KVH, D, causal, window = ATTN_CASES[1]
-    q = torch.randn((B, S, H, D), generator=gen, device=DEV)
-    k, v = (torch.randn((B, S, KVH, D), generator=gen, device=DEV)
-            for _ in range(2))
-    band = fa.visible(S, S, causal, window, DEV)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    fns = {"CUDA-core kernel": lambda: fa.flash_attention_cuda(
-               q, k, v, causal, window),
-           "library sdpa": lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, attn_mask=band, enable_gqa=True)}
-    n = 8
-    dev_ms = _turns_ms(torch, fns, True, n)
-    call_ms = _turns_ms(torch, fns, False, n)
-    plain_ms = _median_ms(torch, lambda: fa.flash_attention_plain(
-        q, k, v, causal, window), True, 3)
-    pairs = visible_pairs(S, causal, window)
-    flops = 4 * B * H * D * pairs
-    moved = (2 * B * S * H * D + 2 * B * S * KVH * D) * 4
-    b_ops = flops / H100_F32_FLOPS * 1e3
-    b_bytes = moved / H100_BYTES_PER_S * 1e3
-    bound = max(b_ops, b_bytes)
-    ms = dev_ms["CUDA-core kernel"]
-    log(f"[times] flash_attention float32 (B, S, H, KVH, D) = "
-        f"{(B, S, H, KVH, D)} window {window} ([serve-consistency]'s), "
-        f"median of {n} CUDA-event timings in 4 turns, card / call: "
-        + ", ".join(f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
-                    for key in fns)
-        + f"; plain {plain_ms:.6f} ms (median of 3); bound {bound:.6f} ms "
-        f"({flops} flops at 67 TFLOP/s float32; {moved} bytes take "
-        f"{b_bytes:.6f} ms); kernel {bound / ms:.1%} of the bound, "
-        f"{dev_ms['library sdpa'] / ms:.2f}x SDPA's speed on float32 inputs; "
-        f"launches on the main path {launches['flash_attention f32']} "
-        f"([serve-consistency] and [train-reference]); clocks.sm, "
-        f"power.draw, temperature after: {_clocks()}")
+    rows = []
+    for B, S, H, KVH, D, causal, window, with_lse in F32_FWD_TIMES:
+        q = torch.randn((B, S, H, D), generator=gen, device=DEV)
+        k, v = (torch.randn((B, S, KVH, D), generator=gen, device=DEV)
+                for _ in range(2))
+        band = fa.visible(S, S, causal, window, DEV)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        fns = {"split-TF32 kernel": lambda: fa.flash_attention_cuda(
+                   q, k, v, causal, window, return_lse=with_lse),
+               "library sdpa": lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=band, enable_gqa=True)}
+        parent_err = None
+        if parent and "flash_attention" in parent:
+            fns["parent kernel"] = lambda: _parent_attn_f32(
+                torch, parent, q, k, v, causal, window, with_lse)
+            got, want = (fns[key]() for key in ("split-TF32 kernel",
+                                                "parent kernel"))
+            if with_lse:
+                got, want = got[0], want[0]
+            parent_err = float((got - want).abs().max())
+            if not parent_err <= 2e-4:
+                raise AssertionError(f"flash_attention float32 at "
+                                     f"{(B, S, H, KVH, D)}: {parent_err} "
+                                     f"from the parent's output")
+        n = 8
+        dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
+        call_ms = _turns_ms(torch, fns, False, n)
+        plain_ms = _median_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal, window), True, 3)
+        pairs = visible_pairs(S, causal, window)
+        flops = 4 * B * H * D * pairs
+        moved = (2 * B * S * H * D + 2 * B * S * KVH * D) * 4 + (
+            B * H * S * 4 if with_lse else 0)
+        b_ops = 3 * flops / H100_TF32_FLOPS * 1e3
+        b_f32 = flops / H100_F32_FLOPS * 1e3
+        b_bytes = moved / H100_BYTES_PER_S * 1e3
+        bound = max(b_ops, b_bytes)
+        ms = dev_ms["split-TF32 kernel"]
+        log(f"[times] flash_attention float32 (B, S, H, KVH, D) = "
+            f"{(B, S, H, KVH, D)} causal={causal} window={window}"
+            f"{' (lse entry point)' if with_lse else ''}, median of {n} "
+            f"CUDA-event timings in 4 turns, card / call: " + ", ".join(
+                f"{key} {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms"
+                for key in fns)
+            + " (turns' spread: " + ", ".join(
+                f"{key} {spread[key]:.6f}" for key in fns)
+            + f"); plain {plain_ms:.6f} ms (median of 3); bound "
+            f"{bound:.6f} ms ({flops} flops, three TF32 passes at 495 "
+            f"TFLOP/s; {moved} bytes take {b_bytes:.6f} ms; one float32 "
+            f"pass on the CUDA cores at 67 TFLOP/s {b_f32:.6f} ms); kernel "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the "
+            f"split-TF32 bound, {b_f32 / ms:.1%} of the CUDA-core one, "
+            f"{dev_ms['library sdpa'] / ms:.3f}x SDPA's speed on float32 "
+            f"inputs"
+            + (f", {dev_ms['parent kernel'] / ms:.3f}x the parent's (max "
+               f"|diff| {parent_err:.3e})" if "parent kernel" in fns else "")
+            + f"; launches on the main path {launches['flash_attention f32']} "
+            f"([serve-consistency] and [train-reference]); clocks.sm, "
+            f"power.draw, temperature after: {_clocks()}")
+        row = {"shape": [B, S, H, KVH, D], "causal": causal, "window": window,
+               "lse": with_lse, "ms": ms,
+               "call_ms": call_ms["split-TF32 kernel"], "plain_ms": plain_ms,
+               "bound_ms": bound,
+               "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+               "bound_cuda_core_ms": b_f32,
+               "library_ms": dev_ms["library sdpa"],
+               "share_of_bound": bound / ms, "name": "flash_attention_f32"}
+        if "parent kernel" in fns:
+            _faster_than_parent(row, dev_ms["parent kernel"])
+            row["turns_spread_ms"] = spread["split-TF32 kernel"]
+        rows.append(row)
+        del q, k, v, qt, kt, vt, band, fns
     return {
         "name": "flash_attention_f32", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:90",
-        "note": "the float32 route (and bf16 at D = 32) on the CUDA cores; "
-                "its launches are the float32 runs of [serve-consistency] "
-                "and [train-reference]",
-        "shape": [B, S, H, KVH, D], "window": window,
+        "note": "the float32 route (and bf16 at D = 32) in split TF32 on "
+                "the tensor cores; its launches are the float32 runs of "
+                "[serve-consistency] and [train-reference]",
         "launches": launches["flash_attention f32"],
         "max_abs_err": errs["flash_attention f32"],
-        "ms": ms, "call_ms": call_ms["CUDA-core kernel"], "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-        "library_ms": dev_ms["library sdpa"],
-        "share_of_bound": bound / ms}
+        **rows[0], "also": rows[1:]}
+
+
+def _parent_attn_f32(torch, parent, q, k, v, causal, window, with_lse):
+    """The parent's float32 attention forward (its serving entry point, or
+    its lse entry point with ``with_lse``): o, or (o, lse)."""
+    B, Sq, H, D = q.shape
+    out = torch.empty_like(q)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    lse = None
+    if with_lse:
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        args.append(lse.data_ptr())
+    err = parent["flash_attention_lse" if with_lse else "flash_attention"](
+        *args, B, Sq, k.shape[1], H, k.shape[2], D, int(causal),
+        -1 if window is None else window,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the parent's float32 attention failed: {err}")
+    return (out, lse) if with_lse else out
 
 
 def _attn_times(torch, label, arch, shape, launches, errs, gen, parent=None):
@@ -4123,7 +4253,7 @@ def phase_train_kernels(torch):
     within ATTN_ROW_TOL of the row's RMS (floored at 1e-2 of the
     gradient's); a query that sees no key and a key no query sees must
     get exactly 0; two launches must give the same bits, and the
-    forward's lse entry point (the tensor-core or the CUDA-core one) must
+    forward's lse entry point (the tensor-core or the split-TF32 one) must
     return the serving entry point's output bit for bit and an lse within
     1e-5 of the plain one.
     WKV: within 1e-4 x max(1, the gradient's largest |value|), and two
@@ -4844,6 +4974,12 @@ BWD_TIME_TC = ((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, None),
 #: RecurrentGemma-9B local attention and [train]'s qwen1.5-0.5b
 BWD_TIME_F32 = ((1, 2048, 16, 1, 256, 2048),
                 (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, None))
+#: the float32 forward's [times] shapes: [serve-consistency]'s
+#: RecurrentGemma-9B attention and [train]'s qwen1.5-0.5b heads in float32
+#: (through the lse entry point, as a training step calls it):
+#: (B, S, H, KVH, D, causal, window, lse)
+F32_FWD_TIMES = ((1, 4097, 16, 1, 256, True, 2048, False),
+                 (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, True, None, True))
 
 
 def _attn_bwd_times(torch, gen, shape, n=20, parent=None):
@@ -5000,8 +5136,10 @@ def _attn_bwd_f32_times(torch, gen, shape, sdpa_kernels, n=8, parent=None):
     """The split-TF32 backward (the float32 route) at one causal training
     shape on float32 inputs, in turns with SDPA's backward on the same
     float32 inputs and, with --parent, the parent's float32 backward
-    (given a copy of the forward's lse, which the CUDA-core kernel
-    overwrites), which it must beat; SDPA's device kernels
+    (given a copy of the forward's lse), which it must beat, or, where
+    its dq, dk and dv are bitwise the parent's (the same arithmetic: a
+    change that only moved code), not lose to by more than the turns'
+    spread; SDPA's device kernels
     (``sdpa_kernels``, {name: ms a call}); the plain backward; the bound,
     the larger of the split products' three TF32
     passes of 10 D flops per visible (query, head, key) triple at 495
@@ -5028,10 +5166,13 @@ def _attn_bwd_f32_times(torch, gen, shape, sdpa_kernels, n=8, parent=None):
                q, k, v, o, do, True, window, lse=lse),
            "library sdpa backward": lambda: torch.autograd.grad(
                out, (qt, kt, vt), dot, retain_graph=True)}
+    same = None
     if parent and "flash_attention_bwd" in parent:
         scratch_lse = lse.clone()
         fns["parent kernel"] = lambda: _parent_attn_bwd_f32(
             torch, parent, q, k, v, o, do, scratch_lse, window)
+        same = all(torch.equal(a, b) for a, b in zip(fns["kernel"](),
+                                                     fns["parent kernel"]()))
     dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
     plain_ms = _median_ms(torch, lambda: fa.flash_attention_backward_plain(
@@ -5057,8 +5198,9 @@ def _attn_bwd_f32_times(torch, gen, shape, sdpa_kernels, n=8, parent=None):
         f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound, "
         f"{dev_ms['library sdpa backward'] / ms:.3f}x SDPA's float32 "
         f"backward's speed"
-        + (f", {dev_ms['parent kernel'] / ms:.3f}x the parent's"
-           if "parent kernel" in fns else "")
+        + (f", {dev_ms['parent kernel'] / ms:.3f}x the parent's, dq, dk, "
+           f"dv bitwise the parent's: {same}" if "parent kernel" in fns
+           else "")
         + "; SDPA's backward's device kernels under torch.profiler (a "
         "child process), ms a call: " + ("; ".join(f"{name} {t:.6f}" for name, t in sorted(
             sdpa_kernels.items(), key=lambda kv: -kv[1])) or "not measured")
@@ -5073,19 +5215,22 @@ def _attn_bwd_f32_times(torch, gen, shape, sdpa_kernels, n=8, parent=None):
            "tflops": flops / ms / 1e9, "share_of_bound": bound / ms,
            "dtype": "float32"}
     if "parent kernel" in fns:
-        _faster_than_parent(row, dev_ms["parent kernel"])
+        row["parent_equal"] = same
+        if same:
+            _no_slower_than_parent(row, dev_ms["parent kernel"], max(
+                spread["kernel"], spread["parent kernel"]))
+        else:
+            _faster_than_parent(row, dev_ms["parent kernel"])
         row["turns_spread_ms"] = spread["kernel"]
     del q, k, v, do, o, lse, qt, kt, vt, out
     return row
 
 
 def _parent_attn_bwd_f32(torch, parent, q, k, v, o, do, lse, window):
-    """The parent's float32 attention backward, causal: (dq, dk, dv).  A
-    CUDA-core parent writes the lse it recomputes into ``lse`` and delta
-    into the scratch; a split-TF32 one reads ``lse`` (a copy of the
-    forward's) and writes delta and its head split's partials into the
-    scratch, which has this plan's size (``f32_bwd_scratch``, at least
-    delta's)."""
+    """The parent's float32 attention backward, causal: (dq, dk, dv).  It
+    reads ``lse`` (a copy of the forward's) and writes delta and its head
+    split's partials into the scratch, which has this plan's size
+    (``f32_bwd_scratch``, at least delta's)."""
     from repro_torch.kernels import flash_attention as fa
     B, Sq, H, D = q.shape
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -5218,9 +5363,9 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None, help=(
-        "a checkout (e.g. a git archive) of another commit: its combine, "
-        "RG-LRU, WKV and tensor-core attention backward kernels are built "
-        "too and timed in turns with the current ones in [times]"))
+        "a checkout (e.g. a git archive) of another commit: those of its "
+        "kernels whose sources differ from the current ones are built too "
+        "and timed in turns with the current ones in [times]"))
     ap.add_argument("--aot-child", choices=tuple(AOT_RUNS), default=None,
                     help="run one of [aot]'s processes (phase_aot starts "
                          "them)")
@@ -5245,7 +5390,7 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi, parent = phase_device(torch, args.parent)
     errs = phase_kernels(torch)
-    errs["row_dense"] = phase_score_kernels(torch)
+    errs["row_dense"] = phase_score_kernels(torch, parent)
     serve_errs = phase_serve_kernels(torch)
     split, dx, counts = _paper_split()
     launches = phase_slice(torch, split, dx, counts)
@@ -5294,7 +5439,7 @@ def main() -> int:
     for kernel, count in phase_train_reference(torch).items():
         train_launches[kernel] += count
     fa = _counters()["flash_attention"]
-    # its float32 steps' forwards: the CUDA-core kernel's launches
+    # its float32 steps' forwards: the split-TF32 kernel's launches
     f32_launches = fa.LAUNCHES - fa.TC_LAUNCHES
     phase_train_ckpt(torch)
     phase_examples_train(torch)

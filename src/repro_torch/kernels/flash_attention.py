@@ -16,12 +16,20 @@ head dim D, with no fallback from one to the other:
   which runs a tile's softmax while the previous tile's P V runs, row
   blocks heaviest first and ending at the last row (:func:`wgmma_plan`,
   :func:`wgmma_blocks`, :func:`wgmma_order`).
-- ``"cuda_core"``, ``repro_torch/csrc/flash_attention.cu``: float32 at D
-  in {32, 64, 128, 256} and bfloat16 at D = 32.  Both products in float32
-  on the CUDA cores; float32 inputs stay off the bf16 tensor cores, whose
-  inputs would round them.  Its lse entry point
-  (``flash_attention_cuda(..., return_lse=True)``) also writes each row's
-  lse for the split-TF32 backward.
+- ``"tf32x3"``, ``repro_torch/csrc/flash_attention.cu``: float32 at D in
+  {32, 64, 128, 256} and bfloat16 at D = 32 (and bf16 at any of those D
+  when a caller names the route).  Both products on the tensor cores in
+  split TF32, as the backward's: each operand x = hi + lo
+  (:func:`split_tf32`), lo.hi + hi.lo + hi.hi summed in float32 (three
+  TF32 ``mma.sync`` a product, as accurate as float32), so float32 inputs
+  are not rounded to bf16.  Q is split once a block into shared memory,
+  K/V tiles of 32 keys come by ``cp.async`` (two stages at D <= 128; K's
+  and V's copies staggered at D = 256), a warp owns 16 (query, head) rows
+  (at D = 256 a warp pair, each a half of D, adding their partial S), and
+  the online softmax runs on the S accumulator fragments, which feed
+  P V as they are (:func:`f32_fwd_tiles` mirrors the plan).  Its lse
+  entry point (``flash_attention_cuda(..., return_lse=True)``) also
+  writes each row's lse for the split-TF32 backward.
 
 Any other dtype or D raises.  :func:`flash_attention` launches the
 routed kernel for CUDA tensors and runs :func:`flash_attention_plain` for
@@ -82,7 +90,7 @@ BWD_LAUNCHES = 0
 TC_BWD_LAUNCHES = 0
 #: launches of the split-TF32 backward among them
 TF32_BWD_LAUNCHES = 0
-#: head dims the CUDA-core kernel is built for
+#: head dims the split-TF32 kernels are built for
 HEAD_DIMS = (32, 64, 128, 256)
 #: head dims the tensor-core kernel is built for (bfloat16 only), and
 #: those its warp-specialized kernel serves
@@ -107,6 +115,13 @@ TC_BWD_DQ = {64: (128, 80), 128: (128, 80), 256: (64, 64)}
 #: for each SM) before :func:`bwd_head_split` stops splitting heads
 SMS = 132
 BWD_MIN_WARPGROUPS = 2 * SMS
+#: the split-TF32 forward's tiles at each D (``FwdPlan`` in
+#: csrc/flash_attention.cu): (query, head) rows a block (16 a warp, or a
+#: warp pair where D is halved), keys a K/V tile, K/V stages, and the warps
+#: that share a 16-row slice (each reducing S over, and holding O of, a
+#: half of D)
+F32_FWD_PLANS = {32: (128, 32, 2, 1), 64: (128, 32, 2, 1),
+                 128: (128, 32, 2, 1), 256: (64, 32, 1, 2)}
 #: the split-TF32 backward's tiles at each D (``DqPlan`` and ``KvPlan`` in
 #: csrc/flash_attention_bwd.cu): (query, head) rows a dq block (16 a warp),
 #: keys a dq K/V tile, keys a dk/dv block (16 a warp pair) and queries a
@@ -123,23 +138,23 @@ _ENTRIES = {
     ("tensor_core", torch.bfloat16): ("flash_attention_wgmma",
                                       "flash_attention_wgmma_bf16",
                                       "flash_attention_wgmma_lse_bf16"),
-    ("cuda_core", torch.bfloat16): ("flash_attention", "flash_attention_bf16",
-                                    "flash_attention_lse_bf16"),
-    ("cuda_core", torch.float32): ("flash_attention", "flash_attention_f32",
-                                   "flash_attention_lse_f32"),
+    ("tf32x3", torch.bfloat16): ("flash_attention", "flash_attention_bf16",
+                                 "flash_attention_lse_bf16"),
+    ("tf32x3", torch.float32): ("flash_attention", "flash_attention_f32",
+                                "flash_attention_lse_f32"),
 }
 
 
 def route(dtype: torch.dtype, D: int) -> str:
     """The kernel that serves (dtype, D): ``"tensor_core"`` for bfloat16 at
-    D in ``TC_HEAD_DIMS``, ``"cuda_core"`` for float32 at D in
+    D in ``TC_HEAD_DIMS``, ``"tf32x3"`` (split TF32) for float32 at D in
     ``HEAD_DIMS`` and bfloat16 at D = 32; raises for anything else."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     if dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
         return "tensor_core"
     if D in HEAD_DIMS:
-        return "cuda_core"
+        return "tf32x3"
     raise ValueError(f"the kernels are built for head dims {HEAD_DIMS}, "
                      f"got {D}")
 
@@ -423,6 +438,22 @@ def bwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
             "dq_rows": rows, "dq_keys": keys}
 
 
+def f32_fwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
+                  window: Optional[int], D: int = 64) -> Dict[str, object]:
+    """The tiles the split-TF32 forward computes at head dim D, as it
+    computes them, for one (batch, kv head): ``"tiles"``, (row0, k0,
+    masked) for each K/V tile of ``"keys"`` keys that a block of
+    ``"rows"`` (query, head) rows from row0 visits (row r: query r // G),
+    blocks in launch order (causal: the last rows first), tiles in the
+    order its online softmax takes them; ``masked`` is False only for a
+    tile whose every pair is visible.  ``"stages"``: K/V tiles in shared
+    memory; ``"halves"``: warps a 16-row slice, each reducing S over a
+    half of D."""
+    rows, keys, stages, halves = F32_FWD_PLANS[D]
+    return {"tiles": _dq_tiles(Sq, Sk, G, causal, window, rows, keys, causal),
+            "rows": rows, "keys": keys, "stages": stages, "halves": halves}
+
+
 def f32_bwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
                   window: Optional[int], D: int = 64, B: int = 1,
                   KVH: int = 1) -> Dict[str, list]:
@@ -600,11 +631,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> Union[torch.Tensor,
                                     Tuple[torch.Tensor, torch.Tensor]]:
     """Launch a CUDA kernel on PyTorch's current stream: the one
-    :func:`route` picks, or ``kernel`` ("tensor_core" or "cuda_core") where
+    :func:`route` picks, or ``kernel`` ("tensor_core" or "tf32x3") where
     that kernel takes the inputs' dtype and D.  ``return_lse`` launches
     the kernel's lse entry point, which also returns each row's lse (B,
     H, Sq) float32 for the backward kernels; its output is the serving
-    entry point's, bit for bit."""
+    entry point's, bit for bit.  The split-TF32 kernel copies q, k or v
+    to a 16-byte boundary where it is not on one (its ``cp.async`` copies
+    need it)."""
     global LAUNCHES, TC_LAUNCHES, WS_LAUNCHES
     _check(q, k, v)
     if q.device.type != "cuda":
@@ -624,6 +657,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        for x in (q, k, v)):
         raise ValueError("the tensor-core kernel needs q, k, v on 16-byte "
                          "boundaries")
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
     if return_lse:

@@ -19,12 +19,23 @@ computes.  On the card kernel and plain version agree within
 :func:`error_bound`, not bit for bit (cuBLAS sums in another order).
 ``LAUNCHES`` counts kernel launches, a CUDA graph's capture included (its
 replays launch without Python).
+
+The kernel is built against latency, which bounds every service product
+(each is under a microsecond of work on either the memory or the CUDA
+cores): 128 threads a block, 2 x 4 outputs a thread, blocks of BM x BN
+with BN = 16 for N <= 16 and 32 otherwise, so the service's products
+give two blocks an SM; all of K in shared memory at once, copied by
+``cp.async`` in slabs of 64 k steps (one commit group each, so the first
+slab's FMAs start while the second is in flight); K a template constant
+for the service's K (``ROW_DENSE_KS``), a runtime value in chunks of 128
+otherwise.  :func:`row_dense_plan` mirrors the plan and
+:func:`row_dense_tiles` the outputs each thread owns.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -33,6 +44,52 @@ from repro_torch.models.params import Params
 
 #: kernel launches in this process (one per :func:`row_dense_cuda`)
 LAUNCHES = 0
+#: the kernel's launch plan (csrc/row_dense.cu): threads a block, rows and
+#: columns a thread, k steps a cp.async group, k steps in shared memory at
+#: once where K is a runtime value, and the K the kernel is built for as a
+#: constant
+ROW_DENSE_THREADS = 128
+ROW_DENSE_TILE = (2, 4)
+ROW_DENSE_SLAB = 64
+ROW_DENSE_CHUNK = 128
+ROW_DENSE_KS = (16, 32, 64, 112, 128)
+
+
+def row_dense_plan(M: int, K: int, N: int) -> Dict[str, object]:
+    """The kernel's plan for x (M, K) @ w (K, N), as ``row_dense_f32``
+    launches it: ``"BM"`` x ``"BN"`` outputs a block (BN 16 for N <= 16,
+    else 32), ``"grid"`` (row blocks, column blocks), ``"k_fixed"`` (K
+    where the kernel has it as a constant, else 0) and ``"chunks"``: for
+    each chunk of k steps held in shared memory at once, its slabs (k0,
+    k1), one cp.async group each, in the order the FMAs run them."""
+    if min(M, K, N) < 1:
+        raise ValueError(f"row_dense needs M, K, N >= 1, got {(M, K, N)}")
+    rows, cols = ROW_DENSE_TILE
+    BN = 16 if N <= 16 else 32
+    BM = ROW_DENSE_THREADS * rows * cols // BN
+    KC = K if K in ROW_DENSE_KS else ROW_DENSE_CHUNK
+    chunks = [[(k0, min(k0 + ROW_DENSE_SLAB, c0 + KC, K))
+               for k0 in range(c0, min(c0 + KC, K), ROW_DENSE_SLAB)]
+              for c0 in range(0, K, KC)]
+    return {"BM": BM, "BN": BN, "threads": ROW_DENSE_THREADS,
+            "grid": (-(-M // BM), -(-N // BN)),
+            "k_fixed": K if K in ROW_DENSE_KS else 0, "chunks": chunks}
+
+
+def row_dense_tiles(M: int, K: int, N: int
+                    ) -> List[Tuple[int, int, int, int]]:
+    """(block x, block y, thread, (m, n) of its first output) for every
+    thread of :func:`row_dense_plan`'s grid: thread t of block (bx, by)
+    owns rows m, m + 1 and columns n .. n + 3 (those inside (M, N)), m =
+    bx BM + 2 (t // (BN / 4)), n = by BN + 4 (t % (BN / 4))."""
+    plan = row_dense_plan(M, K, N)
+    BM, BN = plan["BM"], plan["BN"]
+    rows, cols = ROW_DENSE_TILE
+    tx = BN // cols
+    gx, gy = plan["grid"]
+    return [(bx, by, t, (bx * BM + rows * (t // tx), by * BN + cols * (t % tx)))
+            for bx in range(gx) for by in range(gy)
+            for t in range(ROW_DENSE_THREADS)]
 
 
 def row_dense_plain(x: torch.Tensor, w: torch.Tensor,

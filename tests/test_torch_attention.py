@@ -92,12 +92,12 @@ def test_flash_rejects_mismatched_shapes():
 
 @pytest.mark.parametrize("dtype,D,kernel", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
-    (torch.bfloat16, 256, "tensor_core"), (torch.bfloat16, 32, "cuda_core"),
-    (torch.float32, 32, "cuda_core"), (torch.float32, 64, "cuda_core"),
-    (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core")])
+    (torch.bfloat16, 256, "tensor_core"), (torch.bfloat16, 32, "tf32x3"),
+    (torch.float32, 32, "tf32x3"), (torch.float32, 64, "tf32x3"),
+    (torch.float32, 128, "tf32x3"), (torch.float32, 256, "tf32x3")])
 def test_route(dtype, D, kernel):
-    """bf16 at D in {64, 128, 256} goes to the tensor cores; float32, and
-    bf16 at D = 32, to the CUDA-core kernel."""
+    """bf16 at D in {64, 128, 256} goes to the bf16 tensor cores; float32,
+    and bf16 at D = 32, to the split-TF32 kernel."""
     assert tfa.route(dtype, D) == kernel
 
 

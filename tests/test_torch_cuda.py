@@ -301,7 +301,12 @@ def _bank(kind):
     (2048, 112, 128, True), (2048, 128, 64, True), (2048, 32, 64, True),
     (2048, 128, 112, True), (14_336, 16, 16, True), (14_336, 16, 16, False),
     (32, 112, 128, True), (7, 5, 33, True), (1, 1, 1, False),
-    (100_003, 16, 8, True)])
+    (100_003, 16, 8, True),
+    # the plan's edges: a last row block of 1 row (BM 32 / 64), a last
+    # column block of 1 column (BN 32 / 16), runtime K in 2 and 3 chunks
+    # of 128 with a ragged last slab, N % 4 != 0 (4-byte copies of w)
+    (33, 112, 33, True), (65, 16, 17, True), (2049, 129, 128, True),
+    (300, 300, 5, False), (64, 13, 16, True)])
 def test_row_dense_cuda_kernel(cuda_device, M, K, N, bias):
     """The row-stable product against its plain version within
     ``error_bound`` (two float32 summation orders), and every row the
@@ -496,7 +501,7 @@ def test_anomaly_second_bank_gets_its_own_graphs(cuda_device):
 # bfloat16 (the tolerances of tests/test_kernels.py): the kernels sum the
 # same products in another order, and the tensor-core kernel rounds p to
 # bf16 before its second product.  float32 (and bf16 at D = 32) runs on the
-# CUDA-core kernel, bf16 at D >= 64 on the tensor-core kernel
+# split-TF32 kernel, bf16 at D >= 64 on the tensor-core kernel
 # ---------------------------------------------------------------------------
 ATTN_CASES = [
     # (B, S, H, KVH, D, causal, window)
@@ -662,7 +667,7 @@ def test_flash_attention_ws_kernel(cuda_device, B, Sq, Sk, H, KVH, D, causal,
 
 @pytest.mark.cuda
 def test_flash_attention_cuda_core_kernel_bf16_on_request(cuda_device):
-    """The CUDA-core kernel still takes bf16 at D = 256 when asked (the
+    """The split-TF32 kernel still takes bf16 at D = 256 when asked (the
     timing phase compares the two kernels); it counts in LAUNCHES only."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=cuda_device).manual_seed(12)
@@ -671,12 +676,105 @@ def test_flash_attention_cuda_core_kernel_bf16_on_request(cuda_device):
             for _ in range(2))
     q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
     before, tc_before = fa.LAUNCHES, fa.TC_LAUNCHES
-    got = fa.flash_attention_cuda(q, k, v, True, 64, kernel="cuda_core")
+    got = fa.flash_attention_cuda(q, k, v, True, 64, kernel="tf32x3")
     torch.cuda.synchronize()
     assert (fa.LAUNCHES, fa.TC_LAUNCHES) == (before + 1, tc_before)
     want = fa.flash_attention_plain(q, k, v, True, 64)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the split-TF32 forward (float32 at every D, bf16 at D = 32 and on request):
+# within 2e-4 of the plain version in float32 and 2e-2 in bf16, rows that see
+# no key exactly 0, every launch counted in LAUNCHES and none in TC_LAUNCHES
+# ---------------------------------------------------------------------------
+F32_FWD_CASES = [
+    # (B, Sq, Sk, H, KVH, D, causal, window, dtype)
+    (1, 128, 128, 4, 2, 32, True, None, "float32"),
+    (2, 200, 200, 8, 2, 64, True, 64, "float32"),       # ragged, window
+    (1, 130, 130, 8, 8, 128, False, None, "float32"),   # bidirectional, MHA
+    (1, 97, 97, 16, 1, 256, True, 1, "float32"),        # only the diagonal
+    (1, 300, 100, 16, 1, 128, True, 64, "float32"),     # rows 163 on: no key
+    (1, 40, 67, 6, 3, 64, False, 8, "float32"),         # Sk > Sq
+    (2, 333, 200, 12, 2, 32, False, 50, "bfloat16"),    # bf16 at D = 32
+    (1, 77, 77, 4, 1, 64, True, None, "bfloat16"),      # bf16 by name, D 64
+    (1, 150, 150, 16, 1, 256, True, 64, "bfloat16"),    # bf16 by name, D 256
+    (1, 4097, 4097, 16, 1, 256, True, 2048, "float32"),  # [serve-consistency]
+    (8, 1024, 1024, 16, 16, 64, True, None, "float32"),  # [train]'s heads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_FWD_CASES)
+def test_flash_attention_tf32_fwd_matches_plain(cuda_device, case):
+    """The split-TF32 forward against the plain version at every D of
+    HEAD_DIMS, causal, windowed and bidirectional, ragged, Sq != Sk, and
+    at the two shapes chip_smoke.py times."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, KVH, D, causal, window, dt = case
+    q, k, v, _ = _f32_inputs(case, cuda_device, Sq + Sk + D)
+    before, tc_before = fa.LAUNCHES, fa.TC_LAUNCHES
+    got = fa.flash_attention_cuda(q, k, v, causal, window, kernel="tf32x3")
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.TC_LAUNCHES) == (before + 1, tc_before)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 2e-4 if dt == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    seen = fa.visible(Sq, Sk, causal, window, cuda_device).any(1)
+    if not bool(seen.all()):
+        assert float(got[:, ~seen].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("at", ["q", "k", "v"])
+def test_flash_attention_tf32_fwd_keeps_nan(cuda_device, D, at):
+    """A NaN in q, k or v makes NaN the outputs of every row that sees it
+    (a NaN in v: that column), as in the plain version; the split of a NaN
+    operand keeps it a NaN.  The other batch entry stays finite."""
+    from repro_torch.kernels import flash_attention as fa
+    case = (2, 150, 150, 8, 2, D, True, 40, "float32")
+    q, k, v, _ = _f32_inputs(case, cuda_device, 13)
+    pos = 75
+    (q if at == "q" else k if at == "k" else v)[0, pos, 0, 3] = float("nan")
+    got = fa.flash_attention_cuda(q, k, v, True, 40)
+    want = fa.flash_attention_plain(q, k, v, True, 40)
+    torch.cuda.synchronize()
+    if at == "q":
+        rows, heads = torch.arange(150, device=cuda_device) == pos, slice(0, 1)
+    else:
+        rows, heads = fa.visible(150, 150, True, 40, cuda_device)[:, pos], \
+            slice(0, 4)
+    cols = 3 if at == "v" else slice(None)
+    for o in (got, want):
+        assert torch.isnan(o[0, rows, heads][..., cols]).all()
+        assert torch.isfinite(o[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,D", [("float32", 64), ("float32", 256),
+                                  ("bfloat16", 32)])
+def test_flash_attention_tf32_fwd_takes_misaligned_inputs(cuda_device, dt, D):
+    """q, k and v one element past a 16-byte boundary (which the kernel's
+    16-byte copies cannot read) give their aligned copies' output and lse
+    bit for bit."""
+    from repro_torch.kernels import flash_attention as fa
+    case = (1, 100, 100, 4, 2, D, True, None, dt)
+    q, k, v, _ = _f32_inputs(case, cuda_device, 17)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 != 0
+        return out
+    want = fa.flash_attention_cuda(q, k, v, True, None, return_lse=True)
+    got = fa.flash_attention_cuda(*map(shifted, (q, k, v)), True, None,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
@@ -1000,11 +1098,11 @@ def test_serving_kernel_launches(cuda_device, arch, num_layers):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,kernel", [("bfloat16", "tensor_core"),
-                                          ("float32", "cuda_core")])
+                                          ("float32", "tf32x3")])
 def test_serving_prefill_attention_kernel(cuda_device, dtype, kernel):
     """A RecurrentGemma prefill's attention goes through the kernel its
-    dtype routes to: the reduced config's D = 64 in bf16 on the tensor
-    cores, in float32 on the CUDA cores."""
+    dtype routes to: the reduced config's D = 64 in bf16 on the bf16
+    tensor cores, in float32 on the split-TF32 kernel."""
     import dataclasses
 
     from repro_torch.configs.base import LOCAL_ATTN
@@ -1237,7 +1335,7 @@ def test_flash_attention_bwd_kernel_rejects(cuda_device, dtype, D):
 
 # ---------------------------------------------------------------------------
 # the split-TF32 backward (float32 at every D, bf16 at D = 32) and the
-# CUDA-core forward's lse entry point it reads
+# split-TF32 forward's lse entry point it reads
 # ---------------------------------------------------------------------------
 F32_BWD_CASES = [
     # (B, Sq, Sk, H, KVH, D, causal, window, dtype)
@@ -1264,14 +1362,14 @@ def _f32_inputs(case, device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", F32_BWD_CASES)
 def test_flash_attention_cuda_core_lse_entry_point(cuda_device, case):
-    """The CUDA-core forward's lse entry point returns the serving entry
+    """The split-TF32 forward's lse entry point returns the serving entry
     point's output bit for bit and an lse within 1e-6 (relative and
     absolute) of the plain one, 0 where a row sees no key; both count as
-    launches of the CUDA-core kernel."""
+    launches of the split-TF32 kernel."""
     from repro_torch.kernels import flash_attention as fa
     B, Sq, Sk, H, KVH, D, causal, window, _ = case
     q, k, v, _ = _f32_inputs(case, cuda_device, D)
-    assert fa.route(q.dtype, D) == "cuda_core"
+    assert fa.route(q.dtype, D) == "tf32x3"
     before = fa.LAUNCHES, fa.TC_LAUNCHES
     served = fa.flash_attention_cuda(q, k, v, causal, window)
     o, lse = fa.flash_attention_cuda(q, k, v, causal, window,
@@ -1531,7 +1629,7 @@ def test_flash_attention_lse_entry_point(cuda_device, B, Sq, Sk, H, KVH, D,
 @pytest.mark.cuda
 def test_flash_attention_tensor_core_bwd_needs_lse(cuda_device):
     """bf16 at D 64 on a CUDA tensor goes to the tensor-core backward,
-    which raises without the forward's lse: no fallback to the CUDA-core
+    which raises without the forward's lse: no fallback to the split-TF32
     kernel."""
     from repro_torch.kernels import flash_attention as fa
     x = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda_device)

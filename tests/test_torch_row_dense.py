@@ -121,3 +121,61 @@ def test_score_core_matches_repro(body):
     core = TE.score_core(tdet)(rows, torch.zeros(1, dtype=torch.int64),
                                torch.from_numpy(x))
     assert torch.equal(core, torch.from_numpy(got))
+
+
+def _service_products(rows):
+    """(M, K, N) of each product a bucket of ``rows`` feature rows scores
+    with (chip_smoke.py's _score_products): the paper autoencoder's layers
+    over the rows, SeqDetector's seven over its (row, token) pairs."""
+    ae = TCfg(input_dim=112)
+    dims = [ae.input_dim, *ae.hidden, ae.code_dim, *reversed(ae.hidden),
+            ae.input_dim]
+    seq = TD.SeqDetector()
+    t, d, win = rows * seq.seq_len, seq.d_model, seq.window
+    w = seq.lru_width or d
+    return ([(rows, a, b) for a, b in zip(dims[:-1], dims[1:])]
+            + [(t, win, d), (t, d, w), (t, d, w), (t, w, w), (t, w, w),
+               (t, w, d), (t, d, win)])
+
+
+PLAN_SHAPES = sorted({p for rows in (32, 8 * 32, 64 * 32)
+                      for p in _service_products(rows)}
+                     | {(7, 5, 33), (100_003, 16, 8), (1, 1, 1), (3, 300, 5),
+                        (33, 129, 17), (130, 4, 31)})
+
+
+@pytest.mark.parametrize("M,K,N", PLAN_SHAPES)
+def test_row_dense_plan_covers_each_output_once(M, K, N):
+    """Every output (m, n) is owned by exactly one thread of the kernel's
+    grid (2 rows x 4 columns a thread), and the slabs of each chunk run k
+    from 0 to K in order, each k step once (no k padded into a sum); the
+    service's K are template constants, so their loops unroll."""
+    plan = rd.row_dense_plan(M, K, N)
+    rows, cols = rd.ROW_DENSE_TILE
+    owned = np.zeros((M, N), np.int64)
+    for _, _, _, (m, n) in rd.row_dense_tiles(M, K, N):
+        owned[m:m + rows, n:n + cols] += 1
+    assert np.all(owned == 1)
+    steps = [k for chunk in plan["chunks"] for k0, k1 in chunk
+             for k in range(k0, k1)]
+    assert steps == list(range(K))
+    assert all(0 < k1 - k0 <= rd.ROW_DENSE_SLAB
+               for chunk in plan["chunks"] for k0, k1 in chunk)
+    assert all(chunk[-1][1] - chunk[0][0] <= rd.ROW_DENSE_CHUNK
+               for chunk in plan["chunks"])
+    assert plan["k_fixed"] == (K if K in rd.ROW_DENSE_KS else 0)
+
+
+def test_row_dense_plan_at_the_service_shapes():
+    """Every service product's K is a template constant, and the 64-window
+    bucket's largest products fill the card: 256 blocks of 128 threads at
+    the autoencoder's (2,048, 112, 128), 224 at SeqDetector's (14,336, 16,
+    16), about two an SM."""
+    for _, K, _ in _service_products(64 * 32):
+        assert rd.row_dense_plan(64 * 32, K, 8)["k_fixed"] == K
+    ae = rd.row_dense_plan(2048, 112, 128)
+    assert (ae["BM"], ae["BN"], ae["grid"]) == (32, 32, (64, 4))
+    seq = rd.row_dense_plan(14_336, 16, 16)
+    assert (seq["BM"], seq["BN"], seq["grid"]) == (64, 16, (224, 1))
+    with pytest.raises(ValueError):
+        rd.row_dense_plan(0, 4, 4)
