@@ -216,6 +216,19 @@ at D 64 and 128, the split-TF32 forward, both backwards), of the
 row-stable product and of the
 scans; any spill fails the run.
 
+The mesh engine's model axis (``repro_torch.sharding``): [mesh1-train]
+takes three [train] steps under ``activate_mesh`` of a (1, 1) mesh (the
+batch a DTensor, every constraint the identity) and holds their losses
+bitwise to the same steps without a mesh, the kernels' launches to the
+config's count in both, steps 2 and 3 under the sync debug mode; one card
+cannot host two NCCL ranks, so a model axis > 1 runs over gloo in the CPU
+tests.  [dryrun] runs ``python -m repro_torch.launch.dryrun`` at full
+width on the 16x16 mesh (a fake process group of 256 ranks, meta
+tensors) for qwen3-8b and Llama-4 Scout train_4k, RWKV6-7B decode_32k
+and RecurrentGemma-9B long_500k, one process each, and prints each
+record's analytic roofline terms, traced collective bytes and per-rank
+state bytes; a record that is not ok fails the run.
+
 It imports nothing of JAX or of the JAX package.  It exits non-zero
 without a CUDA device, outside a checkout, or if any phase fails; on
 success its last line is ``{"ok": true, "device": {...}}``.
@@ -225,6 +238,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -4596,6 +4610,136 @@ def phase_train_no_sync(torch):
     return step_fn, state, batches[0], alive
 
 
+MESH1_STEPS = 3
+#: [dryrun]'s records on the 16x16 mesh (arch, shape): the ring with heads
+#: over 16, FSDP with the weighted all-reduce and experts on the model
+#: axis, an RWKV6 decode step, RecurrentGemma at 500k tokens
+DRYRUN_CASES = (("qwen3-8b", "train_4k"), ("llama4-scout-17b-a16e", "train_4k"),
+                ("rwkv6-7b", "decode_32k"),
+                ("recurrentgemma-9b", "long_500k"))
+DRYRUN_TIMEOUT_S = 240
+
+
+def phase_mesh1_train(torch):
+    """[mesh1-train]: three [train] steps (qwen1.5-0.5b at full size, the
+    ring on a world of one rank) through the mesh seam: under
+    ``activate_mesh(make_host_mesh(1, 1), rules_for("replicated_data"))``
+    the batch is a DTensor on the (1, 1) device mesh and every constraint
+    is the identity.  The losses must be bitwise those of the same three
+    steps without a mesh, the kernels' launches (counted from 0 over each
+    run) those of the config's count in both, and steps 2 and 3 must not
+    wait on the card (sync debug mode "error")."""
+    from repro_torch.configs.base import TolFLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import distributed as D
+    from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import logical as L
+    from torch.distributed.tensor import DTensor
+    args = _train_args()
+    cfg = get_arch(TRAIN_ARCH)
+    mesh = make_host_mesh(data=1, model=1, device=DEV)
+    mesh.device_mesh            # the one-rank process group, made once
+    ocfg = train.OptimizerConfig(lr=args.lr, warmup_steps=5,
+                                 total_steps=args.steps)
+    host = list(TokenPipeline(cfg.vocab_size, TRAIN_SEQ,
+                              TRAIN_BATCH).batches(MESH1_STEPS))
+
+    def run(meshed):
+        ctx = (L.activate_mesh(mesh, L.rules_for("replicated_data"))
+               if meshed else contextlib.nullcontext())
+        with ctx:
+            step_fn = D.make_train_step(
+                cfg, TolFLConfig(num_clusters=1, schedule="tolfl_ring"),
+                ocfg, mesh)
+            state = D.init_state(torch.Generator(device=DEV).manual_seed(0),
+                                 cfg, ocfg)
+            batches = [shard_batch(b, mesh) for b in host]
+            if meshed != isinstance(batches[0]["tokens"], DTensor):
+                raise AssertionError("[mesh1-train] shard_batch's rows are "
+                                     "not a DTensor under the mesh")
+            alive = torch.ones((1,), device=DEV)
+            torch.cuda.synchronize()
+            _reset_train_launches()
+            losses = []
+            for i, b in enumerate(batches):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state, metrics = step_fn(state, b, alive)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            launches = _train_launches()
+        del state, step_fn
+        torch.cuda.empty_cache()
+        return [x.item() for x in losses], launches
+
+    plain, plain_launches = run(False)
+    meshed, mesh_launches = run(True)
+    want = _expected_train_launches(cfg, MESH1_STEPS)
+    _check_launches("mesh1-train", mesh_launches, want)
+    _check_launches("mesh1-train", plain_launches, want)
+    same = [a == b for a, b in zip(meshed, plain)]   # float32s, exactly
+    log(f"[mesh1-train] {MESH1_STEPS} steps of {cfg.name} under a (1, 1) "
+        f"mesh: losses {meshed}, without a mesh {plain}, bitwise equal "
+        f"{same}; flash_attention launches {mesh_launches['flash_attention']}"
+        f" / backward {mesh_launches['flash_attention_bwd']} with and "
+        f"{plain_launches['flash_attention']} / "
+        f"{plain_launches['flash_attention_bwd']} without; steps 2-3 under "
+        f"the sync debug mode 'error'")
+    if not all(same):
+        raise AssertionError("[mesh1-train] the mesh seam changed a loss")
+    return mesh_launches
+
+
+def phase_dryrun(torch):
+    """[dryrun]: ``python -m repro_torch.launch.dryrun`` at full width on
+    the 16x16 mesh for DRYRUN_CASES, one process each (a fake process
+    group of 256 ranks, meta tensors: the card is not used), all at once.
+    Each record must be ok; prints its analytic roofline terms (H100
+    datasheet constants), this rank's traced collective bytes by kind and
+    its state bytes."""
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", str(out)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape in DRYRUN_CASES]
+    try:
+        outs = [p.communicate(timeout=DRYRUN_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for (arch, shape), p, text in zip(DRYRUN_CASES, procs, outs):
+        path = out / f"{arch}__{shape}__pod16x16.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if p.returncode != 0 or rec.get("status") != "ok":
+            raise AssertionError(f"[dryrun] {arch} x {shape}: rc "
+                                 f"{p.returncode}, {rec.get('error')}\n"
+                                 f"{text[-3000:]}")
+        rl, tr = rec["roofline"], rec["roofline_trace"]
+        log(f"[dryrun] {arch} x {shape} x pod16x16: {rec['status']}, "
+            f"{rec['chips']} chips, {rec.get('schedule', rec['mode'])}, "
+            f"trace {rec['t_trace']} s; analytic t_compute "
+            f"{rl['t_compute']:.3e} s, t_memory {rl['t_memory']:.3e} s, "
+            f"t_collective {rl['t_collective']:.3e} s -> {rl['bottleneck']};"
+            f" traced collective bytes / rank "
+            f"{ {k: v for k, v in tr['coll_breakdown'].items() if v} }; "
+            f"state {rec['state_bytes']} B / rank, batch "
+            f"{rec['batch_bytes']} B / rank; traced flops (global) "
+            f"{rec['trace_flops']:.3e}")
+    log(f"[dryrun] {len(DRYRUN_CASES)} records in {wall:.1f} s")
+
+
 def _wkv_bwd_inputs(torch, gen):
     """The WKV backward's inputs at [train-families]' RWKV6-7B shape (1,
     2048, 64, 64): (r, k, v, w, u, state0, dy)."""
@@ -5443,6 +5587,7 @@ def main() -> int:
     f32_launches = fa.LAUNCHES - fa.TC_LAUNCHES
     phase_train_ckpt(torch)
     phase_examples_train(torch)
+    phase_mesh1_train(torch)
     kernels = phase_times(torch, launches, errs, parent)
     serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
     arch_launches = {}
@@ -5481,6 +5626,7 @@ def main() -> int:
                                  arch_launches, parent)
     kernels += phase_train_times(torch, train_launches, train_errs,
                                  wkv_split, parent)
+    phase_dryrun(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

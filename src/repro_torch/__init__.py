@@ -6,7 +6,8 @@ torch and numpy only, never jax or ``repro``.
 
 Every entry point takes ``device=None``, which means ``"cuda"``; with no
 CUDA device it raises instead of carrying on quietly on the CPU.  Pass
-``device="cpu"`` to run the plain PyTorch path on the CPU.
+``device="cpu"`` to run the plain PyTorch path on the CPU.  ``"meta"``
+lays out shapes and dtypes with no storage (the dry-run's device).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "repro_torch: no CUDA device is available; pass device='cpu' "
             "to run the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev
 

@@ -59,17 +59,10 @@ from repro_torch.serving.anomaly import (AnomalyService, ModelBank,
 #: ``repro.api`` names the port does not export: none left
 NOT_PORTED: tuple = ()
 #: ``repro`` modules and functions outside ``repro.api`` that the port
-#: still lacks: the sharding and dry-run half of ROADMAP item 9 (layouts
-#: over many chips; the training path itself is ported)
+#: still lacks: campaigns sharded over many cards (``ExecPlan(shard=True)``
+#: with more than one, ROADMAP item 9.4), whose spec builder this is
 NOT_PORTED_MODULES: tuple = (
-    "repro.sharding.logical",
-    "repro.core.distributed.state_shardings",
-    "repro.core.distributed.params_logical_axes",
-    "repro.core.distributed.state_logical_axes",
-    "repro.launch.specs",
-    "repro.launch.dryrun",
-    "repro.analysis.costmodel",
-    "repro.analysis.roofline",
+    "repro.sharding.logical.scenario_shard_map",
 )
 
 __all__ = [

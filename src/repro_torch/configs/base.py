@@ -180,6 +180,21 @@ class ModelConfig:
         total += d                                           # final norm
         return total
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if self.moe.num_experts == 0:
+            return self.param_count()
+        m = self.moe
+        dense_like = dataclasses.replace(self, moe=MoEConfig(num_experts=0))
+        per_expert = (3 if self.glu else 2) * self.d_model * self.d_ff
+        n_moe_layers = sum(1 for li in range(self.num_layers)
+                           if li % m.interleave == 0)
+        extra_per_moe = (self.d_model * m.num_experts
+                         + m.num_experts_per_tok * per_expert
+                         + (per_expert if m.shared_expert else 0)
+                         - per_expert)  # replaces the dense mlp counted above
+        return dense_like.param_count() + n_moe_layers * extra_per_moe
+
     def reduced(self) -> "ModelConfig":
         """CPU smoke-test variant of the same family (brief requirement:
         2 layers, d_model<=512, <=4 experts)."""

@@ -25,13 +25,30 @@ every process group is made once when the step is built (each rank
 calls ``new_group`` for every group, in one order), and a collective
 over one rank is skipped: it is the identity.  Nothing in a step waits
 on the host.
+
+Over a ``model`` axis > 1 (:func:`make_train_step` with such a mesh) the
+params and the optimizer's state are DTensors laid out by
+:func:`state_shardings`: sharded over ``model`` (tensor parallelism)
+and, under ``FSDP_RULES``, over the data axes on their d_model dims.  A
+rank's program is manual over the data axes, as ``repro``'s shard_map
+is: it gathers its params over the data axes (FSDP's all-gather at use),
+computes its rows' gradient with DTensors on its model column's mesh
+(the ranks of its group: DTensor inserts the tensor-parallel
+collectives), and runs the schedule's collectives on the flat buffer of
+its local shards within its model column (the ranks with its model
+index), whose cluster groups, chain hops and final all-reduce are made
+once, in one order on every rank.  The update is DTensor arithmetic on
+the storage layout (the clip's norm sums every shard once).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import (ModelConfig, MoEConfig, OptimizerConfig,
                                       TolFLConfig)
@@ -41,7 +58,9 @@ from repro_torch.core.topology import Topology
 from repro_torch.launch.mesh import HostMesh, mesh_axis_sizes
 from repro_torch.models import params as P
 from repro_torch.models import transformer as T
-from repro_torch.optim.optimizers import apply_updates, make_optimizer
+from repro_torch.optim.optimizers import (AdamState, SGDState,
+                                          apply_updates, make_optimizer)
+from repro_torch.sharding import logical as L
 
 Batch = Dict[str, torch.Tensor]
 
@@ -73,6 +92,160 @@ def init_state(generator: torch.Generator, mcfg: ModelConfig,
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=generator.device)}
+
+
+def params_logical_axes(mcfg: ModelConfig) -> P.Axes:
+    """The params' logical axes tree (``repro``'s, leaf for leaf)."""
+    return T.params_axes(mcfg)
+
+
+def state_logical_axes(mcfg: ModelConfig, ocfg: OptimizerConfig):
+    """The train state's logical axes: the params', the moments' (the
+    params'), and ``()`` for each step count."""
+    a = params_logical_axes(mcfg)
+    if ocfg.name in ("adam", "adamw"):
+        opt = AdamState(step=(), mu=a, nu=a)
+    else:
+        opt = SGDState(step=(), momentum=None)
+    return {"params": a, "opt": opt, "step": ()}
+
+
+def state_shapes(mcfg: ModelConfig, ocfg: OptimizerConfig,
+                 state_dtype: Optional[str] = None) -> Dict[str, Any]:
+    """:func:`init_state`'s tree as ``meta`` tensors: shapes and dtypes,
+    no storage, nothing drawn."""
+    params = T.init_params(None, mcfg, "meta")
+    opt = make_optimizer(ocfg, state_dtype=state_dtype)
+    return {"params": params, "opt": opt.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+def map_state(fn: Callable, state, *rest):
+    """``fn(leaf, *leaves of rest)`` over a state tree: dicts, the
+    optimizers' NamedTuples, tensors (or axes tuples / shardings in
+    ``rest``) and None, which stays None."""
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return {k: map_state(fn, v, *(r[k] for r in rest))
+                for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(map_state(fn, v, *(r[i] for r in rest))
+                             for i, v in enumerate(state)))
+    return fn(state, *rest)
+
+
+def state_shardings(mesh: HostMesh, mcfg: ModelConfig, ocfg: OptimizerConfig,
+                    rules: dict, state_dtype: Optional[str] = None):
+    """The train state's :class:`~repro_torch.sharding.logical.Sharding`
+    tree: each leaf's spec from its logical axes and shape (a leaf whose
+    axes do not match its rank is replicated, as ``repro`` does)."""
+    shapes = state_shapes(mcfg, ocfg, state_dtype)
+    axes = state_logical_axes(mcfg, ocfg)
+
+    def mk(shp, ax):
+        if not (P.is_axes_leaf(ax) and len(ax) == shp.dim()):
+            ax = (None,) * shp.dim()
+        return L.sharding_for(mesh, ax, tuple(shp.shape), rules)
+
+    return map_state(mk, shapes, axes)
+
+
+def shard_tree(tree, shardings):
+    """Full tensors -> DTensors of ``shardings``' layouts: each rank keeps
+    its own slice (no communication)."""
+    def one(x, sh):
+        x = DTensor.from_local(x, sh.device_mesh,
+                               [Replicate()] * sh.device_mesh.ndim,
+                               run_check=False)
+        return x.redistribute(sh.device_mesh, sh.placements)
+    return map_state(one, tree, shardings)
+
+
+class _Shards:
+    """The model axis's layouts for the train step: params stored as
+    DTensors over the whole mesh; computed with as DTensors over the
+    rank's model column (the ``model`` dim), gathered over the others."""
+
+    def __init__(self, mesh: HostMesh, rules: dict):
+        self.mesh, self.rules = mesh, rules
+        self.dm = mesh.device_mesh
+        self.mm = self.dm["model"]
+        self.md = mesh.axis_names.index("model")
+        self.manual = tuple(a for a in mesh.axis_names if a != "model")
+
+    def _gathered(self, placements):
+        return [p if i == self.md else Replicate()
+                for i, p in enumerate(placements)]
+
+    def compute(self, params: P.Params) -> P.Params:
+        """The storage DTensors gathered over the data axes, on the model
+        column's mesh."""
+        def one(p):
+            full = self._gathered(p.placements)
+            if list(p.placements) != full:
+                p = p.redistribute(self.dm, full)
+            return DTensor.from_local(p.to_local(), self.mm,
+                                      [full[self.md]], run_check=False)
+        return P.tree_map(one, params)
+
+    def local(self, grads: P.Params, like: P.Params) -> P.Params:
+        """Gradients (DTensors on the column's mesh) as the local shards
+        of ``like``'s layout (a Partial sum is reduced here)."""
+        def one(g, p):
+            if g.placements != p.placements:
+                g = g.redistribute(self.mm, p.placements)
+            return g.to_local()
+        return P.tree_map(one, grads, like)
+
+    def storage(self, grads: P.Params, params: P.Params) -> P.Params:
+        """Local gradients of the computed layout -> DTensors of the
+        stored params' layout (each rank keeps its slice of the data
+        axes: no communication)."""
+        def one(g, p):
+            full = self._gathered(p.placements)
+            g = DTensor.from_local(g, self.dm, full, run_check=False)
+            return (g if full == list(p.placements)
+                    else g.redistribute(self.dm, p.placements))
+        return P.tree_map(one, grads, params)
+
+    def context(self):
+        """The mesh active, the data axes manual, plain tensors taken as
+        replicated."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(L.activate_mesh(self.mesh, self.rules))
+        stack.enter_context(L.manual_axes(self.manual))
+        stack.enter_context(implicit_replication())
+        return stack
+
+
+def _shards(mesh: HostMesh) -> Optional[_Shards]:
+    """The model axis's layouts under the active rules, or None for a
+    model axis of 1 (the step's plain-tensor path)."""
+    return (_Shards(mesh, L.current_rules()) if mesh.model_size > 1
+            else None)
+
+
+def _context(shards: Optional[_Shards]):
+    return shards.context() if shards is not None else contextlib.nullcontext()
+
+
+def _locals(tree: P.Params) -> P.Params:
+    """A tree's local shards (its own tensors where they are plain)."""
+    return P.tree_map(lambda x: x.to_local() if isinstance(x, DTensor)
+                      else x, tree)
+
+
+def _plain(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value (a Partial one reduced), else x."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _local_batch(batch: Batch) -> Batch:
+    """This rank's rows: a DTensor batch (``shard_batch`` under a mesh)
+    as its local shards."""
+    return {k: v.to_local() if isinstance(v, DTensor) else v
+            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -120,38 +293,50 @@ def _split(batch: Batch, parts: int) -> List[Batch]:
 
 
 class _Comm:
-    """Collectives over this rank's world, skipped where the group has one
-    rank (the identity)."""
+    """Collectives among the federated groups of this rank's model column
+    (the ranks with its model index; the whole world when the model axis
+    is 1), addressed by group index; skipped where a group of ranks has
+    one (the identity)."""
 
     def __init__(self, mesh: HostMesh):
-        self.world = mesh.size
-        self.rank = mesh.rank
+        self.world = mesh.num_groups
+        self.group = mesh.group
+        self.m, self.M = mesh.model_index, mesh.model_size
+        # the column's own group for the world-wide all-reduces
+        self.column = (self.new_groups([list(range(self.world))])
+                       if self.M > 1 else {})
 
-    def new_groups(self, rank_lists: List[List[int]]) -> Dict[str, Any]:
-        """Make a process group of each list of ranks with more than one
-        (every rank calls this with the same lists, in the same order);
-        returns the ``group`` and ``size`` of the list holding this rank,
-        as :meth:`all_reduce`'s keyword arguments."""
+    def rank_of(self, g: int) -> int:
+        return g * self.M + self.m
+
+    def new_groups(self, group_lists: List[List[int]]) -> Dict[str, Any]:
+        """Make a process group of each list of group indices with more
+        than one, in each model column (every rank calls this with the
+        same lists, in the same order); returns the ``group`` and ``size``
+        of this rank's, as :meth:`all_reduce`'s keyword arguments."""
         mine: Dict[str, Any] = {}
-        for ranks in rank_lists:
-            grp = (dist.new_group(ranks) if len(ranks) > 1
-                   and self.world > 1 else None)
-            if self.rank in ranks:
-                mine = {"group": grp, "size": len(ranks)}
+        for m in range(self.M):
+            for groups in group_lists:
+                grp = (dist.new_group([g * self.M + m for g in groups])
+                       if len(groups) > 1 and self.world > 1 else None)
+                if m == self.m and self.group in groups:
+                    mine = {"group": grp, "size": len(groups)}
         return mine
 
     def all_reduce(self, buf: torch.Tensor, group=None, size: int = 0
                    ) -> torch.Tensor:
+        if group is None and not size:
+            group, size = self.column.get("group"), self.world
         if (size or self.world) > 1:
             dist.all_reduce(buf, group=group)
         return buf
 
     def send(self, buf: torch.Tensor, dst: int) -> None:
-        dist.send(buf, dst=dst)
+        dist.send(buf, dst=self.rank_of(dst))
 
     def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
         buf = torch.empty_like(like)
-        dist.recv(buf, src=src)
+        dist.recv(buf, src=self.rank_of(src))
         return buf
 
 
@@ -204,10 +389,17 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
     weights = _weights_fn(topo, mesh.device)
     opt = make_optimizer(ocfg, state_dtype=state_dtype)
     comm = _Comm(mesh)
+    shards = _shards(mesh)
     mb = tolfl.microbatches
     spread_moe = mcfg.moe.num_experts > 0 and G > 1
 
     def train_step(state, batch: Batch, alive: torch.Tensor):
+        with _context(shards):
+            return _train_step(state, _local_batch(batch), alive)
+
+    def _train_step(state, batch: Batch, alive: torch.Tensor):
+        params = state["params"]
+        cparams = params if shards is None else shards.compute(params)
         w = weights(alive)                               # (G,)
         B_loc, S = batch["labels"].shape
         B = B_loc * G
@@ -219,7 +411,7 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
         cuts = sorted({lo, lo + B_loc} | {
             i * (B // mb) for i in range(mb + 1)
             if lo < i * (B // mb) < lo + B_loc})
-        layout = P.FlatLayout.of(state["params"])
+        layout = P.FlatLayout.of(_locals(cparams))
         g_acc = torch.zeros(layout.size + 1, dtype=torch.float32,
                             device=mesh.device)
         metrics = {}
@@ -230,7 +422,7 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
             parts.append((a // (B // mb), part, my_w * ((b - a) * S)))
         if spread_moe:
             glob = _moe_block_sums(
-                _cast_params(state["params"], tolfl.param_cast_dtype), mcfg,
+                _cast_params(cparams, tolfl.param_cast_dtype), mcfg,
                 parts, mb, comm)
             # each global block's mask mass
             block_w = torch.sum(torch.repeat_interleave(w, B_loc).reshape(
@@ -250,20 +442,25 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
                 return lv, {"xent": mets["xent"],
                             "moe_aux": _moe_aux(glob[-1], glob[-1], mcfg.moe)}
 
-            jv, metrics, g = _value_and_grad(state["params"], f)
+            jv, metrics, g = _value_and_grad(cparams, f)
+            if shards is not None:
+                g = shards.local(g, cparams)
             g_acc[:-1] += layout.flatten(g)
-            g_acc[-1] += jv
+            g_acc[-1] += _plain(jv)
         comm.all_reduce(g_acc)
         g_acc = g_acc / torch.clamp_min(mass, 1e-30)
         grads = layout.unflatten(g_acc[:-1])
-        updates, new_opt = opt.update(grads, state["opt"], state["params"])
-        new_params = apply_updates(state["params"], updates)
+        if shards is not None:
+            grads = shards.storage(grads, params)
+        updates, new_opt = opt.update(grads, state["opt"], params)
+        new_params = apply_updates(params, updates)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         # the loss copied out of g_acc: a view would keep the flat
         # gradient alive as long as the caller keeps the metrics
         return new_state, {"loss": g_acc[-1].clone(),
-                           **{k: v.detach() for k, v in metrics.items()}}
+                           **{k: _plain(v).detach()
+                              for k, v in metrics.items()}}
 
     return train_step
 
@@ -294,7 +491,8 @@ def _moe_block_sums(params: P.Params, mcfg: ModelConfig,
     glob = None
     with torch.no_grad():
         for blk, part, _ in parts:
-            sums = T.loss_fn(params, mcfg, part, moe_sums=True)[1]["moe_sums"]
+            sums = _plain(T.loss_fn(params, mcfg, part,
+                                    moe_sums=True)[1]["moe_sums"])
             if glob is None:
                 glob = torch.zeros((mb,) + tuple(sums.shape),
                                    dtype=torch.float32, device=sums.device)
@@ -322,6 +520,7 @@ def make_ring_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
     weights = _weights_fn(topo_glob, mesh.device)
     opt = make_optimizer(ocfg, state_dtype=state_dtype)
     comm = _Comm(mesh)
+    shards = _shards(mesh)
     gi = mesh.group
     di, pi = gi % d_sz, gi // d_sz
     f32 = torch.float32
@@ -430,8 +629,8 @@ def make_ring_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
             return grads, lv
         if tolfl.microbatches > 1:
             mb = tolfl.microbatches
-            grads = P.tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
-                                                     device=p.device), params)
+            grads = P.tree_map(lambda p: torch.zeros_like(p, dtype=f32),
+                               params)
             lv = torch.zeros((), dtype=f32, device=mesh.device)
             for part in _split(batch, mb):
                 lv_i, _, g_i = _value_and_grad(
@@ -443,18 +642,27 @@ def make_ring_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
         return grads, lv
 
     def train_step(state, batch: Batch, alive: torch.Tensor):
+        with _context(shards):
+            return _train_step(state, _local_batch(batch), alive)
+
+    def _train_step(state, batch: Batch, alive: torch.Tensor):
         params = state["params"]
-        layout = P.FlatLayout.of(params)
-        grads, lv = local_grads(params, batch)
+        cparams = params if shards is None else shards.compute(params)
+        grads, lv = local_grads(cparams, batch)
+        if shards is not None:
+            grads = shards.local(grads, cparams)
+        layout = P.FlatLayout.of(grads)
         flat = layout.flatten(grads)
         del grads                         # the tree's memory, before the sync
         n = weights(alive)[gi] * batch["tokens"].numel()
-        g_fin, loss, n_tot = aggregate(flat, n, lv)
+        g_fin, loss, n_tot = aggregate(flat, n, _plain(lv))
         del flat
         if tolfl.grad_sync_dtype:
             g_fin = g_fin.to(f32)         # f32 master grads for the optimizer
         # g_fin is the broadcast's own buffer: masked in place
         g = layout.unflatten(g_fin.mul_((n_tot > 0).to(f32)))
+        if shards is not None:
+            g = shards.storage(g, params)
         updates, new_opt = opt.update(g, state["opt"], params)
         new_params = apply_updates(params, updates)
         # copied out of the broadcast's buffer: views would keep the flat

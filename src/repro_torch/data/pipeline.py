@@ -15,6 +15,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.sharding.logical import current_mesh
+
 
 @dataclasses.dataclass
 class TokenPipeline:
@@ -68,7 +70,10 @@ def shard_batch(batch: Dict[str, np.ndarray], mesh
     dim is split over the federated groups (pod x data) in rank order, as
     ``repro`` shards it over the mesh.  Integer fields become int64
     tensors (the indices of the embedding and the loss's gather);
-    floating ones keep their dtype."""
+    floating ones keep their dtype.  Under an active mesh
+    (``repro_torch.sharding.activate_mesh``) each field is a DTensor of
+    these rows: ``Shard(0)`` over the pod / data dims, ``Replicate`` over
+    model."""
     out = {}
     for k, v in batch.items():
         rows = v.shape[0] // mesh.num_groups
@@ -78,4 +83,10 @@ def shard_batch(batch: Dict[str, np.ndarray], mesh
         if not t.is_floating_point():
             t = t.to(torch.int64)
         out[k] = t.to(mesh.device)
-    return out
+    if current_mesh() is None:
+        return out
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    place = [Shard(0) if n in ("pod", "data") else Replicate()
+             for n in mesh.axis_names]
+    return {k: DTensor.from_local(t, mesh.device_mesh, place,
+                                  run_check=False) for k, t in out.items()}

@@ -76,6 +76,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.sharding import logical as L
 
 #: kernel launches in this process (one per :func:`flash_attention_cuda`)
 LAUNCHES = 0
@@ -781,7 +782,14 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, need_lse):
         lse = None
-        if q.device.type == "cuda":
+        if q.device.type == "meta":
+            # shapes and dtypes alone (the dry-run): jax.eval_shape's
+            # counterpart through a pallas_call
+            o = torch.empty_like(q)
+            if need_lse:
+                lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                                  dtype=torch.float32, device="meta")
+        elif q.device.type == "cuda":
             if need_lse:
                 o, lse = flash_attention_cuda(q, k, v, causal, window,
                                               return_lse=True)
@@ -802,7 +810,9 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        if q.device.type == "cuda":
+        if q.device.type == "meta":
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        elif q.device.type == "cuda":
             dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, ctx.causal,
                                                   ctx.window, lse)
         else:
@@ -820,8 +830,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The one entry point of the attention kernels (``ops.attention``
     re-exports it), differentiable through :class:`FlashAttentionFn`:
     CUDA tensors launch the kernels or raise; CPU tensors run the plain
-    versions.  Only a call that needs a gradient launches the forward's
-    lse entry point; serving launches the plain one."""
+    versions; ``meta`` tensors give the output's shape alone.  Only a
+    call that needs a gradient launches the forward's lse entry point;
+    serving launches the plain one.  DTensors go through
+    :func:`_sharded_attention`."""
+    if L.any_dtensor(q, k, v):
+        return _sharded_attention(q, k, v, causal, window)
     need_lse = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     return FlashAttentionFn.apply(q, k, v, causal, window, need_lse)
+
+
+def _sharded_attention(q, k, v, causal: bool, window: Optional[int]):
+    """Attention of DTensors, the kernels on each rank's shards
+    (``sharding.logical.heads_call``: the batch and the heads stay
+    sharded, the sequence and head dims are gathered, GQA's kv heads
+    picked to match a rank's q heads)."""
+    def fn(ql, kl, vl):
+        need_lse = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (ql, kl, vl))
+        return FlashAttentionFn.apply(ql, kl, vl, causal, window, need_lse)
+
+    return L.heads_call(fn, q, (k, v))

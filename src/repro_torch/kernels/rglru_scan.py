@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.sharding import logical as L
 
 #: forward kernel launches in this process (one per :func:`rglru_scan_cuda`)
 LAUNCHES = 0
@@ -169,7 +170,9 @@ class RGLRUScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a_t, b_t, h0):
-        if a_t.device.type == "cuda":
+        if a_t.device.type == "meta":
+            h = torch.empty_like(a_t)
+        elif a_t.device.type == "cuda":
             h = rglru_scan_cuda(a_t, b_t, h0)
         else:
             _check(a_t, b_t, h0)
@@ -181,7 +184,10 @@ class RGLRUScanFn(torch.autograd.Function):
     def backward(ctx, dh):
         a_t, h, h0 = ctx.saved_tensors
         dh = dh.contiguous()
-        if a_t.device.type == "cuda":
+        if a_t.device.type == "meta":
+            da, db = torch.empty_like(a_t), torch.empty_like(a_t)
+            dh0 = None if h0 is None else torch.empty_like(h0)
+        elif a_t.device.type == "cuda":
             da, db, dh0 = rglru_scan_bwd_cuda(a_t, h, h0, dh)
         else:
             _check(a_t, dh, h0)
@@ -196,5 +202,12 @@ def rglru_scan(a_t: torch.Tensor, b_t: torch.Tensor,
 
     The one entry point of the scan kernels (``ops.rglru`` re-exports it),
     differentiable through :class:`RGLRUScanFn`: CUDA tensors launch the
-    kernels or raise; CPU tensors run the plain versions."""
+    kernels or raise; CPU tensors run the plain versions; ``meta`` tensors
+    give h's shape alone.  DTensors run on their local shards, the batch
+    and the channels sharded, the sequence gathered."""
+    if L.any_dtensor(a_t, b_t, h0):
+        seq = ("b", None, "w")
+        return L.local_call(
+            lambda a, b, h: RGLRUScanFn.apply(a, b, h), (a_t, b_t, h0),
+            (seq, seq, ("b", "w")), ("b", "w"), (seq,))
     return RGLRUScanFn.apply(a_t, b_t, h0)

@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.sharding import logical as L
 
 #: kernel launches in this process (one per :func:`rwkv6_scan_cuda`)
 LAUNCHES = 0
@@ -394,7 +395,9 @@ class WKVScanFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, w, u, state0):
         ctx.set_materialize_grads(False)
-        if r.device.type == "cuda":
+        if r.device.type == "meta":
+            y, state = torch.empty_like(r), torch.empty_like(state0)
+        elif r.device.type == "cuda":
             y, state = rwkv6_scan_cuda(r, k, v, w, u, state0)
         else:
             _check(r, k, v, w, u, state0)
@@ -407,6 +410,8 @@ class WKVScanFn(torch.autograd.Function):
         r, k, v, w, u, state0 = ctx.saved_tensors
         dy = torch.zeros_like(r) if dy is None else dy.contiguous()
         dstate = None if dstate is None else dstate.contiguous()
+        if r.device.type == "meta":
+            return tuple(torch.empty_like(t) for t in (r, k, v, w, u, state0))
         if r.device.type == "cuda":
             return rwkv6_scan_bwd_cuda(r, k, v, w, u, state0, dy, dstate)
         return rwkv6_scan_backward_plain(r, k, v, w, u, state0, dy, dstate)
@@ -421,5 +426,15 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The one entry point of the WKV kernels (``ops.rwkv6`` re-exports it),
     differentiable through :class:`WKVScanFn`: CUDA tensors launch the
-    kernels or raise; CPU tensors run the plain versions."""
+    kernels or raise; CPU tensors run the plain versions; ``meta`` tensors
+    give the outputs' shapes alone (the plain version's per-step loop
+    would issue millions of meta ops at 32k tokens).  DTensors run on
+    their local shards, the batch and the heads sharded, the sequence
+    and head-size dims gathered."""
+    if L.any_dtensor(r, k, v, w, u, state0):
+        seq = ("b", None, "h", None)
+        return L.local_call(
+            WKVScanFn.apply, (r, k, v, w, u, state0),
+            (seq, seq, seq, seq, ("h", None), ("b", "h", None, None)),
+            ("b", "h"), (seq, ("b", "h", None, None)))
     return WKVScanFn.apply(r, k, v, w, u, state0)

@@ -1,20 +1,27 @@
 """The mesh the training step runs on: the process group's ranks.
 
 Port of ``repro.launch.mesh``.  Where ``repro`` lays a ``jax`` mesh over
-the TPU chips, the port's mesh is the ``torch.distributed`` world: one
-rank a Tol-FL data group (a federated group), each holding the whole
-model on its own device, so the ``model`` axis is always 1.  Tensor
-parallelism over a ``model`` axis > 1 is the sharding half of ROADMAP
-item 9 and raises here.
+the TPU chips, the port's mesh is the ``torch.distributed`` world, its
+ranks in row-major order of the mesh's shape: rank = ((pod x data) +
+data) x model + model index.  The ranks that differ only in their model
+index form one Tol-FL data group (a federated group) and share its rows
+of the batch; over a ``model`` axis > 1 they hold the model's shards
+(``repro_torch.sharding``), laid out by the ``DeviceMesh`` that
+:attr:`HostMesh.device_mesh` builds on first use.
 
 :func:`init_process_group` reads the ``torchrun`` environment
 (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``); without it the world is this one process and no
-process group is made (every collective over one rank is the identity).
-NCCL serves CUDA ranks and gloo CPU ones.
+process group is made (every collective over one rank is the identity)
+until a ``DeviceMesh`` is asked for, which needs one.  A world that is
+already up (the dry-run's fake process group of 256 or 512 ranks) is
+used as it is.  NCCL serves CUDA ranks and gloo CPU ones; one card
+cannot host two NCCL ranks, so a model axis > 1 on one machine runs on
+gloo.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 from dataclasses import dataclass
@@ -51,9 +58,31 @@ class HostMesh:
         return s.get("pod", 1) * s.get("data", 1)
 
     @property
+    def model_size(self) -> int:
+        return self.sizes.get("model", 1)
+
+    @property
     def group(self) -> int:
-        """This rank's global group index (the model axis is 1)."""
-        return self.rank
+        """This rank's global group index: its (pod, data) coordinate."""
+        return self.rank // self.model_size
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_size
+
+    @functools.cached_property
+    def device_mesh(self):
+        """The ``DeviceMesh`` of the world's ranks in this shape, its dims
+        named after the axes.  A world of one rank without a process group
+        gets one (an in-memory store)."""
+        from torch.distributed.device_mesh import init_device_mesh
+        kind = "cuda" if self.device.type == "cuda" else "cpu"
+        if not dist.is_initialized():
+            dist.init_process_group("nccl" if kind == "cuda" else "gloo",
+                                    store=dist.HashStore(), rank=0,
+                                    world_size=1)
+        return init_device_mesh(kind, self.shape,
+                                mesh_dim_names=self.axis_names)
 
 
 def mesh_axis_sizes(mesh: HostMesh) -> Dict[str, int]:
@@ -61,7 +90,10 @@ def mesh_axis_sizes(mesh: HostMesh) -> Dict[str, int]:
 
 
 def world() -> Tuple[int, int]:
-    """(rank, world size) of the torchrun environment, else (0, 1)."""
+    """(rank, world size) of the process group that is up, else of the
+    torchrun environment, else (0, 1)."""
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
     return (int(os.environ.get("RANK", 0)),
             int(os.environ.get("WORLD_SIZE", 1)))
 
@@ -87,15 +119,11 @@ def init_process_group(device: DeviceLike = None) -> Tuple[int, int,
 def _make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
                device: DeviceLike) -> HostMesh:
     """A mesh of exactly ``shape``; raises, as ``jax.make_mesh`` does, when
-    the world has another number of ranks, and for a model axis > 1."""
+    the world has another number of ranks."""
     rank, size, dev = init_process_group(device)
     if math.prod(shape) != size:
         raise ValueError(f"a mesh of shape {shape} needs {math.prod(shape)} "
                          f"ranks; the world has {size}")
-    if dict(zip(axes, shape)).get("model", 1) > 1:
-        raise NotImplementedError(
-            "a model axis > 1 (tensor parallelism) is the sharding half of "
-            "ROADMAP item 9 (sharding/logical.py), not ported yet")
     return HostMesh(axes, shape, rank, dev)
 
 

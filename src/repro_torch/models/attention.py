@@ -2,7 +2,8 @@
 attention through the flash-attention kernel, and one-token decode
 against a circular KV cache.
 
-Port of ``repro.models.attention`` (without its sharding constraints).
+Port of ``repro.models.attention``, its sharding constraints at
+``repro``'s places (the identity without an active mesh).
 Prefill and full-sequence attention go through ``ops.attention`` (the
 CUDA kernel on the card, its plain version on the CPU); ``repro``'s
 pure-XLA ``blocked_attention`` has no counterpart, since the kernel takes
@@ -20,6 +21,7 @@ from repro_torch import DeviceLike
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels import ops
 from repro_torch.models import params as P
+from repro_torch.sharding import logical as L
 
 NEG_INF = -1e30
 
@@ -68,6 +70,18 @@ def attn_init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
                if cfg.qk_norm else {})}
 
 
+def attn_axes(cfg: AttentionConfig) -> P.Axes:
+    """:func:`attn_init`'s logical axes (``repro``'s)."""
+    a = {"q": P.dense_axes("embed", "heads", cfg.qkv_bias),
+         "k": P.dense_axes("embed", "kv_heads", cfg.qkv_bias),
+         "v": P.dense_axes("embed", "kv_heads", cfg.qkv_bias),
+         "o": P.dense_axes("heads", "embed")}
+    if cfg.qk_norm:
+        a["q_norm"] = {"scale": ("head_dim",)}
+        a["k_norm"] = {"scale": ("head_dim",)}
+    return a
+
+
 def project_qkv(p: P.Params, x: torch.Tensor, cfg: AttentionConfig,
                 positions: torch.Tensor, norm_eps: float = 1e-6,
                 compute_dtype: Optional[torch.dtype] = None):
@@ -76,12 +90,13 @@ def project_qkv(p: P.Params, x: torch.Tensor, cfg: AttentionConfig,
     the head dim, ``norm_eps``, times the scale, cast back) where
     ``cfg.qk_norm``."""
     B, S, _ = x.shape
-    q = P.dense_apply(p["q"], x, compute_dtype).reshape(
-        B, S, cfg.num_heads, cfg.head_dim)
-    k = P.dense_apply(p["k"], x, compute_dtype).reshape(
-        B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = P.dense_apply(p["v"], x, compute_dtype).reshape(
-        B, S, cfg.num_kv_heads, cfg.head_dim)
+
+    def heads(name, n):
+        y = L.even_view(P.dense_apply(p[name], x, compute_dtype), -1, n)
+        return y.reshape(B, S, n, cfg.head_dim)
+    q = heads("q", cfg.num_heads)
+    k = heads("k", cfg.num_kv_heads)
+    v = heads("v", cfg.num_kv_heads)
     if cfg.qk_norm:
         q = P.rmsnorm_apply(p["q_norm"], q, norm_eps)
         k = P.rmsnorm_apply(p["k_norm"], k, norm_eps)
@@ -89,6 +104,9 @@ def project_qkv(p: P.Params, x: torch.Tensor, cfg: AttentionConfig,
         cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = L.constrain(q, ("batch", "seq", "heads", None))
+    k = L.constrain(k, ("batch", "seq", "kv_heads", None))
+    v = L.constrain(v, ("batch", "seq", "kv_heads", None))
     return q, k, v
 
 
@@ -106,8 +124,10 @@ def attn_apply(p: P.Params, x: torch.Tensor, cfg: AttentionConfig,
     q, k, v = project_qkv(p, x, cfg, positions, norm_eps,
                           compute_dtype=x.dtype)
     out = ops.attention(q, k, v, causal=causal, window=window)
-    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return P.dense_apply(p["o"], out, x.dtype)
+    out = L.merged_heads(out.reshape(B, S, cfg.num_heads * cfg.head_dim),
+                         -1, cfg.num_heads)
+    return L.constrain(P.dense_apply(p["o"], out, x.dtype),
+                       ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +143,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     The new token attends to every valid cached slot plus itself.
     ``cache_valid``: (Sc,) bool, False for empty or out-of-window slots
     (see :func:`cache_slot_validity`).  Scores and the softmax are
-    float32; the output is q's dtype."""
+    float32; the output is q's dtype.  DTensors compute on their local
+    shards (``sharding.logical.heads_call``): the batch and the heads
+    sharded, a cache's sequence gathered first (DTensor's einsums here
+    flatten a sharded dim, which torch 2.11 refuses)."""
+    if L.any_dtensor(q, k_cache, v_cache, k_new, v_new):
+        rest = () if cache_valid is None else (cache_valid,)
+        return L.heads_call(_decode_attention, q,
+                            (k_cache, v_cache, k_new, v_new), rest)
+    return _decode_attention(q, k_cache, v_cache, k_new, v_new, cache_valid)
+
+
+def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor,
+                      cache_valid: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     B, _, H, D = q.shape
     KVH = k_cache.shape[2]
     G = H // KVH
@@ -193,4 +228,4 @@ def attn_decode(p: P.Params, x: torch.Tensor, cache: dict,
         c = cache[name].clone()
         c[:, slot:slot + 1] = new
         new_cache[name] = c
-    return out, new_cache
+    return L.constrain(out, ("batch", "seq", "embed")), new_cache

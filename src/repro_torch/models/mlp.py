@@ -1,6 +1,6 @@
 """Dense MLP, optionally gated (GLU).
 
-Port of ``repro.models.mlp`` (without its sharding constraints).  Params
+Port of ``repro.models.mlp``, with its sharding constraints.  Params
 are float32 and are cast to the activation dtype per call.
 """
 from __future__ import annotations
@@ -11,6 +11,7 @@ import torch
 
 from repro_torch import DeviceLike
 from repro_torch.models import params as P
+from repro_torch.sharding import logical as L
 
 
 def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, glu: bool,
@@ -26,6 +27,15 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, glu: bool,
     return p
 
 
+def mlp_axes(glu: bool) -> P.Axes:
+    """:func:`mlp_init`'s logical axes (``repro``'s)."""
+    a = {"up": P.dense_axes("embed", "ff")}
+    if glu:
+        a["gate"] = P.dense_axes("embed", "ff")
+    a["down"] = P.dense_axes("ff", "embed")
+    return a
+
+
 def mlp_apply(p: P.Params, x: torch.Tensor, act: str, glu: bool
               ) -> torch.Tensor:
     f = P.activation(act)
@@ -34,4 +44,6 @@ def mlp_apply(p: P.Params, x: torch.Tensor, act: str, glu: bool
         h = f(P.dense_apply(p["gate"], x, x.dtype)) * h
     else:
         h = f(h)
-    return P.dense_apply(p["down"], h, x.dtype)
+    h = L.constrain(h, ("batch", "seq", "ff"))
+    return L.constrain(P.dense_apply(p["down"], h, x.dtype),
+                       ("batch", "seq", "embed"))

@@ -1,7 +1,8 @@
 """Mixture-of-Experts layer: Llama-4-style top-k routing with GShard-style
 capacity dispatch.
 
-Port of ``repro.models.moe`` (without its expert-parallel sharding).
+Port of ``repro.models.moe``, with its sharding constraints (experts
+over the model axis).
 Dispatch is a pair of one-hot einsums computed chunk by chunk over the
 sequence, so the (tokens x experts x capacity) tensor never exceeds
 (B, chunk, E, C).  Within a chunk each expert takes at most C tokens, in
@@ -24,7 +25,8 @@ import torch
 from repro_torch import DeviceLike
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import params as P
-from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.mlp import mlp_apply, mlp_axes, mlp_init
+from repro_torch.sharding import logical as L
 
 
 def moe_init(generator: torch.Generator, d_model: int, d_ff: int,
@@ -40,6 +42,16 @@ def moe_init(generator: torch.Generator, d_model: int, d_ff: int,
     if cfg.shared_expert:
         p["shared"] = mlp_init(generator, d_model, d_ff, glu, device, lead)
     return p
+
+
+def moe_axes(cfg: MoEConfig, glu: bool) -> P.Axes:
+    """:func:`moe_init`'s logical axes (``repro``'s): the experts' MLP
+    axes behind an ``experts`` dim."""
+    a = {"router": P.dense_axes("embed", "experts"),
+         "experts": P.add_axes(mlp_axes(glu), "experts")}
+    if cfg.shared_expert:
+        a["shared"] = mlp_axes(glu)
+    return a
 
 
 def _capacity(chunk: int, cfg: MoEConfig) -> int:
@@ -88,17 +100,50 @@ def _dispatch_mask(logits: torch.Tensor, cfg: MoEConfig, capacity: int
     return dispatch, combine, probs
 
 
-def _expert_mlp(exp_p: P.Params, h: torch.Tensor, act: str, glu: bool
-                ) -> torch.Tensor:
-    """h: (B, E, C, d); expert weights carry a leading E dim and are
-    already in h's dtype."""
+def _experts(experts: P.Params, dispatch: torch.Tensor,
+             combine: torch.Tensor, xc: torch.Tensor, act: str, glu: bool
+             ) -> torch.Tensor:
+    """A chunk's expert layer: dispatch (B, T, E, C) of xc (B, T, d) to
+    the experts, their MLPs, and the combine back to (B, T, d).  The
+    expert weights carry a leading E dim and are in xc's dtype."""
+    ws = {n: experts[n]["w"] for n in experts}
+    if not L.any_dtensor(dispatch, xc, *ws.values()):
+        return _experts_local(ws, dispatch, combine, xc, act, glu)
+    # DTensors: each rank's experts and rows on their local shards, the
+    # combine a Partial sum over the ranks that shard the experts.  The
+    # hidden layers then lie as repro constrains them, ("batch",
+    # "experts", None, "embed" / "ff") with ff whole, since the experts
+    # take the model axis.  (DTensor's own einsums merge the sharded
+    # (E, C) dims into strided shards, whose redistribution plans cost
+    # seconds a chunk on a 3-d mesh.)
+    names = tuple(ws)
+    tok, exp = ("b", None, "e", None), ("e", None, None)
+    return L.local_call(
+        lambda d, c, x, *w: _experts_local(dict(zip(names, w)), d, c, x, act,
+                                           glu),
+        (dispatch, combine, xc, *ws.values()),
+        (tok, tok, ("b", None, None)) + (exp,) * len(names), ("b", "e"),
+        (("b", None, None),), sums=(True,))
+
+
+def _experts_local(ws: Dict[str, torch.Tensor], dispatch: torch.Tensor,
+                   combine: torch.Tensor, xc: torch.Tensor, act: str,
+                   glu: bool) -> torch.Tensor:
+    h = torch.einsum("btec,btd->becd", dispatch.to(xc.dtype), xc)
+    return torch.einsum("btec,becd->btd", combine.to(xc.dtype),
+                        _expert_mlp(ws, h, act, glu))
+
+
+def _expert_mlp(ws: Dict[str, torch.Tensor], h: torch.Tensor, act: str,
+                glu: bool) -> torch.Tensor:
+    """h: (B, E, C, d); expert weights (E, in, out) in h's dtype."""
     f = P.activation(act)
-    up = torch.einsum("becd,edf->becf", h, exp_p["up"]["w"])
+    up = torch.einsum("becd,edf->becf", h, ws["up"])
     if glu:
-        mid = f(torch.einsum("becd,edf->becf", h, exp_p["gate"]["w"])) * up
+        mid = f(torch.einsum("becd,edf->becf", h, ws["gate"])) * up
     else:
         mid = f(up)
-    return torch.einsum("becf,efd->becd", mid, exp_p["down"]["w"])
+    return torch.einsum("becf,efd->becd", mid, ws["down"])
 
 
 def moe_apply(p: P.Params, x: torch.Tensor, cfg: MoEConfig, act: str,
@@ -117,16 +162,19 @@ def moe_apply(p: P.Params, x: torch.Tensor, cfg: MoEConfig, act: str,
     B, S, d = x.shape
     chunk = divisor_block(S, chunk)
     C = _capacity(chunk, cfg)
-    experts = P.tree_map_with_path(lambda _, w: w.to(x.dtype), p["experts"])
+    # cast once a call; a DTensor expert weight is gathered here, once,
+    # to the experts-only layout every chunk's products use
+    experts = P.tree_map_with_path(
+        lambda _, w: L.keep_shard(w.to(x.dtype), 0), p["experts"])
     outs, lbs, zs, rows = [], [], [], []
     for c0 in range(0, S, chunk):
         xc = x[:, c0:c0 + chunk]
         logits = P.dense_apply(p["router"], xc.to(torch.float32),
                                torch.float32)                    # (B,T,E)
         dispatch, combine, probs = _dispatch_mask(logits, cfg, C)
-        h = torch.einsum("btec,btd->becd", dispatch.to(xc.dtype), xc)
-        o = _expert_mlp(experts, h, act, glu)
-        outs.append(torch.einsum("btec,becd->btd", combine.to(xc.dtype), o))
+        outs.append(L.constrain(
+            _experts(experts, dispatch, combine, xc, act, glu),
+            ("batch", "seq", "embed")))
         tokens = torch.sum(dispatch, dim=-1)
         frac_tokens = torch.mean(tokens, dim=(0, 1))
         frac_probs = torch.mean(probs, dim=(0, 1))

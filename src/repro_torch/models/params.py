@@ -28,6 +28,9 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
+#: a parallel tree of logical axes (``repro``'s ``axes`` tree): the same
+#: keys, each leaf a tuple of logical axis names (or None), one a dim
+Axes = Dict[str, Any]
 #: a layer's product, ``(p, x, compute_dtype=None) -> y``: :func:`dense_apply`
 #: or the score path's row-stable one (``kernels/row_dense.dense_apply``)
 DenseFn = Callable[..., torch.Tensor]
@@ -37,7 +40,10 @@ def normal_init(generator: torch.Generator, shape: Tuple[int, ...],
                 stddev: float, device: DeviceLike = None) -> torch.Tensor:
     """N(0, stddev^2) float32 of ``shape``, drawn on ``generator``'s device
     and then moved to ``device``, so a seed gives the same numbers on
-    every target device."""
+    every target device.  On ``meta`` nothing is drawn (``generator`` may
+    be None)."""
+    if resolve_device(device).type == "meta":
+        return torch.empty(shape, device="meta")
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) * stddev
     return x.to(resolve_device(device))
@@ -54,6 +60,11 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
     by default) and then moved, so a seed gives the same weights on every
     device."""
     shape = (*lead, in_dim, out_dim)
+    if resolve_device(device).type == "meta":
+        p = {"w": torch.empty(shape, device="meta")}
+        if bias:
+            p["b"] = torch.empty((*lead, out_dim), device="meta")
+        return p
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     # in place: a stacked leaf (10.7 GB for Scout's experts) is held once
@@ -78,6 +89,39 @@ def dense_apply(p: Params, x: torch.Tensor,
         b = p["b"] if compute_dtype is None else p["b"].to(compute_dtype)
         y = y + b.unsqueeze(-2)
     return y
+
+
+def is_axes_leaf(x) -> bool:
+    """A logical-axes leaf: a (possibly empty) plain tuple of axis names.
+
+    NamedTuples (optimizer states) are containers, not leaves."""
+    return (isinstance(x, tuple) and not hasattr(x, "_fields")
+            and all(e is None or isinstance(e, str) for e in x))
+
+
+def dense_axes(in_ax: Optional[str], out_ax: Optional[str],
+               bias: bool = False) -> Axes:
+    """:func:`dense_init`'s logical axes: kernel (in, out), bias (out,)."""
+    a = {"w": (in_ax, out_ax)}
+    if bias:
+        a["b"] = (out_ax,)
+    return a
+
+
+def embed_axes() -> Axes:
+    return {"table": ("vocab", "embed")}
+
+
+def rmsnorm_axes() -> Axes:
+    return {"scale": ("embed",)}
+
+
+def add_axes(axes: Axes, *names: Optional[str]) -> Axes:
+    """``axes`` with ``names`` in front of every leaf (the stacked dims a
+    ``lead`` puts in front: ``("layers",)``, ``("experts",)``)."""
+    if is_axes_leaf(axes):
+        return tuple(names) + axes
+    return {k: add_axes(v, *names) for k, v in axes.items()}
 
 
 def embed_init(generator: torch.Generator, vocab: int, dim: int,
@@ -164,10 +208,18 @@ def tree_zeros_like(params: Params) -> Params:
 
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares
-    (as ``repro`` stacks the per-leaf sums and adds them)."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
+    (as ``repro`` stacks the per-leaf sums and adds them).  A DTensor
+    leaf's sum is reduced over its shards to a plain scalar (left to
+    DTensor, a pending sum would turn every gradient it scales into one,
+    gathering each first)."""
+    leaves = [_whole(torch.sum(torch.square(x.to(torch.float32))))
               for _, x in tree_items(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value as a plain tensor; a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 class GradBF16Boundary(torch.autograd.Function):

@@ -5,7 +5,7 @@
     a_t = a ** (c * r_t),  a = sigmoid(lambda)   (c = 8)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Port of ``repro.models.rglru`` (without its sharding constraints).  Over
+Port of ``repro.models.rglru``, with its sharding constraints.  Over
 a sequence the recurrence runs in ``ops.rglru`` (the CUDA scan kernel on
 the card, its plain loop on the CPU); :func:`rglru_decode` takes one step
 with the formula itself, as ``repro``'s decode does.  The block wraps the
@@ -26,6 +26,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import params as P
+from repro_torch.sharding import logical as L
 
 C_EXP = 8.0
 
@@ -38,8 +39,10 @@ def rglru_init(generator: torch.Generator, cfg: ModelConfig,
     cw = cfg.recurrent.conv1d_width
     dev = resolve_device(device)
     # lambda init so that a = sigmoid(lambda) lies in [0.9, 0.999]
-    u = torch.rand((*lead, w), generator=generator, dtype=torch.float32,
-                   device=generator.device) * (0.999 - 0.9) + 0.9
+    u = (torch.full((*lead, w), 0.95, device=dev) if dev.type == "meta"
+         else torch.rand((*lead, w), generator=generator,
+                         dtype=torch.float32, device=generator.device)
+         * (0.999 - 0.9) + 0.9)
     return {
         "in_x": P.dense_init(generator, d, w, device=dev, lead=lead),
         "in_gate": P.dense_init(generator, d, w, device=dev, lead=lead),
@@ -52,6 +55,16 @@ def rglru_init(generator: torch.Generator, cfg: ModelConfig,
         "lam": torch.log(u / (1 - u)).to(dev),
         "out": P.dense_init(generator, w, d, device=dev, lead=lead),
     }
+
+
+def rglru_axes() -> P.Axes:
+    """:func:`rglru_init`'s logical axes (``repro``'s)."""
+    return {"in_x": P.dense_axes("embed", "state"),
+            "in_gate": P.dense_axes("embed", "state"),
+            "conv_w": ("conv", "state"), "conv_b": ("state",),
+            "gate_a": P.dense_axes("state", None),
+            "gate_x": P.dense_axes("state", None),
+            "lam": ("state",), "out": P.dense_axes("state", "embed")}
 
 
 def _col(t: torch.Tensor) -> torch.Tensor:
@@ -80,7 +93,8 @@ def _causal_conv1d(xw: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     or None for zeros.  Returns the output and the new trailing
     context."""
     S, cw = xw.shape[-2], w.shape[-2]
-    xp = (F.pad(xw, (0, 0, cw - 1, 0)) if state is None
+    xp = (L.shardwise(lambda t: F.pad(t, (0, 0, cw - 1, 0)), xw)
+          if state is None
           else torch.cat([state.to(xw.dtype), xw], dim=-2))
     out = torch.zeros_like(xw)
     for i in range(cw):
@@ -108,12 +122,14 @@ def _gates(p: P.Params, x: torch.Tensor, conv: Optional[torch.Tensor],
     context, or None)."""
     gate_branch = F.gelu(dense_tokens(p["in_gate"], x, x.dtype, dense),
                          approximate="tanh")
-    xw, new_conv = _causal_conv1d(dense_tokens(p["in_x"], x, x.dtype, dense),
-                                  p["conv_w"], p["conv_b"], conv)
+    xw = L.constrain(dense_tokens(p["in_x"], x, x.dtype, dense),
+                     ("batch", "seq", "state"))
+    xw, new_conv = _causal_conv1d(xw, p["conv_w"], p["conv_b"], conv)
     xw32 = xw.to(torch.float32)   # repro's bf16 @ f32 promotes x exactly
     r = torch.sigmoid(dense_tokens(p["gate_a"], xw32, torch.float32, dense))
     i = torch.sigmoid(dense_tokens(p["gate_x"], xw32, torch.float32, dense))
-    log_a = C_EXP * r * F.logsigmoid(_col(p["lam"]).to(torch.float32))
+    log_a = C_EXP * r * L.shardwise(F.logsigmoid,
+                                    _col(p["lam"]).to(torch.float32))
     a_t = torch.exp(log_a)
     # sqrt(1 - a^2) normaliser, clamped for stability
     norm = torch.sqrt(torch.clamp_min(1.0 - torch.square(a_t), 1e-12))
@@ -132,8 +148,10 @@ def rglru_apply(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
     kernel.  state: {'h': (B,W) f32, 'conv': (B,cw-1,W)} or None."""
     a_t, b_t, gate_branch, new_conv = _gates(
         p, x, None if state is None else state["conv"])
-    h = _lru_scan(a_t, b_t, None if state is None else state["h"])
-    out = _out(p, h, gate_branch, x.dtype)
+    h = L.constrain(_lru_scan(a_t, b_t, None if state is None
+                              else state["h"]), ("batch", "seq", "state"))
+    out = L.constrain(_out(p, h, gate_branch, x.dtype),
+                      ("batch", "seq", "embed"))
     # copies, so the cache does not hold the whole (B, S, W) h alive
     return out, {"h": h[:, -1, :].clone(), "conv": new_conv.clone()}
 

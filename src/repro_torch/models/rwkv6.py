@@ -6,7 +6,7 @@ diagonal decay w_t:
     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
-Port of ``repro.models.rwkv6`` (without its sharding constraints).
+Port of ``repro.models.rwkv6``, with its sharding constraints.
 Token-shift interpolation (ddlerp) uses learned mus plus LoRA adapters on
 the shifted mix.  The recurrence runs in ``ops.rwkv6`` over a prompt and
 over a decode step alike (the CUDA kernel on the card, its plain loop on
@@ -23,6 +23,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import params as P
+from repro_torch.sharding import logical as L
 
 DDLERP_RANK = 32
 DECAY_RANK = 64
@@ -63,6 +64,22 @@ def timemix_init(generator: torch.Generator, cfg: ModelConfig,
     p["ln_x"] = {"scale": torch.ones((*lead, d), device=dev),
                  "bias": torch.zeros((*lead, d), device=dev)}
     return p
+
+
+def timemix_axes() -> P.Axes:
+    """:func:`timemix_init`'s logical axes (``repro``'s)."""
+    a = {"mu": (None, "embed"),
+         "ddlerp_a": P.dense_axes("embed", None),
+         "ddlerp_b": P.dense_axes(None, "embed")}
+    for nm in ("r", "k", "v", "g"):
+        a[nm] = P.dense_axes("embed", "heads")
+    a["o"] = P.dense_axes("heads", "embed")
+    a["decay_base"] = ("embed",)
+    a["decay_a"] = P.dense_axes("embed", None)
+    a["decay_b"] = P.dense_axes(None, "embed")
+    a["bonus"] = ("embed",)
+    a["ln_x"] = {"scale": ("embed",), "bias": ("embed",)}
+    return a
 
 
 def _ddlerp(p: P.Params, x: torch.Tensor, sx: torch.Tensor):
@@ -120,7 +137,8 @@ def timemix_apply(p: P.Params, x: torch.Tensor, cfg: ModelConfig,
     y = ((y - mu) * torch.rsqrt(var + GROUP_NORM_EPS)).reshape(B, S, d)
     y = (y * p["ln_x"]["scale"].to(torch.float32)
          + p["ln_x"]["bias"].to(torch.float32)).to(x.dtype)
-    out = P.dense_apply(p["o"], y * g, x.dtype)
+    out = L.constrain(P.dense_apply(p["o"], y * g, x.dtype),
+                      ("batch", "seq", "embed"))
     # a copy, so the cache does not hold the whole (B, S, d) x alive
     return out, {"shift": x[:, -1, :].clone(), "wkv": wkv}
 
@@ -135,6 +153,12 @@ def channelmix_init(generator: torch.Generator, cfg: ModelConfig,
             "value": P.dense_init(generator, f, d, device=dev, lead=lead)}
 
 
+def channelmix_axes() -> P.Axes:
+    """:func:`channelmix_init`'s logical axes (``repro``'s)."""
+    return {"mu": (None, "embed"), "key": P.dense_axes("embed", "ff"),
+            "value": P.dense_axes("ff", "embed")}
+
+
 def channelmix_apply(p: P.Params, x: torch.Tensor,
                      state: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,5 +171,7 @@ def channelmix_apply(p: P.Params, x: torch.Tensor,
     diff = _shifted(x, shift0) - x
     xk = x + diff * p["mu"][0].to(x.dtype)
     k = torch.square(torch.relu(P.dense_apply(p["key"], xk, x.dtype)))
-    out = P.dense_apply(p["value"], k, x.dtype)
+    k = L.constrain(k, ("batch", "seq", "ff"))
+    out = L.constrain(P.dense_apply(p["value"], k, x.dtype),
+                      ("batch", "seq", "embed"))
     return out, x[:, -1, :].clone()

@@ -15,6 +15,14 @@ each encoder-decoder layer and each encoder layer in
 backward, so each kernel of the forward runs twice a training step.
 The gradient flows through the kernels' own backwards
 (``FlashAttentionFn``, ``WKVScanFn``, ``RGLRUScanFn``).
+
+Under an active mesh the params and activations may be DTensors
+(``repro_torch.sharding``); ``constrain`` sits at ``repro``'s places.
+Two aten ops of ``xent_loss`` have no good DTensor strategy for a
+sharded vocab: the ``gather`` of the gold logit fails, which
+``_sharded_gold`` computes on each rank's vocab shard instead, and
+``logsumexp`` moves the logits to a batch sharding (an all-to-all),
+which ``_sharded_lse`` replaces by a max and a sum over the shards.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
@@ -33,8 +42,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import params as P
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
-from repro_torch.models.mlp import mlp_apply, mlp_init
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.mlp import mlp_apply, mlp_axes, mlp_init
+from repro_torch.models.moe import moe_apply, moe_axes, moe_init
+from repro_torch.sharding import logical as L
 
 VOCAB_PAD = 256
 
@@ -166,6 +176,45 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def _layer_axes(cfg: ModelConfig, kind: str, use_moe: bool) -> P.Axes:
+    a = {"norm1": P.rmsnorm_axes(), "norm2": P.rmsnorm_axes()}
+    if kind == RWKV:
+        a["mix"], a["mlp"] = R.timemix_axes(), R.channelmix_axes()
+        return a
+    a["mix"] = (A.attn_axes(cfg.attention) if kind in (ATTN, LOCAL_ATTN)
+                else G.rglru_axes())
+    a["mlp"] = (moe_axes(cfg.moe, cfg.glu) if use_moe
+                else mlp_axes(cfg.glu))
+    return a
+
+
+def params_axes(cfg: ModelConfig) -> P.Axes:
+    """The logical axes of :func:`init_params`' tree, leaf for leaf
+    ``repro``'s ``init_params(...)[1]``: stacked leaves lead with
+    ``layers`` (an MoE layer's experts then with ``experts``)."""
+    n_units, n_tail = unit_counts(cfg)
+    unit = unit_pattern(cfg)
+    a: Dict[str, Any] = {
+        "embed": P.embed_axes(),
+        "units": P.add_axes({f"l{i}": _layer_axes(cfg, *u)
+                             for i, u in enumerate(unit)}, "layers")}
+    if n_tail:
+        a["tail"] = {f"l{i}": _layer_axes(cfg, *unit[i])
+                     for i in range(n_tail)}
+    a["final_norm"] = P.rmsnorm_axes()
+    if not cfg.tie_embeddings:
+        a["head"] = P.dense_axes("embed", "vocab")
+    if cfg.is_encdec:
+        enc = {"norm1": P.rmsnorm_axes(), "norm2": P.rmsnorm_axes(),
+               "attn": A.attn_axes(cfg.attention), "mlp": mlp_axes(cfg.glu)}
+        cross = {"norm": P.rmsnorm_axes(),
+                 "attn": A.attn_axes(cfg.attention)}
+        a["encoder"] = {"layers": P.add_axes(enc, "layers"),
+                        "norm": P.rmsnorm_axes()}
+        a["cross"] = {"layers": P.add_axes(cross, "layers")}
+    return a
+
+
 # ---------------------------------------------------------------------------
 # Embedding / positions / head
 # ---------------------------------------------------------------------------
@@ -176,9 +225,29 @@ def embed_tokens(params: P.Params, cfg: ModelConfig, tokens: torch.Tensor
     gathered first and then cast, which gives the same values as casting
     the whole table (2.1 GB at full size) first."""
     dt = getattr(torch, cfg.dtype)
-    x = params["embed"]["table"][tokens].to(dt)
+    table = params["embed"]["table"]
+    x = (_sharded_rows(table, tokens) if isinstance(table, DTensor)
+         else table[tokens]).to(dt)
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
-    return x * scale
+    return L.constrain(x * scale, ("batch", "seq", "embed"))
+
+
+def _sharded_rows(table, tokens: torch.Tensor) -> torch.Tensor:
+    """A vocab-sharded DTensor table's rows of ``tokens``: each rank looks
+    up the tokens of its own vocab shard (the others give zero rows), a
+    Partial sum over the ranks that shard the vocab; the tokens keep their
+    batch sharding.  (DTensor's ``index`` on a sharded table has no
+    strategy on a 3-d mesh in torch 2.11.)"""
+    info: dict = {}
+
+    def fn(t, tok):
+        v0, n = info["offsets"][0][0], t.shape[0]
+        loc = tok.long() - v0
+        mine = (loc >= 0) & (loc < n)
+        return t[torch.where(mine, loc, 0)] * mine[..., None].to(t.dtype)
+
+    return L.local_call(fn, (table, tokens), (("v", None), ("b", None)),
+                        ("b", "v"), (("b", None, None),), info, sums=(True,))
 
 
 def sinusoidal_positions(S: int, d: int, offset: int = 0,
@@ -211,7 +280,8 @@ def cross_kv(p: P.Params, enc_out: torch.Tensor, cfg: ModelConfig,
     (B, F, KVH, D) each, in ``dtype``."""
     B, F, _ = enc_out.shape
     a = cfg.attention
-    return tuple(P.dense_apply(p[name], enc_out, dtype).reshape(
+    return tuple(L.even_view(P.dense_apply(p[name], enc_out, dtype), -1,
+                             a.num_kv_heads).reshape(
         B, F, a.num_kv_heads, a.head_dim) for name in ("k", "v"))
 
 
@@ -221,11 +291,12 @@ def cross_out(p: P.Params, h: torch.Tensor, k: torch.Tensor,
     every key visible, through ``ops.attention``; returns (B, S, d)."""
     B, S, _ = h.shape
     a = cfg.attention
-    q = P.dense_apply(p["q"], h, h.dtype).reshape(B, S, a.num_heads,
-                                                  a.head_dim)
+    q = L.even_view(P.dense_apply(p["q"], h, h.dtype), -1,
+                    a.num_heads).reshape(B, S, a.num_heads, a.head_dim)
     out = ops.attention(q, k, v, causal=False, window=None)
-    return P.dense_apply(p["o"], out.reshape(B, S, a.num_heads * a.head_dim),
-                         h.dtype)
+    out = L.merged_heads(out.reshape(B, S, a.num_heads * a.head_dim), -1,
+                         a.num_heads)
+    return P.dense_apply(p["o"], out, h.dtype)
 
 
 def cross_attend(p: P.Params, h: torch.Tensor, enc_out: torch.Tensor,
@@ -271,6 +342,7 @@ def encode(params: P.Params, cfg: ModelConfig, frames: torch.Tensor,
     x = frames.to(dt)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  device=x.device).to(dt)[None]
+    x = L.constrain(x, ("batch", "seq", "embed"))
     layer = _remat(_encoder_layer, remat)
     for i in range(cfg.num_encoder_layers):
         x = layer(take_layer(params["encoder"]["layers"], i), x, cfg)
@@ -302,12 +374,53 @@ def xent_loss(params: P.Params, cfg: ModelConfig, h: torch.Tensor,
     for c0 in range(0, S, chunk):
         mc = mask[:, c0:c0 + chunk]
         logits = logits_fn(params, cfg, h[:, c0:c0 + chunk]).to(f32) + pad_mask
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, c0:c0 + chunk, None].long())[..., 0]
+        logits = L.constrain(logits, ("batch", "seq", "vocab"))
+        lc = labels[:, c0:c0 + chunk, None].long()
+        if isinstance(logits, DTensor):
+            lse, gold = _sharded_lse(logits), _sharded_gold(logits, lc)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lc)[..., 0]
         tot = tot + torch.sum((lse - gold) * mc)
         cnt = cnt + torch.sum(mc)
     return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _sharded_lse(logits) -> torch.Tensor:
+    """logsumexp over a DTensor's last dim as max, exp-sum, log: a max
+    and a sum over the vocab shards (DTensor's own logsumexp moves the
+    whole logits to a batch sharding first, an all-to-all)."""
+    m = torch.amax(logits.detach(), dim=-1, keepdim=True)
+    return torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+
+
+def _sharded_gold(logits, lc: torch.Tensor) -> torch.Tensor:
+    """The gold logits of a DTensor's vocab shards: each rank's one-hot sum
+    over its own columns (exact: at most one term is not zero), a
+    ``Partial`` sum over the ranks that shard the vocab.  DTensor's own
+    ``gather`` over a vocab-sharded dim fails (its mask buffer indexes a
+    3-d shard as 2-d)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pl = logits.device_mesh, list(logits.placements)
+    v = logits.dim() - 1
+    if isinstance(lc, DTensor):
+        lc = lc.redistribute(mesh, [Replicate() if isinstance(p, Shard)
+                                    and p.dim == v else p for p in pl])
+    else:
+        lc = DTensor.from_local(lc, mesh, [Replicate()] * mesh.ndim,
+                                run_check=False).redistribute(
+            mesh, [Replicate() if isinstance(p, Shard) and p.dim == v else p
+                   for p in pl])
+    (vloc,), (v0,) = (x[v:] for x in compute_local_shape_and_global_offset(
+        tuple(logits.shape), mesh, pl))
+    loc = logits.to_local()
+    cols = torch.arange(v0, v0 + vloc, device=loc.device)
+    gold = torch.sum(torch.where(lc.to_local() == cols, loc, 0.0), dim=-1)
+    return DTensor.from_local(gold, mesh, [
+        Partial() if isinstance(p, Shard) and p.dim == v else p
+        for p in pl], run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +518,7 @@ def _forward_train(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any],
     x = embed_tokens(params, cfg, batch["tokens"])
     if cfg.frontend.kind == "vision" and "prefix" in batch:
         x = torch.cat([batch["prefix"].to(x.dtype), x], dim=1)
+        x = L.constrain(x, ("batch", "seq", "embed"))
     if cfg.attention.rope_theta == 0:
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      device=x.device).to(x.dtype)[None]

@@ -115,7 +115,8 @@ def adam(cfg: OptimizerConfig, weight_decay: Optional[float] = None,
 
     def init(params):
         def z(p):
-            return torch.zeros(p.shape, dtype=dt or p.dtype, device=p.device)
+            # zeros_like: a DTensor's moments take its layout
+            return torch.zeros_like(p, dtype=dt or p.dtype)
         return AdamState(_step0(params), tree_map(z, params),
                          tree_map(z, params))
 

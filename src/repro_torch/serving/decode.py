@@ -34,6 +34,7 @@ from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.moe import moe_apply
+from repro_torch.sharding import logical as L
 from repro_torch.models.transformer import (cross_kv, cross_out,
                                             embed_tokens, encode, logits_fn,
                                             sinusoidal_positions, take_layer,
@@ -112,6 +113,29 @@ def cache_shape(cfg: ModelConfig, batch: int, seq_len: int,
     return cache
 
 
+def cache_logical_axes(tree: Tree) -> Tree:
+    """Logical sharding axes for a cache tree built by :func:`cache_shape`
+    (``repro``'s, leaf for leaf)."""
+    def leaf_axes(path, s):
+        nd = s.dim()
+        if path[-1] in ("k", "v"):
+            base = ("batch", "cache_seq", "kv_heads", None)
+            if path[0] in ("cross", "units"):
+                return ("layers",) + base if nd == 5 else base
+            return base
+        stacked = {"wkv": (("batch", "heads", None, None), 5),
+                   "h": (("batch", "state"), 3),
+                   "conv": (("batch", None, "state"), 4),
+                   "shift_tm": (("batch", "embed"), 3),
+                   "shift_cm": (("batch", "embed"), 3)}
+        if path[-1] in stacked:
+            base, full = stacked[path[-1]]
+            return ("layers",) + base if nd == full else base
+        return (None,) * nd
+
+    return P.tree_map_with_path(leaf_axes, tree)
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                long_context: bool = False, device: DeviceLike = None) -> Tree:
     """Zero-initialised concrete cache on ``device``."""
@@ -185,7 +209,7 @@ def _attn_prefill(p: P.Params, h: torch.Tensor, cfg: ModelConfig, kind: str
                         h.dtype)
     if kind == LOCAL_ATTN and a.sliding_window and S > a.sliding_window:
         k, v = k[:, -a.sliding_window:], v[:, -a.sliding_window:]
-    return out, {"k": k, "v": v}
+    return L.constrain(out, ("batch", "seq", "embed")), {"k": k, "v": v}
 
 
 def _mix(p: P.Params, h: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -289,7 +313,8 @@ def _cross_decode(p: P.Params, x: torch.Tensor, xk: torch.Tensor,
     h = P.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
     q = P.dense_apply(p["attn"]["q"], h, h.dtype)
     KVH = xk.shape[2]
-    qg = q.reshape(B, KVH, a.num_heads // KVH, a.head_dim).to(f32)
+    qg = L.even_view(q, -1, KVH).reshape(
+        B, KVH, a.num_heads // KVH, a.head_dim).to(f32)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, xk.to(f32)) / (a.head_dim ** 0.5)
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", pr.to(xv.dtype).to(f32), xv.to(f32))
@@ -352,7 +377,8 @@ def decode_step(params: P.Params, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         x, new_cache = _run_layers(params, cfg, x, cache, position)
     x = P.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return logits_fn(params, cfg, x[:, 0, :]), new_cache
+    return (L.constrain(logits_fn(params, cfg, x[:, 0, :]), ("batch", "vocab")),
+            new_cache)
 
 
 def prefill(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any]
@@ -373,4 +399,5 @@ def prefill(params: P.Params, cfg: ModelConfig, batch: Dict[str, Any]
     else:
         x, cache = _run_layers(params, cfg, x)
     x = P.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return logits_fn(params, cfg, x[:, -1, :]), cache
+    return (L.constrain(logits_fn(params, cfg, x[:, -1, :]),
+                        ("batch", "vocab")), cache)
