@@ -229,6 +229,19 @@ and RecurrentGemma-9B long_500k, one process each, and prints each
 record's analytic roofline terms, traced collective bytes and per-rank
 state bytes; a record that is not ok fails the run.
 
+Scenario sharding (``ExecPlan(shard=True)``, ``scenario_shard_map``):
+[shard-campaign] points the shard devices' one source
+(``campaign._local_devices``) at two shards on the one card and runs, at
+the paper's width for ``SHARD_ROUNDS`` rounds, a Tol-FL campaign of 64
+scenarios, an FL one of 32, the fused (scheme x k) sweep, a FedGroup grid
+with an M = 2 cell padded to 3 and a SeqDetector campaign, each with
+``chunk_size=32`` and held bit for bit (dropout on) against the unsharded
+run at chunk 16; each shard's fused-round and scan launches are counted
+by its thread, the round loops run under the sync debug mode, and both
+wall times are logged.  ``ExecPlan(shard=True)`` with the real device
+count must warn once and give the unsharded bits on one card; with
+several cards the Tol-FL campaign runs over them, bit for bit too.
+
 It imports nothing of JAX or of the JAX package.  It exits non-zero
 without a CUDA device, outside a checkout, or if any phase fails; on
 success its last line is ``{"ok": true, "device": {...}}``.
@@ -314,6 +327,9 @@ SCAN_CASES = [(4, 4096, 4096, False), (4, 4096, 4096, True),
 #: (B, S, W): SeqDetector's scan in a 64-scenario campaign of the paper's
 #: split, (64 * 10 * 1,125, 7, 16)
 SEQ_SCAN = (720_000, 7, 16)
+#: (B, S, W): the scan backward in [train-families]' RecurrentGemma-9B step
+#: (batch 1 x 2,048 tokens, lru_width 4,096)
+RG_TRAIN_SCAN = (1, 2048, 4096)
 #: the backward's cases: the serving shape and SeqDetector's
 SCAN_BWD_CASES = [(4, 4096, 4096, False), (4, 4096, 4096, True),
                   (720_000, 7, 16, False), (5, 33, 40, True)]
@@ -2931,6 +2947,252 @@ def phase_aot(torch, smi):
             "tolfl_round_update": totals[2]}
 
 
+#: [shard-campaign]: shards on the one card through the shard devices' one
+#: source (``campaign._local_devices``), the chunk of each sharded run and
+#: the rounds of its campaigns
+SHARD_DEVICES = 2
+SHARD_CHUNK = 32
+SHARD_ROUNDS = 50
+
+
+def _same_bits(got, want):
+    """Whether two lists of campaign results hold the same bytes in every
+    array (NaNs included)."""
+    import dataclasses
+    for g, w in zip(got, want, strict=True):
+        for f in dataclasses.fields(g):
+            if f.name == "cfg":
+                continue
+            a, b = getattr(g, f.name), getattr(w, f.name)
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    a.tobytes() != b.tobytes():
+                return False
+    return True
+
+
+def _shard_workloads(split, dx, counts):
+    """[shard-campaign]'s campaigns at the paper's width: (label, scenarios
+    of each bucket, (fused round, scan forward, scan backward) launches a
+    round loop makes, run(exec_plan, rounds) -> a list of results)."""
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core.campaign import run_campaign, sweep_grid
+    from repro_torch.models.detector import SeqDetector
+    tx, ty = split.test_x, split.test_y
+    traces = _campaign_traces()
+    R = SHARD_ROUNDS
+
+    def campaign(model, seeds, **kw):
+        return lambda plan, rounds: [run_campaign(
+            model, dx, counts, tx, ty, _campaign_cfg(rounds=rounds, **kw),
+            traces, seeds, exec_plan=plan)]
+
+    def sweep(cells, seeds):
+        return lambda plan, rounds: list(sweep_grid(
+            COMMSML, dx, counts, tx, ty, _campaign_cfg(rounds=rounds), cells,
+            traces, seeds, exec_plan=plan).values())
+
+    n = len(traces)
+    return [
+        (f"tolfl k=5, {n} traces x {len(CAMPAIGN_SEEDS)} seeds",
+         [n * len(CAMPAIGN_SEEDS)], (R, 0, 0),
+         campaign(COMMSML, CAMPAIGN_SEEDS)),
+        (f"fl, {n} traces x {len(SWEEP_SEEDS)} seeds",
+         [n * len(SWEEP_SEEDS)], (R, 0, 0),
+         campaign(COMMSML, SWEEP_SEEDS, scheme="fl", num_clusters=1)),
+        (f"fused sweep_grid {list(SWEEP_CELLS)} x seeds {SWEEP_SEEDS}",
+         [3 * n * len(SWEEP_SEEDS), n * len(SWEEP_SEEDS)], (R, 0, 0),
+         sweep(SWEEP_CELLS, SWEEP_SEEDS)),
+        (f"FedGroup grid (fedgroup, 3) + (fedgroup, 2) padded to M = 3 x "
+         f"seeds {MULTI_SEEDS}", [2 * n * len(MULTI_SEEDS)], (0, 0, 0),
+         sweep((("fedgroup", 3), ("fedgroup", 2)), MULTI_SEEDS)),
+        (f"SeqDetector tolfl k=5 lr {SEQ_LR}, {n} traces x "
+         f"{len(CAMPAIGN_SEEDS)} seeds", [n * len(CAMPAIGN_SEEDS)],
+         (R, 2 * R + 1, R),
+         campaign(SeqDetector(), CAMPAIGN_SEEDS, lr=SEQ_LR)),
+    ]
+
+
+@contextlib.contextmanager
+def _sharded_watch(torch):
+    """While it is open: every round loop runs under the sync debug mode
+    (set while any loop runs, so a shard's loop is covered whichever
+    thread started first), and the fused round kernel's and the scan
+    forward's launches are tallied by the thread that made them, i.e. by
+    shard.  Yields the tallies {(kernel, thread name): launches}."""
+    import threading
+    from collections import Counter
+    from repro_torch.core import baselines, simulate
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import tolfl_combine as tc
+    lock, running, tallies = threading.Lock(), [0], Counter()
+
+    def guarded(fn):
+        def run(*args, **kwargs):
+            with lock:
+                if running[0] == 0:
+                    torch.cuda.set_sync_debug_mode("error")
+                running[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with lock:
+                    running[0] -= 1
+                    if running[0] == 0:
+                        torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    def tallied(name, fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            with lock:
+                tallies[(name, threading.current_thread().name)] += 1
+            return out
+        return run
+
+    saved = [(simulate, "_round_loop"), (baselines, "_multimodel_loop"),
+             (tc, "tolfl_round_update_cuda"), (rs, "rglru_scan_cuda")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in saved]
+    simulate._round_loop = guarded(simulate._round_loop)
+    baselines._multimodel_loop = guarded(baselines._multimodel_loop)
+    tc.tolfl_round_update_cuda = tallied("tolfl_round_update",
+                                         tc.tolfl_round_update_cuda)
+    rs.rglru_scan_cuda = tallied("rglru_scan", rs.rglru_scan_cuda)
+    try:
+        yield tallies
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _sharded_run(torch, tag, label, buckets, per_loop, run, devices):
+    """One sharded campaign over ``devices`` against the unsharded one at
+    the shard's chunk: bit for bit, each shard's launches, both wall
+    times.  Returns the sharded run's launches (fused round, scan
+    forward, scan backward)."""
+    import warnings
+
+    import numpy as np
+    from repro_torch.core import campaign
+    from repro_torch.core.campaign import ExecPlan
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import tolfl_combine as tc
+    ndev = len(devices)
+    chunk = -(-SHARD_CHUNK // ndev) * ndev
+    run(ExecPlan(chunk_size=chunk // ndev), 2)                  # warm-up
+    t0 = time.perf_counter()
+    want = run(ExecPlan(chunk_size=chunk // ndev), SHARD_ROUNDS)
+    plain_s = time.perf_counter() - t0
+    local = campaign._local_devices
+    campaign._local_devices = lambda: list(devices)
+    try:
+        rs.LAUNCHES = rs.BWD_LAUNCHES = tc.ROUND_LAUNCHES = tc.LAUNCHES = 0
+        with _sharded_watch(torch) as tallies, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            got = run(ExecPlan(shard=True, chunk_size=SHARD_CHUNK),
+                      SHARD_ROUNDS)
+            shard_s = time.perf_counter() - t0
+        launches = (tc.ROUND_LAUNCHES, rs.LAUNCHES, rs.BWD_LAUNCHES)
+        combine = tc.LAUNCHES
+    finally:
+        campaign._local_devices = local
+    degraded = [str(w.message) for w in caught
+                if "single local device" in str(w.message)]
+    if degraded:
+        raise AssertionError(f"[{tag}] {label}: the sharded run degraded: "
+                             f"{degraded}")
+    if not _same_bits(got, want):
+        raise AssertionError(f"[{tag}] {label}: the sharded run over "
+                             f"{[str(d) for d in devices]} differs from the "
+                             f"unsharded one at chunk {chunk // ndev}")
+    loops = sum(-(-b // chunk) for b in buckets)       # a shard's loops
+    want_shard = {"tolfl_round_update": loops * per_loop[0],
+                  "rglru_scan": loops * per_loop[1]}
+    for kernel, n in want_shard.items():
+        per_shard = [tallies[(kernel, f"scenario-shard-{d}")]
+                     for d in range(ndev)]
+        if per_shard != [n] * ndev:
+            raise AssertionError(f"[{tag}] {label}: {kernel} launches by "
+                                 f"shard {per_shard}, expected {n} each")
+    expect = (ndev * loops * per_loop[0], ndev * loops * per_loop[1],
+              ndev * loops * per_loop[2])
+    if launches != expect or combine != 0:
+        raise AssertionError(f"[{tag}] {label}: launches (fused, scan, "
+                             f"scan backward, combine) "
+                             f"{launches + (combine,)}, expected "
+                             f"{expect + (0,)}")
+    bad = sum(int((~np.isfinite(getattr(r, "auroc_used",
+                                         getattr(r, "best_auroc", None)))
+                   ).sum()) for r in got)
+    total = sum(r.num_scenarios for r in got)
+    if bad == total:
+        raise AssertionError(f"[{tag}] {label}: no finite AUROC")
+    log(f"[{tag}] {label}: {total} scenarios, {SHARD_ROUNDS} rounds, "
+        f"ExecPlan(shard=True, chunk_size={SHARD_CHUNK}) over "
+        f"{[str(d) for d in devices]} == ExecPlan(chunk_size="
+        f"{chunk // ndev}) bit for bit; per shard: fused round "
+        f"{want_shard['tolfl_round_update']}, scan forward "
+        f"{want_shard['rglru_scan']} launches; all shards: {launches} "
+        f"(fused, scan, scan backward); round loops under "
+        f"set_sync_debug_mode('error'); wall: sharded {shard_s:.3f} s, "
+        f"unsharded {plain_s:.3f} s, ratio {shard_s / plain_s:.3f} (the "
+        f"shard path's cost with {ndev} shards on {len(set(devices))} "
+        f"card(s), not a multi-card speed-up); non-finite AUROC in {bad} "
+        f"of {total}")
+    return launches
+
+
+def phase_shard_campaign(torch, split, dx, counts):
+    """Scenario sharding (``ExecPlan(shard=True)``): every campaign of
+    :func:`_shard_workloads` over ``SHARD_DEVICES`` shards placed on the
+    one card, bit for bit the unsharded run at the shard's chunk, each
+    shard's kernels counted, the loops sync-free; ``shard=True`` with the
+    real device count degrading on one card; and over the real cards
+    where there are several.  Returns the sharded runs' launches."""
+    import warnings
+    from repro_torch.configs.autoencoder_paper import COMMSML
+    from repro_torch.core.campaign import ExecPlan, run_campaign
+    tag = "shard-campaign"
+    card = torch.device(DEV, 0)
+    total = {"tolfl_round_update": 0, "rglru_scan": 0, "rglru_scan_bwd": 0}
+    work = _shard_workloads(split, dx, counts)
+    for label, buckets, per_loop, run in work:
+        got = _sharded_run(torch, tag, label, buckets, per_loop, run,
+                           [card] * SHARD_DEVICES)
+        for key, n in zip(total, got):
+            total[key] += n
+    # the real device count: one card warns once and runs unsharded
+    n_cards = torch.cuda.device_count()
+    traces = _campaign_traces()[:2]
+    small = lambda plan: run_campaign(                          # noqa: E731
+        COMMSML, dx, counts, split.test_x, split.test_y,
+        _campaign_cfg(rounds=5), traces, CAMPAIGN_SEEDS, exec_plan=plan)
+    if n_cards == 1:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            got = small(ExecPlan(shard=True))
+        msgs = [str(w.message) for w in rec]
+        if len(msgs) != 1 or "single local device" not in msgs[0]:
+            raise AssertionError(f"[{tag}] ExecPlan(shard=True) on one "
+                                 f"card warned {msgs}")
+        if not _same_bits([got], [small(ExecPlan())]):
+            raise AssertionError(f"[{tag}] ExecPlan(shard=True) on one card "
+                                 f"differs from the unsharded run")
+        log(f"[{tag}] ExecPlan(shard=True) with the real device count (1): "
+            f"one warning, the unsharded run's bits; the run over several "
+            f"real cards did not run: this machine has one card")
+    else:
+        label, buckets, per_loop, run = work[0]
+        got = _sharded_run(torch, tag, f"{label}, real cards", buckets,
+                           per_loop, run,
+                           [torch.device("cuda", i) for i in range(n_cards)])
+        for key, n in zip(total, got):
+            total[key] += n
+    return total
+
+
 def phase_plancheck(torch, split, dx, counts):
     """``plan(spec, check=True)`` on [experiment]'s spec at full shapes,
     for both bodies: one round of each bucket on the meta device, which
@@ -4017,7 +4279,8 @@ def _seq_scan_times(torch, fwd_row, launches, errs, gen):
                     "seq_plain_ms": plain["forward"],
                     "seq_share_of_bound": bound["forward"][0]
                     / dev_ms["forward"]})
-    return [{
+    train = _train_scan_bwd_times(torch, gen)
+    return [{**train,
         "name": "rglru_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:48",
@@ -4029,6 +4292,51 @@ def _seq_scan_times(torch, fwd_row, launches, errs, gen):
         "bound_ms": bound["backward"][0], "bound_by": bound["backward"][1],
         "library_ms": None, "call_ms": call_ms["backward"],
         "share_of_bound": bound["backward"][0] / dev_ms["backward"]}]
+
+
+def _train_scan_bwd_times(torch, gen):
+    """The scan backward at ``RG_TRAIN_SCAN``, the shape [train-families]
+    launches it at for RecurrentGemma-9B (each RG-LRU layer's backward,
+    one a step): bit for bit against its plain version, then its time
+    beside the plain version's and its bound.  Returns the keys it adds
+    to the backward's row."""
+    import numpy as np
+    from repro_torch.kernels import rglru_scan as rs
+    B, S, W = RG_TRAIN_SCAN
+    a = torch.sigmoid(torch.randn(RG_TRAIN_SCAN, generator=gen, device=DEV))
+    b = torch.randn(RG_TRAIN_SCAN, generator=gen, device=DEV)
+    dh = torch.randn(RG_TRAIN_SCAN, generator=gen, device=DEV)
+    h = rs.rglru_scan_cuda(a, b)
+    got = rs.rglru_scan_bwd_cuda(a, h, None, dh)
+    want = rs.rglru_scan_backward_plain(a, h, None, dh)
+    for g, w in zip(got[:2], want[:2]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"rglru_scan_bwd at {RG_TRAIN_SCAN} differs "
+                                 f"from its plain version")
+    n = 48
+    fns = {"backward": lambda: rs.rglru_scan_bwd_cuda(a, h, None, dh)}
+    dev_ms = _turns_ms(torch, fns, True, n)["backward"]
+    call_ms = _turns_ms(torch, fns, False, n)["backward"]
+    plain = _median_ms(torch, lambda: rs.rglru_scan_backward_plain(
+        a, h, None, dh), True, 10)
+    nbytes = 5 * B * S * W * 4
+    bound = max(nbytes / H100_BYTES_PER_S, 3 * B * S * W / H100_F32_FLOPS
+                ) * 1e3
+    log(f"[times] rglru_scan backward (B, S, W) = {RG_TRAIN_SCAN} "
+        f"(RecurrentGemma-9B's RG-LRU in [train-families]), bit for bit its "
+        f"plain version; median of {n} CUDA-event timings in 4 turns, card / "
+        f"call: {dev_ms:.6f} / {call_ms:.6f} ms; plain {plain:.6f} ms "
+        f"(median of 10, its {S} steps dispatched by the host), library "
+        f"none; bound {bound:.6f} ms ({nbytes} bytes at 3.35 TB/s), "
+        f"{bound / dev_ms:.1%} of it; clocks.sm, power.draw, temperature "
+        f"after: {_clocks()}")
+    return {"train_shape": list(RG_TRAIN_SCAN), "train_ms": dev_ms,
+            "train_call_ms": call_ms, "train_plain_ms": plain,
+            "train_bound_ms": bound,
+            "train_share_of_bound": bound / dev_ms,
+            "train_max_abs_err": float(np.max([
+                (g - w).abs().max().item() for g, w in zip(got[:2],
+                                                           want[:2])]))}
 
 
 def _faster_than_parent(row, parent_ms):
@@ -5568,19 +5876,23 @@ def main() -> int:
     phase_experiment_reference(torch, split, dx, counts)
     aot = phase_aot(torch, smi)
     phase_plancheck(torch, split, dx, counts)
+    shard = phase_shard_campaign(torch, split, dx, counts)
     launches["tolfl_round_update"] += (seq["tolfl_round_update"]
                                        + exp["tolfl_round_update"]
-                                       + aot["tolfl_round_update"])
+                                       + aot["tolfl_round_update"]
+                                       + shard["tolfl_round_update"])
     phase_examples(torch)
     train_errs = phase_train_kernels(torch)
     train_launches = phase_train(torch)
-    for kernel, count in phase_train_families(torch).items():
+    families = phase_train_families(torch)
+    for kernel, count in families.items():
         train_launches[kernel] += count
     train_run = phase_train_no_sync(torch)
     wkv_split = phase_train_profile(torch, *train_run)
     del train_run
     torch.cuda.empty_cache()
-    for kernel, count in phase_train_reference(torch).items():
+    train_reference = phase_train_reference(torch)
+    for kernel, count in train_reference.items():
         train_launches[kernel] += count
     fa = _counters()["flash_attention"]
     # its float32 steps' forwards: the split-TF32 kernel's launches
@@ -5607,13 +5919,15 @@ def main() -> int:
         phase_serve_reference(torch, arch, tag)
     serve_launches["rglru_scan"] += (
         seq["rglru_scan"] + exp["rglru_scan"] + seq_bank["rglru_scan"]
-        + seq_serve["launches"]["rglru_scan"] + aot["rglru_scan"])
+        + seq_serve["launches"]["rglru_scan"] + aot["rglru_scan"]
+        + shard["rglru_scan"])
     serve_launches["rglru_scan graph_launches"] = \
         seq_serve["graph_launches"]["rglru_scan"]
     serve_launches["rglru_scan_bwd"] = (seq["rglru_scan_bwd"]
                                         + exp["rglru_scan_bwd"]
                                         + seq_bank["rglru_scan_bwd"]
-                                        + aot["rglru_scan_bwd"])
+                                        + aot["rglru_scan_bwd"]
+                                        + shard["rglru_scan_bwd"])
     serve_errs["rglru_scan"] = max(serve_errs["rglru_scan"],
                                    seq_errs["rglru_scan"])
     serve_errs["rglru_scan_bwd"] = seq_errs["rglru_scan_bwd"]
@@ -5622,6 +5936,22 @@ def main() -> int:
     # RG-LRU backward's counts
     for kernel in SERVE_KERNELS + ("rglru_scan_bwd",):
         serve_launches[kernel] += train_launches[kernel]
+    # where the RG-LRU scan's launches in the kernels line come from
+    by_phase = {
+        "[serve]": sum(a["rglru_scan"] for a in arch_launches.values()),
+        "[seq-anomaly-bank]": seq_bank, "[seq-anomaly-serve]":
+        seq_serve["launches"], "[seq-slice]": seq, "[experiment]": exp,
+        "[aot]": aot, "[shard-campaign]": shard, "[train-families]":
+        families, "[train-reference]": train_reference}
+    by_phase["[train]"] = {k: train_launches[k] - families[k]
+                           - train_reference.get(k, 0)
+                           for k in ("rglru_scan", "rglru_scan_bwd")}
+    log("[launches] rglru_scan forward / backward by phase: " + ", ".join(
+        f"{ph} " + (f"{v} / -" if isinstance(v, int) else
+                    f"{v.get('rglru_scan', 0)} / {v.get('rglru_scan_bwd', 0)}")
+        for ph, v in by_phase.items())
+        + f"; total {serve_launches['rglru_scan']} / "
+        f"{serve_launches['rglru_scan_bwd']}")
     kernels += phase_serve_times(torch, serve_launches, serve_errs,
                                  arch_launches, parent)
     kernels += phase_train_times(torch, train_launches, train_errs,

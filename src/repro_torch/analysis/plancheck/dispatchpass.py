@@ -47,7 +47,7 @@ class NoKernel(NotImplementedError):
 def round_ops(data, bucket, cells, device: str = "meta",
               scenarios: Optional[int] = None) -> int:
     """The aten ops one round of ``bucket`` dispatches on ``device`` at
-    its predicted shapes (``scenarios`` overrides the chunk); raises
+    its predicted shapes (``scenarios`` overrides the loop's); raises
     :class:`~repro_torch.analysis.plancheck.budgets.HostSync` at a host
     sync and :class:`NoKernel` at an op with no kernel there."""
     from repro_torch.core import campaign as _c
@@ -68,7 +68,7 @@ def round_ops(data, bucket, cells, device: str = "meta",
 
 def _bucket_counts(data, bucket, cells) -> Tuple[int, int, str, str]:
     """(ops at the plan's S, ops at the other S, device, op with no meta
-    kernel): on meta at the plan's chunk and at S = 1, or on the CPU at
+    kernel): on meta at the plan's loop and at S = 1, or on the CPU at
     S = 2 and 1 when meta cannot run the round."""
     try:
         return (round_ops(data, bucket, cells),
@@ -112,8 +112,9 @@ def check_plan(plan, data=None, budgets: bool = True) -> Report:
             out.append(finding(
                 "PC-TORCH-BUDGET", file, 0,
                 f"{where}: {n} aten ops a round at S = "
-                f"{bucket.chunk if device == 'meta' else 2}, {n_other} at "
-                f"S = 1: the round's dispatch grows with the scenario axis",
+                f"{bucket.loop_scenarios if device == 'meta' else 2}, "
+                f"{n_other} at S = 1: the round's dispatch grows with the "
+                f"scenario axis",
                 hint="run the scenarios as one leading tensor axis, not a "
                      "Python loop",
                 tag=f"{name}:scenarios"))

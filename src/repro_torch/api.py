@@ -13,8 +13,8 @@ See :mod:`repro_torch.core.experiment` for the spec -> plan -> execute
 contract, :mod:`repro_torch.core.campaign` for the execution mechanism
 and :mod:`repro_torch.core.compilecache` for where the compiled kernel
 libraries live.  :data:`NOT_PORTED` names what ``repro.api`` exports and
-the port does not: nothing; :data:`NOT_PORTED_MODULES` names what the
-port still lacks outside it.
+the port does not, and :data:`NOT_PORTED_MODULES` what the port lacks
+outside it: both are empty.
 """
 from repro_torch.configs.autoencoder_paper import AutoencoderConfig
 from repro_torch.core.baselines import (FaultyMultiModelConfig,
@@ -59,11 +59,9 @@ from repro_torch.serving.anomaly import (AnomalyService, ModelBank,
 #: ``repro.api`` names the port does not export: none left
 NOT_PORTED: tuple = ()
 #: ``repro`` modules and functions outside ``repro.api`` that the port
-#: still lacks: campaigns sharded over many cards (``ExecPlan(shard=True)``
-#: with more than one, ROADMAP item 9.4), whose spec builder this is
-NOT_PORTED_MODULES: tuple = (
-    "repro.sharding.logical.scenario_shard_map",
-)
+#: lacks: none left (the last, ``scenario_shard_map``, is
+#: ``repro_torch.sharding.scenario_shard_map``)
+NOT_PORTED_MODULES: tuple = ()
 
 __all__ = [
     # declarative pipeline

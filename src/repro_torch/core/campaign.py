@@ -44,9 +44,17 @@ through :func:`_run_group` or :func:`_run_multi_group`.
 Execution (:class:`ExecPlan`): ``chunk_size`` runs the scenario axis in
 chunks of at most that many scenarios (the last one padded by repeating
 scenario 0, the padding stripped), each one round loop and one copy to
-the host.  ``shard=True`` on one card (or on the CPU) warns and runs the
-unsharded path, whose results are the same, as ``repro`` does on one
-device; sharding over several cards is not ported.  ``aot=True``
+the host.  ``shard=True`` over D > 1 local cards rounds the chunk up to a
+multiple of D, as ``repro`` does, and runs each chunk as D shards of
+chunk / D scenarios, one a card, through
+:func:`repro_torch.sharding.scenario_shard_map`: the data, the test rows
+and the init table go to each card once a bucket, each shard's round loop
+runs on a host thread of its own under its card's guard, all shards'
+loops in flight together, and each shard's outputs come to the host in
+one copy once all have been issued.  On one card (or on the CPU)
+``shard=True`` warns and runs the unsharded path, whose results are the
+same, as ``repro`` does on one device.  The devices come from
+:func:`_local_devices` alone (``cuda:0 ... cuda:n-1``).  ``aot=True``
 resolves every kernel library before the first round (built by ``nvcc``
 or loaded from the cache directory of :mod:`repro_torch.core.compilecache`)
 and runs one round of each bucket's loop on zeros at the bucket's
@@ -68,11 +76,19 @@ RNG, by the port's rule that draws are operands:
 * With dropout on, chunk ``c`` whose scenarios carry seeds ``s_0 ...
   s_{S-1}`` draws from one generator on the device seeded with
   ``(h + c * 0x9E3779B97F4A7C15) mod 2**63``, where ``h`` is the
-  polynomial hash ``sum_i s_i * 1_000_003**i mod 2**63``.  A chunk of one
-  scenario (c = 0) thus draws what ``run_simulation`` (or
-  ``run_multimodel``) draws for its seed;
+  polynomial hash ``sum_i s_i * 1_000_003**i mod 2**63``
+  (:func:`dropout_seed`).  A chunk of one scenario (c = 0) thus draws
+  what ``run_simulation`` (or ``run_multimodel``) draws for its seed;
   otherwise parity with a looped simulator or with ``repro`` is
   statistical (AUROC means within each other's 95% CI).
+* Sharded over D devices, shard ``d`` of chunk ``c`` is a chunk of its
+  own: it draws from one generator on its own device, seeded with
+  ``dropout_seed(shard_seeds, c * D + d)``.  So
+  ``ExecPlan(shard=True, chunk_size=C)`` over D devices gives, bit for
+  bit, what ``ExecPlan(chunk_size=ceil(min(C, B) / D))`` gives unsharded,
+  with dropout on or off: each shard holds the rows, the padding rows and
+  the seed of one chunk of that run (the shards past its last chunk hold
+  padding only, stripped).
 """
 from __future__ import annotations
 
@@ -95,6 +111,7 @@ from repro_torch.core.simulate import SimConfig, SimOutputs
 from repro_torch.models import detector as D
 from repro_torch.models.detector import ModelLike
 from repro_torch.models.params import FlatLayout, Params
+from repro_torch.sharding import scenario_shard_map
 from repro_torch.training.metrics import auroc_batch
 
 #: the multi-model baselines
@@ -113,11 +130,12 @@ class ExecPlan:
         loop of the same padded size.  ``None`` runs the batch in one
         shot.
     shard, devices
-        ``repro``'s scenario sharding over ``devices`` local devices (all
-        of them when ``None``).  With one device, or on the CPU, it warns
-        and degrades to the unsharded path (:meth:`resolved_devices`):
-        the results are the same.  Over more than one card it is not
-        ported and raises ``NotImplementedError`` when the plan runs.
+        ``repro``'s scenario sharding over ``devices`` local cards (all of
+        them when ``None``): the scenario axis is split over the cards,
+        each chunk padded to a device-divisible size (see the module
+        docstring).  With one device, or on the CPU, it warns and
+        degrades to the unsharded path (:meth:`resolved_devices`): the
+        results are the same.
     aot
         Before the first round, resolve every kernel library and launch
         the kernels of each bucket once at its shapes (see the module
@@ -141,20 +159,27 @@ class ExecPlan:
                 f"ExecPlan.devices must be a positive device count "
                 f"(or None for all local devices), got {self.devices}")
 
+    def shard_devices(self, device: DeviceLike = None
+                      ) -> List[torch.device]:
+        """The local devices (:func:`_local_devices`) a shard could span,
+        in order: those of ``device``'s type (all of them for ``None``),
+        capped at ``devices``.  A run shards over them when there are two
+        or more (:meth:`resolved_devices`)."""
+        kind = None if device is None else torch.device(device).type
+        devs = [d for d in _local_devices() if kind in (None, d.type)]
+        return devs[:self.devices] if self.devices else devs
+
     def num_devices(self, device: DeviceLike = None) -> int:
-        """Local devices a shard could span: the cards
-        (``torch.cuda.device_count()``), or one for a run on the CPU or
-        on a host without a card, capped at ``devices``."""
-        cpu = device is not None and torch.device(device).type == "cpu"
-        n = 1 if cpu else max(torch.cuda.device_count(), 1)
-        return min(self.devices, n) if self.devices else n
+        """Local devices a shard could span: the length of
+        :meth:`shard_devices`, or one for a run on the CPU or on a host
+        without a card."""
+        return max(len(self.shard_devices(device)), 1)
 
     def resolved_devices(self, warn: bool = True,
                          device: DeviceLike = None) -> Optional[int]:
         """Shard width actually used: ``None`` when not sharding, and
         when ``shard=True`` finds a single device, in which case it warns
-        and degrades to the unsharded path (the results are the same).
-        Over more than one card it raises: not ported yet."""
+        and degrades to the unsharded path (the results are the same)."""
         if not self.shard:
             return None
         n = self.num_devices(device)
@@ -165,10 +190,14 @@ class ExecPlan:
                     "degrading to the unsharded path (results are "
                     "identical).", UserWarning, stacklevel=2)
             return None
-        raise NotImplementedError(
-            f"ExecPlan(shard=True) over {n} cards: scenario sharding "
-            f"over several cards is not ported yet (ROADMAP queue 1, "
-            f"item 9)")
+        return n
+
+
+def _local_devices() -> List[torch.device]:
+    """The local devices a sharded campaign spans, in order: every card,
+    ``cuda:0 ... cuda:n-1``.  The one source of them."""
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def mean_ci95(vals: np.ndarray) -> Tuple[float, float, float]:
@@ -282,32 +311,50 @@ def dropout_seed(seeds: Sequence[int], chunk: int = 0) -> int:
     return (h + chunk * _CHUNK_STRIDE) % _MOD
 
 
-def _run_batched(run_chunk, mapped: Sequence[np.ndarray],
-                 plan: Optional[ExecPlan]):
-    """Run a scenario batch through ``run_chunk(c, *rows)`` with host-side
-    chunking per ``plan``; returns the stacked outputs (a
-    :class:`SimOutputs` or ``baselines.MultiOutputs``) as numpy arrays
-    with the padding stripped.
+def _run_batched(run_chunk, bcast: Sequence[Any], mapped: Sequence[Any],
+                 plan: Optional[ExecPlan], dev: torch.device):
+    """Run a scenario batch through ``run_chunk(c, *bcast, *rows)`` with
+    host-side chunking and scenario sharding per ``plan``; returns the
+    stacked outputs (a :class:`SimOutputs` or ``baselines.MultiOutputs``)
+    as numpy arrays with the padding stripped.
 
-    ``mapped`` holds host arrays sharing the scenario leading axis.  The
-    last chunk is padded by repeating scenario 0 (any valid scenario
-    works: its rows are stripped).  Each chunk's outputs come to the host
-    in one copy, after its round loop, so device memory stays bounded by
-    ``chunk_size`` however large the grid is."""
+    ``mapped`` holds host tensors (placed on the device of the rows'
+    shard) and host numpy arrays (left on the host) sharing the scenario
+    leading axis; ``bcast`` the operands every scenario shares.  The last
+    chunk is padded by repeating scenario 0 (any valid scenario works: its
+    rows are stripped).  Sharded over D devices
+    (:meth:`ExecPlan.shard_devices`), the chunk rounds up to a multiple of
+    D and each chunk runs as D shards through :func:`scenario_shard_map`,
+    ``bcast`` on each device once for the whole batch; shard d of chunk c is called with chunk index
+    ``c * D + d`` (see the module docstring).  Each shard's outputs come to
+    the host in one copy once every shard of its chunk has been issued, so
+    device memory stays bounded by ``chunk_size`` however large the grid
+    is."""
     plan = plan or ExecPlan()
     B = int(mapped[0].shape[0])
-    chunk = min(plan.chunk_size or B, B)
+    devices = (plan.shard_devices(dev)
+               if plan.resolved_devices(warn=False, device=dev) else [dev])
+    ndev = len(devices)
+    chunk = -(-min(plan.chunk_size or B, B) // ndev) * ndev
     n_chunks = -(-B // chunk)
     b_pad = n_chunks * chunk
     if b_pad != B:
         sel = np.concatenate([np.arange(B), np.zeros(b_pad - B, np.int64)])
-        mapped = [m[sel] for m in mapped]
+        mapped = [m[torch.from_numpy(sel)] if isinstance(m, torch.Tensor)
+                  else m[sel] for m in mapped]
+    # row-major, so each chunk's and shard's rows are (the kernels take
+    # contiguous operands; a concatenation of broadcast rows is not)
+    mapped = [m.contiguous() if isinstance(m, torch.Tensor) else m
+              for m in mapped]
+    call = scenario_shard_map(
+        lambda d, c, *ops: run_chunk(c * ndev + d, *ops), devices,
+        1 + len(bcast), len(mapped))
     outs = []
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
-        outs.append(sim.outputs_to_host(run_chunk(c, *(m[sl]
-                                                       for m in mapped))))
-    if n_chunks == 1 and b_pad == B:
+        parts = call(c, *bcast, *(m[sl] for m in mapped))
+        outs.extend(sim.outputs_to_host(p) for p in parts)
+    if len(outs) == 1 and b_pad == B:
         return outs[0]
     return type(outs[0])(*(np.concatenate(xs, axis=0)[:B]
                            for xs in zip(*outs)))
@@ -483,29 +530,32 @@ def _run_group(det: D.DetectorModel, data, cells: List[_Cell], loop_cfg,
 
     traces = concat_traces([c.traces for c in cells])
     seed_arr = np.concatenate([c.seed for c in cells])
-    mapped = [traces.epochs.numpy(), traces.devices.numpy(),
-              traces.alive_after.numpy(), traces.kinds.numpy(),
-              np.array([row_of[int(s)] for s in seed_arr], np.int64),
+    # the seeds stay host numpy (they seed the chunk's dropout); the rest
+    # are host tensors, placed on their shard's device
+    mapped = [traces.epochs, traces.devices, traces.alive_after,
+              traces.kinds,
+              torch.tensor([row_of[int(s)] for s in seed_arr],
+                           dtype=torch.int64),
               seed_arr.astype(np.int64),
-              np.concatenate([c.cluster_ids for c in cells]),
-              np.concatenate([c.heads for c in cells]),
-              np.concatenate([c.head_valid for c in cells])]
+              torch.from_numpy(np.concatenate([c.cluster_ids
+                                               for c in cells])),
+              torch.from_numpy(np.concatenate([c.heads for c in cells])),
+              torch.from_numpy(np.concatenate([c.head_valid
+                                               for c in cells]))]
 
-    def on_dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
-
-    def run_chunk(c, ep, dv, alv, knd, rows, chunk_seeds, cids, heads, hv):
-        ops = dict(params0=table[on_dev(rows)], dx=dx, counts=counts,
-                   valid=valid, tx=tx, cluster_ids=on_dev(cids),
-                   heads=on_dev(heads), head_valid=on_dev(hv),
-                   epochs=on_dev(ep), devices=on_dev(dv),
-                   alive_after=on_dev(alv), kinds=on_dev(knd))
+    def run_chunk(c, table, dx, counts, valid, tx, ep, dv, alv, knd, rows,
+                  chunk_seeds, cids, heads, hv):
+        ops = dict(params0=table[rows], dx=dx, counts=counts,
+                   valid=valid, tx=tx, cluster_ids=cids, heads=heads,
+                   head_valid=hv, epochs=ep, devices=dv, alive_after=alv,
+                   kinds=knd)
         if on_chunk is not None:
             on_chunk(operand_shapes(ops))
         return _single_round_loop(det, loop_cfg, layout, ops, k, track_iso,
                                   dropout_seed(chunk_seeds, c))
 
-    out = _run_batched(run_chunk, mapped, exec_plan)
+    out = _run_batched(run_chunk, (table, dx, counts, valid, tx), mapped,
+                       exec_plan, dev)
     fields = _post_process_arrays(track_iso, out, test_y, target_loss)
     results, off = [], 0
     for c in cells:
@@ -759,27 +809,26 @@ def _run_multi_group(det: D.DetectorModel, data,
     model_valid = np.concatenate([
         np.broadcast_to((np.arange(m) < cfg.num_models).astype(np.float32),
                         (len(s), m)) for cfg, _, _, s in metas])
-    mapped = [traces.epochs.numpy(), traces.devices.numpy(),
-              traces.alive_after.numpy(), traces.kinds.numpy(),
-              np.array([row_of[int(s)] for s in seed_arr], np.int64),
-              seed_arr.astype(np.int64), model_valid]
+    mapped = [traces.epochs, traces.devices, traces.alive_after,
+              traces.kinds,
+              torch.tensor([row_of[int(s)] for s in seed_arr],
+                           dtype=torch.int64),
+              seed_arr.astype(np.int64), torch.from_numpy(model_valid)]
 
-    def on_dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
-
-    def run_chunk(c, ep, dv, alv, knd, rows, chunk_seeds, mv):
-        inits, probe, perm, reseed = tables.rows(on_dev(rows))
-        ops = dict(models0=inits, model_valid=on_dev(mv), dx=dx,
+    def run_chunk(c, tables, dx, counts, valid, tx, ep, dv, alv, knd, rows,
+                  chunk_seeds, mv):
+        inits, probe, perm, reseed = tables.rows(rows)
+        ops = dict(models0=inits, model_valid=mv, dx=dx,
                    counts=counts, valid=valid, tx=tx, probe=probe,
-                   perm=perm, reseed=reseed, epochs=on_dev(ep),
-                   devices=on_dev(dv), alive_after=on_dev(alv),
-                   kinds=on_dev(knd))
+                   perm=perm, reseed=reseed, epochs=ep, devices=dv,
+                   alive_after=alv, kinds=knd)
         if on_chunk is not None:
             on_chunk(operand_shapes(ops))
         return _multi_round_loop(det, loop_cfg, tables.layout, ops,
                                  dropout_seed(chunk_seeds, c))
 
-    out = _run_batched(run_chunk, mapped, exec_plan)
+    out = _run_batched(run_chunk, (tables, dx, counts, valid, tx), mapped,
+                       exec_plan, dev)
     best, multi = _multi_metrics(out.final_scores, test_y, model_valid)
     results, off = [], 0
     for cfg, _, trace_idx, seeds_c in metas:

@@ -349,6 +349,12 @@ class BucketPlan:
     padded_scenarios: int = 0       # B rounded up to chunk * num_chunks
     devices: Optional[int] = None   # shard width (None: one device, unsharded)
 
+    @property
+    def loop_scenarios(self) -> int:
+        """The scenario axis of one round loop: the chunk, or a shard of
+        it when the bucket shards."""
+        return self.chunk // (self.devices or 1)
+
     def describe(self) -> str:
         mode = ("fused" if self.fused else
                 "per-cell" if (self.k_pad or self.m_pad) else "static")
@@ -487,15 +493,19 @@ def _faulty_variant(cfg):
                   for f in dataclasses.fields(cfg)})
 
 
-def _geometry(bucket: BucketPlan, exec_plan: Optional[ExecPlan]) -> None:
-    """Fill the bucket's chunk geometry (``campaign._run_batched``'s
-    arithmetic).  ``devices`` stays None: on one device ``shard=True``
-    degrades to the unsharded path, and over several cards it is not
-    ported (:meth:`ExecPlan.resolved_devices`, called by :func:`execute`)."""
+def _geometry(bucket: BucketPlan, exec_plan: Optional[ExecPlan],
+              device: DeviceLike = None) -> None:
+    """Fill the bucket's shard / chunk geometry for a run on ``device``
+    (``campaign._run_batched``'s arithmetic, as ``repro``'s): over D local
+    devices the chunk rounds up to a multiple of D.  Planning never warns:
+    :func:`execute` does, once."""
     plan_ = exec_plan or ExecPlan()
     B = bucket.num_scenarios
     chunk = min(plan_.chunk_size or B, B)
-    bucket.devices = None
+    ndev = plan_.resolved_devices(warn=False, device=device)
+    if ndev:
+        chunk = -(-chunk // ndev) * ndev
+    bucket.devices = ndev
     bucket.chunk = chunk
     bucket.num_chunks = -(-B // chunk)
     bucket.padded_scenarios = bucket.num_chunks * chunk
@@ -685,11 +695,12 @@ def _bucket_shapes(data: DataSpec, bucket: BucketPlan,
     """The operand shapes of one chunk's round loop
     (``campaign.operand_shapes``), predicted from the plan alone: the
     data arrays' shapes (batch cells centralise onto one device), the
-    bucket's chunk (or ``scenarios``) as the scenario axis, the trace's
+    scenarios of one round loop (:attr:`BucketPlan.loop_scenarios`, or
+    ``scenarios``) as the scenario axis, the trace's
     slots from cell 0's first trace (the bucket's traces all stack to
     one width) and the param count from the detector's spec."""
     det = data.model
-    S = bucket.chunk if scenarios is None else scenarios
+    S = bucket.loop_scenarios if scenarios is None else scenarios
     c0 = cells[0]
     dxa = np.asarray(data.device_x)
     if bucket.kind == "single" and c0.cfg.scheme == "batch":
@@ -727,14 +738,20 @@ def bucket_k(bucket: BucketPlan) -> Optional[int]:
 
 
 def _warm_up(data: DataSpec, bucket: BucketPlan,
-             shapes: Dict[str, Tuple[int, ...]], dev: torch.device) -> float:
-    """One round of the bucket's loop on zeros at ``shapes`` on the card
-    (``campaign.one_round``); returns its wall seconds, synchronised."""
+             shapes: Dict[str, Tuple[int, ...]],
+             devices: Sequence[torch.device]) -> float:
+    """One round of the bucket's loop on zeros at ``shapes``
+    (``campaign.one_round``) on each of the shard ``devices`` (each card
+    once); returns the wall seconds, synchronised."""
     t0 = time.perf_counter()
-    _c.one_round(data.model, bucket.key_cfg, _c.spec_layout(data.model),
-                 _c.zero_operands(shapes, dev), bucket_k(bucket),
-                 bucket.track_iso)
-    torch.cuda.synchronize(dev)
+    layout = _c.spec_layout(data.model)
+    for dev in dict.fromkeys(devices):
+        with torch.cuda.device(dev):
+            _c.one_round(data.model, bucket.key_cfg, layout,
+                         _c.zero_operands(shapes, dev), bucket_k(bucket),
+                         bucket.track_iso)
+    for dev in dict.fromkeys(devices):
+        torch.cuda.synchronize(dev)
     return time.perf_counter() - t0
 
 
@@ -833,24 +850,30 @@ def execute(plan_: ExecutionPlan,
             draws: Optional[Sequence[MultiDraws]] = None,
             device: DeviceLike = None) -> ExperimentResult:
     """Run every bucket of a lowered plan on ``device`` (``None``: the
-    card): each bucket is one round loop per chunk, its traces and
-    per-scenario operands moved to the device once a chunk.  ``params0``
-    seeds the single-model cells and ``draws`` the multi-model ones (one
-    entry a seed; see :mod:`repro_torch.core.campaign`).  Results align
-    with ``plan_.cells``.
+    card): each bucket is one round loop per chunk (per shard of a chunk
+    when it shards), its traces and per-scenario operands moved to the
+    device once a chunk.  ``params0`` seeds the single-model cells and
+    ``draws`` the multi-model ones (one entry a seed; see
+    :mod:`repro_torch.core.campaign`).  Results align with
+    ``plan_.cells``.
 
-    ``ExecPlan(shard=True)`` warns here, once, and runs unsharded on one
-    card or on the CPU; over several cards it raises (not ported).
-    ``ExecPlan(aot=True)`` on the card resolves every kernel library
-    (one ``nvcc`` a stale source, all at once, or loads from the cache
-    directory) and runs each bucket's warm-up round before the first
-    real round; the results are the same bits as without it.  The
-    :class:`CompileReport` says what that cost."""
+    ``ExecPlan(shard=True)`` splits each chunk over the local cards
+    (``ExecPlan.shard_devices``); on one card or on the CPU it warns here,
+    once, and runs unsharded.  :func:`plan` knows no device, so the
+    buckets' geometry is filled again here for ``device``: the plan then
+    says what ran.  ``ExecPlan(aot=True)`` on the card resolves every
+    kernel library (one ``nvcc`` a stale source, all at once, or loads
+    from the cache directory) and runs each bucket's warm-up round on
+    every shard card before the first real round; the results are the
+    same bits as without it.  The :class:`CompileReport`
+    says what that cost."""
     spec = plan_.spec
     data, seeds = spec.data, list(spec.seeds.seeds)
     dev = resolve_device(device)
-    if spec.exec_plan is not None:
-        spec.exec_plan.resolved_devices(warn=True, device=dev)
+    ndev = (spec.exec_plan.resolved_devices(warn=True, device=dev)
+            if spec.exec_plan is not None else None)
+    for b in plan_.buckets:
+        _geometry(b, spec.exec_plan, dev)
     compilecache.ensure_persistent_cache()
     use_aot = bool(spec.exec_plan is not None and spec.exec_plan.aot)
     stats = [BucketCompileStats(bucket=b.index, kind=b.kind, fused=b.fused,
@@ -862,9 +885,10 @@ def execute(plan_: ExecutionPlan,
     if use_aot and dev.type == "cuda":
         from repro_torch.kernels import _build
         source, seconds = _build.resolve()
+        devices = spec.exec_plan.shard_devices(dev) if ndev else [dev]
         for b, st in zip(plan_.buckets, stats):
             st.cache = source
-            st.lower_s = _warm_up(data, b, predicted[b.index], dev)
+            st.lower_s = _warm_up(data, b, predicted[b.index], devices)
         if stats:
             stats[0].compile_s = seconds
 

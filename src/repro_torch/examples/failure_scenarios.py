@@ -17,8 +17,10 @@ has no clients at all, so its client column is n/a), identical draws
 are deduplicated, and the non-batch single-model cells fuse per
 iso-tracking kind: tolfl and sbt share ONE round loop over the
 flattened (scheme x trace x seed) axis.  ``execute`` runs the buckets;
-the per-draw result mapping comes back on the plan.  ``--shard`` on one
-card warns and runs unsharded (the results are the same).
+the per-draw result mapping comes back on the plan.  ``--shard`` splits
+each bucket's scenarios over the local cards, one shard and one host
+thread a card; on one card or the CPU it warns and runs unsharded.  The
+results are the same either way, bit for bit with dropout off.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.failure_scenarios [--rounds 60]
       PYTHONPATH=src python -m repro_torch.examples.failure_scenarios --smoke
@@ -163,9 +165,9 @@ def main(argv=None):
                     help="host-side scenario chunking: bound device "
                          "memory for large grids (one compile either way)")
     ap.add_argument("--shard", action="store_true",
-                    help="shard the scenario batch across local "
-                         "devices (results unchanged; one card warns and "
-                         "runs unsharded)")
+                    help="shard the scenario batch across the local "
+                         "cards, one shard a card (one card or the CPU "
+                         "warns and runs unsharded)")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny grid (seconds-scale), plan printed before "
                          "execution")

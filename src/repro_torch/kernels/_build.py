@@ -16,7 +16,8 @@ never at import; it raises if ``nvcc`` is missing or a compile fails.
 
 Each library a process resolves counts once in
 ``compilecache.xla_compile_stats()``: a hit when it was on disk, a miss
-when ``nvcc`` built it.
+when ``nvcc`` built it.  Builds hold one lock, so the threads of a
+sharded campaign that reach a kernel first together build it once.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -38,6 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: library path -> how this process resolved it ("disk" or "compiled")
 _RESOLVED: Dict[Path, str] = {}
+#: held by builds (a build writes ``<library>.<pid>.tmp``)
+_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -93,6 +97,11 @@ def build_all() -> Dict[str, Path]:
     library this process had not resolved yet.  The compiler's output
     (``-Xptxas -v``: registers, spills) lands beside each library as
     ``<name>-<hash>.log``."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, Path]:
     paths = {name: library_path(src) for name, src in sources().items()}
     stale = [(sources()[name], out) for name, out in paths.items()
              if not out.exists()]

@@ -29,8 +29,9 @@ partitioner inserts in ``repro``.  The kernels see local shards only
 A rank of the port is always "manual" over the axes its program runs
 over by hand (the train step's data axes: :func:`manual_axes`), so
 ``repro``'s ``compat_shard_map`` / ``FULL_MANUAL_FALLBACK`` (a jax-version
-shim) have no twin here; ``scenario_shard_map`` (campaigns over many
-cards) is not ported yet.
+shim) have no twin here.  :func:`scenario_shard_map` spreads a
+campaign's independent scenarios over the local cards, one host thread a
+card, with no collective and no process group.
 """
 from __future__ import annotations
 
@@ -511,3 +512,104 @@ def heads_call(fn: Callable, q: torch.Tensor,
                       (q_roles,) + (kv_roles,) * len(kvs)
                       + tuple((None,) * t.dim() for t in rest),
                       ("b", "h"), (q_roles,), info)
+
+
+# ---------------------------------------------------------------------------
+# Scenario sharding: the campaign executor's data parallelism over the
+# independent scenarios of a Monte-Carlo grid.
+# ---------------------------------------------------------------------------
+def _place(x, device: torch.device):
+    """``x`` on ``device``: a tensor moved there (no copy when it is
+    there already), a tuple (a NamedTuple too) field by field, anything
+    else (host arrays, ints, layouts, None) as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple):
+        fields = [_place(v, device) for v in x]
+        return type(x)(*fields) if hasattr(x, "_fields") else tuple(fields)
+    return x
+
+
+def _on_device(device: torch.device):
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def scenario_shard_map(f: Callable, devices: Sequence, n_bcast: int,
+                       n_mapped: int) -> Callable[..., list]:
+    """Shard a batched campaign executable over the ``devices`` of a
+    "scenario" axis: the port of ``repro.sharding.scenario_shard_map``,
+    which takes a device count where this takes the list of torch devices
+    (one device may appear more than once).
+
+    The returned ``g(*args)`` replicates the leading ``n_bcast`` arguments
+    (data and topology broadcasts) to each device and splits the trailing
+    ``n_mapped`` arguments (the flattened (cell x trace x seed) scenario
+    operands) on their leading axis into ``len(devices)`` equal parts, one
+    a device; the caller pads the batch to a device-divisible size.
+    Tensors are placed on their shard's device; host arrays are split and
+    stay on the host.  A broadcast argument passed again as the same
+    object is not copied again, so a bucket's chunks send its data to each
+    device once.  ``f(i, *local_args)`` runs shard ``i`` under its
+    device's guard; ``i`` is the shard's position in ``devices``, the twin
+    of ``jax.lax.axis_index("scenario")`` in ``repro``'s region.  ``g``
+    returns f's outputs split the same way: a list, one entry a device, in
+    the order of ``devices``.
+
+    Over more than one device each shard runs on a host thread of its own
+    (named ``scenario-shard-<i>``), all started together and joined before
+    ``g`` returns, so the round loops of all shards are in flight at once:
+    a shard's loop neither waits on another's nor on the host.  Placement
+    happens on the calling thread, before the threads start; the first
+    shard's error, if any, is raised after all have ended.  There is no
+    collective, as in ``repro``."""
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("scenario_shard_map needs at least one device")
+    ndev = len(devices)
+    replicas: Dict[int, Tuple[object, list]] = {}
+
+    def g(*args) -> list:
+        if len(args) != n_bcast + n_mapped:
+            raise TypeError(f"scenario_shard_map: {len(args)} arguments for "
+                            f"{n_bcast} broadcast + {n_mapped} mapped")
+        for i, a in enumerate(args[:n_bcast]):
+            if i not in replicas or replicas[i][0] is not a:
+                replicas[i] = (a, [_place(a, d) for d in devices])
+        mapped = args[n_bcast:]
+        B = int(mapped[0].shape[0]) if mapped else 0
+        if any(int(m.shape[0]) != B for m in mapped) or B % ndev:
+            raise ValueError(
+                f"scenario_shard_map: mapped leading axes "
+                f"{[int(m.shape[0]) for m in mapped]} do not split evenly "
+                f"over {ndev} devices")
+        s = B // ndev
+        local = [[replicas[i][1][j] for i in range(n_bcast)]
+                 + [_place(m[j * s:(j + 1) * s], d) for m in mapped]
+                 for j, d in enumerate(devices)]
+        if ndev == 1:
+            with _on_device(devices[0]):
+                return [f(0, *local[0])]
+        outs: list = [None] * ndev
+        errors: list = [None] * ndev
+
+        def shard(j: int) -> None:
+            try:
+                with _on_device(devices[j]):
+                    outs[j] = f(j, *local[j])
+            except BaseException as e:          # re-raised on the caller
+                errors[j] = e
+
+        threads = [threading.Thread(target=shard, args=(j,),
+                                    name=f"scenario-shard-{j}")
+                   for j in range(ndev)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for e in errors:
+            if e is not None:
+                raise e
+        return outs
+
+    return g

@@ -396,15 +396,15 @@ def test_exec_plan_errors_as_repro():
 
 
 def test_exec_plan_shard_over_cards(monkeypatch):
-    """Over more than one card sharding is not ported and raises; one
-    card of several (``devices=1``) and a run on the CPU degrade."""
+    """Over more than one card the shard width is the card count, capped
+    at ``devices``; one card of several (``devices=1``) and a run on the
+    CPU degrade."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert TC.ExecPlan(shard=True).num_devices() == 4
     assert TC.ExecPlan(shard=True, devices=2).num_devices() == 2
-    with pytest.raises(NotImplementedError, match="over 4 cards.*item 9"):
-        TC.ExecPlan(shard=True).resolved_devices()
-    with pytest.raises(NotImplementedError, match="over 2 cards"):
-        TC.ExecPlan(shard=True, devices=2).resolved_devices(warn=False)
+    assert TC.ExecPlan(shard=True).resolved_devices() == 4
+    assert TC.ExecPlan(shard=True, devices=2).resolved_devices(
+        warn=False) == 2
     for plan, dev in ((TC.ExecPlan(shard=True, devices=1), None),
                       (TC.ExecPlan(shard=True), "cpu")):
         with pytest.warns(UserWarning, match="single local device"):

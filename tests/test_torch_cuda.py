@@ -179,6 +179,36 @@ def test_campaign_round_loop_never_syncs(cuda_device, scheme, k,
     res = run_campaign(ae, dx, counts, tx, ty, cfg, traces, seeds)
     assert res.num_scenarios == len(traces) * len(seeds)
 
+
+@pytest.mark.cuda
+def test_sharded_campaign_bitwise_on_card(cuda_device, monkeypatch):
+    """``ExecPlan(shard=True, chunk_size=6)`` over two shards placed on
+    the one card (the shard devices' one source patched) equals the
+    unsharded run at chunk 3 bit for bit, dropout on: each shard is one
+    chunk of that run, its own generator seeded as that chunk's.  Every
+    shard launches the fused kernel once a round."""
+    import dataclasses
+
+    from repro_torch.core import campaign
+    from repro_torch.core.simulate import SimConfig
+    ae, dx, counts, tx, ty, traces, seeds = _small_campaign_inputs()
+    cfg = SimConfig(scheme="tolfl", num_devices=10, num_clusters=5,
+                    rounds=4, lr=5e-4, dropout=True)
+    monkeypatch.setattr(campaign, "_local_devices",
+                        lambda: [torch.device("cuda", 0)] * 2)
+    B = len(traces) * len(seeds)
+    before = tc.ROUND_LAUNCHES
+    got = campaign.run_campaign(ae, dx, counts, tx, ty, cfg, traces, seeds,
+                                exec_plan=campaign.ExecPlan(shard=True,
+                                                            chunk_size=6))
+    assert tc.ROUND_LAUNCHES - before == cfg.rounds * 2 * -(-B // 6)
+    want = campaign.run_campaign(ae, dx, counts, tx, ty, cfg, traces, seeds,
+                                 exec_plan=campaign.ExecPlan(chunk_size=3))
+    for f in dataclasses.fields(got):
+        if f.name != "cfg":
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f.name
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scheme", ["fedgroup", "ifca", "fesem"])
 def test_multimodel_campaign_on_card_matches_cpu(cuda_device, scheme):

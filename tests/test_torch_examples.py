@@ -4,8 +4,9 @@
 
 * ``quickstart``: the three AUROCs it prints equal three direct
   ``run_simulation`` calls.
-* ``failure_scenarios`` (with ``--shard``, which warns and degrades on
-  one device): every cell's results equal a hand-built spec executed
+* ``failure_scenarios`` (with ``--shard``, which splits the scenarios
+  over the local cards and here, on the CPU's one device, warns and
+  degrades): every cell's results equal a hand-built spec executed
   directly, bit for bit, and its printed rows carry their means; the
   ``--process`` path likewise.
 * ``score_stream``: its bank equals a directly trained one bit for bit,
