@@ -168,7 +168,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    also at a decode step's shape; the fused round at S = 1 in turns with
    the unfused eager sequence (16 launches), beside an empty kernel's device
    time, and at the campaign's shapes (S = 64; S = 96 at k = 10) against
-   its bound; the RG-LRU scan and its backward at SeqDetector's shape;
+   its bound; the RG-LRU scan and its backward at SeqDetector's shape
+   and at RecurrentGemma-9B's training shape (bit for bit there, -0
+   included);
    the row-stable product at the service's products beside ``addmm``
    and an empty kernel's launch floor;
    the tensor-core attention at each dense decoder's prefill shape and at
@@ -207,7 +209,10 @@ spread of the turns' medians; RecurrentGemma's output is compared with
 the parent's bit for bit (logged).  The float32 attention backward must
 beat the parent's at both its [times] shapes, or, where its dq, dk and
 dv are bitwise the parent's, not lose to it by more than the turns'
-spread.  A RG-LRU or WKV kernel
+spread.  The RG-LRU backward must beat the parent's at RecurrentGemma's
+training shape (the few-chains kernel), and neither RG-LRU direction
+may lose to the parent's by more than that spread at the serving,
+SeqDetector and training shapes.  A WKV kernel
 must beat the parent's where its own source changed, and where only a
 shared header did, not lose to it by more than that spread.  The build's
 compiler log gives the registers and spill bytes of the attention
@@ -476,7 +481,8 @@ PARENT_KERNELS = {"row_dense": ("row_dense_f32", 4, 3),
 PARENT_EXTRA = {"flash_attention_wgmma": (
     ("flash_attention_wgmma_lse", "flash_attention_wgmma_lse_bf16", 5, 8),),
                 "flash_attention": (
-    ("flash_attention_lse", "flash_attention_lse_f32", 5, 8),)}
+    ("flash_attention_lse", "flash_attention_lse_f32", 5, 8),),
+                "rglru_scan": (("rglru_scan_bwd", "rglru_scan_bwd_f32", 7, 3),)}
 #: the parent's kernels whose own source is the current one's (only the
 #: shared headers differ): timed against the parent, they need not beat it
 PARENT_SAME_SOURCE = set()
@@ -3995,10 +4001,11 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
         "bound_ms": bound,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None, "share_of_bound": bound / dev_ms["kernel"]})
-    if "parent kernel" in fns:
-        _parent_gate(rows[-1], "rglru_scan", dev_ms, spread)
+    if "parent kernel" in fns:   # the streaming kernel, at a parent's shape
+        _no_slower_than_parent(rows[-1], dev_ms["parent kernel"], max(
+            spread["kernel"], spread["parent kernel"]))
     del a, b, fns
-    rows += _seq_scan_times(torch, rows[-1], launches, errs, gen)
+    rows += _seq_scan_times(torch, rows[-1], launches, errs, gen, parent)
 
     for B, S, H, N, _, _ in (wk.CARD_CASES[0], WKV_DECODE):
         args = wk.random_inputs(B, S, H, N, True, gen)
@@ -4237,10 +4244,13 @@ def _attn_times(torch, label, arch, shape, launches, errs, gen, parent=None):
     return row
 
 
-def _seq_scan_times(torch, fwd_row, launches, errs, gen):
+def _seq_scan_times(torch, fwd_row, launches, errs, gen, parent=None):
     """The scan forward and backward at SeqDetector's campaign shape
-    (720,000, 7, 16), each beside its plain version and its bound; the
-    forward's numbers join its row, the backward gets its own."""
+    (720,000, 7, 16), each beside its plain version and its bound (and,
+    with --parent, the parent's kernels in the same turns, which neither
+    may lose to by more than the turns' spread); the forward's numbers
+    join its row, the backward gets its own, with the training shape's
+    numbers of both directions."""
     from repro_torch.kernels import rglru_scan as rs
     B, S, W = SEQ_SCAN
     a = torch.sigmoid(torch.randn(SEQ_SCAN, generator=gen, device=DEV))
@@ -4249,8 +4259,12 @@ def _seq_scan_times(torch, fwd_row, launches, errs, gen):
     h = rs.rglru_scan_cuda(a, b)
     fns = {"forward": lambda: rs.rglru_scan_cuda(a, b),
            "backward": lambda: rs.rglru_scan_bwd_cuda(a, h, None, dh)}
+    if parent and "rglru_scan" in parent:
+        fns["parent forward"] = lambda: _parent_rglru(torch, parent, a, b)
+        fns["parent backward"] = lambda: _parent_rglru_bwd(
+            torch, parent, a, h, None, dh)
     n = 48
-    dev_ms = _turns_ms(torch, fns, True, n)
+    dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
     plain = {"forward": _median_ms(
         torch, lambda: rs.rglru_scan_plain(a, b), True, 10),
@@ -4266,21 +4280,26 @@ def _seq_scan_times(torch, fwd_row, launches, errs, gen):
         b_ops = flops * B * S * W / H100_F32_FLOPS * 1e3
         bound[key] = (max(b_bytes, b_ops),
                       "bytes" if b_bytes >= b_ops else "operations")
+        pk = f"parent {key}"
         log(f"[times] rglru_scan {key} (B, S, W) = {SEQ_SCAN} (SeqDetector, "
             f"64 scenarios), median of {n} CUDA-event timings in 4 turns, "
             f"card / call: {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms; plain "
             f"{plain[key]:.6f} ms (median of 10, its {S} steps dispatched by "
             f"the host), library none; bound {bound[key][0]:.6f} ms "
             f"({tensors * B * S * W * 4} bytes at 3.35 TB/s), "
-            f"{bound[key][0] / dev_ms[key]:.1%} of it; clocks.sm, power.draw, "
-            f"temperature after: {_clocks()}")
+            f"{bound[key][0] / dev_ms[key]:.1%} of it"
+            + (f"; parent {dev_ms[pk]:.6f} / {call_ms[pk]:.6f} ms (turns' "
+               f"spread: kernel {spread[key]:.6f}, parent {spread[pk]:.6f} "
+               f"ms)" if pk in fns else "")
+            + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
     fwd_row.update({"seq_ms": dev_ms["forward"],
                     "seq_bound_ms": bound["forward"][0],
                     "seq_plain_ms": plain["forward"],
                     "seq_share_of_bound": bound["forward"][0]
                     / dev_ms["forward"]})
-    train = _train_scan_bwd_times(torch, gen)
-    return [{**train,
+    train = _train_scan_times(torch, gen, parent)
+    fwd_row.update(train["forward"])
+    rows = [{**train["backward"],
         "name": "rglru_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:48",
@@ -4292,51 +4311,110 @@ def _seq_scan_times(torch, fwd_row, launches, errs, gen):
         "bound_ms": bound["backward"][0], "bound_by": bound["backward"][1],
         "library_ms": None, "call_ms": call_ms["backward"],
         "share_of_bound": bound["backward"][0] / dev_ms["backward"]}]
+    if "parent forward" in fns:   # the S <= 8 instances, at a parent's shape
+        for row, key in ((fwd_row, "forward"), (rows[0], "backward")):
+            row["seq_parent_ms"] = dev_ms[f"parent {key}"]
+            _scan_vs_parent(key, SEQ_SCAN, dev_ms, spread, False)
+    return rows
 
 
-def _train_scan_bwd_times(torch, gen):
-    """The scan backward at ``RG_TRAIN_SCAN``, the shape [train-families]
-    launches it at for RecurrentGemma-9B (each RG-LRU layer's backward,
-    one a step): bit for bit against its plain version, then its time
-    beside the plain version's and its bound.  Returns the keys it adds
-    to the backward's row."""
+def _scan_vs_parent(key, shape, dev_ms, spread, must_beat):
+    """The RG-LRU ``key`` direction's parent check from its turns' medians
+    and spreads (keys ``key`` and "parent <key>"): with ``must_beat`` it
+    must be faster than the parent's kernel, and in any case not slower
+    by more than the turns' spread."""
+    ms, parent_ms = dev_ms[key], dev_ms[f"parent {key}"]
+    if must_beat and not ms < parent_ms:
+        raise AssertionError(f"rglru_scan {key} at {shape}: {ms} ms, not "
+                             f"faster than the parent's {parent_ms} ms")
+    if ms > parent_ms + max(spread[key], spread[f"parent {key}"]):
+        raise AssertionError(f"rglru_scan {key} at {shape}: {ms} ms, slower "
+                             f"than the parent's {parent_ms} ms by more than "
+                             f"the turns' spread")
+
+
+def _train_scan_times(torch, gen, parent=None):
+    """The scan forward and backward at ``RG_TRAIN_SCAN``, the shape
+    [train-families] launches them at for RecurrentGemma-9B (each RG-LRU
+    layer's backward once a step, its forward twice under remat): each
+    bit for bit against its plain version (the backward with and without
+    h0, and a -0 planted in dh's last step), then its card and call times
+    beside the plain version's and its bound, and with --parent the
+    parent's kernels in the same turns: the backward (the few-chains
+    kernel) must beat the parent's, the forward (the streaming kernel at
+    every shape) may not lose to it by more than the turns' spread.
+    Returns {"forward": keys, "backward": keys} to add to each row."""
     import numpy as np
     from repro_torch.kernels import rglru_scan as rs
     B, S, W = RG_TRAIN_SCAN
     a = torch.sigmoid(torch.randn(RG_TRAIN_SCAN, generator=gen, device=DEV))
     b = torch.randn(RG_TRAIN_SCAN, generator=gen, device=DEV)
     dh = torch.randn(RG_TRAIN_SCAN, generator=gen, device=DEV)
+    dh[:, -1, ::7] = -0.0
+    h0 = torch.randn((B, W), generator=gen, device=DEV)
+
+    def bits(x, y):
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
     h = rs.rglru_scan_cuda(a, b)
-    got = rs.rglru_scan_bwd_cuda(a, h, None, dh)
-    want = rs.rglru_scan_backward_plain(a, h, None, dh)
-    for g, w in zip(got[:2], want[:2]):
-        if not torch.equal(g, w):
-            raise AssertionError(f"rglru_scan_bwd at {RG_TRAIN_SCAN} differs "
-                                 f"from its plain version")
+    if not bits(h, rs.rglru_scan_plain(a, b)):
+        raise AssertionError(f"rglru_scan at {RG_TRAIN_SCAN} differs from "
+                             f"its plain version")
+    err = {"forward": 0.0}
+    for with_h0 in (False, True):
+        x0 = h0 if with_h0 else None
+        got = rs.rglru_scan_bwd_cuda(a, h, x0, dh)
+        want = rs.rglru_scan_backward_plain(a, h, x0, dh)
+        for g, w in zip(got, want):
+            if (g is None) != (w is None) or (w is not None
+                                              and not bits(g, w)):
+                raise AssertionError(f"rglru_scan_bwd at {RG_TRAIN_SCAN} "
+                                     f"h0={with_h0} differs from its plain "
+                                     f"version")
+        err["backward"] = max(err.get("backward", 0.0), float(np.max([
+            (g - w).abs().max().item() for g, w in zip(got[:2], want[:2])])))
+    fns = {"forward": lambda: rs.rglru_scan_cuda(a, b),
+           "backward": lambda: rs.rglru_scan_bwd_cuda(a, h, None, dh)}
+    if parent and "rglru_scan" in parent:
+        fns["parent forward"] = lambda: _parent_rglru(torch, parent, a, b)
+        fns["parent backward"] = lambda: _parent_rglru_bwd(
+            torch, parent, a, h, None, dh)
     n = 48
-    fns = {"backward": lambda: rs.rglru_scan_bwd_cuda(a, h, None, dh)}
-    dev_ms = _turns_ms(torch, fns, True, n)["backward"]
-    call_ms = _turns_ms(torch, fns, False, n)["backward"]
-    plain = _median_ms(torch, lambda: rs.rglru_scan_backward_plain(
-        a, h, None, dh), True, 10)
-    nbytes = 5 * B * S * W * 4
-    bound = max(nbytes / H100_BYTES_PER_S, 3 * B * S * W / H100_F32_FLOPS
-                ) * 1e3
-    log(f"[times] rglru_scan backward (B, S, W) = {RG_TRAIN_SCAN} "
-        f"(RecurrentGemma-9B's RG-LRU in [train-families]), bit for bit its "
-        f"plain version; median of {n} CUDA-event timings in 4 turns, card / "
-        f"call: {dev_ms:.6f} / {call_ms:.6f} ms; plain {plain:.6f} ms "
-        f"(median of 10, its {S} steps dispatched by the host), library "
-        f"none; bound {bound:.6f} ms ({nbytes} bytes at 3.35 TB/s), "
-        f"{bound / dev_ms:.1%} of it; clocks.sm, power.draw, temperature "
-        f"after: {_clocks()}")
-    return {"train_shape": list(RG_TRAIN_SCAN), "train_ms": dev_ms,
-            "train_call_ms": call_ms, "train_plain_ms": plain,
-            "train_bound_ms": bound,
-            "train_share_of_bound": bound / dev_ms,
-            "train_max_abs_err": float(np.max([
-                (g - w).abs().max().item() for g, w in zip(got[:2],
-                                                           want[:2])]))}
+    dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
+    call_ms = _turns_ms(torch, fns, False, n)
+    plain = {"forward": _median_ms(torch, lambda: rs.rglru_scan_plain(a, b),
+                                   True, 10),
+             "backward": _median_ms(torch, lambda: rs.rglru_scan_backward_plain(
+                 a, h, None, dh), True, 10)}
+    out = {}
+    # forward: a, b read, h written, a multiply and an add an element;
+    # backward: a, h, dh read, da, db written, three flops an element
+    for key, tensors, flops in (("forward", 3, 2), ("backward", 5, 3)):
+        nbytes = tensors * B * S * W * 4
+        bound = max(nbytes / H100_BYTES_PER_S, flops * B * S * W
+                    / H100_F32_FLOPS) * 1e3
+        pk = f"parent {key}"
+        log(f"[times] rglru_scan {key} (B, S, W) = {RG_TRAIN_SCAN} "
+            f"(RecurrentGemma-9B's RG-LRU in [train-families]), bit for bit "
+            f"its plain version; median of {n} CUDA-event timings in 4 "
+            f"turns, card / call: {dev_ms[key]:.6f} / {call_ms[key]:.6f} ms; "
+            f"plain {plain[key]:.6f} ms (median of 10, its {S} steps "
+            f"dispatched by the host), library none; bound {bound:.6f} ms "
+            f"({nbytes} bytes at 3.35 TB/s), {bound / dev_ms[key]:.1%} of it"
+            + (f"; parent {dev_ms[pk]:.6f} / {call_ms[pk]:.6f} ms, "
+               f"kernel {dev_ms[pk] / dev_ms[key]:.3f}x its speed (turns' spread: "
+               f"kernel {spread[key]:.6f}, parent {spread[pk]:.6f} ms)"
+               if pk in fns else "")
+            + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
+        out[key] = {"train_shape": list(RG_TRAIN_SCAN),
+                    "train_ms": dev_ms[key], "train_call_ms": call_ms[key],
+                    "train_plain_ms": plain[key], "train_bound_ms": bound,
+                    "train_share_of_bound": bound / dev_ms[key],
+                    "train_max_abs_err": err[key]}
+        if pk in fns:
+            out[key]["train_parent_ms"] = dev_ms[pk]
+            _scan_vs_parent(key, RG_TRAIN_SCAN, dev_ms, spread,
+                            key == "backward")
+    return out
 
 
 def _faster_than_parent(row, parent_ms):
@@ -4413,6 +4491,20 @@ def _parent_rglru(torch, parent, a, b):
     if err != 0:
         raise RuntimeError(f"the parent's rglru_scan failed: {err}")
     return out
+
+
+def _parent_rglru_bwd(torch, parent, a, h, h0, dh):
+    """The parent's RG-LRU backward: (da, db, dh0), dh0 None without h0."""
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    err = parent["rglru_scan_bwd"](
+        a.data_ptr(), h.data_ptr(), None if h0 is None else h0.data_ptr(),
+        dh.data_ptr(), da.data_ptr(), db.data_ptr(),
+        None if dh0 is None else dh0.data_ptr(), *a.shape,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the parent's rglru_scan_bwd failed: {err}")
+    return da, db, dh0
 
 
 def _parent_wkv(torch, parent, r, k, v, w, u, s0):

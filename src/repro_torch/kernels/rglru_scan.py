@@ -8,7 +8,11 @@ rows of 16 channels when W <= 16), h in a register of each lane, while
 the inputs stream through a ring of shared-memory stages by ``cp.async``
 with mbarrier completion, so bytes are in flight all the time.  The
 blocks of every row lie along one grid axis, so the batch B has no limit
-below 2**31 blocks.  Both are bound by memory traffic: the forward moves
+below 2**31 blocks.  A backward of few chains (at most 264 such blocks,
+as RecurrentGemma's training step at (1, 2048, 4096)) runs a kernel of
+its own inside the same C entry point: TMA boxes into a deeper ring and
+out of staging buffers, so the warp's time goes to the chain.  Both
+directions are bound by memory traffic: the forward moves
 ``3 * B * S * W * 4`` bytes (a, b read, h written), the backward
 ``5 * B * S * W * 4`` (a, h, dh read, da, db written).  On the card each
 equals its plain version bit for bit.

@@ -810,11 +810,22 @@ def test_flash_attention_tf32_fwd_takes_misaligned_inputs(cuda_device, dt, D):
 # ---------------------------------------------------------------------------
 # RG-LRU scan: bit for bit equal to the plain version
 # ---------------------------------------------------------------------------
+#: RecurrentGemma's training shapes, B = 1 and 2 (the backward's few-chains
+#: kernel: at most 264 one-warp blocks), a ragged one, W % 4 != 0 (no TMA:
+#: the streaming kernel), and the few-chains rule's edge, 8 x 33 = 264
+#: blocks and 9 x 32 = 288
+FEW_CHAIN_CASES = [
+    (1, 2048, 4096, False), (1, 2048, 4096, True), (2, 2048, 4096, False),
+    (2, 2048, 4096, True), (1, 4097, 4000, True), (1, 300, 4094, True),
+    (8, 100, 1056, True), (9, 100, 1024, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,W,with_h0", [
     (2, 100, 70, False), (2, 100, 70, True), (1, 1, 5, True),
     (4, 4096, 4096, False), (4, 4096, 4096, True), (3, 4097, 4000, True),
-    (2, 2, 4096, True), (2, 3, 4096, False), (4, 4096, 4097, True)])
+    (2, 2, 4096, True), (2, 3, 4096, False), (4, 4096, 4097, True)]
+    + FEW_CHAIN_CASES)
 def test_rglru_scan_cuda_kernel_bitwise(cuda_device, B, S, W, with_h0):
     from repro_torch.kernels import rglru_scan as rs
     g = torch.Generator(device=cuda_device).manual_seed(B * S + W)
@@ -847,7 +858,8 @@ def _scan_inputs(device, B, S, W, with_h0, seed):
 @pytest.mark.parametrize("B,S,W,with_h0", [
     (2, 100, 70, False), (2, 100, 70, True), (1, 1, 5, True),
     (3, 7, 16, False), (3, 7, 16, True), (5, 33, 40, True),
-    (4, 4096, 4096, True), (2, 3, 4096, False), (3, 4097, 4000, True)])
+    (4, 4096, 4096, True), (2, 3, 4096, False), (3, 4097, 4000, True)]
+    + FEW_CHAIN_CASES)
 def test_rglru_scan_backward_cuda_kernel_bitwise(cuda_device, B, S, W,
                                                  with_h0):
     from repro_torch.kernels import rglru_scan as rs
@@ -862,6 +874,50 @@ def test_rglru_scan_backward_cuda_kernel_bitwise(cuda_device, B, S, W,
         assert (g_ is None) == (w_ is None)
         if w_ is not None:
             assert torch.equal(g_, w_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W", [(1, 2048, 4096), (5, 33, 40),
+                                   (1, 300, 4094), (3, 7, 16)])
+def test_rglru_scan_backward_keeps_signed_zeros(cuda_device, B, S, W):
+    """A -0 in dh's last step stays -0 in db and in da's sign, as in the
+    plain backward: compared as bits, which ``torch.equal`` is not (-0 ==
+    +0).  The few-chains kernel reaches it through a zero fill (its g
+    starts at -0), the streaming kernels through a branch."""
+    from repro_torch.kernels import rglru_scan as rs
+    a, b, h0, dh = _scan_inputs(cuda_device, B, S, W, True, S + W)
+    dh[:, -1, ::2] = -0.0
+    dh[:, -1, 1::4] = 0.0
+    h = rs.rglru_scan_cuda(a, b, h0)
+    got = rs.rglru_scan_bwd_cuda(a, h, h0, dh)
+    torch.cuda.synchronize()
+    want = rs.rglru_scan_backward_plain(a, h, h0, dh)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.view(torch.int32), w_.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W", [(1, 2048, 4096), (2, 100, 64)])
+def test_rglru_scan_backward_misaligned_bitwise(cuda_device, B, S, W):
+    """Tensors one element past a 16-byte boundary (which TMA cannot read)
+    take the streaming kernel, still bit for bit, and give the aligned
+    copies' bits."""
+    from repro_torch.kernels import rglru_scan as rs
+    a, b, h0, dh = _scan_inputs(cuda_device, B, S, W, True, W)
+    h = rs.rglru_scan_cuda(a, b, h0)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 != 0
+        return out
+    got = rs.rglru_scan_bwd_cuda(shifted(a), shifted(h), h0, shifted(dh))
+    want = rs.rglru_scan_bwd_cuda(a, h, h0, dh)
+    torch.cuda.synchronize()
+    for g_, w_, p_ in zip(got, want,
+                          rs.rglru_scan_backward_plain(a, h, h0, dh)):
+        assert torch.equal(g_, w_) and torch.equal(g_, p_)
 
 
 @pytest.mark.cuda

@@ -16,9 +16,15 @@ the card and ``rglru_scan_backward_plain`` on the CPU.
 * ``RGLRUScanFn``'s forward is ``rglru_scan_plain`` unchanged, and
   ``ops.rglru`` is differentiable on the CPU through it.
 
+* The few-chains backward kernel's start, g = -0 against a_S = +0 (the
+  TMA zero fill), gives the plain backward bit for bit, signed zeros
+  planted in dh's last step included.
+
 Cases: (B, S, W) = (3, 7, 16) (SeqDetector's window and width), (2, 33,
-40) (ragged, more than one of the kernel's 32-step stages) and S = 1,
-each with and without h0.
+40) (ragged, more than one of the kernel's 32-step stages), S = 1, and B
+= 1 as RecurrentGemma trains: (1, 70, 132) (three stages, a ragged last
+one, channels past four warps' 128) and (1, 65, 6); each with and
+without h0.
 """
 import jax
 import jax.numpy as jnp
@@ -31,7 +37,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rglru_scan as rs
 from torch_threads import one_torch_thread  # noqa: F401
 
-CASES = [(3, 7, 16), (2, 33, 40), (4, 1, 8)]
+CASES = [(3, 7, 16), (2, 33, 40), (4, 1, 8), (1, 70, 132), (1, 65, 6)]
 RTOL, ATOL = 1e-5, 1e-6
 
 
@@ -72,8 +78,10 @@ def test_backward_matches_jax_grad_of_associative_scan(B, S, W, with_h0):
     def jloss(a_, b_, h0_):
         h = JR._lru_scan(a_, b_, h0_ if with_h0 else None, use_pallas=False)
         return jnp.sum(h * dh)
-    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(a), jnp.asarray(b),
-                                               jnp.asarray(h0))
+    # jitted: one XLA compile a case, where eager dispatch compiles each of
+    # the scan's ops (~1 s against ~9 s a case on a CPU)
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0))
     ta, tb, th0, tdh = _torch(a, b, h0, dh)
     h = rs.rglru_scan_plain(ta, tb, th0 if with_h0 else None)
     got = rs.rglru_scan_backward_plain(ta, h, th0 if with_h0 else None, tdh)
@@ -100,6 +108,37 @@ def test_scan_fn_forward_unchanged_and_differentiable(B, S, W, with_h0):
     want = rs.rglru_scan_backward_plain(a, h.detach(), h0, dh)
     for g, w in zip(grads, [t for t in want if t is not None]):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,W", CASES)
+def test_zero_fill_start_is_the_plain_backward(B, S, W, with_h0):
+    """The few-chains kernel takes no branch at step S - 1: its g starts at
+    -0 and the step reads a_S from the TMA zero fill, +0, so g_{S-1} =
+    dh_{S-1} + (+0 * -0), which is dh_{S-1} bit for bit (a -0 stays -0),
+    as the plain loop's g_{S-1} = dh_{S-1}; every later step is the plain
+    loop's multiply then add."""
+    a, b, h0, dh = _torch(*_inputs(B, S, W, 3 * S + W))
+    dh[:, -1, ::2] = -0.0
+    dh[:, -1, 1::4] = 0.0
+    h0 = h0 if with_h0 else None
+    h = rs.rglru_scan_plain(a, b, h0)
+    g = torch.full((B, W), -0.0)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(S - 1, -1, -1):
+        a_next = a[:, t + 1] if t + 1 < S else torch.zeros_like(g)
+        g = dh[:, t] + a_next * g
+        h_prev = (h[:, t - 1] if t > 0 else
+                  torch.zeros_like(g) if h0 is None else h0)
+        da[:, t], db[:, t] = g * h_prev, g
+    want = rs.rglru_scan_backward_plain(a, h, h0, dh)
+    bits = [x.view(torch.int32) for x in (da, db, want[0], want[1])]
+    assert torch.equal(bits[0], bits[2]) and torch.equal(bits[1], bits[3])
+    assert torch.equal(db[:, -1].view(torch.int32),
+                       dh[:, -1].view(torch.int32))
+    if with_h0:
+        assert torch.equal((a[:, 0] * g).view(torch.int32),
+                           want[2].view(torch.int32))
 
 
 def test_scan_without_grad_records_nothing():
