@@ -131,10 +131,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    layers over 416-token prompts, 96 tensor-core attention launches a
    prefill: encoder, self and cross), Llama-4 Scout at full width cut to
    4 layers ([scout-serve]: 16 experts top-1 at capacity 1.25 and a
-   shared expert; [scout-serve-consistency] at capacity 16) and
-   InternVL2-26B at full width cut to 24 layers ([internvl2-serve]: 256
-   patches before each 4,096-token prompt), each with its phases; the
-   reduced Maverick only card vs CPU ([maverick-serve-reference]);
+   shared expert; [scout-serve-consistency] at capacity 16, in float32
+   and in bf16), InternVL2-26B at full width cut to 24 layers
+   ([internvl2-serve]: 256 patches before each 4,096-token prompt) and
+   Llama-4 Maverick at full width cut to 2 layers in bf16 params
+   ([maverick-serve]: 128 experts, 37.1 GB; its consistency in bf16
+   activations at capacity 128), each with its phases, the reduced
+   Maverick card vs CPU in float32 and in bf16 params; then
+   [bf16-params]: Scout at full width, 2 layers, its float32 params cast
+   to bf16 against float32 params holding the same rounded values, a
+   4 x 4,096 prefill, pad_cache and 4 decode steps on each, the logits,
+   every cache leaf and the launches equal;
 6. drives slice 14's main path, training: the attention's and the WKV
    scan's backward kernels against their plain backwards
    ([kernel] flash_attention_bwd over masks, GQA groups 1-6, D 32-256,
@@ -247,13 +254,16 @@ wall times are logged.  ``ExecPlan(shard=True)`` with the real device
 count must warn once and give the unsharded bits on one card; with
 several cards the Tol-FL campaign runs over them, bit for bit too.
 
-It imports nothing of JAX or of the JAX package.  It exits non-zero
-without a CUDA device, outside a checkout, or if any phase fails; on
-success its last line is ``{"ok": true, "device": {...}}``.
+A [clock] line near the end lists each phase's wall seconds, largest
+first (each served arch's phases together).  It imports nothing of JAX
+or of the JAX package.  It exits non-zero without a CUDA device, outside
+a checkout, or if any phase fails; on success its last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -299,21 +309,33 @@ SERVE_ARCHS = (("recurrentgemma-9b", ""), ("rwkv6-7b", "rwkv-"),
                ("qwen1.5-0.5b", "qwen1.5-"), ("qwen3-8b", "qwen3-"),
                ("whisper-large-v3", "whisper-"),
                ("llama4-scout-17b-a16e", "scout-"),
-               ("internvl2-26b", "internvl2-"))
-#: depth cuts of served archs whose float32 params do not fit the card at
-#: full depth (Scout: 8.28 GB of embedding and head + 8.81 GB a layer, 48
-#: layers; InternVL2: 4.56 GB + 1.57 GB a layer, 48 layers); full width
-SERVE_DEPTH = {"llama4-scout-17b-a16e": 4, "internvl2-26b": 24}
+               ("internvl2-26b", "internvl2-"),
+               ("llama4-maverick-400b-a17b", "maverick-"))
+#: depth cuts of served archs whose params do not fit the card at full
+#: depth (Scout: 8.28 GB of float32 embedding and head + 8.81 GB a layer,
+#: 48 layers; InternVL2: 4.56 GB + 1.57 GB a layer, 48 layers; Maverick in
+#: bf16: 4.14 GB + 32.5 GB an (MoE, dense) unit, 24 units); full width
+SERVE_DEPTH = {"llama4-scout-17b-a16e": 4, "internvl2-26b": 24,
+               "llama4-maverick-400b-a17b": 2}
+#: the param dtypes of served archs whose params are not float32
+#: (``ModelConfig.param_dtype``): Maverick's 128 experts take 64.4 GB a
+#: MoE layer in float32, so no full-width layer of float32 params fits
+SERVE_PARAM_DTYPE = {"llama4-maverick-400b-a17b": "bfloat16"}
 #: prompt lengths other than SERVE_PROMPT: whisper's text context is 448
 #: tokens, 416 of prompt and SERVE_TOKENS generated
 SERVE_PROMPTS = {"whisper-large-v3": 416}
-#: archs held only card vs CPU on their reduced config: Maverick's one MoE
-#: layer holds 64.4 GB of float32 experts, so no full-width layer fits
-REFERENCE_ONLY = (("llama4-maverick-400b-a17b", "maverick-"),)
-#: an MoE arch's capacity factor in [*serve-consistency]: capacity >= chunk
-#: drops no token, so a decode step equals a prefill one token longer
-#: (repro's tests/test_serving.py sets the same)
-CONSISTENCY_CAPACITY = 16.0
+#: MoE archs whose [*serve-consistency] also runs in bf16 activations
+#: (Maverick's only: in float32 activations its experts would be cast to a
+#: 64.4 GB copy), the largest |diff| within CONSISTENCY_BF16_TOL of the
+#: largest |logit|; Scout is the yardstick.  bf16 logits of |x| in [4, 8)
+#: are 2^-5 apart, 0.4-0.8% of x: both read one such ulp, 0.0068 and
+#: 0.0070 of max |logit| (4.59 and 4.47) on an H100; 0.03 is ~4 ulps, a
+#: 4.3x margin
+CONSISTENCY_BF16 = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b")
+CONSISTENCY_BF16_TOL = 0.03
+#: [bf16-params]: the arch, its depth (Scout: 25.9 GB of float32 params
+#: beside their 13.0 GB bf16 cast) and the decode steps
+BF16_PARAMS = ("llama4-scout-17b-a16e", 2, 4)
 #: the dense GQA decoders, whose prefills put the tensor-core attention at
 #: D = 64 and 128 (causal, no window)
 DECODERS = ("granite-3-2b", "internlm2-1.8b", "qwen1.5-0.5b", "qwen3-8b")
@@ -360,6 +382,43 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+#: wall seconds by phase for the [clock] line; a phase run inside another
+#: (or inside a ``_clock`` block) counts in the outermost one alone
+CLOCK = {}
+_CLOCK_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def _clock(name):
+    _CLOCK_DEPTH[0] += 1
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _CLOCK_DEPTH[0] -= 1
+        if not _CLOCK_DEPTH[0]:
+            CLOCK[name] = CLOCK.get(name, 0.0) + time.perf_counter() - t0
+
+
+def _clocked(fn):
+    """``fn`` (a ``phase_*``) timed into CLOCK under its name."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        with _clock(fn.__name__[len("phase_"):]):
+            return fn(*args, **kw)
+    return run
+
+
+def log_clock(total_s):
+    """The [clock] line: each phase's seconds, largest first, and the rest
+    of the run (main's own work between phases)."""
+    rest = total_s - sum(CLOCK.values())
+    log(f"[clock] {total_s:.1f} s in all; by phase, largest first: "
+        + ", ".join(f"{name} {s:.1f}" for name, s in
+                    sorted(CLOCK.items(), key=lambda kv: -kv[1]))
+        + f"; outside any phase {rest:.1f}")
+
+
 def _decoder_attn(arch):
     """(B, S, H, KVH, D, causal, window) of a dense decoder's prefill
     attention at the served shape."""
@@ -370,29 +429,36 @@ def _decoder_attn(arch):
 
 
 def _zoo_attn():
-    """[(label, arch, (B, Sq, Sk, H, KVH, D, causal))]: the attention
-    shapes of the whisper, Scout and InternVL2 prefills as served: the
-    encoder over its frames, the cross-attention (prompt on frames) and
-    the decoder's causal self-attention; Scout's and InternVL2's causal
-    self-attention (InternVL2's over its patches and the prompt)."""
+    """[(label, archs, (B, Sq, Sk, H, KVH, D, causal))]: the attention
+    shapes of the whisper, Scout, InternVL2 and Maverick prefills as
+    served, with the archs whose prefills launch each: whisper's encoder
+    over its frames, cross-attention (prompt on frames) and causal
+    self-attention; Scout's causal self-attention, which Maverick's
+    shares, and InternVL2's (over its patches and the prompt)."""
     from repro_torch.configs.registry import get_arch
     out = []
     w = get_arch("whisper-large-v3")
     a, F = w.attention, w.encoder_seq
     S = SERVE_PROMPTS["whisper-large-v3"]
     heads = (a.num_heads, a.num_kv_heads, a.head_dim)
-    out += [("whisper-large-v3 encoder", w.name,
+    out += [("whisper-large-v3 encoder", (w.name,),
              (SERVE_BATCH, F, F, *heads, False)),
-            ("whisper-large-v3 cross", w.name,
+            ("whisper-large-v3 cross", (w.name,),
              (SERVE_BATCH, S, F, *heads, False)),
-            ("whisper-large-v3 self", w.name,
+            ("whisper-large-v3 self", (w.name,),
              (SERVE_BATCH, S, S, *heads, True))]
-    for arch in ("llama4-scout-17b-a16e", "internvl2-26b"):
-        cfg = get_arch(arch)
-        a = cfg.attention
-        S = SERVE_PROMPT + cfg.frontend.frontend_seq
-        out.append((arch, arch, (SERVE_BATCH, S, S, a.num_heads,
-                                 a.num_kv_heads, a.head_dim, True)))
+    for archs in (("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"),
+                  ("internvl2-26b",)):
+        shapes = set()
+        for arch in archs:
+            cfg = get_arch(arch)
+            a = cfg.attention
+            S = SERVE_PROMPT + cfg.frontend.frontend_seq
+            shapes.add((SERVE_BATCH, S, S, a.num_heads, a.num_kv_heads,
+                        a.head_dim, True))
+        if len(shapes) != 1:
+            raise AssertionError(f"{archs} prefill at {shapes}")
+        out.append((archs[0], archs, shapes.pop()))
     return out
 
 
@@ -3570,20 +3636,25 @@ def _parent_combine_fn(torch, parent):
 
 def _full_params(torch, arch, tag):
     """The arch's config at full width (its depth cut where SERVE_DEPTH
-    says, logged as ``reduced``) and random float32 params on the card."""
+    says, logged as ``reduced``; its ``param_dtype`` where
+    SERVE_PARAM_DTYPE names one) and random params on the card."""
     import dataclasses
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import params as P
     from repro_torch.models import transformer as T
-    cfg = get_arch(arch)
+    cfg = dataclasses.replace(
+        get_arch(arch), param_dtype=SERVE_PARAM_DTYPE.get(arch, "float32"))
+    size = getattr(torch, cfg.param_dtype).itemsize
     if arch in SERVE_DEPTH:
         full = cfg
         cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTH[arch])
         log(f"[{tag}serve] reduced: depth {full.num_layers} -> "
             f"{cfg.num_layers} layers (full width); {full.param_count()} "
-            f"float32 params ({full.param_count() * 4 / 1e9:.1f} GB) at full "
-            f"depth do not fit the card's 80 GB, {cfg.param_count()} "
-            f"({cfg.param_count() * 4 / 1e9:.1f} GB) do")
+            f"{cfg.param_dtype} params ({full.param_count() * size / 1e9:.1f}"
+            f" GB) at full depth do not fit the card's 80 GB, "
+            f"{cfg.param_count()} ({cfg.param_count() * size / 1e9:.1f} GB) "
+            f"do")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init_params(torch.Generator(device=DEV).manual_seed(0),
                            cfg, DEV)
@@ -3607,7 +3678,8 @@ def _full_params(torch, arch, tag):
         f"{P.param_count(params)} ({P.param_bytes(params)} bytes, "
         f"{cfg.param_dtype}; analytic {cfg.param_count()}), activations "
         f"{cfg.dtype}; random init on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes after it")
     return cfg, params
 
 
@@ -3731,37 +3803,52 @@ def phase_serve(torch, cfg, params, tag):
     return after
 
 
-def phase_serve_consistency(torch, cfg, params, tag):
-    """float32, batch 1: decode_step at the prompt's end against the last
-    logits of a prefill one token longer (tests/test_serving.py's 2e-3),
-    on the same frames or patches; an MoE arch at capacity
-    CONSISTENCY_CAPACITY, where no token is dropped."""
+def phase_serve_consistency(torch, cfg, params, tag, dtype="float32"):
+    """Batch 1: decode_step at the prompt's end against the last logits of
+    a prefill one token longer, on the same frames or patches; an MoE arch
+    at capacity factor E (each expert's capacity the chunk: no token is
+    dropped; repro's tests/test_serving.py sets 16, Scout's E).  In
+    float32 activations within tests/test_serving.py's 2e-3; in bf16
+    (CONSISTENCY_BF16) the largest |diff| within CONSISTENCY_BF16_TOL of
+    the largest |logit|."""
     import dataclasses
     from repro_torch.serving.decode import decode_step, pad_cache, prefill
     from repro_torch.serving.inputs import synthetic_batch
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg1 = dataclasses.replace(cfg, dtype=dtype)
     if cfg.moe.num_experts:
-        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=CONSISTENCY_CAPACITY))
+        cfg1 = dataclasses.replace(cfg1, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
     S, base = _prompt(cfg)
-    batch = synthetic_batch(cfg32, 1, S + 1,
+    batch = synthetic_batch(cfg1, 1, S + 1,
                             torch.Generator(device=DEV).manual_seed(3), DEV)
     toks = batch["tokens"]
-    want, _ = prefill(params, cfg32, batch)
-    _, cache = prefill(params, cfg32, dict(batch, tokens=toks[:, :S]))
-    cache = pad_cache(cache, cfg32, prompt_len=base, target_len=base + 1)
-    got, _ = decode_step(params, cfg32, toks[:, S:], cache, base)
+    want, _ = prefill(params, cfg1, batch)
+    _, cache = prefill(params, cfg1, dict(batch, tokens=toks[:, :S]))
+    cache = pad_cache(cache, cfg1, prompt_len=base, target_len=base + 1)
+    got, _ = decode_step(params, cfg1, toks[:, S:], cache, base)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    log(f"[{tag}serve-consistency] float32, batch 1"
-        + (f", MoE capacity {CONSISTENCY_CAPACITY}" if cfg.moe.num_experts
-           else "") + f": decode_step "
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    if dtype == "float32":
+        tol = "rtol = atol = 2e-3"
+    else:
+        margin = CONSISTENCY_BF16_TOL * top / err if err else math.inf
+        tol = (f"{CONSISTENCY_BF16_TOL} of max |logit|, "
+               f"{CONSISTENCY_BF16_TOL * top}; read {err / top:.6f} of it, "
+               f"a {margin:.2f}x margin")
+    log(f"[{tag}serve-consistency] {dtype}, params {cfg.param_dtype}, "
+        f"batch 1"
+        + (f", MoE capacity factor {cfg1.moe.capacity_factor}"
+           if cfg.moe.num_experts else "") + f": decode_step "
         f"at position {base} vs prefill of {S + 1} tokens"
         + (f" after {base - S} patches" if base > S else "")
-        + f": max_abs_diff {err} "
-        f"(max |logit| {float(want.abs().max())}; tolerance rtol = atol = "
-        f"2e-3)")
-    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+        + f": max_abs_diff {err} (max |logit| {top}; tolerance {tol}); "
+        f"argmax equal: {bool(torch.equal(got.argmax(-1), want.argmax(-1)))}")
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    elif not err <= CONSISTENCY_BF16_TOL * top:
+        raise AssertionError(f"[{tag}serve-consistency] bf16: max_abs_diff "
+                             f"{err} > {CONSISTENCY_BF16_TOL} x {top}")
 
 
 def phase_serve_profile(torch, cfg, params, tag):
@@ -3817,19 +3904,28 @@ def phase_serve_profile(torch, cfg, params, tag):
 
 
 def phase_serve_reference(torch, arch, tag):
-    """The reduced config on the card against the same calls on the CPU:
-    a ragged prompt of 100 tokens (past RecurrentGemma's reduced window,
-    so the ring roll runs; after InternVL2's 16 patches; on whisper's 16
-    frames), pad_cache, 3 decode steps, the same params and inputs on
-    both."""
+    """The reduced config on the card against the same calls on the CPU,
+    in float32 params and, where SERVE_PARAM_DTYPE names another, in
+    those too (float32 activations)."""
+    import dataclasses
     from repro_torch.configs.registry import get_arch
+    for param_dtype in dict.fromkeys(("float32",
+                                      SERVE_PARAM_DTYPE.get(arch, "float32"))):
+        _serve_reference(torch, dataclasses.replace(
+            get_arch(arch).reduced(), param_dtype=param_dtype), tag)
+
+
+def _serve_reference(torch, cfg, tag):
+    """A ragged prompt of 100 tokens (past RecurrentGemma's reduced window,
+    so the ring roll runs; after InternVL2's 16 patches; on whisper's 16
+    frames), pad_cache, 3 decode steps, the same params (moved to the card
+    leaf by leaf, bf16 ones too) and inputs on both."""
     from repro_torch.models import params as P
     from repro_torch.models import transformer as T
     from repro_torch.serving.decode import decode_step, pad_cache, prefill
     from repro_torch.serving.inputs import synthetic_batch
-    cfg = get_arch(arch).reduced()
     cpu = T.init_params(torch.Generator().manual_seed(5), cfg, "cpu")
-    gpu = P.from_numpy_tree(P.to_numpy_tree(cpu), DEV)
+    gpu = P.tree_map(lambda x: x.to(DEV), cpu)
     S, steps = 100, 3
     inputs = synthetic_batch(cfg, 2, S + steps,
                              torch.Generator().manual_seed(6), "cpu")
@@ -3857,11 +3953,71 @@ def phase_serve_reference(torch, arch, tag):
     window = ("local" in cfg.layer_pattern) and cfg.attention.sliding_window
     extra = ", ".join(f"{k} {tuple(v.shape)}" for k, v in inputs.items()
                       if k != "tokens")
-    log(f"[{tag}serve-reference] {cfg.name} (float32), prompt {S}"
+    log(f"[{tag}serve-reference] {cfg.name} (float32, params "
+        f"{cfg.param_dtype}), prompt {S}"
         + (f" past the window {window}" if window else "")
         + (f" ({extra})" if extra else "")
         + f", {steps} decode steps: card vs CPU max_abs_diff {worst} over "
         f"the logits and every cache leaf (tolerance rtol = atol = 1e-4)")
+
+
+def phase_bf16_params(torch):
+    """BF16_PARAMS' arch at full width and its depth: float32 params cast
+    to bf16 (``P.cast_tree``) against float32 params that hold the same
+    rounded values, each through a 4 x 4,096 prefill, pad_cache and the
+    decode steps in bf16 activations.  The logits, every cache leaf and
+    the kernels' launches must be equal: bf16 params change nothing but
+    the bytes held."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    from repro_torch.serving.inputs import synthetic_batch
+    arch, depth, steps = BF16_PARAMS
+    cfg = dataclasses.replace(get_arch(arch), num_layers=depth)
+    torch.cuda.reset_peak_memory_stats()
+    p16 = P.cast_tree(T.init_params(
+        torch.Generator(device=DEV).manual_seed(8), cfg, DEV), torch.bfloat16)
+    rounded = P.cast_tree(p16, torch.float32)
+    held = (P.param_bytes(p16), P.param_bytes(rounded))
+    S = SERVE_PROMPT
+    batch = synthetic_batch(cfg, SERVE_BATCH, S + steps,
+                            torch.Generator(device=DEV).manual_seed(9), DEV)
+    toks = batch["tokens"]
+    fa = _counters()["flash_attention"]
+    runs = {}
+    for name, params in (("bfloat16", p16), ("float32", rounded)):
+        c = dataclasses.replace(cfg, param_dtype=name)
+        _reset_launches()
+        logits, cache = prefill(params, c, dict(batch, tokens=toks[:, :S]))
+        seq = [logits]
+        cache = pad_cache(cache, c, S, S + steps)
+        for i in range(steps):
+            logits, cache = decode_step(params, c, toks[:, S + i:S + i + 1],
+                                        cache, S + i)
+            seq.append(logits)
+        torch.cuda.synchronize()
+        runs[name] = (seq + [x for _, x in P.tree_items(cache)],
+                      dict(_launches(), tc=fa.TC_LAUNCHES, ws=fa.WS_LAUNCHES))
+    (a, la), (b, lb) = runs["bfloat16"], runs["float32"]
+    same = [bool(torch.equal(x, y)) for x, y in zip(a, b)]
+    worst = max(float((x.float() - y.float()).abs().max())
+                for x, y in zip(a, b))
+    log(f"[bf16-params] {cfg.name} at full width, {depth} layers: params "
+        f"{held[0]} bytes in bfloat16 beside {held[1]} in float32 holding "
+        f"the same rounded values (max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes); activations "
+        f"{cfg.dtype}, batch {SERVE_BATCH} x prompt {S}, pad_cache, {steps} "
+        f"decode steps on each: {sum(same)} of {len(same)} outputs (logits "
+        f"of each step, every cache leaf) equal under torch.equal, max_abs_"
+        f"diff {worst}; launches bfloat16 {la}, float32 {lb}")
+    if not all(same) or la != lb:
+        raise AssertionError("[bf16-params] bf16 params and their rounded "
+                             "float32 copy differ")
+    if la["flash_attention"] != depth or la["ws"] != depth:
+        raise AssertionError(f"[bf16-params] launched {la}, expected "
+                             f"{depth} warp-specialized attention launches")
 
 
 def visible_pairs(S, causal, window):
@@ -3958,12 +4114,14 @@ def phase_serve_times(torch, launches, errs, arch_launches, parent=None):
     rows.append(_attn_f32_times(torch, launches, errs, gen, parent))
     for arch in DECODERS:
         B, S, H, KVH, D, causal, _ = _decoder_attn(arch)
-        rows.append(_attn_times(torch, arch, arch,
+        rows.append(_attn_times(torch, arch,
                                 (B, S, S, H, KVH, D, causal),
                                 arch_launches[arch], errs, gen, parent))
-    for label, arch, shape in _zoo_attn():
-        rows.append(_attn_times(torch, label, arch, shape,
-                                arch_launches[arch], errs, gen, parent))
+    for label, archs, shape in _zoo_attn():
+        rows.append(_attn_times(torch, label, shape, {"flash_attention": sum(
+            arch_launches[a]["flash_attention"] for a in archs)}, errs, gen,
+            parent))
+        rows[-1]["archs"] = list(archs)
 
     B, S, W, _ = SCAN_CASES[0]
     a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=DEV))
@@ -4171,7 +4329,7 @@ def _parent_attn_f32(torch, parent, q, k, v, causal, window, with_lse):
     return (out, lse) if with_lse else out
 
 
-def _attn_times(torch, label, arch, shape, launches, errs, gen, parent=None):
+def _attn_times(torch, label, shape, launches, errs, gen, parent=None):
     """The tensor-core attention at a served prefill's shape (B, Sq, Sk, H,
     KVH, D, causal; no window) beside SDPA (``enable_gqa``; ``is_causal``
     where causal, no mask where bidirectional), the plain version and the
@@ -5903,6 +6061,11 @@ def phase_train_times(torch, launches, errs, wkv_split, parent=None):
     return rows
 
 
+# every phase is timed for the [clock] line
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = _clocked(globals()[_name])
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5996,19 +6159,23 @@ def main() -> int:
     serve_launches = dict.fromkeys(SERVE_KERNELS, 0)
     arch_launches = {}
     for arch, tag in SERVE_ARCHS:
-        cfg, params = _full_params(torch, arch, tag)
-        arch_launches[arch] = phase_serve(torch, cfg, params, tag)
-        for kernel, count in arch_launches[arch].items():
-            serve_launches[kernel] += count
-        before = fa.LAUNCHES - fa.TC_LAUNCHES
-        phase_serve_consistency(torch, cfg, params, tag)
-        f32_launches += fa.LAUNCHES - fa.TC_LAUNCHES - before
-        phase_serve_profile(torch, cfg, params, tag)
-        del params      # the next arch's params need the room
-        torch.cuda.empty_cache()
-        phase_serve_reference(torch, arch, tag)
-    for arch, tag in REFERENCE_ONLY:
-        phase_serve_reference(torch, arch, tag)
+        with _clock(f"{tag}serve*"):
+            cfg, params = _full_params(torch, arch, tag)
+            arch_launches[arch] = phase_serve(torch, cfg, params, tag)
+            for kernel, count in arch_launches[arch].items():
+                serve_launches[kernel] += count
+            if cfg.param_dtype == "float32":
+                before = fa.LAUNCHES - fa.TC_LAUNCHES
+                phase_serve_consistency(torch, cfg, params, tag)
+                f32_launches += fa.LAUNCHES - fa.TC_LAUNCHES - before
+            if arch in CONSISTENCY_BF16:
+                phase_serve_consistency(torch, cfg, params, tag, "bfloat16")
+            phase_serve_profile(torch, cfg, params, tag)
+            del params      # the next arch's params need the room
+            torch.cuda.empty_cache()
+            phase_serve_reference(torch, arch, tag)
+    phase_bf16_params(torch)
+    torch.cuda.empty_cache()
     serve_launches["rglru_scan"] += (
         seq["rglru_scan"] + exp["rglru_scan"] + seq_bank["rglru_scan"]
         + seq_serve["launches"]["rglru_scan"] + aot["rglru_scan"]
@@ -6049,6 +6216,7 @@ def main() -> int:
     kernels += phase_train_times(torch, train_launches, train_errs,
                                  wkv_split, parent)
     phase_dryrun(torch)
+    log_clock(time.perf_counter() - t_start)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

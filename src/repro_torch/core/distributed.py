@@ -355,6 +355,17 @@ def _unpack(buf: torch.Tensor, g_like: torch.Tensor, count: int
     return (g,) + tuple(head[i] for i in range(count))
 
 
+def _float32_params_only(mcfg: ModelConfig) -> None:
+    """The steps train float32 params: a config whose ``param_dtype`` is
+    another raises, rather than train float32 params it did not ask for
+    or feed bf16 leaves to a float32 optimizer."""
+    if mcfg.param_dtype != "float32":
+        raise ValueError(
+            f"training at param_dtype={mcfg.param_dtype!r} is not ported: "
+            f"the train steps take float32 params only (serving takes "
+            f"any param_dtype)")
+
+
 # ---------------------------------------------------------------------------
 # Weighted all-reduce schedule (optimised)
 # ---------------------------------------------------------------------------
@@ -384,6 +395,7 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
     aux.  That costs one forward more a step, and keeps the activations
     held at one block's, as ``microbatches`` promises.  A dense config,
     or one rank, skips it: there a block's own aux is the global one."""
+    _float32_params_only(mcfg)
     topo = global_topology(mesh, tolfl)
     G = topo.num_devices
     weights = _weights_fn(topo, mesh.device)
@@ -508,6 +520,7 @@ def make_ring_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
                          state_dtype: Optional[str] = None) -> Callable:
     """``step(state, batch, alive) -> (state, {"loss", "n_effective"})``,
     ``batch`` this rank's rows: Algorithm 1 with this rank as one group."""
+    _float32_params_only(mcfg)
     sizes = mesh_axis_sizes(mesh)
     d_sz = sizes.get("data", 1)
     p_sz = sizes.get("pod", 1)

@@ -55,16 +55,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 # Projections
 # ---------------------------------------------------------------------------
 def attn_init(generator: torch.Generator, d_model: int, cfg: AttentionConfig,
-              device: DeviceLike = None, lead: Tuple[int, ...] = ()
-              ) -> P.Params:
+              device: DeviceLike = None, lead: Tuple[int, ...] = (),
+              dtype: torch.dtype = torch.float32) -> P.Params:
+    """The projections in ``dtype``; Qwen3's qk-norm scales stay float32,
+    as ``repro`` builds them (``jnp.ones`` with no dtype)."""
     q_dim = cfg.num_heads * cfg.head_dim
     kv_dim = cfg.num_kv_heads * cfg.head_dim
-    kw = dict(bias=cfg.qkv_bias, device=device, lead=lead)
+    kw = dict(bias=cfg.qkv_bias, device=device, lead=lead, dtype=dtype)
     return {"q": P.dense_init(generator, d_model, q_dim, **kw),
             "k": P.dense_init(generator, d_model, kv_dim, **kw),
             "v": P.dense_init(generator, d_model, kv_dim, **kw),
             "o": P.dense_init(generator, q_dim, d_model, device=device,
-                              lead=lead),
+                              lead=lead, dtype=dtype),
             **({"q_norm": P.rmsnorm_init(cfg.head_dim, device, lead),
                 "k_norm": P.rmsnorm_init(cfg.head_dim, device, lead)}
                if cfg.qk_norm else {})}

@@ -1,7 +1,8 @@
 """Dense MLP, optionally gated (GLU).
 
 Port of ``repro.models.mlp``, with its sharding constraints.  Params
-are float32 and are cast to the activation dtype per call.
+are in the config's ``param_dtype`` (float32 by default) and are cast to
+the activation dtype per call.
 """
 from __future__ import annotations
 
@@ -15,15 +16,13 @@ from repro_torch.sharding import logical as L
 
 
 def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, glu: bool,
-             device: DeviceLike = None, lead: Tuple[int, ...] = ()
-             ) -> P.Params:
-    p = {"up": P.dense_init(generator, d_model, d_ff, device=device,
-                            lead=lead)}
+             device: DeviceLike = None, lead: Tuple[int, ...] = (),
+             dtype: torch.dtype = torch.float32) -> P.Params:
+    kw = dict(device=device, lead=lead, dtype=dtype)
+    p = {"up": P.dense_init(generator, d_model, d_ff, **kw)}
     if glu:
-        p["gate"] = P.dense_init(generator, d_model, d_ff, device=device,
-                                 lead=lead)
-    p["down"] = P.dense_init(generator, d_ff, d_model, device=device,
-                             lead=lead)
+        p["gate"] = P.dense_init(generator, d_model, d_ff, **kw)
+    p["down"] = P.dense_init(generator, d_ff, d_model, **kw)
     return p
 
 

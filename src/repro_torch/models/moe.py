@@ -13,8 +13,10 @@ returned beside the output.
 One-hot tensors are built by comparison with an ``arange``, never with
 ``F.one_hot``: an index past the capacity must give a zero row (as
 ``jax.nn.one_hot`` gives), and ``F.one_hot`` on CUDA checks its input on
-the host.  Expert weights are float32 and cast to the activation dtype
-once a call.
+the host.  Expert weights are in the config's ``param_dtype`` and cast
+to the activation dtype once a call: a copy of every expert (8.81 GB a
+layer for Scout in float32) unless the two dtypes agree, when the cast
+is the weight itself.
 """
 from __future__ import annotations
 
@@ -31,16 +33,19 @@ from repro_torch.sharding import logical as L
 
 def moe_init(generator: torch.Generator, d_model: int, d_ff: int,
              cfg: MoEConfig, glu: bool, device: DeviceLike = None,
-             lead: Tuple[int, ...] = ()) -> P.Params:
+             lead: Tuple[int, ...] = (),
+             dtype: torch.dtype = torch.float32) -> P.Params:
     """``router`` (d, E) at stddev 0.02, ``experts`` (an MLP's params with
     a leading E dim after ``lead``) and ``shared`` where the config has a
-    shared expert."""
+    shared expert, all in ``dtype``."""
     p = {"router": P.dense_init(generator, d_model, cfg.num_experts,
-                                device=device, scale=0.02, lead=lead),
+                                device=device, scale=0.02, lead=lead,
+                                dtype=dtype),
          "experts": mlp_init(generator, d_model, d_ff, glu, device,
-                             lead=(*lead, cfg.num_experts))}
+                             lead=(*lead, cfg.num_experts), dtype=dtype)}
     if cfg.shared_expert:
-        p["shared"] = mlp_init(generator, d_model, d_ff, glu, device, lead)
+        p["shared"] = mlp_init(generator, d_model, d_ff, glu, device, lead,
+                               dtype)
     return p
 
 
@@ -162,8 +167,9 @@ def moe_apply(p: P.Params, x: torch.Tensor, cfg: MoEConfig, act: str,
     B, S, d = x.shape
     chunk = divisor_block(S, chunk)
     C = _capacity(chunk, cfg)
-    # cast once a call; a DTensor expert weight is gathered here, once,
-    # to the experts-only layout every chunk's products use
+    # cast once a call (no copy where the params are in x's dtype); a
+    # DTensor expert weight is gathered here, once, to the experts-only
+    # layout every chunk's products use
     experts = P.tree_map_with_path(
         lambda _, w: L.keep_shard(w.to(x.dtype), 0), p["experts"])
     outs, lbs, zs, rows = [], [], [], []

@@ -37,41 +37,72 @@ DenseFn = Callable[..., torch.Tensor]
 
 
 def normal_init(generator: torch.Generator, shape: Tuple[int, ...],
-                stddev: float, device: DeviceLike = None) -> torch.Tensor:
-    """N(0, stddev^2) float32 of ``shape``, drawn on ``generator``'s device
-    and then moved to ``device``, so a seed gives the same numbers on
-    every target device.  On ``meta`` nothing is drawn (``generator`` may
-    be None)."""
+                stddev: float, device: DeviceLike = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, stddev^2) of ``shape`` in ``dtype``, drawn in float32 on
+    ``generator``'s device and then moved to ``device``, so a seed gives
+    the same numbers on every target device.  Another ``dtype`` is drawn
+    block by block (:func:`_blocked`).  On ``meta`` nothing is drawn
+    (``generator`` may be None)."""
     if resolve_device(device).type == "meta":
-        return torch.empty(shape, device="meta")
+        return torch.empty(shape, dtype=dtype, device="meta")
+    if dtype != torch.float32:
+        return _blocked(generator, shape, lambda x: x.mul_(stddev), dtype,
+                        device)
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) * stddev
     return x.to(resolve_device(device))
 
 
+def _blocked(generator: torch.Generator, shape: Tuple[int, ...],
+             scale: Callable[[torch.Tensor], torch.Tensor],
+             dtype: torch.dtype, device: DeviceLike) -> torch.Tensor:
+    """A ``dtype`` tensor of ``shape`` on ``device``, allocated up front and
+    filled one block at a time: each block (the last two dims: one
+    layer's, or one expert's, (in, out) matrix; a leaf of two dims or
+    fewer is one block) drawn in float32 on ``generator``'s device,
+    ``scale``d there and cast into place.  The float32 transient is one
+    block, not the leaf (21.5 GB for Maverick's stacked experts)."""
+    out = torch.empty(shape, dtype=dtype, device=resolve_device(device))
+    blocks = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+    for block in blocks:
+        block.copy_(scale(torch.randn(block.shape, generator=generator,
+                                      dtype=torch.float32,
+                                      device=generator.device)))
+    return out
+
+
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
                bias: bool = False, device: DeviceLike = None,
-               scale: Optional[float] = None, lead: Tuple[int, ...] = ()
-               ) -> Params:
+               scale: Optional[float] = None, lead: Tuple[int, ...] = (),
+               dtype: torch.dtype = torch.float32) -> Params:
     """Kernel (in, out) ~ N(0, stddev^2) with fan-in stddev
-    ``1/sqrt(in_dim)`` unless ``scale`` is given; zero bias.  ``lead``
-    prepends stacked dims (the zoo's ``layers`` axis): each (in, out)
-    slice is one layer's draw.  Drawn on ``generator``'s device (the CPU
-    by default) and then moved, so a seed gives the same weights on every
-    device."""
+    ``1/sqrt(in_dim)`` unless ``scale`` is given; zero bias; both in
+    ``dtype``.  ``lead`` prepends stacked dims (the zoo's ``layers`` axis):
+    each (in, out) slice is one layer's draw.  Drawn in float32 on
+    ``generator``'s device (the CPU by default) and then moved, so a seed
+    gives the same weights on every device; another ``dtype`` block by
+    block (:func:`_blocked`)."""
     shape = (*lead, in_dim, out_dim)
     if resolve_device(device).type == "meta":
-        p = {"w": torch.empty(shape, device="meta")}
+        p = {"w": torch.empty(shape, dtype=dtype, device="meta")}
         if bias:
-            p["b"] = torch.empty((*lead, out_dim), device="meta")
+            p["b"] = torch.empty((*lead, out_dim), dtype=dtype,
+                                 device="meta")
         return p
-    w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    # in place: a stacked leaf (10.7 GB for Scout's experts) is held once
-    w = w.mul_(scale) if scale is not None else w.div_(math.sqrt(in_dim))
-    p = {"w": w.to(resolve_device(device))}
+
+    def scaled(w):
+        # in place: a stacked leaf (10.7 GB for Scout's experts) is held once
+        return w.mul_(scale) if scale is not None else w.div_(
+            math.sqrt(in_dim))
+    if dtype == torch.float32:
+        w = scaled(torch.randn(shape, generator=generator,
+                               dtype=torch.float32, device=generator.device))
+        p = {"w": w.to(resolve_device(device))}
+    else:
+        p = {"w": _blocked(generator, shape, scaled, dtype, device)}
     if bias:
-        p["b"] = torch.zeros((*lead, out_dim), dtype=torch.float32,
+        p["b"] = torch.zeros((*lead, out_dim), dtype=dtype,
                              device=p["w"].device)
     return p
 
@@ -81,8 +112,9 @@ def dense_apply(p: Params, x: torch.Tensor,
     """``x @ w + b``.  With a leading device axis on the params
     (``w`` (N, in, out), ``b`` (N, out)) this is a batched product, and
     ``x`` may be (N, B, in) or a shared (B, in).  ``compute_dtype`` casts
-    ``w`` and ``b`` for this call only (the zoo keeps float32 params and
-    computes in its activation dtype)."""
+    ``w`` and ``b`` for this call only (the zoo's params, float32 or
+    ``cfg.param_dtype``, compute in its activation dtype; a cast to the
+    params' own dtype copies nothing)."""
     w = p["w"] if compute_dtype is None else p["w"].to(compute_dtype)
     y = x @ w
     if "b" in p:
@@ -125,13 +157,16 @@ def add_axes(axes: Axes, *names: Optional[str]) -> Axes:
 
 
 def embed_init(generator: torch.Generator, vocab: int, dim: int,
-               device: DeviceLike = None) -> Params:
-    return {"table": normal_init(generator, (vocab, dim), 0.02, device)}
+               device: DeviceLike = None,
+               dtype: torch.dtype = torch.float32) -> Params:
+    return {"table": normal_init(generator, (vocab, dim), 0.02, device,
+                                 dtype)}
 
 
 def rmsnorm_init(dim: int, device: DeviceLike = None,
-                 lead: Tuple[int, ...] = ()) -> Params:
-    return {"scale": torch.ones((*lead, dim), dtype=torch.float32,
+                 lead: Tuple[int, ...] = (),
+                 dtype: torch.dtype = torch.float32) -> Params:
+    return {"scale": torch.ones((*lead, dim), dtype=dtype,
                                 device=resolve_device(device))}
 
 
@@ -253,17 +288,31 @@ def param_bytes(params: Params) -> int:
 
 def from_numpy_tree(tree: Params, device: DeviceLike = None) -> Params:
     """``repro`` params as numpy (``jax.tree.map(np.asarray, params)``) ->
-    the port's tree of tensors on ``device``."""
+    the port's tree of tensors on ``device``, bit for bit.  A bfloat16
+    leaf (``ml_dtypes``' dtype, named "bfloat16"; numpy has none of its
+    own) comes across through a 16-bit integer view of its bits."""
     dev = resolve_device(device)
-    return tree_map_with_path(
-        lambda _, leaf: torch.from_numpy(np.array(leaf, copy=True)).to(dev),
-        tree)
+    return tree_map_with_path(lambda _, leaf: _from_numpy(leaf).to(dev),
+                              tree)
+
+
+def _from_numpy(leaf) -> torch.Tensor:
+    arr = np.array(leaf, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def to_numpy_tree(tree: Params) -> Params:
-    """The port's tree of tensors -> nested dict of numpy arrays."""
-    return tree_map_with_path(lambda _, leaf: leaf.detach().cpu().numpy(),
-                              tree)
+    """The port's tree of tensors -> nested dict of numpy arrays, each in
+    its leaf's dtype; a bfloat16 leaf (numpy has no such dtype) comes back
+    as its exact float32 widening."""
+    def leaf_np(_, leaf):
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.to(torch.float32)
+        return leaf.numpy()
+    return tree_map_with_path(leaf_np, tree)
 
 
 @dataclass(frozen=True)

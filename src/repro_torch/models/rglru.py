@@ -34,26 +34,28 @@ C_EXP = 8.0
 def rglru_init(generator: torch.Generator, cfg: ModelConfig,
                device: DeviceLike = None, lead: Tuple[int, ...] = ()
                ) -> P.Params:
+    """Every leaf in ``cfg.param_dtype`` (``lam`` and ``conv_b`` too, as
+    ``repro``'s)."""
     d = cfg.d_model
     w = cfg.recurrent.lru_width or d
     cw = cfg.recurrent.conv1d_width
     dev = resolve_device(device)
+    dt = getattr(torch, cfg.param_dtype)
     # lambda init so that a = sigmoid(lambda) lies in [0.9, 0.999]
     u = (torch.full((*lead, w), 0.95, device=dev) if dev.type == "meta"
          else torch.rand((*lead, w), generator=generator,
                          dtype=torch.float32, device=generator.device)
          * (0.999 - 0.9) + 0.9)
+    kw = dict(device=dev, lead=lead, dtype=dt)
     return {
-        "in_x": P.dense_init(generator, d, w, device=dev, lead=lead),
-        "in_gate": P.dense_init(generator, d, w, device=dev, lead=lead),
-        "conv_w": P.normal_init(generator, (*lead, cw, w), 0.02, dev),
-        "conv_b": torch.zeros((*lead, w), dtype=torch.float32, device=dev),
-        "gate_a": P.dense_init(generator, w, w, device=dev, scale=0.02,
-                               lead=lead),
-        "gate_x": P.dense_init(generator, w, w, device=dev, scale=0.02,
-                               lead=lead),
-        "lam": torch.log(u / (1 - u)).to(dev),
-        "out": P.dense_init(generator, w, d, device=dev, lead=lead),
+        "in_x": P.dense_init(generator, d, w, **kw),
+        "in_gate": P.dense_init(generator, d, w, **kw),
+        "conv_w": P.normal_init(generator, (*lead, cw, w), 0.02, dev, dt),
+        "conv_b": torch.zeros((*lead, w), dtype=dt, device=dev),
+        "gate_a": P.dense_init(generator, w, w, scale=0.02, **kw),
+        "gate_x": P.dense_init(generator, w, w, scale=0.02, **kw),
+        "lam": torch.log(u / (1 - u)).to(dev, dt),
+        "out": P.dense_init(generator, w, d, **kw),
     }
 
 

@@ -34,21 +34,24 @@ GROUP_NORM_EPS = 1e-5
 def timemix_init(generator: torch.Generator, cfg: ModelConfig,
                  device: DeviceLike = None, lead: Tuple[int, ...] = ()
                  ) -> P.Params:
-    """``repro``'s time-mix params (keys and shapes), float32, each leaf
-    with the stacked dims ``lead`` in front."""
+    """``repro``'s time-mix params (keys and shapes) in
+    ``cfg.param_dtype``, each leaf with the stacked dims ``lead`` in
+    front."""
     d = cfg.d_model
     H, N = cfg.recurrent.num_heads, cfg.recurrent.head_size
     if H * N != d:
         raise ValueError(f"num_heads * head_size = {H} * {N} != d_model {d}")
     dev = resolve_device(device)
+    dt = getattr(torch, cfg.param_dtype)
     nmix = len(MIX_NAMES)
 
     def dense(i, o, scale=None):
         return P.dense_init(generator, i, o, device=dev, scale=scale,
-                            lead=lead)
+                            lead=lead, dtype=dt)
 
     # token-shift base mus: one per mix target + the ddlerp input mix
-    p = {"mu": P.normal_init(generator, (*lead, nmix + 1, d), 0.02, dev),
+    p = {"mu": P.normal_init(generator, (*lead, nmix + 1, d), 0.02, dev,
+                             dt),
          # ddlerp LoRA: (d -> rank -> 5*d)
          "ddlerp_a": dense(d, DDLERP_RANK * nmix, 0.02),
          "ddlerp_b": dense(DDLERP_RANK * nmix, nmix * d, 0.02)}
@@ -56,13 +59,13 @@ def timemix_init(generator: torch.Generator, cfg: ModelConfig,
         p[nm] = dense(d, d)
     p["o"] = dense(d, d)
     # data-dependent decay: w_t = exp(-exp(decay_base + lora(x_w)))
-    p["decay_base"] = P.normal_init(generator, (*lead, d), 0.02, dev)
+    p["decay_base"] = P.normal_init(generator, (*lead, d), 0.02, dev, dt)
     p["decay_a"] = dense(d, DECAY_RANK, 0.02)
     p["decay_b"] = dense(DECAY_RANK, d, 0.02)
-    p["bonus"] = P.normal_init(generator, (*lead, d), 0.02, dev)  # u
+    p["bonus"] = P.normal_init(generator, (*lead, d), 0.02, dev, dt)  # u
     # group-norm over heads on the output
-    p["ln_x"] = {"scale": torch.ones((*lead, d), device=dev),
-                 "bias": torch.zeros((*lead, d), device=dev)}
+    p["ln_x"] = {"scale": torch.ones((*lead, d), dtype=dt, device=dev),
+                 "bias": torch.zeros((*lead, d), dtype=dt, device=dev)}
     return p
 
 
@@ -148,9 +151,12 @@ def channelmix_init(generator: torch.Generator, cfg: ModelConfig,
                     ) -> P.Params:
     d, f = cfg.d_model, cfg.d_ff
     dev = resolve_device(device)
-    return {"mu": P.normal_init(generator, (*lead, 2, d), 0.02, dev),
-            "key": P.dense_init(generator, d, f, device=dev, lead=lead),
-            "value": P.dense_init(generator, f, d, device=dev, lead=lead)}
+    dt = getattr(torch, cfg.param_dtype)
+    return {"mu": P.normal_init(generator, (*lead, 2, d), 0.02, dev, dt),
+            "key": P.dense_init(generator, d, f, device=dev, lead=lead,
+                                dtype=dt),
+            "value": P.dense_init(generator, f, d, device=dev, lead=lead,
+                                  dtype=dt)}
 
 
 def channelmix_axes() -> P.Axes:

@@ -88,28 +88,34 @@ def unit_counts(cfg: ModelConfig) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    """The params' dtype, ``cfg.param_dtype``."""
+    return getattr(torch, cfg.param_dtype)
+
+
 def _layer_init(generator: torch.Generator, cfg: ModelConfig, kind: str,
                 use_moe: bool, device: DeviceLike,
                 lead: Tuple[int, ...] = ()) -> P.Params:
-    p = {"norm1": P.rmsnorm_init(cfg.d_model, device, lead),
-         "norm2": P.rmsnorm_init(cfg.d_model, device, lead)}
+    dt = _dtype(cfg)
+    p = {"norm1": P.rmsnorm_init(cfg.d_model, device, lead, dt),
+         "norm2": P.rmsnorm_init(cfg.d_model, device, lead, dt)}
     if kind == RWKV:        # time mix, and the channel mix as its MLP
         p["mix"] = R.timemix_init(generator, cfg, device, lead)
         p["mlp"] = R.channelmix_init(generator, cfg, device, lead)
         return p
     if kind in (ATTN, LOCAL_ATTN):
         p["mix"] = A.attn_init(generator, cfg.d_model, cfg.attention, device,
-                               lead)
+                               lead, dt)
     elif kind == RECURRENT:
         p["mix"] = G.rglru_init(generator, cfg, device, lead)
     else:
         raise ValueError(kind)
     if use_moe:
         p["mlp"] = moe_init(generator, cfg.d_model, cfg.d_ff, cfg.moe,
-                            cfg.glu, device, lead)
+                            cfg.glu, device, lead, dt)
     else:
         p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.glu,
-                            device, lead)
+                            device, lead, dt)
     return p
 
 
@@ -123,54 +129,62 @@ def _encoder_layer_init(generator: torch.Generator, cfg: ModelConfig,
                         device: DeviceLike, lead: Tuple[int, ...] = ()
                         ) -> P.Params:
     """Whisper encoder layer: bidirectional self-attention + MLP."""
-    return {"norm1": P.rmsnorm_init(cfg.d_model, device, lead),
-            "norm2": P.rmsnorm_init(cfg.d_model, device, lead),
+    dt = _dtype(cfg)
+    return {"norm1": P.rmsnorm_init(cfg.d_model, device, lead, dt),
+            "norm2": P.rmsnorm_init(cfg.d_model, device, lead, dt),
             "attn": A.attn_init(generator, cfg.d_model, cfg.attention,
-                                device, lead),
+                                device, lead, dt),
             "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.glu,
-                            device, lead)}
+                            device, lead, dt)}
 
 
 def _cross_layer_init(generator: torch.Generator, cfg: ModelConfig,
                       device: DeviceLike, lead: Tuple[int, ...] = ()
                       ) -> P.Params:
     """A decoder layer's cross-attention: its pre-norm and projections."""
-    return {"norm": P.rmsnorm_init(cfg.d_model, device, lead),
+    dt = _dtype(cfg)
+    return {"norm": P.rmsnorm_init(cfg.d_model, device, lead, dt),
             "attn": A.attn_init(generator, cfg.d_model, cfg.attention,
-                                device, lead)}
+                                device, lead, dt)}
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device: DeviceLike = None) -> P.Params:
-    """Random float32 params with ``repro``'s tree: ``embed``, ``units``
-    (each leaf stacked over the units; an MoE layer's experts over a
-    second, ``experts`` dim), ``tail`` (the layers that do not fill a
-    unit), ``final_norm``, ``head`` when untied, and for an
+    """Random params with ``repro``'s tree, in ``cfg.param_dtype`` where
+    ``repro`` puts it (every leaf but Qwen3's float32 qk-norm scales):
+    ``embed``, ``units`` (each leaf stacked over the units; an MoE layer's
+    experts over a second, ``experts`` dim), ``tail`` (the layers that do
+    not fill a unit), ``final_norm``, ``head`` when untied, and for an
     encoder-decoder ``encoder`` (``layers`` stacked over the encoder
     layers, ``norm``) and ``cross`` (``layers`` stacked over the decoder
     layers).  Every leaf is drawn straight into its stacked shape, so the
-    params are never held twice (37.6 GB for RecurrentGemma-9B).  Drawn
-    on ``generator``'s device: a generator on the card keeps the init on
-    the card."""
+    params are never held twice (37.6 GB for RecurrentGemma-9B in
+    float32); a leaf of another dtype is drawn in float32 one (in, out)
+    block at a time and cast into place (37.1 GB of bfloat16 for
+    Maverick at depth 2, its float32 transient one block).  Drawn on
+    ``generator``'s device: a generator on the card keeps the init on the
+    card."""
     dev = resolve_device(device)
+    dt = _dtype(cfg)
     n_units, n_tail = unit_counts(cfg)
     unit = unit_pattern(cfg)
     p: Dict[str, Any] = {
-        "embed": P.embed_init(generator, padded_vocab(cfg), cfg.d_model, dev),
+        "embed": P.embed_init(generator, padded_vocab(cfg), cfg.d_model, dev,
+                              dt),
         "units": _unit_init(generator, cfg, dev, lead=(n_units,)),
     }
     if n_tail:
         p["tail"] = {f"l{i}": _layer_init(generator, cfg, *unit[i], dev)
                      for i in range(n_tail)}
-    p["final_norm"] = P.rmsnorm_init(cfg.d_model, dev)
+    p["final_norm"] = P.rmsnorm_init(cfg.d_model, dev, dtype=dt)
     if not cfg.tie_embeddings:
         p["head"] = P.dense_init(generator, cfg.d_model, padded_vocab(cfg),
-                                 device=dev)
+                                 device=dev, dtype=dt)
     if cfg.is_encdec:
         p["encoder"] = {
             "layers": _encoder_layer_init(generator, cfg, dev,
                                           lead=(cfg.num_encoder_layers,)),
-            "norm": P.rmsnorm_init(cfg.d_model, dev)}
+            "norm": P.rmsnorm_init(cfg.d_model, dev, dtype=dt)}
         p["cross"] = {"layers": _cross_layer_init(
             generator, cfg, dev, lead=(cfg.num_layers,))}
     return p

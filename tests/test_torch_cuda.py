@@ -1363,6 +1363,90 @@ def test_moe_apply_on_card_matches_cpu(cuda_device, S, chunk):
 
 
 # ---------------------------------------------------------------------------
+# bf16 params (ModelConfig.param_dtype) on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "qwen3-8b"])
+def test_bf16_params_equal_rounded_float32_on_card(cuda_device, arch, dtype):
+    """A reduced MoE and a reduced dense decoder (qk-norm) with bf16 params
+    against float32 params that hold the same rounded values, in float32
+    activations (the split-TF32 attention) and bf16 (the tensor cores):
+    prefill, pad_cache and three decode steps give equal logits and cache
+    leaves under torch.equal, and the same attention launches."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.decode import decode_step, pad_cache, prefill
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), param_dtype="bfloat16",
+                              dtype=dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    p16 = T.init_params(g, cfg, cuda_device)
+    assert {x.dtype for _, x in P.tree_items(p16)} <= {torch.bfloat16,
+                                                       torch.float32}
+    rounded = P.cast_tree(p16, torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 99), generator=g,
+                         device=cuda_device)
+    runs = []
+    for params in (p16, rounded):
+        fa.LAUNCHES = fa.TC_LAUNCHES = 0
+        logits, cache = prefill(params, cfg, {"tokens": toks[:, :96]})
+        out = [logits]
+        cache = pad_cache(cache, cfg, 96, 99)
+        for t in (96, 97, 98):
+            logits, cache = decode_step(params, cfg, toks[:, t:t + 1], cache,
+                                        t)
+            out.append(logits)
+        torch.cuda.synchronize()
+        runs.append((out + [x for _, x in P.tree_items(cache)],
+                     (fa.LAUNCHES, fa.TC_LAUNCHES)))
+    (a, la), (b, lb) = runs
+    assert la == lb and la[0] == cfg.num_layers
+    assert la[1] == (cfg.num_layers if dtype == "bfloat16" else 0)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_weight_bridge_onto_card(cuda_device):
+    """The weight bridge on a bf16 tree: ``to_numpy_tree`` widens each bf16
+    leaf exactly to float32 and ``from_numpy_tree`` puts it on the card,
+    where the cast back gives the same bits; a tree of numpy bf16 leaves
+    (``repro``'s, through ``ml_dtypes`` where it is installed) lands on
+    the card as bf16, bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(ARCHS["llama4-maverick-400b-a17b"].reduced(),
+                              param_dtype="bfloat16")
+    p = T.init_params(torch.Generator(device=cuda_device).manual_seed(5), cfg,
+                      cuda_device)
+    wide = P.to_numpy_tree(p)
+    back = dict(P.tree_items(P.from_numpy_tree(wide, cuda_device)))
+    for path, x in P.tree_items(p):
+        y = back[path]
+        assert y.is_cuda and y.dtype == torch.float32, path
+        assert torch.equal(y.to(x.dtype), x), path
+    try:
+        import ml_dtypes
+    except ImportError:
+        return
+    bits = P.tree_map_with_path(
+        lambda _, x: np.asarray(x).astype(ml_dtypes.bfloat16), wide)
+    got = dict(P.tree_items(P.from_numpy_tree(bits, cuda_device)))
+    for path, x in P.tree_items(p):
+        assert got[path].is_cuda and torch.equal(got[path], x), path
+
+
+# ---------------------------------------------------------------------------
 # Training: the backward kernels and the train step on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
