@@ -158,10 +158,16 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    tokens, the loss falling and every kernel's launches as the config
    says (forward twice a step under remat, backward once, on the tensor
    cores), then a server
-   failure at step 5 ([train]); two steps of RWKV6-7B cut to 2 layers and
-   RecurrentGemma-9B cut to one unit at full width, its local attention's
-   backward on the tensor cores at D = 256, the second step timed warm
-   ([train-families]);
+   failure at step 5 ([train]); the same at bf16 params, its step-1 loss
+   bit for bit that of float32 params holding the same values, a step
+   under the failure exactly Adam's update of zeros in bf16 and one step
+   under the sync debug mode ([train-bf16], [train-bf16-no-sync]); two
+   steps of RWKV6-7B cut to 2 layers and RecurrentGemma-9B cut to one
+   unit at full width, its local attention's backward on the tensor
+   cores at D = 256, the second step timed warm ([train-families]); two
+   steps of Qwen3-8B at published width, cut to 8 of 36 layers, at bf16
+   params with Adam, every layer's attention and MLP moved
+   ([train-bf16-8b]);
    two steps under the sync debug mode ([train-no-sync]); one step, and
    the WKV backward's two kernels at RWKV6-7B's shape, under
    torch.profiler ([train-profile]); every arch's reduced config card vs
@@ -187,8 +193,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    point, at [train]'s heads in float32, beside SDPA on float32 inputs; the
    backward kernels at their training shapes
    beside the plain backwards and SDPA's backward: the tensor-core
-   attention backward at [train]'s and internlm2's head shapes and at
-   RecurrentGemma's local attention (D = 256), with the serving forward
+   attention backward at [train]'s and internlm2's head shapes, at
+   RecurrentGemma's local attention (D = 256) and at Qwen3-8B's
+   (1, 2,048, 32, 8, 128), with the serving forward
    beside the lse entry point, the split-TF32
    backward on float32 inputs at RecurrentGemma's and [train]'s shapes
    beside SDPA's float32 backward (its kernels named under
@@ -4994,6 +5001,8 @@ def phase_train(torch):
         raise AssertionError(f"[train] losses {losses}")
     ms = statistics.median(out["step_s"][1:]) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    TRAIN_READINGS.update(ms=ms, peak=torch.cuda.max_memory_allocated() / 1e9,
+                          losses=losses)
     log(f"[train] {cfg.name} {cfg.num_layers} layers d {cfg.d_model}, "
         f"{P.param_count(out['state']['params'])} params, batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps in {wall:.2f} s "
@@ -5044,6 +5053,243 @@ def phase_train(torch):
     del fail, state, new, want, upd, zeros
     torch.cuda.empty_cache()
     return launches
+
+
+#: [train]'s ms/step, peak memory (GB) and losses, which [train-bf16]
+#: prints beside its own
+TRAIN_READINGS = {}
+#: [train-bf16-8b]: Qwen3-8B at published width, its 36 layers cut to 8,
+#: bf16 params, 1 x 2,048 tokens, two ring steps of Adam
+TRAIN_8B = ("qwen3-8b", 8, 1, 2048)
+
+
+def _zero_grad_step(torch, step_fn, ocfg, state, batch, alive):
+    """One step under a failure (n_eff 0) against ``ocfg``'s update of
+    zero gradients of the params' dtypes: (same bit for bit, metrics,
+    new state)."""
+    from repro_torch.models import params as P
+    from repro_torch.optim.optimizers import apply_updates, make_optimizer
+    zeros = P.tree_zeros_like(state["params"])
+    upd, _ = make_optimizer(ocfg).update(zeros, state["opt"],
+                                         state["params"])
+    want = apply_updates(state["params"], upd)
+    new, metrics = step_fn(state, batch, alive)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(P.tree_items(new["params"]), P.tree_items(want)))
+    return same, metrics, new
+
+
+def phase_train_bf16(torch):
+    """[train-bf16]: [train]'s configuration (qwen1.5-0.5b at full width
+    and depth, Adam, 10 ring steps of 8 x 1,024 tokens on a world of one
+    rank through launch/train's loop) at ``param_dtype="bfloat16"``, set
+    on the config (there is no flag, as in repro).  The loss must be
+    finite and lower at step 10 than at step 1, the kernels' launches the
+    config's count, and the step-1 loss bit for bit that of a step with
+    float32 params holding the same bf16-rounded values.  Then the
+    failure run: n_eff 0 from step 5, and a step under the failure applies
+    exactly Adam's update of zero gradients in bf16; and
+    [train-bf16-no-sync]: one more step under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Prints ms/step, tokens/s,
+    peak memory and the step-10 loss beside [train]'s.  Returns each
+    kernel's launches over the 10-step run."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import distributed as D
+    from repro_torch.core.failure import (NO_FAILURE, FailureSpec,
+                                          alive_mask)
+    from repro_torch.core.topology import Topology
+    from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.launch import train
+    from repro_torch.models import params as P
+    f32_cfg = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(f32_cfg, param_dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_launches()
+    t0 = time.perf_counter()
+    out = train.run(_train_args(), log=lambda m: log(f"[train-bf16] {m}"),
+                    cfg=cfg)
+    wall = time.perf_counter() - t0
+    launches = _train_launches()
+    _check_launches("train-bf16", launches,
+                    _expected_train_launches(cfg, TRAIN_STEPS))
+    losses = out["losses"]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"[train-bf16] losses {losses}")
+    dtypes = sorted({str(x.dtype) for t in (out["state"]["params"],
+                                            out["state"]["opt"].mu,
+                                            out["state"]["opt"].nu)
+                     for _, x in P.tree_items(t)})
+    if dtypes != ["torch.bfloat16"]:
+        raise AssertionError(f"[train-bf16] state dtypes {dtypes}")
+    ms = statistics.median(out["step_s"][1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ref = TRAIN_READINGS
+    log(f"[train-bf16] {cfg.name} at bf16 params, {cfg.num_layers} layers d "
+        f"{cfg.d_model}, {P.param_count(out['state']['params'])} params "
+        f"({P.param_bytes(out['state']['params']) / 1e9:.3f} GB), params "
+        f"and Adam moments {dtypes}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s (init included): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ([train] float32 params: "
+        f"{ref['losses'][0]:.4f} -> {ref['losses'][-1]:.4f}); {ms:.2f} "
+        f"ms/step ([train] {ref['ms']:.2f}), {tokens / ms * 1e3:.0f} "
+        f"tokens/s ([train] {tokens / ref['ms'] * 1e3:.0f}); peak memory "
+        f"{peak:.2f} GB ([train] {ref['peak']:.2f} GB); clocks.sm, "
+        f"power.draw, temperature after: {_clocks()}")
+    del out
+    torch.cuda.empty_cache()
+
+    # step 1 with float32 params holding the same bf16-rounded values
+    mesh = train.make_host_mesh(data=1, model=1, device=DEV)
+    args = _train_args()
+    tolfl = train.TolFLConfig(num_clusters=1, schedule="tolfl_ring")
+    ocfg = train.OptimizerConfig(lr=args.lr, warmup_steps=5,
+                                 total_steps=args.steps)
+    batch = shard_batch(next(TokenPipeline(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed,
+        num_groups=1).batches(1)), mesh)
+    alive = alive_mask(NO_FAILURE, Topology(1, 1), 0, device=DEV)
+    params = P.cast_tree(D.init_state(
+        torch.Generator(device=DEV).manual_seed(args.seed), cfg,
+        ocfg)["params"], torch.float32)
+    f32_state = {"params": params, "opt": D.make_optimizer(ocfg).init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=DEV)}
+    _, metrics = D.make_train_step(f32_cfg, tolfl, ocfg, mesh)(
+        f32_state, batch, alive)
+    f32_loss = float(metrics["loss"])
+    log(f"[train-bf16] step 1 with float32 params holding the bf16 params' "
+        f"values: loss {f32_loss!r}, bf16 params {losses[0]!r}: bit for "
+        f"bit {f32_loss == losses[0]}")
+    if f32_loss != losses[0]:
+        raise AssertionError("[train-bf16] bf16 params and their float32 "
+                             "values give other step-1 losses")
+    del f32_state, params, metrics
+    torch.cuda.empty_cache()
+
+    # the failure run, a step under the failure, then one under the sync
+    # debug mode
+    fail = train.run(_train_args("--fail-epoch", "5", "--fail-kind",
+                                 "server"), log=lambda m: None, cfg=cfg)
+    n_eff = fail["n_eff"]
+    if not (all(n > 0 for n in n_eff[:5]) and all(n == 0 for n in n_eff[5:])
+            and all(map(math.isfinite, fail["losses"]))):
+        raise AssertionError(f"[train-bf16] failure run n_eff {n_eff}, "
+                             f"losses {fail['losses']}")
+    step_fn = D.make_train_step(cfg, tolfl, ocfg, fail["mesh"])
+    alive = alive_mask(FailureSpec(epoch=5, kind="server"), Topology(1, 1),
+                       TRAIN_STEPS, device=DEV)
+    zero = {k: torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64,
+                           device=DEV) for k in ("tokens", "labels")}
+    same, metrics, state = _zero_grad_step(torch, step_fn, ocfg,
+                                           fail["state"], zero, alive)
+    log(f"[train-bf16] --fail-epoch 5 --fail-kind server: losses "
+        f"{[round(x, 4) for x in fail['losses']]}, n_eff {n_eff}; a step "
+        f"under the failure: n_effective {float(metrics['n_effective'])}, "
+        f"bf16 params equal to Adam's update of zero gradients bit for bit: "
+        f"{same}")
+    if not (same and float(metrics["n_effective"]) == 0.0):
+        raise AssertionError("[train-bf16] a step under the failure applied "
+                             "a gradient")
+    del fail
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step_fn(state, batch, torch.ones((1,), device=DEV))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[train-bf16-no-sync] 1 step of {cfg.name} at bf16 params under "
+        f"the sync debug mode 'error': no synchronising call; loss "
+        f"{float(metrics['loss']):.4f}")
+    del state, metrics
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_bf16_8b(torch):
+    """[train-bf16-8b]: Qwen3-8B at published width (d 4,096, 32 heads and
+    8 kv heads of 128, d_ff 12,288, untied 151,936-word embedding and
+    head), its depth cut from 36 to ``TRAIN_8B``'s, at bf16 params (a
+    mixed tree: the qk-norm scales stay float32), Adam as repro's (the
+    moments in each leaf's dtype), two ring steps of 1 x 2,048 tokens: the
+    first with its warm-up, the second timed warm.  Gates: both losses
+    finite, every param finite, every layer's attention and MLP leaves
+    moved, launches as expected after each step.  Prints the memory held
+    before each step and its peak.  Returns the launches of both steps."""
+    import dataclasses
+    from repro_torch.configs.base import OptimizerConfig, TolFLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import distributed as D
+    from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    arch, layers, B, S = TRAIN_8B
+    cfg = dataclasses.replace(_family_cfg(arch, layers),
+                              param_dtype="bfloat16")
+    mesh = make_host_mesh(data=1, model=1, device=DEV)
+    # lr 1e-4: Adam's first update is ~lr an element, past half a bf16 ulp
+    # of a weight of the init's scale (|w| < 2^-5); at 1e-3 the second
+    # step's loss rose 12.39 -> 19.62 on the same batch (a trial)
+    ocfg = OptimizerConfig(lr=1e-4, schedule="constant", warmup_steps=0)
+    step_fn = D.make_train_step(
+        cfg, TolFLConfig(num_clusters=1, schedule="tolfl_ring"), ocfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    state = D.init_state(torch.Generator(device=DEV).manual_seed(5), cfg,
+                         ocfg)
+    kinds = sorted({str(x.dtype) for _, x in P.tree_items(state["params"])})
+    before = {p: x.clone() for p, x in P.tree_items(state["params"])
+              if p[0] == "units" and p[2] in ("mix", "mlp")}
+    copies = sum(x.numel() * x.element_size() for x in before.values()) / 1e9
+    batch = shard_batch(next(TokenPipeline(cfg.vocab_size, S, B).batches(1)),
+                        mesh)
+    alive = torch.ones((1,), device=DEV)
+    _reset_train_launches()
+    walls, peaks, held, losses = [], [], [], []
+    for n_step in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held.append(torch.cuda.memory_allocated() / 1e9)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, alive)
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        got = _train_launches()
+        _check_launches(f"train-bf16-8b step {n_step}", got,
+                        _expected_train_launches(cfg, n_step))
+    finite = all(bool(torch.isfinite(x).all())
+                 for _, x in P.tree_items(state["params"]))
+    after = dict(P.tree_items(state["params"]))
+    # (leaf, layer) pairs whose slice did not move
+    still = [("/".join(p), i) for p, x in before.items()
+             for i in range(x.shape[0]) if torch.equal(x[i], after[p][i])]
+    n = P.param_count(state["params"])
+    log(f"[train-bf16-8b] {cfg.name} cut to {layers} of "
+        f"{get_arch(arch).num_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.attention.num_heads} / kv {cfg.attention.num_kv_heads} of "
+        f"{cfg.attention.head_dim}, {n} params "
+        f"({P.param_bytes(state['params']) / 1e9:.3f} GB, leaves {kinds}), "
+        f"Adam moments in the leaves' dtypes, batch {B} x {S}: losses "
+        f"{losses}; first step {walls[0]:.6f} s (with warm-up), peak memory "
+        f"{peaks[0]:.2f} GB ({held[0]:.2f} GB held before it); warm step "
+        f"{walls[1]:.6f} s (host clock, synchronize before, the loss's "
+        f".item() after; {B * S / walls[1]:.0f} tokens/s), peak memory "
+        f"{peaks[1]:.2f} GB ({held[1]:.2f} GB held before it; {copies:.2f} "
+        f"GB of the held are the attention and MLP leaves' copies that "
+        f"check they moved); params "
+        f"finite {finite}; (leaf, layer) slices of the attention and MLP "
+        f"that did not move: {still}; clocks.sm, power.draw, temperature "
+        f"after: {_clocks()}")
+    if not (all(map(math.isfinite, losses)) and finite and not still):
+        raise AssertionError(f"[train-bf16-8b] losses {losses}, finite "
+                             f"{finite}, unmoved {still}")
+    del state, before, after, batch, metrics
+    torch.cuda.empty_cache()
+    return got
 
 
 def _family_cfg(arch, layers):
@@ -5668,10 +5914,12 @@ def phase_examples_train(torch):
 
 #: [times]' attention backward shapes, (B, S, H, KVH, D, window), bf16,
 #: causal, on the tensor-core route: [train]'s qwen1.5-0.5b, internlm2's
-#: heads and [train-families]' RecurrentGemma-9B local attention
+#: heads, [train-families]' RecurrentGemma-9B local attention and
+#: [train-bf16-8b]'s Qwen3-8B
 BWD_TIME_TC = ((TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, None),
                (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128, None),
-               (1, 2048, 16, 1, 256, 2048))
+               (1, 2048, 16, 1, 256, 2048),
+               (1, 2048, 32, 8, 128, None))
 #: the float32 backward's timing shapes, causal: [train-families]'
 #: RecurrentGemma-9B local attention and [train]'s qwen1.5-0.5b
 BWD_TIME_F32 = ((1, 2048, 16, 1, 256, 2048),
@@ -5974,13 +6222,14 @@ def phase_train_times(torch, launches, errs, wkv_split, parent=None):
     """The backward kernels at their training shapes beside the plain
     backward, the bound and, for attention, SDPA's backward: the
     tensor-core attention backward at [train]'s (8, 1024, 16, 16, 64),
-    internlm2's heads (8, 1024, 16, 8, 128) and [train-families]'
-    RecurrentGemma-9B local attention (1, 2048, 16, 1, 256, window 2,048),
-    bf16 causal, with the serving forward beside the forward's lse entry
-    point; the split-TF32 backward on float32 inputs at RecurrentGemma's
-    and [train]'s shapes; the WKV scan at [train-families]' RWKV6-7B
-    shape (1, 2048, 64, 64).  With --parent the parent's tensor-core and float32 backwards
-    are timed in turns with them."""
+    internlm2's heads (8, 1024, 16, 8, 128), [train-families]'
+    RecurrentGemma-9B local attention (1, 2048, 16, 1, 256, window 2,048)
+    and [train-bf16-8b]'s Qwen3-8B (1, 2048, 32, 8, 128), bf16 causal,
+    with the serving forward beside the forward's lse entry point; the
+    split-TF32 backward on float32 inputs at RecurrentGemma's and
+    [train]'s shapes; the WKV scan at [train-families]' RWKV6-7B shape
+    (1, 2048, 64, 64).  With --parent the parent's tensor-core and
+    float32 backwards are timed in turns with them."""
     from repro_torch.kernels import rwkv6_scan as wk
     gen = torch.Generator(device=DEV).manual_seed(23)
     tc = [_attn_bwd_times(torch, gen, shape, parent=parent)
@@ -6139,8 +6388,12 @@ def main() -> int:
     phase_examples(torch)
     train_errs = phase_train_kernels(torch)
     train_launches = phase_train(torch)
+    for kernel, count in phase_train_bf16(torch).items():
+        train_launches[kernel] += count
     families = phase_train_families(torch)
     for kernel, count in families.items():
+        train_launches[kernel] += count
+    for kernel, count in phase_train_bf16_8b(torch).items():
         train_launches[kernel] += count
     train_run = phase_train_no_sync(torch)
     wkv_split = phase_train_profile(torch, *train_run)

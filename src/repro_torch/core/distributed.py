@@ -19,12 +19,16 @@ device); the mesh (:mod:`repro_torch.launch.mesh`) names the ranks'
 
 Failure tolerance is in the step for both: ``alive: (G,)`` enters it and
 weights follow the paper's head-failure semantics
-(:func:`repro_torch.core.failure.effective_weights`).  Every collective
-sends one flat buffer (:class:`~repro_torch.models.params.FlatLayout`),
-every process group is made once when the step is built (each rank
-calls ``new_group`` for every group, in one order), and a collective
-over one rank is skipped: it is the identity.  Nothing in a step waits
-on the host.
+(:func:`repro_torch.core.failure.effective_weights`).  Params may be
+float32, bf16 or both (``ModelConfig.param_dtype``; Qwen3's qk-norm
+scales stay float32): every collective sends one flat buffer a dtype
+(:class:`~repro_torch.models.params.DtypeLayout`), float32's first, with
+the float32 scalars (the loss, n) at its end, so a bf16 gradient is
+reduced and carried in bf16, as ``repro`` reduces each leaf in its own
+dtype.  Every process group is made once when the step is built (each
+rank calls ``new_group`` for every group, in one order), and a
+collective over one rank, or of no words, is skipped: it is the
+identity.  Nothing in a step waits on the host.
 
 Over a ``model`` axis > 1 (:func:`make_train_step` with such a mesh) the
 params and the optimizer's state are DTensors laid out by
@@ -327,9 +331,26 @@ class _Comm:
                    ) -> torch.Tensor:
         if group is None and not size:
             group, size = self.column.get("group"), self.world
-        if (size or self.world) > 1:
+        if (size or self.world) > 1 and buf.numel():
             dist.all_reduce(buf, group=group)
         return buf
+
+    def all_reduce_with(self, bufs: List[torch.Tensor],
+                        scalars: List[torch.Tensor], **group
+                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """All-reduce a buffer a dtype and float32 ``scalars``: the
+        scalars at the end of the first buffer where it is float32 (one
+        collective for both, never a ``cat`` of two dtypes), else as a
+        float32 buffer of their own.  Returns (the buffers, the scalars'
+        sums)."""
+        tail = torch.stack([s.to(torch.float32) for s in scalars])
+        if bufs[0].dtype != torch.float32:
+            return ([self.all_reduce(b, **group) for b in bufs],
+                    self.all_reduce(tail, **group))
+        k = bufs[0].numel()
+        head = self.all_reduce(torch.cat([bufs[0], tail]), **group)
+        return ([head[:k]] + [self.all_reduce(b, **group) for b in bufs[1:]],
+                head[k:])
 
     def send(self, buf: torch.Tensor, dst: int) -> None:
         dist.send(buf, dst=self.rank_of(dst))
@@ -340,30 +361,25 @@ class _Comm:
         return buf
 
 
-def _pack(g: torch.Tensor, *scalars: torch.Tensor) -> torch.Tensor:
-    """One message of float32 scalars and g (in its dtype), as bytes: the
-    scalars first, so both parts stay aligned to their dtypes."""
+def _pack(gs: List[torch.Tensor], *scalars: torch.Tensor) -> torch.Tensor:
+    """One message of float32 scalars and the buffers gs (each in its
+    dtype, float32's first), as bytes: the scalars first, so every part
+    stays aligned to its dtype."""
     head = torch.stack([s.to(torch.float32) for s in scalars])
-    return torch.cat([head.view(torch.uint8), g.reshape(-1).view(torch.uint8)])
+    return torch.cat([head.view(torch.uint8)]
+                     + [g.reshape(-1).view(torch.uint8) for g in gs])
 
 
-def _unpack(buf: torch.Tensor, g_like: torch.Tensor, count: int
-            ) -> Tuple[torch.Tensor, ...]:
-    """:func:`_pack`'s inverse: (g, scalar, ...)."""
+def _unpack(buf: torch.Tensor, likes: List[torch.Tensor], count: int
+            ) -> Tuple[Any, ...]:
+    """:func:`_pack`'s inverse: ([g, ...], scalar, ...)."""
     head = buf[:4 * count].view(torch.float32)
-    g = buf[4 * count:].view(g_like.dtype).reshape(g_like.shape)
-    return (g,) + tuple(head[i] for i in range(count))
-
-
-def _float32_params_only(mcfg: ModelConfig) -> None:
-    """The steps train float32 params: a config whose ``param_dtype`` is
-    another raises, rather than train float32 params it did not ask for
-    or feed bf16 leaves to a float32 optimizer."""
-    if mcfg.param_dtype != "float32":
-        raise ValueError(
-            f"training at param_dtype={mcfg.param_dtype!r} is not ported: "
-            f"the train steps take float32 params only (serving takes "
-            f"any param_dtype)")
+    gs, off = [], 4 * count
+    for like in likes:
+        end = off + like.numel() * like.element_size()
+        gs.append(buf[off:end].view(like.dtype).reshape(like.shape))
+        off = end
+    return (gs,) + tuple(head[i] for i in range(count))
 
 
 # ---------------------------------------------------------------------------
@@ -394,8 +410,12 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
     global ones: summed over ranks, that is the gradient of the global
     aux.  That costs one forward more a step, and keeps the activations
     held at one block's, as ``microbatches`` promises.  A dense config,
-    or one rank, skips it: there a block's own aux is the global one."""
-    _float32_params_only(mcfg)
+    or one rank, skips it: there a block's own aux is the global one.
+
+    Gradients reach the optimizer in ``repro``'s dtypes: at
+    ``microbatches`` 1 in each leaf's (the all-reduce sends a buffer a
+    dtype), else float32, accumulated as ``repro`` accumulates them.  The
+    loss is a float32 word at the end of the float32 buffer."""
     topo = global_topology(mesh, tolfl)
     G = topo.num_devices
     weights = _weights_fn(topo, mesh.device)
@@ -423,9 +443,9 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
         cuts = sorted({lo, lo + B_loc} | {
             i * (B // mb) for i in range(mb + 1)
             if lo < i * (B // mb) < lo + B_loc})
-        layout = P.FlatLayout.of(_locals(cparams))
-        g_acc = torch.zeros(layout.size + 1, dtype=torch.float32,
-                            device=mesh.device)
+        layout = P.DtypeLayout.of(_locals(cparams),
+                                  None if mb == 1 else torch.float32)
+        g_acc = layout.zeros(mesh.device, tail=1)
         metrics = {}
         parts = []
         for a, b in zip(cuts, cuts[1:]):
@@ -457,11 +477,12 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
             jv, metrics, g = _value_and_grad(cparams, f)
             if shards is not None:
                 g = shards.local(g, cparams)
-            g_acc[:-1] += layout.flatten(g)
-            g_acc[-1] += _plain(jv)
-        comm.all_reduce(g_acc)
-        g_acc = g_acc / torch.clamp_min(mass, 1e-30)
-        grads = layout.unflatten(g_acc[:-1])
+            for buf, flat in zip(g_acc, layout.flatten(g)):
+                buf[:flat.numel()] += flat
+            g_acc[0][-1] += _plain(jv)
+        g_acc = [comm.all_reduce(buf) / torch.clamp_min(mass, 1e-30)
+                 for buf in g_acc]
+        grads = layout.unflatten(g_acc)
         if shards is not None:
             grads = shards.storage(grads, params)
         updates, new_opt = opt.update(grads, state["opt"], params)
@@ -470,7 +491,7 @@ def make_psum_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
                      "step": state["step"] + 1}
         # the loss copied out of g_acc: a view would keep the flat
         # gradient alive as long as the caller keeps the metrics
-        return new_state, {"loss": g_acc[-1].clone(),
+        return new_state, {"loss": g_acc[0][-1].clone(),
                            **{k: _plain(v).detach()
                               for k, v in metrics.items()}}
 
@@ -519,8 +540,14 @@ def make_ring_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
                          ocfg: OptimizerConfig, mesh: HostMesh,
                          state_dtype: Optional[str] = None) -> Callable:
     """``step(state, batch, alive) -> (state, {"loss", "n_effective"})``,
-    ``batch`` this rank's rows: Algorithm 1 with this rank as one group."""
-    _float32_params_only(mcfg)
+    ``batch`` this rank's rows: Algorithm 1 with this rank as one group.
+
+    Each dtype's gradient buffer goes through the cluster all-reduce, the
+    chain's hops, the pods' reduction and the final masked all-reduce in
+    its own dtype (``grad_sync_dtype``'s where it is set), as ``repro``'s
+    ``agg_shard`` takes each leaf; n and the loss stay float32.  The
+    optimizer gets the leaves' dtypes, or float32 under
+    ``grad_sync_dtype``, ``microbatches`` > 1 or ``local_epochs`` > 1."""
     sizes = mesh_axis_sizes(mesh)
     d_sz = sizes.get("data", 1)
     p_sz = sizes.get("pod", 1)
@@ -555,36 +582,32 @@ def make_ring_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
             if has_pod and not tolfl.pod_ring else {})
 
     def hop(carry, src: int, dst: int, is_tgt: bool):
-        """One chain hop: ``src`` sends (n, g, loss); ``dst`` combines."""
-        n, g, loss = carry
+        """One chain hop: ``src`` sends (n, gs, loss); ``dst`` combines."""
+        n, gs, loss = carry
         if gi == src:
-            comm.send(_pack(g, n, loss), dst)
+            comm.send(_pack(gs, n, loss), dst)
         elif gi == dst:
-            rg, rn, rl = _unpack(comm.recv(_pack(g, n, loss), src), g, 2)
+            rgs, rn, rl = _unpack(comm.recv(_pack(gs, n, loss), src), gs, 2)
             if is_tgt:
-                n_new, g_new = agg.combine_pair(rn, rg, n, g)
-                _, l_new = agg.combine_pair(rn, rl, n, loss)
-                return n_new, g_new, l_new
+                gs_new = [agg.combine_pair(rn, rg, n, g)[1]
+                          for rg, g in zip(rgs, gs)]
+                n_new, l_new = agg.combine_pair(rn, rl, n, loss)
+                return n_new, gs_new, l_new
         return carry
 
-    def aggregate(g: torch.Tensor, n: torch.Tensor, loss: torch.Tensor):
+    def aggregate(gs: List[torch.Tensor], n: torch.Tensor,
+                  loss: torch.Tensor):
+        """gs: a gradient buffer a dtype (float32's first)."""
         # ---- intra-cluster FedAvg (an all-reduce over member groups) ----
         # normalise BEFORE the reduce: r = n_i / sum n stays in [0, 1], so
         # the payload is well-scaled even under bf16 grad sync
         den = comm.all_reduce(n.reshape(1).clone(), **cluster)[0]
         r_w = n / torch.clamp_min(den, 1e-30)
-        if psum_dt is None:
-            buf = comm.all_reduce(torch.cat([g * r_w.to(g.dtype),
-                                             (loss * r_w).reshape(1)]),
-                                  **cluster)
-            g_c, loss_c = buf[:-1], buf[-1]
-        else:
-            g_c = comm.all_reduce((g * r_w.to(g.dtype)).to(psum_dt),
-                                  **cluster)
-            loss_c = comm.all_reduce((loss * r_w).reshape(1),
-                                     **cluster)[0]
+        g_c, (loss_c,) = comm.all_reduce_with(
+            [(g * r_w.to(g.dtype)).to(psum_dt or g.dtype) for g in gs],
+            [loss * r_w], **cluster)
         if sync_dt is not None:
-            g_c = g_c.to(sync_dt)         # the chain's payload
+            g_c = [g.to(sync_dt) for g in g_c]    # the chain's payload
         carry = (den, g_c, loss_c)
         # ---- sequential SBT chain over cluster heads (Algorithm 1) ----
         for h, perm in enumerate(topo_data.ring_perms()):
@@ -603,29 +626,20 @@ def make_ring_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
             is_final = at_last
         n_c, g_c, l_c = carry
         fin = float(is_final)
-        if has_pod and not tolfl.pod_ring:
-            if sync_dt is not None and psum_dt is None:
-                g_c = g_c.to(f32)
-            # no pod ring: weighted all-reduce across pods at the heads
-            wn = n_c * fin
-            buf = comm.all_reduce(torch.cat([
-                (g_c * wn.to(g_c.dtype)).to(f32), wn.reshape(1),
-                (l_c * wn).reshape(1)]), **pods)
-            nsum = buf[-2]
-            g_c = (buf[:-2] / torch.clamp_min(nsum, 1e-30)).to(g_c.dtype)
-            l_c = buf[-1] / torch.clamp_min(nsum, 1e-30)
-            n_c = nsum
-        # ---- broadcast theta_{t+1} (masked all-reduce) ----
         if sync_dt is not None and psum_dt is None:
-            g_c = g_c.to(f32)
-        if g_c.dtype == f32:
-            buf = comm.all_reduce(torch.cat([
-                g_c * fin, (l_c * fin).reshape(1), (n_c * fin).reshape(1)]))
-            g_fin, l_fin, n_fin = buf[:-2], buf[-2], buf[-1]
-        else:
-            g_fin = comm.all_reduce(g_c * fin)
-            tail = comm.all_reduce(torch.stack([l_c * fin, n_c * fin]))
-            l_fin, n_fin = tail[0], tail[1]
+            g_c = [g.to(f32) for g in g_c]
+        if has_pod and not tolfl.pod_ring:
+            # no pod ring: weighted all-reduce across pods at the heads,
+            # each buffer in its dtype
+            wn = n_c * fin
+            g_c, (nsum, lsum) = comm.all_reduce_with(
+                [g * wn.to(g.dtype) for g in g_c], [wn, l_c * wn], **pods)
+            den = torch.clamp_min(nsum, 1e-30)
+            g_c = [g / den.to(g.dtype) for g in g_c]
+            l_c, n_c = lsum / den, nsum
+        # ---- broadcast theta_{t+1} (masked all-reduce) ----
+        g_fin, (l_fin, n_fin) = comm.all_reduce_with(
+            [g * fin for g in g_c], [l_c * fin, n_c * fin])
         return g_fin, l_fin, n_fin
 
     def local_grads(params: P.Params, batch: Batch):
@@ -664,16 +678,19 @@ def make_ring_train_step(mcfg: ModelConfig, tolfl: TolFLConfig,
         grads, lv = local_grads(cparams, batch)
         if shards is not None:
             grads = shards.local(grads, cparams)
-        layout = P.FlatLayout.of(grads)
+        layout = P.DtypeLayout.of(grads)
         flat = layout.flatten(grads)
         del grads                         # the tree's memory, before the sync
         n = weights(alive)[gi] * batch["tokens"].numel()
         g_fin, loss, n_tot = aggregate(flat, n, _plain(lv))
         del flat
         if tolfl.grad_sync_dtype:
-            g_fin = g_fin.to(f32)         # f32 master grads for the optimizer
-        # g_fin is the broadcast's own buffer: masked in place
-        g = layout.unflatten(g_fin.mul_((n_tot > 0).to(f32)))
+            # f32 master grads for the optimizer
+            g_fin = [g.to(f32) for g in g_fin]
+        # g_fin holds the broadcast's own buffers: masked in place (0 and
+        # 1 are exact in every dtype)
+        has = n_tot > 0
+        g = layout.unflatten([g.mul_(has.to(g.dtype)) for g in g_fin])
         if shards is not None:
             g = shards.storage(g, params)
         updates, new_opt = opt.update(g, state["opt"], params)

@@ -17,11 +17,12 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs import ARCHS, OptimizerConfig, TolFLConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import distributed as D
 from repro_torch.core.failure import NO_FAILURE, FailureSpec, alive_mask
 from repro_torch.core.topology import Topology
@@ -60,13 +61,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace, log=print) -> Dict[str, Any]:
+def run(args: argparse.Namespace, log=print,
+        cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     """The launcher's loop; returns the per-step losses and n_eff, the
     final state, the mesh and the wall time of each step (to its end on
-    the device)."""
-    cfg = ARCHS[args.arch]
-    if args.reduced:
-        cfg = cfg.reduced()
+    the device).  ``cfg`` replaces ``--arch``'s config (reduced or not):
+    a ``param_dtype`` has no flag, as in ``repro``, so a caller sets it
+    on the config."""
+    if cfg is None:
+        cfg = ARCHS[args.arch]
+        if args.reduced:
+            cfg = cfg.reduced()
     mesh = (make_production_mesh(device=args.device) if args.production_mesh
             else make_host_mesh(data=args.data_axis, model=1,
                                 device=args.device))

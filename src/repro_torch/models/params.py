@@ -348,3 +348,53 @@ class FlatLayout:
             (path, flat[..., off:off + int(np.prod(shape))].reshape(
                 *lead, *shape))
             for path, shape, off in self.entries)
+
+
+@dataclass(frozen=True)
+class DtypeLayout:
+    """Where each leaf of a params tree sits in one flat vector of its
+    dtype: one group a dtype, float32's first (empty where no leaf is
+    float32), then the others by name.  The train steps' collectives send
+    a buffer a group, so a bf16 leaf travels in bf16 and a mixed tree
+    (Qwen3's bf16 leaves and float32 qk-norm scales) sends two buffers;
+    float32 scalars (the loss, n) ride at the end of the float32 buffer
+    (:meth:`zeros`' ``tail``, ``distributed._Comm.all_reduce_with``).
+    ``of(tree, dtype)`` puts every leaf in one group of ``dtype``: for
+    float32 its vector is :class:`FlatLayout`'s."""
+    groups: Tuple[Tuple[torch.dtype, FlatLayout], ...]
+
+    @classmethod
+    def of(cls, tree: Params, dtype: Optional[torch.dtype] = None
+           ) -> "DtypeLayout":
+        by: Dict[torch.dtype, List] = {torch.float32: []}
+        for path, leaf in tree_items(tree):
+            by.setdefault(dtype or leaf.dtype, []).append((path, leaf))
+        order = [torch.float32] + sorted(
+            (d for d in by if d != torch.float32), key=str)
+        return cls(tuple((d, FlatLayout.of(tree_from_items(by[d])))
+                         for d in order))
+
+    def flatten(self, tree: Params) -> List[torch.Tensor]:
+        """Tree -> a 1-d buffer a group, each leaf cast to its group's
+        dtype (an empty float32 buffer where no leaf is float32)."""
+        leaves = dict(tree_items(tree))
+        dev = next(iter(leaves.values())).device
+        return [torch.cat([leaves[path].reshape(-1).to(dt)
+                           for path, _, _ in lay.entries]) if lay.entries
+                else torch.zeros(0, dtype=dt, device=dev)
+                for dt, lay in self.groups]
+
+    def zeros(self, device: DeviceLike, tail: int = 0) -> List[torch.Tensor]:
+        """:meth:`flatten`'s buffers, zero, the float32 one ``tail``
+        words longer."""
+        return [torch.zeros(lay.size + (tail if dt == torch.float32 else 0),
+                            dtype=dt, device=device)
+                for dt, lay in self.groups]
+
+    def unflatten(self, bufs: List[torch.Tensor]) -> Params:
+        """A buffer a group (a float32 tail past its leaves ignored) ->
+        tree of VIEWS into them, in the buffers' dtypes."""
+        return tree_from_items(
+            (path, buf[off:off + int(np.prod(shape))].reshape(shape))
+            for (_, lay), buf in zip(self.groups, bufs)
+            for path, shape, off in lay.entries)

@@ -8,9 +8,18 @@ used: the float32 bias correction ``1 - b ** step``, the clip before
 the moments and the update rounded to the param's dtype are
 ``repro``'s.  The step count and the learning rate are tensors on the
 params' device, so an update never waits on the host.
+
+A bf16 leaf is updated as ``repro`` updates it under JAX's promotion:
+a Python constant (b1, b2 and their complements) is rounded to the dtype
+of the tensor it multiplies (:func:`_weak`, JAX's weak type), and the
+float32 learning rate widens a bf16 gradient to float32 before their
+product is rounded (torch would round the learning rate to bf16 on the
+CPU and keep it float32 on the card).  For float32 leaves both are what
+plain arithmetic gives.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
@@ -62,6 +71,13 @@ def clip_by_global_norm(grads, max_norm: float):
 # ---------------------------------------------------------------------------
 # Optimizers
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _weak(c: float, dtype: torch.dtype) -> float:
+    """A Python constant as JAX takes it against a tensor of ``dtype``
+    (a weak type): rounded to that dtype, on the host."""
+    return float(torch.tensor(c, dtype=torch.float64).to(dtype))
+
+
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., Tuple[Any, Any]]
@@ -93,7 +109,8 @@ def sgd(cfg: OptimizerConfig, momentum: float = 0.0) -> Optimizer:
                              grads)
             upd = tree_map(lambda m: (-lr * m).to(m.dtype), new_m)
             return upd, SGDState(state.step + 1, new_m)
-        upd = tree_map(lambda g: (-lr * g).to(g.dtype), grads)
+        upd = tree_map(lambda g: (-lr * g.to(torch.float32)).to(g.dtype),
+                       grads)
         return upd, SGDState(state.step + 1, None)
 
     return Optimizer(init, update)
@@ -126,10 +143,11 @@ def adam(cfg: OptimizerConfig, weight_decay: Optional[float] = None,
         step = state.step + 1
         lr = sched(state.step)
         b1, b2, eps = cfg.b1, cfg.b2, cfg.eps
-        mu = tree_map(lambda m, g: (b1 * m + (1 - b1) * g).to(m.dtype),
-                      state.mu, grads)
-        nu = tree_map(lambda v, g: (b2 * v + (1 - b2) * torch.square(
-            g.to(torch.float32))).to(v.dtype), state.nu, grads)
+        mu = tree_map(lambda m, g: (_weak(b1, m.dtype) * m + _weak(
+            1 - b1, g.dtype) * g).to(m.dtype), state.mu, grads)
+        nu = tree_map(lambda v, g: (_weak(b2, v.dtype) * v + (1 - b2)
+                                    * torch.square(g.to(torch.float32))
+                                    ).to(v.dtype), state.nu, grads)
         stepf = step.to(torch.float32)
         bc1 = 1 - torch.pow(b1, stepf)
         bc2 = 1 - torch.pow(b2, stepf)

@@ -1972,3 +1972,69 @@ def test_train_step_on_card_launches_kernels_without_sync(cuda_device):
     losses = [float(m["loss"]) for m in (m0, m1, m2)]
     assert all(map(lambda v: v == v and abs(v) < 1e4, losses))
     assert losses[-1] < losses[0]
+
+
+def _bf16_qwen3_ring_step(device):
+    """One ring step (SGD at lr 10, where most bf16 elements move) of the
+    reduced Qwen3 at bf16 params, from the same params and batch, on
+    ``device``: (params before, params after, loss, bwd launches)."""
+    import dataclasses
+    from repro_torch.configs.base import OptimizerConfig, TolFLConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(ARCHS["qwen3-8b"].reduced(),
+                              param_dtype="bfloat16")
+    ocfg = OptimizerConfig(name="sgd", lr=10.0, schedule="constant",
+                           warmup_steps=0, grad_clip=0.0)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    params = P.tree_map(lambda x: x.to(device), params)
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+             .to(device) for k in ("tokens", "labels")}
+    step = D.make_train_step(cfg, TolFLConfig(num_clusters=1), ocfg,
+                             make_host_mesh(device=device))
+    before = fa.BWD_LAUNCHES
+    state = {"params": params, "opt": D.make_optimizer(ocfg).init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    new, metrics = step(state, batch, torch.ones(1, device=device))
+    return (P.tree_map(lambda x: x.cpu(), params),
+            P.tree_map(lambda x: x.cpu(), new["params"]),
+            float(metrics["loss"]), fa.BWD_LAUNCHES - before, cfg)
+
+
+@pytest.mark.cuda
+def test_bf16_ring_step_on_card_matches_cpu(cuda_device):
+    """The reduced Qwen3 at bf16 params (a mixed tree: float32 qk-norm
+    scales), one ring step on the card against the same step on the CPU,
+    within the bf16 parity bounds of ``test_torch_train_bf16.py``: the
+    loss within rtol 2e-6, each element's widened update within one ulp
+    of its param + 1e-2 x its leaf's largest update + 1e-5 x the largest
+    of any leaf; every leaf keeps its dtype, most elements move, and the
+    attention backward ran on the card once a layer."""
+    import numpy as np
+    from repro_torch.models import params as P
+    p0, cpu, cpu_loss, _, cfg = _bf16_qwen3_ring_step("cpu")
+    _, card, card_loss, launches, _ = _bf16_qwen3_ring_step(cuda_device)
+    assert launches == cfg.num_layers
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=2e-6)
+    ups = {}
+    for (path, x), (_, w), (_, c) in zip(P.tree_items(p0),
+                                         P.tree_items(cpu),
+                                         P.tree_items(card)):
+        assert w.dtype == c.dtype == x.dtype, path
+        ups[path] = (x.float(), w.float(), c.float())
+    assert {x.dtype for _, x in P.tree_items(card)} == {torch.bfloat16,
+                                                        torch.float32}
+    top = max(float((w - x).abs().max()) for x, w, _ in ups.values())
+    moved = sum(int((c != x).sum()) for x, _, c in ups.values())
+    assert moved > 0.5 * sum(x.numel() for x, _, _ in ups.values())
+    for path, (x, w, c) in ups.items():
+        m = w.abs().clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+        excess = ((c - x) - (w - x)).abs() - ulp
+        bound = 1e-2 * float((w - x).abs().max()) + 1e-5 * top
+        assert float(excess.max()) <= bound, path

@@ -203,15 +203,15 @@ def moe_world(tmp_path_factory):
             "ranks": ranks, "out": ranks[0]}
 
 
-def _run_ranks(work, spec):
-    """Four gloo ranks of RANK_SCRIPT over ``spec``'s cases; each rank's
+def _run_ranks(work, spec, script=RANK_SCRIPT):
+    """Four gloo ranks of ``script`` over ``spec``'s cases; each rank's
     outputs."""
     (work / "spec.json").write_text(json.dumps(spec))
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
                WORLD_SIZE="4", OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK_SCRIPT, str(work)],
+        [sys.executable, "-c", script, str(work)],
         env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(4)]
@@ -225,10 +225,12 @@ def _run_ranks(work, spec):
     return [dict(np.load(work / f"rank{r}.npz")) for r in range(4)]
 
 
-def _group_grads(params, tokens, labels, local_epochs=1, cfg=CFG):
+def _group_grads(params, tokens, labels, local_epochs=1, cfg=CFG,
+                 ocfg=OCFG):
     """Each group's gradient of its own rows (repro's loss_fn), as the
     ring computes it: with local_epochs > 1 the (p - p_end) / lr
-    pseudo-gradient of that many SGD steps."""
+    pseudo-gradient of that many SGD steps, in float32 (repro's ring
+    widens p - p_end of a bf16 leaf before the division)."""
     vg = jax.jit(jax.value_and_grad(
         lambda p, t, l: RT.loss_fn(p, cfg, {"tokens": t, "labels": l})[0]))
     out = []
@@ -237,18 +239,20 @@ def _group_grads(params, tokens, labels, local_epochs=1, cfg=CFG):
         p = params
         for _ in range(local_epochs):
             _, gr = vg(p, t, l)
-            p = jax.tree.map(lambda a, b: a - OCFG.lr * b, p, gr)
-        out.append(jax.tree.map(lambda a, b: (a - b) / OCFG.lr, params, p)
+            p = jax.tree.map(lambda a, b: a - ocfg.lr * b.astype(a.dtype),
+                             p, gr)
+        out.append(jax.tree.map(
+            lambda a, b: (a - b).astype(jnp.float32) / ocfg.lr, params, p)
                    if local_epochs > 1 else vg(params, t, l)[1])
     return out
 
 
-def _oracle(world, alive, local_epochs=1, cfg=CFG, params=None):
+def _oracle(world, alive, local_epochs=1, cfg=CFG, params=None, ocfg=OCFG):
     """repro's algebra: per-cluster weighted mean, the chain's
     combine_pair over the two cluster heads, has_update, SGD."""
     params = world["params"] if params is None else params
     grads = _group_grads(params, world["tokens"], world["labels"],
-                         local_epochs, cfg)
+                         local_epochs, cfg, ocfg)
     topo = RTopology(G, 2)
     w = r_effective_weights(jnp.asarray(alive), topo)
     ns = w * (2 * S)
@@ -262,7 +266,7 @@ def _oracle(world, alive, local_epochs=1, cfg=CFG, params=None):
             carry[0], carry[1], den, g_c)
     n_tot, g = carry
     g = jax.tree.map(lambda x: x * (n_tot > 0), g)
-    opt = make_optimizer(OCFG)
+    opt = make_optimizer(ocfg)
     upd, _ = opt.update(g, opt.init(params), params)
     return _flat(apply_updates(params, upd))
 

@@ -13,7 +13,9 @@ bit, as float32 params that hold the same rounded values, in float32 and
 in bf16 activations: every use of a leaf casts it to the activation
 dtype or to float32 first.  A bf16 init draws one (in, out) block at a
 time; the float32 init is pinned to the values it gave before bf16
-params existed; the train steps refuse bf16 params.
+params existed.  The train steps take bf16 params: each builder keeps
+every leaf's dtype through a step, and a bf16 checkpoint resumes bit for
+bit.
 """
 import dataclasses
 import functools
@@ -252,10 +254,81 @@ def test_float32_init_unchanged(arch):
     assert h.hexdigest()[:16] == want[2]
 
 
+def _train_bits(tree):
+    """Every tensor of a train state (params, moments, step) as (dtype,
+    bits) pairs, a bf16 leaf as its int16 view."""
+    from repro_torch.training.checkpoint import tree_leaves
+    return [(x.dtype, x.view(torch.int16) if x.dtype == torch.bfloat16
+             else x) for x in tree_leaves(tree)]
+
+
+def _bf16_qwen3_step(build, **tolfl):
+    cfg = dataclasses.replace(_bf16(TARCHS["qwen3-8b"].reduced()),
+                              remat="full")
+    mesh = make_host_mesh(data=1, model=1, device="cpu")
+    ocfg = OptimizerConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    step = build(cfg, TolFLConfig(num_clusters=1, **tolfl), ocfg, mesh)
+    return cfg, ocfg, step
+
+
+def _token_batches(cfg, n):
+    from repro_torch.data.pipeline import TokenPipeline
+    return [{k: torch.as_tensor(v).long() for k, v in b.items()}
+            for b in TokenPipeline(cfg.vocab_size, 16, 2).batches(n)]
+
+
 @pytest.mark.parametrize("build", [D.make_train_step, D.make_psum_train_step,
                                    D.make_ring_train_step])
-def test_train_steps_refuse_bf16_params(build):
-    cfg = _bf16(TARCHS["qwen1.5-0.5b"].reduced())
-    mesh = make_host_mesh(data=1, model=1, device="cpu")
-    with pytest.raises(ValueError, match="param_dtype='bfloat16'"):
-        build(cfg, TolFLConfig(num_clusters=1), OptimizerConfig(), mesh)
+def test_train_steps_take_bf16_params(build):
+    """Each step builder trains the reduced Qwen3 at bf16 params (a mixed
+    tree: float32 qk-norm scales) on a one-rank CPU mesh: every param
+    and Adam moment keeps its dtype (repro's: moments in the leaf's),
+    the step count is int32, the loss a finite float32 scalar, and the
+    params moved."""
+    cfg, ocfg, step = _bf16_qwen3_step(build)
+    state = D.init_state(torch.Generator().manual_seed(0), cfg, ocfg)
+    dtypes = {p: x.dtype for p, x in TP.tree_items(state["params"])}
+    assert set(dtypes.values()) == {torch.bfloat16, torch.float32}
+    new, metrics = step(state, _token_batches(cfg, 1)[0], torch.ones(1))
+    for tree in (new["params"], new["opt"].mu, new["opt"].nu):
+        assert {p: x.dtype for p, x in TP.tree_items(tree)} == dtypes
+    assert new["step"].dtype == new["opt"].step.dtype == torch.int32
+    assert int(new["step"]) == 1
+    for v in metrics.values():
+        assert v.dtype == torch.float32 and bool(torch.isfinite(v))
+    moved = [not torch.equal(a, b) for (_, a), (_, b) in zip(
+        TP.tree_items(state["params"]), TP.tree_items(new["params"]))]
+    assert all(moved)
+
+
+def test_bf16_checkpoint_resumes_bit_for_bit(tmp_path):
+    """[train-ckpt] at bf16 params: 4 ring steps of the reduced Qwen3
+    uninterrupted; then 2, a checkpoint of the whole state saved and
+    restored into a fresh one, and steps 3-4: the params, moments, step
+    and losses equal the uninterrupted run's bit for bit, in their
+    dtypes."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    cfg, ocfg, step = _bf16_qwen3_step(D.make_train_step)
+    batches = _token_batches(cfg, 4)
+
+    def fresh():
+        return D.init_state(torch.Generator().manual_seed(4), cfg, ocfg)
+
+    def run(state, lo, hi, losses):
+        for i in range(lo, hi):
+            state, m = step(state, batches[i], torch.ones(1))
+            losses.append(float(m["loss"]))
+        return state
+
+    whole_losses, losses = [], []
+    whole = run(fresh(), 0, 4, whole_losses)
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    mgr.save(run(fresh(), 0, 2, losses), 2)
+    restored, at = mgr.restore_latest(fresh())
+    assert at == 2
+    resumed = run(restored, at, 4, losses)
+    assert losses == whole_losses
+    got, want = _train_bits(resumed), _train_bits(whole)
+    assert [d for d, _ in got] == [d for d, _ in want]
+    assert torch.bfloat16 in {d for d, _ in got}
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(got, want))

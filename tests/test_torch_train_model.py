@@ -29,7 +29,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 FAMILIES = {"dense": "qwen1.5-0.5b", "moe": "llama4-scout-17b-a16e",
             "hybrid": "recurrentgemma-9b", "ssm": "rwkv6-7b",
-            "audio": "whisper-large-v3", "vlm": "internvl2-26b"}
+            "audio": "whisper-large-v3", "vlm": "internvl2-26b",
+            "qwen3": "qwen3-8b"}
 
 
 def _batch(cfg, seed=0, B=2, S=16):
@@ -58,10 +59,15 @@ def _loss_and_grads(params, cfg, batch):
     return total.detach(), aux, {path: x.grad for path, x in leaves.items()}
 
 
-def check_family(family):
-    """loss_fn's value, aux and every gradient leaf vs repro's."""
+def check_family(family, param_dtype="float32", leaf_tol=5e-4):
+    """loss_fn's value, aux and every gradient leaf vs repro's, with the
+    params at ``param_dtype``: each gradient in its leaf's dtype, within
+    ``leaf_tol`` x its own largest |value| + 1e-5 x the largest of any
+    leaf."""
     arch = FAMILIES[family]
-    rcfg, cfg = RARCHS[arch].reduced(), ARCHS[arch].reduced()
+    rcfg, cfg = (dataclasses.replace(c[arch].reduced(),
+                                     param_dtype=param_dtype)
+                 for c in (RARCHS, ARCHS))
     params, _ = RT.init_params(jax.random.PRNGKey(0), rcfg)
     batch = _batch(rcfg)
     (rl, rm), rg = jax.jit(jax.value_and_grad(
@@ -75,12 +81,15 @@ def check_family(family):
                                rtol=2e-6, atol=1e-9)
     ref = dict(P.tree_items(jax.tree.map(np.asarray, rg)))
     assert ref.keys() == tg.keys()
+    ref = {k: r.astype(np.float32) for k, r in ref.items()}
     top = max(float(np.max(np.abs(r))) for r in ref.values())
+    leaves = dict(P.tree_items(jax.tree.map(np.asarray, params)))
     for path, r in ref.items():
         g = tg[path]
         assert g is not None, path
-        bound = 5e-4 * float(np.max(np.abs(r))) + 1e-5 * top
-        assert float(np.max(np.abs(g.numpy() - r))) <= bound, path
+        assert str(g.dtype).split(".")[-1] == leaves[path].dtype.name, path
+        bound = leaf_tol * float(np.max(np.abs(r))) + 1e-5 * top
+        assert float(np.max(np.abs(g.float().numpy() - r))) <= bound, path
 
 
 @pytest.mark.parametrize("family", ["dense", "moe", "vlm"])
