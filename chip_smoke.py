@@ -4999,6 +4999,7 @@ def phase_train(torch):
     losses = out["losses"]
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"[train] losses {losses}")
+    _against_pr35_losses("train", losses)
     ms = statistics.median(out["step_s"][1:]) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
     TRAIN_READINGS.update(ms=ms, peak=torch.cuda.max_memory_allocated() / 1e9,
@@ -5058,6 +5059,24 @@ def phase_train(torch):
 #: [train]'s ms/step, peak memory (GB) and losses, which [train-bf16]
 #: prints beside its own
 TRAIN_READINGS = {}
+#: PR 35's [train] and [train-bf16] losses (its call 9): step 1 as it
+#: printed it (a forward alone, the same bits whatever the backward) and
+#: step 10, which another backward's rounding may move by TRAIN_LOSS_DRIFT
+PR35_TRAIN_LOSSES = {"train": ("12.0243", 8.2548),
+                     "train-bf16": ("11.9862", 8.1543)}
+TRAIN_LOSS_DRIFT = 0.01
+
+
+def _against_pr35_losses(tag, losses):
+    """Hold a run's step-1 and step-10 losses to PR 35's."""
+    first, last = PR35_TRAIN_LOSSES[tag]
+    drift = abs(losses[-1] - last) / last
+    log(f"[{tag}] step 1 loss {losses[0]!r} (PR 35: {first}), step 10 "
+        f"{losses[-1]!r} (PR 35: {last}, {drift:.3%} apart, at most "
+        f"{TRAIN_LOSS_DRIFT:.0%})")
+    if f"{losses[0]:.4f}" != first or drift > TRAIN_LOSS_DRIFT:
+        raise AssertionError(f"[{tag}] losses {losses[0]}, {losses[-1]} "
+                             f"against PR 35's {first}, {last}")
 #: [train-bf16-8b]: Qwen3-8B at published width, its 36 layers cut to 8,
 #: bf16 params, 1 x 2,048 tokens, two ring steps of Adam
 TRAIN_8B = ("qwen3-8b", 8, 1, 2048)
@@ -5118,6 +5137,7 @@ def phase_train_bf16(torch):
     losses = out["losses"]
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"[train-bf16] losses {losses}")
+    _against_pr35_losses("train-bf16", losses)
     dtypes = sorted({str(x.dtype) for t in (out["state"]["params"],
                                             out["state"]["opt"].mu,
                                             out["state"]["opt"].nu)
@@ -5937,9 +5957,11 @@ def _attn_bwd_times(torch, gen, shape, n=20, parent=None):
     backward (``enable_gqa``, a band mask where the window cuts the causal
     band) and, on the tensor-core route, the serving forward, the
     forward's lse entry point and (with --parent) the parent's tensor-core
-    backward and lse entry point, in turns, card and call times (the lse
-    forward, which training launches, may not be slower than the parent's
-    by more than the turns' spread); the plain backward; the bound
+    backward and lse entry point, in turns, card and call times (the
+    backward at D 64 / 128 must beat the parent's, and at D = 256 give its
+    dq, dk, dv bit for bit; the lse forward, which training launches, may
+    not be slower than the parent's by more than the turns' spread); the
+    plain backward; the bound
     (10 D flops per visible (query, head, key) triple at 989 TFLOP/s, or
     q, o, dO, k, v and lse read and dq, dk, dv written once at 3.35
     TB/s)."""
@@ -6010,6 +6032,16 @@ def _attn_bwd_times(torch, gen, shape, n=20, parent=None):
            f"{spread['parent forward lse']:.6f} ms)"
            if "parent forward lse" in fns else "")
         + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
+    if same is not None:
+        # D 64 / 128: the fused kernel must beat the parent's; D = 256 is the
+        # parent's code and must give its bits
+        if D == 256:
+            if not same:
+                raise AssertionError(f"the D = 256 backward at {shape}: dq, "
+                                     f"dk, dv differ from the parent's")
+        else:
+            _faster_than_parent({"name": "flash_attention_bwd_wgmma",
+                                 "ms": ms}, dev_ms["parent kernel"])
     fwd = None
     if "parent forward lse" in fns:
         # the forward [train] launches: not slower than the parent's
@@ -6197,13 +6229,22 @@ def _parent_attn_bwd_f32(torch, parent, q, k, v, o, do, lse, window):
     return dq, dk, dv
 
 
-def _parent_attn_bwd(torch, parent, q, k, v, o, do, lse, window):
-    """The parent's tensor-core attention backward, causal, on the current
-    wrapper's head split: (dq, dk, dv)."""
+def _parent_bwd_head_split(B, Sk, KVH, G, D):
+    """The head split of the parent's tensor-core backward (PR 35's
+    ``bwd_head_split``): the smallest divisor of G whose dk/dv grid (key
+    blocks of 192, 128 and 64 keys at D 64, 128 and 256, of 3, 2 and 2
+    warpgroups) holds 2 x 132 warpgroups, else G."""
     from repro_torch.kernels import flash_attention as fa
+    keys, wgs = {64: (192, 3), 128: (128, 2), 256: (64, 2)}[D]
+    return fa._head_split(-(-Sk // keys) * B * KVH * wgs, G, 2 * fa.SMS)
+
+
+def _parent_attn_bwd(torch, parent, q, k, v, o, do, lse, window):
+    """The parent's tensor-core attention backward, causal, on its own head
+    split: (dq, dk, dv)."""
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    hs = fa.bwd_head_split(B, Sk, KVH, H // KVH, D)
+    hs = _parent_bwd_head_split(B, Sk, KVH, H // KVH, D)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     part = (torch.empty((hs, 2, B, Sk, KVH, D), dtype=torch.float32,

@@ -42,14 +42,21 @@ The gradient (:class:`FlashAttentionFn`) has two hand-written kernels;
 :func:`bwd_route` picks one, again with no fallback:
 
 - ``"tensor_core"``, ``repro_torch/csrc/flash_attention_bwd_wgmma.cu``:
-  bfloat16 at D in {64, 128, 256}.  A delta pre-pass, then dq by
-  (query, head) rows and dk, dv by key blocks (at D = 256 two warpgroups
-  a key block, one a column half), each product on wgmma, no atomics;
-  where the key blocks are too few to fill the card, each group's heads
-  are split over :func:`bwd_head_split` blocks whose float32 partials a
-  last pass sums in a fixed order.  It reads each row's lse, which the
-  forward's lse entry point (``flash_attention_cuda(...,
-  return_lse=True)``) writes when a gradient is needed.
+  bfloat16 at D in {64, 128, 256}, each product on wgmma, no atomics.
+  At D 64 and 128 a delta pre-pass, then one warp-specialized kernel a
+  block of 64 keys (a producer warp keeps a TMA ring of Q / dO tiles
+  full for two consumer warpgroups) forms dk, dv and each tile's dq
+  partial from five products; two writer warps add the partials into a
+  float32 scratch in descending key-block order, each block waiting on a
+  turn counter a tile (:func:`dq_turn`), and a last pass converts dq.
+  At D = 256 a delta pre-pass, dq by (query, head) rows and dk, dv by
+  key blocks (two warpgroups a key block, one a column half).  Where the
+  key blocks are too few to fill the card, each group's heads are split
+  over :func:`bwd_head_split` blocks whose float32 partials a last pass
+  sums in a fixed order (:func:`bwd_tiles` mirrors the plans).  It reads
+  each row's lse, which the forward's lse entry point
+  (``flash_attention_cuda(..., return_lse=True)``) writes when a gradient
+  is needed.
 - ``"tf32x3"``, ``repro_torch/csrc/flash_attention_bwd.cu``: float32 at D
   in ``HEAD_DIMS`` and bfloat16 at D = 32.  Every product on the tensor
   cores in split TF32: each operand x = hi + lo (:func:`split_tf32`), and
@@ -70,6 +77,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import math
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -102,16 +110,26 @@ WS_HEAD_DIMS = (64, 128)
 TC_PLANS = {64: (192, 80, 4), 128: (128, 96, 3), 256: (128, 80, 2)}
 #: head dims the tensor-core backward is built for (bfloat16 only)
 TC_BWD_HEAD_DIMS = (64, 128, 256)
-#: the tensor-core dk/dv kernel's tiles: keys a key group, queries a Q/dO
-#: tile, key groups a block and the column parts each key group's dk and
-#: dv are cut into (one warpgroup each) at each D (``KvPlan`` in the
-#: source)
-TC_BWD_KEYS, TC_BWD_QUERIES = 64, 64
-TC_BWD_GROUPS = {64: 3, 128: 2, 256: 1}
-TC_BWD_HALVES = {64: 1, 128: 1, 256: 2}
-#: the tensor-core dq kernel's (query, head) rows a block and keys a K/V
-#: tile at each D (``DqPlan`` in the source)
-TC_BWD_DQ = {64: (128, 80), 128: (128, 80), 256: (64, 64)}
+#: the tensor-core backward's dk/dv blocks at every D: keys a warpgroup's
+#: key group, queries a Q/dO tile and warpgroups a block; keys a block, and
+#: the column parts dk and dv (and dq at D 64 / 128) are cut into, one a
+#: warpgroup (``FusedPlan`` and ``KvPlan`` in the source: at D = 64 the
+#: two warpgroups hold a key group each, at 128 and 256 a column half of
+#: the block's 64 keys each)
+TC_BWD_KEYS, TC_BWD_QUERIES, TC_BWD_WARPGROUPS = 64, 64, 2
+TC_BWD_BLOCK_KEYS = {64: 128, 128: 64, 256: 64}
+TC_BWD_HALVES = {64: 1, 128: 2, 256: 2}
+#: :func:`bwd_head_split`'s model of the fused kernel on the H100 (fitted
+#: to each block's start and end on the card at [train]'s, internlm2's and
+#: Qwen3-8B's shapes): a tile's time on an SM (a block's keys x 64 queries
+#: x one head), a block's set-up in tiles, and the rate at which the head
+#: split's partials are written and summed
+TC_BWD_TILE_US = {64: 1.70, 128: 1.69}
+TC_BWD_BLOCK_TILES = 3
+TC_BWD_PART_BYTES_PER_US = 3.0e6
+#: the D = 256 dq kernel's (query, head) rows a block and keys a K/V tile
+#: (``DqPlan`` in the source)
+TC_BWD_DQ = (64, 64)
 #: the H100 SXM's SMs, and the warpgroups a dk/dv grid should hold (two
 #: for each SM) before :func:`bwd_head_split` stops splitting heads
 SMS = 132
@@ -301,16 +319,79 @@ def _head_split(units: int, G: int, need: int) -> int:
     return G
 
 
-def bwd_head_split(B: int, Sk: int, KVH: int, G: int, D: int) -> int:
-    """hs, the parts the tensor-core backward's dk/dv kernel splits each
-    group's G heads into: the smallest divisor of G whose grid (key blocks
-    x B x KVH x hs blocks of ``TC_BWD_GROUPS[D] * TC_BWD_HALVES[D]``
-    warpgroups) holds at least ``BWD_MIN_WARPGROUPS``, and G where none
-    does.  hs = 1 writes dk and dv directly; a larger hs writes float32
-    partials (hs, 2, B, Sk, KVH, D) that a last pass sums."""
-    blocks = -(-Sk // (TC_BWD_GROUPS[D] * TC_BWD_KEYS)) * B * KVH
-    return _head_split(blocks * TC_BWD_GROUPS[D] * TC_BWD_HALVES[D], G,
-                       BWD_MIN_WARPGROUPS)
+def _fused_block_tiles(kb: int, Sq: int, Sk: int, causal: bool,
+                       window: Optional[int], keys: int) -> int:
+    """The 64-query tiles the fused backward's block kb of ``keys`` keys
+    sees, of one head (every tile from the block's first query to its last
+    holds a pair one of its keys sees)."""
+    key0 = kb * keys
+    q_lo = key0 if causal else 0
+    q_hi = (min(Sq - 1, min(key0 + keys, Sk) + window - 2)
+            if window is not None else Sq - 1)
+    return (q_hi // TC_BWD_QUERIES - q_lo // TC_BWD_QUERIES + 1
+            if q_hi >= q_lo else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _fused_time_us(B: int, Sq: int, Sk: int, KVH: int, G: int, D: int,
+                   causal: bool, window: Optional[int], hs: int) -> float:
+    """The fused backward's modelled time at head split hs: its blocks
+    placed in launch order on the ``SMS`` SMs, one at a time each (a block
+    takes ``TC_BWD_BLOCK_TILES`` + its tiles, each ``TC_BWD_TILE_US[D]``),
+    and, at hs > 1, the partials written and read again by the sum."""
+    keys = TC_BWD_BLOCK_KEYS[D]
+    n_kb = -(-Sk // keys)
+    work = [TC_BWD_BLOCK_TILES + G // hs * _fused_block_tiles(
+        kb, Sq, Sk, causal, window, keys) for kb in range(n_kb - 1, -1, -1)]
+    free = [0.0] * SMS
+    for _ in range(B * KVH):
+        for w in work:
+            for _ in range(hs):
+                heapq.heappush(free, heapq.heappop(free) + w)
+    part = 4 * hs * B * Sk * KVH * D * 4 if hs > 1 else 0
+    return (max(free) * TC_BWD_TILE_US[D]
+            + part / TC_BWD_PART_BYTES_PER_US)
+
+
+def bwd_head_split(B: int, Sk: int, KVH: int, G: int, D: int,
+                   Sq: Optional[int] = None, causal: bool = True,
+                   window: Optional[int] = None) -> int:
+    """hs, the parts the tensor-core backward's dk/dv blocks split each
+    group's G heads into; hs = 1 writes dk and dv directly, a larger hs
+    float32 partials (hs, 2, B, Sk, KVH, D) that a last pass sums.
+
+    D = 256: the smallest divisor of G whose grid (key blocks of
+    ``TC_BWD_BLOCK_KEYS[D]`` x B x KVH x hs blocks of
+    ``TC_BWD_WARPGROUPS`` warpgroups) holds at least
+    ``BWD_MIN_WARPGROUPS``, and G where none does.  D 64 / 128 (the fused kernel, Sq defaulting to Sk): the divisor
+    of G with the least modelled time (:func:`_fused_time_us`): a split
+    fills the card where the blocks are few, and shortens the heaviest
+    blocks (the first keys under a causal mask), which the fused grid
+    starts last."""
+    if D == 256:
+        blocks = -(-Sk // TC_BWD_BLOCK_KEYS[D]) * B * KVH
+        return _head_split(blocks * TC_BWD_WARPGROUPS, G,
+                           BWD_MIN_WARPGROUPS)
+    Sq = Sk if Sq is None else Sq
+    return min((hs for hs in range(1, G + 1) if G % hs == 0),
+               key=lambda hs: _fused_time_us(B, Sq, Sk, KVH, G, D, causal,
+                                             window, hs))
+
+
+def tc_bwd_scratch(B: int, Sq: int, Sk: int, H: int, KVH: int, D: int,
+                   causal: bool = True, window: Optional[int] = None) -> int:
+    """The float32 scratch (floats) the tensor-core backward takes as its
+    ``part`` argument.  D 64 / 128: dq_acc (B, H, ceil(Sq / 64), 64 D)
+    float32, the dq tiles' partial sums; the tiles' turn counters (B, H,
+    ceil(Sq / 64)) int32; from the next multiple of 4, the head split's
+    partials (hs, 2, B, Sk, KVH, D) where hs > 1.  D = 256: those partials
+    alone (0 at hs = 1)."""
+    hs = bwd_head_split(B, Sk, KVH, H // KVH, D, Sq, causal, window)
+    part = 2 * hs * B * Sk * KVH * D if hs > 1 else 0
+    if D == 256:
+        return part
+    tiles = B * H * -(-Sq // TC_BWD_QUERIES)
+    return -(-(tiles * TC_BWD_QUERIES * D + tiles) // 4) * 4 + part
 
 
 def f32_bwd_head_split(B: int, Sk: int, KVH: int, G: int, D: int) -> int:
@@ -395,48 +476,115 @@ def _split_heads(G: int, hs: int) -> List[Tuple[int, int]]:
     return [(z * (G // hs), (z + 1) * (G // hs)) for z in range(hs)]
 
 
+def dq_turn(key0: int, q0: int, causal: bool, n_kb: int, keys: int) -> int:
+    """The turn the fused backward's block of ``keys`` keys from ``key0``
+    (of ``n_kb``) waits for on the dq tile of queries from ``q0``, as its
+    writer computes it: the blocks add in descending order from the last
+    that sees the tile (under a causal mask the one holding the tile's
+    diagonal, else the last block)."""
+    last = (min((q0 + TC_BWD_QUERIES - 1) // keys, n_kb - 1) if causal
+            else n_kb - 1)
+    return last - key0 // keys
+
+
+def _fused_tiles(Sq: int, Sk: int, causal: bool, window: Optional[int],
+                 heads: List[Tuple[int, int]], keys: int
+                 ) -> Tuple[list, list]:
+    """(blocks, tiles) of the fused backward (D 64 / 128): blocks (key0,
+    z, n) of ``keys`` keys in launch order (key blocks descending, split z
+    fastest), each followed in ``tiles`` by its n entries (kw0, g, q0,
+    masked) in the order it computes them: the 64-query tiles that can see
+    one of its keys, first first, inside each the heads of split z, and
+    for each the block's key groups of ``TC_BWD_KEYS`` from kw0."""
+    w = -1 if window is None else window
+    Q, K = TC_BWD_QUERIES, TC_BWD_KEYS
+    blocks, tiles = [], []
+    for key0 in range((-(-Sk // keys) - 1) * keys, -1, -keys):
+        q_lo = key0 if causal else 0
+        n_t = _fused_block_tiles(key0 // keys, Sq, Sk, causal, window, keys)
+        for z, (g0, g1) in enumerate(heads):
+            n0 = len(tiles)
+            for t in range(q_lo // Q, q_lo // Q + n_t):
+                q0 = t * Q
+                for g in range(g0, g1):
+                    for kw0 in range(key0, key0 + keys, K):
+                        inside = (kw0 + K <= Sk and q0 + Q <= Sq
+                                  and (not causal or q0 >= kw0 + K - 1)
+                                  and (w < 0 or q0 + Q - 1 - kw0 < w))
+                        tiles.append((kw0, g, q0, not inside))
+            blocks.append((key0, z, len(tiles) - n0))
+    return blocks, tiles
+
+
 def bwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
               window: Optional[int], D: int = 64, B: int = 1, KVH: int = 1
-              ) -> Dict[str, list]:
+              ) -> Dict[str, object]:
     """The tiles the tensor-core backward's kernels compute at head dim D,
     as they compute them, for one (batch, kv head) of a (B, KVH) grid:
 
     - ``"hs"``: :func:`bwd_head_split`; ``"heads"``: [(g0, g1)], the heads
       [g0, g1) of the group that split z walks.
-    - ``"blocks"``: (key0, z, n) for each dk/dv block in launch order
-      (first keys first: under a causal mask the heaviest): keys [key0,
-      key0 + ``TC_BWD_GROUPS[D] * TC_BWD_KEYS``), split z's heads, and
-      the n entries of ``"dkdv"`` its warpgroups of one column part
-      compute, which follow in the blocks' order.  The sum pass adds a
-      key's hs partials in the order z = 0 .. hs - 1.
-    - ``"columns"``: [(c0, c1)], the column parts of dk and dv, each held
-      by a warpgroup of its own whose dk and dv products take every tile
-      of ``"dkdv"`` (at D = 256 the two form S^T and dP^T by query
-      halves and share P^T and dS^T).
-    - ``"dkdv"``: (kw0, g, q0, masked) for each tile a warpgroup of one
-      column part computes: keys [kw0, kw0 + ``TC_BWD_KEYS``) against
-      queries [q0, q0 + ``TC_BWD_QUERIES``) of head g of the group.  A
-      block walks its heads, then the query tiles that can see one of its
-      keys; a warpgroup skips a tile none of its keys sees.
-    - ``"dq"``: (row0, k0, masked) for each K/V tile a block of
-      ``"dq_rows"`` (query, head) rows from row0 computes: keys [k0, k0 +
-      ``"dq_keys"``), blocks in launch order (causal at D = 256: the
-      last rows first).
+    - ``"blocks"``: (key0, z, n) for each dk/dv block in launch order:
+      keys [key0, key0 + ``TC_BWD_BLOCK_KEYS[D]``), split z's heads, and
+      the n entries of ``"dkdv"`` the block computes, which follow in the
+      blocks' order.  D = 256: key blocks ascending (under a causal mask
+      the first are the heaviest); D 64 / 128: descending, so that a block
+      waits for its dq turns only on blocks launched before it.  The sum
+      pass adds a key's hs partials in the order z = 0 .. hs - 1.
+    - ``"columns"``: [(c0, c1)], the column parts of dk and dv (and of dq
+      at D 64 / 128), each held by a warpgroup of its own whose products
+      take every tile of ``"dkdv"`` (at D 128 and 256 the two form S^T and
+      dP^T by query halves and share P^T and dS^T).  At D = 64 one part
+      holds all columns, and ``"wg"`` gives the warpgroup that computes
+      each entry (the block's key group kw0 holds).
+    - ``"dkdv"``: (kw0, g, q0, masked) for each tile of a warpgroup: keys
+      [kw0, kw0 + ``TC_BWD_KEYS``) against queries [q0, q0 +
+      ``TC_BWD_QUERIES``) of head g of the group.  D = 256: a block walks
+      its heads, then the query tiles that can see one of its keys; D 64 /
+      128: the query tiles first first, inside each the heads, then (D =
+      64) the block's two key groups.
+    - D 64 / 128, dq from the same tiles: ``"dq_order"``: {(g, q0): [key0,
+      ...]}, the blocks whose dq partials of the tile (at D = 64 its two
+      key groups' summed in order) are added, in the order they are added
+      (descending: the first stores, the others add; under a causal mask
+      block kb + 1 computes the tile before block kb); ``"turns"``: for
+      each entry of ``"dkdv"``, the turn its block waits for
+      (:func:`dq_turn`), its index in that order.
+    - D = 256, dq by rows: ``"dq"``: (row0, k0, masked) for each K/V tile
+      a block of ``"dq_rows"`` (query, head) rows from row0 computes: keys
+      [k0, k0 + ``"dq_keys"``), blocks in launch order (causal: the last
+      rows first).
 
     ``masked`` is False only for a tile whose every pair is visible."""
-    hs = bwd_head_split(B, Sk, KVH, G, D)
+    hs = bwd_head_split(B, Sk, KVH, G, D, Sq, causal, window)
     part = D // TC_BWD_HALVES[D]
     heads = _split_heads(G, hs)
-    blocks, dkdv = _kv_tiles(Sq, Sk, causal, window,
-                             TC_BWD_GROUPS[D] * TC_BWD_KEYS, TC_BWD_KEYS,
-                             TC_BWD_QUERIES, heads)
-    rows, keys = TC_BWD_DQ[D]
-    return {"hs": hs, "heads": heads, "blocks": blocks,
-            "columns": [(c, c + part) for c in range(0, D, part)],
-            "dkdv": dkdv,
-            "dq": _dq_tiles(Sq, Sk, G, causal, window, rows, keys,
-                            causal and D == 256),
-            "dq_rows": rows, "dq_keys": keys}
+    plan: Dict[str, object] = {
+        "hs": hs, "heads": heads,
+        "columns": [(c, c + part) for c in range(0, D, part)]}
+    if D == 256:
+        blocks, dkdv = _kv_tiles(Sq, Sk, causal, window, TC_BWD_KEYS,
+                                 TC_BWD_KEYS, TC_BWD_QUERIES, heads)
+        rows, keys = TC_BWD_DQ
+        plan.update(blocks=blocks, dkdv=dkdv,
+                    dq=_dq_tiles(Sq, Sk, G, causal, window, rows, keys,
+                                 causal),
+                    dq_rows=rows, dq_keys=keys)
+        return plan
+    keys = TC_BWD_BLOCK_KEYS[D]
+    blocks, dkdv = _fused_tiles(Sq, Sk, causal, window, heads, keys)
+    order: Dict[Tuple[int, int], set] = {}
+    for kw0, g, q0, _ in dkdv:
+        order.setdefault((g, q0), set()).add(kw0 - kw0 % keys)
+    n_kb = -(-Sk // keys)
+    plan.update(blocks=blocks, dkdv=dkdv,
+                dq_order={k: sorted(v, reverse=True)
+                          for k, v in order.items()},
+                turns=[dq_turn(kw0 - kw0 % keys, q0, causal, n_kb, keys)
+                       for kw0, _, q0, _ in dkdv],
+                wg=([kw0 % keys // TC_BWD_KEYS for kw0, _, _, _ in dkdv]
+                    if TC_BWD_HALVES[D] == 1 else None))
+    return plan
 
 
 def f32_fwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
@@ -708,7 +856,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     the forward's ``lse`` (B, H, Sq) float32 and raise without it.  The
     tensor-core kernel splits each group's heads as :func:`bwd_head_split`
     says, the split-TF32 one as :func:`f32_bwd_head_split` says, each with
-    a float32 scratch for the partials where it splits them.  An input
+    a float32 scratch (:func:`tc_bwd_scratch`, :func:`f32_bwd_scratch`)
+    for the partials where it splits them and, at D 64 / 128, dq's
+    partial sums and turn counters.  An input
     that is not on a 16-byte boundary (which the kernels' 16-byte loads
     need) is copied to one."""
     global BWD_LAUNCHES, TC_BWD_LAUNCHES, TF32_BWD_LAUNCHES
@@ -748,13 +898,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         if kernel == "tensor_core":
             delta = torch.empty((B, H, Sq), dtype=torch.float32,
                                 device=q.device)
-            hs = bwd_head_split(B, Sk, KVH, H // KVH, D)
-            part = (torch.empty((hs, 2, B, Sk, KVH, D), dtype=torch.float32,
-                                device=q.device) if hs > 1 else None)
+            # dq's partial sums and turns, the head split's partials
+            n = tc_bwd_scratch(B, Sq, Sk, H, KVH, D, causal, window)
+            part = torch.empty((n,), dtype=torch.float32, device=q.device)
             ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
                                            delta)]
-            ptrs.append(0 if part is None else part.data_ptr())
-            ints.append(hs)
+            ptrs.append(part.data_ptr() if n else 0)
+            ints.append(bwd_head_split(B, Sk, KVH, H // KVH, D, Sq, causal,
+                                       window))
         else:
             # delta, then the head split's partials (f32_bwd_scratch)
             scratch = torch.empty((f32_bwd_scratch(B, Sq, Sk, H, KVH, D),),

@@ -1690,6 +1690,7 @@ TC_BWD_CASES = [
     (8, 1024, 1024, 16, 8, 128, True, None),  # internlm2's heads
     (1, 200, 333, 8, 2, 128, False, None),    # Sq < Sk
     (1, 6, 10, 2, 2, 64, True, None),         # keys no query sees
+    (1, 2048, 2048, 32, 8, 128, True, None),  # [train-bf16-8b]'s Qwen3-8B
 ]
 #: D = 256 (column halves, the head split): [train-families]'
 #: RecurrentGemma-9B local attention, a window that binds, and a ragged
@@ -1749,11 +1750,11 @@ def test_flash_attention_tensor_core_bwd_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [TC_BWD_CASES[0], TC_BWD_CASES[2]]
-                         + TC_BWD_D256)
+@pytest.mark.parametrize("case", [TC_BWD_CASES[0], TC_BWD_CASES[2],
+                                  TC_BWD_CASES[8]] + TC_BWD_D256)
 def test_flash_attention_tensor_core_bwd_is_deterministic(cuda_device, case):
-    """Two launches give the same bits: dq and (dk, dv) come from kernels
-    of their own, with no atomics."""
+    """Two launches give the same bits: no unordered atomics (at D 64 / 128
+    the key blocks add dq's partials in a fixed order)."""
     from repro_torch.kernels import flash_attention as fa
     causal, window = case[6], case[7]
     q, k, v, do = _tc_inputs(case, cuda_device, 7)
@@ -1763,6 +1764,29 @@ def test_flash_attention_tensor_core_bwd_is_deterministic(cuda_device, case):
     second = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 4096, 4096, 4, 1, 64, False, None)])
+def test_flash_attention_tensor_core_bwd_dq_order_bitwise(cuda_device, case):
+    """Five launches give the same bits where 64 key blocks add their dq
+    partials into every query tile (bidirectional, 4,096 keys), and the
+    gradients stay within the tolerances of the plain backward."""
+    from repro_torch.kernels import flash_attention as fa
+    causal, window = case[6], case[7]
+    q, k, v, do = _tc_inputs(case, cuda_device, 11)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window,
+                                     return_lse=True)
+    runs = [fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window, lse)
+            for _ in range(5)]
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+    for a, b in zip(runs[0], want):
+        assert _row_rel(a, b) <= 0.05
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * scale
 
 
 @pytest.mark.cuda
