@@ -4694,7 +4694,9 @@ def _parent_wkv(torch, parent, r, k, v, w, u, s0):
 #: ragged last tiles; rows that see no key (bidirectional, window 8,
 #: Sq > Sk + 7); lse rows off a 16-byte boundary (Sq = 201); the shapes
 #: the training path gives it, [train]'s qwen1.5-0.5b (8, 1024, 16 heads
-#: of 64, causal), internlm2's heads (16 on 8 of 128) and
+#: of 64, causal), internlm2's heads (16 on 8 of 128), [train-bf16-8b]'s
+#: Qwen3-8B (1, 2048, 32 heads on 8 of 128, causal: the fused kernel's
+#: head split, hs = 2, and its dk/dv partials' sum) and
 #: [train-families]' RecurrentGemma-9B (1, 2048, 16 heads on 1 kv head of
 #: 256, window 2,048), in bf16 and, as [times] times the float32 backward
 #: (BWD_TIME_F32), in float32, with a window that binds and a ragged
@@ -4716,6 +4718,7 @@ ATTN_BWD_CASES = [
     (1, 201, 201, 4, 4, 64, True, None, "bfloat16"),
     (1, 1000, 1000, 5, 1, 128, True, 300, "bfloat16"),
     (8, 1024, 1024, 16, 8, 128, True, None, "bfloat16"),
+    (1, 2048, 2048, 32, 8, 128, True, None, "bfloat16"),
     (1, 2048, 2048, 16, 1, 256, True, 2048, "bfloat16"),
     (1, 700, 700, 4, 1, 256, True, 300, "bfloat16"),
     (1, 333, 200, 4, 2, 256, False, 50, "bfloat16"),

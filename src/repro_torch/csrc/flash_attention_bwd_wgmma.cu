@@ -56,15 +56,19 @@
 //    with dv and dk read from shared memory, and the one it compiles (dv,
 //    dk from register fragments) ran 1.20x slower than this order.
 //  - D = 64: each warpgroup holds one 64-key group of the block, its dk
-//    and dv whole (64 columns), and takes every tile: S^T and dP^T of its
-//    keys (m64n64k16, 32 + 32 floats), P^T and dS^T as register A
-//    fragments for dv and dk, dS^T also into its shared tile for its dq
-//    partial dS K over its keys; the first warpgroup's partial goes to the
-//    dq buffer and the second adds its own to it, so a block adds one
-//    partial a tile for 128 keys.  S^T, dP^T, dk and dv are 128 floats,
-//    so a tile's products do not overlap the next tile's S^T.  158
-//    registers.  This ran 1.21x faster than warpgroups of the same 64
-//    keys taking alternate tiles (half the blocks and dq's reduce-adds).
+//    and dv whole (64 columns), and takes every tile one of its keys sees
+//    (under a causal mask the second group skips the block's first tile,
+//    its partial 0): S^T and dP^T of its keys (m64n64k16, 32 + 32
+//    floats), P^T and dS^T as register A fragments for dv and dk, dS^T
+//    also into its shared tile for its dq partial dS K over its keys; the
+//    first warpgroup's partial goes to the dq buffer and the second adds
+//    its own to it, so a block adds one partial a tile for 128 keys.
+//    S^T, dP^T, dk and dv are 128 floats, so a tile's products do not
+//    overlap the next tile's S^T; letting one warpgroup's products run
+//    beside the other's softmax (named barriers taking turns) gained at
+//    most 1.04x and is not done.  154 registers.  This ran 1.21x faster
+//    than warpgroups of the same 64 keys taking alternate tiles (half the
+//    blocks and dq's reduce-adds).
 //  - dq in a fixed order, without atomics.  A tile's dq partial (64 queries
 //    x D, float32) goes to shared memory in the accumulators' fragment
 //    order, float4 by float4 (buffer i % 2 for tile i), and writer i % 2
@@ -1230,33 +1234,44 @@ __global__ void __launch_bounds__(FusedPlan<D>::kThreads, 1)
       const uint32_t dot = base + L::kDO + s * L::kTile;
       // the warpgroup's two dS^T buffers alternate
       const int dsbuf = L::kPS + (2 * wg + i % 2) * kWGAtom;
+      // no pair of the tile sees one of the warpgroup's keys (under a causal
+      // mask the second key group against the block's first query tile):
+      // its products are skipped and its dq partial is 0
+      const int q0 = tile_q0(fb, i);
+      const bool none = kw0 >= Sk || (causal && q0 + kQT - 1 < kw0) ||
+                        (window >= 0 && q0 - (kw0 + kWG - 1) >= window);
       mbar_wait(full + 8 * s, (i / kStages) & 1);
-      float st[32], dpt[32];
-      wgmma_fence();
-      gemm_rows_keys<D, 64>(st, k_grp, qt, kWGAtom);    // S^T = K Q^T
-      gemm_rows_keys<D, 64>(dpt, v_grp, dot, kWGAtom);  // dP^T = V dO^T
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(st);
-      fence_operands(dpt);
-      uint32_t pp[16], dsp[16];
-      fused_softmax<64, true>(fb, s, i, kw0, 0, st, dpt, r_a, col0, -1, dsbuf, pp, dsp,
-                              L::kLse, L::kDelta);
-      fence_proxy_async();
-      named_barrier_sync(2 + wg, 128);   // the warpgroup's dS^T written
+      if (!none) {
+        float st[32], dpt[32];
+        wgmma_fence();
+        gemm_rows_keys<D, 64>(st, k_grp, qt, kWGAtom);    // S^T = K Q^T
+        gemm_rows_keys<D, 64>(dpt, v_grp, dot, kWGAtom);  // dP^T = V dO^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(st);
+        fence_operands(dpt);
+        uint32_t pp[16], dsp[16];
+        fused_softmax<64, true>(fb, s, i, kw0, 0, st, dpt, r_a, col0, -1, dsbuf, pp, dsp,
+                                L::kLse, L::kDelta);
+        fence_proxy_async();
+        named_barrier_sync(2 + wg, 128);   // the warpgroup's dS^T written
 
-      // dv += P^T dO, dk += dS^T Q, dq = dS K
-      fence_operands(dv_acc);
-      fence_operands(dk_acc);
-      wgmma_fence();
-      gemm_dkdv<64>(dv_acc, pp, dot);
-      gemm_dkdv<64>(dk_acc, dsp, qt);
-      gemm_dq_tile(dq, base + dsbuf, k_grp);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(dv_acc);
-      fence_operands(dk_acc);
-      fence_operands(dq);
+        // dv += P^T dO, dk += dS^T Q, dq = dS K
+        fence_operands(dv_acc);
+        fence_operands(dk_acc);
+        wgmma_fence();
+        gemm_dkdv<64>(dv_acc, pp, dot);
+        gemm_dkdv<64>(dk_acc, dsp, qt);
+        gemm_dq_tile(dq, base + dsbuf, k_grp);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(dv_acc);
+        fence_operands(dk_acc);
+        fence_operands(dq);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) dq[j] = 0.0f;
+      }
       if (tid == 0) mbar_arrive(empty + 8 * s);
 
       // the tile's dq partial: the first key group's, then plus the second's
@@ -1271,7 +1286,7 @@ __global__ void __launch_bounds__(FusedPlan<D>::kThreads, 1)
       named_barrier_sync(1, P::kConsumers);
       if (wg == 1) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < 8 && !none; ++j) {
           const float4 a = out[j * 128];
           out[j * 128] = make_float4(a.x + dq[4 * j], a.y + dq[4 * j + 1], a.z + dq[4 * j + 2],
                                      a.w + dq[4 * j + 3]);

@@ -495,7 +495,8 @@ def _fused_tiles(Sq: int, Sk: int, causal: bool, window: Optional[int],
     fastest), each followed in ``tiles`` by its n entries (kw0, g, q0,
     masked) in the order it computes them: the 64-query tiles that can see
     one of its keys, first first, inside each the heads of split z, and
-    for each the block's key groups of ``TC_BWD_KEYS`` from kw0."""
+    for each the block's key groups of ``TC_BWD_KEYS`` from kw0 that one
+    of the tile's queries sees (a group that sees none skips the tile)."""
     w = -1 if window is None else window
     Q, K = TC_BWD_QUERIES, TC_BWD_KEYS
     blocks, tiles = [], []
@@ -508,6 +509,9 @@ def _fused_tiles(Sq: int, Sk: int, causal: bool, window: Optional[int],
                 q0 = t * Q
                 for g in range(g0, g1):
                     for kw0 in range(key0, key0 + keys, K):
+                        if (kw0 >= Sk or (causal and q0 + Q - 1 < kw0)
+                                or (w >= 0 and q0 - (kw0 + K - 1) >= w)):
+                            continue   # the key group sees no pair
                         inside = (kw0 + K <= Sk and q0 + Q <= Sq
                                   and (not causal or q0 >= kw0 + K - 1)
                                   and (w < 0 or q0 + Q - 1 - kw0 < w))

@@ -105,20 +105,17 @@ def test_bwd_tiles_cover_each_visible_triple_once(Sq, Sk, G, causal,
 def test_bwd_tiles_train_shapes(G, D):
     """[train]'s qwen1.5-0.5b (G = 1, D = 64) and internlm2's heads (G =
     2, D = 128), causal at S = 1,024: the fused kernel masks only the
-    diagonal tiles, one a key group and head, and at D = 64 the tile of
-    a block's first queries in its second key group, which sees none of
-    them; it computes under 7% more pairs than the causal band holds at D
-    = 128, and under 13% more at D = 64 (those tiles)."""
+    diagonal tiles, one a key group and head, skips the tile of a block's
+    first queries in its second key group (D = 64), and computes under 7%
+    more pairs than the causal band holds."""
     S = 1024
     plan = fa.bwd_tiles(S, S, G, True, None, D)
     masked = sorted((kw0, g, q0) for kw0, g, q0, m in plan["dkdv"] if m)
-    below = [(kw0, g, kw0 - 64) for kw0 in range(64, S, 128)
-             for g in range(G)] if D == 64 else []
-    assert masked == sorted([(kw0, g, kw0) for kw0 in range(0, S, 64)
-                             for g in range(G)] + below)
+    assert masked == sorted((kw0, g, kw0) for kw0 in range(0, S, 64)
+                            for g in range(G))
     computed = len(plan["dkdv"]) * fa.TC_BWD_KEYS * fa.TC_BWD_QUERIES
     seen = int(fa.visible(S, S, True, None).sum()) * G
-    assert seen < computed <= (1.13 if D == 64 else 1.07) * seen
+    assert seen < computed <= 1.07 * seen
 
 
 @settings(max_examples=60, deadline=None)
@@ -216,24 +213,32 @@ def test_fused_dq_turns(Sq, Sk, G, causal, window, D, B, KVH):
     holding turn k - 1, launched before it, and under a causal mask that
     block computes the tile earlier in its own walk, so no turn waits on a
     tile still to be computed.  A block's entries lie in its keys and its
-    split's heads, one for each of its key groups (two at D = 64, each a
-    warpgroup's)."""
+    split's heads; each step of its walk (a query tile and head) holds one
+    entry for each of its key groups that sees a pair of the tile (at D =
+    64 two groups, each a warpgroup's), in ascending order, and one
+    turn."""
     plan = fa.bwd_tiles(Sq, Sk, G, causal, window, D, B, KVH)
     blocks, tiles, turns = plan["blocks"], plan["dkdv"], plan["turns"]
     keys = fa.TC_BWD_BLOCK_KEYS[D]
-    groups = keys // fa.TC_BWD_KEYS
     assert len(turns) == len(tiles)
     where = {}   # (key0, g, q0) -> (launch index of its block, step in it)
     at = 0
     for index, (key0, z, n) in enumerate(blocks):
         g0, g1 = plan["heads"][z]
-        assert n % groups == 0
+        steps = []   # (g, q0, the step's last kw0, its first entry)
         for i, (kw0, g, q0, _) in enumerate(tiles[at:at + n]):
-            assert kw0 == key0 + i % groups * fa.TC_BWD_KEYS and g0 <= g < g1
-            assert turns[at + i] == turns[at + i - i % groups]
-            where.setdefault((key0, g, q0), (index, i // groups))
+            assert key0 <= kw0 < min(key0 + keys, Sk) and g0 <= g < g1
+            assert kw0 % fa.TC_BWD_KEYS == 0
+            if steps and steps[-1][:2] == (g, q0):
+                assert kw0 > steps[-1][2]
+                assert turns[at + i] == turns[steps[-1][3]]
+                steps[-1] = (g, q0, kw0, steps[-1][3])
+            else:
+                assert (key0, g, q0) not in where
+                where[(key0, g, q0)] = (index, len(steps))
+                steps.append((g, q0, kw0, at + i))
         at += n
-    assert at == len(tiles) and len(where) * groups == len(tiles)
+    assert at == len(tiles)
     if D == 64:
         assert plan["wg"] == [kw0 % keys // 64 for kw0, _, _, _ in tiles]
     else:
@@ -281,10 +286,10 @@ EMU_CASES = [  # (B, Sq, Sk, H, KVH, D, causal, window)
 def _emulate_fused(q, k, v, do, causal, window):
     """(dq, dk, dv) of float32 q, k, v, dO summed as the fused kernel sums
     them: each tile's dq partial dS K over one block's keys (at D = 64 its
-    first key group's plus its second's), added into the tile in the
-    plan's dq order; dk and dv of a key group over its tiles in order, the
-    head split's partials added in split order; 1 / sqrt(D) applied to dq
-    and dk last."""
+    first key group's plus its second's, of those that take the tile),
+    added into the tile in the plan's dq order; dk and dv of a key group
+    over its tiles in order, the head split's partials added in split
+    order; 1 / sqrt(D) applied to dq and dk last."""
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -308,12 +313,15 @@ def _emulate_fused(q, k, v, do, causal, window):
                 P[g] = p
                 dS[g] = (p * (do[b, :, h] @ vv.T - delta)).astype(np.float32)
             keys = fa.TC_BWD_BLOCK_KEYS[D]
+            groups = {}   # (key0, g, q0) -> the key groups that take it
+            for kw0, g, q0, _ in plan["dkdv"]:
+                groups.setdefault((kw0 - kw0 % keys, g, q0), []).append(kw0)
             for (g, q0), order in plan["dq_order"].items():
                 qs = slice(q0, q0 + 64)
                 acc = None
                 for key0 in order:
                     part = None
-                    for kw0 in range(key0, min(key0 + keys, Sk), 64):
+                    for kw0 in groups[(key0, g, q0)]:
                         ks = slice(kw0, kw0 + 64)
                         p = dS[g][qs, ks] @ kk[ks]
                         part = p if part is None else part + p
@@ -324,8 +332,6 @@ def _emulate_fused(q, k, v, do, causal, window):
             for key0, z, n in plan["blocks"]:
                 parts = {}
                 for kw0, g, q0, _ in plan["dkdv"][at:at + n]:
-                    if kw0 >= Sk:
-                        continue
                     qs, ks = slice(q0, q0 + 64), slice(kw0, kw0 + 64)
                     w = parts.setdefault(kw0, np.zeros(
                         (2, min(kw0 + 64, Sk) - kw0, D), np.float32))
