@@ -164,7 +164,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    under the sync debug mode ([train-bf16], [train-bf16-no-sync]); two
    steps of RWKV6-7B cut to 2 layers and RecurrentGemma-9B cut to one
    unit at full width, its local attention's backward on the tensor
-   cores at D = 256, the second step timed warm ([train-families]); two
+   cores at D = 256, the second step timed warm (with --parent the same
+   two RecurrentGemma steps again on the parent's tensor-core backward:
+   the step-1 loss bit for bit, the step-2 loss within 0.1%)
+   ([train-families]); two
    steps of Qwen3-8B at published width, cut to 8 of 36 layers, at bf16
    params with Adam, every layer's attention and MLP moved
    ([train-bf16-8b]);
@@ -194,7 +197,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` into
    backward kernels at their training shapes
    beside the plain backwards and SDPA's backward: the tensor-core
    attention backward at [train]'s and internlm2's head shapes, at
-   RecurrentGemma's local attention (D = 256) and at Qwen3-8B's
+   RecurrentGemma's local attention (D = 256, each of its four kernels'
+   device time under torch.profiler) and at Qwen3-8B's
    (1, 2,048, 32, 8, 128), with the serving forward
    beside the lse entry point, the split-TF32
    backward on float32 inputs at RecurrentGemma's and [train]'s shapes
@@ -220,7 +224,12 @@ forward must beat the parent's at the six 4,096-token prefills, and may lose to 
 whisper's and RecurrentGemma's shapes and, through its lse entry point,
 at the training shapes of [times]' backward rows by no more than the
 spread of the turns' medians; RecurrentGemma's output is compared with
-the parent's bit for bit (logged).  The float32 attention backward must
+the parent's bit for bit (logged).  The tensor-core attention backward
+must beat the parent's at RecurrentGemma's shape (D = 256, each tree's
+kernels named with their device times under torch.profiler); at [train]'s,
+internlm2's and Qwen3-8B's shapes (D 64 / 128) its dq, dk and dv must be
+the parent's bit for bit and it may not lose to the parent by more than
+the turns' spread.  The float32 attention backward must
 beat the parent's at both its [times] shapes, or, where its dq, dk and
 dv are bitwise the parent's, not lose to it by more than the turns'
 spread.  The RG-LRU backward must beat the parent's at RecurrentGemma's
@@ -4739,6 +4748,10 @@ TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
 #: [train-families]: (arch, layers kept, batch, seq)
 TRAIN_FAMILIES = (("rwkv6-7b", 2, 1, 2048), ("recurrentgemma-9b", 3, 1, 2048))
+#: [train-families]' RecurrentGemma step-2 loss on the parent's attention
+#: backward (--parent), relative: room for a backward whose sums run in
+#: another order, so that its bf16 gradients round otherwise
+FAMILY_PARENT_TOL = 1e-3
 TRAIN_BWD_KERNELS = ("flash_attention_bwd", "flash_attention_bwd_wgmma",
                      "rwkv6_scan_bwd", "rglru_scan_bwd")
 #: the device kernels of one rwkv6_scan_bwd call (csrc/rwkv6_scan_bwd.cu)
@@ -5321,7 +5334,7 @@ def _family_cfg(arch, layers):
     return dataclasses.replace(get_arch(arch), num_layers=layers)
 
 
-def phase_train_families(torch):
+def phase_train_families(torch, parent=None):
     """[train-families]: two ring steps (SGD) at full width with the depth
     cut (RWKV6-7B over 2 of its 32 layers: the WKV forward and backward at
     (1, 2048, 64, 64); RecurrentGemma-9B over one unit: two RG-LRU layers
@@ -5330,11 +5343,16 @@ def phase_train_families(torch):
     timed warm after a synchronize, each with its peak memory and the
     memory held before it; both losses finite, every param finite after
     the steps and every mixing layer moved, launches as expected after
-    each step.  Returns the launches of both steps."""
+    each step.  With --parent, RecurrentGemma's two steps run again from
+    the same state on the parent's tensor-core attention backward: the
+    step-1 loss (the forward's alone) must be the current run's bit for
+    bit, the step-2 loss within ``FAMILY_PARENT_TOL`` of it.  Returns the
+    launches of both steps."""
     from repro_torch.configs.base import OptimizerConfig, TolFLConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import distributed as D
     from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import params as P
     total = dict.fromkeys(list(_counters()) + list(TRAIN_BWD_KERNELS), 0)
@@ -5348,27 +5366,37 @@ def phase_train_families(torch):
         step_fn = D.make_train_step(
             cfg, TolFLConfig(num_clusters=1, schedule="tolfl_ring"), ocfg,
             mesh)
-        state = D.init_state(torch.Generator(device=DEV).manual_seed(3),
-                             cfg, ocfg)
-        before = {p: x.clone() for p, x in P.tree_items(state["params"])
-                  if p[0] in ("units",) and p[2] == "mix"}
         batch = shard_batch(next(TokenPipeline(
             cfg.vocab_size, S, B).batches(1)), mesh)
         alive = torch.ones((1,), device=DEV)
-        _reset_train_launches()
-        walls, peaks, held, losses = [], [], [], []
-        for n_step in (1, 2):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            held.append(torch.cuda.memory_allocated() / 1e9)
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch, alive)
-            losses.append(float(metrics["loss"]))
-            walls.append(time.perf_counter() - t0)
-            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
-            got = _train_launches()
-            _check_launches(f"train-families {arch} step {n_step}", got,
-                            _expected_train_launches(cfg, n_step))
+
+        def steps(check):
+            """Two steps from the seeded initial state: (losses, walls,
+            peaks, held, the state, its mixing leaves before the steps,
+            the launches after step 2)."""
+            state = D.init_state(torch.Generator(device=DEV).manual_seed(3),
+                                 cfg, ocfg)
+            before = {p: x.clone() for p, x in P.tree_items(state["params"])
+                      if p[0] in ("units",) and p[2] == "mix"}
+            _reset_train_launches()
+            walls, peaks, held, losses, got = [], [], [], [], None
+            for n_step in (1, 2):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held.append(torch.cuda.memory_allocated() / 1e9)
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch, alive)
+                losses.append(float(metrics["loss"]))
+                walls.append(time.perf_counter() - t0)
+                peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+                got = _train_launches()
+                if check:
+                    _check_launches(f"train-families {arch} step {n_step}",
+                                    got, _expected_train_launches(cfg,
+                                                                  n_step))
+            return losses, walls, peaks, held, state, before, got
+
+        losses, walls, peaks, held, state, before, got = steps(True)
         finite = all(bool(torch.isfinite(x).all())
                      for _, x in P.tree_items(state["params"]))
         after = dict(P.tree_items(state["params"]))
@@ -5385,17 +5413,44 @@ def phase_train_families(torch):
             f"GB ({held[0]:.2f} GB held before it); warm step "
             f"{walls[1]:.6f} s (host clock, synchronize before, the loss's "
             f".item() after), peak memory {peaks[1]:.2f} GB ({held[1]:.2f} "
-            f"GB held before it); params finite {finite}, mixing leaves "
-            f"that did not move {still}, mixing layers that did not move "
-            f"{stuck}")
+            f"GB held before it); attention backward launches "
+            f"{got['flash_attention_bwd_wgmma']} on the tensor cores; "
+            f"params finite {finite}, mixing leaves that did not move "
+            f"{still}, mixing layers that did not move {stuck}")
         if not (all(map(math.isfinite, losses)) and finite and not stuck):
             raise AssertionError(f"[train-families] {arch}: losses "
                                  f"{losses}, finite {finite}, unmoved "
                                  f"{stuck}")
         for k in total:
             total[k] += got[k]
-        del state, before, after, batch
+        del state, before, after
         torch.cuda.empty_cache()
+        if (arch == "recurrentgemma-9b" and parent
+                and "flash_attention_bwd_wgmma" in parent):
+            current = fa.flash_attention_bwd_cuda
+
+            def parent_bwd(q, k, v, o, do, causal=True, window=None,
+                           lse=None):
+                assert causal
+                return _parent_attn_bwd(torch, parent, q, k, v, o, do, lse,
+                                        window)
+            fa.flash_attention_bwd_cuda = parent_bwd
+            try:
+                theirs, their_walls, *_ = steps(False)
+            finally:
+                fa.flash_attention_bwd_cuda = current
+            rel = abs(losses[1] - theirs[1]) / abs(theirs[1])
+            log(f"[train-families] {cfg.name} on the parent's tensor-core "
+                f"attention backward from the same state: losses {theirs} "
+                f"(warm step {their_walls[1]:.6f} s); step 1 bit for bit "
+                f"{losses[0] == theirs[0]}, step 2 relative difference "
+                f"{rel:.3e} (tolerance {FAMILY_PARENT_TOL})")
+            if not (losses[0] == theirs[0] and rel <= FAMILY_PARENT_TOL):
+                raise AssertionError(f"[train-families] {arch}: losses "
+                                     f"{losses} against the parent's "
+                                     f"{theirs}")
+            torch.cuda.empty_cache()
+        del batch
     return total
 
 
@@ -5600,8 +5655,10 @@ def phase_train_profile(torch, step_fn, state, batch, alive):
     """[train-profile]: one [train] step under torch.profiler: the card's
     busy share of the step's wall time and its top operations, and the
     share of each kernel of the port: the attention forward, the
-    backward's delta kernels, the tensor-core and the split-TF32 backward's
-    dq and dk/dv kernels, and the attention backward's whole share; then
+    backward's delta kernels, the tensor-core backward's fused, dq convert
+    and partial-sum kernels (D 64 / 128) and its dq and dk/dv kernels (D =
+    256), the split-TF32 backward's dq and dk/dv kernels, and the attention
+    backward's whole share; then
     each of
     the WKV backward's two kernels at [train-families]' RWKV6-7B shape
     (:func:`_wkv_bwd_split`), which it returns for [times]."""
@@ -5622,8 +5679,10 @@ def phase_train_profile(torch, step_fn, state, batch, alive):
         return split
     mine = {k: sum(us for name, (us, _) in by_name.items() if k in name)
             for k in ("flash_attention_wgmma", "attn_bwd_delta",
-                      "attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma",
-                      "attn_bwd_dq_tf32", "attn_bwd_dkdv_tf32")}
+                      "attn_bwd_fused", "attn_bwd_dq_convert",
+                      "attn_bwd_dkdv_sum", "attn_bwd_dq_wgmma",
+                      "attn_bwd_dkdv_wgmma", "attn_bwd_dq_tf32",
+                      "attn_bwd_dkdv_tf32")}
     mine["attention backward"] = sum(v for k, v in mine.items()
                                      if k.startswith("attn_bwd"))
     log(f"[train-profile] one {TRAIN_ARCH} step ({TRAIN_BATCH} x "
@@ -5961,10 +6020,13 @@ def _attn_bwd_times(torch, gen, shape, n=20, parent=None):
     band) and, on the tensor-core route, the serving forward, the
     forward's lse entry point and (with --parent) the parent's tensor-core
     backward and lse entry point, in turns, card and call times (the
-    backward at D 64 / 128 must beat the parent's, and at D = 256 give its
-    dq, dk, dv bit for bit; the lse forward, which training launches, may
-    not be slower than the parent's by more than the turns' spread); the
-    plain backward; the bound
+    backward at D = 256 must beat the parent's; at D 64 / 128 give its dq,
+    dk, dv bit for bit and not be slower than it by more than the turns'
+    spread; the lse forward, which training launches, may not be slower
+    than the parent's by more than the turns' spread); at D = 256 each
+    backward kernel's device time under torch.profiler
+    (:func:`_bwd_kernels_ms`), the parent's too; the plain backward; the
+    bound
     (10 D flops per visible (query, head, key) triple at 989 TFLOP/s, or
     q, o, dO, k, v and lse read and dq, dk, dv written once at 3.35
     TB/s)."""
@@ -6006,6 +6068,9 @@ def _attn_bwd_times(torch, gen, shape, n=20, parent=None):
             torch, parent, q, k, v, True, window)
     dev_ms, spread = _turns_spread_ms(torch, fns, True, n)
     call_ms = _turns_ms(torch, fns, False, n)
+    split = ({key: _bwd_kernels_ms(torch, fns[key])
+              for key in ("kernel", "parent kernel") if key in fns}
+             if tc and D == 256 else {})
     plain_ms = _median_ms(torch, lambda: fa.flash_attention_backward_plain(
         q, k, v, o, do, True, window), True, 3)
     pairs = visible_pairs(S, True, window)
@@ -6025,9 +6090,15 @@ def _attn_bwd_times(torch, gen, shape, n=20, parent=None):
         f"{moved} bytes take {b_bytes:.6f} ms); kernel "
         f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound, "
         f"{dev_ms['library sdpa backward'] / ms:.2f}x SDPA backward's speed"
-        + (f", {dev_ms['parent kernel'] / ms:.3f}x the parent's (dq, dk, "
-           f"dv bitwise equal to the parent's: {same})"
-           if same is not None else "")
+        + (f", {dev_ms['parent kernel'] / ms:.3f}x the parent's (turns' "
+           f"spread: kernel {spread['kernel']:.6f}, parent "
+           f"{spread['parent kernel']:.6f} ms; dq, dk, dv bitwise equal to "
+           f"the parent's: {same})" if same is not None else "")
+        + "".join(f"; {key}'s device kernels under torch.profiler, ms a "
+                  f"call: " + (", ".join(f"{name} {t:.6f}"
+                                         for name, t in times.items())
+                               or "not measured")
+                  for key, times in split.items())
         + (f"; the forward's lse entry point "
            f"{dev_ms['parent forward lse'] / dev_ms['forward lse']:.3f}x the "
            f"parent's speed (turns' spread: "
@@ -6036,15 +6107,18 @@ def _attn_bwd_times(torch, gen, shape, n=20, parent=None):
            if "parent forward lse" in fns else "")
         + f"; clocks.sm, power.draw, temperature after: {_clocks()}")
     if same is not None:
-        # D 64 / 128: the fused kernel must beat the parent's; D = 256 is the
-        # parent's code and must give its bits
+        # D = 256 must beat the parent's; D 64 / 128 is the parent's code and
+        # must give its bits, as fast
+        row = {"name": "flash_attention_bwd_wgmma", "arch": f"D = {D}",
+               "ms": ms}
         if D == 256:
-            if not same:
-                raise AssertionError(f"the D = 256 backward at {shape}: dq, "
-                                     f"dk, dv differ from the parent's")
+            _faster_than_parent(row, dev_ms["parent kernel"])
+        elif not same:
+            raise AssertionError(f"the D = {D} backward at {shape}: dq, dk, "
+                                 f"dv differ from the parent's")
         else:
-            _faster_than_parent({"name": "flash_attention_bwd_wgmma",
-                                 "ms": ms}, dev_ms["parent kernel"])
+            _no_slower_than_parent(row, dev_ms["parent kernel"], max(
+                spread["kernel"], spread["parent kernel"]))
     fwd = None
     if "parent forward lse" in fns:
         # the forward [train] launches: not slower than the parent's
@@ -6060,8 +6134,12 @@ def _attn_bwd_times(torch, gen, shape, n=20, parent=None):
             "tflops": flops / ms / 1e9, "share_of_bound": bound / ms,
             **{f"{key.replace(' ', '_')}_ms": dev_ms[key] for key in fns
                if key in ("forward", "forward lse")},
-            **({"parent_ms": dev_ms["parent kernel"], "parent_equal": same}
+            **({"parent_ms": dev_ms["parent kernel"], "parent_equal": same,
+                "turns_spread_ms": spread["kernel"]}
                if same is not None else {}),
+            **({"kernels_ms": split["kernel"]} if split else {}),
+            **({"parent_kernels_ms": split["parent kernel"]}
+               if "parent kernel" in split else {}),
             **({"forward_lse_parent_ms": fwd["parent_ms"],
                 "forward_lse_turns_spread_ms": fwd["turns_spread_ms"]}
                if fwd is not None else {})}
@@ -6232,30 +6310,56 @@ def _parent_attn_bwd_f32(torch, parent, q, k, v, o, do, lse, window):
     return dq, dk, dv
 
 
-def _parent_bwd_head_split(B, Sk, KVH, G, D):
-    """The head split of the parent's tensor-core backward (PR 35's
-    ``bwd_head_split``): the smallest divisor of G whose dk/dv grid (key
-    blocks of 192, 128 and 64 keys at D 64, 128 and 256, of 3, 2 and 2
-    warpgroups) holds 2 x 132 warpgroups, else G."""
-    from repro_torch.kernels import flash_attention as fa
-    keys, wgs = {64: (192, 3), 128: (128, 2), 256: (64, 2)}[D]
-    return fa._head_split(-(-Sk // keys) * B * KVH * wgs, G, 2 * fa.SMS)
+#: the device kernels of one tensor-core attention backward call at D =
+#: 256, the current one's and the parent's (delta, dq, dk/dv, the sum)
+TC_BWD_D256_KERNELS = 4
+
+
+def _bwd_kernels_ms(torch, fn):
+    """Each device kernel of one tensor-core attention backward call
+    ``fn``, by name (``attn_bwd_*``), in ms a launch under torch.profiler:
+    the mean over the launches a window of 8 calls kept (records at a
+    window's edge can be lost), a window taken again (up to 3) until
+    ``TC_BWD_D256_KERNELS`` kernels were seen; {} where no window saw
+    one."""
+    for _ in range(3):
+        _, _, by_name = _profiled(torch, fn, calls=8)
+        kernels = {}
+        for name, (us, count) in by_name.items():
+            m = re.search(r"attn_bwd_\w+", name)
+            if m:
+                total = kernels.setdefault(m.group(0), [0.0, 0])
+                total[0] += us
+                total[1] += count
+        if len(kernels) >= TC_BWD_D256_KERNELS:
+            break
+    return {name: us / count / 1e3 for name, (us, count) in kernels.items()}
 
 
 def _parent_attn_bwd(torch, parent, q, k, v, o, do, lse, window):
     """The parent's tensor-core attention backward, causal, on its own head
-    split: (dq, dk, dv)."""
+    split and scratch: (dq, dk, dv).  Its D 64 / 128 plan is the current
+    one (``bwd_head_split``, ``tc_bwd_scratch``); at D = 256 its heads
+    split by the smallest divisor of G whose dk/dv grid (64-key blocks of
+    2 warpgroups) holds 2 x 132 warpgroups (else G), and its scratch
+    holds the partials (hs, 2, B, Sk, KVH, D) alone."""
+    from repro_torch.kernels import flash_attention as fa
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    hs = _parent_bwd_head_split(B, Sk, KVH, H // KVH, D)
+    G = H // KVH
+    if D == 256:
+        hs = fa._head_split(-(-Sk // 64) * B * KVH * 2, G, 2 * fa.SMS)
+        n = 2 * hs * B * Sk * KVH * D if hs > 1 else 0
+    else:
+        hs = fa.bwd_head_split(B, Sk, KVH, G, D, Sq, True, window)
+        n = fa.tc_bwd_scratch(B, Sq, Sk, H, KVH, D, True, window)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    part = (torch.empty((hs, 2, B, Sk, KVH, D), dtype=torch.float32,
-                        device=q.device) if hs > 1 else None)
+    part = torch.empty((max(n, 1),), dtype=torch.float32, device=q.device)
     err = parent["flash_attention_bwd_wgmma"](
-        *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta)),
-        None if part is None else part.data_ptr(), B, Sq, Sk, H, KVH, D, 1,
-        -1 if window is None else window, hs,
+        *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta,
+                                 part)),
+        B, Sq, Sk, H, KVH, D, 1, -1 if window is None else window, hs,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"the parent's attention backward failed: {err}")
@@ -6434,7 +6538,7 @@ def main() -> int:
     train_launches = phase_train(torch)
     for kernel, count in phase_train_bf16(torch).items():
         train_launches[kernel] += count
-    families = phase_train_families(torch)
+    families = phase_train_families(torch, parent)
     for kernel, count in families.items():
         train_launches[kernel] += count
     for kernel, count in phase_train_bf16_8b(torch).items():

@@ -95,26 +95,50 @@
 //    dv, summed in order by the sum kernel.
 //
 // ---- D = 256 ----------------------------------------------------------------
-//  - dq by (query, head) rows, as the forward orders them: a block of one
-//    warpgroup owns 64 consecutive rows of one (batch, kv head), row r
-//    being query r / G of head kvh G + r % G, so every K/V tile serves all
-//    G heads.  Q and dO rows come once by 16-byte cp.async, lse and delta
-//    of the thread's two rows into registers, K and V tiles of 64 keys by
-//    TMA through 4-d maps (D, KVH, Sk, B) into a ring of two stages.  A
-//    tile: S = Q K^T and dP = dO V^T (m64n64k16, both operands in shared
-//    memory, K-major), P = exp2(S scale log2e - lse log2e), dS = P (dP -
+// RecurrentGemma's local attention.  Two kernels, each forming S and dP (14
+// D flops a triple): one kernel forming all five products, with dq's 64 x
+// 256 float32 partials added in a fixed order as at D 64 / 128, was built
+// in trials and ran slower than these two (PERF.md: 553 MB of reduce-adds
+// at RecurrentGemma's shape, which the L2 takes at ~3 TB/s, and the turns'
+// last-keys-first grid, which starts the heaviest blocks last).
+//  - dq by (query, head) rows, as the forward orders them: a block owns 128
+//    consecutive rows of one (batch, kv head), row r being query r / G of
+//    head kvh G + r % G, so every K/V tile serves all G heads; each of two
+//    consumer warpgroups holds 64 of them (dq: 128 floats a thread).  Q and
+//    dO rows come once by 16-byte cp.async, lse and delta of the thread's
+//    two rows into registers; one lane of a producer warp issues every K
+//    and V tile of 48 keys by TMA through 4-d maps (D, KVH, Sk, B) into a
+//    ring of two stages, each with a "full" mbarrier and an "empty" one
+//    both warpgroups arrive on once their dq products have read it.  A
+//    tile: S = Q K^T and dP = dO V^T (m64n48k16, both operands in shared
+//    memory, K-major: 48 keys rather than 32 read the 64-row A operand from
+//    shared memory for more keys, 1.08x in trial builds, and leave room for
+//    two stages), P = exp2(S scale log2e - lse log2e), dS = P (dP -
 //    delta), then dq += dS K with dS as bf16 in registers in the
 //    accumulator's own layout (wgmma's A fragment) and K the MN-major B
-//    operand.  A block takes a whole SM (193 KB of shared memory) and the
-//    grid runs in waves, so under a causal mask its blocks run last rows
-//    first: those see the most keys.
+//    operand (m64n256k16).  The two warpgroups run unsynchronised, so one's
+//    softmax runs beside the other's products.  A block takes an SM (225
+//    KB of shared memory: Q, dO 128 KB, two stages of 48 KB) and the grid
+//    runs in waves, so under a causal mask its blocks run last rows first:
+//    those see the most keys.
+//  - Registers.  dq, S and dP are 176 floats a consumer thread, beyond the
+//    168 registers ptxas gives each of 384 threads, so the producer's
+//    warpgroup (the producer warp and three idle warps) drops to 24 a
+//    thread by setmaxnreg.dec and the consumers rise to 240 by
+//    setmaxnreg.inc, on paths that never rejoin (ptxas ignores the
+//    instruction otherwise).  The consumers' waits have no time limit: a
+//    trap on their path made ptxas spill it.
 //  - dk, dv by key blocks of 64 keys, whose K and V stay in shared memory.
 //    dk and dv of 64 keys, whole, would be 256 floats a thread, so two
 //    warpgroups share the block's keys, each holding dk and dv for one
 //    half of the columns, [c0, c0 + 128): 64 + 64 floats.  A block loops
 //    over its query heads and, inside, over the 64-query tiles that can see
-//    one of its keys (Q, dO, lse, delta by TMA into a ring of two stages on
-//    one mbarrier each).  Each warpgroup forms S^T and dP^T for one half of
+//    one of its keys: a producer warp issues K, V, then each tile's Q, dO,
+//    lse and delta by TMA into a ring of two stages, each with a "full"
+//    and an "empty" mbarrier, and hands its warpgroup's registers to the
+//    consumers as in the dq kernel (they need 186 registers, above 168;
+//    1.09x over the last warp refilling the ring itself, in trial
+//    builds).  Each warpgroup forms S^T and dP^T for one half of
 //    the tile's queries (m64n32k16), writes its P^T and dS^T as bf16 into
 //    a shared 64 x 64 tile (two buffers, alternating), and both take the
 //    whole P^T and dS^T from shared memory as the A operand of dv += P^T
@@ -129,7 +153,7 @@
 //    bf16.  14 D flops a triple: dq and (dk, dv) each form S and dP.
 //
 // Registers: ptxas caps the fused kernel's 352 threads (as 384) at 168 a
-// thread, and the D = 256 kernels' 128 and 256 threads at 255.
+// thread; the D = 256 kernels' consumers take 240 by setmaxnreg.
 //
 // A tile wholly inside every pair's band is not masked, only those at the
 // diagonal and at the window's edge are.  P and dS are rounded to bf16
@@ -156,7 +180,6 @@ constexpr int kWG = 64;                       // rows or keys of a warpgroup
 constexpr int kQT = 64;                       // queries a Q/dO tile (dk, dv)
 constexpr int kRowBox = kQT + 4;              // lse or delta values a TMA box
 constexpr int kRowStage = 384;                // bytes a box takes (TMA writes to 128 B)
-constexpr int kDqStages = 2;                  // K/V tiles in flight (dq, D = 256)
 constexpr int kAtom = 64;                     // bf16 columns of a swizzle atom
 constexpr int kWGAtom = kWG * 128;            // one atom of 64 rows
 constexpr float kLog2e = 1.4426950408889634f;
@@ -204,6 +227,24 @@ __device__ __forceinline__ void wgmma_ss_tt_m64n64k16(float (&d)[32], uint64_t d
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
+
+// d (64 x 48, float32) = A (64 x 16) B (16 x 48) + (accumulate ? d : 0), A and B
+// bf16 in shared memory, both K-major: the D = 256 dq kernel's S and dP (an
+// overload beside hopper.cuh's, which it would hide otherwise).
+__device__ __forceinline__ void wgmma_ss(float (&d)[24], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23 "
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+using hopper::wgmma_ss;
 
 // ---- global turns and bulk copies (the dq writer) --------------------------
 __device__ __forceinline__ int ld_acquire(const int* p) {
@@ -328,27 +369,38 @@ __device__ __forceinline__ void store_partial(float* out, const float (&acc)[N /
 }
 
 // ---- 2. dq at D = 256 ------------------------------------------------------
-// One warpgroup of 64 (query, head) rows a block, 64-key K/V tiles: dq alone
-// is 128 floats a thread, and 128 Q/dO rows with two stages would take 288
-// KB of shared memory (flash_attention.py's TC_BWD_DQ).
+// Two consumer warpgroups of 64 (query, head) rows a block and a producer
+// warp that keeps a ring of 48-key K/V tiles full: dq alone is 128 floats
+// a consumer thread, so the producer's warpgroup hands its registers to the
+// consumers (setmaxnreg), and 128 rows' Q and dO (128 KB) leave room for
+// two 48 KB K/V stages (flash_attention.py's TC_BWD_DQ).
 struct DqPlan {
-  static constexpr int kThreads = 128;
-  static constexpr int kBlock = kWG;            // (query, head) rows a block
-  static constexpr int kKeys = 64;              // keys a K/V tile
+  static constexpr int kConsumers = 256;        // two warpgroups of 64 rows
+  // + a warpgroup of the producer warp and three idle warps
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kBlock = 2 * kWG;        // (query, head) rows a block
+  static constexpr int kKeys = 48;              // keys a K/V tile (S, dP: m64n48k16)
+  static constexpr int kStages = 2;             // K/V tiles in flight
   static constexpr int kKVAtom = kKeys * 128;   // one atom of a K or V tile
+  // setmaxnreg: ptxas gives 384 threads 168 registers each; the third
+  // warpgroup hands (168 - kLowRegs) x 128 of them to the consumers
+  static constexpr int kLowRegs = 24;
+  static constexpr int kHighRegs = 240;
 };
+static_assert(2 * 128 * DqPlan::kHighRegs + 128 * DqPlan::kLowRegs == 168 * 384,
+              "the consumers take what the third warpgroup gives up");
 
 template <int D>
 struct DqSmem {
   using P = DqPlan;
-  static constexpr int kQ = 0;                                   // [atom][64 rows]
-  static constexpr int kDO = kQ + P::kBlock * D * 2;             // [atom][64 rows]
+  static constexpr int kRows = kWG * D * 2;                      // a warpgroup's rows of Q or dO
+  static constexpr int kQ = 0;                                   // [warpgroup][atom][64 rows]
+  static constexpr int kDO = kQ + 2 * kRows;                     // [warpgroup][atom][64 rows]
   static constexpr int kTile = P::kKeys * D * 2;                 // one K or V tile
-  static constexpr int kK = kDO + P::kBlock * D * 2;             // [stage][atom][keys]
-  static constexpr int kV = kK + kDqStages * kTile;
-  static constexpr int kBar = kV + kDqStages * kTile;              // full K, full V
-  static constexpr int kReleased = kBar + 2 * kDqStages * 8;       // warps done, a stage
-  static constexpr int kBytes = kReleased + kDqStages * 4 + 1024;  // + room to align
+  static constexpr int kK = kDO + 2 * kRows;                     // [stage][atom][keys]
+  static constexpr int kV = kK + P::kStages * kTile;
+  static constexpr int kBar = kV + P::kStages * kTile;           // full[stage], empty[stage]
+  static constexpr int kBytes = kBar + 2 * P::kStages * 8 + 1024;   // + room to align
 };
 static_assert(DqSmem<256>::kBytes <= 232448, "more shared memory than a block may use");
 
@@ -365,26 +417,32 @@ __device__ __forceinline__ void gemm_dq(float (&acc)[D / 2], const uint32_t (&a)
   }
 }
 
-// Issue the TMA loads of K/V tile `i` (keys k0 .. k0 + kKeys) into its stage.
-template <int D>
-__device__ __forceinline__ void load_kv_tile(const CUtensorMap* kmap, const CUtensorMap* vmap,
-                                             uint32_t base, int i, int k0, int kvh, int b) {
-  using L = DqSmem<D>;
-  constexpr int kKVAtom = DqPlan::kKVAtom;
-  const int s = i % kDqStages;
-  const uint32_t full_k = base + L::kBar + 8 * s;
-  const uint32_t full_v = full_k + 8 * kDqStages;
-  mbar_arrive_expect_tx(full_k, L::kTile);
-#pragma unroll
-  for (int c = 0; c < D / kAtom; ++c)
-    tma_load_4d(base + L::kK + s * L::kTile + c * kKVAtom, kmap, full_k, c * kAtom, kvh, k0, b);
-  mbar_arrive_expect_tx(full_v, L::kTile);
-#pragma unroll
-  for (int c = 0; c < D / kAtom; ++c)
-    tma_load_4d(base + L::kV + s * L::kTile + c * kKVAtom, vmap, full_v, c * kAtom, kvh, k0, b);
+// Wait until the barrier's phase of parity `parity` has completed, without
+// mbar_wait's time limit: a trap on a path that raised its registers by
+// setmaxnreg makes ptxas spill that path (its limit stays 168).  The
+// consumers wait with it; the producer they wait on keeps the limit (a
+// trap there ends the grid).
+__device__ __forceinline__ void mbar_wait_untimed(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
 }
 
-// window < 0: no window.  causal: 0 or 1.
+// A warpgroup's register budget from here on; its four warps execute it
+// together.  ptxas honours it on a path that never rejoins one of another
+// budget.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Grid (row blocks, B KVH): block (y, b KVH + kvh) owns kBlock consecutive
+// rows of one (batch, kv head), row r being query r / G of head kvh G + r %
+// G, warpgroup w the 64 rows from kBlock y + 64 w.  window < 0: no window.
+// causal: 0 or 1.
 template <int D>
 __global__ void __launch_bounds__(DqPlan::kThreads, 1)
     attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
@@ -397,20 +455,20 @@ __global__ void __launch_bounds__(DqPlan::kThreads, 1)
   using L = DqSmem<D>;
   using P = DqPlan;
   constexpr int kKeys = P::kKeys;
+  constexpr int kStages = P::kStages;
   constexpr int kUnits = D / 8;   // 16-byte units of a row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);
-  const uint32_t full_k = base + L::kBar;
-  const uint32_t full_v = full_k + 8 * kDqStages;
-  int* const released = reinterpret_cast<int*>(gbase + L::kReleased);
+  const uint32_t full = base + L::kBar;
+  const uint32_t empty = full + 8 * kStages;
 
   const int G = H / KVH;
   const int b = blockIdx.y / KVH;
   const int kvh = blockIdx.y % KVH;
   const long long rows = static_cast<long long>(Sq) * G;
-  // causal: a block fills an SM and the grid runs in waves, so the last
+  // causal: blocks fill the SMs and the grid runs in waves, so the last
   // rows, which see the most keys, first
   const int xb = causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
   const long long row0 = static_cast<long long>(xb) * P::kBlock;
@@ -423,26 +481,46 @@ __global__ void __launch_bounds__(DqPlan::kThreads, 1)
   const int n_tiles = k_hi >= k_lo ? k_hi / kKeys - t_lo + 1 : 0;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kDqStages; ++s) {
-      mbar_init(full_k + 8 * s, 1);
-      mbar_init(full_v + 8 * s, 1);
-      released[s] = 0;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);   // both warpgroups' dq products have read it
     }
     fence_mbar_init();
-    for (int i = 0; i < kDqStages && i < n_tiles; ++i)
-      load_kv_tile<D>(&kmap, &vmap, base, i, (t_lo + i) * kKeys, kvh, b);
   }
   __syncthreads();
 
-  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 2) {
+    setmaxnreg_dec<P::kLowRegs>();
+    if (threadIdx.x == P::kConsumers) {
+      // ---- the producer: every K/V tile of the block's keys ---------------
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(empty + 8 * s, ((i / kStages) - 1) & 1);
+        const int k0 = (t_lo + i) * kKeys;
+        mbar_arrive_expect_tx(full + 8 * s, 2 * L::kTile);
+#pragma unroll
+        for (int c = 0; c < D / kAtom; ++c) {
+          tma_load_4d(base + L::kK + s * L::kTile + c * P::kKVAtom, &kmap, full + 8 * s,
+                      c * kAtom, kvh, k0, b);
+          tma_load_4d(base + L::kV + s * L::kTile + c * P::kKVAtom, &vmap, full + 8 * s,
+                      c * kAtom, kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<P::kHighRegs>();
+
+  const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const uint32_t q_tile = base + L::kQ;
-  const uint32_t do_tile = base + L::kDO;
-  uint8_t* const q_tile_ptr = gbase + L::kQ;
-  const long long wrow0 = row0;
+  const uint32_t q_tile = base + L::kQ + wg * L::kRows;
+  const uint32_t do_tile = base + L::kDO + wg * L::kRows;
+  uint8_t* const q_tile_ptr = gbase + L::kQ + wg * L::kRows;
+  const long long wrow0 = row0 + wg * kWG;
 
-  // the block's rows of Q and dO, zeros past the last row
+  // the warpgroup's rows of Q and dO, zeros past the last row
   for (int u = tid; u < kWG * kUnits; u += 128) {
     const int r = u / kUnits;
     const int unit = u % kUnits;
@@ -459,7 +537,7 @@ __global__ void __launch_bounds__(DqPlan::kThreads, 1)
   }
   cp_async_wait_all();
   fence_proxy_async();
-  named_barrier_sync(1, 128);
+  named_barrier_sync(1 + wg, 128);
 
   // the thread's two rows: their queries, lse (log2 units) and delta
   const int r_a = warp * 16 + lane / 4;
@@ -485,16 +563,14 @@ __global__ void __launch_bounds__(DqPlan::kThreads, 1)
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
 
   for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % kDqStages;
-    const uint32_t parity = (i / kDqStages) & 1;
+    const int s = i % kStages;
     const int k0 = (t_lo + i) * kKeys;
     const uint32_t kt = base + L::kK + s * L::kTile;
     const uint32_t vt = base + L::kV + s * L::kTile;
 
     // S = Q K^T, dP = dO V^T (their first wgmma ignores what they held, so
     // they are not kept live across the loop)
-    mbar_wait(full_k + 8 * s, parity);
-    mbar_wait(full_v + 8 * s, parity);
+    mbar_wait_untimed(full + 8 * s, (i / kStages) & 1);
     float sc[kKeys / 2], dp[kKeys / 2];
     wgmma_fence();
     gemm_rows_keys<D, kKeys>(sc, q_tile, kt, P::kKVAtom);
@@ -523,23 +599,19 @@ __global__ void __launch_bounds__(DqPlan::kThreads, 1)
       ds[2 * j + 1] = pack_bf16(d[2], d[3]);
     }
 
-    // dq += dS K; the last of the 4 warps done with the stage refills it
+    // dq += dS K, then the stage back to the producer
     fence_operands(acc);
     wgmma_fence();
     gemm_dq<D>(acc, ds, kt);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
-    if (lane == 0 && atomicAdd(&released[s], 1) == P::kBlock / 16 - 1) {
-      released[s] = 0;
-      if (i + kDqStages < n_tiles)
-        load_kv_tile<D>(&kmap, &vmap, base, i + kDqStages, (t_lo + i + kDqStages) * kKeys, kvh, b);
-    }
+    if (tid == 0) mbar_arrive(empty + 8 * s);
   }
 
-  // ---- epilogue: dq / sqrt(D) as bf16 through the block's Q tile -----------
+  // ---- epilogue: dq / sqrt(D) as bf16 through the warpgroup's Q tile -------
   stage_rows<D>(q_tile_ptr, acc, r_a, col0, scale);
-  named_barrier_sync(1, 128);
+  named_barrier_sync(1 + wg, 128);
   for (int u = tid; u < kWG * kUnits; u += 128) {
     const int r = u / kUnits;
     const int unit = u % kUnits;
@@ -556,14 +628,19 @@ __global__ void __launch_bounds__(DqPlan::kThreads, 1)
 // ---- 3. dk, dv at D = 256 ------------------------------------------------
 // 64 keys a block, split into two warpgroups by column halves (flash_
 // attention.py's TC_BWD_HALVES), which form S^T and dP^T by query halves and
-// share P^T and dS^T through shared memory.
+// share P^T and dS^T through shared memory, and a producer warp that keeps
+// the Q/dO ring full.
 struct KvPlan {
   static constexpr int kHalves = 2;                  // column parts of dk, dv
   static constexpr int kCols = 256 / kHalves;        // columns a warpgroup holds
   static constexpr int kKeys = kWG;                  // keys a block
-  static constexpr int kThreads = 128 * kHalves;
-  static constexpr int kWarps = 4 * kHalves;
+  static constexpr int kConsumers = 128 * kHalves;
+  // + a warpgroup of the producer warp and three idle warps
+  static constexpr int kThreads = kConsumers + 128;
   static constexpr int kStages = 2;                  // Q/dO tiles in flight
+  // setmaxnreg, as DqPlan's
+  static constexpr int kLowRegs = DqPlan::kLowRegs;
+  static constexpr int kHighRegs = DqPlan::kHighRegs;
 };
 
 template <int D>
@@ -578,9 +655,9 @@ struct KvSmem {
   static constexpr int kPS = kDO + P::kStages * kTile;           // [2][P^T, dS^T]
   static constexpr int kLse = kPS + 4 * kWGAtom;                 // [stage][kRowBox] float
   static constexpr int kDelta = kLse + P::kStages * kRowStage;
-  static constexpr int kBar = kDelta + P::kStages * kRowStage;   // full[stage], K/V
-  static constexpr int kReleased = kBar + (P::kStages + 1) * 8;  // warps done, a stage
-  static constexpr int kBytes = kReleased + P::kStages * 4 + 1024;  // + room to align
+  // full[stage], empty[stage], K/V
+  static constexpr int kBar = kDelta + P::kStages * kRowStage;
+  static constexpr int kBytes = kBar + (2 * P::kStages + 1) * 8 + 1024;  // + room to align
 };
 static_assert(KvSmem<256>::kBytes <= 232448, "more shared memory than a block may use");
 static_assert(kRowBox * 4 <= kRowStage && kRowStage % 128 == 0, "a box per stage, 128 B apart");
@@ -658,8 +735,8 @@ __global__ void __launch_bounds__(KvPlan::kThreads, 1)
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);
   const uint32_t full = base + L::kBar;
-  const uint32_t kv_bar = full + 8 * kStages;
-  int* const released = reinterpret_cast<int*>(gbase + L::kReleased);
+  const uint32_t empty = full + 8 * kStages;
+  const uint32_t kv_bar = empty + 8 * kStages;
 
   const int G = H / KVH;
   const int hs = gridDim.x;
@@ -679,22 +756,32 @@ __global__ void __launch_bounds__(KvPlan::kThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
-      released[s] = 0;
+      mbar_init(empty + 8 * s, 2);   // both warpgroups' products have read it
     }
     mbar_init(kv_bar, 1);
     fence_mbar_init();
-    mbar_arrive_expect_tx(kv_bar, 2 * P::kKeys * D * 2);
-#pragma unroll
-    for (int c = 0; c < D / kAtom; ++c) {
-      tma_load_4d(base + L::kK + c * kWGAtom, &kmap, kv_bar, c * kAtom, kvh, key0, b);
-      tma_load_4d(base + L::kV + c * kWGAtom, &vmap, kv_bar, c * kAtom, kvh, key0, b);
-    }
-    for (int i = 0; i < kStages && i < n_iter; ++i)
-      load_q_tile<D>(&qmap, &domap, &lsemap, &deltamap, base, i, n_qt, t_lo, h0, H, Sq, b);
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 2) {
+    setmaxnreg_dec<P::kLowRegs>();
+    if (threadIdx.x == P::kConsumers) {
+      // ---- the producer: K and V, then every tile's Q, dO, lse, delta ------
+      mbar_arrive_expect_tx(kv_bar, 2 * P::kKeys * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / kAtom; ++c) {
+        tma_load_4d(base + L::kK + c * kWGAtom, &kmap, kv_bar, c * kAtom, kvh, key0, b);
+        tma_load_4d(base + L::kV + c * kWGAtom, &vmap, kv_bar, c * kAtom, kvh, key0, b);
+      }
+      for (int i = 0; i < n_iter; ++i) {
+        if (i >= kStages) mbar_wait(empty + 8 * (i % kStages), ((i / kStages) - 1) & 1);
+        load_q_tile<D>(&qmap, &domap, &lsemap, &deltamap, base, i, n_qt, t_lo, h0, H, Sq, b);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<P::kHighRegs>();
   const int c0 = wg * P::kCols;                      // first column of dk, dv held
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
@@ -712,14 +799,14 @@ __global__ void __launch_bounds__(KvPlan::kThreads, 1)
 #pragma unroll
   for (int i = 0; i < P::kCols / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
   int n_used = 0;   // tiles computed (their P^T, dS^T buffers alternate)
-  mbar_wait(kv_bar, 0);
+  mbar_wait_untimed(kv_bar, 0);
 
   for (int i = 0; i < n_iter; ++i) {
     const int s = i % kStages;
     const uint32_t parity = (i / kStages) & 1;
     const int q0 = (t_lo + i % n_qt) * kQT;
     const int h = h0 + i / n_qt;
-    mbar_wait(full + 8 * s, parity);
+    mbar_wait_untimed(full + 8 * s, parity);
     // does one of the block's keys see one of the tile's queries?
     const bool any = kw0 < Sk && (!causal || q0 + kQT - 1 >= kw0) &&
                      (window < 0 || q0 - (kw0 + kWG - 1) < window);
@@ -766,7 +853,7 @@ __global__ void __launch_bounds__(KvPlan::kThreads, 1)
         *reinterpret_cast<uint32_t*>(gbase + dsbuf + at_b) = pack_bf16(d[2], d[3]);
       }
       fence_proxy_async();
-      named_barrier_sync(3, P::kThreads);   // both halves' P^T and dS^T written
+      named_barrier_sync(3, P::kConsumers);   // both halves' P^T and dS^T written
 
       // dv += P^T dO, dk += dS^T Q over this warpgroup's columns
       fence_operands(dv_acc);
@@ -786,13 +873,7 @@ __global__ void __launch_bounds__(KvPlan::kThreads, 1)
       fence_operands(dk_acc);
       ++n_used;
     }
-    // the last warp done with the stage refills it
-    if (lane == 0 && atomicAdd(&released[s], 1) == P::kWarps - 1) {
-      released[s] = 0;
-      if (i + kStages < n_iter)
-        load_q_tile<D>(&qmap, &domap, &lsemap, &deltamap, base, i + kStages, n_qt, t_lo, h0, H,
-                       Sq, b);
-    }
+    if (tid == 0) mbar_arrive(empty + 8 * s);
   }
 
   if (hs > 1) {
@@ -808,7 +889,7 @@ __global__ void __launch_bounds__(KvPlan::kThreads, 1)
   // ---- epilogue: dk / sqrt(D) and dv as bf16 through the K and V tiles -------
   // (the column halves share the block's K and V: both must be done with
   // them first)
-  __syncthreads();
+  named_barrier_sync(4, P::kConsumers);
   constexpr int kUnits = P::kCols / 8;   // 16-byte units of a warpgroup's columns
   stage_rows<P::kCols>(k_tile_ptr, dk_acc, r_a, col0, scale);
   stage_rows<P::kCols>(v_tile_ptr, dv_acc, r_a, col0, 1.0f);

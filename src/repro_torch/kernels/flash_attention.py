@@ -49,8 +49,10 @@ The gradient (:class:`FlashAttentionFn`) has two hand-written kernels;
   partial from five products; two writer warps add the partials into a
   float32 scratch in descending key-block order, each block waiting on a
   turn counter a tile (:func:`dq_turn`), and a last pass converts dq.
-  At D = 256 a delta pre-pass, dq by (query, head) rows and dk, dv by
-  key blocks (two warpgroups a key block, one a column half).  Where the
+  At D = 256 a delta pre-pass, dq by (query, head) rows (a producer warp
+  keeps a TMA ring of K / V tiles full for two consumer warpgroups of 64
+  rows) and dk, dv by key blocks (two warpgroups a key block, one a column
+  half, and a producer warp for the Q / dO ring).  Where the
   key blocks are too few to fill the card, each group's heads are split
   over :func:`bwd_head_split` blocks whose float32 partials a last pass
   sums in a fixed order (:func:`bwd_tiles` mirrors the plans).  It reads
@@ -127,9 +129,9 @@ TC_BWD_HALVES = {64: 1, 128: 2, 256: 2}
 TC_BWD_TILE_US = {64: 1.70, 128: 1.69}
 TC_BWD_BLOCK_TILES = 3
 TC_BWD_PART_BYTES_PER_US = 3.0e6
-#: the D = 256 dq kernel's (query, head) rows a block and keys a K/V tile
-#: (``DqPlan`` in the source)
-TC_BWD_DQ = (64, 64)
+#: the D = 256 dq kernel's (query, head) rows a block (two warpgroups of
+#: 64) and keys a K/V tile (``DqPlan`` in the source)
+TC_BWD_DQ = (128, 48)
 #: the H100 SXM's SMs, and the warpgroups a dk/dv grid should hold (two
 #: for each SM) before :func:`bwd_head_split` stops splitting heads
 SMS = 132
@@ -555,9 +557,10 @@ def bwd_tiles(Sq: int, Sk: int, G: int, causal: bool,
       each entry of ``"dkdv"``, the turn its block waits for
       (:func:`dq_turn`), its index in that order.
     - D = 256, dq by rows: ``"dq"``: (row0, k0, masked) for each K/V tile
-      a block of ``"dq_rows"`` (query, head) rows from row0 computes: keys
-      [k0, k0 + ``"dq_keys"``), blocks in launch order (causal: the last
-      rows first).
+      a block of ``"dq_rows"`` (query, head) rows from row0 computes (both
+      its warpgroups of 64 rows take every tile, in this order): keys [k0,
+      k0 + ``"dq_keys"``), blocks in launch order (causal: the last rows
+      first).
 
     ``masked`` is False only for a tile whose every pair is visible."""
     hs = bwd_head_split(B, Sk, KVH, G, D, Sq, causal, window)

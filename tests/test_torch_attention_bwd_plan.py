@@ -3,8 +3,9 @@ rule (``bwd_route``), a mirror of its kernels' tile plans (``bwd_tiles``:
 at D 64 / 128 the fused kernel's blocks, tiles, dq order and turns, at
 D = 256 its column halves and head split; ``bwd_head_split``,
 ``tc_bwd_scratch``) against ``visible()``, an emulation of the fused
-kernel's sums in the plan's order against ``jax.grad`` of ``repro``'s
-``attention_reference``, the plain forward's lse against
+kernel's sums, and of the D = 256 kernels' sums, in their plans' order
+against ``jax.grad`` of ``repro``'s ``attention_reference``, the plain
+forward's lse against
 ``jax.nn.logsumexp`` of the masked scores ``attention_reference`` builds,
 the plain backward given the forward's lse, and ``flash_attention``
 asking the forward for lse only where a gradient is needed.
@@ -128,14 +129,14 @@ def test_bwd_tiles_d256_cover_each_triple_once_per_column_half(
     """At D = 256 the dk/dv kernel's two column halves, [0, 128) and
     [128, 256), each compute every visible (query, head, key) triple
     exactly once (a warpgroup a half and key group, each through the whole
-    tile plan), the dq kernel's blocks of 64 rows and 64-key tiles once,
+    tile plan), the dq kernel's blocks of 128 rows and 48-key tiles once,
     and no invisible triple is computed unmasked.  The head split's parts
     are hs contiguous, equal runs of the group's heads; each block's tiles
     lie in its keys and its part's heads, and its partials are summed in
     the order z = 0 .. hs - 1."""
     plan = fa.bwd_tiles(Sq, Sk, G, causal, window, 256, B, KVH)
     assert plan["columns"] == [(0, 128), (128, 256)]
-    assert (plan["dq_rows"], plan["dq_keys"]) == (64, 64)
+    assert (plan["dq_rows"], plan["dq_keys"]) == (128, 48)
     hs = plan["hs"]
     assert G % hs == 0
     assert plan["heads"] == [(z * G // hs, (z + 1) * G // hs)
@@ -179,7 +180,7 @@ def test_bwd_head_split(shape, hs):
 def test_bwd_tiles_heaviest_first():
     """Causal: at D = 256 the dk/dv blocks run first keys first, so the
     blocks with the most tiles start first, and the dq blocks (a block an
-    SM) last rows first; at D 64 and 128 the fused kernel's blocks run
+    SM, 128 rows) last rows first; at D 64 and 128 the fused kernel's blocks run
     last keys first (a block waits for its dq turns only on blocks
     launched before it), each walking its query tiles first first."""
     plan = fa.bwd_tiles(2048, 2048, 16, True, None, 256)
@@ -294,24 +295,12 @@ def _emulate_fused(q, k, v, do, causal, window):
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
     plan = fa.bwd_tiles(Sq, Sk, G, causal, window, D, B, KVH)
-    ok = fa.visible(Sq, Sk, causal, window).numpy()
     scale = np.float32(1.0 / np.sqrt(D))
     dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
     for b in range(B):
         for kvh in range(KVH):
-            kk, vv = k[b, :, kvh], v[b, :, kvh]
-            P, dS = {}, {}
-            for g in range(G):
-                h = kvh * G + g
-                s = np.where(ok, (q[b, :, h] @ kk.T) * scale, -np.inf)
-                m = np.max(s, axis=1, keepdims=True)
-                m = np.where(np.isfinite(m), m, 0.0)
-                lse = m + np.log(np.maximum(np.sum(np.exp(s - m), axis=1,
-                                                   keepdims=True), 1e-30))
-                p = np.where(ok, np.exp(s - lse), 0.0).astype(np.float32)
-                delta = np.sum(do[b, :, h] * (p @ vv), axis=1, keepdims=True)
-                P[g] = p
-                dS[g] = (p * (do[b, :, h] @ vv.T - delta)).astype(np.float32)
+            kk = k[b, :, kvh]
+            P, dS = _p_ds(q, k, v, do, causal, window, b, kvh)
             keys = fa.TC_BWD_BLOCK_KEYS[D]
             groups = {}   # (key0, g, q0) -> the key groups that take it
             for kw0, g, q0, _ in plan["dkdv"]:
@@ -327,30 +316,100 @@ def _emulate_fused(q, k, v, do, causal, window):
                         part = p if part is None else part + p
                     acc = part if acc is None else acc + part
                 dq[b, qs, kvh * G + g] = acc * scale
-            at = 0
-            sums = {}
-            for key0, z, n in plan["blocks"]:
-                parts = {}
-                for kw0, g, q0, _ in plan["dkdv"][at:at + n]:
-                    qs, ks = slice(q0, q0 + 64), slice(kw0, kw0 + 64)
-                    w = parts.setdefault(kw0, np.zeros(
-                        (2, min(kw0 + 64, Sk) - kw0, D), np.float32))
-                    w[0] += dS[g][qs, ks].T @ q[b, qs, kvh * G + g]
-                    w[1] += P[g][qs, ks].T @ do[b, qs, kvh * G + g]
-                at += n
-                for kw0, part in parts.items():
-                    sums[kw0] = part if z == 0 else sums[kw0] + part
-            for kw0, tot in sums.items():
-                dk[b, kw0:kw0 + 64, kvh] = tot[0] * scale
-                dv[b, kw0:kw0 + 64, kvh] = tot[1]
+            _emulate_dkdv(plan, q, do, P, dS, b, kvh, dk, dv)
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("case", EMU_CASES)
-def test_fused_sums_match_jax_grad(case):
-    """The fused kernel's plan, emulated in float32 in its order of sums
-    (dq's partials block by block in descending order, dk and dv tile by
-    tile, per key group and head split), gives jax.grad of repro's
+def _p_ds(q, k, v, do, causal, window, b, kvh):
+    """({g: p}, {g: ds}) (Sq, Sk) float32 of the heads g of kv head kvh of
+    batch b: p = exp(s - lse) over the visible keys, ds = p (do v^T -
+    delta)."""
+    Sq, H, D = q.shape[1:]
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    ok = fa.visible(Sq, Sk, causal, window).numpy()
+    scale = np.float32(1.0 / np.sqrt(D))
+    kk, vv = k[b, :, kvh], v[b, :, kvh]
+    P, dS = {}, {}
+    for g in range(G):
+        h = kvh * G + g
+        s = np.where(ok, (q[b, :, h] @ kk.T) * scale, -np.inf)
+        m = np.max(s, axis=1, keepdims=True)
+        m = np.where(np.isfinite(m), m, 0.0)
+        lse = m + np.log(np.maximum(np.sum(np.exp(s - m), axis=1,
+                                           keepdims=True), 1e-30))
+        p = np.where(ok, np.exp(s - lse), 0.0).astype(np.float32)
+        delta = np.sum(do[b, :, h] * (p @ vv), axis=1, keepdims=True)
+        P[g] = p
+        dS[g] = (p * (do[b, :, h] @ vv.T - delta)).astype(np.float32)
+    return P, dS
+
+
+def _emulate_dkdv(plan, q, do, P, dS, b, kvh, dk, dv):
+    """dk, dv of kv head kvh of batch b into ``dk``, ``dv`` as the plan sums
+    them: each key group's over its tiles in order, the head split's
+    partials added in split order, 1 / sqrt(D) applied to dk last."""
+    Sk, D = dk.shape[1], dk.shape[3]
+    G = len(P)
+    at = 0
+    sums = {}
+    for key0, z, n in plan["blocks"]:
+        parts = {}
+        for kw0, g, q0, _ in plan["dkdv"][at:at + n]:
+            qs, ks = slice(q0, q0 + 64), slice(kw0, kw0 + 64)
+            w = parts.setdefault(kw0, np.zeros(
+                (2, min(kw0 + 64, Sk) - kw0, D), np.float32))
+            w[0] += dS[g][qs, ks].T @ q[b, qs, kvh * G + g]
+            w[1] += P[g][qs, ks].T @ do[b, qs, kvh * G + g]
+        at += n
+        for kw0, part in parts.items():
+            sums[kw0] = part if z == 0 else sums[kw0] + part
+    scale = np.float32(1.0 / np.sqrt(D))
+    for kw0, tot in sums.items():
+        dk[b, kw0:kw0 + 64, kvh] = tot[0] * scale
+        dv[b, kw0:kw0 + 64, kvh] = tot[1]
+
+
+def _emulate_d256(q, k, v, do, causal, window):
+    """(dq, dk, dv) of float32 q, k, v, dO summed as the D = 256 kernels sum
+    them: dq of each block of (query, head) rows over its K/V tiles in the
+    plan's order, dk and dv as the dk/dv kernel (:func:`_emulate_dkdv`);
+    1 / sqrt(D) applied to dq and dk last."""
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    plan = fa.bwd_tiles(Sq, Sk, G, causal, window, D, B, KVH)
+    rows, keys = plan["dq_rows"], plan["dq_keys"]
+    scale = np.float32(1.0 / np.sqrt(D))
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for b in range(B):
+        for kvh in range(KVH):
+            kk = k[b, :, kvh]
+            P, dS = _p_ds(q, k, v, do, causal, window, b, kvh)
+            # row r: query r // G of head kvh G + r % G
+            ds_rows = np.stack([dS[g] for g in range(G)], axis=1).reshape(
+                Sq * G, Sk)
+            acc = {}
+            for row0, k0, _ in plan["dq"]:
+                rs = slice(row0, min(row0 + rows, Sq * G))
+                ks = slice(k0, min(k0 + keys, Sk))
+                part = ds_rows[rs, ks] @ kk[ks]
+                acc[row0] = part if row0 not in acc else acc[row0] + part
+            for row0, a in acc.items():
+                r = np.arange(row0, row0 + a.shape[0])
+                dq[b, r // G, kvh * G + r % G] = a * scale
+            _emulate_dkdv(plan, q, do, P, dS, b, kvh, dk, dv)
+    return dq, dk, dv
+
+
+D256_EMU_CASES = [  # (B, Sq, Sk, H, KVH, D, causal, window)
+    (1, 200, 200, 4, 1, 256, True, 48),       # the window binding, hs = 4
+    (1, 190, 150, 4, 2, 256, False, 30),      # rows that see no key
+]
+
+
+def _jax_grad_check(case, emulate):
+    """emulate's (dq, dk, dv) against jax.grad of repro's
     attention_reference: within 2e-5 of each gradient's largest |value|,
     and dq exactly 0 on rows that see no key."""
     B, Sq, Sk, H, KVH, D, causal, window = case
@@ -366,12 +425,31 @@ def test_fused_sums_match_jax_grad(case):
         return jnp.sum(attention_reference(q, k, v, causal=causal,
                                            window=window) * do)
     want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
-    got = _emulate_fused(q, k, v, do, causal, window)
+    got = emulate(q, k, v, do, causal, window)
     for g, w in zip(got, want):
         w = np.asarray(w)
         scale = max(float(np.max(np.abs(w))), 1e-6)
         assert float(np.max(np.abs(g - w))) <= 2e-5 * scale
     assert np.all(got[0][:, ~seen] == 0.0)
+
+
+@pytest.mark.parametrize("case", D256_EMU_CASES)
+def test_d256_sums_match_jax_grad(case):
+    """The D = 256 kernels' plan, emulated in float32 in its order of sums
+    (dq's K/V tiles block of rows by block, dk and dv tile by tile, per key
+    block and head split), gives jax.grad of repro's attention_reference
+    (:func:`_jax_grad_check`)."""
+    _jax_grad_check(case, _emulate_d256)
+
+
+@pytest.mark.parametrize("case", EMU_CASES)
+def test_fused_sums_match_jax_grad(case):
+    """The fused kernel's plan, emulated in float32 in its order of sums
+    (dq's partials block by block in descending order, dk and dv tile by
+    tile, per key group and head split), gives jax.grad of repro's
+    attention_reference: within 2e-5 of each gradient's largest |value|,
+    and dq exactly 0 on rows that see no key (:func:`_jax_grad_check`)."""
+    _jax_grad_check(case, _emulate_fused)
 
 
 LSE_CASES = [  # (B, Sq, Sk, H, KVH, D, causal, window)

@@ -1767,11 +1767,14 @@ def test_flash_attention_tensor_core_bwd_is_deterministic(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(1, 4096, 4096, 4, 1, 64, False, None)])
+@pytest.mark.parametrize("case", [(1, 4096, 4096, 4, 1, 64, False, None),
+                                  (1, 2048, 2048, 4, 1, 256, False, None)])
 def test_flash_attention_tensor_core_bwd_dq_order_bitwise(cuda_device, case):
     """Five launches give the same bits where 64 key blocks add their dq
-    partials into every query tile (bidirectional, 4,096 keys), and the
-    gradients stay within the tolerances of the plain backward."""
+    partials into every query tile (D = 64, bidirectional, 4,096 keys) and
+    where every dq row block runs 64 K/V tiles and the head split's four
+    partials add into every key (D = 256, bidirectional, 2,048 keys), and
+    the gradients stay within the tolerances of the plain backward."""
     from repro_torch.kernels import flash_attention as fa
     causal, window = case[6], case[7]
     q, k, v, do = _tc_inputs(case, cuda_device, 11)
